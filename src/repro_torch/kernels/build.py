@@ -1,0 +1,102 @@
+"""Build the CUDA sources of ``kernels/csrc`` with nvcc and load them.
+
+Each source is compiled on first use into a shared library with a plain
+C interface,
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o <lib> <source>
+
+and loaded with ``ctypes``.  Libraries live under
+``<checkout>/build/repro_torch_kernels/``, named by a hash of the source
+and the flags, so an edited source rebuilds and an unchanged one is
+loaded as it is.  The source is the only input: nothing is downloaded
+and no prebuilt library is shipped.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# the C entry points of each source and their ctypes signatures
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES: Dict[str, Dict[str, Tuple]] = {
+    "paged_attention.cu": {
+        # dtype, hd, q, k, v, block_table, kv_len, out,
+        # B, H, KH, bs, MB, scale, stream
+        "paged_decode_fwd": (_I, _I, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _F, _P),
+        # dtype, hd, q, k, v, block_table, pos, out,
+        # B, C, H, KH, bs, MB, scale, stream
+        "paged_chunk_fwd": (_I, _I, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _F, _P),
+    },
+}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built "
+                           "from source on a machine with the CUDA toolkit")
+    return path
+
+
+def library_path(source: str) -> Path:
+    src = CSRC / source
+    key = hashlib.sha256(src.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}_{key}.so"
+
+
+def compile_source(source: str, *, ptxas_verbose: bool = False
+                   ) -> Tuple[Path, float, str]:
+    """Compile one source unless its library exists.  Returns (library
+    path, build seconds (0.0 when it was there), compiler output).  The
+    library is written under a temporary name and renamed into place,
+    so a build that is cut leaves no library behind."""
+    out = library_path(source)
+    if out.exists():
+        return out, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)]
+    if ptxas_verbose:
+        cmd[1:1] = ["-Xptxas", "-v"]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of `source`, built first if needed, with the
+    argtypes and restype of every entry point set."""
+    path, _, _ = compile_source(source)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,98 @@
+"""Model API of the port: parameters, paged cache and the serving steps.
+
+PyTorch counterpart of ``repro/models/api.py`` for the dense family:
+
+    param_shapes / init                     parameters
+    init_cache / decode_step / chunk_step   paged serving
+    cow_copy_block                          copy-on-write pool block copy
+
+Entry points run on the CUDA device unless the caller passes another
+``device`` (``"cpu"`` for the tests); with no CUDA device and no
+explicit choice they raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common, transformer
+
+Params = Dict[str, Any]
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense only)")
+
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    _dense_only(cfg)
+    return transformer.transformer_specs(cfg)
+
+
+def init(cfg: ModelConfig, seed: int = 0, *, device=None,
+         dtype: torch.dtype = torch.float32) -> Params:
+    """Random parameters from a seeded ``torch.Generator`` on `device`,
+    by the reference's per-leaf rules.  Matrices are stored in `dtype`
+    and norm scales in float32; since the serving forward casts every
+    weight to its bf16 activations at use, ``dtype=torch.bfloat16``
+    serves the same numbers in half the memory.  The draws differ from
+    JAX's: to compute the reference's function, bridge its weights with
+    ``convert.from_reference``."""
+    dev = common.resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        return common.init_params(param_shapes(cfg), gen, dev, dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, *, paged: bool = True,
+               block_size: int = 16, num_blocks: Optional[int] = None,
+               device=None, fp8_kv: bool = False) -> Params:
+    _dense_only(cfg)
+    if fp8_kv:
+        raise NotImplementedError("fp8_kv is not ported yet")
+    return transformer.init_cache(cfg, batch, max_len, dtype, paged=paged,
+                                  block_size=block_size,
+                                  num_blocks=num_blocks,
+                                  device=common.resolve_device(device))
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Params,
+                token: torch.Tensor, pos, block_table: torch.Tensor,
+                *, kernel: bool = False) -> Tuple[torch.Tensor, Params]:
+    """``kernel=True`` reads the paged pool through the CUDA
+    block-table kernel (its plain version for CPU tensors);
+    ``kernel=False`` is the gather oracle."""
+    _dense_only(cfg)
+    with torch.no_grad():
+        return transformer.decode_step(cfg, params, cache, token, pos,
+                                       block_table, kernel=kernel)
+
+
+def chunk_step(cfg: ModelConfig, params: Params, cache: Params,
+               tokens: torch.Tensor, pos, n_tokens: torch.Tensor,
+               block_table: torch.Tensor, *, kernel: bool = False
+               ) -> Tuple[torch.Tensor, Params]:
+    """Chunk-write serving step: per slot, write `n_tokens[b]` of the
+    C-wide `tokens[b]` into the pool at `pos[b]` and return logits at
+    each slot's last valid row."""
+    _dense_only(cfg)
+    with torch.no_grad():
+        return transformer.chunk_step(cfg, params, cache, tokens, pos,
+                                      n_tokens, block_table, kernel=kernel)
+
+
+def cow_copy_block(cfg: ModelConfig, cache: Params, src: int,
+                   dst: int) -> Params:
+    """Copy physical pool block `src` to `dst` in every layer, in place
+    (the serving runtime's copy-on-write for a shared prefix block)."""
+    _dense_only(cfg)
+    from repro_torch.models import attention
+    attention.copy_paged_block(cache["k"], cache["v"], src, dst)
+    return cache

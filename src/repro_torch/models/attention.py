@@ -1,0 +1,261 @@
+"""GQA serving attention over a paged KV pool.
+
+PyTorch counterpart of the serving half of ``repro/models/attention.py``:
+projections, the plain decode/chunk attention over a gathered cache
+view, and the paged block pool (init, gather, in-place scatter, COW
+block copy).  ``paged_decode_attention`` / ``paged_chunk_attention``
+route through the hand-written CUDA kernels of
+``repro_torch/kernels/paged_attention.py``.
+
+Paged layout: one shared pool [num_blocks, block_size, KH, hd] per
+layer plus a per-slot table block_table [B, max_blocks] int32 mapping
+logical block i (virtual positions [i*bs, (i+1)*bs)) to a physical
+pool block; -1 marks an unallocated entry.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models.common import ParamSpec, fixed_tree_sum
+
+NEG_INF = -1e30
+
+
+# ----------------------------------------------------------------------
+# params + projections
+# ----------------------------------------------------------------------
+
+def attn_specs(cfg, d_model: Optional[int] = None) -> Dict[str, ParamSpec]:
+    d = d_model or cfg.d_model
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    specs = {
+        "wq": ParamSpec((d, H, hd)),
+        "wk": ParamSpec((d, KH, hd)),
+        "wv": ParamSpec((d, KH, hd)),
+        "wo": ParamSpec((H, hd, d)),
+    }
+    if cfg.use_bias:
+        specs["bq"] = ParamSpec((H, hd), init="zeros")
+        specs["bk"] = ParamSpec((KH, hd), init="zeros")
+        specs["bv"] = ParamSpec((KH, hd), init="zeros")
+    return specs
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one [*, d] @ [d, h*k] product."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).reshape(
+        x.shape[:-1] + (h, k))
+
+
+def qkv_project(cfg, p, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: [B,S,d] -> q [B,S,H,hd], k/v [B,S,KH,hd]."""
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.use_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return q, k, v
+
+
+def out_project(p, o: torch.Tensor, *, groups: int = 0) -> torch.Tensor:
+    """o [B,S,H,hd] -> [B,S,d] through wo.
+
+    With ``groups > 1`` the head contraction is formed as `groups`
+    float32 partials of the o.dtype operands, reduced by
+    ``fixed_tree_sum`` (the reference's order-deterministic grouped
+    reduction); ``groups=0`` is one product in o.dtype.
+    """
+    wo = p["wo"].to(o.dtype)
+    B, S, H, hd = o.shape
+    if groups > 1:
+        og = o.reshape(B, S, groups, H // groups, hd).float()
+        wg = wo.reshape(groups, H // groups, hd, wo.shape[-1]).float()
+        parts = torch.einsum("bsghk,ghkd->gbsd", og, wg)
+        return fixed_tree_sum(parts).to(o.dtype)
+    return o.reshape(B, S, H * hd) @ wo.reshape(H * hd, -1)
+
+
+# ----------------------------------------------------------------------
+# plain attention over a gathered cache view (the A/B oracle)
+# ----------------------------------------------------------------------
+
+def _masked_softmax_pv(s: torch.Tensor, valid: torch.Tensor,
+                       vt: torch.Tensor, pv_dtype: torch.dtype,
+                       t_axis: int) -> torch.Tensor:
+    """The reference's `sdpa_rows` tail: mask to NEG_INF, float32
+    softmax, p rounded to the pool dtype, float32 PV sum.  Masked
+    positions contribute an exact 0 to PV even where the gathered V is
+    not finite (a NaN-poisoned block behind a -1 entry), where the
+    reference's 0 * NaN would leak."""
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    p = e / e.sum(dim=-1, keepdim=True)
+    pv = p.to(pv_dtype).float().unsqueeze(-1) * vt
+    pv = torch.where(valid.unsqueeze(-1), pv, torch.zeros_like(pv))
+    return pv.sum(dim=t_axis)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_len) -> torch.Tensor:
+    """One-step decode: q [B,1,H,hd] vs cache [B,T,KH,hd]; row b attends
+    positions t < kv_len[b].  Scores and PV are explicit float32
+    multiply + sum, as in the reference."""
+    B, _, H, hd = q.shape
+    T, KH = k_cache.shape[1], k_cache.shape[2]
+    G = H // KH
+    qg = q.reshape(B, KH, G, hd).float()
+    kt = k_cache.transpose(1, 2).float()              # [B,KH,T,hd]
+    vt = v_cache.transpose(1, 2).float()
+    s = (qg[:, :, :, None, :] * kt[:, :, None, :, :]).sum(-1) * hd ** -0.5
+    kv_len = torch.as_tensor(kv_len, device=q.device)
+    bound = kv_len.reshape(-1, 1, 1, 1) if kv_len.ndim == 1 else kv_len
+    valid = torch.arange(T, device=q.device)[None, None, None, :] < bound
+    o = _masked_softmax_pv(s, valid, vt[:, :, None, :, :], v_cache.dtype,
+                           t_axis=3)                  # [B,KH,G,hd]
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor,
+                    q_positions: torch.Tensor) -> torch.Tensor:
+    """A C-row query chunk vs the cache: q [B,C,H,hd], cache
+    [B,T,KH,hd], q_positions [B,C]; row i attends t <= q_positions[b,i]
+    (the chunk's own k/v must already be written).  Rows past a slot's
+    valid count give garbage rows the caller discards."""
+    B, C, H, hd = q.shape
+    T, KH = k_cache.shape[1], k_cache.shape[2]
+    G = H // KH
+    qc = q.reshape(B, C, KH, G, hd).permute(0, 2, 3, 1, 4).float()
+    kt = k_cache.transpose(1, 2).float()              # [B,KH,T,hd]
+    vt = v_cache.transpose(1, 2).float()
+    s = (qc[:, :, :, :, None, :]
+         * kt[:, :, None, None, :, :]).sum(-1) * hd ** -0.5  # [B,KH,G,C,T]
+    mask = (torch.arange(T, device=q.device)[None, None, :]
+            <= q_positions[:, :, None])                      # [B,C,T]
+    o = _masked_softmax_pv(s, mask[:, None, None], vt[:, :, None, None],
+                           v_cache.dtype, t_axis=4)          # [B,KH,G,C,hd]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, C, H, hd).to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# paged KV cache: block pool + per-slot block tables
+# ----------------------------------------------------------------------
+
+def init_paged_kv_cache(num_blocks: int, block_size: int, kv_heads: int,
+                        head_dim: int, *, layers: int,
+                        dtype=torch.bfloat16, device=None
+                        ) -> Dict[str, torch.Tensor]:
+    """Stacked block pool {"k", "v"}: [L, NB, bs, KH, hd] zeros."""
+    shape = (layers, num_blocks, block_size, kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gather_paged_cache(ck: torch.Tensor, cv: torch.Tensor,
+                       block_table: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each slot's virtual view [B, MB*bs, KH, hd] through its table.
+    -1 entries are clamped to block 0 (as ``maximum(bt, 0)``); the
+    position masks of the attention functions exclude those positions."""
+    bt = block_table.long().clamp(min=0)
+    NB, bs, KH, hd = ck.shape
+    B, MB = bt.shape
+    return (ck[bt].reshape(B, MB * bs, KH, hd),
+            cv[bt].reshape(B, MB * bs, KH, hd))
+
+
+def paged_flat_idx(pos, block_table: torch.Tensor, C: int,
+                   block_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flattened-pool row index [B, C] of a C-row write at `pos` through
+    the table, and whether each row lands (``_paged_flat_idx``): a row
+    whose virtual block is unallocated (-1) or past the table is
+    dropped, never clamped."""
+    B, MB = block_table.shape
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=block_table.device)
+    if pos.ndim == 0:                     # lockstep decode: same frontier
+        pos = pos.expand(B)
+    vpos = pos.long()[:, None] + torch.arange(C, device=pos.device)[None, :]
+    blk = vpos // block_size
+    phys = torch.gather(block_table.long(), 1, blk.clamp(0, MB - 1))
+    valid = (blk < MB) & (phys >= 0)
+    return phys * block_size + vpos % block_size, valid
+
+
+def _paged_scatter(pool: torch.Tensor, flat_idx: torch.Tensor,
+                   valid: torch.Tensor, rows: torch.Tensor) -> None:
+    """Write rows [N, ...] into pool [NB, bs, ...] at the flat row
+    indices [N] where `valid`, in place, dropping the rest.
+
+    The drop takes no host sync (a boolean-mask select would): every
+    dropped row is redirected onto the first landing row of the call
+    and carries that row's value, so the duplicate writes all store
+    the same bytes.  When no row lands, the dropped rows rewrite row 0
+    with its own current value.
+    """
+    flat = pool.view((-1,) + pool.shape[2:])
+    # index_select with a [1] tensor: indexing by a 0-dim tensor would
+    # read it back to the host
+    first = torch.argmax(valid.to(torch.int32)).reshape(1)
+    any_valid = valid.any()
+    first_idx = flat_idx.index_select(0, first)
+    tgt = torch.where(valid, flat_idx,
+                      torch.where(any_valid, first_idx,
+                                  torch.zeros_like(first_idx)))
+    keep = torch.where(any_valid, rows.index_select(0, first), flat[:1])
+    vmask = valid.reshape((-1,) + (1,) * (rows.ndim - 1))
+    flat.index_copy_(0, tgt, torch.where(vmask, rows, keep))
+
+
+def update_paged_cache(ck: torch.Tensor, cv: torch.Tensor,
+                       k1: torch.Tensor, v1: torch.Tensor, pos,
+                       block_table: torch.Tensor) -> None:
+    """Scatter a step's k/v ([B, C, KH, hd]) through the block table
+    into one layer's pools, in place (the reference returns new pools;
+    the port updates the pool where the reference donates it).
+
+    Row i of slot b lands at virtual position pos[b] + i, i.e. physical
+    row block_table[b, p // bs] * bs + p % bs; rows whose virtual block
+    is unallocated or past the table are dropped."""
+    NB, bs, KH, hd = ck.shape
+    B, C = k1.shape[:2]
+    idx, valid = paged_flat_idx(pos, block_table, C, bs)
+    idx, valid = idx.reshape(-1), valid.reshape(-1)
+    _paged_scatter(ck, idx, valid, k1.reshape(B * C, KH, hd).to(ck.dtype))
+    _paged_scatter(cv, idx, valid, v1.reshape(B * C, KH, hd).to(cv.dtype))
+
+
+def copy_paged_block(ck: torch.Tensor, cv: torch.Tensor, src: int,
+                     dst: int) -> None:
+    """Copy-on-write helper: duplicate physical block `src` into `dst`
+    across every layer of the stacked pool ([L, NB, bs, KH, hd]), in
+    place."""
+    ck[:, dst].copy_(ck[:, src])
+    cv[:, dst].copy_(cv[:, src])
+
+
+# ----------------------------------------------------------------------
+# paged attention through the hand-written kernels
+# ----------------------------------------------------------------------
+
+def paged_decode_attention(q: torch.Tensor, ck: torch.Tensor,
+                           cv: torch.Tensor, block_table: torch.Tensor,
+                           kv_len) -> torch.Tensor:
+    """Paged decode: the block-table walk runs inside the CUDA kernel
+    (kernels/paged_attention.paged_decode)."""
+    from repro_torch.kernels import paged_attention as pk
+    return pk.paged_decode(q, ck, cv, block_table, kv_len)
+
+
+def paged_chunk_attention(q: torch.Tensor, ck: torch.Tensor,
+                          cv: torch.Tensor, block_table: torch.Tensor,
+                          pos) -> torch.Tensor:
+    """Paged chunk attention; `pos` [B] is each slot's cache length
+    before the chunk (chunk_attention with q_positions = pos + arange(C))."""
+    from repro_torch.kernels import paged_attention as pk
+    return pk.paged_chunk(q, ck, cv, block_table, pos)

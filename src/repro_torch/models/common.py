@@ -1,0 +1,181 @@
+"""Shared model substrate: param specs, device choice, norms, RoPE.
+
+PyTorch counterpart of ``repro/models/common.py``.  ``ParamSpec`` keeps
+only what parameter initialisation needs (shape, init rule, scale): the
+port has no sharding, so the logical axis names of the reference are
+gone.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+# ----------------------------------------------------------------------
+# Parameter specification
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    init: str = "normal"                  # normal | zeros | ones
+    scale: Optional[float] = None         # None -> fan_in ** -0.5
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def init_leaf(spec: ParamSpec, generator: torch.Generator,
+              device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """One parameter by the reference's rule (``_init_leaf``): zeros,
+    ones, or a float32 standard normal times ``scale``, where the
+    default scale is ``shape[-2] ** -0.5`` (``shape[-1]`` for vectors),
+    stacked leading axes included.  Norm scales ("ones") stay float32
+    whatever ``dtype`` is: ``rmsnorm`` upcasts them anyway.
+
+    A stacked leaf ``[L, ...]`` is drawn one leading slice at a time,
+    so the float32 temporary is one layer's worth, not the whole stack.
+    """
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=torch.float32, device=device)
+    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+    scale = spec.scale if spec.scale is not None else fan_in ** -0.5
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    rows = out if out.ndim > 2 else out[None]
+    for sub in rows:
+        sub.copy_(torch.randn(sub.shape, generator=generator,
+                              dtype=torch.float32, device=device) * scale)
+    return out
+
+
+def init_params(specs, generator: torch.Generator, device: torch.device,
+                dtype: torch.dtype) -> Dict[str, Any]:
+    """Walk the spec tree in sorted key order (the order a JAX pytree
+    flattens a dict in) and draw every leaf from one generator."""
+    if is_spec(specs):
+        return init_leaf(specs, generator, device, dtype)
+    return {k: init_params(specs[k], generator, device, dtype)
+            for k in sorted(specs)}
+
+
+def count_params(specs) -> int:
+    if is_spec(specs):
+        n = 1
+        for d in specs.shape:
+            n *= d
+        return n
+    return sum(count_params(v) for v in specs.values())
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks
+    for another device.  With no CUDA device and no explicit choice it
+    raises instead of carrying on on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           "available")
+    return dev
+
+
+def fixed_tree_sum(parts: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading axis with a FIXED halving tree.
+
+    Pads the axis to a power of two with zeros, then repeatedly adds
+    the upper half onto the lower half — the same addition order as
+    the reference, fixed by the (padded) group count alone.
+    """
+    n = parts.shape[0]
+    p2 = 1
+    while p2 < n:
+        p2 *= 2
+    if p2 != n:
+        parts = torch.cat([parts, parts.new_zeros((p2 - n,)
+                                                  + parts.shape[1:])])
+    while parts.shape[0] > 1:
+        h = parts.shape[0] // 2
+        parts = parts[:h] + parts[h:]
+    return parts[0]
+
+
+# ----------------------------------------------------------------------
+# Layers (functional)
+# ----------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor,
+              bias: Optional[torch.Tensor], eps: float = 1e-5
+              ) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def apply_norm(cfg, x: torch.Tensor, p: Dict[str, torch.Tensor]
+               ) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p.get("bias"))
+    return rmsnorm(x, p["scale"])
+
+
+def norm_spec(cfg, d: int) -> Dict[str, ParamSpec]:
+    out = {"scale": ParamSpec((d,), init="ones")}
+    if cfg.norm == "layernorm":
+        out["bias"] = ParamSpec((d,), init="zeros")
+    return out
+
+
+def activation(cfg, x: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """SwiGLU, the activation of every dense config (the reference's
+    GELU branches serve the enc-dec and hybrid families, not ported)."""
+    if cfg.activation != "swiglu":
+        raise NotImplementedError(f"activation {cfg.activation!r} is not "
+                                  "ported yet")
+    return F.silu(gate) * x
+
+
+# --- rotary embeddings -------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    # a python-float base: no host-to-device copy (and sync) per call
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(float(theta), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; positions: [..., seq].  Split-half
+    rotation in float32, cast back to x.dtype."""
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, x.device)          # [hd/2]
+    angles = positions[..., :, None].float() * freqs              # [..,s,hd/2]
+    angles = angles[..., None, :]                                 # heads
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,52 @@
+"""Dense MLP (SwiGLU / GELU); PyTorch counterpart of ``repro/models/mlp.py``."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.models.common import ParamSpec, activation, fixed_tree_sum
+
+
+def mlp_specs(cfg, d_model: Optional[int] = None,
+              d_ff: Optional[int] = None) -> Dict[str, ParamSpec]:
+    d = d_model or cfg.d_model
+    f = d_ff or cfg.d_ff
+    specs = {
+        "w_up": ParamSpec((d, f)),
+        "w_down": ParamSpec((f, d)),
+    }
+    if cfg.activation == "swiglu":
+        specs["w_gate"] = ParamSpec((d, f))
+    if cfg.use_bias:
+        specs["b_up"] = ParamSpec((f,), init="zeros")
+        specs["b_down"] = ParamSpec((d,), init="zeros")
+    return specs
+
+
+def mlp(cfg, p, x: torch.Tensor, *, groups: int = 0) -> torch.Tensor:
+    """x: [..., d] -> [..., d].
+
+    Weights are cast to x.dtype at use, as in the reference.  With
+    ``groups > 1`` ([B,S,d] inputs only) the w_down contraction is
+    formed as per-group float32 partials of the x.dtype operands,
+    reduced by ``fixed_tree_sum`` — the reference's grouped reduction.
+    """
+    dt = x.dtype
+    up = x @ p["w_up"].to(dt)
+    if cfg.use_bias:
+        up = up + p["b_up"].to(dt)
+    gate = x @ p["w_gate"].to(dt) if "w_gate" in p else None
+    h = activation(cfg, up, gate)
+    if groups > 1 and h.ndim == 3:
+        B, S, f = h.shape
+        hg = h.reshape(B, S, groups, f // groups).float()
+        wg = p["w_down"].to(dt).reshape(groups, f // groups, -1).float()
+        parts = torch.einsum("bsgf,gfd->gbsd", hg, wg)
+        y = fixed_tree_sum(parts).to(dt)
+    else:
+        y = h @ p["w_down"].to(dt)
+    if cfg.use_bias:
+        y = y + p["b_down"].to(dt)
+    return y

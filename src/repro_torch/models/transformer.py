@@ -1,0 +1,196 @@
+"""Decoder-only transformer LM (dense family): the serving forward.
+
+PyTorch counterpart of the serving half of ``repro/models/transformer.py``.
+Layer parameters keep the reference's stacked layout (every leaf under
+"layers" has a leading [L] axis, so weights bridge across unchanged);
+the reference's scan over layers becomes a Python loop over layer
+slices.  The paged KV pool is updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import (ParamSpec, apply_norm, apply_rope,
+                                       norm_spec)
+
+Params = Dict[str, Any]
+
+
+# ----------------------------------------------------------------------
+# specs
+# ----------------------------------------------------------------------
+
+def layer_specs(cfg) -> Params:
+    return {
+        "ln1": norm_spec(cfg, cfg.d_model),
+        "ln2": norm_spec(cfg, cfg.d_model),
+        "attn": attn.attn_specs(cfg),
+        "mlp": mlp_mod.mlp_specs(cfg),
+    }
+
+
+def stack_specs(specs: Params, n: int) -> Params:
+    if isinstance(specs, ParamSpec):
+        return ParamSpec((n,) + specs.shape, init=specs.init,
+                         scale=specs.scale)
+    return {k: stack_specs(v, n) for k, v in specs.items()}
+
+
+def transformer_specs(cfg) -> Params:
+    specs: Params = {
+        "embed": ParamSpec((cfg.padded_vocab_size, cfg.d_model), scale=0.02),
+        "layers": stack_specs(layer_specs(cfg), cfg.num_layers),
+        "final_norm": norm_spec(cfg, cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab_size))
+    return specs
+
+
+def layer_slice(tree: Params, i: int) -> Params:
+    """Layer i's parameters: a view of every stacked leaf at index i."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    return {k: layer_slice(v, i) for k, v in tree.items()}
+
+
+# ----------------------------------------------------------------------
+# serving
+# ----------------------------------------------------------------------
+
+def unembed_matrix(cfg, params) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["unembed"]
+
+
+def logits_fn(cfg, params, h: torch.Tensor) -> torch.Tensor:
+    out = h @ unembed_matrix(cfg, params).to(h.dtype)
+    # drop the TP-padding columns (never valid tokens)
+    if cfg.padded_vocab_size != cfg.vocab_size:
+        out = out[..., : cfg.vocab_size]
+    return out
+
+
+def serving_det_groups(cfg) -> Tuple[int, int]:
+    """(attention, mlp) group counts of the grouped float32 reductions
+    of the serving forward: the largest power of two <= 16 dividing the
+    head count / hidden width, as in the reference."""
+    def pow2_div(n: int, cap: int = 16) -> int:
+        g = 1
+        while g < cap and n % (g * 2) == 0:
+            g *= 2
+        return g
+    return pow2_div(cfg.num_heads), pow2_div(cfg.d_ff)
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
+               paged: bool = True, block_size: int = 16,
+               num_blocks: Optional[int] = None, device=None) -> Params:
+    """Paged block pool [L, num_blocks, block_size, KH, hd] addressed
+    through a per-slot block table.  The default pool matches the
+    contiguous capacity (batch * ceil(max_len / block_size) blocks).
+    The contiguous layout of the reference is not ported yet."""
+    if not paged:
+        raise NotImplementedError("the contiguous KV layout (paged=False) "
+                                  "is not ported yet")
+    if num_blocks is None:
+        num_blocks = batch * -(-max_len // block_size)
+    return attn.init_paged_kv_cache(num_blocks, block_size,
+                                    cfg.num_kv_heads, cfg.head_dim,
+                                    layers=cfg.num_layers, dtype=dtype,
+                                    device=device)
+
+
+def _cache_attend(q, k1, v1, cl, pos, positions, block_table, *,
+                  decode: bool, kernel: bool) -> torch.Tensor:
+    """Write a window's k/v into one layer's pools `cl` ({"k","v"}, in
+    place) and attend over the result.  ``kernel=True`` reads through
+    the CUDA block-table kernels; ``kernel=False`` gathers the virtual
+    view and runs the plain attention (the A/B oracle)."""
+    attn.update_paged_cache(cl["k"], cl["v"], k1, v1, pos, block_table)
+    if kernel:
+        if decode:
+            return attn.paged_decode_attention(q, cl["k"], cl["v"],
+                                               block_table, pos + 1)
+        return attn.paged_chunk_attention(q, cl["k"], cl["v"],
+                                          block_table, pos)
+    kg, vg = attn.gather_paged_cache(cl["k"], cl["v"], block_table)
+    if decode:
+        return attn.decode_attention(q, kg, vg, pos + 1)
+    return attn.chunk_attention(q, kg, vg, positions)
+
+
+def _serving_scan(cfg, params, cache, x, pos, positions, block_table, *,
+                  decode: bool, kernel: bool) -> torch.Tensor:
+    """All layers over x [B, S, d] (each layer's pools updated in
+    place), then the final norm."""
+    ga, gm = serving_det_groups(cfg)
+    for i in range(cfg.num_layers):
+        lp = layer_slice(params["layers"], i)
+        cl = {"k": cache["k"][i], "v": cache["v"][i]}
+        h = apply_norm(cfg, x, lp["ln1"])
+        q, k1, v1 = attn.qkv_project(cfg, lp["attn"], h)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k1 = apply_rope(k1, positions, cfg.rope_theta)
+        o = _cache_attend(q, k1, v1, cl, pos, positions, block_table,
+                          decode=decode, kernel=kernel)
+        x = x + attn.out_project(lp["attn"], o, groups=ga)
+        h = apply_norm(cfg, x, lp["ln2"])
+        x = x + mlp_mod.mlp(cfg, lp["mlp"], h, groups=gm)
+    return apply_norm(cfg, x, params["final_norm"])
+
+
+def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    """Serving activations are bf16 whatever the parameter dtype (the
+    rows are cast after the lookup, the same values as casting first)."""
+    return params["embed"][tokens.long()].to(torch.bfloat16)
+
+
+def _per_slot_pos(pos, B: int, device) -> torch.Tensor:
+    pos = torch.as_tensor(pos, device=device)
+    return pos.to(torch.int32).expand(B)
+
+
+def decode_step(cfg, params, cache: Params, token: torch.Tensor, pos,
+                block_table: torch.Tensor, *, kernel: bool = False
+                ) -> Tuple[torch.Tensor, Params]:
+    """One decode step.  token [B]; pos scalar or [B] int32 (current
+    length): each layer writes its k/v at `pos` through the table and
+    attends to positions <= pos.  Returns (logits [B, vocab], cache);
+    the cache is the same pool, updated in place."""
+    B = token.shape[0]
+    pos = _per_slot_pos(pos, B, token.device)
+    x = _embed(params, token)[:, None, :]                 # [B,1,d]
+    x = _serving_scan(cfg, params, cache, x, pos, pos[:, None],
+                      block_table, decode=True, kernel=kernel)
+    return logits_fn(cfg, params, x)[:, 0], cache
+
+
+def chunk_step(cfg, params, cache: Params, tokens: torch.Tensor, pos,
+               n_tokens: torch.Tensor, block_table: torch.Tensor, *,
+               kernel: bool = False) -> Tuple[torch.Tensor, Params]:
+    """One chunked-prefill/decode step for a batch of server slots.
+
+    tokens [B,C] int32 — per slot, the next `n_tokens[b]` tokens of its
+    request (rows past n_tokens[b] are padding); pos [B] int32 — each
+    slot's cache length; the chunk's k/v is written at [pos, pos+C)
+    through the table (padding rows whose virtual block is unallocated
+    are dropped).  Returns (logits [B, vocab] at each slot's last valid
+    row, cache)."""
+    B, C = tokens.shape
+    pos = _per_slot_pos(pos, B, tokens.device)
+    x = _embed(params, tokens)                            # [B,C,d]
+    positions = pos[:, None] + torch.arange(C, dtype=torch.int32,
+                                            device=tokens.device)[None, :]
+    x = _serving_scan(cfg, params, cache, x, pos, positions, block_table,
+                      decode=False, kernel=kernel)
+    last = (n_tokens.long() - 1).clamp(0, C - 1)          # [B]
+    h_last = torch.gather(x, 1, last[:, None, None].expand(B, 1,
+                                                            x.shape[-1]))
+    return logits_fn(cfg, params, h_last)[:, 0], cache

@@ -16,6 +16,8 @@ def pytest_configure(config):
         "exercises the same paths via forced host-device fan-out "
         "(tests/test_distributed.py, tests/test_tp_serving.py) and "
         "these tests self-skip there")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,103 @@
+"""The port stands alone: no JAX, nothing of `repro`, no silent CPU.
+
+(a) every import in src/repro_torch and chip_smoke.py, read from the
+    AST, names neither `jax` nor `repro` (`repro_torch` is fine);
+(b) a subprocess where importing `jax` or `repro` fails imports the
+    port, serves three requests on the CPU and runs the CLI;
+(c) an entry point called without a device on a host without CUDA
+    raises instead of running on the CPU;
+(d) chip_smoke.py without a CUDA device exits non-zero with no result.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+_CHILD = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now fails
+sys.modules["repro"] = None
+sys.path.insert(0, %(src)r)
+from repro_torch.configs import reduced_config
+from repro_torch.models import api
+from repro_torch.runtime.server import ChunkedServer, sharegpt_like_requests
+from repro_torch.launch import serve
+cfg = reduced_config("yi-6b")
+params = api.init(cfg, 0, device="cpu")
+srv = ChunkedServer(cfg, params, batch_slots=2, max_len=32, chunk=8,
+                    span=4, block_size=8, device="cpu")
+reqs = sharegpt_like_requests(3, cfg.vocab_size, max_input=12,
+                              max_output=6, seed=1)
+srv.serve(reqs)
+assert all(r.done and len(r.output) == r.max_new for r in reqs)
+stats = serve.main(["--device", "cpu", "--requests", "3", "--slots", "2",
+                    "--workload", "sysprompt"])
+assert stats["requests"] == 3.0
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("OK")
+"""
+
+
+def test_port_serves_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD % {"src": str(ROOT / "src")}],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "OK"
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.runtime.server import ChunkedServer
+    cfg = reduced_config("yi-6b")
+    params = api.init(cfg, 0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init_cache(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ChunkedServer(cfg, params, batch_slots=2, max_len=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--requests", "1"])         # --device defaults to cuda
+
+
+def test_chip_smoke_fails_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT, env=env)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
