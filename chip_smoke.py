@@ -10,27 +10,38 @@ last line):
               (ptxas registers, shared memory and spills printed).
   3. kernels — each kernel against its plain PyTorch version at yi-6b
               attention shapes (and head_dim 64, llama-te-mini), bf16
-              and float32 pools: max abs error within its limit, kernel
-              time (CUDA events), plain time, the time of PyTorch's
-              scaled_dot_product_attention over the gathered view (a
-              yardstick the port never calls) and the bound.
+              and float32 q, over pools of q's dtype (paged_decode,
+              paged_chunk) and over e4m3 pools with per-row scales
+              (paged_decode_fp8, paged_chunk_fp8): max abs error within
+              its limit, kernel time (CUDA events), plain time, the
+              time of PyTorch's scaled_dot_product_attention over the
+              gathered (for fp8: gathered and dequantized, untimed)
+              view (a yardstick the port never calls) and the bound.
   4. forward — full-width 32-layer yi-6b (random bf16 weights, seed 0):
               a chunk_step and decode_steps through the kernels, every
               kernel call held against its plain version on the same
               inputs; the end-to-end logits against the plain path are
               printed (random weights make the 32-layer stack chaotic:
               a one-step rounding difference grows layer by layer).
+              Then the same with an e4m3 pool and fp8 linears.
   5. serve  — ChunkedServer on full-width yi-6b: a ShareGPT-like wave
               (paper Table XII protocol) and a shared-system-prompt
               wave (radix prefix cache + copy-on-write); every request
               complete at its expected length, both kernels launched.
+              Then both waves again on ChunkedServer(fp8_kv=True,
+              fp8_linear=True): both fp8 kernels launched, every
+              copy-on-write copies the scales, and the pool holds
+              exactly (hd+4)/(2*hd) of the bf16 pool's bytes.
   6. profile — wall and device time of a full-width decode step and
-              chunk step, and the kernels that take the device time.
+              chunk step, bf16 and fp8, and the kernels that take the
+              device time.
   7. small  — the reduced yi-6b served through the kernels on the card
-              and through the plain versions on the CPU: equal token
-              streams, except where the CPU's own top-2 margin is tiny.
-Then one JSON line of per-kernel numbers and, last, the contract line
-{"ok": true, "device": {...}}.
+              and through the plain versions on the CPU, bf16 and fp8:
+              equal token streams, except where the CPU's own top-2
+              margin is small.
+Each serve phase sets the launch counts to 0 just before its waves and
+reads them just after.  Then one JSON line of per-kernel numbers and,
+last, the contract line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -59,6 +70,11 @@ ATTN_REL_LIMIT = 2.0 ** -6
 # (cuBLAS and the CPU round differently); streams may part where the
 # top-2 margin is within four bf16 steps at |logit| < 4
 SMALL_MARGIN = 0.0625
+# the same with an e4m3 pool and fp8 linears: e4m3 turns a one-step
+# bf16 difference into a one-step e4m3 difference (16x larger), and a
+# per-tensor activation scale moves with a one-step change of its max
+# (tests/test_torch_server.py, FP8_MARGIN)
+SMALL_FP8_MARGIN = 0.5
 DEVICE = "cuda"
 
 
@@ -141,10 +157,13 @@ def _case_inputs(dtype, B, H, KH, hd, bs, MB, C, seed):
     return qd, qc, ck, cv, bt, kv, pos
 
 
-def _bound(kind, dtype_name, B, H, KH, hd, C, MB, bs, lens, elt):
+def _bound(kind, dtype_name, B, H, KH, hd, C, MB, bs, lens, q_elt,
+           kv_elt, scale_bytes=0):
     """Least time for the work: each input byte read once (q, the K/V
-    rows the rows attend, table, lengths), output written once; 4*hd
-    operations per (query head, attended position)."""
+    rows the rows attend at `kv_elt` bytes an element plus
+    `scale_bytes` per (token, kv head) row of K and of V, table,
+    lengths), output written once; 4*hd operations per (query head,
+    attended position) at the peak rate of q's dtype."""
     lens = [int(x) for x in lens]
     T = MB * bs
     if kind == "decode":
@@ -155,8 +174,8 @@ def _bound(kind, dtype_name, B, H, KH, hd, C, MB, bs, lens, elt):
         tokens = [min(p + C, T) for p in lens]
         pairs = sum(min(p + 1 + i, T) for p in lens for i in range(C))
         rows = C
-    kv_bytes = 2 * sum(tokens) * KH * hd * elt
-    qo_bytes = 2 * B * rows * H * hd * elt
+    kv_bytes = 2 * sum(tokens) * KH * (hd * kv_elt + scale_bytes)
+    qo_bytes = 2 * B * rows * H * hd * q_elt
     nbytes = kv_bytes + qo_bytes + 4 * B * (MB + 1)
     ops = 4 * hd * H * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -164,13 +183,12 @@ def _bound(kind, dtype_name, B, H, KH, hd, C, MB, bs, lens, elt):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _sdpa_inputs(q, ck, cv, bt, bound_rows):
+def _sdpa_inputs(q, kg, vg, bound_rows):
     """Gathered view for scaled_dot_product_attention: q [B,H,R,hd],
-    k/v repeated to H heads [B,H,T,hd], boolean mask [B,1,R,T]."""
+    k/v [B,T,KH,hd] repeated to H heads [B,H,T,hd], boolean mask
+    [B,1,R,T]."""
     import torch
-    from repro_torch.models import attention
-    kg, vg = attention.gather_paged_cache(ck, cv, bt)
-    H, KH = q.shape[2], ck.shape[2]
+    H, KH = q.shape[2], kg.shape[2]
     k = kg.transpose(1, 2).repeat_interleave(H // KH, dim=1).contiguous()
     v = vg.transpose(1, 2).repeat_interleave(H // KH, dim=1).contiguous()
     T = k.shape[2]
@@ -180,9 +198,12 @@ def _sdpa_inputs(q, ck, cv, bt, bound_rows):
 
 
 def phase_kernels() -> dict:
+    """Results keyed (kernel name, case name, q dtype)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pk
+    from repro_torch.models import attention
+    from repro_torch.te import fp8
     cases = [
         # name, dtype, B, H, KH, hd, bs, MB
         ("yi-6b", torch.bfloat16, 8, 32, 4, 128, 16, 17),
@@ -195,46 +216,60 @@ def phase_kernels() -> dict:
     for i, (name, dtype, B, H, KH, hd, bs, MB) in enumerate(cases):
         qd, qc, ck, cv, bt, kv, pos = _case_inputs(dtype, B, H, KH, hd, bs,
                                                    MB, C, seed=i)
+        # e4m3 pools: the same rows, quantized per (token, kv head) row
+        kq, ks = fp8.quantize_rowwise(ck.float())
+        vq, vs = fp8.quantize_rowwise(cv.float())
         dname = str(dtype).replace("torch.", "")
         limit = BF16_LIMIT if dtype == torch.bfloat16 else F32_LIMIT
         ar = torch.arange(C, device=DEVICE, dtype=torch.int32)
-        for kind in ("decode", "chunk"):
-            if kind == "decode":
-                q, lens = qd, kv
-                kern = lambda: pk.paged_decode(q, ck, cv, bt, lens)
-                plain = lambda: pk.paged_decode_plain(q, ck, cv, bt, lens)
-                rows_bound = lens[:, None]
+        for kernel in ("paged_decode", "paged_chunk", "paged_decode_fp8",
+                       "paged_chunk_fp8"):
+            decode = kernel.startswith("paged_decode")
+            q, lens = (qd, kv) if decode else (qc, pos)
+            rows_bound = (lens[:, None] if decode
+                          else lens[:, None] + 1 + ar[None, :])
+            if kernel.endswith("fp8"):
+                args = (q, kq, vq, bt, lens)
+                kw = dict(k_scale=ks, v_scale=vs)
+                kg, vg = attention.gather_paged_cache_fp8(
+                    {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}, bt,
+                    out_dtype=dtype)
+                kv_elt, scale_bytes = 1, 4
             else:
-                q, lens = qc, pos
-                kern = lambda: pk.paged_chunk(q, ck, cv, bt, lens)
-                plain = lambda: pk.paged_chunk_plain(q, ck, cv, bt, lens)
-                rows_bound = lens[:, None] + 1 + ar[None, :]
+                args, kw = (q, ck, cv, bt, lens), {}
+                kg, vg = attention.gather_paged_cache(ck, cv, bt)
+                kv_elt, scale_bytes = ck.element_size(), 0
+            fn = getattr(pk, kernel)
+            plain_fn = getattr(pk, kernel + "_plain")
+            kern = lambda: fn(*args, **kw)
+            plain = lambda: plain_fn(*args, **kw)
             got = kern()
             torch.cuda.synchronize()
             want = plain()
             err = (got.float() - want.float()).abs().max().item()
             if not torch.isfinite(got.float()).all():
-                fail(f"{kind} {name} {dname}: non-finite kernel output")
+                fail(f"{kernel} {name} {dname}: non-finite kernel output")
             ms = _time_ms(kern, 200)
             plain_ms = _time_ms(plain, 10)
-            sq, sk, sv, mask = _sdpa_inputs(q, ck, cv, bt, rows_bound)
+            sq, sk, sv, mask = _sdpa_inputs(q, kg, vg, rows_bound)
             lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
                 sq, sk, sv, attn_mask=mask), 50)
-            bound_ms, bound_by = _bound(kind, dname, B, H, KH, hd, C, MB, bs,
-                                        lens.tolist(), ck.element_size())
+            bound_ms, bound_by = _bound(
+                "decode" if decode else "chunk", dname, B, H, KH, hd, C, MB,
+                bs, lens.tolist(), q.element_size(), kv_elt, scale_bytes)
             ok = err <= limit
-            print(f"[kernels] paged_{kind} {name} {dname} B={B} H={H} "
+            print(f"[kernels] {kernel} {name} q {dname} B={B} H={H} "
                   f"KH={KH} hd={hd} bs={bs} MB={MB}"
-                  f"{' C=%d' % C if kind == 'chunk' else ''}: "
+                  f"{'' if decode else ' C=%d' % C}: "
                   f"max_abs_err={err:.3e} (limit {limit:.0e}) "
                   f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"sdpa_ms={lib_ms:.4f} bound_ms={bound_ms:.5f} "
                   f"({bound_by}) {'ok' if ok else 'OVER LIMIT'}",
                   flush=True)
             if not ok:
-                fail(f"paged_{kind} {name} {dname}: max abs error {err} "
+                fail(f"{kernel} {name} {dname}: max abs error {err} "
                      f"over {limit}")
-            results[(kind, name, dname)] = {
+            results[(kernel, name, dname)] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms}
@@ -250,14 +285,17 @@ def _top2_margin(logits):
     return top[..., 0] - top[..., 1]
 
 
-def phase_forward(cfg, params) -> None:
+def phase_forward(cfg, params, quant=None) -> None:
     """One chunk_step and `steps` decode_steps of full-width yi-6b
     through the kernels, every kernel call held against its plain
     version on the same inputs (the pool the call reads, its q); then
-    the same steps through the plain path, for the end-to-end logits."""
+    the same steps through the plain path, for the end-to-end logits.
+    With `quant` (fp8 linears) the pool is e4m3 too."""
     import torch
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.models import api, transformer
+    fp8 = quant is not None
+    tag = "fp8_kv + fp8 linears" if fp8 else "bf16"
     B, C, bs, steps = 4, 16, 16, 3
     MB = -(-264 // bs)
     g = torch.Generator(device=DEVICE).manual_seed(1)
@@ -275,31 +313,34 @@ def phase_forward(cfg, params) -> None:
         o = orig(q, k1, v1, cl, pos, positions, block_table,
                  decode=decode, kernel=kernel)
         if kernel:
-            want = (pk.paged_decode_plain(q, cl["k"], cl["v"], block_table,
-                                          pos + 1) if decode else
-                    pk.paged_chunk_plain(q, cl["k"], cl["v"], block_table,
-                                         pos)).float()
+            kind = "decode" if decode else "chunk"
+            plain = getattr(pk, f"paged_{kind}{'_fp8' if fp8 else ''}_plain")
+            kw = ({"k_scale": cl["k_scale"], "v_scale": cl["v_scale"]}
+                  if fp8 else {})
+            want = plain(q, cl["k"], cl["v"], block_table,
+                         pos + 1 if decode else pos, **kw).float()
             err = (o.float() - want).abs().max().item()
-            rec = calls["decode" if decode else "chunk"]
+            rec = calls[kind]
             rec[0] += 1
             rec[1] = max(rec[1], err / max(want.abs().max().item(), 1e-30))
         return o
 
     def run(kernel: bool):
         cache = api.init_cache(cfg, B, 264, block_size=bs,
-                               num_blocks=B * MB, device=DEVICE)
+                               num_blocks=B * MB, device=DEVICE, fp8_kv=fp8)
         pos = torch.zeros(B, dtype=torch.int32, device=DEVICE)
         out = [api.chunk_step(cfg, params, cache, tokens, pos, n_tok, bt,
-                              kernel=kernel)[0]]
+                              kernel=kernel, quant=quant)[0]]
         pos = n_tok.clone()
         for _ in range(steps):
             tok = out[-1].argmax(-1).to(torch.int32)
             out.append(api.decode_step(cfg, params, cache, tok, pos, bt,
-                                       kernel=kernel)[0])
+                                       kernel=kernel, quant=quant)[0])
             pos = pos + 1
         return torch.stack(out)
 
     t0 = time.perf_counter()
+    n0 = pk.launch_counts()
     transformer._cache_attend = checked
     try:
         lk = run(True)
@@ -307,27 +348,34 @@ def phase_forward(cfg, params) -> None:
         transformer._cache_attend = orig
     lp = run(False)
     torch.cuda.synchronize()
+    launched = {k: v - n0[k] for k, v in pk.launch_counts().items() if
+                v > n0[k]}
     worst = max(r[1] for r in calls.values())
     e2e = (lk.float() - lp.float()).abs().max().item()
     agree = int((lk.argmax(-1) == lp.argmax(-1)).sum())
-    print(f"[forward] yi-6b {cfg.num_layers} layers d={cfg.d_model}, B={B}:"
-          f" 1 chunk_step + {steps} decode_steps; kernel calls vs plain on "
-          f"the same inputs: {calls['chunk'][0]} chunk + "
+    print(f"[forward] yi-6b {tag} {cfg.num_layers} layers d={cfg.d_model}, "
+          f"B={B}: 1 chunk_step + {steps} decode_steps; kernel calls vs "
+          f"plain on the same inputs: {calls['chunk'][0]} chunk + "
           f"{calls['decode'][0]} decode, max |diff| / max |o| = "
-          f"{worst:.3e} (limit {ATTN_REL_LIMIT:.3e}); end to end, kernel "
-          f"path vs plain path (each feeding its own argmax): max |logit "
-          f"diff| {e2e:.4f}, argmax agree {agree}/{lk.shape[0] * B} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"{worst:.3e} (limit {ATTN_REL_LIMIT:.3e}); launched {launched}; "
+          f"end to end, kernel path vs plain path (each feeding its own "
+          f"argmax): max |logit diff| {e2e:.4f}, argmax agree "
+          f"{agree}/{lk.shape[0] * B} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     if not (torch.isfinite(lk.float()).all()
             and torch.isfinite(lp.float()).all()):
-        fail("full-width forward gave non-finite logits")
+        fail(f"full-width {tag} forward gave non-finite logits")
     if calls["chunk"][0] != cfg.num_layers or \
             calls["decode"][0] != steps * cfg.num_layers:
-        fail(f"the forward did not go through the kernels once per layer: "
-             f"{calls}")
+        fail(f"the {tag} forward did not go through the kernels once per "
+             f"layer: {calls}")
+    want_keys = ({"paged_chunk_fp8", "paged_decode_fp8"} if fp8
+                 else {"paged_chunk", "paged_decode"})
+    if set(launched) != want_keys:
+        fail(f"the {tag} forward launched {launched}, not {want_keys}")
     if worst > ATTN_REL_LIMIT:
-        fail(f"full-width kernel calls differ from the plain version by "
-             f"{worst:.3e} of the output's magnitude (limit "
+        fail(f"full-width {tag} kernel calls differ from the plain version "
+             f"by {worst:.3e} of the output's magnitude (limit "
              f"{ATTN_REL_LIMIT:.3e})")
 
 
@@ -335,17 +383,25 @@ def phase_forward(cfg, params) -> None:
 # 5. serving
 # ----------------------------------------------------------------------
 
-def phase_serve(cfg, params) -> dict:
+def phase_serve(cfg, params, fp8: bool = False):
+    """Both waves on one server; with `fp8` the server stores an e4m3
+    pool and serves fp8 linears, and every copy-on-write is checked to
+    copy every leaf (codes and scales).  Returns (launch counts of the
+    waves, KV pool bytes)."""
     import torch
     from repro_torch.kernels import paged_attention as pk
+    from repro_torch.models import api
     from repro_torch.runtime.server import (ChunkedServer,
                                             sharegpt_like_requests,
                                             sysprompt_sharegpt_requests)
+    tag = "fp8" if fp8 else "bf16"
     max_input, max_output = 128, 128
     max_len = max_input + max_output + 8       # as the CLI sizes it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     srv = ChunkedServer(cfg, params, batch_slots=8, max_len=max_len,
                         chunk=16, span=8, block_size=16, prefix_cache=True,
-                        device=DEVICE)
+                        fp8_kv=fp8, fp8_linear=fp8, device=DEVICE)
     waves = [
         ("sharegpt", sharegpt_like_requests(
             16, cfg.vocab_size, max_input=max_input,
@@ -356,18 +412,33 @@ def phase_serve(cfg, params) -> dict:
             16, cfg.vocab_size, num_templates=2, template_len=72,
             max_input=max_input, max_output=max_output, seed=1)),
     ]
+    cow_copies = []
+    orig_cow = api.cow_copy_block
+
+    def checked_cow(cfg_, cache, src, dst):
+        cache = orig_cow(cfg_, cache, src, dst)
+        same = all(torch.equal(*(x.view(torch.uint8)
+                                 if x.element_size() == 1 else x
+                                 for x in (leaf[:, dst], leaf[:, src])))
+                   for leaf in cache.values())
+        cow_copies.append((tuple(sorted(cache)), same))
+        return cache
+
+    api.cow_copy_block = checked_cow
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     pk.reset_launch_counts()                  # main path starts here
     all_stats = []
-    for name, reqs in waves:
-        stats = srv.serve(reqs)
-        all_stats.append((name, reqs, stats,
-                          srv.metrics.counter_value("serving.cow.resolves")))
+    try:
+        for name, reqs in waves:
+            stats = srv.serve(reqs)
+            all_stats.append((name, reqs, stats, srv.metrics.counter_value(
+                "serving.cow.resolves")))
+    finally:
+        api.cow_copy_block = orig_cow
     launches = srv.launch_counts()            # main path ends here
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for name, reqs, st, cow in all_stats:
-        print(f"[serve] {name}: {int(st['requests'])} requests, "
+        print(f"[serve] {tag} {name}: {int(st['requests'])} requests, "
               f"{int(st['tokens'])} tokens in {st['seconds']:.2f} s = "
               f"{st['tokens_per_s']:.1f} tok/s; prefill "
               f"{st['prefill_seconds']:.2f} s / {int(st['chunk_steps'])} "
@@ -384,27 +455,39 @@ def phase_serve(cfg, params) -> dict:
         for r in reqs:
             want = min(r.max_new, max_len - len(r.prompt))
             if not r.done or len(r.output) != want:
-                fail(f"{name} request {r.rid}: done={r.done}, "
+                fail(f"{tag} {name} request {r.rid}: done={r.done}, "
                      f"{len(r.output)} tokens, expected {want}")
             if not all(0 <= t < cfg.vocab_size for t in r.output):
-                fail(f"{name} request {r.rid}: token out of vocab")
-    print(f"[serve] peak memory {peak_gb:.2f} GB; launch counts "
-          f"{launches}", flush=True)
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path was never launched: {launches}")
+                fail(f"{tag} {name} request {r.rid}: token out of vocab")
+    kv_bytes = all_stats[0][2]["kv_bytes_per_device"]
+    print(f"[serve] {tag} peak memory {peak_gb:.2f} GB; KV pool "
+          f"{kv_bytes / 1e9:.4f} GB; launch counts {launches}; "
+          f"copy-on-write copies checked {len(cow_copies)}, leaves "
+          f"{cow_copies[0][0] if cow_copies else ()}", flush=True)
+    keys = (("paged_decode_fp8", "paged_chunk_fp8") if fp8
+            else ("paged_decode", "paged_chunk"))
+    if min(launches[k] for k in keys) <= 0:
+        fail(f"a kernel of the {tag} path was never launched: {launches}")
     if all_stats[1][3] <= 0 or all_stats[1][2]["prefix_hit_requests"] <= 0:
-        fail("the sysprompt wave hit no prefix / resolved no copy-on-write")
-    return launches
+        fail(f"the {tag} sysprompt wave hit no prefix / resolved no "
+             "copy-on-write")
+    if len(cow_copies) != sum(st[3] for st in all_stats) or \
+            not all(same for _, same in cow_copies):
+        fail(f"a {tag} copy-on-write did not copy every leaf: {cow_copies}")
+    if fp8 and not all("k_scale" in leaves for leaves, _ in cow_copies):
+        fail("an fp8 copy-on-write ran on a cache without scales")
+    return launches, kv_bytes
 
 
 # ----------------------------------------------------------------------
 # 6. where the time goes
 # ----------------------------------------------------------------------
 
-def phase_profile(cfg, params) -> None:
+def phase_profile(cfg, params, quant=None) -> None:
     """Wall and device time of one full-width decode step and one chunk
     step (B=8, 128 cached tokens per slot) through the kernels, with
-    the kernels that take the most device time (torch.profiler)."""
+    the kernels that take the most device time (torch.profiler).  With
+    `quant` (fp8 linears) the pool is e4m3 too."""
     import collections
     import torch
     from torch.autograd import DeviceType
@@ -412,8 +495,9 @@ def phase_profile(cfg, params) -> None:
     from repro_torch.models import api
     B, bs, C, steps = 8, 16, 16, 5
     MB = -(-264 // bs)
+    fp8 = quant is not None
     cache = api.init_cache(cfg, B, 264, block_size=bs, num_blocks=B * MB,
-                           device=DEVICE)
+                           device=DEVICE, fp8_kv=fp8)
     bt = torch.arange(B * MB, dtype=torch.int32,
                       device=DEVICE).reshape(B, MB)
     pos = torch.full((B,), 128, dtype=torch.int32, device=DEVICE)
@@ -422,9 +506,10 @@ def phase_profile(cfg, params) -> None:
     n_tok = torch.full((B,), C, dtype=torch.int32, device=DEVICE)
     units = {
         "decode_step": lambda: api.decode_step(cfg, params, cache, tok, pos,
-                                               bt, kernel=True),
+                                               bt, kernel=True, quant=quant),
         "chunk_step": lambda: api.chunk_step(cfg, params, cache, toks, pos,
-                                             n_tok, bt, kernel=True),
+                                             n_tok, bt, kernel=True,
+                                             quant=quant),
     }
     for name, fn in units.items():
         for _ in range(2):
@@ -453,42 +538,60 @@ def phase_profile(cfg, params) -> None:
         busy = (f"device {dev:.2f} ms ({dev / wall:.0%} busy); top kernels "
                 f"(ms per step): {top}" if dev else
                 "device time not measured (the profiler saw no kernel)")
-        print(f"[profile] {name} B={B} kv=128: wall {wall:.2f} ms, {busy}",
-              flush=True)
+        print(f"[profile] {'fp8 ' if fp8 else ''}{name} B={B} kv=128: wall "
+              f"{wall:.2f} ms, {busy}", flush=True)
 
 
 # ----------------------------------------------------------------------
 # 7. served tokens against the plain path on a small input
 # ----------------------------------------------------------------------
 
-def _plain_logits(cfg, params, seq, device) -> "torch.Tensor":
-    """Logits after `seq` through the plain gather path (batch 1)."""
-    import torch
-    from repro_torch.models import api
-    C, bs = 8, 8
-    MB = -(-len(seq) // bs) + 1
-    cache = api.init_cache(cfg, 1, MB * bs, block_size=bs, num_blocks=MB,
-                           device=device)
-    bt = torch.arange(MB, dtype=torch.int32, device=device)[None]
-    seq = torch.as_tensor(seq, dtype=torch.int32, device=device)
-    for off in range(0, len(seq), C):
-        chunk = seq[off:off + C]
-        toks = torch.zeros((1, C), dtype=torch.int32, device=device)
-        toks[0, :len(chunk)] = chunk
-        logits, _ = api.chunk_step(
-            cfg, params, cache, toks,
-            torch.tensor([off], dtype=torch.int32, device=device),
-            torch.tensor([len(chunk)], dtype=torch.int32, device=device),
-            bt, kernel=False)
-    return logits[0].float()
+def _serve_recording(srv, reqs) -> dict:
+    """Serve `reqs` on `srv`, recording every occupied slot's logits at
+    every serving step under (rid, index of the output token emitted at
+    that step's emission position), with the step number.  Slots
+    mid-prompt get negative indices, finished slots in a span indices
+    past their output: neither is read."""
+    from repro_torch.runtime import server as server_mod
+    rec = {"steps": 0}
+    api = server_mod.api
+    chunk_step, decode_step = api.chunk_step, api.decode_step
+
+    def store(logits, emit_pos):
+        rec["steps"] += 1
+        for s, r in enumerate(srv.slot_req):
+            if r is not None:
+                rec[(r.rid, int(emit_pos[s]) - len(r.prompt))] = (
+                    rec["steps"], logits[s].float().cpu())
+
+    def chunk(cfg, params, cache, tokens, pos, n_tokens, bt, **kw):
+        logits, cache = chunk_step(cfg, params, cache, tokens, pos,
+                                   n_tokens, bt, **kw)
+        store(logits, pos + n_tokens)
+        return logits, cache
+
+    def decode(cfg, params, cache, tok, pos, bt, **kw):
+        logits, cache = decode_step(cfg, params, cache, tok, pos, bt, **kw)
+        store(logits, pos + 1)
+        return logits, cache
+
+    api.chunk_step, api.decode_step = chunk, decode
+    try:
+        srv.serve(reqs)
+    finally:
+        api.chunk_step, api.decode_step = chunk_step, decode_step
+    return rec
 
 
-def phase_small() -> None:
+def phase_small(fp8: bool) -> None:
     """The reduced yi-6b (2 layers, d_model 64, G=2) served through the
     kernels on the card and through the plain versions on the CPU, with
     the same weights: the token streams must be equal, except that a
-    stream may part where the CPU path's own top-2 logit margin is
-    within SMALL_MARGIN (two bf16 roundings apart can pick either)."""
+    stream may part where the CPU run's own top-2 logit margin at that
+    step is within the margin (two roundings apart can pick either).
+    With fp8 linears the activation scale is one per call over the
+    whole batch, so once a stream parts the other slots' inputs change:
+    only the partings at the first parting step are held there."""
     import dataclasses
     import torch
     from repro_torch.configs import reduced_config
@@ -497,6 +600,7 @@ def phase_small() -> None:
                                             sharegpt_like_requests)
     cfg = dataclasses.replace(reduced_config("yi-6b"), num_kv_heads=2)
     cpu_params = api.init(cfg, 0, device="cpu")
+    margin = SMALL_FP8_MARGIN if fp8 else SMALL_MARGIN
 
     def to(tree, device):
         if isinstance(tree, torch.Tensor):
@@ -509,25 +613,37 @@ def phase_small() -> None:
     for device, params in (("cpu", cpu_params), (DEVICE, to(cpu_params,
                                                             DEVICE))):
         rs = clone_requests(reqs)
-        ChunkedServer(cfg, params, batch_slots=4, max_len=56, chunk=8,
-                      span=4, block_size=8, device=device).serve(rs)
+        srv = ChunkedServer(cfg, params, batch_slots=4, max_len=56, chunk=8,
+                            span=4, block_size=8, fp8_kv=fp8,
+                            fp8_linear=fp8, device=device)
+        if device == "cpu":
+            rec = _serve_recording(srv, rs)
+        else:
+            srv.serve(rs)
         outs[device] = [r.output for r in rs]
-    equal = parted = 0
+    partings = []
     for r, a, b in zip(reqs, outs["cpu"], outs[DEVICE]):
-        if a == b:
-            equal += 1
+        if len(a) != len(b):
+            fail(f"small input, request {r.rid}: {len(a)} CPU tokens, "
+                 f"{len(b)} card tokens")
+        if a != b:
+            j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            step, lg = rec[(r.rid, j)]
+            partings.append((step, r.rid, j, lg, b[j]))
+    first = min((p[0] for p in partings), default=0)
+    for step, rid, j, lg, tok in partings:
+        if fp8 and step > first:
             continue
-        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        lg = _plain_logits(cfg, cpu_params,
-                           list(r.prompt) + a[:j], "cpu")
-        margin = float(_top2_margin(lg))
-        if margin > SMALL_MARGIN or lg.max() - lg[b[j]] > SMALL_MARGIN:
-            fail(f"small input, request {r.rid}: card and CPU part at "
-                 f"token {j} where the CPU margin is {margin:.4f}")
-        parted += 1
-    print(f"[small] reduced yi-6b (G=2) card kernels vs CPU plain: "
-          f"{equal}/{len(reqs)} token streams equal, {parted} part at a "
-          f"top-2 margin within {SMALL_MARGIN}", flush=True)
+        gap = float(_top2_margin(lg))
+        if gap > margin or lg.max() - lg[tok] > margin:
+            fail(f"small input {'fp8' if fp8 else 'bf16'}, request {rid}: "
+                 f"card and CPU part at token {j} where the CPU margin is "
+                 f"{gap:.4f}")
+    print(f"[small] reduced yi-6b (G=2) {'fp8_kv + fp8 linears' if fp8 else 'bf16'}"
+          f" card kernels vs CPU plain: {len(reqs) - len(partings)}/"
+          f"{len(reqs)} token streams equal, {len(partings)} part "
+          f"({sum(p[0] == first for p in partings)} at the first parting "
+          f"step, each at a CPU top-2 margin within {margin})", flush=True)
 
 
 def main() -> None:
@@ -536,6 +652,7 @@ def main() -> None:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import api
+    from repro_torch.te import linear as te_linear
     phase_build()
     kernels = phase_kernels()
     cfg = get_config("yi-6b")
@@ -545,18 +662,38 @@ def main() -> None:
     print(f"[init] yi-6b full width, {cfg.param_count() / 1e9:.2f} B "
           f"params in bf16, {time.perf_counter() - t0:.1f} s", flush=True)
     phase_forward(cfg, params)
-    launches = phase_serve(cfg, params)
+    launches, kv_bytes = phase_serve(cfg, params)
     phase_profile(cfg, params)
+    t0 = time.perf_counter()
+    quant = te_linear.quantize_serving_params(params)
+    torch.cuda.synchronize()
+    print(f"[init] yi-6b layer weights quantized to e4m3 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_forward(cfg, params, quant)
+    phase_profile(cfg, params, quant)
+    del quant
+    fp8_launches, fp8_kv_bytes = phase_serve(cfg, params, fp8=True)
+    launches.update({k: v for k, v in fp8_launches.items()
+                     if k.endswith("_fp8")})
+    ratio = fp8_kv_bytes / kv_bytes
+    want = (cfg.head_dim + 4) / (2 * cfg.head_dim)
+    print(f"[serve] fp8 / bf16 KV pool bytes = {ratio} (expected {want})",
+          flush=True)
+    if ratio != want:
+        fail(f"fp8 KV pool is {ratio} of the bf16 pool, not {want}")
     del params
-    phase_small()
+    phase_small(fp8=False)
+    phase_small(fp8=True)
     line = []
-    for kind, line_no in (("decode", 163), ("chunk", 252)):
-        r = kernels[(kind, "yi-6b", "bfloat16")]
+    for name, line_no in (("paged_decode", 163), ("paged_chunk", 252),
+                          ("paged_decode_fp8", 147),
+                          ("paged_chunk_fp8", 234)):
+        r = kernels[(name, "yi-6b", "bfloat16")]
         line.append({
-            "name": f"paged_{kind}", "route": "cuda",
+            "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": f"src/repro/kernels/paged_attention.py:{line_no}",
-            "launches": launches[f"paged_{kind}"],
+            "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

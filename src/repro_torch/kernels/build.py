@@ -43,6 +43,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # B, C, H, KH, bs, MB, scale, stream
         "paged_chunk_fwd": (_I, _I, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _F, _P),
+        # dtype, hd, q, k, v, k_scale, v_scale, block_table, kv_len, out,
+        # B, H, KH, bs, MB, scale, stream
+        "paged_decode_fp8_fwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _F, _P),
+        # dtype, hd, q, k, v, k_scale, v_scale, block_table, pos, out,
+        # B, C, H, KH, bs, MB, scale, stream
+        "paged_chunk_fp8_fwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _F, _P),
     },
 }
 

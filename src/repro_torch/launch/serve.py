@@ -8,6 +8,9 @@ weights from ``--seed``, on the CUDA device by default; ``--device cpu``
 runs the same path with the kernels' plain versions.  ``--workload
 sysprompt`` serves the shared-prefix mix and prints the radix prefix
 cache's hit-rate stats; ``--no-prefix-cache`` turns the cache off.
+``--fp8-kv`` stores the KV pool as e4m3 codes + per-row scales (read by
+the fp8 kernels) and ``--fp8-linear`` serves the projections through
+fp8-quantized weights.
 """
 
 from __future__ import annotations
@@ -41,6 +44,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
                          "slots * ceil(max_len / block_size))")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable the radix-tree prefix cache")
+    ap.add_argument("--fp8-kv", action="store_true",
+                    help="store the paged KV pool as fp8 e4m3 codes + "
+                         "per-row f32 scales ((hd+4)/(2*hd) of the bf16 "
+                         "pool's bytes), read by the fp8 kernels")
+    ap.add_argument("--fp8-linear", action="store_true",
+                    help="serve the projection/MLP matmuls through "
+                         "fp8-quantized weights (te/linear)")
     ap.add_argument("--eos-id", type=int, default=None,
                     help="stop a request when it emits this token id; "
                          "default: length-only stopping")
@@ -67,7 +77,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                         block_size=args.block_size,
                         num_blocks=args.pool_blocks,
                         prefix_cache=not args.no_prefix_cache,
-                        eos_id=args.eos_id, device=args.device)
+                        eos_id=args.eos_id, fp8_kv=args.fp8_kv,
+                        fp8_linear=args.fp8_linear, device=args.device)
     if args.workload == "sysprompt":
         if args.max_input < 2:
             raise SystemExit(
@@ -86,6 +97,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     stats = srv.serve(reqs)
     print(f"arch={args.arch} device={srv.device} "
           f"workload={args.workload} "
+          f"fp8_kv={args.fp8_kv} fp8_linear={args.fp8_linear} "
           f"requests={int(stats['requests'])} "
           f"tokens={int(stats['tokens'])} "
           f"throughput={stats['tokens_per_s']:.1f} tok/s "

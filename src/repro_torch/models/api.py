@@ -3,7 +3,9 @@
 PyTorch counterpart of ``repro/models/api.py`` for the dense family:
 
     param_shapes / init                     parameters
-    init_cache / decode_step / chunk_step   paged serving
+    init_cache / decode_step / chunk_step   paged serving (bf16 or fp8
+                                            KV pool; ``quant=`` fp8
+                                            linears)
     cow_copy_block                          copy-on-write pool block copy
 
 Entry points run on the CUDA device unless the caller passes another
@@ -54,30 +56,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, paged: bool = True,
                block_size: int = 16, num_blocks: Optional[int] = None,
                device=None, fp8_kv: bool = False) -> Params:
+    """``fp8_kv`` stores the pool as e4m3 codes + per-row float32
+    scales, read by the fp8 kernels."""
     _dense_only(cfg)
-    if fp8_kv:
-        raise NotImplementedError("fp8_kv is not ported yet")
     return transformer.init_cache(cfg, batch, max_len, dtype, paged=paged,
                                   block_size=block_size,
                                   num_blocks=num_blocks,
-                                  device=common.resolve_device(device))
+                                  device=common.resolve_device(device),
+                                  fp8_kv=fp8_kv)
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 token: torch.Tensor, pos, block_table: torch.Tensor,
-                *, kernel: bool = False) -> Tuple[torch.Tensor, Params]:
+                *, kernel: bool = False, quant: Optional[Params] = None
+                ) -> Tuple[torch.Tensor, Params]:
     """``kernel=True`` reads the paged pool through the CUDA
     block-table kernel (its plain version for CPU tensors);
-    ``kernel=False`` is the gather oracle."""
+    ``kernel=False`` is the gather oracle.  ``quant`` (te/linear.
+    quantize_serving_params output) serves the linears in fp8."""
     _dense_only(cfg)
     with torch.no_grad():
         return transformer.decode_step(cfg, params, cache, token, pos,
-                                       block_table, kernel=kernel)
+                                       block_table, kernel=kernel,
+                                       quant=quant)
 
 
 def chunk_step(cfg: ModelConfig, params: Params, cache: Params,
                tokens: torch.Tensor, pos, n_tokens: torch.Tensor,
-               block_table: torch.Tensor, *, kernel: bool = False
+               block_table: torch.Tensor, *, kernel: bool = False,
+               quant: Optional[Params] = None
                ) -> Tuple[torch.Tensor, Params]:
     """Chunk-write serving step: per slot, write `n_tokens[b]` of the
     C-wide `tokens[b]` into the pool at `pos[b]` and return logits at
@@ -85,14 +92,19 @@ def chunk_step(cfg: ModelConfig, params: Params, cache: Params,
     _dense_only(cfg)
     with torch.no_grad():
         return transformer.chunk_step(cfg, params, cache, tokens, pos,
-                                      n_tokens, block_table, kernel=kernel)
+                                      n_tokens, block_table, kernel=kernel,
+                                      quant=quant)
 
 
 def cow_copy_block(cfg: ModelConfig, cache: Params, src: int,
                    dst: int) -> Params:
-    """Copy physical pool block `src` to `dst` in every layer, in place
-    (the serving runtime's copy-on-write for a shared prefix block)."""
+    """Copy physical pool block `src` to `dst` in every layer and every
+    leaf of the cache (the fp8 layout's scales too), in place: the
+    serving runtime's copy-on-write for a shared prefix block."""
     _dense_only(cfg)
     from repro_torch.models import attention
     attention.copy_paged_block(cache["k"], cache["v"], src, dst)
+    if "k_scale" in cache:
+        attention.copy_paged_block(cache["k_scale"], cache["v_scale"], src,
+                                   dst)
     return cache

@@ -1,16 +1,19 @@
 """GQA serving attention over a paged KV pool.
 
 PyTorch counterpart of the serving half of ``repro/models/attention.py``:
-projections, the plain decode/chunk attention over a gathered cache
-view, and the paged block pool (init, gather, in-place scatter, COW
-block copy).  ``paged_decode_attention`` / ``paged_chunk_attention``
-route through the hand-written CUDA kernels of
-``repro_torch/kernels/paged_attention.py``.
+projections (bf16, or through pre-quantized fp8 weights), the plain
+decode/chunk attention over a gathered cache view, and the paged block
+pool (init, gather, in-place scatter, COW block copy) in bf16/float32
+or as e4m3 codes with per-row scales.  ``paged_decode_attention`` /
+``paged_chunk_attention`` route through the hand-written CUDA kernels
+of ``repro_torch/kernels/paged_attention.py``.
 
 Paged layout: one shared pool [num_blocks, block_size, KH, hd] per
 layer plus a per-slot table block_table [B, max_blocks] int32 mapping
 logical block i (virtual positions [i*bs, (i+1)*bs)) to a physical
-pool block; -1 marks an unallocated entry.
+pool block; -1 marks an unallocated entry.  The fp8 layout adds
+"k_scale"/"v_scale" [.., NB, bs, KH, 1] float32: one scale per token
+row per kv head.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.models.common import ParamSpec, fixed_tree_sum
+from repro_torch.te import fp8 as te_fp8
+from repro_torch.te import linear as te_linear
 
 NEG_INF = -1e30
 
@@ -60,6 +65,29 @@ def qkv_project(cfg, p, x: torch.Tensor
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
     return q, k, v
+
+
+def qkv_project_fp8(cfg, p, q8, x: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fp8 serving variant of `qkv_project`: x through weights
+    pre-quantized to e4m3 by te/linear.quantize_serving_params, with a
+    fresh per-call activation scale.  Biases, if any, stay in the bf16
+    params `p`."""
+    q = te_linear.fp8_serving_dot(x, q8["wq"])
+    k = te_linear.fp8_serving_dot(x, q8["wk"])
+    v = te_linear.fp8_serving_dot(x, q8["wv"])
+    if cfg.use_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return q, k, v
+
+
+def out_project_fp8(p, q8, o: torch.Tensor) -> torch.Tensor:
+    """fp8 serving variant of `out_project`: one fp8 product over the
+    (head, head_dim) contraction, no grouped reduction."""
+    return te_linear.fp8_serving_dot(o, q8["wo"], x_contract_ndim=2,
+                                     w_contract_ndim=2)
 
 
 def out_project(p, o: torch.Tensor, *, groups: int = 0) -> torch.Tensor:
@@ -149,12 +177,23 @@ def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def init_paged_kv_cache(num_blocks: int, block_size: int, kv_heads: int,
                         head_dim: int, *, layers: int,
-                        dtype=torch.bfloat16, device=None
-                        ) -> Dict[str, torch.Tensor]:
-    """Stacked block pool {"k", "v"}: [L, NB, bs, KH, hd] zeros."""
+                        dtype=torch.bfloat16, device=None,
+                        fp8: bool = False) -> Dict[str, torch.Tensor]:
+    """Stacked block pool {"k", "v"}: [L, NB, bs, KH, hd] zeros.  With
+    ``fp8=True`` the pools hold e4m3 codes and "k_scale"/"v_scale"
+    [L, NB, bs, KH, 1] float32 ones hold one scale per token row per kv
+    head (te/fp8.quantize_rowwise at row = pool row)."""
     shape = (layers, num_blocks, block_size, kv_heads, head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if not fp8:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    sshape = shape[:-1] + (1,)
+    return {"k": torch.zeros(shape, dtype=te_fp8.E4M3, device=device),
+            "v": torch.zeros(shape, dtype=te_fp8.E4M3, device=device),
+            "k_scale": torch.ones(sshape, dtype=torch.float32,
+                                  device=device),
+            "v_scale": torch.ones(sshape, dtype=torch.float32,
+                                  device=device)}
 
 
 def gather_paged_cache(ck: torch.Tensor, cv: torch.Tensor,
@@ -168,6 +207,28 @@ def gather_paged_cache(ck: torch.Tensor, cv: torch.Tensor,
     B, MB = bt.shape
     return (ck[bt].reshape(B, MB * bs, KH, hd),
             cv[bt].reshape(B, MB * bs, KH, hd))
+
+
+def gather_paged_cache_fp8(cache_layer: Dict[str, torch.Tensor],
+                           block_table: torch.Tensor,
+                           out_dtype=torch.bfloat16
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each slot's virtual view, dequantized, from an fp8 single-layer
+    cache {"k", "v", "k_scale", "v_scale"}: elementwise
+    ``(codes.float() * scale).to(out_dtype)``, the op the fp8 kernels
+    apply in-tile.  Same -1 clamp contract as `gather_paged_cache`.
+    The codes are indexed through a uint8 view of the same bytes."""
+    bt = block_table.long().clamp(min=0)
+    NB, bs, KH, hd = cache_layer["k"].shape
+    B, MB = bt.shape
+
+    def dq(pool, scale):
+        codes = pool.view(torch.uint8)[bt].view(pool.dtype)
+        x = (codes.float() * scale[bt]).to(out_dtype)
+        return x.reshape(B, MB * bs, KH, hd)
+
+    return (dq(cache_layer["k"], cache_layer["k_scale"]),
+            dq(cache_layer["v"], cache_layer["v_scale"]))
 
 
 def paged_flat_idx(pos, block_table: torch.Tensor, C: int,
@@ -230,6 +291,29 @@ def update_paged_cache(ck: torch.Tensor, cv: torch.Tensor,
     _paged_scatter(cv, idx, valid, v1.reshape(B * C, KH, hd).to(cv.dtype))
 
 
+def update_paged_cache_fp8(cache_layer: Dict[str, torch.Tensor],
+                           k1: torch.Tensor, v1: torch.Tensor, pos,
+                           block_table: torch.Tensor) -> None:
+    """fp8 variant of `update_paged_cache` on a single-layer cache
+    {"k", "v", "k_scale", "v_scale"}, in place: quantize the step's k/v
+    rows to e4m3 with one float32 scale per token row per kv head
+    (te/fp8.quantize_rowwise) and scatter codes and scales through the
+    same flat-index/drop contract.  The codes are scattered through
+    uint8 views of the same bytes (PyTorch has no float8
+    ``index_copy_``)."""
+    ck = cache_layer["k"]
+    NB, bs, KH, hd = ck.shape
+    B, C = k1.shape[:2]
+    idx, valid = paged_flat_idx(pos, block_table, C, bs)
+    idx, valid = idx.reshape(-1), valid.reshape(-1)
+    for name, x in (("k", k1), ("v", v1)):
+        codes, scale = te_fp8.quantize_rowwise(x, ck.dtype)
+        _paged_scatter(cache_layer[name].view(torch.uint8), idx, valid,
+                       codes.view(torch.uint8).reshape(B * C, KH, hd))
+        _paged_scatter(cache_layer[name + "_scale"], idx, valid,
+                       scale.reshape(B * C, KH, 1))
+
+
 def copy_paged_block(ck: torch.Tensor, cv: torch.Tensor, src: int,
                      dst: int) -> None:
     """Copy-on-write helper: duplicate physical block `src` into `dst`
@@ -245,17 +329,29 @@ def copy_paged_block(ck: torch.Tensor, cv: torch.Tensor, src: int,
 
 def paged_decode_attention(q: torch.Tensor, ck: torch.Tensor,
                            cv: torch.Tensor, block_table: torch.Tensor,
-                           kv_len) -> torch.Tensor:
+                           kv_len, *, k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Paged decode: the block-table walk runs inside the CUDA kernel
-    (kernels/paged_attention.paged_decode)."""
+    (kernels/paged_attention.paged_decode, or paged_decode_fp8 over an
+    e4m3 pool when `k_scale`/`v_scale` are given)."""
     from repro_torch.kernels import paged_attention as pk
-    return pk.paged_decode(q, ck, cv, block_table, kv_len)
+    if k_scale is None:
+        return pk.paged_decode(q, ck, cv, block_table, kv_len)
+    return pk.paged_decode_fp8(q, ck, cv, block_table, kv_len,
+                               k_scale=k_scale, v_scale=v_scale)
 
 
 def paged_chunk_attention(q: torch.Tensor, ck: torch.Tensor,
                           cv: torch.Tensor, block_table: torch.Tensor,
-                          pos) -> torch.Tensor:
+                          pos, *, k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Paged chunk attention; `pos` [B] is each slot's cache length
-    before the chunk (chunk_attention with q_positions = pos + arange(C))."""
+    before the chunk (chunk_attention with q_positions = pos + arange(C)).
+    With `k_scale`/`v_scale` the pools are e4m3 (paged_chunk_fp8)."""
     from repro_torch.kernels import paged_attention as pk
-    return pk.paged_chunk(q, ck, cv, block_table, pos)
+    if k_scale is None:
+        return pk.paged_chunk(q, ck, cv, block_table, pos)
+    return pk.paged_chunk_fp8(q, ck, cv, block_table, pos,
+                              k_scale=k_scale, v_scale=v_scale)

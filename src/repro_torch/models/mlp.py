@@ -7,6 +7,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.models.common import ParamSpec, activation, fixed_tree_sum
+from repro_torch.te import linear as te_linear
 
 
 def mlp_specs(cfg, d_model: Optional[int] = None,
@@ -47,6 +48,23 @@ def mlp(cfg, p, x: torch.Tensor, *, groups: int = 0) -> torch.Tensor:
         y = fixed_tree_sum(parts).to(dt)
     else:
         y = h @ p["w_down"].to(dt)
+    if cfg.use_bias:
+        y = y + p["b_down"].to(dt)
+    return y
+
+
+def mlp_fp8(cfg, p, q8, x: torch.Tensor) -> torch.Tensor:
+    """fp8 serving variant of `mlp`: the three products through weights
+    pre-quantized by te/linear.quantize_serving_params, with per-call
+    activation scales; no grouped reduction.  Biases stay in `p`."""
+    dt = x.dtype
+    up = te_linear.fp8_serving_dot(x, q8["w_up"])
+    if cfg.use_bias:
+        up = up + p["b_up"].to(dt)
+    gate = (te_linear.fp8_serving_dot(x, q8["w_gate"])
+            if "w_gate" in q8 else None)
+    h = activation(cfg, up, gate)
+    y = te_linear.fp8_serving_dot(h, q8["w_down"])
     if cfg.use_bias:
         y = y + p["b_down"].to(dt)
     return y

@@ -91,11 +91,14 @@ def serving_det_groups(cfg) -> Tuple[int, int]:
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
                paged: bool = True, block_size: int = 16,
-               num_blocks: Optional[int] = None, device=None) -> Params:
+               num_blocks: Optional[int] = None, device=None,
+               fp8_kv: bool = False) -> Params:
     """Paged block pool [L, num_blocks, block_size, KH, hd] addressed
     through a per-slot block table.  The default pool matches the
     contiguous capacity (batch * ceil(max_len / block_size) blocks).
-    The contiguous layout of the reference is not ported yet."""
+    ``fp8_kv`` stores e4m3 codes + per-row float32 scales
+    (attention.init_paged_kv_cache).  The contiguous layout of the
+    reference is not ported yet."""
     if not paged:
         raise NotImplementedError("the contiguous KV layout (paged=False) "
                                   "is not ported yet")
@@ -104,45 +107,69 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
     return attn.init_paged_kv_cache(num_blocks, block_size,
                                     cfg.num_kv_heads, cfg.head_dim,
                                     layers=cfg.num_layers, dtype=dtype,
-                                    device=device)
+                                    device=device, fp8=fp8_kv)
 
 
 def _cache_attend(q, k1, v1, cl, pos, positions, block_table, *,
                   decode: bool, kernel: bool) -> torch.Tensor:
-    """Write a window's k/v into one layer's pools `cl` ({"k","v"}, in
-    place) and attend over the result.  ``kernel=True`` reads through
-    the CUDA block-table kernels; ``kernel=False`` gathers the virtual
-    view and runs the plain attention (the A/B oracle)."""
-    attn.update_paged_cache(cl["k"], cl["v"], k1, v1, pos, block_table)
+    """Write a window's k/v into one layer's pools `cl` (in place: bf16
+    {"k","v"}, or fp8 {"k","v","k_scale","v_scale"}, detected by key)
+    and attend over the result.  ``kernel=True`` reads through the CUDA
+    block-table kernels; ``kernel=False`` gathers the virtual view and
+    runs the plain attention (the A/B oracle)."""
+    if "k_scale" in cl:
+        attn.update_paged_cache_fp8(cl, k1, v1, pos, block_table)
+        scales = {"k_scale": cl["k_scale"], "v_scale": cl["v_scale"]}
+    else:
+        attn.update_paged_cache(cl["k"], cl["v"], k1, v1, pos, block_table)
+        scales = {}
     if kernel:
         if decode:
             return attn.paged_decode_attention(q, cl["k"], cl["v"],
-                                               block_table, pos + 1)
+                                               block_table, pos + 1,
+                                               **scales)
         return attn.paged_chunk_attention(q, cl["k"], cl["v"],
-                                          block_table, pos)
-    kg, vg = attn.gather_paged_cache(cl["k"], cl["v"], block_table)
+                                          block_table, pos, **scales)
+    if scales:
+        kg, vg = attn.gather_paged_cache_fp8(cl, block_table,
+                                             out_dtype=q.dtype)
+    else:
+        kg, vg = attn.gather_paged_cache(cl["k"], cl["v"], block_table)
     if decode:
         return attn.decode_attention(q, kg, vg, pos + 1)
     return attn.chunk_attention(q, kg, vg, positions)
 
 
 def _serving_scan(cfg, params, cache, x, pos, positions, block_table, *,
-                  decode: bool, kernel: bool) -> torch.Tensor:
+                  decode: bool, kernel: bool,
+                  quant: Optional[Params] = None) -> torch.Tensor:
     """All layers over x [B, S, d] (each layer's pools updated in
-    place), then the final norm."""
+    place), then the final norm.  ``quant`` (te/linear.
+    quantize_serving_params output) routes the projections and the MLP
+    through the pre-quantized fp8 weights."""
     ga, gm = serving_det_groups(cfg)
     for i in range(cfg.num_layers):
         lp = layer_slice(params["layers"], i)
-        cl = {"k": cache["k"][i], "v": cache["v"][i]}
+        qlp = None if quant is None else layer_slice(quant["layers"], i)
+        cl = {k: leaf[i] for k, leaf in cache.items()}
         h = apply_norm(cfg, x, lp["ln1"])
-        q, k1, v1 = attn.qkv_project(cfg, lp["attn"], h)
+        if qlp is None:
+            q, k1, v1 = attn.qkv_project(cfg, lp["attn"], h)
+        else:
+            q, k1, v1 = attn.qkv_project_fp8(cfg, lp["attn"], qlp["attn"], h)
         q = apply_rope(q, positions, cfg.rope_theta)
         k1 = apply_rope(k1, positions, cfg.rope_theta)
         o = _cache_attend(q, k1, v1, cl, pos, positions, block_table,
                           decode=decode, kernel=kernel)
-        x = x + attn.out_project(lp["attn"], o, groups=ga)
+        if qlp is None:
+            x = x + attn.out_project(lp["attn"], o, groups=ga)
+        else:
+            x = x + attn.out_project_fp8(lp["attn"], qlp["attn"], o)
         h = apply_norm(cfg, x, lp["ln2"])
-        x = x + mlp_mod.mlp(cfg, lp["mlp"], h, groups=gm)
+        if qlp is None:
+            x = x + mlp_mod.mlp(cfg, lp["mlp"], h, groups=gm)
+        else:
+            x = x + mlp_mod.mlp_fp8(cfg, lp["mlp"], qlp["mlp"], h)
     return apply_norm(cfg, x, params["final_norm"])
 
 
@@ -158,23 +185,26 @@ def _per_slot_pos(pos, B: int, device) -> torch.Tensor:
 
 
 def decode_step(cfg, params, cache: Params, token: torch.Tensor, pos,
-                block_table: torch.Tensor, *, kernel: bool = False
+                block_table: torch.Tensor, *, kernel: bool = False,
+                quant: Optional[Params] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  token [B]; pos scalar or [B] int32 (current
     length): each layer writes its k/v at `pos` through the table and
-    attends to positions <= pos.  Returns (logits [B, vocab], cache);
-    the cache is the same pool, updated in place."""
+    attends to positions <= pos.  ``quant`` routes the linears through
+    pre-quantized fp8 weights.  Returns (logits [B, vocab], cache); the
+    cache is the same pool, updated in place."""
     B = token.shape[0]
     pos = _per_slot_pos(pos, B, token.device)
     x = _embed(params, token)[:, None, :]                 # [B,1,d]
     x = _serving_scan(cfg, params, cache, x, pos, pos[:, None],
-                      block_table, decode=True, kernel=kernel)
+                      block_table, decode=True, kernel=kernel, quant=quant)
     return logits_fn(cfg, params, x)[:, 0], cache
 
 
 def chunk_step(cfg, params, cache: Params, tokens: torch.Tensor, pos,
                n_tokens: torch.Tensor, block_table: torch.Tensor, *,
-               kernel: bool = False) -> Tuple[torch.Tensor, Params]:
+               kernel: bool = False, quant: Optional[Params] = None
+               ) -> Tuple[torch.Tensor, Params]:
     """One chunked-prefill/decode step for a batch of server slots.
 
     tokens [B,C] int32 — per slot, the next `n_tokens[b]` tokens of its
@@ -189,7 +219,7 @@ def chunk_step(cfg, params, cache: Params, tokens: torch.Tensor, pos,
     positions = pos[:, None] + torch.arange(C, dtype=torch.int32,
                                             device=tokens.device)[None, :]
     x = _serving_scan(cfg, params, cache, x, pos, positions, block_table,
-                      decode=False, kernel=kernel)
+                      decode=False, kernel=kernel, quant=quant)
     last = (n_tokens.long() - 1).clamp(0, C - 1)          # [B]
     h_last = torch.gather(x, 1, last[:, None, None].expand(B, 1,
                                                             x.shape[-1]))

@@ -23,10 +23,16 @@ other way (tolerances in kernels/paged_attention.py).  Greedy tokens
 can therefore differ from the gather path where two logits are within
 that rounding of each other.
 
+``fp8_kv=True`` stores the pool as e4m3 codes plus one float32 scale
+per token row per kv head, (hd+4)/(2*hd) of the bf16 pool's bytes,
+read by the fp8 kernels; ``fp8_linear=True`` quantizes every layer
+weight to e4m3 once at init (te/linear.quantize_serving_params) and
+serves each projection through te/linear.fp8_serving_dot.  Both change
+numerics within fp8 rounding, as in the reference.
+
 Not ported yet: the contiguous layout (``paged=False``), speculative
-decoding, sampling, fp8 KV and fp8 linears, tensor parallelism, open-
-loop serving and the slot baseline; passing any of those options
-raises ``NotImplementedError``.
+decoding, sampling, tensor parallelism, open-loop serving and the slot
+baseline; passing any of those options raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from repro_torch.models.common import resolve_device
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
 from repro_torch.runtime.prefix_cache import BlockPool, RadixPrefixCache
+from repro_torch.te import linear as te_linear
 
 Params = Any
 
@@ -142,7 +149,6 @@ class ChunkedServer:
                  sampling=None, tracer: Optional[Tracer] = None,
                  device=None):
         deferred = {"paged=False": not paged, "spec_decode": spec_decode,
-                    "fp8_kv": fp8_kv, "fp8_linear": fp8_linear,
                     "tp": tp != 1, "mesh": mesh is not None,
                     "sampling": sampling is not None}
         for name, on in deferred.items():
@@ -154,6 +160,11 @@ class ChunkedServer:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
+        self.fp8_kv = bool(fp8_kv)
+        # fp8_linear is tp=1 and dense only, as in the reference; the
+        # port has neither tp nor other families yet, checked above
+        self._quant = (te_linear.quantize_serving_params(params)
+                       if fp8_linear else None)
         self.B = batch_slots
         self.max_len = max_len
         self.chunk = chunk
@@ -173,7 +184,7 @@ class ChunkedServer:
         self.cache = api.init_cache(cfg, batch_slots, max_len,
                                     block_size=block_size,
                                     num_blocks=self.num_blocks,
-                                    device=self.device)
+                                    device=self.device, fp8_kv=self.fp8_kv)
         self.block_table = np.full((batch_slots, self.max_blocks), -1,
                                    np.int32)
         self.pool = BlockPool(self.num_blocks)
@@ -212,7 +223,8 @@ class ChunkedServer:
                 kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                 spec_decode=0, tp=1, paged=True,
                 block_size=self.block_size, max_blocks=self.max_blocks,
-                num_blocks=self.num_blocks, kv_read_mode="kernel")
+                num_blocks=self.num_blocks,
+                kv_read_mode="fp8_kernel" if self.fp8_kv else "kernel")
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         """Host->device copy of a scheduler operand (a few hundred
@@ -224,8 +236,8 @@ class ChunkedServer:
             torch.cuda.synchronize(self.device)
 
     def launch_counts(self) -> Dict[str, int]:
-        """Launches of the two paged-attention kernels in this process
-        (the wrappers' counts; CPU runs launch none)."""
+        """Launches of the paged-attention kernels in this process (the
+        wrappers' counts, bf16 and fp8 bodies; CPU runs launch none)."""
         return pk.launch_counts()
 
     # -- device work units ------------------------------------------------
@@ -237,7 +249,7 @@ class ChunkedServer:
                              self.cur_tok[:, None], tokens_host)
         logits, self.cache = api.chunk_step(
             self.cfg, self.params, self.cache, tokens, pos, n_tokens,
-            block_table, kernel=True)
+            block_table, kernel=True, quant=self._quant)
         # greedy head: argmax of the bf16 logits, first index on ties
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         self.cur_tok = torch.where(emit, nxt, self.cur_tok)
@@ -252,7 +264,7 @@ class ChunkedServer:
         for _ in range(self.span):
             logits, self.cache = api.decode_step(
                 self.cfg, self.params, self.cache, tok, pos, block_table,
-                kernel=True)
+                kernel=True, quant=self._quant)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             idx = out_len.long().clamp(0, self.max_len - 1)
             self.out_buf[self._rows, idx] = torch.where(
