@@ -39,9 +39,21 @@ last line):
               and through the plain versions on the CPU, bf16 and fp8:
               equal token streams, except where the CPU's own top-2
               margin is small.
-Each serve phase sets the launch counts to 0 just before its waves and
-reads them just after.  Then one JSON line of per-kernel numbers and,
-last, the contract line {"ok": true, "device": {...}}.
+  8. matmul — the tensor-core and async-copy kernels (matmul,
+              single_tile_matmul, fp8_matmul, pipelined_matmul) against
+              their plain versions at the dissection benchmarks' shapes
+              and at yi-6b's full-width MLP up-projection for a
+              2048-token prefill (M=2048, K=4096, N=11008): max abs
+              error within its limit, kernel ms (CUDA events), plain ms,
+              a one-call PyTorch yardstick the port never calls
+              (torch.matmul, torch._scaled_mm, torch._int_mm), the
+              bound and TFLOP/s; the SyncShare/AsyncPipe ratio per block
+              size; then the five dissection benchmarks
+              (repro_torch.benchmarks.run) through the kernels.
+Each serve phase, and phase 8's benchmark run, sets its kernels' launch
+counts to 0 just before its main path and reads them just after.  Then
+one JSON line of per-kernel numbers (eight kernels) and, last, the
+contract line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -104,18 +116,26 @@ def phase_card() -> dict:
 
 
 def phase_build() -> None:
+    """Every source of kernels/csrc, one nvcc each, all started
+    together; ptxas registers, shared memory and spills printed."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    path, secs, log = build.compile_source("paged_attention.cu",
-                                           ptxas_verbose=True)
-    print(f"[build] {os.path.relpath(path, ROOT)} "
-          f"{'built in %.1f s' % secs if secs else 'already built'}")
-    for line in log.splitlines():
-        if "ptxas" in line and ("registers" in line or "spill" in line
-                                or "Compiling" in line):
-            print(f"[build]   {line.strip()}")
-    build.load("paged_attention.cu")
-    print(f"[build] loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    sources = sorted(build.SIGNATURES)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(
+            lambda src: build.compile_source(src, ptxas_verbose=True),
+            sources))
+    for src, (path, secs, log) in zip(sources, built):
+        print(f"[build] {os.path.relpath(path, ROOT)} "
+              f"{'built in %.1f s' % secs if secs else 'already built'}")
+        for line in log.splitlines():
+            if "ptxas" in line and ("registers" in line or "spill" in line
+                                    or "Compiling" in line):
+                print(f"[build]   {line.strip()}")
+        build.load(src)
+    print(f"[build] {len(sources)} sources loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # ----------------------------------------------------------------------
@@ -646,6 +666,239 @@ def phase_small(fp8: bool) -> None:
           f"step, each at a CPU top-2 margin within {margin})", flush=True)
 
 
+# ----------------------------------------------------------------------
+# 8. tensor cores and async copy (paper Tables VI-XI, XIII/XIV)
+# ----------------------------------------------------------------------
+
+# yi-6b's MLP up-projection for a 2048-token prefill: M tokens, K
+# d_model, N d_ff
+FULL_WIDTH = (2048, 11008, 4096)
+# max |kernel - plain| over max |plain|: float32 outputs (and float32
+# outputs of bf16 products) differ only in the order of the float32
+# sums, a few float32 roundings; bf16 outputs round the same float32
+# sum, so at most one bf16 step (2**-7 of the value); integers exact
+MM_REL_LIMIT = {"float32": 1e-5, "bfloat16": 2.0 ** -7, "int32": 0.0}
+
+
+def _mm_inputs(dtype_name, M, N, K, seed):
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    if dtype_name == "int8":
+        return [torch.randint(-8, 8, shape, generator=g, device=DEVICE,
+                              dtype=torch.int8) for shape in ((M, K), (K, N))]
+    return [torch.randn(shape, generator=g, device=DEVICE).to(
+        getattr(torch, dtype_name)) for shape in ((M, K), (K, N))]
+
+
+def _mm_library(dtype_name, a, b, sx=None, sw=None):
+    """One PyTorch call computing the same product (a yardstick the port
+    never calls), or None where PyTorch has none for these inputs:
+    torch.matmul (TF32 off), torch._scaled_mm for e4m3, torch._int_mm
+    for int8 where its shape rules allow."""
+    import torch
+    if dtype_name == "float8_e5m2":
+        return None                     # _scaled_mm refuses e5m2 x e5m2
+    if dtype_name == "float8_e4m3fn":
+        bt = b.t().contiguous().t()     # column-major, made untimed
+        sx = sx.reshape(()).contiguous()
+        sw = sw.reshape(()).contiguous()
+        fn = lambda: torch._scaled_mm(a, bt, scale_a=sx, scale_b=sw,
+                                      out_dtype=torch.bfloat16)
+    elif dtype_name == "int8":
+        fn = lambda: torch._int_mm(a, b)
+    else:
+        fn = lambda: torch.matmul(a, b)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except RuntimeError:
+        return None
+    return fn
+
+
+def _mm_bound(dtype_name, M, N, K, in_elt, out_elt):
+    """Least time for the product: 2MNK operations at the dtype's peak
+    (hw.H100_SXM), or A and B read once and C written once at 3.35 TB/s,
+    whichever is longer."""
+    from repro_torch.core import hw
+    t_ops = 2.0 * M * N * K / hw.H100_SXM.peak_for(dtype_name) * 1e3
+    nbytes = (M * K + K * N) * in_elt + M * N * out_elt
+    t_bytes = nbytes / (hw.H100_SXM.hbm_gbps * 1e9) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def probe_native_fp8_mma() -> None:
+    """A finding, not a gate: does the native e4m3 mma.sync (m16n8k32)
+    compile for sm_90a (csrc/fp8_mma_probe.cu) and compute a 16x8x32
+    product equal to the plain one (exact products, float32 sums)?"""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    try:
+        path, _, _ = build.compile_source("fp8_mma_probe.cu")
+    except RuntimeError as e:
+        lines = [ln for ln in str(e).splitlines() if "rror" in ln]
+        print(f"[matmul] native e4m3 mma.sync m16n8k32 on sm_90a: nvcc "
+              f"refused it: {lines[0].strip() if lines else e}", flush=True)
+        return
+    fn = ctypes.CDLL(str(path)).fp8_mma_probe
+    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    a = torch.randn((16, 32), generator=g, device=DEVICE).to(
+        torch.float8_e4m3fn)
+    b = torch.randn((32, 8), generator=g, device=DEVICE).to(
+        torch.float8_e4m3fn)
+    c = torch.empty((16, 8), device=DEVICE)
+    err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err:
+        print(f"[matmul] native e4m3 mma.sync m16n8k32 on sm_90a: compiled, "
+              f"launch failed with CUDA error {err}", flush=True)
+        return
+    diff = (c - a.float() @ b.float()).abs().max().item()
+    print(f"[matmul] native e4m3 mma.sync m16n8k32 on sm_90a: compiled and "
+          f"ran; max |C - plain| = {diff:.3e}", flush=True)
+
+
+def phase_matmul() -> tuple:
+    """Each matrix-product kernel against its plain version on the card
+    at the benchmarks' shapes and at yi-6b's full-width MLP
+    up-projection, then the five dissection benchmarks through the
+    kernels.  Returns (results keyed (kernel, case, dtype, (M, N, K),
+    tiles), launch counts of the benchmark run)."""
+    import torch
+    from repro_torch.core import bench
+    from repro_torch.kernels import async_pipeline as apk
+    from repro_torch.kernels import fp8_matmul as f8k
+    from repro_torch.kernels import matmul as mmk
+    from repro_torch.benchmarks import run as _registers  # noqa: F401
+    M, N, K = FULL_WIDTH
+    e4m3, e5m2 = "float8_e4m3fn", "float8_e5m2"
+    cases = []          # kernel, case, dtype, (M, N, K), kwargs, iters
+    for dt in ("float32", "bfloat16", "int8"):
+        for shape in ((128, 128, 128), (128, 256, 128), (256, 256, 256)):
+            cases.append(("single_tile_matmul", "tc_mma", dt, shape, {}, 20))
+    for dt in ("float32", "bfloat16"):
+        for bn in (128, 256):
+            cases.append(("matmul", "tc_wgmma", dt, (512, 512, 512),
+                          dict(bm=128, bn=bn, bk=128), 20))
+    for bn in (32, 64, 128, 256):
+        cases.append(("matmul", "tc_n_sweep", "float32", (256, 256, 256),
+                      dict(bm=128, bn=bn, bk=128), 20))
+    for dt in (e4m3, e5m2):
+        cases.append(("fp8_matmul", "tc_wgmma", dt, (512, 512, 512),
+                      dict(bm=128, bn=128, bk=128), 20))
+    for bs in (16, 32, 64):
+        for st in (1, 2, 3):
+            cases.append(("pipelined_matmul", "async_copy", "float32",
+                          (128, 64, 128),
+                          dict(bm=bs, bn=min(bs, 64), bk=bs, stages=st), 20))
+    for dt in ("float32", "bfloat16"):
+        cases.append(("matmul", "full_width", dt, (M, N, K),
+                      dict(bm=128, bn=128, bk=128), 5))
+    cases.append(("fp8_matmul", "full_width", e4m3, (M, N, K),
+                  dict(bm=128, bn=128, bk=128), 5))
+    for bs in (64, 32, 16):
+        for st in (1, 2, 3):
+            cases.append(("pipelined_matmul", "full_width", "float32",
+                          (M, N, K), dict(bm=bs, bn=bs, bk=bs, stages=st),
+                          5 if bs == 64 else 2))
+    fns = {"matmul": (mmk.matmul, mmk.matmul_plain),
+           "single_tile_matmul": (mmk.single_tile_matmul,
+                                  mmk.single_tile_matmul_plain),
+           "fp8_matmul": (f8k.fp8_matmul, f8k.fp8_matmul_plain),
+           "pipelined_matmul": (apk.pipelined_matmul,
+                                apk.pipelined_matmul_plain)}
+    results, inputs, plain_cache = {}, {}, {}
+    for i, (kernel, case, dt, (m, n, k), kw, iters) in enumerate(cases):
+        fn, plain_fn = fns[kernel]
+        key_in = (case, dt, m, n, k)
+        if key_in not in inputs:
+            inputs.clear()
+            plain_cache.clear()
+            if dt.startswith("float8"):
+                a, b = _mm_inputs("float32", m, n, k, seed=i)
+                a, b = a.to(getattr(torch, dt)), b.to(getattr(torch, dt))
+            else:
+                a, b = _mm_inputs(dt, m, n, k, seed=i)
+            inputs[key_in] = (a, b)
+        a, b = inputs[key_in]
+        if kernel == "fp8_matmul":
+            sx = torch.tensor([0.37], device=DEVICE)
+            sw = torch.tensor([1.9], device=DEVICE)
+            args = (a, b, sx, sw)
+            lib = _mm_library(dt, a, b, sx, sw)
+        else:
+            args = (a, b)
+            lib = _mm_library(dt, a, b)
+        kern = lambda: fn(*args, **kw)
+        plain = lambda: plain_fn(*args)
+        got = kern()
+        torch.cuda.synchronize()
+        if kernel not in plain_cache:
+            plain_cache[kernel] = (plain(), _time_ms(plain, 3, warm=1))
+        want, plain_ms = plain_cache[kernel]
+        if got.dtype != want.dtype or got.shape != want.shape:
+            fail(f"{kernel} {case} {dt}: {got.dtype} {tuple(got.shape)}, "
+                 f"plain {want.dtype} {tuple(want.shape)}")
+        if not torch.isfinite(got.float()).all():
+            fail(f"{kernel} {case} {dt}: non-finite kernel output")
+        out_name = str(got.dtype).replace("torch.", "")
+        err = (got.double() - want.double()).abs().max().item()
+        scale = want.double().abs().max().item()
+        limit = MM_REL_LIMIT[out_name] * scale
+        ms = _time_ms(kern, iters, warm=1)
+        lib_ms = _time_ms(lib, iters, warm=1) if lib else None
+        bound_ms, bound_by = _mm_bound(dt, m, n, k, a.element_size(),
+                                       got.element_size())
+        tfs = 2.0 * m * n * k / (ms * 1e-3) / 1e12
+        tag = " ".join(f"{x}={y}" for x, y in kw.items())
+        ok = err <= limit
+        lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
+        print(f"[matmul] {kernel} {case} {dt} M={m} N={n} K={k} {tag}: "
+              f"max_abs_err={err:.3e} (limit {limit:.3e} = "
+              f"{MM_REL_LIMIT[out_name]:.3g} x max|plain| {scale:.4g}) "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_txt} "
+              f"bound_ms={bound_ms:.5f} ({bound_by}) TFLOP/s={tfs:.2f} "
+              f"{'ok' if ok else 'OVER LIMIT'}", flush=True)
+        if not ok:
+            fail(f"{kernel} {case} {dt} {tag}: max abs error {err} over "
+                 f"{limit}")
+        results[(kernel, case, dt, (m, n, k), tag)] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
+    inputs.clear()
+    plain_cache.clear()
+    probe_native_fp8_mma()
+    for bs in (64, 32, 16):
+        t = {st: results[("pipelined_matmul", "full_width", "float32",
+                          FULL_WIDTH, f"bm={bs} bn={bs} bk={bs} stages={st}")
+                         ]["ms"]
+             for st in (1, 2, 3)}
+        print(f"[matmul] full width, block {bs}: SyncShare/AsyncPipe = "
+              f"{t[1] / t[2]:.3f}, SyncShare/AsyncPipe3 = {t[1] / t[3]:.3f} "
+              f"(paper H800: 1.395 at 8x8, 0.982 at 32x32)", flush=True)
+    # the five dissection benchmarks through the kernels: the main path
+    # of this phase, with the counts set to 0 just before and read after
+    torch.cuda.synchronize()
+    for mod in (mmk, f8k, apk):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    bench.run_all(fail_fast=True, device=torch.device(DEVICE))
+    torch.cuda.synchronize()
+    launches = {**mmk.launch_counts(), **f8k.launch_counts(),
+                **apk.launch_counts()}
+    print(f"[matmul] benchmarks ran in {time.perf_counter() - t0:.1f} s; "
+          f"launch counts {launches}", flush=True)
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the dissection path was never launched: "
+             f"{launches}")
+    return results, launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     device = phase_card()
@@ -684,6 +937,7 @@ def main() -> None:
     del params
     phase_small(fp8=False)
     phase_small(fp8=True)
+    mm_results, mm_launches = phase_matmul()
     line = []
     for name, line_no in (("paged_decode", 163), ("paged_chunk", 252),
                           ("paged_decode_fp8", 147),
@@ -694,6 +948,26 @@ def main() -> None:
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": f"src/repro/kernels/paged_attention.py:{line_no}",
             "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    tiles = "bm=128 bn=128 bk=128"
+    for name, source, replaces, key in (
+            ("matmul", "matmul.cu", "matmul.py:45",
+             ("full_width", "bfloat16", FULL_WIDTH, tiles)),
+            ("single_tile_matmul", "matmul.cu", "matmul.py:75",
+             ("tc_mma", "bfloat16", (256, 256, 256), "")),
+            ("fp8_matmul", "fp8_matmul.cu", "fp8_matmul.py:38",
+             ("full_width", "float8_e4m3fn", FULL_WIDTH, tiles)),
+            ("pipelined_matmul", "async_pipeline.cu", "async_pipeline.py:79",
+             ("full_width", "float32", FULL_WIDTH,
+              "bm=64 bn=64 bk=64 stages=2"))):
+        r = mm_results[(name,) + key]
+        line.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": mm_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -7,9 +7,10 @@ C interface,
          -Xcompiler -fPIC -o <lib> <source>
 
 and loaded with ``ctypes``.  Libraries live under
-``<checkout>/build/repro_torch_kernels/``, named by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one is
-loaded as it is.  The source is the only input: nothing is downloaded
+``<checkout>/build/repro_torch_kernels/``, named by a hash of the
+source, the shared headers of ``csrc`` (``*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged one is loaded as it
+is.  The source is the only input: nothing is downloaded
 and no prebuilt library is shipped.
 """
 
@@ -52,6 +53,27 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "paged_chunk_fp8_fwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _F, _P),
     },
+    "matmul.cu": {
+        # dtype, bm, bn, bk
+        "matmul_smem_bytes": (_I, _I, _I, _I),
+        # dtype, a, b, c, M, N, K, bm, bn, bk, stream
+        "matmul_fwd": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # dtype, a, b, c, M, N, K, bk, stream
+        "single_tile_matmul_fwd": (_I, _P, _P, _P, _I, _I, _I, _I, _P),
+    },
+    "fp8_matmul.cu": {
+        # bm, bn, bk
+        "fp8_matmul_smem_bytes": (_I, _I, _I),
+        # fmt, a, b, sx, sw, c, M, N, K, bm, bn, bk, stream
+        "fp8_matmul_fwd": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _P),
+    },
+    "async_pipeline.cu": {
+        # bm, bn, bk, stages
+        "pipelined_matmul_smem_bytes": (_I, _I, _I, _I),
+        # a, b, c, M, N, K, bm, bn, bk, stages, stream
+        "pipelined_matmul_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    },
 }
 
 
@@ -65,8 +87,11 @@ def nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC / source
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    key = h.hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}_{key}.so"
 
 
@@ -108,3 +133,14 @@ def load(source: str) -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch(source: str, entry: str, device, *args) -> None:
+    """Call `entry` of `source` with `args` and the current stream of
+    `device`; raise if the launch failed (the C entry points return the
+    CUDA error of the launch, 0 when it launched)."""
+    import torch
+    fn = getattr(load(source), entry)
+    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")

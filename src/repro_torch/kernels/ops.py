@@ -1,0 +1,121 @@
+"""Public wrappers of the matrix-product kernels, with the reference's
+tile policy (``repro/kernels/ops.py``).
+
+Tile shapes default to the tile model's autotuner
+(``core/mxu_model.pick_tile`` for ``hw.TARGET``, with ``stages=1``: the
+kernels stage one slice at a time) or, where a kernel has fixed
+defaults (``pipelined_matmul``: 32), to an automatic
+``min(default, operand)`` fit.  Tile policy: ``0`` means "auto"; an
+explicitly passed tile may be *smaller* than the operand (it is still
+divisor-fitted to tile evenly) but a tile strictly larger than its
+operand dimension raises ``ValueError`` instead of being silently
+clamped.
+
+On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it
+computes the kernel's plain version.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import torch
+
+from repro_torch.core import hw, mxu_model
+from repro_torch.kernels import async_pipeline as _async
+from repro_torch.kernels import fp8_matmul as _fp8
+from repro_torch.kernels import matmul as _mm
+
+
+class TileAlignmentWarning(UserWarning):
+    """An explicitly-requested tile the kernel pads: it is not a whole
+    number of ``mma.sync`` fragments and does not span the full operand
+    dimension.  The granularity is that of the fragment the kernel
+    runs, not the TPU's 8 x 128 lanes: 16 rows (bm), 8 columns (bn),
+    and a depth (bk) of 32 for int8 (m16n8k32) or 16 otherwise (bf16
+    m16n8k16; fp8 is staged as bf16; float32 is held to the same
+    grid).  The launch is correct
+    (the staged slice is zero-padded to whole fragments) but wastes
+    tensor-core work."""
+
+
+def _fragment(dtype: torch.dtype) -> dict:
+    return {"bm": 16, "bn": 8, "bk": 32 if dtype == torch.int8 else 16}
+
+
+def _check_tiles(fn_name: str, align=None, **tile_vs_dim) -> None:
+    """Reject explicitly-requested tiles strictly larger than their
+    operand dimension (0 = auto is always fine), and warn when an
+    explicit tile is not a multiple of its granularity in `align`
+    (a tile spanning the whole operand dimension is exempt — there is
+    nothing left to align)."""
+    align = align or {}
+    for name, (tile, dim) in tile_vs_dim.items():
+        if tile and tile > dim:
+            raise ValueError(
+                f"{fn_name}: requested tile {name}={tile} exceeds the "
+                f"operand dimension {dim}; pass {name}=0 (auto) or a "
+                f"tile <= {dim}")
+        if not tile or tile == dim:
+            continue
+        if name in align and tile % align[name]:
+            warnings.warn(
+                f"{fn_name}: tile {name}={tile} is not a multiple of the "
+                f"mma.sync fragment's {align[name]} (and not the full "
+                f"dimension {dim}); the kernel pads it to whole fragments",
+                TileAlignmentWarning, stacklevel=3)
+
+
+def _fit_tiles(m, n, k, bm, bn, bk):
+    """Clamp autotuned tiles to divisors of the problem (even tiling)."""
+    def clamp(dim, t):
+        t = min(t, dim)
+        while dim % t:
+            t //= 2
+        return max(t, 1)
+    return clamp(m, bm), clamp(n, bn), clamp(k, bk)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _auto_tiles(m, n, k, dtype) -> tuple:
+    """The model's tile for (m, n, k) on ``hw.TARGET``, one stage."""
+    t = mxu_model.pick_tile(m, n, k, _dtype_name(dtype), chip=hw.TARGET,
+                            stages=1)
+    return t.bm, t.bn, t.bk
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 0, bn: int = 0,
+           bk: int = 0) -> torch.Tensor:
+    m, k = a.shape
+    n = b.shape[1]
+    _check_tiles("matmul", _fragment(a.dtype), bm=(bm, m), bn=(bn, n),
+                 bk=(bk, k))
+    if not (bm and bn and bk):
+        bm, bn, bk = _auto_tiles(m, n, k, a.dtype)
+    bm, bn, bk = _fit_tiles(m, n, k, bm, bn, bk)
+    return _mm.matmul(a, b, bm=bm, bn=bn, bk=bk)
+
+
+def fp8_matmul(aq: torch.Tensor, bq: torch.Tensor, sx, sw, *, bm: int = 0,
+               bn: int = 0, bk: int = 0) -> torch.Tensor:
+    m, k = aq.shape
+    n = bq.shape[1]
+    _check_tiles("fp8_matmul", _fragment(aq.dtype), bm=(bm, m), bn=(bn, n),
+                 bk=(bk, k))
+    if not (bm and bn and bk):
+        bm, bn, bk = _auto_tiles(m, n, k, aq.dtype)
+    bm, bn, bk = _fit_tiles(m, n, k, bm, bn, bk)
+    return _fp8.fp8_matmul(aq, bq, sx, sw, bm=bm, bn=bn, bk=bk)
+
+
+def pipelined_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 0,
+                     bn: int = 0, bk: int = 0, stages: int = 2
+                     ) -> torch.Tensor:
+    m, n, k = a.shape[0], b.shape[1], a.shape[1]
+    _check_tiles("pipelined_matmul", _fragment(a.dtype), bm=(bm, m),
+                 bn=(bn, n), bk=(bk, k))
+    bm, bn, bk = _fit_tiles(m, n, k, bm or 32, bn or 32, bk or 32)
+    return _async.pipelined_matmul(a, b, bm=bm, bn=bn, bk=bk, stages=stages)

@@ -110,13 +110,9 @@ def _launch(entry: str, q, operands, *dims) -> torch.Tensor:
     lengths, in the C signature's order) and the int `dims`."""
     from repro_torch.kernels import build
     out = torch.empty_like(q)
-    fn = getattr(build.load(SOURCE), entry)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(_DTYPES[q.dtype], q.shape[-1], q.data_ptr(),
-             *(t.data_ptr() for t in operands), out.data_ptr(), *dims,
-             float(q.shape[-1] ** -0.5), stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    build.launch(SOURCE, entry, q.device, _DTYPES[q.dtype], q.shape[-1],
+                 q.data_ptr(), *(t.data_ptr() for t in operands),
+                 out.data_ptr(), *dims, float(q.shape[-1] ** -0.5))
     return out
 
 

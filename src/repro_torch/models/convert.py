@@ -22,13 +22,15 @@ def to_torch(a: np.ndarray, device=None) -> torch.Tensor:
     """One numpy array as a tensor.  ``ml_dtypes.bfloat16`` and
     ``ml_dtypes.float8_e4m3fn`` arrays have no torch dtype to come
     through ``from_numpy``, so their bits travel as int16 / uint8 and
-    are reinterpreted as bfloat16 / float8_e4m3fn."""
+    are reinterpreted as bfloat16 / float8_e4m3fn; the same for
+    ``ml_dtypes.float8_e5m2``."""
     a = np.array(a, copy=True, order="C")     # writable, owned
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16).view(np.int16)).view(
             torch.bfloat16)
-    elif a.dtype.name == "float8_e4m3fn":
-        t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
+    elif a.dtype.name in ("float8_e4m3fn", "float8_e5m2"):
+        t = torch.from_numpy(a.view(np.uint8)).view(
+            getattr(torch, a.dtype.name))
     else:
         t = torch.from_numpy(a)
     return t.to(device)

@@ -7,9 +7,14 @@ a machine that has only PyTorch and the CUDA toolkit:
 
 Each test decides inside its `cuda` fixture whether a card is present
 and skips without one.  The kernels are held against their plain
-versions (kernels/paged_attention.py) on the same inputs: float32 q
-within 2e-5, bf16 q within 2e-2 (one bf16 rounding step at |o| < 4),
-on bf16/float32 pools and on e4m3 pools with per-row scales.
+versions on the same inputs.  Paged attention (kernels/paged_attention.py):
+float32 q within 2e-5, bf16 q within 2e-2 (one bf16 rounding step at
+|o| < 4), on bf16/float32 pools and on e4m3 pools with per-row scales.
+Matrix products (kernels/{matmul,fp8_matmul,async_pipeline}.py): the
+limits of the reference's tests/test_kernels.py on its cases; at other
+shapes float32 within rtol 1e-5 / atol 1e-4, bf16 outputs within one
+bf16 rounding step (2**-7 of the value) plus 2**-12 of the largest
+(the float32 sums run in another order), integers exact.
 """
 
 import numpy as np
@@ -17,6 +22,11 @@ import pytest
 import torch
 
 from repro_torch.configs import reduced_config
+from repro_torch.kernels import async_pipeline as apk
+from repro_torch.kernels import build
+from repro_torch.kernels import fp8_matmul as f8k
+from repro_torch.kernels import matmul as mmk
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pk
 from repro_torch.models import api
 from repro_torch.runtime import server
@@ -235,3 +245,200 @@ def test_server_on_card_completes_and_launches_both_kernels(cuda, fp8_opts):
     assert all(r.done and len(r.output) == r.max_new for r in reqs)
     n1 = srv.launch_counts()
     assert all(n1[k] > n0[k] for k in keys)
+
+
+# ----------------------------------------------------------------------
+# matrix products: matmul, single_tile_matmul, fp8_matmul,
+# pipelined_matmul
+# ----------------------------------------------------------------------
+
+def _normal(rng, shape, dtype, device):
+    return torch.from_numpy(rng.standard_normal(shape)).to(
+        device=device, dtype=dtype)
+
+
+def _ints(rng, shape, device, lo=-16, hi=16):
+    return torch.from_numpy(rng.integers(lo, hi, shape)).to(
+        device=device, dtype=torch.int8)
+
+
+def _close(got, want, rtol, atol):
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def _within_a_bf16_step(got, want):
+    got, want = got.float(), want.float()
+    assert ((got - want).abs() <= 2.0 ** -7 * want.abs()
+            + 2.0 ** -12 * want.abs().max()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(64, 64, 64), (128, 256, 128),
+                                   (96, 64, 160), (32, 512, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_vs_plain(cuda, m, n, k, dtype):
+    rng = np.random.default_rng(7)
+    td = getattr(torch, dtype)
+    a, b = _normal(rng, (m, k), td, cuda), _normal(rng, (k, n), td, cuda)
+    n0 = mmk.matmul.launches
+    got = ops.matmul(a, b, bm=32, bn=32, bk=32)
+    torch.cuda.synchronize()
+    assert mmk.matmul.launches == n0 + 1
+    assert got.dtype == td
+    bf16 = dtype == "bfloat16"
+    _close(got, mmk.matmul_plain(a, b), 2e-2 if bf16 else 1e-5,
+           2e-1 if bf16 else 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("tiles", [(128, 128, 128), (128, 256, 128),
+                                   (64, 64, 64), (256, 512, 64),
+                                   (16, 8, 16), (8, 8, 8)])
+def test_matmul_tiles_vs_plain(cuda, dtype, tiles):
+    """Every tile shape the kernel dispatches on: whole and partial
+    warp tiles, a tile walked in several 128 x 256 sub-tiles, and tiles
+    below the mma.sync fragment (m16 n8, k16 bf16 / k32 int8)."""
+    rng = np.random.default_rng(11)
+    M, N, K = 256, 512, 192
+    if dtype == "int8":
+        a, b = _ints(rng, (M, K), cuda), _ints(rng, (K, N), cuda)
+    else:
+        td = getattr(torch, dtype)
+        a, b = _normal(rng, (M, K), td, cuda), _normal(rng, (K, N), td, cuda)
+    bm, bn, bk = tiles
+    got = mmk.matmul(a, b, bm=bm, bn=bn, bk=bk)
+    want = mmk.matmul_plain(a, b)
+    assert got.dtype == want.dtype
+    if dtype == "int8":
+        assert torch.equal(got, want)
+    elif dtype == "bfloat16":
+        _within_a_bf16_step(got, want)
+    else:
+        _close(got, want, 1e-5, 1e-4)
+
+
+@pytest.mark.gpu
+def test_matmul_int8_exact_and_auto_tile(cuda):
+    rng = np.random.default_rng(7)
+    a, b = _ints(rng, (64, 96), cuda), _ints(rng, (96, 64), cuda)
+    got = ops.matmul(a, b, bm=32, bn=32, bk=32)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, mmk.matmul_plain(a, b))
+    a = _normal(rng, (256, 256), torch.float32, cuda)
+    b = _normal(rng, (256, 256), torch.float32, cuda)
+    _close(ops.matmul(a, b), mmk.matmul_plain(a, b), 1e-4, 1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["float8_e4m3fn", "float8_e5m2"])
+@pytest.mark.parametrize("tiles", [(32, 32, 32), (128, 128, 128),
+                                   (16, 8, 16)])
+def test_fp8_matmul_vs_plain(cuda, fmt, tiles):
+    rng = np.random.default_rng(7)
+    fd = getattr(torch, fmt)
+    M, N, K = (64, 64, 128) if tiles[0] <= 32 else (256, 384, 512)
+    aq = torch.from_numpy(rng.standard_normal((M, K))).to(fd).to(cuda)
+    bq = torch.from_numpy(rng.standard_normal((K, N))).to(fd).to(cuda)
+    sx = torch.tensor(0.37, device=cuda)
+    sw = torch.tensor(1.9, device=cuda)
+    n0 = f8k.fp8_matmul.launches
+    bm, bn, bk = tiles
+    got = ops.fp8_matmul(aq, bq, sx, sw, bm=bm, bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    assert f8k.fp8_matmul.launches == n0 + 1
+    assert got.dtype == torch.bfloat16
+    want = f8k.fp8_matmul_plain(aq, bq, sx, sw)
+    _close(got, want, 2e-2, 2e-1)
+    _within_a_bf16_step(got, want)
+
+
+@pytest.mark.gpu
+def test_pipelined_matmul_stages_agree(cuda):
+    """stages 1 (plain loads), 2 and 3 (cp.async ring) against the
+    plain version within 1e-4 and within 1e-4 of each other, at the
+    reference's test case and at 64 x 64 x 64 tiles of a longer K."""
+    rng = np.random.default_rng(7)
+    for (M, N, K), t in (((64, 96, 128), 32), ((256, 192, 1024), 64)):
+        a = _normal(rng, (M, K), torch.float32, cuda)
+        b = _normal(rng, (K, N), torch.float32, cuda)
+        want = apk.pipelined_matmul_plain(a, b)
+        outs = []
+        for stages in (1, 2, 3):
+            n0 = apk.pipelined_matmul.launches
+            outs.append(ops.pipelined_matmul(a, b, bm=t, bn=t, bk=t,
+                                             stages=stages))
+            torch.cuda.synchronize()
+            assert apk.pipelined_matmul.launches == n0 + 1
+            _close(outs[-1], want, 1e-4, 1e-4)
+        for o in outs[1:]:
+            _close(o, outs[0], 1e-4, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape", [
+    ("float32", (64, 64, 64)), ("bfloat16", (64, 64, 64)),
+    ("int8", (64, 96, 64)), ("float32", (256, 256, 256)),
+    ("bfloat16", (128, 256, 128)), ("int8", (256, 256, 256))])
+def test_single_tile_matmul_vs_plain(cuda, dtype, shape):
+    """One block over the whole product; 256^3 float32 operands (512 KB)
+    are staged in K slices.  Output in the accumulator's dtype."""
+    rng = np.random.default_rng(5)
+    m, n, k = shape
+    if dtype == "int8":
+        a, b = _ints(rng, (m, k), cuda, -8, 8), _ints(rng, (k, n), cuda, -8, 8)
+    else:
+        td = getattr(torch, dtype)
+        a, b = _normal(rng, (m, k), td, cuda), _normal(rng, (k, n), td, cuda)
+    n0 = mmk.single_tile_matmul.launches
+    got = mmk.single_tile_matmul(a, b)
+    torch.cuda.synchronize()
+    assert mmk.single_tile_matmul.launches == n0 + 1
+    want = mmk.single_tile_matmul_plain(a, b)
+    assert got.dtype == want.dtype == (torch.int32 if dtype == "int8"
+                                       else torch.float32)
+    if dtype == "int8":
+        assert torch.equal(got, want)
+    else:
+        _close(got, want, 1e-4, 1e-4)
+
+
+@pytest.mark.gpu
+def test_matmul_shared_memory_limit(cuda):
+    """Tiles whose staging exceeds 232448 bytes raise ValueError before
+    any launch; the wrappers' byte counts are the sources' own."""
+    rng = np.random.default_rng(0)
+    a = _normal(rng, (512, 512), torch.float32, cuda)
+    n0 = (mmk.matmul.launches, apk.pipelined_matmul.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        mmk.matmul(a, a, bm=128, bn=256, bk=512)
+    with pytest.raises(ValueError, match="shared memory"):
+        apk.pipelined_matmul(a, a, bm=128, bn=128, bk=128, stages=2)
+    assert (mmk.matmul.launches, apk.pipelined_matmul.launches) == n0
+    lib = build.load(mmk.SOURCE)
+    for tiles in [(128, 256, 128), (16, 8, 16), (256, 512, 64), (7, 9, 33)]:
+        for dtype, code in mmk._DTYPES.items():
+            assert lib.matmul_smem_bytes(code, *tiles) == \
+                mmk.smem_bytes(dtype, *tiles)
+        assert build.load(f8k.SOURCE).fp8_matmul_smem_bytes(*tiles) == \
+            f8k.smem_bytes(*tiles)
+        assert build.load(apk.SOURCE).pipelined_matmul_smem_bytes(
+            *tiles, 3) == apk.smem_bytes(*tiles, 3)
+
+
+@pytest.mark.gpu
+def test_dissection_benchmarks_run_on_card(cuda):
+    """The five registered benchmarks run on the card through the
+    kernels: no failure, every kernel launched, device-labelled rows."""
+    from repro_torch.benchmarks import run
+    from repro_torch.core import bench
+    for mod in (mmk, f8k, apk):
+        mod.reset_launch_counts()
+    assert bench.run_all(fail_fast=True, device=cuda) == 0
+    counts = {**mmk.launch_counts(), **f8k.launch_counts(),
+              **apk.launch_counts()}
+    assert all(v > 0 for v in counts.values()), counts
+    assert set(bench.registry()) == {"tc_mma", "tc_wgmma", "tc_n_sweep",
+                                     "tc_energy", "async_copy"}
+    assert run.main(["tc_energy"]) is None

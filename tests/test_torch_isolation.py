@@ -3,9 +3,11 @@
 (a) every import in src/repro_torch and chip_smoke.py, read from the
     AST, names neither `jax` nor `repro` (`repro_torch` is fine);
 (b) a subprocess where importing `jax` or `repro` fails imports the
-    port, serves three requests on the CPU and runs the CLI;
+    port, serves three requests on the CPU, runs the CLI and runs two
+    dissection benchmarks with `--device cpu`;
 (c) an entry point called without a device on a host without CUDA
-    raises instead of running on the CPU;
+    raises instead of running on the CPU (the serving entry points and
+    the benchmark runner);
 (d) chip_smoke.py without a CUDA device exits non-zero with no result.
 """
 
@@ -60,6 +62,8 @@ assert all(r.done and len(r.output) == r.max_new for r in reqs)
 stats = serve.main(["--device", "cpu", "--requests", "3", "--slots", "2",
                     "--workload", "sysprompt"])
 assert stats["requests"] == 3.0
+from repro_torch.benchmarks import run as bench_run
+bench_run.main(["--device", "cpu", "tc_energy", "tc_n_sweep"])
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")
@@ -92,6 +96,12 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         api.init(cfg, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--requests", "1"])         # --device defaults to cuda
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.core import bench
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_run.main(["tc_energy"])           # --device defaults to cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.run_all(["tc_energy"])
 
 
 def test_chip_smoke_fails_without_a_card():
