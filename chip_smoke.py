@@ -50,10 +50,31 @@ last line):
               bound and TFLOP/s; the SyncShare/AsyncPipe ratio per block
               size; then the five dissection benchmarks
               (repro_torch.benchmarks.run) through the kernels.
-Each serve phase, and phase 8's benchmark run, sets its kernels' launch
-counts to 0 just before its main path and reads them just after.  Then
-one JSON line of per-kernel numbers (eight kernels) and, last, the
-contract line {"ok": true, "device": {...}}.
+  9. dpx_dsm — the DPX kernels (dpx_fused, tropical_matmul,
+              smith_waterman) and the thread-block-cluster kernels
+              (rbc_ring_copy, ring_latency_probe, histogram_private,
+              histogram_dsm, all_to_all_exchange) against their plain
+              versions, exactly (integers equal, float32 bitwise), at
+              the benchmarks' own inputs and at full size: the DPX
+              functions over 2**26 int32 / int16 elements (an odd
+              length too) with values at the type limits; the (max,+)
+              product at M=N=K=2048 (tiles 32^3 and 64/64/32); 4096
+              pairs of 256-base sequences and one 1500 x 1500 pair; a
+              2**24-float ring at cluster sizes 2/4/8; 2**26 values in
+              1024 to 65536 bins (past 32768 only the DSM histogram
+              fits a block).  Kernel ms, plain ms, bound (int32
+              instructions over SMs x 64 lanes x the maximum SM clock,
+              or bytes over 3.35 TB/s) and a one-call PyTorch yardstick
+              (torch.bincount, torch.roll, a permuting copy); the DPX
+              opcodes in the built library's SASS and the DPX rate
+              probe (csrc/dpx_rate_probe.cu: intrinsic against plain C
+              with operands in registers), both findings; then the
+              dpx_functions, dpx_kernels and dsm benchmarks through the
+              kernels.
+Each serve phase, and the benchmark runs of phases 8 and 9, set their
+kernels' launch counts to 0 just before their main path and read them
+just after.  Then one JSON line of per-kernel numbers (sixteen
+kernels) and, last, the contract line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -887,7 +908,8 @@ def phase_matmul() -> tuple:
     for mod in (mmk, f8k, apk):
         mod.reset_launch_counts()
     t0 = time.perf_counter()
-    bench.run_all(fail_fast=True, device=torch.device(DEVICE))
+    bench.run_all(["tc_mma", "tc_wgmma", "tc_n_sweep", "tc_energy",
+                   "async_copy"], fail_fast=True, device=torch.device(DEVICE))
     torch.cuda.synchronize()
     launches = {**mmk.launch_counts(), **f8k.launch_counts(),
                 **apk.launch_counts()}
@@ -897,6 +919,381 @@ def phase_matmul() -> tuple:
         fail(f"a kernel of the dissection path was never launched: "
              f"{launches}")
     return results, launches
+
+
+# ----------------------------------------------------------------------
+# 9. DPX and distributed shared memory (paper Figs. 6-9)
+# ----------------------------------------------------------------------
+
+INT32_LANES_PER_SM = 64          # an H100 SM's int32 lanes a clock
+# the full sizes: the DPX functions over 2**26 elements, the inner step
+# of all-pairs shortest paths / Viterbi on a 2048-node graph, a
+# short-read alignment batch plus one long pair, a 2**24-float ring,
+# 2**26 values counted
+DPX_N = 1 << 26
+TROPICAL_FULL = 2048
+SW_BATCH = (4096, 256, 256)
+SW_LONG = (1, 1500, 1500)
+RING_N = 1 << 24
+HIST_N = 1 << 26
+# 1024 / 4096 bins as the benchmark; 16384-65536 where a private
+# histogram fills a block's shared memory (64, 128 KiB) or exceeds it
+HIST_BINS = (1024, 4096, 16384, 32768, 65536)
+
+
+def _int_rate() -> tuple:
+    """(int32 instructions a second, SM clock in MHz): the card's SMs x
+    64 lanes x its maximum SM clock (nvidia-smi clocks.max.sm)."""
+    import torch
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    try:
+        mhz = float(smi.stdout.strip().splitlines()[0])
+    except (ValueError, IndexError):
+        fail(f"nvidia-smi gave no maximum SM clock: {smi.stdout!r}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * mhz * 1e6, mhz
+
+
+def _ops_bound(instructions: float, nbytes: float, rate: float) -> tuple:
+    """The larger of instructions over the int32 rate and bytes over
+    3.35 TB/s, in ms, with what bounds it."""
+    t_ops = instructions / rate * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _exact(kernel: str, tag: str, kern, plain, iters: int, bound: tuple,
+           lib=None, extra: str = "") -> dict:
+    """Kernel against plain on the same inputs: equal (bitwise for
+    floats), then kernel ms over `iters` back-to-back calls, plain ms
+    over one call after the checking one, and the library call's ms."""
+    import torch
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{kernel} {tag}: {got.dtype} {tuple(got.shape)}, plain "
+             f"{want.dtype} {tuple(want.shape)}")
+    if got.dtype.is_floating_point:
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        err = (got - want).abs().max().item()
+    else:
+        same = torch.equal(got, want)
+        err = float((got.long() - want.long()).abs().max().item())
+    del got, want
+    ms = _time_ms(kern, iters, warm=1)
+    plain_ms = _time_ms(plain, 1, warm=0)
+    lib_ms = _time_ms(lib, iters, warm=1) if lib is not None else None
+    bound_ms, bound_by = bound
+    lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
+    print(f"[dpx_dsm] {kernel} {tag}: {'equal' if same else 'DIFFERENT'} "
+          f"(max_abs_err={err:g}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib_txt} bound_ms={bound_ms:.5f} ({bound_by}) "
+          f"{ms / bound_ms:.1f}x bound{extra}", flush=True)
+    if not same:
+        fail(f"{kernel} {tag}: kernel and plain version differ")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def _limit_ints(n: int, dtype, g):
+    """n integers over the whole range of `dtype`, the first few at and
+    next to its limits (sums wrap, relu and max meet the extremes)."""
+    import torch
+    info = torch.iinfo(dtype)
+    x = torch.randint(info.min, info.max + 1, (n,), generator=g,
+                      device=DEVICE, dtype=torch.int64).to(dtype)
+    edge = [info.min, info.max, info.min + 1, info.max - 1, 0, -1, 1]
+    x[:len(edge)] = torch.tensor(edge, dtype=dtype, device=DEVICE)
+    return x
+
+
+def _sass_opcodes(path) -> dict:
+    """{kernel function: Counter of its SASS opcodes} of a built library
+    (cuobjdump -sass); {} when cuobjdump cannot read it."""
+    import collections
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                              text=True, timeout=120).stdout
+    except OSError as e:
+        print(f"[dpx_dsm] SASS of {path}: not read ({e})", flush=True)
+        return {}
+    out = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split(None, 1)[0]
+        out[name] = collections.Counter(re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+            r"([A-Z][A-Za-z0-9_.]*)", block))
+    return out
+
+
+def _is_dpx(op: str) -> bool:
+    return op.startswith(("VIADDMNMX", "VIMNMX"))
+
+
+def _dpx_sass_opcodes() -> None:
+    """A finding, not a gate: the DPX opcodes in the built dpx library's
+    SASS: each intrinsic one instruction."""
+    import collections
+    from repro_torch.kernels import build
+    path = build.library_path("dpx.cu")
+    ops = collections.Counter()
+    for counts in _sass_opcodes(path).values():
+        ops.update({k: v for k, v in counts.items() if _is_dpx(k)})
+    print(f"[dpx_dsm] DPX opcodes in the SASS of {os.path.relpath(path, ROOT)}"
+          f": {sum(ops.values())} ({dict(sorted(ops.items()))})", flush=True)
+
+
+DPX_RATE_OPS = ("viaddmax_s32", "viaddmax_s32_relu", "viaddmax_s16x2_relu")
+DPX_RATE_ITERS = 8192
+DPX_RATE_CHAINS = 8                   # instructions a thread an iteration
+
+
+def probe_dpx_rate(rate: float) -> None:
+    """A finding, not a gate: the DPX instructions' own rate with the
+    operands in registers (csrc/dpx_rate_probe.cu), the intrinsic
+    against the same function written as plain C, each variant's SASS
+    (what the compiler made of the plain C) and whether the two agree."""
+    import ctypes
+    import re
+    import torch
+    from repro_torch.kernels import build
+    try:
+        path, _, _ = build.compile_source("dpx_rate_probe.cu")
+    except RuntimeError as e:
+        lines = [ln for ln in str(e).splitlines() if "rror" in ln]
+        print(f"[dpx_dsm] DPX rate probe: nvcc refused it: "
+              f"{lines[0].strip() if lines else e}", flush=True)
+        return
+    lib = ctypes.CDLL(str(path))
+    fn = lib.dpx_rate_probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count * 8
+    threads = lib.dpx_rate_probe_threads()
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    seed = torch.randint(-(1 << 20), 1 << 20, (2 * DPX_RATE_CHAINS,),
+                         generator=g, device=DEVICE, dtype=torch.int32)
+    stream = torch.cuda.current_stream().cuda_stream
+    instr = blocks * threads * DPX_RATE_CHAINS * DPX_RATE_ITERS
+    sass = {}
+    for name, counts in _sass_opcodes(path).items():
+        m = re.search(r"dpx_rate_kernelILi(\d)ELb([01])E", name)
+        if m:
+            sass[(int(m.group(1)), int(m.group(2)))] = counts
+    print(f"[dpx_dsm] DPX rate probe: {blocks} blocks x {threads} threads x "
+          f"{DPX_RATE_CHAINS} chains x {DPX_RATE_ITERS} iterations = "
+          f"{instr:.4g} instructions of each function; bound {rate:.4g}/s",
+          flush=True)
+    for op, name in enumerate(DPX_RATE_OPS):
+        outs = []
+        for fused in (1, 0):
+            out = torch.empty(blocks * threads, dtype=torch.int32,
+                              device=DEVICE)
+            errs = []
+            ms = _time_ms(lambda: errs.append(fn(
+                op, fused, seed.data_ptr(), out.data_ptr(), blocks,
+                DPX_RATE_ITERS, stream)), 3, warm=1)
+            if any(errs):
+                print(f"[dpx_dsm] DPX rate probe {name}: launch failed with "
+                      f"CUDA error {max(errs)}", flush=True)
+                return
+            outs.append(out)
+            counts = sass.get((op, fused), {})
+            dpx = {k: v for k, v in counts.items() if _is_dpx(k)}
+            top = ", ".join(f"{k} {v}" for k, v in counts.most_common(6))
+            print(f"[dpx_dsm] DPX rate probe {name} "
+                  f"{'intrinsic' if fused else 'plain C  '}: ms={ms:.4f} "
+                  f"{instr / (ms * 1e-3):.4g} instructions/s = "
+                  f"{instr / (ms * 1e-3) / rate:.3f} of the bound; SASS "
+                  f"{sum(counts.values())} instructions, DPX {dpx}; most: "
+                  f"{top}", flush=True)
+        print(f"[dpx_dsm] DPX rate probe {name}: intrinsic and plain C "
+              f"{'agree' if torch.equal(*outs) else 'DIFFER'}", flush=True)
+
+
+def _rbc_case(res: dict, key: str, x, cs: int, hops: int, ilp: int) -> None:
+    from repro_torch.kernels import dsm as dsk
+    r = _exact(
+        "rbc_ring_copy", f"{list(x.shape)} float32 CS={cs} hops={hops} "
+        f"ilp={ilp}",
+        lambda: dsk.rbc_ring_copy(x, cs, hops=hops, ilp=ilp),
+        lambda: dsk.rbc_ring_copy_plain(x, cs, hops=hops), 20,
+        (2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3, "bytes"))
+    print(f"[dpx_dsm]   rbc CS={cs} hops={hops} ilp={ilp}: "
+          f"{x.numel() * 4 * hops / (r['ms'] * 1e-3) / 1e9:.1f} "
+          f"GB/s over the SM-to-SM network", flush=True)
+    res[("rbc_ring_copy", key)] = r
+
+
+def _a2a_case(res: dict, key: str, x, cs: int) -> None:
+    """The exchange against its plain version; the library call is the
+    one permuting copy that computes it."""
+    from repro_torch.kernels import dsm as dsk
+    res[("all_to_all_exchange", key)] = _exact(
+        "all_to_all_exchange", f"{list(x.shape)} float32 CS={cs}",
+        lambda: dsk.all_to_all_exchange(x, cs),
+        lambda: dsk.all_to_all_exchange_plain(x, cs), 20,
+        (2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3, "bytes"),
+        lib=lambda: x.view(cs, cs, -1).transpose(0, 1).contiguous())
+
+
+def _hist_cases(res: dict, key: str, vals, nbins: int, sizes) -> None:
+    """Both histograms of `vals` at each cluster size, against their
+    plain versions, torch.bincount beside them; the private one only
+    where a whole histogram fits a block's shared memory."""
+    import torch
+    from repro_torch.kernels import dsm as dsk
+    from repro_torch.kernels import matmul as _mm
+    bound = ((vals.numel() + nbins) * 4 / HBM_BYTES_PER_S * 1e3, "bytes")
+    lib = lambda: torch.bincount(vals, minlength=nbins)
+    for cs in sizes:
+        for kernel, dsm, fn, plain_fn in (
+                ("histogram_private", False, dsk.histogram_private,
+                 dsk.histogram_private_plain),
+                ("histogram_dsm", True, dsk.histogram_dsm,
+                 dsk.histogram_dsm_plain)):
+            smem = dsk.histogram_smem_bytes(dsm, nbins, cs)
+            if smem > _mm.SMEM_LIMIT:
+                print(f"[dpx_dsm] {kernel} nbins={nbins} CS={cs}: {smem} "
+                      "bytes of shared memory a block, over the limit: not "
+                      "run", flush=True)
+                continue
+            res[(kernel, f"{key}/{cs}")] = _exact(
+                kernel, f"{vals.numel()} values nbins={nbins} CS={cs} "
+                f"({smem // 1024} KiB a block)",
+                lambda: fn(vals, nbins, cs),
+                lambda: plain_fn(vals, nbins, cs), 20, bound, lib=lib)
+
+
+def phase_dpx_dsm() -> tuple:
+    """Every DPX and cluster kernel against its plain version on the
+    card, exactly, at the benchmarks' inputs and at full size; the DPX
+    opcodes and rate probe; then the dpx_functions, dpx_kernels and dsm
+    benchmarks through the kernels.
+    Returns (results keyed (kernel, case), launch counts of the
+    benchmark run)."""
+    import torch
+    from repro_torch.core import bench
+    from repro_torch.kernels import dpx_kernel as dk
+    from repro_torch.kernels import dsm as dsk
+    from repro_torch.benchmarks import run as _registers  # noqa: F401
+    rate, mhz = _int_rate()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[dpx_dsm] int32 rate for the DPX bounds: {sms} SMs x "
+          f"{INT32_LANES_PER_SM} lanes x {mhz:.0f} MHz = {rate:.4g} "
+          f"instructions/s; bytes at {HBM_BYTES_PER_S:.3g} B/s", flush=True)
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    res = {}
+    # DPX functions: one instruction per int32 element, per int16 pair
+    for dtype, n in ((torch.int32, DPX_N), (torch.int16, DPX_N),
+                     (torch.int16, DPX_N + 1), (torch.int32, 1 << 16),
+                     (torch.int16, 1 << 16)):
+        dname = str(dtype).replace("torch.", "")
+        a, b, c = (_limit_ints(n, dtype, g) for _ in range(3))
+        instr = n if dtype == torch.int32 else -(-n // 2)
+        for name in dk.FUNCTIONS:
+            res[("dpx_fused", f"{name}/{dname}/{n}")] = _exact(
+                "dpx_fused", f"{name} {dname} n={n}",
+                lambda: dk.dpx_fused(name, a, b, c),
+                lambda: dk.dpx_fused_plain(name, a, b, c),
+                20 if n > 1 << 16 else 50,
+                _ops_bound(instr, 4 * n * a.element_size(), rate))
+        del a, b, c
+    # tropical (max,+) product: one viaddmax per (i, j, k)
+    for size, tiles_list, lim in ((64, ((32, 32, 32),), 50),
+                                  (TROPICAL_FULL, ((32, 32, 32), (64, 64, 32)),
+                                   1 << 20)):
+        a = torch.randint(-lim, lim, (size, size), generator=g, device=DEVICE,
+                          dtype=torch.int32)
+        b = torch.randint(-lim, lim, (size, size), generator=g, device=DEVICE,
+                          dtype=torch.int32)
+        for bm, bn, bk in tiles_list:
+            res[("tropical_matmul", f"{size}/{bm}x{bn}x{bk}")] = _exact(
+                "tropical_matmul", f"M=N=K={size} bm={bm} bn={bn} bk={bk}",
+                lambda: dk.tropical_matmul(a, b, bm=bm, bn=bn, bk=bk),
+                lambda: dk.tropical_matmul_plain(a, b),
+                5 if size > 64 else 50,
+                _ops_bound(size ** 3, 3 * size * size * 4, rate),
+                extra=f"; {size ** 3 / 1e9:.3g} G cells")
+        del a, b
+    # Smith-Waterman: three int32 instructions per cell (an add and two
+    # DPX instructions)
+    for B, la, lb in ((4, 64, 64), SW_BATCH, SW_LONG):
+        sa = torch.randint(0, 4, (B, la), generator=g, device=DEVICE,
+                           dtype=torch.int32)
+        sb = torch.randint(0, 4, (B, lb), generator=g, device=DEVICE,
+                           dtype=torch.int32)
+        cells = B * la * lb
+        res[("smith_waterman", f"{B}x{la}x{lb}")] = _exact(
+            "smith_waterman", f"B={B} La={la} Lb={lb}",
+            lambda: dk.smith_waterman(sa, sb),
+            lambda: dk.smith_waterman_plain(sa, sb), 5 if B > 4 else 20,
+            _ops_bound(3 * cells, 4 * (B * (la + lb) + B), rate),
+            extra=f"; {cells / 1e9:.3g} G cells")
+        del sa, sb
+    # cluster kernels: bounded by device-memory bytes; first at the dsm
+    # benchmark's own inputs (cluster size 4: a [4, 65536] ring, 1 MiB a
+    # rank at CS 2/4/8, 4 * 32768 values in [0, 1024)), then at full size
+    ring = torch.arange(4 * 65536, dtype=torch.float32,
+                        device=DEVICE).reshape(4, 65536)
+    for hops in (1, 3):
+        for ilp in (1, 4):
+            _rbc_case(res, f"bench/4/{hops}/{ilp}", ring, 4, hops, ilp)
+    for cs in (2, 4, 8):
+        ones = torch.ones((cs, 1 << 18), dtype=torch.float32, device=DEVICE)
+        for ilp in (1, 4):
+            _rbc_case(res, f"bench/ones/{cs}/{ilp}", ones, cs, 1, ilp)
+    _a2a_case(res, "bench/4", ring, 4)
+    del ring, ones
+    for cs in (2, 4, 8):
+        x = torch.randn((cs, RING_N // cs), generator=g, device=DEVICE)
+        for hops in sorted({1, min(3, cs - 1)}):
+            for ilp in (1, 4):
+                _rbc_case(res, f"{cs}/{hops}/{ilp}", x, cs, hops, ilp)
+        _a2a_case(res, f"{cs}", x, cs)
+        del x
+        probe = torch.arange(cs, dtype=torch.int32, device=DEVICE)
+        probe = probe.reshape(cs, 1)
+        res[("ring_latency_probe", f"{cs}")] = _exact(
+            "ring_latency_probe", f"CS={cs}",
+            lambda: dsk.ring_latency_probe(probe),
+            lambda: dsk.ring_latency_probe_plain(probe), 50,
+            (8 * cs / HBM_BYTES_PER_S * 1e3, "bytes"),
+            lib=lambda: torch.roll(probe, 1, 0))
+    vals = torch.randint(0, 1024, (4 * 32768,), generator=g, device=DEVICE,
+                         dtype=torch.int32)
+    for nbins in (1024, 4096):
+        _hist_cases(res, f"bench/{nbins}", vals, nbins, (4,))
+    for nbins in HIST_BINS:
+        vals = torch.randint(0, nbins, (HIST_N,), generator=g, device=DEVICE,
+                             dtype=torch.int32)
+        _hist_cases(res, f"{nbins}", vals, nbins, (2, 4, 8))
+    del vals
+    _dpx_sass_opcodes()
+    probe_dpx_rate(rate)
+    # the three benchmarks through the kernels: the main path of this
+    # phase, with the counts set to 0 just before and read just after
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    dsk.reset_launch_counts()
+    t0 = time.perf_counter()
+    bench.run_all(["dpx_functions", "dpx_kernels", "dsm"], fail_fast=True,
+                  device=torch.device(DEVICE))
+    torch.cuda.synchronize()
+    launches = {**dk.launch_counts(), **dsk.launch_counts()}
+    print(f"[dpx_dsm] benchmarks ran in {time.perf_counter() - t0:.1f} s; "
+          f"launch counts {launches}", flush=True)
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the DPX/DSM path was never launched: {launches}")
+    return res, launches
 
 
 def main() -> None:
@@ -938,6 +1335,7 @@ def main() -> None:
     phase_small(fp8=False)
     phase_small(fp8=True)
     mm_results, mm_launches = phase_matmul()
+    dd_results, dd_launches = phase_dpx_dsm()
     line = []
     for name, line_no in (("paged_decode", 163), ("paged_chunk", 252),
                           ("paged_decode_fp8", 147),
@@ -968,6 +1366,27 @@ def main() -> None:
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": mm_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for name, source, replaces, case in (
+            ("tropical_matmul", "dpx.cu", "kernels/dpx_kernel.py:48",
+             f"{TROPICAL_FULL}/32x32x32"),
+            ("smith_waterman", "dpx.cu", "kernels/dpx_kernel.py:133",
+             "x".join(map(str, SW_BATCH))),
+            ("dpx_fused", "dpx.cu", "core/dpx.py:107",
+             f"viaddmax_relu/int32/{DPX_N}"),
+            ("rbc_ring_copy", "dsm.cu", "core/dsm.py:37", "4/3/4"),
+            ("ring_latency_probe", "dsm.cu", "core/dsm.py:64", "4"),
+            ("histogram_private", "dsm.cu", "core/dsm.py:77", "4096/4"),
+            ("histogram_dsm", "dsm.cu", "core/dsm.py:93", "4096/4"),
+            ("all_to_all_exchange", "dsm.cu", "core/dsm.py:118", "4")):
+        r = dd_results[(name, case)]
+        line.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/{replaces}",
+            "launches": dd_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

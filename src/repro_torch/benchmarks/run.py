@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.benchmarks.run [names...] [--device cpu]
 
 Registers the tensor-core (``tc_mma``, ``tc_wgmma``, ``tc_n_sweep``,
-``tc_energy``) and async-copy (``async_copy``) benchmarks and prints
-``name,us_per_call,derived`` CSV (plus # section markers).  Runs on the
+``tc_energy``), async-copy (``async_copy``), DPX (``dpx_functions``,
+``dpx_kernels``) and distributed-shared-memory (``dsm``) benchmarks and
+prints ``name,us_per_call,derived`` CSV (plus # section markers).  Runs on the
 CUDA device unless ``--device`` names another; without CUDA and without
 ``--device cpu`` it raises.  Exits non-zero if any benchmark failed.
 """
@@ -15,7 +16,8 @@ import argparse
 from typing import List, Optional
 
 # importing registers every benchmark
-from repro_torch.benchmarks import async_copy, tensorcore  # noqa: F401
+from repro_torch.benchmarks import (async_copy, dpx, dsm,  # noqa: F401
+                                    tensorcore)
 from repro_torch.core.bench import run_all
 from repro_torch.models.common import resolve_device
 

@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # the C entry points of each source and their ctypes signatures
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "paged_attention.cu": {
         # dtype, hd, q, k, v, block_table, kv_len, out,
@@ -73,6 +74,30 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "pipelined_matmul_smem_bytes": (_I, _I, _I, _I),
         # a, b, c, M, N, K, bm, bn, bk, stages, stream
         "pipelined_matmul_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "dpx.cu": {
+        # fn, dtype, a, b, c, out, n, stream
+        "dpx_fused_fwd": (_I, _I, _P, _P, _P, _P, _L, _P),
+        # bm, bn, bk
+        "tropical_smem_bytes": (_I, _I, _I),
+        # a, b, c, M, N, K, bm, bn, bk, stream
+        "tropical_matmul_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # la, lb
+        "smith_waterman_smem_bytes": (_I, _I),
+        # seq_a, seq_b, out, B, la, lb, match, mismatch, gap, stream
+        "smith_waterman_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "dsm.cu": {
+        # x, out, cluster size, shard length, hops, ilp, stream
+        "rbc_ring_copy_fwd": (_P, _P, _I, _L, _I, _I, _P),
+        # x, out, cluster size, stream
+        "ring_latency_probe_fwd": (_P, _P, _I, _P),
+        # dsm, nbins, cluster size
+        "histogram_smem_bytes": (_I, _I, _I),
+        # dsm, values, out, shard length, nbins, cluster size, stream
+        "histogram_fwd": (_I, _P, _P, _L, _I, _I, _P),
+        # x, out, cluster size, piece length, stream
+        "all_to_all_fwd": (_P, _P, _I, _L, _P),
     },
 }
 

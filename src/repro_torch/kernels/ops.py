@@ -4,7 +4,7 @@ tile policy (``repro/kernels/ops.py``).
 Tile shapes default to the tile model's autotuner
 (``core/mxu_model.pick_tile`` for ``hw.TARGET``, with ``stages=1``: the
 kernels stage one slice at a time) or, where a kernel has fixed
-defaults (``pipelined_matmul``: 32), to an automatic
+defaults (``pipelined_matmul``, ``tropical_matmul``: 32), to an automatic
 ``min(default, operand)`` fit.  Tile policy: ``0`` means "auto"; an
 explicitly passed tile may be *smaller* than the operand (it is still
 divisor-fitted to tile evenly) but a tile strictly larger than its
@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core import hw, mxu_model
 from repro_torch.kernels import async_pipeline as _async
+from repro_torch.kernels import dpx_kernel as _dpx
 from repro_torch.kernels import fp8_matmul as _fp8
 from repro_torch.kernels import matmul as _mm
 
@@ -119,3 +120,18 @@ def pipelined_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 0,
                  bn=(bn, n), bk=(bk, k))
     bm, bn, bk = _fit_tiles(m, n, k, bm or 32, bn or 32, bk or 32)
     return _async.pipelined_matmul(a, b, bm=bm, bn=bn, bk=bk, stages=stages)
+
+
+def tropical_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 0,
+                    bn: int = 0, bk: int = 0) -> torch.Tensor:
+    m, n, k = a.shape[0], b.shape[1], a.shape[1]
+    _check_tiles("tropical_matmul", bm=(bm, m), bn=(bn, n), bk=(bk, k))
+    bm, bn, bk = _fit_tiles(m, n, k, bm or 32, bn or 32, bk or 32)
+    return _dpx.tropical_matmul(a, b, bm=bm, bn=bn, bk=bk)
+
+
+def smith_waterman(seq_a: torch.Tensor, seq_b: torch.Tensor, *,
+                   match: int = 2, mismatch: int = -1, gap: int = -1
+                   ) -> torch.Tensor:
+    return _dpx.smith_waterman(seq_a, seq_b, match=match, mismatch=mismatch,
+                               gap=gap)

@@ -14,7 +14,9 @@ Matrix products (kernels/{matmul,fp8_matmul,async_pipeline}.py): the
 limits of the reference's tests/test_kernels.py on its cases; at other
 shapes float32 within rtol 1e-5 / atol 1e-4, bf16 outputs within one
 bf16 rounding step (2**-7 of the value) plus 2**-12 of the largest
-(the float32 sums run in another order), integers exact.
+(the float32 sums run in another order), integers exact.  DPX and
+thread-block-cluster kernels (kernels/{dpx_kernel,dsm}.py): exact
+(integer results, float32 ring sums added in the same order).
 """
 
 import numpy as np
@@ -22,8 +24,12 @@ import pytest
 import torch
 
 from repro_torch.configs import reduced_config
+from repro_torch.core import dpx as core_dpx
+from repro_torch.core import dsm as core_dsm
 from repro_torch.kernels import async_pipeline as apk
 from repro_torch.kernels import build
+from repro_torch.kernels import dpx_kernel as dk
+from repro_torch.kernels import dsm as dsk
 from repro_torch.kernels import fp8_matmul as f8k
 from repro_torch.kernels import matmul as mmk
 from repro_torch.kernels import ops
@@ -435,10 +441,286 @@ def test_dissection_benchmarks_run_on_card(cuda):
     from repro_torch.core import bench
     for mod in (mmk, f8k, apk):
         mod.reset_launch_counts()
-    assert bench.run_all(fail_fast=True, device=cuda) == 0
+    assert bench.run_all(["tc_mma", "tc_wgmma", "tc_n_sweep", "tc_energy",
+                          "async_copy"], fail_fast=True, device=cuda) == 0
     counts = {**mmk.launch_counts(), **f8k.launch_counts(),
               **apk.launch_counts()}
     assert all(v > 0 for v in counts.values()), counts
     assert set(bench.registry()) == {"tc_mma", "tc_wgmma", "tc_n_sweep",
-                                     "tc_energy", "async_copy"}
+                                     "tc_energy", "async_copy",
+                                     "dpx_functions", "dpx_kernels", "dsm"}
     assert run.main(["tc_energy"]) is None
+
+
+# ----------------------------------------------------------------------
+# DPX (kernels/dpx_kernel.py) and thread-block clusters (kernels/dsm.py)
+# ----------------------------------------------------------------------
+
+def _limit_ints(rng, shape, dtype, device):
+    """Integers over the whole range of `dtype`, the first few at and
+    next to its limits (sums wrap)."""
+    info = torch.iinfo(dtype)
+    x = rng.integers(info.min, info.max + 1, shape).reshape(-1)
+    edge = [info.min, info.max, info.min + 1, info.max - 1, 0, -1, 1,
+            info.max // 2, info.min // 2]
+    x[:len(edge)] = edge[:x.size]
+    return torch.from_numpy(x.reshape(shape)).to(dtype).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", dk.FUNCTIONS)
+@pytest.mark.parametrize("dtype", ["int32", "int16"])
+@pytest.mark.parametrize("n", [1, 7, 4099, 100003])
+def test_dpx_fused_vs_plain(cuda, name, dtype, n):
+    """Every fused function, both dtypes, odd lengths (the int16 tail and
+    the words past the last 16-byte vector), values at the limits."""
+    rng = np.random.default_rng(n)
+    td = getattr(torch, dtype)
+    a, b, c = (_limit_ints(rng, n, td, cuda) for _ in range(3))
+    n0 = dk.dpx_fused.launches
+    got = core_dpx.FUSED[name](a, b, c)
+    torch.cuda.synchronize()
+    assert dk.dpx_fused.launches == n0 + 1
+    want = dk.dpx_fused_plain(name, a, b, c)
+    assert got.dtype == want.dtype == td
+    assert torch.equal(got, want), (name, dtype, n)
+    assert torch.equal(got, core_dpx.EMULATED[name](a, b, c))
+
+
+@pytest.mark.gpu
+def test_dpx_fused_rejects_what_the_kernel_does_not_take(cuda):
+    x16 = torch.zeros(9, dtype=torch.int16, device=cuda)
+    x32 = torch.zeros(8, dtype=torch.int32, device=cuda)
+    n0 = dk.dpx_fused.launches
+    with pytest.raises(ValueError, match="4-byte"):
+        dk.dpx_fused("viaddmax", x16[1:], x16[1:], x16[1:])
+    with pytest.raises(ValueError, match="shapes"):
+        dk.dpx_fused("viaddmax", x32, x32, x32[:4])
+    with pytest.raises(TypeError):
+        dk.dpx_fused("vimax3", x32.float(), x32.float(), x32.float())
+    with pytest.raises(ValueError, match="unknown"):
+        dk.dpx_fused("vimin7", x32, x32, x32)
+    assert dk.dpx_fused.launches == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,tiles", [
+    ((64, 96, 64), (16, 16, 16)), ((64, 96, 64), (32, 32, 32)),
+    ((64, 96, 64), (64, 32, 32)), ((64, 96, 64), (32, 96, 64)),
+    ((256, 256, 128), (128, 128, 32)), ((256, 256, 128), (64, 64, 32)),
+    ((8, 8, 8), (8, 8, 8)), ((96, 32, 48), (96, 32, 16))])
+@pytest.mark.parametrize("values", ["small", "wrap", "floor"])
+def test_tropical_matmul_vs_plain(cuda, shape, tiles, values):
+    """Tiles below, at and above the 64 x 64 sub-tile; sums that wrap in
+    int32 and sums under the INT_MIN floor."""
+    rng = np.random.default_rng(3)
+    M, N, K = shape
+    lo, hi = {"small": (-50, 50), "wrap": (2 ** 31 - 100, 2 ** 31 - 1),
+              "floor": (-2 ** 29 - 200, -2 ** 29 + 50)}[values]
+    a = torch.from_numpy(rng.integers(lo, hi, (M, K))).to(torch.int32)
+    b = torch.from_numpy(rng.integers(lo, hi, (K, N))).to(torch.int32)
+    a, b = a.to(cuda), b.to(cuda)
+    bm, bn, bk = tiles
+    n0 = dk.tropical_matmul.launches
+    got = dk.tropical_matmul(a, b, bm=bm, bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    assert dk.tropical_matmul.launches == n0 + 1
+    want = dk.tropical_matmul_plain(a, b)
+    assert torch.equal(got, want)
+    if values == "floor":
+        assert (want == dk.INT_MIN).any()
+    assert torch.equal(ops.tropical_matmul(a, b), want)
+
+
+@pytest.mark.gpu
+def test_tropical_matmul_rejects_and_counts_shared_memory(cuda):
+    a = torch.zeros((64, 64), dtype=torch.int32, device=cuda)
+    n0 = dk.tropical_matmul.launches
+    with pytest.raises(ValueError, match="divide"):
+        dk.tropical_matmul(a, a, bm=48, bn=32, bk=32)
+    with pytest.raises(ValueError, match="exceeds"):
+        ops.tropical_matmul(a, a, bm=128)
+    big = torch.zeros((64, 512), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        dk.tropical_matmul(big, big.t().contiguous(), bm=64, bn=64, bk=512)
+    with pytest.raises(TypeError):
+        dk.tropical_matmul(a.float(), a.float())
+    assert dk.tropical_matmul.launches == n0
+    lib = build.load(dk.SOURCE)
+    for tiles in [(32, 32, 32), (16, 8, 16), (128, 256, 64), (7, 9, 33)]:
+        assert lib.tropical_smem_bytes(*tiles) == dk.tropical_smem_bytes(
+            *tiles)
+    for la, lb in [(256, 256), (1500, 1100), (1, 1), (40, 8)]:
+        assert lib.smith_waterman_smem_bytes(la, lb) == \
+            dk.smith_waterman_smem_bytes(la, lb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,la,lb", [(2, 16, 16), (4, 24, 20), (1, 40, 8),
+                                     (3, 7, 31), (5, 1, 1), (3, 300, 2),
+                                     (2, 1500, 1100), (1, 1100, 1500),
+                                     (64, 256, 256)])
+@pytest.mark.parametrize("scores", [(2, -1, -1), (3, -2, -2), (1, 0, 1)])
+def test_smith_waterman_vs_plain(cuda, B, la, lb, scores):
+    """Any lengths, Lb + 1 > 1024 threads included (threads stride over
+    the columns), non-default scores (a positive gap too)."""
+    rng = np.random.default_rng(B * la + lb)
+    sa = torch.from_numpy(rng.integers(0, 4, (B, la))).to(torch.int32)
+    sb = torch.from_numpy(rng.integers(0, 4, (B, lb))).to(torch.int32)
+    sa, sb = sa.to(cuda), sb.to(cuda)
+    match, mismatch, gap = scores
+    n0 = dk.smith_waterman.launches
+    got = ops.smith_waterman(sa, sb, match=match, mismatch=mismatch, gap=gap)
+    torch.cuda.synchronize()
+    assert dk.smith_waterman.launches == n0 + 1
+    want = dk.smith_waterman_plain(sa, sb, match=match, mismatch=mismatch,
+                                   gap=gap)
+    assert got.dtype == torch.int32 and got.shape == (B,)
+    assert torch.equal(got, want)
+    if B == 1 and la <= 40:
+        H = core_dpx.smith_waterman(sa[0], sb[0], match=match,
+                                    mismatch=mismatch, gap=gap)
+        assert int(got[0]) == int(H.max())
+
+
+@pytest.mark.gpu
+def test_smith_waterman_rejects(cuda):
+    s = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    n0 = dk.smith_waterman.launches
+    with pytest.raises(ValueError, match="shapes"):
+        dk.smith_waterman(s, s[:1])
+    with pytest.raises(ValueError, match="shared memory"):
+        dk.smith_waterman(s, s[:, :1].repeat(1, 20000))
+    with pytest.raises(TypeError):
+        dk.smith_waterman(s.long(), s.long())
+    assert dk.smith_waterman.launches == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cs", [2, 4, 8])
+@pytest.mark.parametrize("ilp", [1, 2, 4])
+def test_rbc_ring_copy_vs_plain(cuda, cs, ilp):
+    """Every hop count, a shard not a multiple of the tile; float32
+    bitwise (the kernel adds in the plain version's order)."""
+    rng = np.random.default_rng(cs * 10 + ilp)
+    x = torch.from_numpy(rng.standard_normal((2 * cs, 1000 * 8)) * 1e3).to(
+        torch.float32).to(cuda)
+    for hops in range(cs):
+        n0 = dsk.rbc_ring_copy.launches
+        got = core_dsm.rbc_ring_copy(x, cs, hops=hops, ilp=ilp)
+        torch.cuda.synchronize()
+        assert dsk.rbc_ring_copy.launches == n0 + 1
+        want = dsk.rbc_ring_copy_plain(x, cs, hops=hops)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            (cs, hops, ilp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cs", [2, 4, 8])
+def test_ring_latency_probe_and_all_to_all(cuda, cs):
+    got = core_dsm.ring_latency_probe(cs, device=cuda)
+    want = torch.arange(cs, dtype=torch.int32).roll(1).reshape(cs, 1)
+    assert torch.equal(got.cpu(), want)
+    rng = np.random.default_rng(cs)
+    for shape in [(cs * 3, cs * 100), (cs, cs * 257)]:
+        x = torch.from_numpy(rng.standard_normal(shape)).float().to(cuda)
+        n0 = dsk.all_to_all_exchange.launches
+        got = core_dsm.all_to_all_exchange(x, cs)
+        torch.cuda.synchronize()
+        assert dsk.all_to_all_exchange.launches == n0 + 1
+        assert torch.equal(got, dsk.all_to_all_exchange_plain(x, cs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cs", [2, 4, 8])
+@pytest.mark.parametrize("nbins", [64, 1024, 4096])
+def test_histograms_vs_plain(cuda, cs, nbins):
+    """Both histograms equal the plain counts (values outside [0, nbins)
+    are not counted by either)."""
+    rng = np.random.default_rng(nbins + cs)
+    v = rng.integers(0, nbins, cs * 40009)
+    v[:3] = [-1, nbins, nbins + 5]
+    vals = torch.from_numpy(v).to(torch.int32).to(cuda)
+    want = dsk.histogram_private_plain(vals, nbins, cs)
+    assert int(want.sum()) == vals.numel() - 3
+    for fn in (core_dsm.histogram_private_psum, core_dsm.histogram_dsm):
+        got = fn(vals, nbins, cs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), fn.__name__
+    assert torch.equal(dsk.histogram_dsm_plain(vals, nbins, cs), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cs", [2, 4, 8])
+def test_histogram_dsm_where_a_private_one_does_not_fit(cuda, cs):
+    """65536 bins: a whole histogram (256 KiB) exceeds a block's shared
+    memory, the cluster's share of it (256/CS KiB) does not."""
+    nbins = 1 << 16
+    rng = np.random.default_rng(cs)
+    vals = torch.from_numpy(rng.integers(0, nbins, cs * 50021)).to(
+        torch.int32).to(cuda)
+    got = core_dsm.histogram_dsm(vals, nbins, cs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dsk.histogram_dsm_plain(vals, nbins, cs))
+    with pytest.raises(ValueError, match="shared memory"):
+        core_dsm.histogram_private_psum(vals, nbins, cs)
+
+
+@pytest.mark.gpu
+def test_dsm_rejects_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((6, 8), device=cuda)
+    counts = dsk.launch_counts()
+    with pytest.raises(ValueError, match="row blocks"):
+        dsk.rbc_ring_copy(x, 4)
+    with pytest.raises(ValueError, match="cluster_size"):
+        dsk.rbc_ring_copy(x, 3)
+    with pytest.raises(ValueError, match="hops"):
+        dsk.rbc_ring_copy(x, 2, hops=2)
+    with pytest.raises(ValueError, match="ilp"):
+        dsk.rbc_ring_copy(x[:, :6], 2, ilp=4)
+    with pytest.raises(TypeError):
+        dsk.rbc_ring_copy(x.double(), 2)
+    with pytest.raises(TypeError):
+        dsk.rbc_ring_copy(x.int(), 2)
+    vals = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="split evenly"):
+        dsk.histogram_dsm(vals, 100, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        dsk.histogram_private(vals, 100000, 4)
+    with pytest.raises(ValueError, match="pieces"):
+        dsk.all_to_all_exchange(torch.zeros((4, 3), device=cuda), 4)
+    assert dsk.launch_counts() == counts
+
+
+@pytest.mark.gpu
+def test_wrappers_never_run_the_plain_version_on_cuda(cuda, monkeypatch):
+    def boom(*args, **kwargs):
+        raise AssertionError("plain version run on a CUDA tensor")
+    for mod in (dk, dsk):
+        for name in dir(mod):
+            if name.endswith("_plain"):
+                monkeypatch.setattr(mod, name, boom)
+    i32 = torch.ones((64, 64), dtype=torch.int32, device=cuda)
+    dk.dpx_fused("viaddmax", i32, i32, i32)
+    dk.tropical_matmul(i32, i32)
+    dk.smith_waterman(i32[:2], i32[:2])
+    x = torch.ones((4, 64), device=cuda)
+    dsk.rbc_ring_copy(x, 4, hops=3, ilp=4)
+    dsk.ring_latency_probe(torch.zeros((4, 1), dtype=torch.int32,
+                                       device=cuda))
+    dsk.histogram_private(i32.reshape(-1), 64, 4)
+    dsk.histogram_dsm(i32.reshape(-1), 64, 4)
+    dsk.all_to_all_exchange(x, 4)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_dpx_and_dsm_benchmarks_run_on_card(cuda):
+    from repro_torch.benchmarks import run  # noqa: F401  (registers)
+    from repro_torch.core import bench
+    dk.reset_launch_counts()
+    dsk.reset_launch_counts()
+    assert bench.run_all(["dpx_functions", "dpx_kernels", "dsm"],
+                         fail_fast=True, device=cuda) == 0
+    counts = {**dk.launch_counts(), **dsk.launch_counts()}
+    assert all(v > 0 for v in counts.values()), counts

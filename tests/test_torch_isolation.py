@@ -3,8 +3,9 @@
 (a) every import in src/repro_torch and chip_smoke.py, read from the
     AST, names neither `jax` nor `repro` (`repro_torch` is fine);
 (b) a subprocess where importing `jax` or `repro` fails imports the
-    port, serves three requests on the CPU, runs the CLI and runs two
-    dissection benchmarks with `--device cpu`;
+    port, serves three requests on the CPU, runs the CLI and runs the
+    dissection benchmarks tc_energy, tc_n_sweep, dpx_functions and dsm
+    with `--device cpu`;
 (c) an entry point called without a device on a host without CUDA
     raises instead of running on the CPU (the serving entry points and
     the benchmark runner);
@@ -63,7 +64,8 @@ stats = serve.main(["--device", "cpu", "--requests", "3", "--slots", "2",
                     "--workload", "sysprompt"])
 assert stats["requests"] == 3.0
 from repro_torch.benchmarks import run as bench_run
-bench_run.main(["--device", "cpu", "tc_energy", "tc_n_sweep"])
+bench_run.main(["--device", "cpu", "tc_energy", "tc_n_sweep",
+                "dpx_functions", "dsm"])
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")
@@ -102,6 +104,9 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         bench_run.main(["tc_energy"])           # --device defaults to cuda
     with pytest.raises(RuntimeError, match="CUDA"):
         bench.run_all(["tc_energy"])
+    from repro_torch.core import dsm
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dsm.ring_latency_probe(4)               # device defaults to cuda
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -97,7 +97,8 @@ def test_registry_names_and_paper_refs():
     from repro_torch.benchmarks import run  # noqa: F401  (registers)
     import benchmarks.run  # noqa: F401  (registers the reference's)
     port, ref = bench.registry(), ref_bench.registry()
-    names = ["tc_mma", "tc_wgmma", "tc_n_sweep", "tc_energy", "async_copy"]
+    names = ["tc_mma", "tc_wgmma", "tc_n_sweep", "tc_energy", "async_copy",
+             "dpx_functions", "dpx_kernels", "dsm"]
     assert sorted(port) == sorted(names)
     for n in names:
         assert port[n].paper_ref == ref[n].paper_ref
