@@ -71,15 +71,37 @@ last line):
               with operands in registers), both findings; then the
               dpx_functions, dpx_kernels and dsm benchmarks through the
               kernels.
-Each serve phase, and the benchmark runs of phases 8 and 9, set their
-kernels' launch counts to 0 just before their main path and read them
-just after.  Then one JSON line of per-kernel numbers (sixteen
-kernels) and, last, the contract line {"ok": true, "device": {...}}.
+ 10. train  — (a) the flash-attention forward (flash_attention, B9)
+              against its plain version (the blockwise forward in torch
+              ops), o and lse, on the reference's kernel-test cases,
+              yi-6b's full-width training shape (B=2, S=4096, H=32,
+              KH=4, hd=128, bf16, causal), llama-te-mini's heads, a
+              window, a ragged S, q_offset > 0 with Sq < Sk and rows
+              with no valid key: kernel ms, plain ms, the ms of
+              scaled_dot_product_attention (a yardstick the port never
+              calls) and the bound; (b) dq, dk, dv with the kernel
+              forward against the plain forward at the full-width
+              shape; (c) one training step of full-width yi-6b with its
+              depth cut to 8 layers (fp32 parameters, gradients and
+              AdamW moments take 16 bytes a parameter: 32 layers need
+              97 GB, 8 layers 30.5 GB), remat dots, B=2 x 4096 tokens,
+              every flash call held against its plain version; (d)
+              Trainer.run on that configuration: finite, falling
+              losses, step ms, tokens/s, peak memory, B9 launches per
+              step; (e) the reduced yi-6b on the card: a run that fails
+              and restarts from its checkpoint gives the losses of an
+              uninterrupted run bit for bit.
+Each serve phase, the benchmark runs of phases 8 and 9 and the
+Trainer.run of phase 10 set their kernels' launch counts to 0 just
+before their main path and read them just after.  Then one JSON line
+of per-kernel numbers (seventeen kernels) and, last, the contract line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -524,14 +546,27 @@ def phase_serve(cfg, params, fp8: bool = False):
 # 6. where the time goes
 # ----------------------------------------------------------------------
 
+def _device_ms_by_kernel(prof, steps: int):
+    """Device ms a step of each kernel name in a torch.profiler run of
+    `steps` steps."""
+    import collections
+    from torch.autograd import DeviceType
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            by_name[e.name] += us / steps / 1e3
+    return by_name
+
+
 def phase_profile(cfg, params, quant=None) -> None:
     """Wall and device time of one full-width decode step and one chunk
     step (B=8, 128 cached tokens per slot) through the kernels, with
     the kernels that take the most device time (torch.profiler).  With
     `quant` (fp8 linears) the pool is e4m3 too."""
-    import collections
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import api
     B, bs, C, steps = 8, 16, 16, 5
@@ -566,13 +601,7 @@ def phase_profile(cfg, params, quant=None) -> None:
             for _ in range(steps):
                 fn()
             torch.cuda.synchronize()
-        by_name = collections.Counter()
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                us = getattr(e, "device_time_total", None)
-                if us is None:
-                    us = e.cuda_time_total
-                by_name[e.name] += us / steps / 1e3
+        by_name = _device_ms_by_kernel(prof, steps)
         dev = sum(by_name.values())
         top = "; ".join(f"{n[:48]} {ms:.2f}" for n, ms in
                         by_name.most_common(6))
@@ -1296,6 +1325,403 @@ def phase_dpx_dsm() -> tuple:
     return res, launches
 
 
+# ----------------------------------------------------------------------
+# 10. training: flash attention (B9) and full-width yi-6b steps
+# ----------------------------------------------------------------------
+
+# the cases of phase 10(a): name, dtype, B, Sq, Sk, H, KH, hd, causal,
+# window, q_offset
+FLASH_CASES = [
+    ("kernels-1", "float32", 2, 128, 128, 8, 2, 32, True, 0, 0),
+    ("kernels-2", "float32", 1, 128, 128, 4, 4, 64, True, 0, 0),
+    ("kernels-3", "float32", 2, 256, 256, 8, 1, 32, False, 0, 0),
+    ("kernels-4", "float32", 1, 64, 64, 6, 3, 16, True, 0, 0),
+    ("kernels-bf16", "bfloat16", 1, 128, 128, 4, 2, 32, True, 0, 0),
+    ("yi-6b", "bfloat16", 2, 4096, 4096, 32, 4, 128, True, 0, 0),
+    ("llama-te-mini", "bfloat16", 2, 2048, 2048, 12, 12, 64, True, 0, 0),
+    ("window", "bfloat16", 2, 2048, 2048, 32, 4, 128, True, 512, 0),
+    ("ragged", "bfloat16", 2, 1000, 1000, 32, 4, 128, True, 0, 0),
+    ("q_offset", "bfloat16", 2, 256, 1280, 32, 4, 128, True, 0, 1024),
+    ("ragged-f32", "float32", 1, 333, 333, 8, 2, 64, True, 0, 0),
+    ("no-valid-key", "float32", 1, 64, 96, 4, 2, 64, False, 8, 128),
+]
+# B9 against its plain version: float32 o within 1e-4 (the reference's
+# kernel tests); bf16 o within one bf16 step of max |o| (2**-7 * max|o|);
+# lse (float32 rows) within 1e-4 of max(1, max |lse|): a float32 score
+# of magnitude x carries rounding of order 1e-7 * x, and the random
+# full-width stack's scores reach the thousands
+FLASH_F32_LIMIT = 1e-4
+FLASH_BF16_STEP = 2.0 ** -7
+# dq, dk, dv with the kernel forward against the plain forward on the
+# same inputs, bf16: the backward reads the forward's bf16 output (one
+# step apart in places) and ends in a bf16 rounding: 2**-5 of max |g|
+FLASH_GRAD_REL_LIMIT = 2.0 ** -5
+TRAIN_LAYERS = 8      # full-width yi-6b, depth cut to fit one 80 GB card
+# kernel-name patterns of the profiled training step, by kind
+TRAIN_KERNEL_GROUPS = {
+    "B9 flash_fwd": ("flash_fwd",),
+    "fp32 GEMM (flash backward, plain einsums)": ("sgemm", "f32f32"),
+    "bf16 GEMM (projections, MLP, unembed)": ("nvjet", "bf16", "xmma"),
+    "elementwise and reductions": ("elementwise", "reduce", "Reduce"),
+}
+
+
+def _attended_pairs(B, Sq, Sk, H, causal, window, q_offset) -> int:
+    """(query head, key) pairs the mask lets through: the operations
+    this run's inputs need (4*hd a pair)."""
+    import numpy as np
+    pos = q_offset + np.arange(Sq)
+    hi = np.minimum(Sk - 1, pos) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, pos - window + 1) if window else np.zeros(Sq, int)
+    return int(B * H * np.maximum(hi - lo + 1, 0).sum())
+
+
+def _flash_bound(dtype_name, B, Sq, Sk, H, KH, hd, causal, window,
+                 q_offset, elt) -> tuple:
+    """Least time: q, k, v read once, o and lse written once, over the
+    HBM rate; 4*hd operations per attended pair over the peak of the
+    dtype (bf16 tensor cores; float32 on the CUDA cores)."""
+    nbytes = (2 * B * Sq * H * hd + 2 * B * Sk * KH * hd) * elt + \
+        4 * B * H * Sq
+    ops = 4 * hd * _attended_pairs(B, Sq, Sk, H, causal, window, q_offset)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _sdpa_yardstick(q, k, v, causal, window, q_offset):
+    """One scaled_dot_product_attention call over the same inputs (a
+    yardstick the port never calls): head-major views made outside the
+    timing, is_causal for plain causal cells, a boolean mask otherwise."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    Sq, Sk = q.shape[1], k.shape[1]
+    kw = {"enable_gqa": True}
+    if causal and not window and not q_offset and Sq == Sk:
+        kw["is_causal"] = True
+    elif causal or window:
+        pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+        t = torch.arange(Sk, device=q.device)[None, :]
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= t <= pos
+        if window:
+            mask &= t > pos - window
+        kw["attn_mask"] = mask
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+
+def _lse_err(lse, plse) -> float:
+    """|kernel - plain| of the lse rows over max(1, max |plain|)."""
+    return ((lse - plse).abs().max()
+            / plse.abs().max().clamp(min=1.0)).item()
+
+
+def phase_flash() -> dict:
+    """10(a): B9 against its plain version on every case.  Returns the
+    results keyed by case name."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    results = {}
+    for i, (name, dname, B, Sq, Sk, H, KH, hd, causal, window,
+            q_offset) in enumerate(FLASH_CASES):
+        dtype = getattr(torch, dname)
+        g = torch.Generator(device=DEVICE).manual_seed(100 + i)
+        q = torch.randn((B, Sq, H, hd), generator=g, device=DEVICE).to(dtype)
+        k = torch.randn((B, Sk, KH, hd), generator=g, device=DEVICE).to(dtype)
+        v = torch.randn((B, Sk, KH, hd), generator=g, device=DEVICE).to(dtype)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        kern = lambda: kfa.flash_attention_fwd(q, k, v, **kw)
+        plain = lambda: kfa.flash_attention_fwd_plain(q, k, v, **kw)
+        o, lse = kern()
+        torch.cuda.synchronize()
+        po, plse = plain()
+        if not (torch.isfinite(o.float()).all() and torch.isfinite(lse).all()):
+            fail(f"flash_attention {name}: non-finite kernel output")
+        err = (o.float() - po.float()).abs().max().item()
+        lse_err = _lse_err(lse, plse)
+        top = po.float().abs().max().item()
+        limit = (FLASH_F32_LIMIT if dname == "float32"
+                 else FLASH_BF16_STEP * top)
+        big = B * Sq * H > 1 << 18
+        ms = _time_ms(kern, 10 if big else 50)
+        plain_ms = _time_ms(plain, 2 if big else 5, warm=1)
+        lib_ms = _time_ms(_sdpa_yardstick(q, k, v, causal, window, q_offset),
+                          10 if big else 50)
+        bound_ms, bound_by = _flash_bound(dname, B, Sq, Sk, H, KH, hd, causal,
+                                          window, q_offset, q.element_size())
+        ok = err <= limit and lse_err <= FLASH_F32_LIMIT
+        print(f"[flash] {name} {dname} B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} "
+              f"hd={hd} causal={causal} window={window} q_offset={q_offset}: "
+              f"max_abs_err o={err:.3e} (limit {limit:.3e}, max|o| "
+              f"{top:.3f}) lse={lse_err:.3e} (relative, limit "
+              f"{FLASH_F32_LIMIT:.0e}) "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+              f"bound_ms={bound_ms:.5f} ({bound_by}) "
+              f"{'ok' if ok else 'OVER LIMIT'}", flush=True)
+        if not ok:
+            fail(f"flash_attention {name}: o error {err} (limit {limit}), "
+                 f"lse error {lse_err}")
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": lib_ms}
+        del q, k, v, o, lse, po, plse
+    return results
+
+
+class _PlainForward:
+    """Within the block, models/attention.flash_attention runs its
+    forward through the plain version (the backward is the same code
+    either way)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as kfa
+        self.orig = kfa.flash_attention_fwd
+        kfa.flash_attention_fwd = kfa.flash_attention_fwd_plain
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as kfa
+        kfa.flash_attention_fwd = self.orig
+
+
+def phase_flash_grads() -> None:
+    """10(b): dq, dk, dv of the autograd function with the kernel
+    forward against the same function with the plain forward, on the
+    same inputs at the full-width training shape."""
+    import torch
+    from repro_torch.models import attention
+    B, S, H, KH, hd = 2, 4096, 32, 4, 128
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    q, k, v, do = (torch.randn(shape, generator=g, device=DEVICE)
+                   .to(torch.bfloat16)
+                   for shape in ((B, S, H, hd), (B, S, KH, hd),
+                                 (B, S, KH, hd), (B, S, H, hd)))
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+
+    def grads():
+        out = attention.flash_attention(*leaves, causal=True)
+        return torch.autograd.grad(out, leaves, do)
+
+    t0 = time.perf_counter()
+    got = grads()
+    with _PlainForward():
+        want = grads()
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        if not torch.isfinite(a.float()).all():
+            fail(f"flash_attention backward: non-finite {name}")
+        rel = ((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item()
+        worst = max(worst, rel)
+        print(f"[flash] grads B={B} S={S} H={H} KH={KH} hd={hd} bf16 causal:"
+              f" {name} max |kernel - plain| / max |plain| = {rel:.3e} "
+              f"(limit {FLASH_GRAD_REL_LIMIT:.3e})", flush=True)
+    print(f"[flash] grads in {time.perf_counter() - t0:.1f} s", flush=True)
+    if worst > FLASH_GRAD_REL_LIMIT:
+        fail(f"flash_attention gradients with the kernel forward differ from "
+             f"the plain forward's by {worst:.3e} of max |g|")
+
+
+def _train_config(cfg, layers: int):
+    import dataclasses
+    return dataclasses.replace(cfg, num_layers=layers, remat="dots")
+
+
+def phase_train_step(cfg) -> None:
+    """10(c): one full-width training step (8 layers, remat dots, fp32
+    parameters and moments), every flash-attention call held against
+    its plain version on the same inputs; the loss of the same batch
+    through the plain forward printed beside it (random full-width
+    stacks are chaotic: not gated)."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.trainer import make_train_step
+    t0 = time.perf_counter()
+    params = api.init(cfg, 0, device=DEVICE, dtype=torch.float32)
+    opt = AdamW(learning_rate=1e-3, warmup_steps=1, total_steps=100)
+    state = opt.init(params)
+    batch = {k: v.to(DEVICE) for k, v in next(
+        SyntheticLMData(cfg.vocab_size, 2, 4096).batches(0)).items()}
+    torch.cuda.synchronize()
+    print(f"[train] yi-6b full width, {cfg.num_layers} layers: "
+          f"{cfg.param_count() / 1e9:.2f} B float32 params + AdamW state "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    with torch.no_grad(), _PlainForward():
+        plain_loss = api.loss_fn(cfg, params, batch).item()
+    orig = kfa.flash_attention_fwd
+    worst = [0, 0.0, 0.0]                   # calls, o / max|o|, lse
+
+    def checked(q, k, v, **kw):
+        o, lse = orig(q, k, v, **kw)
+        with torch.no_grad():
+            po, plse = kfa.flash_attention_fwd_plain(q, k, v, **kw)
+            worst[0] += 1
+            worst[1] = max(worst[1], ((o.float() - po.float()).abs().max()
+                                      / po.float().abs().max()).item())
+            worst[2] = max(worst[2], _lse_err(lse, plse))
+        return o, lse
+
+    kfa.flash_attention_fwd = checked
+    try:
+        t0 = time.perf_counter()
+        params, state, metrics = make_train_step(cfg, opt)(params, state,
+                                                           batch)
+        loss = metrics["loss"].item()
+    finally:
+        kfa.flash_attention_fwd = orig
+    print(f"[train] one step with every flash call checked "
+          f"({time.perf_counter() - t0:.1f} s): {worst[0]} calls "
+          f"(forward + remat recompute), max |kernel - plain| / max |o| = "
+          f"{worst[1]:.3e} (limit {FLASH_BF16_STEP:.3e}), lse "
+          f"{worst[2]:.3e} (relative, limit {FLASH_F32_LIMIT:.0e}); loss "
+          f"{loss:.5f} "
+          f"(plain forward: {plain_loss:.5f}), grad_norm "
+          f"{metrics['grad_norm'].item():.4f}", flush=True)
+    if not (torch.isfinite(metrics["loss"]) and
+            torch.isfinite(metrics["grad_norm"])):
+        fail("full-width training step gave a non-finite loss or gradient")
+    if worst[0] != 2 * cfg.num_layers:
+        fail(f"the step ran {worst[0]} flash forwards, not "
+             f"{2 * cfg.num_layers} (forward + recompute of each layer)")
+    if worst[1] > FLASH_BF16_STEP or worst[2] > FLASH_F32_LIMIT:
+        fail(f"a flash call of the training step differs from its plain "
+             f"version: o {worst[1]:.3e} of max |o|, lse {worst[2]:.3e}")
+
+
+def phase_trainer(cfg, steps: int = 4) -> dict:
+    """10(d): Trainer.run on the full-width 8-layer config; the main
+    path of this phase, with B9's count set to 0 just before and read
+    just after.  Then one more step under torch.profiler: the device
+    time by kernel.  Returns the launch counts."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.runtime.trainer import Trainer
+    B, S = 2, 4096
+    with tempfile.TemporaryDirectory() as td:
+        tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                           total_steps=100, ckpt_every=10 ** 6, ckpt_dir=td)
+        tr = Trainer(cfg, tcfg, data=SyntheticLMData(cfg.vocab_size, B, S),
+                     device=DEVICE)
+        tr.init()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kfa.reset_launch_counts()
+        hist = list(tr.run(steps))
+        torch.cuda.synchronize()
+        launches = kfa.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tr.run(1)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        del tr
+    losses = [m.loss for m in hist]
+    for m in hist:
+        print(f"[train] Trainer.run step {m.step}: loss {m.loss:.5f} "
+              f"grad_norm {m.grad_norm:.4f} step_ms "
+              f"{m.step_time_s * 1e3:.1f} tokens/s "
+              f"{B * S / m.step_time_s:.1f}", flush=True)
+    steady = hist[1:] or hist
+    step_s = sum(m.step_time_s for m in steady) / len(steady)
+    print(f"[train] yi-6b full width {cfg.num_layers} layers, B={B} S={S}, "
+          f"remat {cfg.remat}: {steps} steps, steady step_ms "
+          f"{step_s * 1e3:.1f}, tokens/s {B * S / step_s:.1f}, peak memory "
+          f"{peak / 1e9:.2f} GB, flash_attention launches "
+          f"{launches['flash_attention']} ({launches['flash_attention'] / steps:g}"
+          f" per step)", flush=True)
+    by_name = _device_ms_by_kernel(prof, 1)
+    dev = sum(by_name.values())
+    groups = {g: 0.0 for g in TRAIN_KERNEL_GROUPS}
+    for n, ms in by_name.items():
+        g = next((g for g, keys in TRAIN_KERNEL_GROUPS.items()
+                  if any(key in n for key in keys)), "other")
+        groups[g] = groups.get(g, 0.0) + ms
+    split = "; ".join(f"{g} {ms:.1f}" for g, ms in groups.items())
+    top = "; ".join(f"{n[:60]} {ms:.2f}" for n, ms in
+                    by_name.most_common(8))
+    print(f"[profile] one Trainer.run step under the profiler: wall "
+          f"{wall:.1f} ms; "
+          + (f"device {dev:.1f} ms, {dev / (step_s * 1e3):.0%} of an "
+             f"unprofiled step ({step_s * 1e3:.1f} ms); device ms by kind: "
+             f"{split}; top kernels (ms): {top}" if dev
+             else "device time not measured (the profiler saw no kernel)"),
+          flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"Trainer.run gave non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"Trainer.run losses did not fall: {losses}")
+    if launches["flash_attention"] != 2 * cfg.num_layers * steps:
+        fail(f"flash_attention launched {launches} times in {steps} steps, "
+             f"not {2 * cfg.num_layers} a step")
+    return launches
+
+
+def phase_restart() -> None:
+    """10(e): reduced yi-6b (remat dots) on the card: a run that fails
+    after its fifth step and restarts from its step-4 checkpoint (one
+    every 2 steps) gives the losses of an uninterrupted run, bit for
+    bit (step 5 runs twice)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import reduced_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.runtime.trainer import Trainer
+    cfg = dataclasses.replace(reduced_config("yi-6b"), num_kv_heads=2,
+                              remat="dots")
+    runs = []
+    for fail_at in (5, None):
+        with tempfile.TemporaryDirectory() as td:
+            tcfg = TrainConfig(total_steps=50, warmup_steps=2, ckpt_every=2,
+                               ckpt_dir=td, learning_rate=1e-3)
+            tr = Trainer(cfg, tcfg, data=SyntheticLMData(cfg.vocab_size, 4,
+                                                         64, seed=0),
+                         fail_at_step=fail_at, device=DEVICE)
+            tr.init()
+            hist = tr.run(8)
+            runs.append(({m.step: m.loss for m in hist}, tr.restarts))
+    (a, restarts), (b, _) = runs
+    print(f"[train] reduced yi-6b on the card, failure after step 5 "
+          f"({restarts} restart) vs uninterrupted: losses "
+          f"{[a[s] for s in sorted(a)]} vs {[b[s] for s in sorted(b)]}",
+          flush=True)
+    if restarts != 1 or sorted(a) != list(range(1, 9)):
+        fail(f"the failing run did not restart once: {restarts}, {sorted(a)}")
+    if any(a[s] != b[s] for s in b):
+        fail("restart is not bit-exact on the card: "
+             f"{[(s, a[s], b[s]) for s in b if a[s] != b[s]]}")
+
+
+def phase_training() -> tuple:
+    """Phase 10, all of it.  Returns (B9 results by case, launches)."""
+    import torch
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    flash = phase_flash()
+    phase_flash_grads()
+    cfg = _train_config(get_config("yi-6b"), TRAIN_LAYERS)
+    phase_train_step(cfg)
+    torch.cuda.empty_cache()
+    launches = phase_trainer(cfg)
+    torch.cuda.empty_cache()
+    phase_restart()
+    print(f"[train] phase 10 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return flash, launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     device = phase_card()
@@ -1336,6 +1762,7 @@ def main() -> None:
     phase_small(fp8=True)
     mm_results, mm_launches = phase_matmul()
     dd_results, dd_launches = phase_dpx_dsm()
+    flash_results, flash_launches = phase_training()
     line = []
     for name, line_no in (("paged_decode", 163), ("paged_chunk", 252),
                           ("paged_decode_fp8", 147),
@@ -1390,6 +1817,15 @@ def main() -> None:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    r = flash_results["yi-6b"]
+    line.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:62",
+        "launches": flash_launches["flash_attention"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": device}), flush=True)

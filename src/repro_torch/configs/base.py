@@ -1,8 +1,10 @@
-"""Model/arch configuration."""
+"""Model/arch, shape-cell and training configuration."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,3 +83,47 @@ class ModelConfig:
         from repro_torch.models import api
         from repro_torch.models.common import count_params
         return count_params(api.param_shapes(self))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str                      # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def _default_ckpt_dir() -> str:
+    return os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    microbatch: int = 0            # 0 = no gradient accumulation
+    ckpt_every: int = 100
+    # under the temporary directory ($TMPDIR) of the process
+    ckpt_dir: str = dataclasses.field(default_factory=_default_ckpt_dir)
+    seed: int = 0
+    # distributed-optimization tricks (compression is not ported yet)
+    grad_compression: str = "none"   # none | bf16 | int8_ef
+    async_ckpt: bool = True

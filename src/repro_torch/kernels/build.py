@@ -54,6 +54,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "paged_chunk_fp8_fwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _F, _P),
     },
+    "flash_attention.cu": {
+        # dtype, hd, q, k, v, o, lse, B, Sq, Sk, H, KH, causal, window,
+        # q_offset, n_pad_keys, scale, stream
+        "flash_attention_fwd": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _F, _P),
+    },
     "matmul.cu": {
         # dtype, bm, bn, bk
         "matmul_smem_bytes": (_I, _I, _I, _I),

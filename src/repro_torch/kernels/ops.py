@@ -24,6 +24,7 @@ import torch
 from repro_torch.core import hw, mxu_model
 from repro_torch.kernels import async_pipeline as _async
 from repro_torch.kernels import dpx_kernel as _dpx
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fp8_matmul as _fp8
 from repro_torch.kernels import matmul as _mm
 
@@ -120,6 +121,28 @@ def pipelined_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 0,
                  bn=(bn, n), bk=(bk, k))
     bm, bn, bk = _fit_tiles(m, n, k, bm or 32, bn or 32, bk or 32)
     return _async.pipelined_matmul(a, b, bm=bm, bn=bn, bk=bk, stages=stages)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, bq: int = 0, bk: int = 0
+                    ) -> torch.Tensor:
+    """bq/bk default 0 = auto ``min(128, S)`` — decode-length inputs
+    (S < 128) get an S-sized tile.  The reference's contract on the
+    tiles is kept (a tile larger than its operand raises, a tile that
+    does not divide S raises as the reference's kernel asserts, an
+    explicit tile off the 16-row ``mma.sync`` grid warns), but the tiles
+    do not shape the launch: the CUDA kernel's 64 x 64 (bf16) or
+    32 x 32 (float32) tile is fixed by its warp layout and masks the
+    ragged edge itself, and the results do not depend on bq/bk."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    _check_tiles("flash_attention", {"bq": 16, "bk": 16}, bq=(bq, Sq),
+                 bk=(bk, Sk))
+    bq = bq or min(128, Sq)
+    bk = bk or min(128, Sk)
+    if Sq % bq or Sk % bk:
+        raise ValueError(f"flash_attention: tiles bq={bq}, bk={bk} do not "
+                         f"divide the sequence lengths {Sq}, {Sk}")
+    return _flash.flash_attention(q, k, v, causal=causal)
 
 
 def tropical_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 0,

@@ -3,6 +3,7 @@
 PyTorch counterpart of ``repro/models/api.py`` for the dense family:
 
     param_shapes / init                     parameters
+    loss_fn                                 training objective
     init_cache / decode_step / chunk_step   paged serving (bf16 or fp8
                                             KV pool; ``quant=`` fp8
                                             linears)
@@ -50,6 +51,14 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None,
     gen.manual_seed(seed)
     with torch.no_grad():
         return common.init_params(param_shapes(cfg), gen, dev, dtype)
+
+
+def loss_fn(cfg: ModelConfig, params: Params,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Causal-LM loss of the dense family (transformer.loss_fn); the
+    other families are not ported yet."""
+    _dense_only(cfg)
+    return transformer.loss_fn(cfg, params, batch)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

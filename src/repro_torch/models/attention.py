@@ -14,6 +14,15 @@ logical block i (virtual positions [i*bs, (i+1)*bs)) to a physical
 pool block; -1 marks an unallocated entry.  The fp8 layout adds
 "k_scale"/"v_scale" [.., NB, bs, KH, 1] float32: one scale per token
 row per kv head.
+
+The training half: ``flash_attention``, the blockwise online-softmax
+(flash) attention with GQA, as a ``torch.autograd.Function``.  Its
+forward on the card is the hand-written CUDA kernel of
+``repro_torch/kernels/flash_attention.py`` (it returns the output and
+the log-sum-exp rows); on the CPU it is the plain port of the
+reference's ``_attn_fwd`` in the reference's block and pair order.  Its
+backward is the port of the reference's hand-written blockwise
+backward ``_flash_bwd_rule`` in torch ops, on either device.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.common import ParamSpec, fixed_tree_sum
 from repro_torch.te import fp8 as te_fp8
@@ -169,6 +179,240 @@ def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
     o = _masked_softmax_pv(s, mask[:, None, None], vt[:, :, None, None],
                            v_cache.dtype, t_axis=4)          # [B,KH,G,C,hd]
     return o.permute(0, 3, 1, 2, 4).reshape(B, C, H, hd).to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# flash attention (training): blockwise forward + hand-written backward
+# ----------------------------------------------------------------------
+
+def _chunk_arrays(q, k, v, qc, kc):
+    """Pad + reshape to chunked layouts; returns geometry too."""
+    B, Sq, H, hd = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    pad_q = (-Sq) % qc
+    pad_k = (-Sk) % kc
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    nq, nk = (Sq + pad_q) // qc, (Sk + pad_k) // kc
+    qs = q.reshape(B, nq, qc, KH, G, hd).permute(1, 0, 2, 3, 4, 5)
+    ks = k.reshape(B, nk, kc, KH, hd).permute(1, 0, 2, 3, 4)
+    vs = v.reshape(B, nk, kc, KH, hd).permute(1, 0, 2, 3, 4)
+    return qs, ks, vs, (B, Sq, Sk, H, KH, G, hd, nq, nk)
+
+
+def _block_mask(qp, kp, kval, causal, window):
+    mask = kval[None, :]
+    if causal:
+        mask = mask & (kp[None, :] <= qp[:, None])
+    if window:
+        mask = mask & (kp[None, :] > qp[:, None] - window)
+    return mask                                   # [qc, kc]
+
+
+def _causal_pairs(nq, nk, qc, kc, q_offset):
+    """Lower-triangle (i, j) block-pair list: block j is needed by block
+    i iff its first key position can be attended by i's last query.
+    Ordered i-major so the online-softmax state streams per q-block."""
+    pairs = []
+    for i in range(nq):
+        q_max = q_offset + (i + 1) * qc - 1
+        for j in range(nk):
+            if j * kc <= q_max:
+                pairs.append((i, j))
+    return pairs
+
+
+def _positions(nq, nk, qc, kc, Sk, q_offset, device):
+    q_pos = q_offset + torch.arange(nq * qc, device=device).reshape(nq, qc)
+    k_pos = torch.arange(nk * kc, device=device).reshape(nk, kc)
+    k_valid = (torch.arange(nk * kc, device=device) < Sk).reshape(nk, kc)
+    return q_pos, k_pos, k_valid
+
+
+def _scores(qb, kb, scale):
+    """s [B,KH,G,qc,kc]: float32 q.k of the (q-block, kv-block) pair,
+    times scale after the sum (preferred_element_type=float32)."""
+    return torch.einsum("bqkgd,btkd->bkgqt", qb.float(), kb.float()) * scale
+
+
+def _online_step(m, l, acc, qb, kb, vb, mask, scale):
+    """One (q-block, kv-block) step of the online softmax: masked
+    scores are NEG_INF, p = exp(s - m_new) is rounded to v's dtype
+    before the float32 PV product."""
+    s = _scores(qb, kb, scale)
+    s = torch.where(mask[None, None, None], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    pv = torch.einsum("bkgqt,btkd->bqkgd", p.to(vb.dtype).float(),
+                      vb.float())
+    acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+    return m_new, l, acc
+
+
+def _attn_fwd(q, k, v, causal, window, qc, kc, q_offset):
+    """Blockwise online-softmax forward, the plain version of the
+    kernel.  Returns (out [B,Sq,H,hd] in q.dtype, lse [nq,B,KH,G,qc]):
+    the lse rows the backward reads, in the reference's chunked layout.
+    Causal cells without a window walk only the lower-triangle block
+    pairs, i-major, as the reference's pair scan does."""
+    qs, ks, vs, (B, Sq, Sk, H, KH, G, hd, nq, nk) = \
+        _chunk_arrays(q, k, v, qc, kc)
+    scale = hd ** -0.5
+    q_pos, k_pos, k_valid = _positions(nq, nk, qc, kc, Sk, q_offset,
+                                       q.device)
+    if causal and not window and nq > 1:
+        pairs = _causal_pairs(nq, nk, qc, kc, q_offset)
+    else:
+        pairs = [(i, j) for i in range(nq) for j in range(nk)]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = torch.zeros((nq, B, qc, KH, G, hd), **f32)
+    lse = torch.full((nq, B, KH, G, qc), NEG_INF, **f32)
+    for t, (i, j) in enumerate(pairs):
+        if t == 0 or pairs[t - 1][0] != i:          # a q-block's first pair
+            m = torch.full((B, KH, G, qc), NEG_INF, **f32)
+            l = torch.zeros((B, KH, G, qc), **f32)
+            acc = torch.zeros((B, qc, KH, G, hd), **f32)
+        mask = _block_mask(q_pos[i], k_pos[j], k_valid[j], causal, window)
+        m, l, acc = _online_step(m, l, acc, qs[i], ks[j], vs[j], mask, scale)
+        if t + 1 == len(pairs) or pairs[t + 1][0] != i:   # its last pair
+            lse[i] = m + torch.log(torch.clamp(l, min=1e-30))
+            out[i] = acc / torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[
+                ..., None]
+    out = out.permute(1, 0, 2, 3, 4, 5).reshape(B, nq * qc, H, hd)
+    return out[:, :Sq].to(q.dtype), lse
+
+
+def lse_rows(lse: torch.Tensor, Sq: int) -> torch.Tensor:
+    """The chunked lse [nq,B,KH,G,qc] as rows [B,H,Sq] (the kernel's)."""
+    nq, B, KH, G, qc = lse.shape
+    return lse.permute(1, 2, 3, 0, 4).reshape(B, KH * G, nq * qc)[..., :Sq]
+
+
+def lse_chunks(rows: torch.Tensor, KH: int, qc: int) -> torch.Tensor:
+    """lse rows [B,H,Sq] in the chunked layout [nq,B,KH,G,qc]; the
+    padded rows past Sq get 0, a finite value whose backward
+    contributions are exact zeros (their dout and D are 0)."""
+    B, H, Sq = rows.shape
+    nq = -(-Sq // qc)
+    x = F.pad(rows.reshape(B, KH, H // KH, Sq), (0, nq * qc - Sq))
+    return x.reshape(B, KH, H // KH, nq, qc).permute(3, 0, 1, 2, 4)
+
+
+def _flash_bwd(q, k, v, out, lse, g, causal, window, qc, kc, q_offset):
+    """Hand-written blockwise backward (the reference's
+    `_flash_bwd_rule`): recomputes each (q-block, kv-block) probability
+    tile from (q, k, lse) and accumulates dq/dk/dv in float32, j-major;
+    causal cells without a window iterate only the lower-triangle
+    block pairs."""
+    in_dtype = q.dtype
+    qs, ks, vs, (B, Sq, Sk, H, KH, G, hd, nq, nk) = \
+        _chunk_arrays(q, k, v, qc, kc)
+    gs = _chunk_arrays(g.float(), k, v, qc, kc)[0]
+    scale = hd ** -0.5
+    # D = rowsum(dout * out), per query row
+    D = torch.sum(g.float() * out.float(), dim=-1)
+    D = F.pad(D, (0, 0, 0, nq * qc - Sq))
+    Ds = D.reshape(B, nq, qc, KH, G).permute(1, 0, 3, 4, 2)  # [nq,B,KH,G,qc]
+    q_pos, k_pos, k_valid = _positions(nq, nk, qc, kc, Sk, q_offset,
+                                       q.device)
+    if causal and not window and nq > 1:
+        pairs = [(i, j) for j in range(nk) for i in range(nq)
+                 if j * kc <= q_offset + (i + 1) * qc - 1]
+    else:
+        pairs = [(i, j) for j in range(nk) for i in range(nq)]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.zeros((nq, B, qc, KH, G, hd), **f32)
+    dks = torch.zeros((nk, B, kc, KH, hd), **f32)
+    dvs = torch.zeros((nk, B, kc, KH, hd), **f32)
+    for t, (i, j) in enumerate(pairs):
+        if t == 0 or pairs[t - 1][1] != j:          # a kv-block's first pair
+            dk_j = torch.zeros((B, kc, KH, hd), **f32)
+            dv_j = torch.zeros((B, kc, KH, hd), **f32)
+        qb, gb, lseb, Db = qs[i], gs[i], lse[i], Ds[i]
+        kb, vb = ks[j], vs[j]
+        s = _scores(qb, kb, scale)
+        mask = _block_mask(q_pos[i], k_pos[j], k_valid[j], causal, window)
+        p = torch.where(mask[None, None, None],
+                        torch.exp(s - lseb[..., None]), 0.0)
+        dv_j = dv_j + torch.einsum("bkgqt,bqkgd->btkd", p, gb)
+        dp = torch.einsum("bqkgd,btkd->bkgqt", gb, vb.float())
+        ds = p * (dp - Db[..., None]) * scale
+        dk_j = dk_j + torch.einsum("bkgqt,bqkgd->btkd", ds, qb.float())
+        dq[i] = dq[i] + torch.einsum("bkgqt,btkd->bqkgd", ds, kb.float())
+        if t + 1 == len(pairs) or pairs[t + 1][1] != j:   # its last pair
+            dks[j], dvs[j] = dk_j, dv_j
+    dq = dq.permute(1, 0, 2, 3, 4, 5).reshape(B, nq * qc, H, hd)[:, :Sq]
+    dk = dks.permute(1, 0, 2, 3, 4).reshape(B, nk * kc, KH, hd)[:, :Sk]
+    dv = dvs.permute(1, 0, 2, 3, 4).reshape(B, nk * kc, KH, hd)[:, :Sk]
+    return dq.to(in_dtype), dk.to(in_dtype), dv.to(in_dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """out = flash(q, k, v); saves (q, k, v, out, lse) for the backward.
+    The forward is the CUDA kernel for CUDA tensors and its plain
+    version (`_attn_fwd`) for CPU tensors, both through
+    kernels/flash_attention.flash_attention_fwd; there is no fallback
+    from the card to the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, qc, kc, q_offset):
+        from repro_torch.kernels import flash_attention as kfa
+        out, rows = kfa.flash_attention_fwd(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            q_chunk=qc, kv_chunk=kc)
+        lse = lse_chunks(rows, k.shape[2], qc)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, qc, kc, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, g, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    q_chunk: int = 512, kv_chunk: int = 512,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Blockwise online-softmax attention with GQA + flash backward.
+
+    q: [B,Sq,H,hd]; k,v: [B,Sk,KH,hd]; H % KH == 0.  `q_offset` is the
+    absolute position of q[0].  Returns [B,Sq,H,hd] in q.dtype; softmax
+    in fp32.  `q_chunk`/`kv_chunk` are the blocks of the plain forward
+    and of the backward (the kernel tiles on its own).
+    """
+    qc = min(q_chunk, q.shape[1])
+    kc = min(kv_chunk, k.shape[1])
+    return _Flash.apply(q, k, v, causal, window, qc, kc, q_offset)
+
+
+def attention_reference(q, k, v, *, causal=True, window=0, q_offset=0):
+    """Naive O(S^2)-memory oracle for tests (small shapes only)."""
+    B, Sq, H, hd = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qg = q.reshape(B, Sq, KH, G, hd)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg.float(),
+                     k.float()) * hd ** -0.5
+    qp = q_offset + torch.arange(Sq, device=q.device)
+    kp = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp[None, :] <= qp[:, None]
+    if window:
+        mask &= kp[None, :] > qp[:, None] - window
+    s = torch.where(mask[None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqt,btkd->bqkgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
 # ----------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Shared model substrate: param specs, device choice, norms, RoPE.
+"""Shared model substrate: param specs, device choice, norms, RoPE, losses.
 
 PyTorch counterpart of ``repro/models/common.py``.  ``ParamSpec`` keeps
 only what parameter initialisation needs (shape, init rule, scale): the
@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # ----------------------------------------------------------------------
@@ -179,3 +180,56 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# --- losses ------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean CE; logits [..., vocab] fp32-stable."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _xent_chunk(xc: torch.Tensor, w_out: torch.Tensor, lc: torch.Tensor,
+                mc: torch.Tensor) -> torch.Tensor:
+    """Masked NLL sum of one token chunk."""
+    logits = (xc @ w_out).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return torch.sum((lse - gold) * mc)
+
+
+def chunked_softmax_xent(x: torch.Tensor, w_out: torch.Tensor,
+                         labels: torch.Tensor, *, chunk: int = 8192,
+                         mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Cross-entropy without materializing [tokens, vocab] at once.
+
+    The token dim goes through chunks of `chunk` rows, so the live
+    logits buffer is [chunk, vocab]; each chunk's logits are recomputed
+    in the backward (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint`` on its scan step), never stored.  x: [tokens, d];
+    w_out: [d, vocab]; labels: [tokens].
+    """
+    tokens = x.shape[0]
+    pad = (-tokens) % chunk
+    if mask is None:
+        mask = torch.ones((tokens,), dtype=torch.float32, device=x.device)
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    m = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(x.shape[0] // chunk):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        nll = nll + checkpoint(_xent_chunk, x[rows], w_out, labels[rows],
+                               mask[rows], use_reentrant=False)
+        m = m + torch.sum(mask[rows])
+    return nll / torch.clamp(m, min=1.0)

@@ -1,21 +1,30 @@
-"""Decoder-only transformer LM (dense family): the serving forward.
+"""Decoder-only transformer LM (dense family): training and serving.
 
-PyTorch counterpart of the serving half of ``repro/models/transformer.py``.
-Layer parameters keep the reference's stacked layout (every leaf under
-"layers" has a leading [L] axis, so weights bridge across unchanged);
-the reference's scan over layers becomes a Python loop over layer
-slices.  The paged KV pool is updated in place.
+PyTorch counterpart of ``repro/models/transformer.py`` for the dense
+family.  Layer parameters keep the reference's stacked layout (every
+leaf under "layers" has a leading [L] axis, so weights bridge across
+unchanged); the reference's scan over layers becomes a Python loop over
+layer slices.  The training forward runs each layer under the config's
+remat policy (none | dots | full | full_save_attn) through
+``torch.utils.checkpoint``; remat changes what is kept for the backward,
+never the numbers.  The paged KV pool of the serving steps is updated
+in place.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (ParamSpec, apply_norm, apply_rope,
+                                       chunked_softmax_xent, cross_entropy,
                                        norm_spec)
 
 Params = Dict[str, Any]
@@ -57,6 +66,135 @@ def layer_slice(tree: Params, i: int) -> Params:
     if isinstance(tree, torch.Tensor):
         return tree[i]
     return {k: layer_slice(v, i) for k, v in tree.items()}
+
+
+def layer_list(tree: Params, n: int) -> List[Params]:
+    """The n layers' parameters, each leaf of the stack unbound once
+    (so the backward stacks the n layer gradients in one op)."""
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    parts = {k: layer_list(v, n) for k, v in tree.items()}
+    return [{k: parts[k][i] for k in parts} for i in range(n)]
+
+
+# ----------------------------------------------------------------------
+# training: blocks, remat, forward, loss
+# ----------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Identity (a copy) tagged with `name`, as the reference's
+    ``jax.ad_checkpoint.checkpoint_name``: a selective-checkpoint
+    policy can keep its output for the backward by this op."""
+    return x.clone()
+
+
+@checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+checkpoint_name.register_autograd(lambda ctx, g: (g, None))
+
+
+def attn_block(cfg, p, x: torch.Tensor, positions: torch.Tensor
+               ) -> torch.Tensor:
+    q, k, v = attn.qkv_project(cfg, p, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = attn.flash_attention(q, k, v, causal=True,
+                             window=cfg.sliding_window)
+    # tagged so remat="full_save_attn" keeps it instead of recomputing
+    o = checkpoint_name(o, "attn_out")
+    return attn.out_project(p, o)
+
+
+def layer_fwd(cfg, p, x: torch.Tensor, positions: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm block (dense). Returns (x, aux_loss)."""
+    h = apply_norm(cfg, x, p["ln1"])
+    x = x + attn_block(cfg, p["attn"], h, positions)
+    h = apply_norm(cfg, x, p["ln2"])
+    y = mlp_mod.mlp(cfg, p["mlp"], h)
+    return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# the 2-D products a layer runs (projections, MLP): what "dots" keeps,
+# as the reference's dots_with_no_batch_dims_saveable (the attention
+# einsums have batch dims and are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_attn_out(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE
+            if op is torch.ops.repro_torch.checkpoint_name.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, fn):
+    """none: keep everything; full: keep only the inputs; dots: keep the
+    outputs of the layer's matrix products; full_save_attn: keep the
+    attention output.  The rest is recomputed in the backward."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    policy = _save_attn_out if cfg.remat == "full_save_attn" else _save_dots
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     policy))
+
+
+def embed_tokens(cfg, params, tokens: torch.Tensor,
+                 prefix_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """bf16 rows of the embedding (looked up, then cast: the values of
+    casting first; the backward adds repeated tokens' gradients in
+    float32, deterministically)."""
+    x = F.embedding(tokens.long(), params["embed"]).to(torch.bfloat16)
+    if prefix_embeds is not None:
+        npfx = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(x.dtype), x[:, npfx:]], dim=1)
+    return x
+
+
+def forward(cfg, params, tokens: torch.Tensor, *,
+            prefix_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B,S] -> (final hidden [B,S,d] (pre-unembed), aux)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense only)")
+    B, S = tokens.shape
+    x = embed_tokens(cfg, params, tokens, prefix_embeds)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    layer = _remat(cfg, functools.partial(layer_fwd, cfg))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in layer_list(params["layers"], cfg.num_layers):
+        x, a = layer(lp, x, positions)
+        aux = aux + a
+    return apply_norm(cfg, x, params["final_norm"]), aux
+
+
+def loss_fn(cfg, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Causal-LM loss; big vocabs go through the chunked-CE loop."""
+    h, aux = forward(cfg, params, batch["tokens"],
+                     prefix_embeds=batch.get("prefix_embeds"))
+    B, S, d = h.shape
+    labels = batch["labels"]
+    w = unembed_matrix(cfg, params).to(h.dtype)
+    if cfg.vocab_size * S * B > 2 ** 28:       # big-vocab: chunk token dim
+        ce = chunked_softmax_xent(h.reshape(B * S, d), w,
+                                  labels.reshape(B * S))
+    else:
+        ce = cross_entropy(h @ w, labels)
+    return ce + cfg.aux_loss_weight * aux
 
 
 # ----------------------------------------------------------------------

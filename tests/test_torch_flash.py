@@ -1,0 +1,202 @@
+"""Port vs reference: flash attention, forward and backward.
+
+* `repro_torch.models.attention.flash_attention` (a torch autograd
+  function: the blockwise forward, on the CPU its plain version in the
+  reference's block and pair order, and the port of the reference's
+  blockwise backward) against `jax.vjp` of
+  `repro.models.attention.flash_attention` on the same numpy inputs and
+  output cotangent.  float32: outputs within 1e-5, lse rows within
+  1e-5, gradients within 1e-4 (both sum the same float32 products, in
+  another order).  bf16: outputs within one bf16 step of max |o|
+  (2**-7 * max|o|: p and o are rounded to bf16 on both sides, and a
+  value on a rounding boundary may round the other way), gradients
+  within 2**-5 of each one's max |g| (the backward reads the bf16
+  output, and its float32 sums end in one bf16 rounding).
+* `repro_torch.kernels.ops.flash_attention` (plain on the CPU) against
+  `repro.kernels.ops.flash_attention`, the Pallas kernel B9 in interpret
+  mode, on the cases of tests/test_kernels.py at its tolerances, and the
+  tile policy (oversize tile raises, decode-length auto tile).
+The CUDA kernel itself is held against the plain version on the card
+in tests/test_torch_gpu.py and chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_kernels
+from repro.models import attention as ref_attn
+from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import ops
+from repro_torch.models import attention
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+# name: B, Sq, Sk, H, KH, hd, causal, window, q_offset, q_chunk, kv_chunk
+CASES = {
+    "causal_pairs_G2": (2, 64, 64, 4, 2, 16, True, 0, 0, 16, 16),
+    "causal_pairs_G4": (1, 48, 48, 8, 2, 32, True, 0, 0, 16, 16),
+    "causal_G1_one_block": (1, 32, 32, 4, 4, 16, True, 0, 0, 32, 32),
+    "noncausal_G4": (2, 40, 40, 4, 1, 16, False, 0, 0, 16, 16),
+    "window": (1, 64, 64, 4, 2, 16, True, 20, 0, 16, 16),
+    "q_offset": (2, 24, 56, 4, 2, 16, True, 0, 32, 8, 16),
+    "ragged": (1, 50, 50, 4, 2, 16, True, 0, 0, 16, 16),
+    "no_valid_key_rows": (1, 12, 20, 4, 2, 16, False, 4, 24, 8, 8),
+}
+
+
+def _inputs(B, Sq, Sk, H, KH, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, hd)).astype(np.float32),
+            rng.standard_normal((B, Sk, KH, hd)).astype(np.float32),
+            rng.standard_normal((B, Sk, KH, hd)).astype(np.float32),
+            rng.standard_normal((B, Sq, H, hd)).astype(np.float32))
+
+
+def _to(x, dtype):
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(x, jd), torch.from_numpy(x).to(td)
+
+
+def _close(want, got, dtype, kind):
+    a = np.asarray(want, np.float32)
+    b = got.detach().float().numpy()
+    assert a.shape == b.shape
+    if dtype == "float32":
+        tol = 1e-5 if kind == "o" else 1e-4
+        np.testing.assert_allclose(b, a, rtol=tol, atol=tol)
+    else:
+        steps = 2.0 ** -7 if kind == "o" else 2.0 ** -5
+        err = np.abs(a - b).max()
+        assert err <= steps * np.abs(a).max(), (kind, err, np.abs(a).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_flash_attention_vs_reference(name, dtype):
+    B, Sq, Sk, H, KH, hd, causal, window, q_offset, qc, kc = CASES[name]
+    q, k, v, g = _inputs(B, Sq, Sk, H, KH, hd, seed=len(name))
+    (jq, tq), (jk, tk), (jv, tv), (jg, tg) = (_to(x, dtype)
+                                              for x in (q, k, v, g))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+
+    def ref_fn(q, k, v):
+        return ref_attn.flash_attention(q, k, v, q_chunk=qc, kv_chunk=kc,
+                                        **kw)
+
+    @jax.jit
+    def ref_fwd_bwd(q, k, v, g):
+        o, vjp = jax.vjp(ref_fn, q, k, v)
+        return o, vjp(g)
+
+    jo, jgrads = ref_fwd_bwd(jq, jk, jv, jg)
+    tq, tk, tv = (x.requires_grad_() for x in (tq, tk, tv))
+    to = attention.flash_attention(tq, tk, tv, q_chunk=qc, kv_chunk=kc, **kw)
+    assert to.dtype == tq.dtype
+    _close(jo, to, dtype, "o")
+    tgrads = torch.autograd.grad(to, (tq, tk, tv), tg)
+    for want, got in zip(jgrads, tgrads):
+        assert got.dtype == tq.dtype
+        _close(want, got, dtype, "grad")
+
+
+@pytest.mark.parametrize("name", ["causal_pairs_G2", "window", "q_offset",
+                                  "no_valid_key_rows"])
+def test_lse_rows_vs_reference(name):
+    """The log-sum-exp rows the backward reads, float32 within 1e-5."""
+    B, Sq, Sk, H, KH, hd, causal, window, q_offset, qc, kc = CASES[name]
+    q, k, v, _ = _inputs(B, Sq, Sk, H, KH, hd, seed=len(name))
+    _, jlse = ref_attn._attn_fwd(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal, window, qc, kc,
+                                 q_offset)
+    o, rows = kfa.flash_attention_fwd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, window=window, q_offset=q_offset, q_chunk=qc,
+        kv_chunk=kc)
+    assert rows.shape == (B, H, Sq) and rows.dtype == torch.float32
+    want = attention.lse_rows(torch.from_numpy(np.array(jlse)), Sq)
+    np.testing.assert_allclose(rows.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    # the chunked layout round-trips the real rows exactly
+    back = attention.lse_chunks(rows, KH, qc)
+    assert torch.equal(attention.lse_rows(back, Sq), rows)
+
+
+RNG_CASES = [                                  # tests/test_kernels.py:58-63
+    (2, 128, 8, 2, 32, True),
+    (1, 128, 4, 4, 64, True),
+    (2, 256, 8, 1, 32, False),
+    (1, 64, 6, 3, 16, True),
+]
+
+
+@pytest.mark.parametrize("B,S,H,KH,hd,causal", RNG_CASES)
+def test_ops_flash_attention_vs_pallas(B, S, H, KH, hd, causal):
+    q, k, v, _ = _inputs(B, S, S, H, KH, hd, seed=S + H)
+    want = ref_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=causal, bq=64,
+                                   bk=64)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal, bq=64,
+                              bk=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    # the plain blockwise forward, the kernel's plain version, too
+    fwd, _ = kfa.flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                     torch.from_numpy(v), causal=causal)
+    np.testing.assert_allclose(fwd.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_ops_flash_attention_bf16_vs_pallas():
+    B, S, H, KH, hd = 1, 128, 4, 2, 32
+    q, k, v, _ = _inputs(B, S, S, H, KH, hd, seed=11)
+    jb = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    tb = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    want = ref_ops.flash_attention(*jb, causal=True, bq=64, bk=64)
+    got = ops.flash_attention(*tb, causal=True, bq=64, bk=64)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=5e-2, atol=5e-2)
+
+
+def test_ops_flash_attention_tile_policy():
+    B, S, H, KH, hd = 1, 32, 4, 2, 16
+    q, k, v, _ = _inputs(B, S, S, H, KH, hd, seed=5)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    with pytest.raises(ValueError, match="exceeds the operand"):
+        ops.flash_attention(tq, tk, tv, bq=128)            # bq > S
+    with pytest.raises(ValueError, match="exceeds the operand"):
+        ops.flash_attention(tq, tk, tv, bk=64)             # bk > S
+    with pytest.raises(ValueError, match="do not divide"), \
+            pytest.warns(ops.TileAlignmentWarning):
+        ops.flash_attention(tq, tk, tv, bq=24)
+    with pytest.warns(ops.TileAlignmentWarning):
+        ops.flash_attention(tq, tk, tv, bq=8)
+    # decode-length S < 128: an S-sized auto tile, no error, right answer
+    S = 16
+    q, k, v, _ = _inputs(2, S, S, H, KH, 32, seed=6)
+    got = ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    want = ref_kernels.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_kernel_wrapper_checks_operands():
+    """What the card would refuse is refused before a launch, on any
+    device (the CPU runs the plain version only for CPU tensors)."""
+    q = torch.zeros((1, 8, 4, 24))
+    k = torch.zeros((1, 8, 2, 24))
+    with pytest.raises(ValueError, match="head_dim"):
+        kfa._check(q, k, k)
+    with pytest.raises(ValueError, match="do not match"):
+        kfa._check(q, torch.zeros((1, 8, 3, 24)), torch.zeros((1, 8, 3, 24)))
+    with pytest.raises(TypeError, match="dtypes"):
+        kfa._check(q.half()[..., :16], k.half()[..., :16],
+                   k.half()[..., :16])

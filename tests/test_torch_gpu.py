@@ -16,7 +16,13 @@ shapes float32 within rtol 1e-5 / atol 1e-4, bf16 outputs within one
 bf16 rounding step (2**-7 of the value) plus 2**-12 of the largest
 (the float32 sums run in another order), integers exact.  DPX and
 thread-block-cluster kernels (kernels/{dpx_kernel,dsm}.py): exact
-(integer results, float32 ring sums added in the same order).
+(integer results, float32 ring sums added in the same order).  Flash
+attention (kernels/flash_attention.py, B9) against the blockwise
+forward in torch ops: float32 o within 1e-4, bf16 o within one bf16
+step of max |o| (2**-7), lse within 1e-4 of max(1, max |lse|);
+gradients with the kernel forward against the plain forward within
+1e-4 (float32) or 2**-5 of max |g| (bf16: the backward reads the bf16
+output); the training loop restarts bit-exactly on the card.
 """
 
 import numpy as np
@@ -30,11 +36,12 @@ from repro_torch.kernels import async_pipeline as apk
 from repro_torch.kernels import build
 from repro_torch.kernels import dpx_kernel as dk
 from repro_torch.kernels import dsm as dsk
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import fp8_matmul as f8k
 from repro_torch.kernels import matmul as mmk
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pk
-from repro_torch.models import api
+from repro_torch.models import api, attention
 from repro_torch.runtime import server
 from repro_torch.te import fp8
 
@@ -724,3 +731,153 @@ def test_dpx_and_dsm_benchmarks_run_on_card(cuda):
                          fail_fast=True, device=cuda) == 0
     counts = {**dk.launch_counts(), **dsk.launch_counts()}
     assert all(v > 0 for v in counts.values()), counts
+
+
+# ----------------------------------------------------------------------
+# flash attention (B9) and the training path
+# ----------------------------------------------------------------------
+
+FLASH_CASES = [   # chip_smoke.py phase 10(a), at small sizes
+    # dtype      B   Sq   Sk   H  KH  hd causal window q_offset
+    ("float32",  2, 128, 128,  8,  2, 32, True,   0,   0),
+    ("float32",  1, 128, 128,  4,  4, 64, True,   0,   0),
+    ("float32",  2, 256, 256,  8,  1, 32, False,  0,   0),
+    ("float32",  1,  64,  64,  6,  3, 16, True,   0,   0),
+    ("bfloat16", 1, 128, 128,  4,  2, 32, True,   0,   0),
+    ("bfloat16", 2, 512, 512, 32,  4, 128, True,  0,   0),   # yi-6b heads
+    ("bfloat16", 2, 256, 256, 12, 12, 64, True,   0,   0),   # llama-te-mini
+    ("bfloat16", 1, 300, 300,  8,  2, 128, True, 64,   0),   # window
+    ("float32",  1, 300, 300,  8,  2, 64, True,  64,   0),
+    ("bfloat16", 1, 333, 333,  8,  2, 64, True,   0,   0),   # ragged
+    ("bfloat16", 2, 100, 356,  8,  4, 32, True,   0, 256),   # q_offset
+    ("float32",  2, 100, 356,  8,  4, 32, True,   0, 256),
+    ("float32",  1,  50,  70,  4,  2, 16, False,  5, 100),   # no valid key
+    ("bfloat16", 1,  50,  70,  4,  2, 16, False,  5, 100),
+]
+
+
+def _flash_inputs(dtype, B, Sq, Sk, H, KH, hd, device, seed=0):
+    rng = np.random.default_rng(seed)
+    td = getattr(torch, dtype)
+    return tuple(torch.from_numpy(rng.standard_normal(shape)).to(device, td)
+                 for shape in ((B, Sq, H, hd), (B, Sk, KH, hd),
+                               (B, Sk, KH, hd), (B, Sq, H, hd)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "dtype,B,Sq,Sk,H,KH,hd,causal,window,q_offset", FLASH_CASES)
+def test_flash_attention_vs_plain(cuda, dtype, B, Sq, Sk, H, KH, hd, causal,
+                                  window, q_offset):
+    q, k, v, _ = _flash_inputs(dtype, B, Sq, Sk, H, KH, hd, cuda)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    n0 = kfa.launch_counts()["flash_attention"]
+    o, lse = kfa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kfa.launch_counts()["flash_attention"] == n0 + 1
+    po, plse = kfa.flash_attention_fwd_plain(q, k, v, **kw)
+    assert o.dtype == q.dtype and lse.shape == (B, H, Sq)
+    err = (o.float() - po.float()).abs().max().item()
+    if dtype == "float32":
+        assert err <= 1e-4, err
+    else:
+        assert err <= 2.0 ** -7 * po.float().abs().max().item(), err
+    lse_err = (lse - plse).abs().max() / plse.abs().max().clamp(min=1.0)
+    assert lse_err.item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 96),
+                                           (False, 0)])
+def test_flash_attention_grads_kernel_vs_plain_forward(cuda, dtype, causal,
+                                                       window, monkeypatch):
+    """dq, dk, dv of models/attention.flash_attention with the kernel
+    forward against the same function with the plain forward."""
+    q, k, v, do = _flash_inputs(dtype, 2, 640, 640, 8, 2, 128, cuda, seed=1)
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+
+    def grads():
+        out = attention.flash_attention(*leaves, causal=causal,
+                                        window=window)
+        return torch.autograd.grad(out, leaves, do)
+
+    got = grads()
+    monkeypatch.setattr(kfa, "flash_attention_fwd",
+                        kfa.flash_attention_fwd_plain)
+    want = grads()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == q.dtype
+        err = (a.float() - b.float()).abs().max().item()
+        top = b.float().abs().max().item()
+        assert err <= (1e-4 if dtype == "float32" else 2.0 ** -5 * top), \
+            (err, top)
+
+
+@pytest.mark.gpu
+def test_flash_attention_never_runs_plain_on_cuda(cuda, monkeypatch):
+    from repro_torch.kernels import ops as kops
+
+    def boom(*args, **kwargs):
+        raise AssertionError("plain version run on a CUDA tensor")
+    monkeypatch.setattr(kfa, "flash_attention_fwd_plain", boom)
+    monkeypatch.setattr(kfa, "flash_attention_plain", boom)
+    monkeypatch.setattr(attention, "_attn_fwd", boom)
+    q, k, v, do = _flash_inputs("bfloat16", 1, 128, 128, 4, 2, 64, cuda)
+    n0 = kfa.launch_counts()["flash_attention"]
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    out = attention.flash_attention(*leaves, causal=True)
+    torch.autograd.grad(out, leaves, do)
+    kfa.flash_attention(q.detach(), k.detach(), v.detach())
+    kops.flash_attention(q.detach(), k.detach(), v.detach(), bq=64, bk=64)
+    torch.cuda.synchronize()
+    assert kfa.launch_counts()["flash_attention"] == n0 + 3
+
+
+@pytest.mark.gpu
+def test_flash_attention_rejects(cuda):
+    q = torch.zeros((1, 16, 4, 24), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        kfa.flash_attention_fwd(q, q[:, :, :2], q[:, :, :2])
+    h = torch.zeros((1, 16, 4, 32), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="dtypes"):
+        kfa.flash_attention_fwd(h, h[:, :, :2], h[:, :, :2])
+    x = torch.zeros((1, 16, 4, 32), device=cuda)
+    with pytest.raises(ValueError, match="non-negative"):
+        kfa.flash_attention_fwd(x, x[:, :, :2], x[:, :, :2], window=-1)
+    with pytest.raises(ValueError, match="positive"):
+        kfa.flash_attention_fwd(x, x[:, :, :2], x[:, :, :2], kv_chunk=0)
+
+
+@pytest.mark.gpu
+def test_trainer_on_card_restarts_bit_exact(cuda, tmp_path):
+    """The reduced yi-6b (remat dots) through the port's Trainer on the
+    card: a failure after step 3 and a restart from the step-2
+    checkpoint give the losses of an uninterrupted run bit for bit; every step
+    launches B9 twice a layer (forward + remat recompute)."""
+    import dataclasses
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.runtime.trainer import Trainer
+    cfg = dataclasses.replace(reduced_config("yi-6b"), num_kv_heads=2,
+                              remat="dots")
+    runs = []
+    for i, fail_at in enumerate((3, None)):
+        tcfg = TrainConfig(total_steps=20, warmup_steps=2, ckpt_every=2,
+                           ckpt_dir=str(tmp_path / str(i)),
+                           learning_rate=1e-3)
+        tr = Trainer(cfg, tcfg, data=SyntheticLMData(cfg.vocab_size, 4, 64),
+                     fail_at_step=fail_at, device=cuda)
+        tr.init()
+        kfa.reset_launch_counts()
+        hist = tr.run(6)
+        runs.append(([(m.step, m.loss) for m in hist], kfa.launch_counts(),
+                     tr.restarts))
+    (a, la, ra), (b, lb, rb) = runs
+    assert (ra, rb) == (1, 0)
+    # the failing run records step 3 twice (before the failure and
+    # after the restart from step 2): both times the same loss
+    assert [s for s, _ in a] == [1, 2, 3, 3, 4, 5, 6]
+    assert dict(a) == dict(b) and a[2] == a[3]
+    assert all(np.isfinite([loss for _, loss in b]))
+    assert lb["flash_attention"] == 6 * 2 * cfg.num_layers

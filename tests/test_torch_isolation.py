@@ -3,12 +3,13 @@
 (a) every import in src/repro_torch and chip_smoke.py, read from the
     AST, names neither `jax` nor `repro` (`repro_torch` is fine);
 (b) a subprocess where importing `jax` or `repro` fails imports the
-    port, serves three requests on the CPU, runs the CLI and runs the
+    port, serves three requests on the CPU, runs the CLI, runs the
     dissection benchmarks tc_energy, tc_n_sweep, dpx_functions and dsm
-    with `--device cpu`;
+    with `--device cpu`, and trains three steps of the reduced yi-6b
+    through the port's `Trainer` on the CPU;
 (c) an entry point called without a device on a host without CUDA
-    raises instead of running on the CPU (the serving entry points and
-    the benchmark runner);
+    raises instead of running on the CPU (the serving entry points, the
+    benchmark runner, the training CLI and `Trainer.init`);
 (d) chip_smoke.py without a CUDA device exits non-zero with no result.
 """
 
@@ -66,6 +67,18 @@ assert stats["requests"] == 3.0
 from repro_torch.benchmarks import run as bench_run
 bench_run.main(["--device", "cpu", "tc_energy", "tc_n_sweep",
                 "dpx_functions", "dsm"])
+import tempfile
+from repro_torch.configs.base import TrainConfig
+from repro_torch.data.pipeline import SyntheticLMData
+from repro_torch.runtime.trainer import Trainer
+with tempfile.TemporaryDirectory() as td:
+    tr = Trainer(cfg, TrainConfig(total_steps=3, warmup_steps=1,
+                                  ckpt_every=2, ckpt_dir=td),
+                 data=SyntheticLMData(cfg.vocab_size, 2, 16), device="cpu")
+    tr.init()
+    hist = tr.run(3)
+assert [m.step for m in hist] == [1, 2, 3], hist
+assert all(m.loss == m.loss for m in hist)
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")
@@ -80,7 +93,7 @@ def test_port_serves_without_jax():
     assert proc.stdout.strip().splitlines()[-1] == "OK"
 
 
-def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
     from repro_torch.configs import reduced_config
     from repro_torch.launch import serve
     from repro_torch.models import api
@@ -107,6 +120,16 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     from repro_torch.core import dsm
     with pytest.raises(RuntimeError, match="CUDA"):
         dsm.ring_latency_probe(4)               # device defaults to cuda
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch import train
+    from repro_torch.runtime.trainer import Trainer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--steps", "1"])            # --device defaults to cuda
+    tr = Trainer(cfg, TrainConfig(ckpt_dir=str(tmp_path)),
+                 data=SyntheticLMData(cfg.vocab_size, 2, 8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tr.init()                               # no device: cuda
 
 
 def test_chip_smoke_fails_without_a_card():
