@@ -43,13 +43,23 @@ last line):
               single_tile_matmul, fp8_matmul, pipelined_matmul) against
               their plain versions at the dissection benchmarks' shapes
               and at yi-6b's full-width MLP up-projection for a
-              2048-token prefill (M=2048, K=4096, N=11008): max abs
-              error within its limit, kernel ms (CUDA events), plain ms,
-              a one-call PyTorch yardstick the port never calls
-              (torch.matmul, torch._scaled_mm, torch._int_mm), the
-              bound and TFLOP/s; the SyncShare/AsyncPipe ratio per block
-              size; then the five dissection benchmarks
-              (repro_torch.benchmarks.run) through the kernels.
+              2048-token prefill (M=2048, K=4096, N=11008): bf16 over a
+              tile sweep (bn 64/128/256 at bm=128, bk 128 and 64), int8
+              and e4m3 with B column-major and contiguous (the layout
+              copy's ms printed apart), e5m2, float32.  Each case's body
+              (wgmma, mma_sync, fma) by the tile rule, held to the
+              source's own rule and to the per-body launch count; max
+              abs error within its limit, kernel ms (CUDA events), plain
+              ms, a one-call PyTorch yardstick the port never calls
+              (torch.matmul, torch._scaled_mm, torch._int_mm), the bound
+              and TFLOP/s; the SyncShare/AsyncPipe ratio per block size;
+              three probes, findings and not gates (native e4m3
+              mma.sync, csrc/fp8_mma_probe.cu; TMA + mbarrier + wgmma
+              descriptors, csrc/wgmma_probe.cu; the fp8 wgmma body's
+              error with and without its promotion, from a copy of the
+              sources built without it); then the five dissection
+              benchmarks (repro_torch.benchmarks.run) through the
+              kernels.
   9. dpx_dsm — the DPX kernels (dpx_fused, tropical_matmul,
               smith_waterman) and the thread-block-cluster kernels
               (rbc_ring_copy, ring_latency_probe, histogram_private,
@@ -812,12 +822,140 @@ def probe_native_fp8_mma() -> None:
           f"ran; max |C - plain| = {diff:.3e}", flush=True)
 
 
+def probe_wgmma() -> None:
+    """A finding, not a gate: do wgmma_common.cuh's TMA maps, mbarrier
+    and descriptors compute a product (csrc/wgmma_probe.cu: one
+    warpgroup, A [64,64] and B [64,128] bf16 by TMA, four m64n128k16
+    with B MN-major)?  Run with B's leading and stride byte offsets as
+    the kernels set them (8192: the next 64-column block, 1024: the next
+    8 rows of K) and swapped, which should be wrong."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    try:
+        path, _, _ = build.compile_source("wgmma_probe.cu")
+    except RuntimeError as e:
+        print(f"[matmul] wgmma probe: nvcc refused it: {e}", flush=True)
+        return
+    fn = ctypes.CDLL(str(path)).wgmma_probe
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    a = torch.randn((64, 64), generator=g, device=DEVICE).bfloat16()
+    b = torch.randn((64, 128), generator=g, device=DEVICE).bfloat16()
+    want = a.float() @ b.float()
+    for lbo, sbo in ((8192, 1024), (1024, 8192)):
+        c = torch.zeros((64, 128), device=DEVICE)
+        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), lbo, sbo,
+                 torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        diff = (c - want).abs().max().item()
+        print(f"[matmul] wgmma probe (TMA + mbarrier + m64n128k16 bf16, B "
+              f"MN-major) LBO={lbo} SBO={sbo}: launch error {err}, "
+              f"max |C - plain| = {diff:.3e} (max |plain| "
+              f"{want.abs().max().item():.4g})", flush=True)
+
+
+def probe_fp8_promotion() -> None:
+    """A finding, not a gate: how far the e4m3 wgmma body lands from
+    the plain product at the full-width shape (K=4096) with and without
+    promoting each 128 values of K into the float32 accumulator.  The
+    variant without it is built from a copy of the sources in the build
+    directory whose OpFP8 says kPromote = false; the port has no such
+    switch."""
+    import ctypes
+    import shutil
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fp8_matmul as f8k
+    work = build.BUILD_DIR / "fp8_no_promotion"
+    work.mkdir(parents=True, exist_ok=True)
+    for src in ("fp8_matmul.cu", "tile_common.cuh", "wgmma_common.cuh"):
+        shutil.copy(build.CSRC / src, work / src)
+    hdr = work / "wgmma_common.cuh"
+    text = hdr.read_text()
+    promote = "static constexpr bool kPromote = true;"
+    if text.count(promote) != 1:
+        print("[matmul] fp8 promotion probe: the header's OpFP8 changed; "
+              "skipped", flush=True)
+        return
+    hdr.write_text(text.replace(promote,
+                                "static constexpr bool kPromote = false;"))
+    lib_path = work / "fp8_matmul_no_promotion.so"
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o",
+                           str(lib_path), str(work / "fp8_matmul.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        print(f"[matmul] fp8 promotion probe: nvcc failed: "
+              f"{proc.stderr[-300:]}", flush=True)
+        return
+    fn = ctypes.CDLL(str(lib_path)).fp8_matmul_fwd
+    fn.argtypes = list(build.SIGNATURES["fp8_matmul.cu"]["fp8_matmul_fwd"])
+    fn.restype = ctypes.c_int
+    M, N, K = FULL_WIDTH
+    a, b = _mm_inputs("float32", M, N, K, seed=7)
+    a, b = a.to(torch.float8_e4m3fn), b.to(torch.float8_e4m3fn)
+    bt = b.t().contiguous()
+    sx = torch.tensor([0.37], device=DEVICE)
+    sw = torch.tensor([1.9], device=DEVICE)
+    want = f8k.fp8_matmul_plain(a, b, sx, sw).double()
+    scale = want.abs().max().item()
+    fast = torch.empty((M, N), dtype=torch.bfloat16, device=DEVICE)
+    err = fn(0, a.data_ptr(), bt.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+             fast.data_ptr(), M, N, K, 128, 128, 128, 1,
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    promoted = f8k.fp8_matmul(a, bt.t(), sx, sw, bm=128, bn=128, bk=128)
+    torch.cuda.synchronize()
+    for name, got in (("promoted every 128 of K", promoted),
+                      ("not promoted (variant)", fast)):
+        d = (got.double() - want).abs()
+        steps = (d > 2.0 ** -7 * want.abs() + 2.0 ** -12 * scale).sum()
+        print(f"[matmul] fp8 e4m3 wgmma M={M} N={N} K={K}, {name}: launch "
+              f"error {err if got is fast else 0}, max |C - plain| = "
+              f"{d.max().item():.4e} ({d.max().item() / scale:.3e} of max "
+              f"|plain| {scale:.4g}), mean {d.mean().item():.4e}, "
+              f"{int(steps)} of {M * N} outputs beyond one bf16 step",
+              flush=True)
+
+
+def _body_of(kernel, dt, m, n, k, kw, a, b) -> str:
+    """The body a product case runs by the tile rule's Python mirror
+    (kernels/matmul.py `body`), held to the source's own rule
+    (`matmul_body` / `fp8_matmul_body`); "-" for the kernels with one
+    body."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import matmul as mmk
+    if kernel not in ("matmul", "fp8_matmul"):
+        return "-"
+    dtype = getattr(torch, dt)
+    layout = mmk.b_layout(kernel, b, dtype.itemsize == 1)
+    tiles = (kw["bm"], kw["bn"], kw["bk"])
+    ok = mmk.aligned(a, b, copied_b=layout == "row" and dtype.itemsize == 1)
+    name = mmk.body(dtype, m, n, k, *tiles, layout, ok)
+    if kernel == "matmul":
+        code = build.load("matmul.cu").matmul_body(
+            mmk._DTYPES[dtype], m, n, k, *tiles, int(ok))
+    else:
+        code = build.load("fp8_matmul.cu").fp8_matmul_body(
+            m, n, k, *tiles, int(ok))
+    if mmk.BODIES[code] != name:
+        fail(f"{kernel} {dt} {(m, n, k)} {tiles}: the source's rule says "
+             f"{mmk.BODIES[code]}, its Python mirror {name}")
+    return name
+
+
 def phase_matmul() -> tuple:
     """Each matrix-product kernel against its plain version on the card
     at the benchmarks' shapes and at yi-6b's full-width MLP
-    up-projection, then the five dissection benchmarks through the
-    kernels.  Returns (results keyed (kernel, case, dtype, (M, N, K),
-    tiles), launch counts of the benchmark run)."""
+    up-projection (bf16 over a tile sweep, int8 and e4m3 with B
+    column-major and contiguous, e5m2), each case's body printed and
+    held to the tile rule, then the probes and the five dissection
+    benchmarks through the kernels.  Returns (results keyed (kernel,
+    case, dtype, (M, N, K), tiles), launch counts of the benchmark
+    run)."""
     import torch
     from repro_torch.core import bench
     from repro_torch.kernels import async_pipeline as apk
@@ -826,45 +964,62 @@ def phase_matmul() -> tuple:
     from repro_torch.benchmarks import run as _registers  # noqa: F401
     M, N, K = FULL_WIDTH
     e4m3, e5m2 = "float8_e4m3fn", "float8_e5m2"
-    cases = []          # kernel, case, dtype, (M, N, K), kwargs, iters
+    t128 = dict(bm=128, bn=128, bk=128)
+    cases = []      # kernel, case, dtype, (M, N, K), kwargs, iters, B layout
     for dt in ("float32", "bfloat16", "int8"):
         for shape in ((128, 128, 128), (128, 256, 128), (256, 256, 256)):
-            cases.append(("single_tile_matmul", "tc_mma", dt, shape, {}, 20))
-    for dt in ("float32", "bfloat16"):
+            cases.append(("single_tile_matmul", "tc_mma", dt, shape, {}, 20,
+                          "row"))
+    for dt in ("float32", "bfloat16", "int8"):
         for bn in (128, 256):
             cases.append(("matmul", "tc_wgmma", dt, (512, 512, 512),
-                          dict(bm=128, bn=bn, bk=128), 20))
+                          dict(bm=128, bn=bn, bk=128), 20, "row"))
     for bn in (32, 64, 128, 256):
         cases.append(("matmul", "tc_n_sweep", "float32", (256, 256, 256),
-                      dict(bm=128, bn=bn, bk=128), 20))
+                      dict(bm=128, bn=bn, bk=128), 20, "row"))
     for dt in (e4m3, e5m2):
-        cases.append(("fp8_matmul", "tc_wgmma", dt, (512, 512, 512),
-                      dict(bm=128, bn=128, bk=128), 20))
+        cases.append(("fp8_matmul", "tc_wgmma", dt, (512, 512, 512), t128,
+                      20, "row"))
     for bs in (16, 32, 64):
         for st in (1, 2, 3):
             cases.append(("pipelined_matmul", "async_copy", "float32",
                           (128, 64, 128),
-                          dict(bm=bs, bn=min(bs, 64), bk=bs, stages=st), 20))
-    for dt in ("float32", "bfloat16"):
-        cases.append(("matmul", "full_width", dt, (M, N, K),
-                      dict(bm=128, bn=128, bk=128), 5))
-    cases.append(("fp8_matmul", "full_width", e4m3, (M, N, K),
-                  dict(bm=128, bn=128, bk=128), 5))
+                          dict(bm=bs, bn=min(bs, 64), bk=bs, stages=st), 20,
+                          "row"))
+    cases.append(("matmul", "full_width", "float32", (M, N, K), t128, 5,
+                  "row"))
+    # bf16 over a tile sweep (the paper's Table X asked of wgmma)
+    for bk in (128, 64):
+        for bn in (64, 128, 256):
+            cases.append(("matmul", "full_width", "bfloat16", (M, N, K),
+                          dict(bm=128, bn=bn, bk=bk), 10, "row"))
+    for tiles in (t128, dict(bm=128, bn=256, bk=128)):
+        for layout in ("col", "row"):
+            cases.append(("matmul", "full_width" + ("_rowB" * (
+                layout == "row")), "int8", (M, N, K), tiles, 10, layout))
+    for tiles in (t128, dict(bm=128, bn=128, bk=256)):
+        for layout in ("col", "row"):
+            cases.append(("fp8_matmul", "full_width" + ("_rowB" * (
+                layout == "row")), e4m3, (M, N, K), tiles, 10, layout))
+    cases.append(("fp8_matmul", "full_width", e5m2, (M, N, K), t128, 10,
+                  "col"))
     for bs in (64, 32, 16):
         for st in (1, 2, 3):
             cases.append(("pipelined_matmul", "full_width", "float32",
                           (M, N, K), dict(bm=bs, bn=bs, bk=bs, stages=st),
-                          5 if bs == 64 else 2))
+                          5 if bs == 64 else 2, "row"))
     fns = {"matmul": (mmk.matmul, mmk.matmul_plain),
            "single_tile_matmul": (mmk.single_tile_matmul,
                                   mmk.single_tile_matmul_plain),
            "fp8_matmul": (f8k.fp8_matmul, f8k.fp8_matmul_plain),
            "pipelined_matmul": (apk.pipelined_matmul,
                                 apk.pipelined_matmul_plain)}
+    counters = {"matmul": mmk.matmul, "fp8_matmul": f8k.fp8_matmul}
     results, inputs, plain_cache = {}, {}, {}
-    for i, (kernel, case, dt, (m, n, k), kw, iters) in enumerate(cases):
+    for i, (kernel, case, dt, (m, n, k), kw, iters, layout) in \
+            enumerate(cases):
         fn, plain_fn = fns[kernel]
-        key_in = (case, dt, m, n, k)
+        key_in = (dt, m, n, k)
         if key_in not in inputs:
             inputs.clear()
             plain_cache.clear()
@@ -873,8 +1028,12 @@ def phase_matmul() -> tuple:
                 a, b = a.to(getattr(torch, dt)), b.to(getattr(torch, dt))
             else:
                 a, b = _mm_inputs(dt, m, n, k, seed=i)
-            inputs[key_in] = (a, b)
-        a, b = inputs[key_in]
+            inputs[key_in] = (a, b, {})
+        a, b, views = inputs[key_in]
+        if layout == "col":
+            if "col" not in views:   # the same values, column-major
+                views["col"] = b.t().contiguous().t()
+            b = views["col"]
         if kernel == "fp8_matmul":
             sx = torch.tensor([0.37], device=DEVICE)
             sw = torch.tensor([1.9], device=DEVICE)
@@ -885,8 +1044,16 @@ def phase_matmul() -> tuple:
             lib = _mm_library(dt, a, b)
         kern = lambda: fn(*args, **kw)
         plain = lambda: plain_fn(*args)
+        body = _body_of(kernel, dt, m, n, k, kw, a, b)
+        before = dict(getattr(counters.get(kernel), "body_launches", {}))
         got = kern()
         torch.cuda.synchronize()
+        if body != "-":
+            after = counters[kernel].body_launches
+            ran = [x for x in after if after[x] != before.get(x, 0)]
+            if ran != [body]:
+                fail(f"{kernel} {case} {dt} {kw}: the rule names {body}, "
+                     f"the call launched {ran}")
         if kernel not in plain_cache:
             plain_cache[kernel] = (plain(), _time_ms(plain, 3, warm=1))
         want, plain_ms = plain_cache[kernel]
@@ -907,10 +1074,16 @@ def phase_matmul() -> tuple:
         tag = " ".join(f"{x}={y}" for x, y in kw.items())
         ok = err <= limit
         lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
-        print(f"[matmul] {kernel} {case} {dt} M={m} N={n} K={k} {tag}: "
+        copy_txt = ""
+        if layout == "row" and body == "wgmma" and a.element_size() == 1:
+            copy_ms = _time_ms(lambda: b.t().contiguous(), iters, warm=1)
+            copy_txt = f" (B made K-major in the call: {copy_ms:.4f} ms)"
+        print(f"[matmul] {kernel} {case} {dt} M={m} N={n} K={k} {tag} "
+              f"B={layout} body={body}: "
               f"max_abs_err={err:.3e} (limit {limit:.3e} = "
               f"{MM_REL_LIMIT[out_name]:.3g} x max|plain| {scale:.4g}) "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_txt} "
+              f"ms={ms:.4f}{copy_txt} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_txt} "
               f"bound_ms={bound_ms:.5f} ({bound_by}) TFLOP/s={tfs:.2f} "
               f"{'ok' if ok else 'OVER LIMIT'}", flush=True)
         if not ok:
@@ -919,10 +1092,12 @@ def phase_matmul() -> tuple:
         results[(kernel, case, dt, (m, n, k), tag)] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "body": body}
     inputs.clear()
     plain_cache.clear()
     probe_native_fp8_mma()
+    probe_wgmma()
+    probe_fp8_promotion()
     for bs in (64, 32, 16):
         t = {st: results[("pipelined_matmul", "full_width", "float32",
                           FULL_WIDTH, f"bm={bs} bn={bs} bk={bs} stages={st}")
@@ -943,7 +1118,9 @@ def phase_matmul() -> tuple:
     launches = {**mmk.launch_counts(), **f8k.launch_counts(),
                 **apk.launch_counts()}
     print(f"[matmul] benchmarks ran in {time.perf_counter() - t0:.1f} s; "
-          f"launch counts {launches}", flush=True)
+          f"launch counts {launches}; bodies: matmul "
+          f"{mmk.matmul.body_launches}, fp8_matmul "
+          f"{f8k.fp8_matmul.body_launches}", flush=True)
     if min(launches.values()) <= 0:
         fail(f"a kernel of the dissection path was never launched: "
              f"{launches}")

@@ -63,17 +63,23 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "matmul.cu": {
         # dtype, bm, bn, bk
         "matmul_smem_bytes": (_I, _I, _I, _I),
-        # dtype, a, b, c, M, N, K, bm, bn, bk, stream
-        "matmul_fwd": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "matmul_wgmma_smem_bytes": (_I, _I, _I, _I),
+        # dtype, M, N, K, bm, bn, bk, aligned
+        "matmul_body": (_I, _I, _I, _I, _I, _I, _I, _I),
+        # dtype, a, b, c, M, N, K, bm, bn, bk, b_kmajor, stream
+        "matmul_fwd": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         # dtype, a, b, c, M, N, K, bk, stream
         "single_tile_matmul_fwd": (_I, _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "fp8_matmul.cu": {
         # bm, bn, bk
         "fp8_matmul_smem_bytes": (_I, _I, _I),
-        # fmt, a, b, sx, sw, c, M, N, K, bm, bn, bk, stream
+        "fp8_matmul_wgmma_smem_bytes": (_I, _I, _I),
+        # M, N, K, bm, bn, bk, aligned
+        "fp8_matmul_body": (_I, _I, _I, _I, _I, _I, _I),
+        # fmt, a, b, sx, sw, c, M, N, K, bm, bn, bk, b_kmajor, stream
         "fp8_matmul_fwd": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _P),
+                           _I, _P),
     },
     "async_pipeline.cu": {
         # bm, bn, bk, stages

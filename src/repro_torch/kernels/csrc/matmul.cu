@@ -2,39 +2,74 @@
 // Pallas kernels `matmul` (matmul_kernel) and `single_tile_matmul` of
 // src/repro/kernels/matmul.py.
 //
-// matmul_fwd: grid (N/bn, M/bm), one block of 256 threads per (bm, bn)
-// output tile.  The TPU kernel carries an accumulator across a
-// sequential K grid axis in VMEM scratch; here the K walk is a loop
-// inside the block (blocks run in parallel, in no order), each K slice
-// staged through shared memory, the accumulator in registers
-// (tile_common.cuh).  bf16 and int8 run on the tensor cores through
-// warp-level mma.sync (m16n8k16 bf16 -> f32, m16n8k32 s8 -> s32, the
-// paper's Table VII instructions); float32 runs on the CUDA cores in
-// fmaf, not TF32 (the reference holds float32 to rtol 1e-5).  Output:
-// float32 for float32 in, bf16 for bf16 in (f32 accumulator rounded
-// once), int32 for int8 in.
+// matmul_fwd runs one of three bodies, chosen by the tile rule
+// (matmul_body; kernels/matmul.py mirrors it as `body`):
+//
+//   * wgmma (bf16, int8; wgmma_common.cuh): when (bm, bn, bk) lie on the
+//     warpgroup grid (bm 64 or 128, bn 64/128/256, bk whole 128-byte
+//     box rows; bf16 bk <= 256) and TMA can read the operands (16-byte
+//     aligned bases, row strides of whole 16 bytes).  Grid (M/bm, N/bn),
+//     M tiles fastest so a wave of blocks shares B's columns in L2.  A
+//     producer warp keeps a ring of TMA stages full; one consumer
+//     warpgroup per 64 rows multiplies with m64nNk16 bf16 -> f32 (B
+//     row-major, read MN-major through the transpose bit: no copy) or
+//     m64nNk32 s8 -> s32 (B K-major, [N, K]: the wrapper passes a
+//     column-major view as it is or copies a row-major one).  bf16 out
+//     rounds the float32 accumulator once; int8 out is int32, exact.
+//   * mma_sync (bf16, int8, any other tile or operand; tile_common.cuh):
+//     one block of 256 threads per (bm, bn) tile walks K in slices of bk
+//     staged element by element through shared memory, with warp-level
+//     mma.sync (m16n8k16 bf16 -> f32, m16n8k32 s8 -> s32, the paper's
+//     Table VII instructions).  B row-major.
+//   * fma (float32, always): the same walk on the CUDA cores in fmaf,
+//     not TF32 (the reference holds float32 to rtol 1e-5).
 //
 // single_tile_matmul_fwd: the synchronous one-tile analog — a single
-// block computes the whole product, walking K in slices of bk with the
-// same instructions.  Its output is the accumulator's type: float32 for
-// float32 and bf16 in, int32 for int8 in.
+// block computes the whole product on the mma_sync / fma bodies,
+// walking K in slices of bk.  Its output is the accumulator's type:
+// float32 for float32 and bf16 in, int32 for int8 in.
 //
 // What bounds it: at the full-width shapes (2048 x 4096 x 11008) the
-// product is compute bound on the card (arithmetic intensity in the
-// hundreds of FLOP/byte); this kernel's staging is element by element
-// with one __syncthreads pair per slice and no copy/compute overlap, so
-// it runs well below the tensor-core peak.  wgmma with TMA staging is
-// the redesign.
+// product is compute bound (arithmetic intensity in the hundreds of
+// FLOP/byte).  The wgmma body feeds the tensor cores from TMA stages
+// that overlap the loads of later stages, with one wgmma group kept in
+// flight, and reaches about half the bf16 peak there.  More K a stage
+// and more stages both help it (a handshake a stage per warpgroup);
+// sharing B between the two blocks of a cluster by TMA multicast and a
+// persistent tile walk were both slower on the card, so neither is
+// here.  The mma_sync body stages element by element with a
+// __syncthreads pair per slice and stays well below the tensor-core
+// peak.
 //
 // Entry points return the CUDA error of the launch (0 = launched).
 
 #include "tile_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
 using namespace tile;
 
 enum Dtype { kF32 = 0, kBF16 = 1, kI8 = 2 };
+enum Body { kWgmma = 0, kMmaSync = 1, kFma = 2 };
+
+int elt_of(int dtype) { return dtype == kBF16 ? 2 : 1; }
+
+// The tile rule: which body a product runs.
+int body_of(int dtype, int M, int N, int K, int bm, int bn, int bk,
+            bool aligned) {
+  if (dtype == kF32) return kFma;
+  const int elt = elt_of(dtype);
+  if (wg::on_grid(elt, false, bm, bn, bk) &&
+      wg::tma_ready(elt, N, K, bn, aligned))
+    return kWgmma;
+  return kMmaSync;
+}
+
+bool aligned16(const void* a, const void* b) {
+  return !(reinterpret_cast<uintptr_t>(a) % 16) &&
+         !(reinterpret_cast<uintptr_t>(b) % 16);
+}
 
 template <class S, class Out>
 __global__ void __launch_bounds__(kThreads)
@@ -131,20 +166,48 @@ int run(int dtype, const void* a, const void* b, void* c, int M, int N, int K,
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block stages for (bm, bn, bk).
+// Bytes of dynamic shared memory one block stages for (bm, bn, bk) on
+// the mma_sync / fma bodies.
 int matmul_smem_bytes(int dtype, int bm, int bn, int bk) {
   return smem_bytes(dtype, bm, bn, bk);
 }
 
+// The same for the wgmma body (bf16, int8): its ring of stages.
+int matmul_wgmma_smem_bytes(int dtype, int bm, int bn, int bk) {
+  return wg::smem_bytes(elt_of(dtype), bm, bn, bk);
+}
+
+// The body matmul_fwd runs: 0 wgmma, 1 mma_sync, 2 fma.  `aligned`:
+// both operands' base addresses are 16-byte aligned.
+int matmul_body(int dtype, int M, int N, int K, int bm, int bn, int bk,
+                int aligned) {
+  return body_of(dtype, M, N, K, bm, bn, bk, aligned != 0);
+}
+
 // dtype 0 float32 -> float32, 1 bf16 -> bf16, 2 int8 -> int32.
-// Tiles need not divide the problem: ragged edges are masked.
+// Tiles need not divide the problem: ragged edges are masked.  b is
+// row-major [K, N] (b_kmajor 0) or, for int8 on the wgmma body only,
+// K-major: row-major [N, K] (b_kmajor 1).
 int matmul_fwd(int dtype, const void* a, const void* b, void* c, int M, int N,
-               int K, int bm, int bn, int bk, void* stream) {
-  if (bm <= 0 || bn <= 0 || (M + bm - 1) / bm > 65535)
+               int K, int bm, int bn, int bk, int b_kmajor, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || bm <= 0 || bn <= 0 || bk <= 0)
     return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (body_of(dtype, M, N, K, bm, bn, bk, aligned16(a, b)) == kWgmma) {
+    if (b_kmajor != (dtype == kI8)) return cudaErrorInvalidValue;
+    if (wg::smem_bytes(elt_of(dtype), bm, bn, bk) > wg::kSmemLimit)
+      return cudaErrorInvalidValue;
+    if (dtype == kBF16)
+      return wg::launch<wg::OpBF16>(
+          a, b, wg::StoreBF16{static_cast<__nv_bfloat16*>(c), nullptr,
+                              nullptr, 0.f},
+          M, N, K, bm, bn, bk, st);
+    return wg::launch<wg::OpS8>(a, b, wg::StoreI32{static_cast<int*>(c)},
+                                M, N, K, bm, bn, bk, st);
+  }
+  if (b_kmajor || (M + bm - 1) / bm > 65535) return cudaErrorInvalidValue;
   dim3 grid((N + bn - 1) / bn, (M + bm - 1) / bm);
-  return run(dtype, a, b, c, M, N, K, bm, bn, bk, false, grid,
-             static_cast<cudaStream_t>(stream));
+  return run(dtype, a, b, c, M, N, K, bm, bn, bk, false, grid, st);
 }
 
 // One block: dtype 0 float32 -> float32, 1 bf16 -> float32,

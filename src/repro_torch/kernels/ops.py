@@ -32,13 +32,18 @@ from repro_torch.kernels import matmul as _mm
 class TileAlignmentWarning(UserWarning):
     """An explicitly-requested tile the kernel pads: it is not a whole
     number of ``mma.sync`` fragments and does not span the full operand
-    dimension.  The granularity is that of the fragment the kernel
-    runs, not the TPU's 8 x 128 lanes: 16 rows (bm), 8 columns (bn),
-    and a depth (bk) of 32 for int8 (m16n8k32) or 16 otherwise (bf16
-    m16n8k16; fp8 is staged as bf16; float32 is held to the same
-    grid).  The launch is correct
-    (the staged slice is zero-padded to whole fragments) but wastes
-    tensor-core work."""
+    dimension.  Which grid applies depends on the body the tile rule
+    (``matmul.body``) picks.  A bf16, int8 or fp8 tile on the warpgroup
+    grid (bm 64 or 128; bn 64, 128 or 256, fp8 at most 128; bk whole
+    128-byte rows: a multiple of 64 for bf16, of 128 for 8-bit) runs
+    ``wgmma`` where TMA can read the operands; such a tile is always a
+    whole number of fragments and never warns.  Every other tile runs
+    ``mma.sync`` (float32 runs fmaf on the same staging), whose grid is
+    the fragment's, not the TPU's 8 x 128 lanes: 16 rows (bm), 8 columns
+    (bn), and a depth (bk) of 32 for int8 (m16n8k32) or 16 otherwise
+    (bf16 m16n8k16; fp8 is staged as bf16 on that body; float32 is held
+    to the same grid).  The launch is correct (the staged slice is
+    zero-padded to whole fragments) but wastes tensor-core work."""
 
 
 def _fragment(dtype: torch.dtype) -> dict:

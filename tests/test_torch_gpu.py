@@ -367,6 +367,196 @@ def test_fp8_matmul_vs_plain(cuda, fmt, tiles):
     _within_a_bf16_step(got, want)
 
 
+WG_TILES = [(bm, bn, bk) for bm in (64, 128) for bn in (64, 128, 256)
+            for bk in (64, 128)]
+
+
+def _operands(rng, dtype, M, N, K, device):
+    if dtype == torch.int8:
+        return _ints(rng, (M, K), device), _ints(rng, (K, N), device)
+    if dtype.itemsize == 1:
+        return (torch.from_numpy(rng.standard_normal((M, K))).to(dtype).to(
+            device), torch.from_numpy(rng.standard_normal((K, N))).to(
+                dtype).to(device))
+    return _normal(rng, (M, K), dtype, device), _normal(rng, (K, N), dtype,
+                                                        device)
+
+
+def _product(dtype, a, b, tiles):
+    """The kernel's and the plain version's product, and the body the
+    call launched (from the per-body counts)."""
+    bm, bn, bk = tiles
+    if dtype in f8k.FORMATS:
+        sx = torch.tensor(0.37, device=a.device)
+        sw = torch.tensor(1.9, device=a.device)
+        counts = f8k.fp8_matmul.body_launches
+        before = dict(counts)
+        got = f8k.fp8_matmul(a, b, sx, sw, bm=bm, bn=bn, bk=bk)
+        want = f8k.fp8_matmul_plain(a, b, sx, sw)
+    else:
+        counts = mmk.matmul.body_launches
+        before = dict(counts)
+        got = mmk.matmul(a, b, bm=bm, bn=bn, bk=bk)
+        want = mmk.matmul_plain(a, b)
+    torch.cuda.synchronize()
+    ran = [x for x in counts if counts[x] != before[x]]
+    assert len(ran) == 1 and counts[ran[0]] == before[ran[0]] + 1
+    return got, want, ran[0]
+
+
+def _agree(dtype, got, want):
+    assert got.dtype == want.dtype
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        _within_a_bf16_step(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiles", WG_TILES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8,
+                                   torch.float8_e4m3fn, torch.float8_e5m2])
+def test_wgmma_body_vs_plain(cuda, dtype, tiles):
+    """Every tile of the warpgroup grid (bm 64/128, bn 64/128/256 but
+    fp8 at most 128, bk a whole number of 128-byte box rows) runs the
+    wgmma body and agrees with the plain version; the others run
+    mma_sync and agree too.  The shape is ragged in M and N."""
+    rng = np.random.default_rng(3)
+    M, N, K = 200, 336, 512
+    a, b = _operands(rng, dtype, M, N, K, cuda)
+    got, want, ran = _product(dtype, a, b, tiles)
+    assert ran == mmk.body(dtype, M, N, K, *tiles)
+    assert ran == ("wgmma" if mmk.on_wgmma_grid(dtype, *tiles)
+                   else "mma_sync")
+    _agree(dtype, got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (200, 328, 200)), (torch.bfloat16, (1, 8, 8)),
+    (torch.bfloat16, (333, 1000, 1000)), (torch.int8, (200, 330, 208)),
+    (torch.int8, (70, 17, 4096)), (torch.float8_e4m3fn, (200, 328, 208)),
+    (torch.float8_e5m2, (3, 1000, 144))])
+def test_wgmma_body_ragged_edges(cuda, dtype, shape):
+    """Ragged M, N and K: TMA's zero fill past the tensor and the masked
+    epilogue store (odd N stores element by element)."""
+    rng = np.random.default_rng(5)
+    a, b = _operands(rng, dtype, *[shape[0], shape[1], shape[2]], cuda)
+    for tiles in ((128, 128, 128), (64, 64, 128)):
+        got, want, ran = _product(dtype, a, b, tiles)
+        assert ran == "wgmma"
+        _agree(dtype, got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn,
+                                   torch.float8_e5m2])
+@pytest.mark.parametrize("tiles", [(128, 128, 128), (128, 64, 256),
+                                   (64, 8, 16)])
+def test_8_bit_b_contiguous_and_column_major(cuda, dtype, tiles):
+    """The 8-bit wrappers take B contiguous (copied K-major inside the
+    call for wgmma) or column-major (passed as it is to wgmma, copied
+    row-major for mma_sync): the same product either way."""
+    rng = np.random.default_rng(9)
+    a, b = _operands(rng, dtype, 256, 192, 384, cuda)
+    col = b.t().contiguous().t()
+    assert col.t().is_contiguous() and not col.is_contiguous()
+    got_row, want, ran_row = _product(dtype, a, b, tiles)
+    got_col, _, ran_col = _product(dtype, a, col, tiles)
+    assert ran_row == ran_col == mmk.body(dtype, 256, 192, 384, *tiles)
+    _agree(dtype, got_row, want)
+    assert torch.equal(got_row, got_col)
+
+
+@pytest.mark.gpu
+def test_fp8_wgmma_promotion_at_k_4096(cuda):
+    """e4m3 at K=4096 on the wgmma body lands within one bf16 step of the
+    plain float32 product: each 128 values of K are promoted into the
+    float32 accumulator, out of the fp8 wgmma's reduced-precision adder."""
+    rng = np.random.default_rng(1)
+    a, b = _operands(rng, torch.float8_e4m3fn, 256, 512, 4096, cuda)
+    got, want, ran = _product(torch.float8_e4m3fn, a,
+                              b.t().contiguous().t(), (128, 128, 128))
+    assert ran == "wgmma"
+    _within_a_bf16_step(got, want)
+
+
+RULE_CASES = [      # dtype, (M, N, K), tiles
+    (torch.bfloat16, (2048, 11008, 4096), (128, 128, 128)),
+    (torch.bfloat16, (200, 330, 200), (128, 128, 64)),
+    (torch.bfloat16, (200, 328, 204), (128, 128, 64)),
+    (torch.bfloat16, (512, 512, 512), (256, 128, 128)),
+    (torch.bfloat16, (512, 512, 512), (128, 128, 320)),
+    (torch.int8, (200, 330, 208), (128, 256, 128)),
+    (torch.int8, (200, 328, 200), (128, 128, 128)),
+    (torch.int8, (512, 512, 512), (128, 128, 64)),
+    (torch.float8_e4m3fn, (512, 512, 512), (128, 128, 128)),
+    (torch.float8_e5m2, (512, 512, 512), (128, 256, 128)),
+    (torch.float8_e4m3fn, (512, 512, 520), (128, 128, 128)),
+    (torch.float32, (512, 512, 512), (128, 128, 128)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,tiles", RULE_CASES)
+def test_body_rule_python_mirror_matches_the_source(cuda, dtype, shape,
+                                                    tiles):
+    """`matmul.body` is a mirror of the sources' `matmul_body` and
+    `fp8_matmul_body` (aligned and not), and the wgmma body's shared
+    memory is the sources' count."""
+    for aligned in (1, 0):
+        want = mmk.body(dtype, *shape, *tiles, "row", bool(aligned))
+        if dtype in f8k.FORMATS:
+            code = build.load(f8k.SOURCE).fp8_matmul_body(*shape, *tiles,
+                                                          aligned)
+        else:
+            code = build.load(mmk.SOURCE).matmul_body(
+                mmk._DTYPES[dtype], *shape, *tiles, aligned)
+        assert mmk.BODIES[code] == want
+    if mmk.on_wgmma_grid(dtype, *tiles):
+        if dtype in f8k.FORMATS:
+            n = build.load(f8k.SOURCE).fp8_matmul_wgmma_smem_bytes(*tiles)
+        else:
+            n = build.load(mmk.SOURCE).matmul_wgmma_smem_bytes(
+                mmk._DTYPES[dtype], *tiles)
+        assert n == mmk.smem_bytes(dtype, *tiles, "wgmma") <= mmk.SMEM_LIMIT
+
+
+@pytest.mark.gpu
+def test_misaligned_operand_takes_mma_sync(cuda):
+    """A base address off 16 bytes cannot be read by TMA: the rule names
+    mma_sync, which the call runs (no fallback after a failure)."""
+    rng = np.random.default_rng(2)
+    buf = _normal(rng, (256 * 256 + 1,), torch.bfloat16, cuda)
+    a = buf[1:].view(256, 256)
+    b = _normal(rng, (256, 256), torch.bfloat16, cuda)
+    assert a.data_ptr() % 16
+    got, want, ran = _product(torch.bfloat16, a, b, (128, 128, 128))
+    assert ran == "mma_sync" == mmk.body(torch.bfloat16, 256, 256, 256,
+                                         128, 128, 128, "row", False)
+    _within_a_bf16_step(got, want)
+
+
+@pytest.mark.gpu
+def test_matmul_wrappers_never_run_the_plain_version_on_cuda(cuda,
+                                                             monkeypatch):
+    def boom(*args, **kwargs):
+        raise AssertionError("plain version run on a CUDA tensor")
+    for mod in (mmk, f8k):
+        for name in dir(mod):
+            if name.endswith("_plain"):
+                monkeypatch.setattr(mod, name, boom)
+    i8 = torch.ones((128, 128), dtype=torch.int8, device=cuda)
+    bf = torch.ones((128, 128), dtype=torch.bfloat16, device=cuda)
+    q = torch.ones((128, 128), dtype=torch.float8_e4m3fn, device=cuda)
+    for tiles in ((128, 128, 128), (32, 32, 32)):
+        mmk.matmul(i8, i8, bm=tiles[0], bn=tiles[1], bk=tiles[2])
+        mmk.matmul(bf, bf, bm=tiles[0], bn=tiles[1], bk=tiles[2])
+        f8k.fp8_matmul(q, q, 1.0, 1.0, bm=tiles[0], bn=tiles[1],
+                       bk=tiles[2])
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_pipelined_matmul_stages_agree(cuda):
     """stages 1 (plain loads), 2 and 3 (cp.async ring) against the

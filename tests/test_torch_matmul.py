@@ -209,3 +209,165 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         mmk.matmul(a.t(), a)
     with pytest.raises(ValueError):
         mmk.matmul(a, torch.ones((4, 8)))
+
+
+# ----------------------------------------------------------------------
+# the tile rule: which body a product runs (csrc/matmul.cu matmul_body,
+# csrc/fp8_matmul.cu fp8_matmul_body; tests/test_torch_gpu.py holds the
+# sources to this table on the card)
+# ----------------------------------------------------------------------
+
+BF16, I8, F32 = torch.bfloat16, torch.int8, torch.float32
+E4M3, E5M2 = torch.float8_e4m3fn, torch.float8_e5m2
+FULL = (2048, 11008, 4096)
+
+RULE_TABLE = [
+    # dtype, (M, N, K), (bm, bn, bk), b_layout, aligned, body
+    (BF16, FULL, (128, 128, 128), "row", True, "wgmma"),
+    (BF16, FULL, (128, 256, 128), "row", True, "wgmma"),
+    (BF16, FULL, (128, 256, 64), "row", True, "wgmma"),
+    (BF16, FULL, (64, 64, 64), "row", True, "wgmma"),
+    (BF16, (512, 512, 512), (128, 256, 128), "row", True, "wgmma"),
+    (BF16, (200, 328, 200), (128, 128, 64), "row", True, "wgmma"),
+    (BF16, FULL, (128, 128, 32), "row", True, "mma_sync"),     # bk < a box
+    (BF16, FULL, (128, 128, 320), "row", True, "mma_sync"),    # B box > 256
+    (BF16, FULL, (256, 128, 128), "row", True, "mma_sync"),    # bm > 2 WGs
+    (BF16, FULL, (128, 512, 64), "row", True, "mma_sync"),     # bn > 256
+    (BF16, FULL, (128, 96, 64), "row", True, "mma_sync"),      # bn width
+    (BF16, FULL, (16, 8, 16), "row", True, "mma_sync"),
+    (BF16, (200, 330, 200), (128, 128, 64), "row", True, "mma_sync"),  # N*2
+    (BF16, (200, 328, 204), (128, 128, 64), "row", True, "mma_sync"),  # K*2
+    (BF16, FULL, (128, 128, 128), "row", False, "mma_sync"),   # alignment
+    (I8, FULL, (128, 128, 128), "row", True, "wgmma"),
+    (I8, FULL, (128, 256, 128), "col", True, "wgmma"),
+    (I8, FULL, (64, 128, 256), "row", True, "wgmma"),
+    (I8, (200, 330, 208), (128, 128, 128), "row", True, "wgmma"),  # N free
+    (I8, FULL, (128, 128, 64), "row", True, "mma_sync"),       # bk < a box
+    (I8, (200, 328, 200), (128, 128, 128), "col", True, "mma_sync"),  # K
+    (I8, FULL, (8, 8, 8), "row", True, "mma_sync"),
+    (E4M3, FULL, (128, 128, 128), "col", True, "wgmma"),
+    (E4M3, FULL, (128, 128, 128), "row", True, "wgmma"),
+    (E5M2, FULL, (64, 64, 256), "row", True, "wgmma"),
+    (E4M3, FULL, (128, 256, 128), "col", True, "mma_sync"),    # promotion
+    (E5M2, FULL, (32, 32, 32), "row", True, "mma_sync"),
+    (E4M3, FULL, (128, 128, 128), "col", False, "mma_sync"),
+    (F32, FULL, (128, 128, 128), "row", True, "fma"),
+    (F32, FULL, (64, 64, 64), "row", True, "fma"),
+]
+
+
+@pytest.mark.parametrize("dtype,shape,tiles,layout,aligned,want", RULE_TABLE)
+def test_body_rule_table(dtype, shape, tiles, layout, aligned, want):
+    assert mmk.body(dtype, *shape, *tiles, layout, aligned) == want
+    # the body never depends on B's layout (8-bit B is copied to fit)
+    if dtype.itemsize == 1:
+        other = "row" if layout == "col" else "col"
+        assert mmk.body(dtype, *shape, *tiles, other, aligned) == want
+
+
+def test_body_rule_refuses_a_column_major_16_bit_b():
+    with pytest.raises(ValueError, match="row-major"):
+        mmk.body(BF16, *FULL, 128, 128, 128, "col")
+    with pytest.raises(ValueError):
+        mmk.body(I8, *FULL, 128, 128, 128, "diag")
+
+
+@pytest.mark.parametrize("dtype,tiles,stages,nbytes", [
+    (BF16, (128, 128, 128), 3, 197760),
+    (BF16, (128, 256, 128), 2, 197760),
+    (BF16, (128, 256, 64), 4, 197760),
+    (BF16, (128, 128, 64), 6, 197760),
+    (BF16, (64, 64, 64), 6, 99456),
+    (BF16, (128, 256, 256), 1, 197760),
+    (I8, (128, 128, 128), 6, 197760),
+    (I8, (128, 256, 128), 4, 197760),
+    (E4M3, (128, 128, 128), 6, 197760),
+    (E5M2, (64, 64, 256), 6, 197760),
+])
+def test_wgmma_shared_memory_count(dtype, tiles, stages, nbytes):
+    """The ring holds as many stages of (bm + bn) * bk bytes-per-value as
+    fit 232448 bytes with 1152 bytes of alignment and barriers, at most
+    six; the count is what the sources allocate (held on the card)."""
+    stage = (tiles[0] + tiles[1]) * tiles[2] * dtype.itemsize
+    assert mmk.wgmma_stages(dtype, *tiles) == stages
+    assert mmk.smem_bytes(dtype, *tiles, "wgmma") == nbytes \
+        == mmk.SMEM_SLACK + stages * stage
+    assert nbytes <= mmk.SMEM_LIMIT
+    if dtype in f8k.FORMATS:
+        assert f8k.smem_bytes(*tiles, "wgmma", dtype) == nbytes
+
+
+@pytest.mark.parametrize("dtype,tiles", [
+    (I8, (128, 256, 1024)), (BF16, (128, 256, 512 + 256)),
+    (E4M3, (128, 128, 1024))])
+def test_wgmma_tiles_over_the_limit_raise(dtype, tiles):
+    """On the grid but not one stage fits (the 16-bit B box caps bf16's bk
+    at 256, so its row takes the mma_sync staging): ValueError before any
+    launch, on the CPU as on the card."""
+    M, N, K = 256, 256, 2048
+    if dtype in f8k.FORMATS:
+        q = torch.zeros((M, K), dtype=dtype)
+        with pytest.raises(ValueError, match="shared memory"):
+            f8k.fp8_matmul(q, torch.zeros((K, N), dtype=dtype), 1.0, 1.0,
+                           bm=tiles[0], bn=tiles[1], bk=tiles[2])
+        return
+    a = torch.zeros((M, K), dtype=dtype)
+    with pytest.raises(ValueError, match="shared memory"):
+        mmk.matmul(a, torch.zeros((K, N), dtype=dtype), bm=tiles[0],
+                   bn=tiles[1], bk=tiles[2])
+
+
+def _col_major(t: torch.Tensor) -> torch.Tensor:
+    """The same [K,N] values laid out column-major (a view of [N,K])."""
+    out = t.t().contiguous().t()
+    assert not out.is_contiguous() and out.t().is_contiguous()
+    return out
+
+
+@pytest.mark.parametrize("shape", [(64, 96, 128), (200, 136, 256)])
+def test_int8_matmul_column_major_b_vs_reference(shape):
+    """The port's int8 matmul (plain version on the CPU) with a
+    column-major B against the reference's Pallas kernel in interpret
+    mode on the same numpy-seeded values: bit for bit."""
+    m, n, k = shape
+    rng = np.random.default_rng(13)
+    ja, ta = _both(rng.integers(-128, 128, (m, k)), jnp.int8)
+    jb, tb = _both(rng.integers(-128, 128, (k, n)), jnp.int8)
+    want = ref_ops.matmul(ja, jb, bm=32, bn=32, bk=32)
+    got = mmk.matmul(ta, _col_major(tb), bm=128, bn=128, bk=128)
+    _same_dtype(got, want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("fp8", ["float8_e4m3fn", "float8_e5m2"])
+@pytest.mark.parametrize("shape", [(64, 64, 128), (96, 200, 512)])
+def test_fp8_matmul_column_major_b_vs_reference(fp8, shape):
+    """The port's fp8_matmul (plain version on the CPU) with a
+    column-major B against the reference's Pallas kernel in interpret
+    mode: within one bf16 rounding step of the output (the two round the
+    same float32 sum, taken in another order)."""
+    m, n, k = shape
+    rng = np.random.default_rng(17)
+    ja, ta = _both(rng.standard_normal((m, k)), getattr(ml_dtypes, fp8))
+    jb, tb = _both(rng.standard_normal((k, n)), getattr(ml_dtypes, fp8))
+    sx, sw = jnp.float32(0.37), jnp.float32(1.9)
+    want = np.asarray(ref_ops.fp8_matmul(ja, jb, sx, sw, bm=32, bn=32,
+                                         bk=32), np.float32)
+    got = f8k.fp8_matmul(ta, _col_major(tb), torch.tensor(0.37),
+                         torch.tensor(1.9), bm=128, bn=128, bk=128)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert (np.abs(got - want) <= 2.0 ** -7 * np.abs(want)
+            + 2.0 ** -12 * np.abs(want).max()).all()
+    # and equal to the port's own plain product on the row-major B
+    np.testing.assert_array_equal(
+        got, f8k.fp8_matmul(ta, tb, torch.tensor(0.37),
+                            torch.tensor(1.9)).float().numpy())
+
+
+def test_column_major_b_only_for_the_8_bit_types():
+    a = torch.ones((8, 8), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        mmk.matmul(a, _col_major(a))
+    i8 = torch.ones((8, 8), dtype=torch.int8)
+    assert torch.equal(mmk.matmul(i8, _col_major(i8)), mmk.matmul(i8, i8))
