@@ -46,16 +46,23 @@ last line):
               2048-token prefill (M=2048, K=4096, N=11008): bf16 over a
               tile sweep (bn 64/128/256 at bm=128, bk 128 and 64), int8
               and e4m3 with B column-major and contiguous (the layout
-              copy's ms printed apart), e5m2, float32.  Each case's body
-              (wgmma, mma_sync, fma) by the tile rule, held to the
-              source's own rule and to the per-body launch count; max
-              abs error within its limit, kernel ms (CUDA events), plain
-              ms, a one-call PyTorch yardstick the port never calls
-              (torch.matmul, torch._scaled_mm, torch._int_mm), the bound
-              and TFLOP/s; the SyncShare/AsyncPipe ratio per block size;
-              three probes, findings and not gates (native e4m3
+              copy's ms printed apart), e5m2, float32; single_tile_matmul
+              at the nine tc_mma cases; pipelined_matmul at 16^3, 32^3
+              and 64^3 tiles, stages 1-3, at the async_copy shape and at
+              full width.  Each case's body (wgmma, mma_sync, fma; tma,
+              staged; tma, cp_async) by its rule, held to the source's
+              own rule and to the per-body launch count; max abs error
+              within its limit, kernel ms (CUDA events, back-to-back
+              calls; for the one-block single_tile_matmul also the
+              device ms of a CUDA-graph replay and its one-SM bound),
+              plain ms, a one-call PyTorch yardstick the port never
+              calls (torch.matmul, torch._scaled_mm, torch._int_mm),
+              the bound and TFLOP/s; the SyncShare/AsyncPipe ratio per
+              block size at full width and at the async_copy shape;
+              four probes, findings and not gates (native e4m3
               mma.sync, csrc/fp8_mma_probe.cu; TMA + mbarrier + wgmma
-              descriptors, csrc/wgmma_probe.cu; the fp8 wgmma body's
+              descriptors, csrc/wgmma_probe.cu; float32 TMA boxes under
+              each swizzle, csrc/tma_probe.cu; the fp8 wgmma body's
               error with and without its promotion, from a copy of the
               sources built without it); then the five dissection
               benchmarks (repro_torch.benchmarks.run) through the
@@ -204,6 +211,27 @@ def _time_ms(fn, iters: int, warm: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters: int) -> float:
+    """Device ms of one call: `iters` calls captured in a CUDA graph and
+    replayed once (no host time between launches)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -738,6 +766,7 @@ FULL_WIDTH = (2048, 11008, 4096)
 # sums, a few float32 roundings; bf16 outputs round the same float32
 # sum, so at most one bf16 step (2**-7 of the value); integers exact
 MM_REL_LIMIT = {"float32": 1e-5, "bfloat16": 2.0 ** -7, "int32": 0.0}
+H100_SMS = 132      # streaming multiprocessors of an H100 SXM
 
 
 def _mm_inputs(dtype_name, M, N, K, seed):
@@ -857,6 +886,36 @@ def probe_wgmma() -> None:
               f"{want.abs().max().item():.4g})", flush=True)
 
 
+def probe_tma_f32() -> None:
+    """A finding, not a gate: do tma_common.cuh's float32 tensor maps and
+    its swizzle() agree with the hardware (csrc/tma_probe.cu: one TMA
+    box under 128B, 64B, 32B and no swizzle, read back through
+    swizzle())?"""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    try:
+        path, _, _ = build.compile_source("tma_probe.cu")
+    except RuntimeError as e:
+        print(f"[matmul] float32 TMA probe: nvcc refused it: {e}", flush=True)
+        return
+    fn = ctypes.CDLL(str(path)).tma_probe
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    src = torch.arange(100 * 40, dtype=torch.float32, device=DEVICE).view(
+        100, 40)
+    for cols in (32, 16, 8, 4):
+        out = torch.full((64, cols), -1.0, device=DEVICE)
+        err = fn(src.data_ptr(), out.data_ptr(), 100, 40, 64, cols,
+                 torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        wrong = int((out != src[:64, :cols]).sum())
+        print(f"[matmul] float32 TMA probe, box 64 x {cols} ({cols * 4}-byte "
+              f"rows): launch error {err}, {wrong} of {64 * cols} values "
+              f"read back wrong through swizzle()", flush=True)
+
+
 def probe_fp8_promotion() -> None:
     """A finding, not a gate: how far the e4m3 wgmma body lands from
     the plain product at the full-width shape (K=4096) with and without
@@ -871,7 +930,7 @@ def probe_fp8_promotion() -> None:
     from repro_torch.kernels import fp8_matmul as f8k
     work = build.BUILD_DIR / "fp8_no_promotion"
     work.mkdir(parents=True, exist_ok=True)
-    for src in ("fp8_matmul.cu", "tile_common.cuh", "wgmma_common.cuh"):
+    for src in ["fp8_matmul.cu", *(p.name for p in build.CSRC.glob("*.cuh"))]:
         shutil.copy(build.CSRC / src, work / src)
     hdr = work / "wgmma_common.cuh"
     text = hdr.read_text()
@@ -921,29 +980,45 @@ def probe_fp8_promotion() -> None:
 
 
 def _body_of(kernel, dt, m, n, k, kw, a, b) -> str:
-    """The body a product case runs by the tile rule's Python mirror
-    (kernels/matmul.py `body`), held to the source's own rule
-    (`matmul_body` / `fp8_matmul_body`); "-" for the kernels with one
-    body."""
+    """The body a product case runs by the rule's Python mirror
+    (kernels/matmul.py `body` / `single_tile_body`,
+    kernels/async_pipeline.py `body`), held to the source's own rule
+    (`matmul_body`, `fp8_matmul_body`, `single_tile_matmul_body`,
+    `pipelined_matmul_body`)."""
     import torch
+    from repro_torch.kernels import async_pipeline as apk
     from repro_torch.kernels import build
     from repro_torch.kernels import matmul as mmk
-    if kernel not in ("matmul", "fp8_matmul"):
-        return "-"
     dtype = getattr(torch, dt)
-    layout = mmk.b_layout(kernel, b, dtype.itemsize == 1)
-    tiles = (kw["bm"], kw["bn"], kw["bk"])
-    ok = mmk.aligned(a, b, copied_b=layout == "row" and dtype.itemsize == 1)
-    name = mmk.body(dtype, m, n, k, *tiles, layout, ok)
-    if kernel == "matmul":
-        code = build.load("matmul.cu").matmul_body(
-            mmk._DTYPES[dtype], m, n, k, *tiles, int(ok))
-    else:
-        code = build.load("fp8_matmul.cu").fp8_matmul_body(
+    if kernel == "single_tile_matmul":
+        ok = mmk.aligned(a, b, False)
+        name = mmk.single_tile_body(dtype, m, n, k, ok)
+        code = build.load("matmul.cu").single_tile_matmul_body(
+            mmk._DTYPES[dtype], m, n, k, int(ok))
+        names = mmk.SINGLE_BODIES
+    elif kernel == "pipelined_matmul":
+        ok = mmk.aligned(a, b, False)
+        tiles = (kw["bm"], kw["bn"], kw["bk"])
+        name = apk.body(m, n, k, *tiles, ok)
+        code = build.load("async_pipeline.cu").pipelined_matmul_body(
             m, n, k, *tiles, int(ok))
-    if mmk.BODIES[code] != name:
-        fail(f"{kernel} {dt} {(m, n, k)} {tiles}: the source's rule says "
-             f"{mmk.BODIES[code]}, its Python mirror {name}")
+        names = apk.BODIES
+    else:
+        layout = mmk.b_layout(kernel, b, dtype.itemsize == 1)
+        tiles = (kw["bm"], kw["bn"], kw["bk"])
+        ok = mmk.aligned(a, b,
+                         copied_b=layout == "row" and dtype.itemsize == 1)
+        name = mmk.body(dtype, m, n, k, *tiles, layout, ok)
+        if kernel == "matmul":
+            code = build.load("matmul.cu").matmul_body(
+                mmk._DTYPES[dtype], m, n, k, *tiles, int(ok))
+        else:
+            code = build.load("fp8_matmul.cu").fp8_matmul_body(
+                m, n, k, *tiles, int(ok))
+        names = mmk.BODIES
+    if names[code] != name:
+        fail(f"{kernel} {dt} {(m, n, k)} {kw}: the source's rule says "
+             f"{names[code]}, its Python mirror {name}")
     return name
 
 
@@ -957,7 +1032,7 @@ def phase_matmul() -> tuple:
     case, dtype, (M, N, K), tiles), launch counts of the benchmark
     run)."""
     import torch
-    from repro_torch.core import bench
+    from repro_torch.core import bench, hw
     from repro_torch.kernels import async_pipeline as apk
     from repro_torch.kernels import fp8_matmul as f8k
     from repro_torch.kernels import matmul as mmk
@@ -1014,7 +1089,9 @@ def phase_matmul() -> tuple:
            "fp8_matmul": (f8k.fp8_matmul, f8k.fp8_matmul_plain),
            "pipelined_matmul": (apk.pipelined_matmul,
                                 apk.pipelined_matmul_plain)}
-    counters = {"matmul": mmk.matmul, "fp8_matmul": f8k.fp8_matmul}
+    counters = {"matmul": mmk.matmul, "fp8_matmul": f8k.fp8_matmul,
+                "single_tile_matmul": mmk.single_tile_matmul,
+                "pipelined_matmul": apk.pipelined_matmul}
     results, inputs, plain_cache = {}, {}, {}
     for i, (kernel, case, dt, (m, n, k), kw, iters, layout) in \
             enumerate(cases):
@@ -1045,10 +1122,10 @@ def phase_matmul() -> tuple:
         kern = lambda: fn(*args, **kw)
         plain = lambda: plain_fn(*args)
         body = _body_of(kernel, dt, m, n, k, kw, a, b)
-        before = dict(getattr(counters.get(kernel), "body_launches", {}))
+        before = dict(counters[kernel].body_launches)
         got = kern()
         torch.cuda.synchronize()
-        if body != "-":
+        if True:
             after = counters[kernel].body_launches
             ran = [x for x in after if after[x] != before.get(x, 0)]
             if ran != [body]:
@@ -1071,6 +1148,19 @@ def phase_matmul() -> tuple:
         bound_ms, bound_by = _mm_bound(dt, m, n, k, a.element_size(),
                                        got.element_size())
         tfs = 2.0 * m * n * k / (ms * 1e-3) / 1e12
+        # one block runs on one SM: its share of the card's peak
+        one_sm = (2.0 * m * n * k / (hw.H100_SXM.peak_for(dt)
+                                     / H100_SMS) * 1e3
+                  if kernel == "single_tile_matmul" else None)
+        sm_txt = f" one_sm_bound_ms={one_sm:.5f}" if one_sm else ""
+        dev_ms = lib_dev_ms = None
+        if kernel == "single_tile_matmul":
+            # one block: back-to-back calls may wait on the host, so the
+            # device time of a call is read from a graph replay too
+            dev_ms = _graph_ms(kern, iters)
+            lib_dev_ms = _graph_ms(lib, iters) if lib else None
+            sm_txt += (f" device_ms={dev_ms:.4f} library_device_ms="
+                       + (f"{lib_dev_ms:.4f}" if lib_dev_ms else "none"))
         tag = " ".join(f"{x}={y}" for x, y in kw.items())
         ok = err <= limit
         lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
@@ -1084,7 +1174,8 @@ def phase_matmul() -> tuple:
               f"{MM_REL_LIMIT[out_name]:.3g} x max|plain| {scale:.4g}) "
               f"ms={ms:.4f}{copy_txt} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_txt} "
-              f"bound_ms={bound_ms:.5f} ({bound_by}) TFLOP/s={tfs:.2f} "
+              f"bound_ms={bound_ms:.5f} ({bound_by}){sm_txt} "
+              f"TFLOP/s={tfs:.2f} "
               f"{'ok' if ok else 'OVER LIMIT'}", flush=True)
         if not ok:
             fail(f"{kernel} {case} {dt} {tag}: max abs error {err} over "
@@ -1092,20 +1183,28 @@ def phase_matmul() -> tuple:
         results[(kernel, case, dt, (m, n, k), tag)] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "body": body}
+            "library_ms": lib_ms, "body": body, "one_sm_bound_ms": one_sm,
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
     inputs.clear()
     plain_cache.clear()
     probe_native_fp8_mma()
     probe_wgmma()
+    probe_tma_f32()
     probe_fp8_promotion()
-    for bs in (64, 32, 16):
-        t = {st: results[("pipelined_matmul", "full_width", "float32",
-                          FULL_WIDTH, f"bm={bs} bn={bs} bk={bs} stages={st}")
-                         ]["ms"]
-             for st in (1, 2, 3)}
-        print(f"[matmul] full width, block {bs}: SyncShare/AsyncPipe = "
-              f"{t[1] / t[2]:.3f}, SyncShare/AsyncPipe3 = {t[1] / t[3]:.3f} "
-              f"(paper H800: 1.395 at 8x8, 0.982 at 32x32)", flush=True)
+    for where, shape, bn_of in (("full width", FULL_WIDTH, lambda x: x),
+                                ("async_copy shape", (128, 64, 128),
+                                 lambda x: min(x, 64))):
+        case = where.split()[0] if where == "full width" else "async_copy"
+        case = "full_width" if case == "full" else case
+        for bs in (64, 32, 16):
+            t = {st: results[("pipelined_matmul", case, "float32", shape,
+                              f"bm={bs} bn={bn_of(bs)} bk={bs} "
+                              f"stages={st}")]["ms"]
+                 for st in (1, 2, 3)}
+            print(f"[matmul] {where}, block {bs}: SyncShare/AsyncPipe = "
+                  f"{t[1] / t[2]:.3f}, SyncShare/AsyncPipe3 = "
+                  f"{t[1] / t[3]:.3f} (paper H800: 1.395 at 8x8, 0.982 at "
+                  f"32x32)", flush=True)
     # the five dissection benchmarks through the kernels: the main path
     # of this phase, with the counts set to 0 just before and read after
     torch.cuda.synchronize()
@@ -1120,7 +1219,9 @@ def phase_matmul() -> tuple:
     print(f"[matmul] benchmarks ran in {time.perf_counter() - t0:.1f} s; "
           f"launch counts {launches}; bodies: matmul "
           f"{mmk.matmul.body_launches}, fp8_matmul "
-          f"{f8k.fp8_matmul.body_launches}", flush=True)
+          f"{f8k.fp8_matmul.body_launches}, single_tile_matmul "
+          f"{mmk.single_tile_matmul.body_launches}, pipelined_matmul "
+          f"{apk.pipelined_matmul.body_launches}", flush=True)
     if min(launches.values()) <= 0:
         fail(f"a kernel of the dissection path was never launched: "
              f"{launches}")

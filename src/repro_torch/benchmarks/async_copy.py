@@ -2,8 +2,10 @@
 
 The paper's globalToShmemAsyncCopy: tiled matmul where global->shared
 copies either block (SyncShare) or pipeline stages deep (AsyncPipe).
-Here: ``pipelined_matmul`` (kernels/async_pipeline.py), stages=1 (plain
-loads) vs stages 2 and 3 (a cp.async ring), swept over block sizes.
+Here: ``pipelined_matmul`` (kernels/async_pipeline.py), stages=1 (one
+TMA buffer: copy, wait, compute) vs stages 2 and 3 (a TMA + mbarrier
+ring: the next slices' copies in flight while one computes), swept over
+block sizes.
 Measured rows carry the device's TFLOP/s; the model rows carry the
 overlap speedup t_sync / t_async with t_sync = t_copy + t_compute and
 t_async = max(t_copy, t_compute) at ``hw.TARGET``'s memory and float32

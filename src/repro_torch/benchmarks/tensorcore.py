@@ -3,7 +3,7 @@
   * mma_table    — single-block kernel latency/throughput per dtype and
                    problem shape (paper Table VII), through
                    ``single_tile_matmul`` (mma.sync on the tensor cores
-                   for bf16/int8, fmaf for float32)
+                   for bf16/int8, fmaf for float32, fed by TMA stages)
   * wgmma_table  — the tiled multi-block kernel (paper Tables VIII/IX),
                    plus the fp8 (QGMMA analog) product
   * n_sweep      — throughput vs output-tile width (paper Table X):

@@ -68,6 +68,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "matmul_body": (_I, _I, _I, _I, _I, _I, _I, _I),
         # dtype, a, b, c, M, N, K, bm, bn, bk, b_kmajor, stream
         "matmul_fwd": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        # dtype, M, N, K, aligned
+        "single_tile_matmul_body": (_I, _I, _I, _I, _I),
+        # dtype, M, N, K
+        "single_tile_matmul_smem_bytes": (_I, _I, _I, _I),
         # dtype, a, b, c, M, N, K, bk, stream
         "single_tile_matmul_fwd": (_I, _P, _P, _P, _I, _I, _I, _I, _P),
     },
@@ -84,6 +88,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "async_pipeline.cu": {
         # bm, bn, bk, stages
         "pipelined_matmul_smem_bytes": (_I, _I, _I, _I),
+        # M, N, K, bm, bn, bk, aligned
+        "pipelined_matmul_body": (_I, _I, _I, _I, _I, _I, _I),
         # a, b, c, M, N, K, bm, bn, bk, stages, stream
         "pipelined_matmul_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     },

@@ -44,9 +44,11 @@
 // fragments come from ldmatrix.trans.  float32: one block of 128
 // threads per (32-row query tile, b*H + h), scores and PV by fmaf on
 // the CUDA cores (tensor-core TF32 would round q and k to 10 bits).
-// Query tiles are issued last-first so the long causal rows start
-// early.  The G = H/KH heads of a group read the same K/V tiles through
-// L2, not through one shared copy.
+// Grid (query tiles, b*H + h), the heads split over grid.y (65535 at
+// most) and grid.z past that, so B*H is not held to grid.y's limit; one
+// head's query tiles run together, issued last-first so the long
+// causal rows start early.  The G = H/KH heads of a group read the same
+// K/V tiles through L2, not through one shared copy.
 //
 // Bound: at the training shapes (S = 4096, hd = 128) the causal forward
 // does 4*hd operations per attended (query head, key) pair, ~2.7e11 at
@@ -65,6 +67,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;       // the reference's NEG_INF
 constexpr int kThreads = 128;
+constexpr int kMaxGridY = 65535;
 // bf16 (mma.sync) kernel: 64 query rows x 64 keys a tile
 constexpr int kBQ = 64, kBK = 64;
 // float32 (fmaf) kernel: 32 query rows x 32 keys a tile
@@ -154,8 +157,10 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* s,
   }
 }
 
+// At most 168 registers, so three blocks share an SM (at 172, two do,
+// and on an H100 the yi-6b training shape takes 1.37x as long).
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 flash_fwd_bf16(const Args a) {
   constexpr int LD = HD + 8;            // shared row stride, 16 B of pad
   constexpr int KS = HD / 16;           // k-steps of Q K^T
@@ -167,7 +172,9 @@ flash_fwd_bf16(const Args a) {
   bf16* sv = sk + kBK * LD;                   // [kBK][LD]
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  if (bh >= a.B * a.H) return;          // the last z slice's tail
+  const int b = bh / a.H, h = bh % a.H;
   const int kh = h / (a.H / a.KH);
   const int rows = min(kBQ, a.Sq - q0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -330,7 +337,9 @@ flash_fwd_f32(const Args a) {
   float* vsum = s_c + kFQ;                      // [HD]
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kFQ;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  if (bh >= a.B * a.H) return;          // the last z slice's tail
+  const int b = bh / a.H, h = bh % a.H;
   const int kh = h / (a.H / a.KH);
   const int rows = min(kFQ, a.Sq - q0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -435,6 +444,14 @@ int f32_smem_bytes() {
               3 * kFQ + HD);
 }
 
+// (query tiles, b*H + h) with b*H + h = blockIdx.z * gridDim.y +
+// blockIdx.y: up to 65535 heads on grid.y, z slices past that.
+dim3 grid_of(const Args& a, int rows) {
+  const int bh = a.B * a.H;
+  const int y = bh < kMaxGridY ? bh : kMaxGridY;
+  return dim3((a.Sq + rows - 1) / rows, y, (bh + y - 1) / y);
+}
+
 template <int HD>
 cudaError_t launch(int dtype, const Args& a, cudaStream_t s) {
   cudaError_t err;
@@ -442,13 +459,13 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t s) {
     const int smem = bf16_smem_bytes<HD>();
     err = tile::allow_smem(flash_fwd_bf16<HD>, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.H);
+    const dim3 grid = grid_of(a, kBQ);
     flash_fwd_bf16<HD><<<grid, kThreads, smem, s>>>(a);
   } else {
     const int smem = f32_smem_bytes<HD>();
     err = tile::allow_smem(flash_fwd_f32<HD>, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sq + kFQ - 1) / kFQ, a.B * a.H);
+    const dim3 grid = grid_of(a, kFQ);
     flash_fwd_f32<HD><<<grid, kThreads, smem, s>>>(a);
   }
   return cudaGetLastError();
@@ -469,7 +486,7 @@ int flash_attention_fwd(int dtype, int hd, const void* q, const void* k,
                         void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KH <= 0 || H % KH != 0 ||
       (dtype != 0 && dtype != 1) || window < 0 || q_offset < 0 ||
-      n_pad_keys < Sk || B * H > 65535)
+      n_pad_keys < Sk || (long long)B * H > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KH,
                causal, window, q_offset, n_pad_keys, scale};

@@ -24,10 +24,42 @@
 //   * fma (float32, always): the same walk on the CUDA cores in fmaf,
 //     not TF32 (the reference holds float32 to rtol 1e-5).
 //
-// single_tile_matmul_fwd: the synchronous one-tile analog — a single
-// block computes the whole product on the mma_sync / fma bodies,
-// walking K in slices of bk.  Its output is the accumulator's type:
-// float32 for float32 and bf16 in, int32 for int8 in.
+// single_tile_matmul_fwd: the synchronous one-tile analog (the paper's
+// Tables VI/VII, whose subject is the synchronous mma) -- a single block
+// computes the whole product.  Two bodies, chosen by a rule on the
+// operands (single_tile_matmul_body; kernels/matmul.py mirrors it as
+// `single_tile_body`):
+//
+//   * tma (16-byte-aligned bases, K and N rows whole 16 bytes): a
+//     producer warpgroup, one thread of which issues TMA loads of
+//     128-byte-deep K slices (bk = 32 float32, 64 bf16, 128 int8 values)
+//     into an mbarrier ring of four A stages ([128 rows][bk], 128B
+//     swizzle) and a ring of B stages ([bk][128 / elt] boxes, 128B
+//     swizzle), so the copy of slice k + 1 overlaps the products of
+//     slice k; two consumer warpgroups (eight warps; setmaxnreg moves
+//     registers from the producer to them: 232 a thread) walk the output
+//     in sub-tiles of 128 x 256 (bf16, int8) or 128 x 128 (float32),
+//     since a 256 x 256 float32 accumulator (256 KB) is four times what
+//     one SM's registers hold.  bf16 keeps mma.sync m16n8k16 -> f32 with
+//     A fragments from ldmatrix.x4 and B, row-major, from
+//     ldmatrix.x4.trans, the next 32 bytes of K loaded while the current
+//     ones multiply; int8 keeps m16n8k32 s8 -> s32, whose B must be
+//     K-major: the consumers transpose each TMA'd B slice in shared
+//     memory (4 x 4 byte blocks, prmt, a bank-conflict-free lane map)
+//     into a swizzled [n][k] copy that ldmatrix.x4 reads, then free the
+//     TMA stage; float32 runs the register-blocked fmaf tile of
+//     fma_tile.cuh.  The walk takes
+//     column blocks outside and row blocks inside, and where the whole
+//     K of a column block's B (transposed, for int8) fits beside the A
+//     ring it stays in shared memory for every row block: B is read
+//     once (the 256^3 cases), not once per 128-row block.  The bf16 and
+//     int8 epilogue stages each warp's rows in shared memory and writes
+//     them as 256-byte row pieces (the fragments' own layout would give
+//     32-byte pieces).
+//   * staged (any other operands): the mma_sync / fma walk of
+//     tile_common.cuh, each K slice staged element by element.
+// Output in the accumulator's type: float32 for float32 and bf16 in,
+// int32 for int8 in.
 //
 // What bounds it: at the full-width shapes (2048 x 4096 x 11008) the
 // product is compute bound (arithmetic intensity in the hundreds of
@@ -43,7 +75,11 @@
 //
 // Entry points return the CUDA error of the launch (0 = launched).
 
+#include <type_traits>
+
+#include "fma_tile.cuh"
 #include "tile_common.cuh"
+#include "tma_common.cuh"
 #include "wgmma_common.cuh"
 
 namespace {
@@ -162,6 +198,394 @@ int run(int dtype, const void* a, const void* b, void* c, int M, int N, int K,
   return cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------
+// single_tile_matmul: the tma body
+// ---------------------------------------------------------------------
+namespace st {
+
+constexpr int kSubM = 128;             // output rows of a sub-tile
+constexpr int kConsumers = 256;        // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;   // and a producer warpgroup
+// registers a thread: consumers 232, the producer warpgroup 40
+// (2 x 128 x 232 + 128 x 40 <= 65536)
+constexpr int kConsumerRegs = 232, kProducerRegs = 40;
+constexpr int kStagesA = 4;
+constexpr int kStagesB = 4;            // a B ring that streams
+constexpr int kSlack = 1024 + 256;     // 1024-byte alignment + mbarriers
+constexpr int kRow = 128;              // bytes of a box row, of a slice
+// mma epilogue: each consumer warp stages 8 output rows of 64 values
+// (rows padded to 68 values against bank conflicts) before coalesced
+// 16-byte stores
+constexpr int kEpiRow = 68;
+constexpr int kEpilogueBytes = 8 * 8 * kEpiRow * 4;
+
+// Sizes of one product on the tma body (host and device).
+struct Geo {
+  int elt, bk, sub_n, box_n, b_boxes, a_bytes, b_box_bytes, b_bytes,
+      t_bytes, e_bytes, nk, tm, tn, sb, ts;
+  bool resident;
+  __host__ __device__ Geo(int elt_, int M, int N, int K) : elt(elt_) {
+    bk = kRow / elt;                   // K values of a slice
+    box_n = kRow / elt;                // N values of a B box row
+    sub_n = elt == 4 ? 128 : 256;
+    b_boxes = sub_n / box_n;
+    a_bytes = kSubM * kRow;
+    b_box_bytes = bk * kRow;
+    b_bytes = b_boxes * b_box_bytes;
+    t_bytes = elt == 1 ? sub_n * kRow : 0;   // int8: B transposed
+    e_bytes = elt == 4 ? 0 : kEpilogueBytes; // mma: the store staging
+    nk = (K + bk - 1) / bk;
+    tm = (M + kSubM - 1) / kSubM;
+    tn = (N + sub_n - 1) / sub_n;
+    const int fixed = kSlack + kStagesA * a_bytes + e_bytes;
+    // keep a column block's whole B (transposed, for int8) for its rows
+    resident = tm > 1 &&
+               fixed + (elt == 1 ? 2 * b_bytes + nk * t_bytes
+                                 : nk * b_bytes) <= tile::kSmemLimit;
+    sb = elt == 1 ? 2 : resident ? nk : kStagesB;   // TMA B stages
+    ts = elt == 1 ? (resident ? nk : 2) : 0;        // transposed stages
+  }
+  __host__ __device__ int smem() const {
+    return kSlack + kStagesA * a_bytes + sb * b_bytes + ts * t_bytes +
+           e_bytes;
+  }
+};
+
+__device__ inline void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ inline void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// int8: a TMA'd B slice ([128 k][128 n] boxes, 128B swizzle; `boxes` of
+// them loaded) into a [256 n][128 k] copy, 128B swizzle by n, as 4 x 4
+// byte blocks (kb = k / 4, n4 = n / 4).  The lane map puts the 32 reads
+// and the 32 writes of each instruction in 32 distinct banks (a lane's
+// bits pick n4's low bits and, crossed, kb's; the warp and iteration
+// bits pick the rest).
+__device__ inline void transpose_b8(const unsigned char* src,
+                                    unsigned char* dst, int boxes) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int l0 = lane & 1, l1 = (lane >> 1) & 1, l2 = (lane >> 2) & 1,
+            l3 = (lane >> 3) & 1, l4 = lane >> 4;
+  const int e0 = w & 1, e1 = (w >> 1) & 1, f0 = w >> 2;
+  if (e1 >= boxes) return;             // that box was not loaded
+  const int n4 = l0 | l1 << 1 | l3 << 2 | l4 << 3 | e0 << 4 | e1 << 5;
+#pragma unroll
+  for (int it = 0; it < 8; ++it) {
+    const int f1 = it & 1, f2 = (it >> 1) & 1, f3 = it >> 2;
+    const int kb = l2 | (l3 ^ f0) << 1 | (l1 ^ f1) << 2 | (l4 ^ f2) << 3 |
+                   f3 << 4;
+    const unsigned char* s = src + (n4 >> 5) * (kRow * kRow) + (n4 & 3) * 4;
+    const int chunk = (n4 & 31) >> 2;
+    uint32_t v[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = 4 * kb + r;
+      v[r] = *reinterpret_cast<const uint32_t*>(
+          s + k * kRow + ((chunk ^ (k & 7)) << 4));
+    }
+    const uint32_t t0 = __byte_perm(v[0], v[1], 0x5140);
+    const uint32_t t1 = __byte_perm(v[0], v[1], 0x7362);
+    const uint32_t t2 = __byte_perm(v[2], v[3], 0x5140);
+    const uint32_t t3 = __byte_perm(v[2], v[3], 0x7362);
+    const uint32_t o[4] = {__byte_perm(t0, t2, 0x5410),
+                           __byte_perm(t0, t2, 0x7632),
+                           __byte_perm(t1, t3, 0x5410),
+                           __byte_perm(t1, t3, 0x7632)};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int n = 4 * n4 + c;
+      *reinterpret_cast<uint32_t*>(dst + n * kRow +
+                                   (((kb >> 2) ^ (n & 7)) << 4) +
+                                   (kb & 3) * 4) = o[c];
+    }
+  }
+}
+
+// bf16 / int8 consumer: warps 2 (rows) x 4 (cols), each a 64 x 64 warp
+// tile of 4 x 8 mma fragments.  A warp whose tile lies wholly past the
+// sub-tile's edge skips the slice; one that overlaps it computes every
+// fragment (rows past M are TMA's zeros, columns past N are never
+// stored), so the inner loop has no branch.
+template <class S>
+struct MmaConsumer {
+  using Acc = typename Mma<S>::Acc;
+  Acc acc[kFragM][kFragN][4];
+  int wm, wn, lane;
+  __device__ MmaConsumer() {
+    const int warp = threadIdx.x / 32;
+    lane = threadIdx.x % 32;
+    wm = warp / 4;
+    wn = warp % 4;
+  }
+  __device__ void zero() { mma_zero<S>(acc); }
+  __device__ bool active(int rows, int cols) const {
+    return wm * 64 < rows && wn * 64 < cols;
+  }
+  // The A and B fragments of one 32-byte step of K: sa is the A stage
+  // [128][128 bytes]; sb the bf16 B stage ([64 k][64 n] boxes) or the
+  // int8 transposed B [256 n][128 k bytes]; all 128B-swizzled.
+  __device__ void load(int step, uint32_t sa, uint32_t sb,
+                       uint32_t (&af)[kFragM][4],
+                       uint32_t (&bf)[kFragN / 2][4]) const {
+#pragma unroll
+    for (int i = 0; i < kFragM; ++i) {
+      const int r = wm * 64 + i * 16 + (lane & 15);
+      const int ch = 2 * step + (lane >> 4);
+      ldsm_x4(af[i], sa + r * kRow + ((ch ^ (r & 7)) << 4));
+    }
+#pragma unroll
+    for (int jp = 0; jp < kFragN / 2; ++jp) {
+      const int nw = wn * 64 + jp * 16;
+      if constexpr (sizeof(S) == 2) {
+        const int kr = step * 16 + (lane & 15);
+        const int n = nw + (lane >> 4) * 8;
+        ldsm_x4_trans(bf[jp], sb + (n / 64) * (64 * kRow) + kr * kRow +
+                                  (((n % 64 / 8) ^ (kr & 7)) << 4));
+      } else {
+        const int n = nw + (lane & 7) + (lane >> 4) * 8;
+        const int ch = 2 * step + ((lane >> 3) & 1);
+        ldsm_x4(bf[jp], sb + n * kRow + ((ch ^ (n & 7)) << 4));
+      }
+    }
+  }
+  // acc += the slice's product; the next step's fragments are loaded
+  // before the current step's mma.sync.
+  __device__ void slice(uint32_t sa, uint32_t sb) {
+    uint32_t af[2][kFragM][4], bf[2][kFragN / 2][4];
+    load(0, sa, sb, af[0], bf[0]);
+#pragma unroll
+    for (int step = 0; step < 4; ++step) {   // 32 bytes of K each
+      const int cur = step & 1;
+      if (step < 3) load(step + 1, sa, sb, af[cur ^ 1], bf[cur ^ 1]);
+#pragma unroll
+      for (int i = 0; i < kFragM; ++i)
+#pragma unroll
+        for (int jp = 0; jp < kFragN / 2; ++jp) {
+          Mma<S>::run(acc[i][2 * jp], af[cur][i], bf[cur][jp][0],
+                      bf[cur][jp][1]);
+          Mma<S>::run(acc[i][2 * jp + 1], af[cur][i], bf[cur][jp][2],
+                      bf[cur][jp][3]);
+        }
+    }
+  }
+  // Fragment element e of acc[i][j] sits at row g + 8 (e / 2), col
+  // 2 t + e % 2.  Each 8-row half of a fragment row goes through the
+  // warp's staging rows in shared memory and out as 16-byte stores, two
+  // 256-byte row segments a warp instruction (straight from the
+  // fragments, a warp instruction would write eight 32-byte pieces).
+  template <class Out>
+  __device__ void store(Out* C, int M, int N, int m0, int n0,
+                        unsigned char* stage) const {
+    static_assert(sizeof(Out) == 4, "32-bit outputs");
+    Out* e = reinterpret_cast<Out*>(stage) + (threadIdx.x / 32) * 8 * kEpiRow;
+    const int g = lane >> 2, t = lane & 3;
+    const int c = n0 + wn * 64 + 4 * (lane & 15);
+#pragma unroll
+    for (int i = 0; i < kFragM; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int j = 0; j < kFragN; ++j) {
+          Out* p = e + g * kEpiRow + 8 * j + 2 * t;
+          p[0] = static_cast<Out>(acc[i][j][2 * h]);
+          p[1] = static_cast<Out>(acc[i][j][2 * h + 1]);
+        }
+        __syncwarp();
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int rr = (lane >> 4) + 2 * q;
+          const int r = m0 + wm * 64 + i * 16 + 8 * h + rr;
+          const Out* src = e + rr * kEpiRow + 4 * (lane & 15);
+          if (r >= M) continue;
+          Out* dst = C + static_cast<size_t>(r) * N + c;
+          if (c + 3 < N && !(N & 3)) {     // 16-byte aligned row pieces
+            *reinterpret_cast<uint4*>(dst) =
+                *reinterpret_cast<const uint4*>(src);
+          } else {
+            for (int x = 0; x < 4; ++x)
+              if (c + x < N) dst[x] = src[x];
+          }
+        }
+        __syncwarp();
+      }
+  }
+};
+
+// float32 consumer: the register-blocked tile, 16 x 16 threads of 8 x 8.
+struct FmaConsumer {
+  ftile::Tile<kSubM, 128> ft;
+  __device__ FmaConsumer() : ft(threadIdx.x) {}
+  __device__ void zero() { ft.zero(); }
+  __device__ bool active(int, int) const { return true; }
+  __device__ void slice(const unsigned char* sa, const unsigned char* sb) {
+    ft.slice(sa, sb, kRow / 4, 0, kRow / 4);
+  }
+  __device__ void store(float* C, int M, int N, int m0, int n0,
+                        unsigned char*) const {
+    ft.store(C + static_cast<size_t>(m0) * N + n0, N, imin(kSubM, M - m0),
+             imin(128, N - n0),
+             !(N % 4) && !(reinterpret_cast<uintptr_t>(C) % 16));
+  }
+};
+
+template <class S, class Out>
+__global__ void __launch_bounds__(kThreads, 1)
+    single_tma_kernel(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_b, Out* C,
+                      int M, int N, int K) {
+  constexpr bool kI8 = sizeof(S) == 1, kF32 = sizeof(S) == 4;
+  const Geo geo(sizeof(S), M, N, K);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - tma::smem_u32(smem_raw) % 1024)
+                                    % 1024);
+  unsigned char* a_ring = base;
+  unsigned char* b_ring = a_ring + kStagesA * geo.a_bytes;
+  unsigned char* t_ring = b_ring + geo.sb * geo.b_bytes;
+  unsigned char* e_ring = t_ring + geo.ts * geo.t_bytes;
+  const uint32_t bars = tma::smem_u32(e_ring + geo.e_bytes);
+  const uint32_t a_ring_u = tma::smem_u32(a_ring);
+  const uint32_t b_ring_u = tma::smem_u32(b_ring);
+  auto a_full = [&](int s) { return bars + 8 * s; };
+  auto a_empty = [&](int s) { return bars + 8 * (kStagesA + s); };
+  auto b_full = [&](int s) { return bars + 8 * (2 * kStagesA + s); };
+  auto b_empty = [&](int s) {
+    return bars + 8 * (2 * kStagesA + geo.sb + s);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesA; ++s) {
+      tma::mbar_init(a_full(s), 1);
+      tma::mbar_init(a_empty(s), kConsumers);
+    }
+    for (int s = 0; s < geo.sb; ++s) {
+      tma::mbar_init(b_full(s), 1);
+      tma::mbar_init(b_empty(s), kConsumers);
+    }
+    tma::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread issues every load, in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x != kConsumers) return;
+    int ia = 0, ib = 0;
+    for (int pn = 0; pn < geo.tn; ++pn) {
+      const int n0 = pn * geo.sub_n;
+      const int cols = imin(geo.sub_n, N - n0);
+      const int boxes = (cols + geo.box_n - 1) / geo.box_n;
+      for (int pm = 0; pm < geo.tm; ++pm)
+        for (int kt = 0; kt < geo.nk; ++kt) {
+          if (!geo.resident || pm == 0) {
+            const int s = ib % geo.sb;
+            tma::mbar_wait(b_empty(s), ((ib / geo.sb) & 1) ^ 1);
+            tma::mbar_arrive_expect_tx(b_full(s), boxes * geo.b_box_bytes);
+            for (int j = 0; j < boxes; ++j)
+              tma::tma_load(b_ring_u + s * geo.b_bytes + j * geo.b_box_bytes,
+                            &map_b, b_full(s), n0 + j * geo.box_n,
+                            kt * geo.bk);
+            ++ib;
+          }
+          const int s = ia % kStagesA;
+          tma::mbar_wait(a_empty(s), ((ia / kStagesA) & 1) ^ 1);
+          tma::mbar_arrive_expect_tx(a_full(s), geo.a_bytes);
+          tma::tma_load(a_ring_u + s * geo.a_bytes, &map_a, a_full(s),
+                        kt * geo.bk, pm * kSubM);
+          ++ia;
+        }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  using Consumer = std::conditional_t<kF32, FmaConsumer, MmaConsumer<S>>;
+  Consumer cons;
+  int ia = 0, ib = 0;
+  for (int pn = 0; pn < geo.tn; ++pn) {
+    const int n0 = pn * geo.sub_n;
+    const int cols = imin(geo.sub_n, N - n0);
+    const int boxes = (cols + geo.box_n - 1) / geo.box_n;
+    for (int pm = 0; pm < geo.tm; ++pm) {
+      const int m0 = pm * kSubM;
+      const int rows = imin(kSubM, M - m0);
+      cons.zero();
+      for (int kt = 0; kt < geo.nk; ++kt) {
+        const bool load_b = !geo.resident || pm == 0;
+        const int jb = geo.resident ? pn * geo.nk + kt : ib++;
+        const int sbs = jb % geo.sb;
+        if (load_b) tma::mbar_wait(b_full(sbs), (jb / geo.sb) & 1);
+        uint32_t b_src = b_ring_u + sbs * geo.b_bytes;
+        if constexpr (kI8) {
+          const int ts = geo.resident ? kt : (jb & 1);
+          unsigned char* t = t_ring + ts * geo.t_bytes;
+          if (load_b) {
+            // resident: the last column block's copy is read by all
+            if (geo.resident && pn > 0 && kt == 0)
+              tma::bar_sync(1, kConsumers);
+            transpose_b8(b_ring + sbs * geo.b_bytes, t, boxes);
+            tma::mbar_arrive(b_empty(sbs));
+            tma::bar_sync(1, kConsumers);
+          }
+          b_src = tma::smem_u32(t);
+        }
+        const int s = ia % kStagesA;
+        tma::mbar_wait(a_full(s), (ia / kStagesA) & 1);
+        if (cons.active(rows, cols)) {
+          if constexpr (kF32)
+            cons.slice(a_ring + s * geo.a_bytes, b_ring + sbs * geo.b_bytes);
+          else
+            cons.slice(a_ring_u + s * geo.a_bytes, b_src);
+        }
+        tma::mbar_arrive(a_empty(s));
+        ++ia;
+        if (!kI8 && (!geo.resident || pm == geo.tm - 1))
+          tma::mbar_arrive(b_empty(sbs));
+      }
+      if (cons.active(rows, cols)) cons.store(C, M, N, m0, n0, e_ring);
+    }
+  }
+}
+
+// The rule: the tma body where TMA can read both operands.
+bool single_tma_ready(int elt, int N, int K, bool aligned) {
+  return aligned && !((K * elt) % 16) && !((N * elt) % 16);
+}
+
+template <class S, class Out>
+int launch_single_tma(const void* a, const void* b, void* c, int M, int N,
+                      int K, cudaStream_t stream) {
+  constexpr int elt = sizeof(S);
+  const Geo geo(elt, M, N, K);
+  CUtensorMap ma, mb;
+  cudaError_t err = tma::make_map(&ma, a, elt, M, K, kSubM, geo.bk);
+  if (err != cudaSuccess) return err;
+  err = tma::make_map(&mb, b, elt, K, N, geo.bk, geo.box_n);
+  if (err != cudaSuccess) return err;
+  auto kernel = single_tma_kernel<S, Out>;
+  const int smem = geo.smem();
+  if (smem > tile::kSmemLimit) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<1, kThreads, smem, stream>>>(ma, mb, static_cast<Out*>(c), M, N,
+                                        K);
+  return cudaGetLastError();
+}
+
+}  // namespace st
+
 }  // namespace
 
 extern "C" {
@@ -210,12 +634,41 @@ int matmul_fwd(int dtype, const void* a, const void* b, void* c, int M, int N,
   return run(dtype, a, b, c, M, N, K, bm, bn, bk, false, grid, st);
 }
 
+// The body single_tile_matmul_fwd runs: 0 tma, 1 staged.  `aligned`:
+// both operands' base addresses are 16-byte aligned.
+int single_tile_matmul_body(int dtype, int M, int N, int K, int aligned) {
+  (void)M;
+  const int elt = dtype == kF32 ? 4 : elt_of(dtype);
+  return st::single_tma_ready(elt, N, K, aligned != 0) ? 0 : 1;
+}
+
+// Dynamic shared memory of the tma body for an M x N x K product.
+int single_tile_matmul_smem_bytes(int dtype, int M, int N, int K) {
+  const int elt = dtype == kF32 ? 4 : elt_of(dtype);
+  return st::Geo(elt, M, N, K).smem();
+}
+
 // One block: dtype 0 float32 -> float32, 1 bf16 -> float32,
-// 2 int8 -> int32; K walked in slices of bk.
+// 2 int8 -> int32; K walked in slices of bk (the tma body's bk is
+// 128 bytes of K: 32, 64 or 128 values).
 int single_tile_matmul_fwd(int dtype, const void* a, const void* b, void* c,
                            int M, int N, int K, int bk, void* stream) {
-  return run(dtype, a, b, c, M, N, K, M, N, bk, true, dim3(1, 1),
-             static_cast<cudaStream_t>(stream));
+  if (M <= 0 || N <= 0 || K <= 0 || bk <= 0 || dtype < 0 || dtype > 2)
+    return cudaErrorInvalidValue;
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  const int elt = dtype == kF32 ? 4 : elt_of(dtype);
+  if (!st::single_tma_ready(elt, N, K, aligned16(a, b)))
+    return run(dtype, a, b, c, M, N, K, M, N, bk, true, dim3(1, 1), strm);
+  if (bk != st::kRow / elt) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case kF32:
+      return st::launch_single_tma<float, float>(a, b, c, M, N, K, strm);
+    case kBF16:
+      return st::launch_single_tma<__nv_bfloat16, float>(a, b, c, M, N, K,
+                                                         strm);
+    default:
+      return st::launch_single_tma<int8_t, int32_t>(a, b, c, M, N, K, strm);
+  }
 }
 
 }  // extern "C"

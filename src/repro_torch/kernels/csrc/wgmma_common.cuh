@@ -5,9 +5,8 @@
 // or 256) and walks K in stages of bk values:
 //
 //   * TMA.  The host encodes one 2-D tensor map per operand
-//     (cuTensorMapEncodeTiled, reached through the runtime's driver
-//     entry point, so nothing links against libcuda) with 128-byte
-//     swizzle: a box row is 128 bytes, so a stage of A is bk * elt / 128
+//     (tma_common.cuh's make_map) with 128-byte swizzle: a box row is
+//     128 bytes, so a stage of A is bk * elt / 128
 //     boxes of bm rows, and the maps go to the kernel as
 //     __grid_constant__ parameters.  Loads past the tensor's edge fill
 //     zeros, which makes ragged M, N and K exact.
@@ -46,63 +45,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma_common.cuh"
+
 namespace wg {
+
+// the tensor maps, mbarriers and TMA loads of tma_common.cuh
+using tma::fence_barrier_init;
+using tma::make_map;
+using tma::mbar_arrive;
+using tma::mbar_arrive_expect_tx;
+using tma::mbar_init;
+using tma::mbar_wait;
+using tma::smem_u32;
+using tma::tma_load;
 
 constexpr int kSmemLimit = 232448;   // shared memory one block may use
 constexpr int kMaxStages = 6;
 constexpr int kSmemSlack = 1024 + 128;  // 1024-byte alignment + barriers
 constexpr int kBoxBytes = 128;          // one swizzled row of a box
-constexpr long long kHangCycles = 1LL << 34;  // ~8.7 s at 1.98 GHz
-
-// ---------------------------------------------------------------------
-// host: tensor maps
-// ---------------------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A row-major [rows, cols] matrix of 1- or 2-byte elements, read in
-// boxes of box_rows x box_cols (box_cols * elt = 128 bytes), 128-byte
-// swizzle, zeros past the edge.
-inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int elt,
-                            uint64_t rows, uint64_t cols, uint32_t box_rows,
-                            uint32_t box_cols) {
-  EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return cudaErrorInitializationError;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * elt};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  CUresult r = fn(map,
-                  elt == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                           : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                  2, const_cast<void*>(ptr), dims, strides, box, estr,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
 
 // ---------------------------------------------------------------------
 // the tile rule (host; kernels/matmul.py mirrors it)
@@ -143,68 +103,6 @@ inline bool tma_ready(int elt, int N, int K, int bn, bool aligned) {
   if (!aligned || (K * elt) % 16) return false;
   if (elt == 2 && (N * elt) % 16) return false;
   return (N + bn - 1) / bn <= 65535;
-}
-
-// ---------------------------------------------------------------------
-// device: shared memory, mbarriers, TMA
-// ---------------------------------------------------------------------
-__device__ inline uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ inline void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ inline void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ inline void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ inline void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.  A barrier
-// that never completes (a refused TMA load) traps after kHangCycles
-// instead of hanging the card.
-__device__ inline void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long t0 = 0;
-  for (int spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin == 0)
-      t0 = clock64();
-    else if (clock64() - t0 > kHangCycles)
-      __trap();
-  }
-}
-
-// One box of a 2-D tensor map at (c0 inner, c1 outer) into shared memory
-// at `dst`, completing `bar`'s transaction count.
-__device__ inline void tma_load(uint32_t dst, const CUtensorMap* map,
-                                uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
 }
 
 // ---------------------------------------------------------------------

@@ -57,9 +57,10 @@ def _check(q, k, v) -> None:
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-    if q.shape[0] * q.shape[2] > 65535:
+    # b*H + h spans grid.y (65535) times grid.z, an int in the kernel
+    if q.shape[0] * q.shape[2] > 2 ** 31 - 1:
         raise ValueError(f"B*H = {q.shape[0] * q.shape[2]} query heads "
-                         "exceed the grid's 65535")
+                         "exceed 2**31 - 1")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

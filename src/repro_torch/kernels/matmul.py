@@ -25,8 +25,21 @@ chosen by the tile rule ``body`` (a mirror of the source's
 * ``"fma"`` — float32, always: the same walk in fmaf on the CUDA cores
   (not TF32).
 
-``single_tile_matmul`` is the mma_sync / fma walk in one block over the
-whole product.
+``single_tile_matmul`` computes the whole product in one block, on one
+of two bodies chosen by ``single_tile_body`` (a mirror of the source's
+``single_tile_matmul_body``; a choice by operand, never a fallback):
+
+* ``"tma"`` — operands TMA can read (16-byte-aligned bases, K and N
+  rows whole 16 bytes): a producer warp issues TMA loads of K slices
+  128 bytes deep (``single_tile_bk``: 32 float32, 64 bf16, 128 int8
+  values) into mbarrier rings; eight consumer warps walk 128 x 256
+  (bf16, int8) or 128 x 128 (float32) output sub-tiles with
+  ``mma.sync`` fed by ``ldmatrix`` (int8 B transposed in shared memory
+  first) or the register-blocked fmaf tile, keeping a column block's B
+  in shared memory for all its row blocks where it fits
+  (``single_tile_smem_bytes``).
+* ``"staged"`` — any other operands: the mma_sync / fma walk with each
+  K slice staged element by element (``mma_smem_bytes``).
 
 Outputs, as the reference's: ``matmul`` gives a.dtype for float32 and
 bf16 in (the float32 accumulator rounded once) and int32 for int8 in;
@@ -35,8 +48,8 @@ float32 and bf16 in, int32 for int8 in).
 
 For CUDA tensors a wrapper checks its operands, allocates the output,
 launches the kernel on the current stream, raises if the launch failed
-and adds one to its ``launches`` count (``matmul`` also to
-``matmul.body_launches[body]``).  For CPU tensors it computes the plain
+and adds one to its ``launches`` count and to its
+``body_launches[body]``.  For CPU tensors it computes the plain
 version (``*_plain``): upcast to float32 (integers to int64 on the CPU,
 float64 on CUDA, exact while K*127*128 < 2**53), multiply, cast as
 ``repro/kernels/ref.py`` does.  It never falls back from CUDA to the
@@ -64,6 +77,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _KF = {torch.bfloat16: 16, torch.int8: 32}    # mma.sync fragment depth
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 BODIES = ("wgmma", "mma_sync", "fma")         # the source's body codes
+SINGLE_BODIES = ("tma", "staged")             # single_tile_matmul's
 # the wgmma body (csrc/wgmma_common.cuh)
 WG_BM = (64, 128)                 # one or two consumer warpgroups
 WG_BN = (64, 128, 256)            # fp8: 64, 128 (promoted accumulators)
@@ -266,9 +280,57 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     return out
 
 
-def single_tile_bk(dtype: torch.dtype, M: int, N: int, K: int) -> int:
-    """The K slice of the one-block walk: all of K if it fits, else
-    halved until the staging fits."""
+# single_tile_matmul's tma body (csrc/matmul.cu, namespace st)
+ST_SUB_M = 128                    # output rows of a sub-tile
+ST_STAGES_A, ST_STAGES_B = 4, 4   # A ring; a B ring that streams
+ST_SLACK = 1024 + 256             # 1024-byte alignment + mbarriers
+ST_ROW = 128                      # bytes of K in a slice, of a box row
+ST_EPILOGUE = 8 * 8 * 68 * 4      # bf16/int8: eight warps' staged rows
+
+
+def single_tile_body(dtype: torch.dtype, M: int, N: int, K: int,
+                     aligned: bool = True) -> str:
+    """The body single_tile_matmul runs (`single_tile_matmul_body` of the
+    source): "tma" where TMA can read both operands (16-byte-aligned
+    bases, K and N rows whole 16 bytes), else "staged"."""
+    elt = dtype.itemsize
+    if aligned and (K * elt) % 16 == 0 and (N * elt) % 16 == 0:
+        return "tma"
+    return "staged"
+
+
+def single_tile_smem_bytes(dtype: torch.dtype, M: int, N: int,
+                           K: int) -> int:
+    """`single_tile_matmul_smem_bytes` of the source: the tma body's four
+    A stages ([128][128 bytes]), its B stages ([bk][128 bytes] boxes
+    over a 256-wide, float32 128-wide, column block), for int8 the
+    transposed B copies, and for bf16 and int8 the epilogue's staged
+    output rows.  Where a column block's whole B fits beside the rest
+    and there is more than one row block, B is kept (one stage per K
+    slice) instead of streamed (four stages; int8: two TMA stages, two
+    transposed)."""
+    elt = dtype.itemsize
+    sub_n = 128 if elt == 4 else 256
+    a_bytes = ST_SUB_M * ST_ROW
+    b_bytes = (ST_ROW // elt) * ST_ROW * (sub_n * elt // ST_ROW)
+    t_bytes = sub_n * ST_ROW if elt == 1 else 0
+    nk = -(-K // (ST_ROW // elt))
+    fixed = ST_SLACK + ST_STAGES_A * a_bytes + (0 if elt == 4
+                                                 else ST_EPILOGUE)
+    kept = (2 * b_bytes + nk * t_bytes) if elt == 1 else nk * b_bytes
+    resident = -(-M // ST_SUB_M) > 1 and fixed + kept <= SMEM_LIMIT
+    sb = 2 if elt == 1 else (nk if resident else ST_STAGES_B)
+    ts = (nk if resident else 2) if elt == 1 else 0
+    return fixed + sb * b_bytes + ts * t_bytes
+
+
+def single_tile_bk(dtype: torch.dtype, M: int, N: int, K: int,
+                   body_name: str = "tma") -> int:
+    """The K slice of the one-block walk: on the tma body 128 bytes of K;
+    on the staged body all of K if it fits, else halved until the
+    staging fits."""
+    if body_name == "tma":
+        return ST_ROW // dtype.itemsize
     bk = K
     while bk > 16 and mma_smem_bytes(dtype, M, N, bk) > SMEM_LIMIT:
         bk = -(-bk // 2)
@@ -280,9 +342,11 @@ def single_tile_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     synchronous mma analog of the latency table); output in the
     accumulator's dtype."""
     M, N, K = check_operands("single_tile_matmul", a, b, _DTYPES)
-    bk = single_tile_bk(a.dtype, M, N, K)
-    check_smem("single_tile_matmul", mma_smem_bytes(a.dtype, M, N, bk),
-               f"(whole, bk={bk})")
+    name = single_tile_body(a.dtype, M, N, K, aligned(a, b, False))
+    bk = single_tile_bk(a.dtype, M, N, K, name)
+    nbytes = (single_tile_smem_bytes(a.dtype, M, N, K) if name == "tma"
+              else mma_smem_bytes(a.dtype, M, N, bk))
+    check_smem("single_tile_matmul", nbytes, f"(whole, bk={bk})")
     if a.device.type == "cpu":
         return single_tile_matmul_plain(a, b)
     out = torch.empty((M, N), dtype=_acc_dtype(a.dtype), device=a.device)
@@ -290,6 +354,7 @@ def single_tile_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                  _DTYPES[a.dtype], a.data_ptr(), b.data_ptr(),
                  out.data_ptr(), M, N, K, bk)
     single_tile_matmul.launches += 1
+    single_tile_matmul.body_launches[name] += 1
     return out
 
 
@@ -300,6 +365,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     matmul.body_launches = dict.fromkeys(BODIES, 0)
+    single_tile_matmul.body_launches = dict.fromkeys(SINGLE_BODIES, 0)
 
 
 def launch_counts() -> dict:

@@ -200,3 +200,25 @@ def test_kernel_wrapper_checks_operands():
     with pytest.raises(TypeError, match="dtypes"):
         kfa._check(q.half()[..., :16], k.half()[..., :16],
                    k.half()[..., :16])
+
+
+def test_more_than_65535_query_heads():
+    """B*H = 65536 query heads: the wrapper's checks take them (the
+    kernel spreads b*H + h over grid.y and grid.z), and the forward
+    matches the reference oracle."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((1, 2, 65536, 16))).float()
+    k = torch.from_numpy(rng.standard_normal((1, 2, 65536, 16))).float()
+    v = torch.from_numpy(rng.standard_normal((1, 2, 65536, 16))).float()
+    kfa._check(q, k, v)
+    o, lse = kfa.flash_attention_fwd(q, k, v, causal=True)
+    want = kfa.flash_attention_plain(q, k, v, causal=True)
+    np.testing.assert_allclose(o.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * 16 ** -0.5
+    s = s.masked_fill(torch.ones(2, 2).triu(1).bool(), float("-inf"))
+    np.testing.assert_allclose(lse.numpy(), s.logsumexp(-1).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        kfa._check(q.expand(2 ** 16, 2, 65536, 16), k.expand(2 ** 16, 2,
+                   65536, 16), v.expand(2 ** 16, 2, 65536, 16))

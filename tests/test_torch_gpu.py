@@ -559,9 +559,10 @@ def test_matmul_wrappers_never_run_the_plain_version_on_cuda(cuda,
 
 @pytest.mark.gpu
 def test_pipelined_matmul_stages_agree(cuda):
-    """stages 1 (plain loads), 2 and 3 (cp.async ring) against the
-    plain version within 1e-4 and within 1e-4 of each other, at the
-    reference's test case and at 64 x 64 x 64 tiles of a longer K."""
+    """stages 1 (one buffer: copy, wait, compute), 2 and 3 (a ring)
+    against the plain version within 1e-4 and within 1e-4 of each
+    other, at the reference's test case and at 64 x 64 x 64 tiles of a
+    longer K (both on the tma body)."""
     rng = np.random.default_rng(7)
     for (M, N, K), t in (((64, 96, 128), 32), ((256, 192, 1024), 64)):
         a = _normal(rng, (M, K), torch.float32, cuda)
@@ -607,6 +608,181 @@ def test_single_tile_matmul_vs_plain(cuda, dtype, shape):
         _close(got, want, 1e-4, 1e-4)
 
 
+PIPE_TILES = [(16, 16, 16), (32, 32, 32), (64, 64, 64), (64, 32, 16),
+              (32, 64, 128)]
+PIPE_SHAPES = [(200, 136, 520),    # ragged M and N, K % 4 == 0: tma
+               (96, 72, 130),      # K * 4 not whole 16 bytes: cp_async
+               (64, 66, 96)]       # N * 4 not whole 16 bytes: cp_async
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiles", PIPE_TILES)
+@pytest.mark.parametrize("shape", PIPE_SHAPES)
+def test_pipelined_matmul_bodies_vs_plain(cuda, tiles, shape):
+    """Every stage count on each body: the body the rule names runs
+    (counted by body), each result within 1e-4 of the plain version and
+    of the others."""
+    rng = np.random.default_rng(4)
+    M, N, K = shape
+    a = _normal(rng, (M, K), torch.float32, cuda)
+    b = _normal(rng, (K, N), torch.float32, cuda)
+    want = apk.pipelined_matmul_plain(a, b)
+    name = apk.body(M, N, K, *tiles)
+    assert name == ("tma" if K % 4 == 0 and N % 4 == 0 else "cp_async")
+    outs = []
+    for stages in range(1, apk.MAX_STAGES + 1):
+        before = dict(apk.pipelined_matmul.body_launches)
+        outs.append(apk.pipelined_matmul(a, b, bm=tiles[0], bn=tiles[1],
+                                         bk=tiles[2], stages=stages))
+        torch.cuda.synchronize()
+        after = apk.pipelined_matmul.body_launches
+        assert {x: after[x] - before[x] for x in after} == {
+            x: int(x == name) for x in after}
+        _close(outs[-1], want, 1e-4, 1e-4)
+    for o in outs[1:]:
+        _close(o, outs[0], 1e-4, 1e-4)
+
+
+@pytest.mark.gpu
+def test_pipelined_matmul_misaligned_operand_takes_cp_async(cuda):
+    rng = np.random.default_rng(6)
+    buf = _normal(rng, (128 * 256 + 1,), torch.float32, cuda)
+    a = buf[1:].view(128, 256)
+    b = _normal(rng, (256, 128), torch.float32, cuda)
+    assert apk.body(128, 128, 256, 64, 64, 64, aligned=False) == "cp_async"
+    before = dict(apk.pipelined_matmul.body_launches)
+    got = apk.pipelined_matmul(a, b, bm=64, bn=64, bk=64, stages=2)
+    torch.cuda.synchronize()
+    assert apk.pipelined_matmul.body_launches["cp_async"] == \
+        before["cp_async"] + 1
+    _close(got, apk.pipelined_matmul_plain(a, b), 1e-4, 1e-4)
+
+
+PIPE_RULE = [   # (M, N, K), tiles
+    ((2048, 11008, 4096), (64, 64, 64)), ((2048, 11008, 4096), (16, 16, 16)),
+    ((128, 64, 128), (32, 32, 32)), ((200, 136, 522), (64, 64, 64)),
+    ((200, 138, 520), (64, 64, 64)), ((128, 128, 128), (48, 64, 64)),
+    ((128, 128, 128), (64, 64, 8)), ((128, 128, 128), (128, 256, 64)),
+    ((64, 16 * 65536, 16), (16, 16, 16)), ((7, 9, 33), (7, 9, 33)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,tiles", PIPE_RULE)
+def test_pipelined_body_rule_python_mirror_matches_the_source(cuda, shape,
+                                                              tiles):
+    lib = build.load(apk.SOURCE)
+    for aligned in (1, 0):
+        code = lib.pipelined_matmul_body(*shape, *tiles, aligned)
+        assert apk.BODIES[code] == apk.body(*shape, *tiles, bool(aligned))
+    for stages in range(1, apk.MAX_STAGES + 1):
+        assert lib.pipelined_matmul_smem_bytes(*tiles, stages) == \
+            apk.smem_bytes(*tiles, stages)
+
+
+TC_MMA = [(dt, shape) for dt in ("float32", "bfloat16", "int8")
+          for shape in ((128, 128, 128), (128, 256, 128), (256, 256, 256))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape", TC_MMA + [
+    ("bfloat16", (200, 264, 200)), ("int8", (136, 48, 384)),
+    ("float32", (264, 140, 100)), ("int8", (300, 512, 256)),
+    ("bfloat16", (384, 256, 320)), ("float32", (16, 8, 4)),
+    ("bfloat16", (256, 128, 1024)), ("int8", (256, 64, 1024)),
+    ("float32", (256, 64, 512))])
+def test_single_tile_tma_body_vs_plain(cuda, dtype, shape):
+    """The nine tc_mma cases and ragged shapes (row blocks, column
+    blocks, B kept and streamed) on the tma body: within 1e-4, int8
+    exact, counted by body."""
+    rng = np.random.default_rng(8)
+    m, n, k = shape
+    if dtype == "int8":
+        a, b = _ints(rng, (m, k), cuda, -128, 128), _ints(rng, (k, n), cuda,
+                                                          -128, 128)
+    else:
+        td = getattr(torch, dtype)
+        a, b = _normal(rng, (m, k), td, cuda), _normal(rng, (k, n), td, cuda)
+    assert mmk.single_tile_body(a.dtype, m, n, k) == "tma"
+    before = dict(mmk.single_tile_matmul.body_launches)
+    got = mmk.single_tile_matmul(a, b)
+    torch.cuda.synchronize()
+    assert mmk.single_tile_matmul.body_launches["tma"] == before["tma"] + 1
+    want = mmk.single_tile_matmul_plain(a, b)
+    assert got.dtype == want.dtype
+    if dtype == "int8":
+        assert torch.equal(got, want)
+    else:
+        _close(got, want, 1e-4, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape", [
+    ("bfloat16", (64, 96, 66)), ("int8", (64, 90, 96)),
+    ("float32", (50, 70, 30))])
+def test_single_tile_staged_body_vs_plain(cuda, dtype, shape):
+    """Operands TMA cannot read (a K or N row off 16 bytes) take the
+    staged body, by the rule."""
+    rng = np.random.default_rng(9)
+    m, n, k = shape
+    if dtype == "int8":
+        a, b = _ints(rng, (m, k), cuda), _ints(rng, (k, n), cuda)
+    else:
+        td = getattr(torch, dtype)
+        a, b = _normal(rng, (m, k), td, cuda), _normal(rng, (k, n), td, cuda)
+    assert mmk.single_tile_body(a.dtype, m, n, k) == "staged"
+    before = dict(mmk.single_tile_matmul.body_launches)
+    got = mmk.single_tile_matmul(a, b)
+    torch.cuda.synchronize()
+    assert mmk.single_tile_matmul.body_launches["staged"] == \
+        before["staged"] + 1
+    want = mmk.single_tile_matmul_plain(a, b)
+    if dtype == "int8":
+        assert torch.equal(got, want)
+    else:
+        _close(got, want, 1e-4, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_single_tile_rule_and_bytes_match_the_source(cuda, dtype):
+    lib = build.load(mmk.SOURCE)
+    code = mmk._DTYPES[dtype]
+    for shape in ((256, 256, 256), (128, 256, 128), (64, 96, 66),
+                  (384, 256, 320), (300, 512, 256), (1024, 128, 2048),
+                  (64, 90, 96)):
+        for aligned in (1, 0):
+            assert mmk.SINGLE_BODIES[lib.single_tile_matmul_body(
+                code, *shape, aligned)] == mmk.single_tile_body(
+                    dtype, *shape, bool(aligned))
+        assert lib.single_tile_matmul_smem_bytes(code, *shape) == \
+            mmk.single_tile_smem_bytes(dtype, *shape) <= mmk.SMEM_LIMIT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("box_cols", [32, 16, 8, 4])
+@pytest.mark.parametrize("box_rows", [8, 64])
+def test_tma_probe_float32_swizzles(cuda, box_rows, box_cols):
+    """One TMA load of a float32 box under each swizzle (128B, 64B, 32B,
+    none), read back element by element through tma_common.cuh's
+    swizzle(): the matrix's corner, exactly (csrc/tma_probe.cu)."""
+    import ctypes
+    path, _, _ = build.compile_source("tma_probe.cu")
+    fn = ctypes.CDLL(str(path)).tma_probe
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    src = torch.arange(100 * 40, dtype=torch.float32, device=cuda).view(
+        100, 40)
+    out = torch.full((box_rows, box_cols), -1.0, device=cuda)
+    err = fn(src.data_ptr(), out.data_ptr(), 100, 40, box_rows, box_cols,
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(out, src[:box_rows, :box_cols])
+
+
 @pytest.mark.gpu
 def test_matmul_shared_memory_limit(cuda):
     """Tiles whose staging exceeds 232448 bytes raise ValueError before
@@ -628,6 +804,9 @@ def test_matmul_shared_memory_limit(cuda):
             f8k.smem_bytes(*tiles)
         assert build.load(apk.SOURCE).pipelined_matmul_smem_bytes(
             *tiles, 3) == apk.smem_bytes(*tiles, 3)
+    for tiles in [(64, 64, 64), (16, 16, 16), (32, 64, 128)]:
+        assert build.load(apk.SOURCE).pipelined_matmul_smem_bytes(
+            *tiles, 3) == apk.smem_bytes(*tiles, 3, "tma")
 
 
 @pytest.mark.gpu
@@ -1022,6 +1201,23 @@ def test_flash_attention_never_runs_plain_on_cuda(cuda, monkeypatch):
     kops.flash_attention(q.detach(), k.detach(), v.detach(), bq=64, bk=64)
     torch.cuda.synchronize()
     assert kfa.launch_counts()["flash_attention"] == n0 + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_more_than_65535_query_heads(cuda, dtype):
+    """B*H = 2 * 40000 query heads: past grid.y's 65535, on grid.x."""
+    q, k, v, _ = _flash_inputs(dtype, 2, 3, 5, 40000, 40000, 16, cuda)
+    o, lse = kfa.flash_attention_fwd(q, k, v, causal=True, q_offset=2)
+    torch.cuda.synchronize()
+    po, plse = kfa.flash_attention_fwd_plain(q, k, v, causal=True,
+                                             q_offset=2)
+    err = (o.float() - po.float()).abs().max().item()
+    limit = 1e-4 if dtype == "float32" else \
+        2.0 ** -7 * po.float().abs().max().item()
+    assert err <= limit, err
+    assert ((lse - plse).abs().max() / plse.abs().max().clamp(min=1.0)
+            ).item() <= 1e-4
 
 
 @pytest.mark.gpu

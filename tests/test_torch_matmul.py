@@ -371,3 +371,94 @@ def test_column_major_b_only_for_the_8_bit_types():
         mmk.matmul(a, _col_major(a))
     i8 = torch.ones((8, 8), dtype=torch.int8)
     assert torch.equal(mmk.matmul(i8, _col_major(i8)), mmk.matmul(i8, i8))
+
+
+# ----------------------------------------------------------------------
+# the TMA bodies' rules (csrc/async_pipeline.cu pipelined_matmul_body,
+# csrc/matmul.cu single_tile_matmul_body; tests/test_torch_gpu.py holds
+# the sources to these mirrors on the card)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("stages", [1, 2, 3, 4])
+@pytest.mark.parametrize("K,N", [(4096, 11008), (4098, 11008),
+                                 (4096, 11010), (130, 66)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_pipelined_body_and_bytes(tile, stages, K, N, aligned):
+    """tma where TMA can read both operands (K and N multiples of 4,
+    aligned bases), else cp_async; tma stages A [t][t] and B [t][t]
+    float32 slices plus 1152 bytes of alignment and barriers, cp_async
+    the same slices bare."""
+    want = "tma" if K % 4 == 0 and N % 4 == 0 and aligned else "cp_async"
+    got = apk.body(2048, N, K, tile, tile, tile, aligned)
+    assert got == want
+    slices = stages * 2 * tile * tile * 4
+    nbytes = apk.smem_bytes(tile, tile, tile, stages, got)
+    assert nbytes == (1152 + slices if got == "tma" else slices)
+    assert apk.smem_bytes(tile, tile, tile, stages) == 1152 + slices
+    # the shared-memory check counts the body the call runs
+    a = torch.zeros((8, K))
+    b = torch.zeros((K, N))
+    if not aligned:
+        a = torch.zeros(8 * K + 1)[1:].view(8, K)
+    assert apk.pipelined_matmul(a, b, bm=tile, bn=tile, bk=tile,
+                                stages=stages).shape == (8, N)
+
+
+@pytest.mark.parametrize("tiles,body,groups", [
+    ((16, 16, 16), "tma", 2), ((32, 16, 64), "tma", 2),
+    ((16, 32, 32), "tma", 1), ((32, 32, 32), "tma", 1),
+    ((64, 64, 64), "tma", 2), ((64, 32, 16), "tma", 1),
+    ((32, 64, 128), "tma", 1), ((128, 128, 128), "tma", 1),
+    ((48, 64, 64), "cp_async", None), ((64, 64, 8), "cp_async", None),
+    ((128, 256, 64), "cp_async", None), ((7, 9, 33), "cp_async", None)])
+def test_pipelined_tile_rule_and_k_groups(tiles, body, groups):
+    assert apk.tile_body(*tiles) == body
+    assert apk.body(512, 512, 512, *tiles) == body
+    if groups is not None:
+        assert apk.k_groups(*tiles[:2]) == groups
+    # two K groups add their halves through the ring's memory: a stage
+    # ring smaller than the bm x bn sums grows to hold them
+    bm, bn, bk = tiles
+    if body == "tma":
+        ring = 4 * bk * (bm + bn)
+        red = 4 * bm * bn if groups == 2 else 0
+        assert apk.smem_bytes(*tiles, 1) == 1152 + max(ring, red)
+
+
+def test_pipelined_grid_limit_takes_cp_async():
+    """More than 65535 column tiles: not on TMA's grid."""
+    assert apk.body(64, 16 * 65535, 64, 16, 16, 16) == "tma"
+    assert apk.body(64, 16 * 65536, 64, 16, 16, 16) == "cp_async"
+
+
+@pytest.mark.parametrize("dtype,shape,body,nbytes", [
+    (F32, (128, 128, 128), "tma", 132352),
+    (F32, (128, 256, 128), "tma", 132352),
+    (F32, (256, 256, 256), "tma", 197888),    # B kept: 8 slices
+    (F32, (256, 256, 512), "tma", 132352),    # 16 slices: streamed
+    (BF16, (128, 128, 128), "tma", 215296),
+    (BF16, (256, 256, 256), "tma", 215296),   # B kept: 4 slices
+    (BF16, (384, 256, 320), "tma", 215296),   # 5 do not fit: streamed
+    (BF16, (256, 256, 1024), "tma", 215296),  # streamed
+    (I8, (128, 256, 128), "tma", 215296),
+    (I8, (256, 256, 256), "tma", 215296),     # transposed B kept
+    (I8, (256, 256, 384), "tma", 215296),     # 3 do not fit: streamed
+    (I8, (256, 64, 1024), "tma", 215296),     # streamed
+    (BF16, (64, 96, 66), "staged", None), (I8, (64, 90, 96), "staged", None),
+    (F32, (50, 70, 30), "staged", None)])
+def test_single_tile_body_and_bytes(dtype, shape, body, nbytes):
+    """tma where TMA can read both operands (K and N rows whole 16
+    bytes); its shared memory is 1280 bytes of alignment and barriers,
+    four 16 KB A stages, 17408 bytes of staged output rows (bf16,
+    int8) and either one B stage per K slice (kept for every row block:
+    more than one row block and it fits) or four streamed B stages
+    (int8: two TMA stages plus two transposed copies, or all transposed
+    slices kept)."""
+    assert mmk.single_tile_body(dtype, *shape) == body
+    assert mmk.single_tile_body(dtype, *shape, aligned=False) == "staged"
+    if body == "tma":
+        assert mmk.single_tile_smem_bytes(dtype, *shape) == nbytes
+        assert mmk.single_tile_bk(dtype, *shape) == 128 // dtype.itemsize
+    else:
+        assert mmk.single_tile_bk(dtype, *shape, "staged") == shape[2]
