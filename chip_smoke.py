@@ -46,11 +46,16 @@ last line):
               2048-token prefill (M=2048, K=4096, N=11008): bf16 over a
               tile sweep (bn 64/128/256 at bm=128, bk 128 and 64), int8
               and e4m3 with B column-major and contiguous (the layout
-              copy's ms printed apart), e5m2, float32; single_tile_matmul
+              copy's ms printed apart), e5m2, float32 on the fma_tma
+              body at (128, 128, 128) and 64^3 and, with A off 16
+              bytes, on the fma body (the before and after of one
+              call); single_tile_matmul
               at the nine tc_mma cases; pipelined_matmul at 16^3, 32^3
               and 64^3 tiles, stages 1-3, at the async_copy shape and at
-              full width.  Each case's body (wgmma, mma_sync, fma; tma,
-              staged; tma, cp_async) by its rule, held to the source's
+              full width, and at 128 x 128 with the fma_tma ring's two
+              64-deep stages and four 32-deep ones.  Each case's body
+              (wgmma, mma_sync, fma, fma_tma; tma, staged; tma,
+              cp_async) by its rule, held to the source's
               own rule and to the per-body launch count; max abs error
               within its limit, kernel ms (CUDA events, back-to-back
               calls; for the one-block single_tile_matmul also the
@@ -93,10 +98,14 @@ last line):
               ops), o and lse, on the reference's kernel-test cases,
               yi-6b's full-width training shape (B=2, S=4096, H=32,
               KH=4, hd=128, bf16, causal), llama-te-mini's heads, a
-              window, a ragged S, q_offset > 0 with Sq < Sk and rows
-              with no valid key: kernel ms, plain ms, the ms of
+              window, a ragged S, q_offset > 0 with Sq < Sk, rows with
+              no valid key (float32 and bf16) and head_dim 80 (bf16 and
+              float32), each on the body its rule names (wgmma for bf16
+              at hd 64 / 128, mma_sync for bf16 at other hd, fma for
+              float32), held to the source's rule and the per-body
+              count: kernel ms, plain ms, the ms of
               scaled_dot_product_attention (a yardstick the port never
-              calls) and the bound; (b) dq, dk, dv with the kernel
+              calls), the bound and TFLOP/s; (b) dq, dk, dv with the kernel
               forward against the plain forward at the full-width
               shape; (c) one training step of full-width yi-6b with its
               depth cut to 8 layers (fp32 parameters, gradients and
@@ -105,13 +114,15 @@ last line):
               every flash call held against its plain version; (d)
               Trainer.run on that configuration: finite, falling
               losses, step ms, tokens/s, peak memory, B9 launches per
-              step; (e) the reduced yi-6b on the card: a run that fails
+              step, all on its wgmma body; (e) the reduced yi-6b on the
+              card: a run that fails
               and restarts from its checkpoint gives the losses of an
               uninterrupted run bit for bit.
 Each serve phase, the benchmark runs of phases 8 and 9 and the
 Trainer.run of phase 10 set their kernels' launch counts to 0 just
 before their main path and read them just after.  Then one JSON line
-of per-kernel numbers (seventeen kernels) and, last, the contract line
+of per-kernel numbers (seventeen kernels; those with several bodies
+also their launches by body) and, last, the contract line
 {"ok": true, "device": {...}}.
 """
 
@@ -177,7 +188,8 @@ def phase_card() -> dict:
 
 def phase_build() -> None:
     """Every source of kernels/csrc, one nvcc each, all started
-    together; ptxas registers, shared memory and spills printed."""
+    together; ptxas registers, shared memory, spills and its warnings of
+    serialized wgmma ("Performance Loss") printed."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -191,7 +203,8 @@ def phase_build() -> None:
               f"{'built in %.1f s' % secs if secs else 'already built'}")
         for line in log.splitlines():
             if "ptxas" in line and ("registers" in line or "spill" in line
-                                    or "Compiling" in line):
+                                    or "Compiling" in line
+                                    or "Performance Loss" in line):
                 print(f"[build]   {line.strip()}")
         build.load(src)
     print(f"[build] {len(sources)} sources loaded in "
@@ -1005,6 +1018,7 @@ def _body_of(kernel, dt, m, n, k, kw, a, b) -> str:
         names = apk.BODIES
     else:
         layout = mmk.b_layout(kernel, b, dtype.itemsize == 1)
+        # (A off 16 bytes is a case of the alignment rule, B as it is)
         tiles = (kw["bm"], kw["bn"], kw["bk"])
         ok = mmk.aligned(a, b,
                          copied_b=layout == "row" and dtype.itemsize == 1)
@@ -1061,8 +1075,15 @@ def phase_matmul() -> tuple:
                           (128, 64, 128),
                           dict(bm=bs, bn=min(bs, 64), bk=bs, stages=st), 20,
                           "row"))
+    # float32 on the TMA ring (fma_tma) at both of its tiles, and the
+    # same product with A off 16 bytes, which the rule sends to fma (PR
+    # 13's body): the before and after of one call
     cases.append(("matmul", "full_width", "float32", (M, N, K), t128, 5,
                   "row"))
+    cases.append(("matmul", "full_width", "float32", (M, N, K),
+                  dict(bm=64, bn=64, bk=64), 5, "row"))
+    cases.append(("matmul", "full_width_unalignedA", "float32", (M, N, K),
+                  t128, 2, "unalignedA"))
     # bf16 over a tile sweep (the paper's Table X asked of wgmma)
     for bk in (128, 64):
         for bn in (64, 128, 256):
@@ -1083,6 +1104,12 @@ def phase_matmul() -> tuple:
             cases.append(("pipelined_matmul", "full_width", "float32",
                           (M, N, K), dict(bm=bs, bn=bs, bk=bs, stages=st),
                           5 if bs == 64 else 2, "row"))
+    # the ring matmul's fma_tma body runs, at 128 x 128: its two stages
+    # of 64-float slices against four of 32
+    for bk, st in ((64, 2), (32, 4)):
+        cases.append(("pipelined_matmul", "full_width", "float32",
+                      (M, N, K), dict(bm=128, bn=128, bk=bk, stages=st), 5,
+                      "row"))
     fns = {"matmul": (mmk.matmul, mmk.matmul_plain),
            "single_tile_matmul": (mmk.single_tile_matmul,
                                   mmk.single_tile_matmul_plain),
@@ -1111,6 +1138,13 @@ def phase_matmul() -> tuple:
             if "col" not in views:   # the same values, column-major
                 views["col"] = b.t().contiguous().t()
             b = views["col"]
+        if layout == "unalignedA":
+            if "unalignedA" not in views:   # the same values, off 16 bytes
+                buf = torch.empty(a.numel() + 1, dtype=a.dtype,
+                                  device=DEVICE)
+                views["unalignedA"] = buf[1:].view(a.shape)
+                views["unalignedA"].copy_(a)
+            a = views["unalignedA"]
         if kernel == "fp8_matmul":
             sx = torch.tensor([0.37], device=DEVICE)
             sw = torch.tensor([1.9], device=DEVICE)
@@ -1122,6 +1156,12 @@ def phase_matmul() -> tuple:
         kern = lambda: fn(*args, **kw)
         plain = lambda: plain_fn(*args)
         body = _body_of(kernel, dt, m, n, k, kw, a, b)
+        if kernel == "matmul" and dt == "float32" and \
+                case.startswith("full_width"):
+            want_body = "fma" if layout == "unalignedA" else "fma_tma"
+            if body != want_body:
+                fail(f"matmul float32 {case} {kw}: body {body}, the rule "
+                     f"names {want_body}")
         before = dict(counters[kernel].body_launches)
         got = kern()
         torch.cuda.synchronize()
@@ -1205,6 +1245,16 @@ def phase_matmul() -> tuple:
                   f"{t[1] / t[2]:.3f}, SyncShare/AsyncPipe3 = "
                   f"{t[1] / t[3]:.3f} (paper H800: 1.395 at 8x8, 0.982 at "
                   f"32x32)", flush=True)
+    new, new64, old = (
+        results[("matmul", case, "float32", FULL_WIDTH, tag)]
+        for case, tag in (("full_width", "bm=128 bn=128 bk=128"),
+                          ("full_width", "bm=64 bn=64 bk=64"),
+                          ("full_width_unalignedA", "bm=128 bn=128 bk=128")))
+    print(f"[matmul] float32 full width: fma_tma 128^3 {new['ms']:.4f} ms, "
+          f"64^3 {new64['ms']:.4f} ms; fma (A off 16 bytes) "
+          f"{old['ms']:.4f} ms: {old['ms'] / new['ms']:.2f}x; torch.matmul "
+          f"{new['library_ms']:.4f} ms: {new['ms'] / new['library_ms']:.2f}x "
+          f"of it; bound {new['bound_ms']:.5f} ms", flush=True)
     # the five dissection benchmarks through the kernels: the main path
     # of this phase, with the counts set to 0 just before and read after
     torch.cuda.synchronize()
@@ -1225,7 +1275,15 @@ def phase_matmul() -> tuple:
     if min(launches.values()) <= 0:
         fail(f"a kernel of the dissection path was never launched: "
              f"{launches}")
-    return results, launches
+    if mmk.matmul.body_launches["fma_tma"] <= 0:
+        fail("the dissection benchmarks ran no float32 product on the "
+             f"fma_tma body: {mmk.matmul.body_launches}")
+    bodies = {"matmul": dict(mmk.matmul.body_launches),
+              "fp8_matmul": dict(f8k.fp8_matmul.body_launches),
+              "single_tile_matmul": dict(
+                  mmk.single_tile_matmul.body_launches),
+              "pipelined_matmul": dict(apk.pipelined_matmul.body_launches)}
+    return results, launches, bodies
 
 
 # ----------------------------------------------------------------------
@@ -1622,6 +1680,9 @@ FLASH_CASES = [
     ("q_offset", "bfloat16", 2, 256, 1280, 32, 4, 128, True, 0, 1024),
     ("ragged-f32", "float32", 1, 333, 333, 8, 2, 64, True, 0, 0),
     ("no-valid-key", "float32", 1, 64, 96, 4, 2, 64, False, 8, 128),
+    ("no-valid-key-bf16", "bfloat16", 1, 64, 96, 4, 2, 128, False, 8, 128),
+    ("hd80-bf16", "bfloat16", 2, 2048, 2048, 16, 2, 80, True, 0, 0),
+    ("hd80-f32", "float32", 1, 333, 333, 8, 2, 80, True, 64, 0),
 ]
 # B9 against its plain version: float32 o within 1e-4 (the reference's
 # kernel tests); bf16 o within one bf16 step of max |o| (2**-7 * max|o|);
@@ -1700,6 +1761,7 @@ def phase_flash() -> dict:
     """10(a): B9 against its plain version on every case.  Returns the
     results keyed by case name."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kfa
     results = {}
     for i, (name, dname, B, Sq, Sk, H, KH, hd, causal, window,
@@ -1712,8 +1774,20 @@ def phase_flash() -> dict:
         kw = dict(causal=causal, window=window, q_offset=q_offset)
         kern = lambda: kfa.flash_attention_fwd(q, k, v, **kw)
         plain = lambda: kfa.flash_attention_fwd_plain(q, k, v, **kw)
+        body = kfa.body(dtype, hd)
+        code = build.load(kfa.SOURCE).flash_attention_body(
+            kfa._DTYPES[dtype], hd)
+        if kfa.BODIES[code] != body:
+            fail(f"flash_attention {name}: the source's rule says "
+                 f"{kfa.BODIES[code]}, its Python mirror {body}")
+        before = kfa.body_launches()
         o, lse = kern()
         torch.cuda.synchronize()
+        after = kfa.body_launches()
+        ran = [x for x in after if after[x] != before[x]]
+        if ran != [body]:
+            fail(f"flash_attention {name}: the rule names {body}, the call "
+                 f"launched {ran}")
         po, plse = plain()
         if not (torch.isfinite(o.float()).all() and torch.isfinite(lse).all()):
             fail(f"flash_attention {name}: non-finite kernel output")
@@ -1730,20 +1804,23 @@ def phase_flash() -> dict:
         bound_ms, bound_by = _flash_bound(dname, B, Sq, Sk, H, KH, hd, causal,
                                           window, q_offset, q.element_size())
         ok = err <= limit and lse_err <= FLASH_F32_LIMIT
+        tflops = 4 * hd * _attended_pairs(B, Sq, Sk, H, causal, window,
+                                          q_offset) / (ms * 1e-3) / 1e12
         print(f"[flash] {name} {dname} B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} "
-              f"hd={hd} causal={causal} window={window} q_offset={q_offset}: "
+              f"hd={hd} causal={causal} window={window} q_offset={q_offset} "
+              f"body={body}: "
               f"max_abs_err o={err:.3e} (limit {limit:.3e}, max|o| "
               f"{top:.3f}) lse={lse_err:.3e} (relative, limit "
               f"{FLASH_F32_LIMIT:.0e}) "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-              f"bound_ms={bound_ms:.5f} ({bound_by}) "
+              f"bound_ms={bound_ms:.5f} ({bound_by}) TFLOP/s={tflops:.1f} "
               f"{'ok' if ok else 'OVER LIMIT'}", flush=True)
         if not ok:
             fail(f"flash_attention {name}: o error {err} (limit {limit}), "
                  f"lse error {lse_err}")
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": lib_ms}
+                         "library_ms": lib_ms, "body": body}
         del q, k, v, o, lse, po, plse
     return results
 
@@ -1897,6 +1974,7 @@ def phase_trainer(cfg, steps: int = 4) -> dict:
         hist = list(tr.run(steps))
         torch.cuda.synchronize()
         launches = kfa.launch_counts()
+        bodies = kfa.body_launches()
         peak = torch.cuda.max_memory_allocated()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1918,7 +1996,7 @@ def phase_trainer(cfg, steps: int = 4) -> dict:
           f"{step_s * 1e3:.1f}, tokens/s {B * S / step_s:.1f}, peak memory "
           f"{peak / 1e9:.2f} GB, flash_attention launches "
           f"{launches['flash_attention']} ({launches['flash_attention'] / steps:g}"
-          f" per step)", flush=True)
+          f" per step), by body {bodies}", flush=True)
     by_name = _device_ms_by_kernel(prof, 1)
     dev = sum(by_name.values())
     groups = {g: 0.0 for g in TRAIN_KERNEL_GROUPS}
@@ -1943,7 +2021,9 @@ def phase_trainer(cfg, steps: int = 4) -> dict:
     if launches["flash_attention"] != 2 * cfg.num_layers * steps:
         fail(f"flash_attention launched {launches} times in {steps} steps, "
              f"not {2 * cfg.num_layers} a step")
-    return launches
+    if bodies["wgmma"] != launches["flash_attention"]:
+        fail(f"the training step ran B9 off its wgmma body: {bodies}")
+    return launches, bodies
 
 
 def phase_restart() -> None:
@@ -1983,7 +2063,8 @@ def phase_restart() -> None:
 
 
 def phase_training() -> tuple:
-    """Phase 10, all of it.  Returns (B9 results by case, launches)."""
+    """Phase 10, all of it.  Returns (B9 results by case, launches,
+    launches by body)."""
     import torch
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
@@ -1992,12 +2073,12 @@ def phase_training() -> tuple:
     cfg = _train_config(get_config("yi-6b"), TRAIN_LAYERS)
     phase_train_step(cfg)
     torch.cuda.empty_cache()
-    launches = phase_trainer(cfg)
+    launches, bodies = phase_trainer(cfg)
     torch.cuda.empty_cache()
     phase_restart()
     print(f"[train] phase 10 in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    return flash, launches
+    return flash, launches, bodies
 
 
 def main() -> None:
@@ -2038,9 +2119,9 @@ def main() -> None:
     del params
     phase_small(fp8=False)
     phase_small(fp8=True)
-    mm_results, mm_launches = phase_matmul()
+    mm_results, mm_launches, mm_bodies = phase_matmul()
     dd_results, dd_launches = phase_dpx_dsm()
-    flash_results, flash_launches = phase_training()
+    flash_results, flash_launches, flash_bodies = phase_training()
     line = []
     for name, line_no in (("paged_decode", 163), ("paged_chunk", 252),
                           ("paged_decode_fp8", 147),
@@ -2071,6 +2152,7 @@ def main() -> None:
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": mm_launches[name],
+            "launches_by_body": mm_bodies[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -2101,6 +2183,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
         "launches": flash_launches["flash_attention"],
+        "launches_by_body": flash_bodies,
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -62,8 +62,8 @@ def body(M: int, N: int, K: int, bm: int, bn: int, bk: int,
     source): "tma" where the tile is on its grid and TMA can read both
     operands (16-byte-aligned bases, row strides K*4 and N*4 whole 16
     bytes, at most 65535 column tiles), else "cp_async"."""
-    if (tile_body(bm, bn, bk) == "tma" and aligned and K % 4 == 0
-            and N % 4 == 0 and -(-N // bn) <= 65535):
+    if tile_body(bm, bn, bk) == "tma" and _mm.fma_tma_ready(N, K, bm, bn,
+                                                           aligned):
         return "tma"
     return "cp_async"
 

@@ -55,6 +55,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                                 _I, _I, _I, _I, _I, _I, _F, _P),
     },
     "flash_attention.cu": {
+        # dtype, hd
+        "flash_attention_body": (_I, _I),
         # dtype, hd, q, k, v, o, lse, B, Sq, Sk, H, KH, causal, window,
         # q_offset, n_pad_keys, scale, stream
         "flash_attention_fwd": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,

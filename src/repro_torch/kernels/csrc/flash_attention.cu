@@ -18,9 +18,10 @@
 // (m, l, acc) is fp32; p = exp(s - m_new) is ROUNDED TO v's dtype before
 // the PV product, whose sum is fp32; l is clamped with max(l, 1e-30);
 // lse = m + log(max(l, 1e-30)); the output is acc / max(l, 1e-30) cast
-// to q's dtype.  Tiles differ from the reference's chunks (64 or 32 keys
-// against 512), so sums are grouped and rescaled in another order: the
-// two agree to fp32 rounding, and for bf16 to a rounding step of p or o.
+// to q's dtype.  Tiles differ from the reference's chunks (128, 64 or 32
+// keys against 512), so sums are grouped and rescaled in another order:
+// the two agree to fp32 rounding, and for bf16 to a rounding step of p
+// or o.
 //
 // Skipped key tiles.  A block walks only the key tiles that some row of
 // its query tile may attend (causal: keys <= the last row's position;
@@ -35,33 +36,68 @@
 // row is written here as sum_{t<Sk} v[t] / n_pad_keys, with n_pad_keys
 // = nk*kc passed by the wrapper, and lse = -1e30 + log(n_pad_keys).
 //
-// Design.  bf16: one block of 4 warps per (64-row query tile, b*H + h);
-// each warp owns 16 query rows, keeps its Q fragments in registers, and
-// walks 64-key K/V tiles staged in shared memory through warp-level
-// mma.sync m16n8k16 (bf16 x bf16 -> fp32): S = Q K^T, the online
-// softmax on the S fragments in registers, then P (rounded to bf16,
-// re-packed as the A fragments of the next product) times V, whose B
-// fragments come from ldmatrix.trans.  float32: one block of 128
-// threads per (32-row query tile, b*H + h), scores and PV by fmaf on
-// the CUDA cores (tensor-core TF32 would round q and k to 10 bits).
+// Design.  Three bodies, chosen by a rule on (dtype, hd)
+// (flash_attention_body; kernels/flash_attention.py mirrors it as
+// `body`), never as a fallback:
+//   * wgmma (bf16, hd 64 and 128: whole 128-byte TMA box rows of hd):
+//     one block per (128-row query tile, b*H + h), a producer warpgroup
+//     and two consumer warpgroups of 64 rows (setmaxnreg: 240 registers
+//     a consumer thread).  One producer thread loads Q once and K / V
+//     tiles of 128 keys into a ring of two stages by TMA, through
+//     rank-4 tensor maps over [B, S, heads, hd] that fill zeros past
+//     each batch's S (a 2-D map over B*S rows would read the next
+//     batch's rows, and p = 0 times a non-finite v is NaN).  Each
+//     consumer computes S = Q K^T by wgmma m64n128k16 with both operands
+//     in shared memory (K is K-major, hd contiguous), the online softmax
+//     on the accumulator fragments with exp2 (scale * log2(e) folded
+//     into the scores, so m lives in the log2 domain; lse converts back),
+//     masks only the tiles that cross the causal diagonal, the window's
+//     edge or Sk, rounds P to bf16 in registers, and adds P V by the
+//     register-A wgmma (the m64nN accumulator's layout, packed pairwise,
+//     is the A fragment's) with V read MN-major through the transpose
+//     bit.  K and V have their own full / empty mbarriers.  Within a
+//     warpgroup, S of the next tile and P V of this one are issued
+//     together, so the next softmax runs while P V does; the two
+//     warpgroups take turns to issue (ping-pong, named barriers), so
+//     one's softmax runs while the other's products hold the tensor
+//     cores.  The output is staged through the warpgroup's own rows of
+//     Q's shared memory (Q is no longer read) into 16-byte row stores.
+//   * mma_sync (bf16, hd 16, 32 and 80): one block of 4 warps per
+//     (64-row query tile, b*H + h); each warp owns 16 query rows, keeps
+//     its Q fragments in registers, and walks 64-key K/V tiles staged
+//     synchronously in shared memory through warp-level mma.sync
+//     m16n8k16 (bf16 x bf16 -> fp32): S = Q K^T, the online softmax on
+//     the S fragments in registers (expf), then P (rounded to bf16,
+//     re-packed as the A fragments of the next product) times V, whose
+//     B fragments come from ldmatrix.trans.
+//   * fma (float32): one block of 128 threads per (32-row query tile,
+//     b*H + h), scores and PV by fmaf on the CUDA cores (tensor-core
+//     TF32 would round q and k to 10 bits).
 // Grid (query tiles, b*H + h), the heads split over grid.y (65535 at
-// most) and grid.z past that, so B*H is not held to grid.y's limit; one
-// head's query tiles run together, issued last-first so the long
-// causal rows start early.  The G = H/KH heads of a group read the same
-// K/V tiles through L2, not through one shared copy.
+// most) and grid.z past that, so B*H is not held to grid.y's limit.
+// mma_sync and fma run one head's query tiles together, issued
+// last-first so the long causal rows start early; wgmma (one block an
+// SM) runs every head's last query tile before any head's next-to-last,
+// longest first, so the last wave holds the shortest blocks.  The G =
+// H/KH heads of a group read the same K/V tiles through L2, not through
+// one shared copy.
 //
 // Bound: at the training shapes (S = 4096, hd = 128) the causal forward
 // does 4*hd operations per attended (query head, key) pair, ~2.7e11 at
 // B=2, H=32, against ~0.1 GB of q, k, v, o: it is bound by operations
-// (0.28 ms at the bf16 tensor-core peak).  This first design stages K/V
-// synchronously (no cp.async/TMA double buffering), uses mma.sync, not
-// wgmma, and exponentiates with expf, so it runs well below that bound.
+// (0.28 ms at the bf16 tensor-core peak).  The wgmma body overlaps the
+// loads with the products (TMA ring), and the softmax (one exp2 a score
+// on the special-function unit) with the products, within a warpgroup
+// and across the two.  It is not persistent: each block fills and
+// drains its own pipeline.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "tile_common.cuh"
+#include "tma_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -123,10 +159,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
 }
 
 // sum_{t < Sk} v[t, d] in fp32 for d < HD, into vsum (shared): the PV
-// sum of a row with no valid key, where every p is 1.
+// sum of a row with no valid key, where every p is 1.  Thread `tid` of
+// `nthreads` takes columns tid, tid + nthreads, ...
 template <typename T, int HD>
-__device__ void sum_v(const T* vbase, size_t ld, int Sk, float* vsum) {
-  for (int d = threadIdx.x; d < HD; d += kThreads) {
+__device__ void sum_v(const T* vbase, size_t ld, int Sk, float* vsum,
+                      int tid, int nthreads) {
+  for (int d = tid; d < HD; d += nthreads) {
     float acc = 0.f;
     for (int t = 0; t < Sk; ++t) {
       if constexpr (sizeof(T) == 2)
@@ -295,7 +333,7 @@ flash_fwd_bf16(const Args a) {
                          row[1] < a.Sq && m[1] == kNegInf};
   float* vsum = reinterpret_cast<float*>(sq);   // Q now lives in registers
   if (__syncthreads_or(empty[0] || empty[1])) {
-    sum_v<bf16, HD>(vb, ldk, a.Sk, vsum);
+    sum_v<bf16, HD>(vb, ldk, a.Sk, vsum, threadIdx.x, kThreads);
     __syncthreads();
   }
 #pragma unroll
@@ -324,8 +362,10 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const Args a) {
   constexpr int LDK = HD + 1;           // K rows padded against conflicts
   constexpr int LDS = kFK + 1;
-  constexpr int kStride = kThreads / HD;   // rows apart of a thread's outputs
-  constexpr int kPer = kFQ / kStride;      // outputs of a thread
+  // outputs of a thread: (row, d) of flat index tid + j * kThreads, each
+  // (row, d) of the tile owned by one thread (HD need not divide 128)
+  static_assert(kFQ * HD % kThreads == 0, "whole outputs a thread");
+  constexpr int kPer = kFQ * HD / kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sq = reinterpret_cast<float*>(smem);   // [kFQ][HD]
   float* sk = sq + kFQ * HD;                    // [kFK][LDK]
@@ -360,7 +400,6 @@ flash_fwd_f32(const Args a) {
     s_m[tid] = kNegInf;
     s_l[tid] = 0.f;
   }
-  const int d = tid % HD, r0 = tid / HD;   // outputs (r0 + j*kStride, d)
   float acc[kPer];
 #pragma unroll
   for (int j = 0; j < kPer; ++j) acc[j] = 0.f;
@@ -404,7 +443,7 @@ flash_fwd_f32(const Args a) {
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
-      const int r = r0 + j * kStride;
+      const int r = (tid + j * kThreads) / HD, d = (tid + j * kThreads) % HD;
       float pv = 0.f;
 #pragma unroll 8
       for (int c = 0; c < kFK; ++c) pv = fmaf(ss[r * LDS + c], sv[c * HD + d], pv);
@@ -413,12 +452,12 @@ flash_fwd_f32(const Args a) {
   }
   __syncthreads();
   if (__syncthreads_or(tid < rows && s_m[tid] == kNegInf)) {
-    sum_v<float, HD>(vb, ldk, a.Sk, vsum);
+    sum_v<float, HD>(vb, ldk, a.Sk, vsum, threadIdx.x, kThreads);
     __syncthreads();
   }
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
-    const int r = r0 + j * kStride;
+    const int r = (tid + j * kThreads) / HD, d = (tid + j * kThreads) % HD;
     if (r >= rows) continue;
     const bool empty = s_m[r] == kNegInf;
     const float L = empty ? (float)a.n_pad_keys : fmaxf(s_l[r], 1e-30f);
@@ -430,6 +469,421 @@ flash_fwd_f32(const Args a) {
     a.lse[(size_t)bh * a.Sq + q0 + tid] = s_m[tid] + logf(L);
   }
 }
+
+// ---------------------------------------------------------------------
+// bf16 on the warpgroup tensor cores (wgmma), head_dim 64 and 128
+// ---------------------------------------------------------------------
+namespace fw {
+
+constexpr int kRows = 128;           // query rows a block: two warpgroups
+constexpr int kKeys = 128;           // keys a K / V tile
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 128;   // + a producer warpgroup
+// registers a thread after setmaxnreg: 2 x 128 x 240 + 128 x 24 <= 65536
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+constexpr int kBoxRow = 128;         // bytes of a box row: 64 bf16
+// K / V stages: on an H100 a third stage made the yi-6b training shape
+// slower (one block an SM either way), so the ring holds two
+constexpr int kStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory: 1024-byte alignment, Q, the ring of K and V tiles, the
+// two warpgroups' sum_v rows and the mbarriers (q_full; k_full, k_empty,
+// v_full, v_empty a stage).
+template <int HD>
+struct Geo {
+  static constexpr int kBoxes = HD / 64;              // 64-wide hd boxes
+  static constexpr int kQBytes = kRows * HD * 2;
+  static constexpr int kTileBytes = kKeys * HD * 2;   // a K or a V tile
+  static constexpr int kSmem = 1024 + kQBytes + kStages * 2 * kTileBytes +
+                               2 * HD * 4 + 8 * (1 + 4 * kStages);
+  static_assert(kSmem <= tile::kSmemLimit, "shared memory");
+};
+
+// OR of `v` over the `n` threads of named barrier `id`.
+__device__ __forceinline__ bool bar_or(int id, int n, bool v) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred p, q;\n"
+      "setp.ne.u32 p, %1, 0;\n"
+      "bar.red.or.pred q, %2, %3, p;\n"
+      "selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(r)
+      : "r"(static_cast<uint32_t>(v)), "r"(id), "r"(n)
+      : "memory");
+  return r != 0;
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// 2**x on the special-function unit, results below 2**-126 flushed to
+// zero (p is rounded to bf16 and summed against a row maximum of 1).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int R>
+__device__ __forceinline__ void fence_u32(uint32_t (&x)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j])::"memory");
+}
+
+// One block per (128-row query tile, b*H + h): a producer warpgroup, one
+// thread of which loads Q once and K / V tiles into a ring of kStages
+// stages by TMA (rank-4 maps over [B, S, heads, hd]: zeros past each
+// batch's S), and two consumer warpgroups of 64 rows each.  A consumer
+// warpgroup computes S = Q K^T by wgmma m64n128k16 from shared memory
+// (K is K-major: hd contiguous), the online softmax on the accumulator
+// fragments in registers (exp2 with scale * log2(e) folded in; the mask
+// only on tiles that cross the causal diagonal, the window's edge or
+// Sk), rounds P to bf16 in registers, and adds P V by wgmma with A from
+// registers and V read MN-major (transpose bit).  K and V have their
+// own full / empty mbarriers, so S of a tile starts before its V lands.
+// Within a warpgroup S of the next tile and P V of this one go out
+// together and the next softmax overlaps P V; the two warpgroups take
+// turns to issue (ping-pong), so one's softmax overlaps the other's
+// products.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const Args a) {
+  using G = Geo<HD>;
+  using bf16 = __nv_bfloat16;
+  constexpr int S = kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - tma::smem_u32(smem_raw) % 1024)
+                                    % 1024);
+  const uint32_t sq = tma::smem_u32(base);
+  const uint32_t ring = sq + G::kQBytes;
+  float* vsum_all = reinterpret_cast<float*>(base + G::kQBytes +
+                                             S * 2 * G::kTileBytes);
+  const uint32_t bars = tma::smem_u32(vsum_all + 2 * HD);
+  const uint32_t q_full = bars;
+  auto k_tile = [&](int s) { return ring + s * 2 * G::kTileBytes; };
+  auto v_tile = [&](int s) { return k_tile(s) + G::kTileBytes; };
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (1 + S + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + 2 * S + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (1 + 3 * S + s); };
+
+  // Longest first: the grid's linear block index walks every head's
+  // last query tile (whose causal rows attend the most keys) before any
+  // head's next-to-last, so the last wave holds the shortest blocks.
+  const long long heads = (long long)gridDim.y * gridDim.z;
+  const long long lin =
+      blockIdx.x +
+      (long long)gridDim.x * (blockIdx.y + (long long)gridDim.y * blockIdx.z);
+  const int q0 = (gridDim.x - 1 - (int)(lin / heads)) * kRows;
+  const int bh = (int)(lin % heads);
+  if (bh >= a.B * a.H) return;          // the last z slice's tail
+  const int b = bh / a.H, h = bh % a.H;
+  const int kh = h / (a.H / a.KH);
+  int lo, hi;
+  key_range(a, q0, min(kRows, a.Sq - q0), lo, hi);
+  const int k_first = lo / kKeys * kKeys;
+  const int n_tiles = hi > k_first ? (hi - k_first + kKeys - 1) / kKeys : 0;
+
+  if (threadIdx.x == 0) {
+    tma::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      tma::mbar_init(k_full(s), 1);
+      tma::mbar_init(v_full(s), 1);
+      tma::mbar_init(k_empty(s), kConsumers);
+      tma::mbar_init(v_empty(s), kConsumers);
+    }
+    tma::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread issues every load, in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x != kConsumers) return;
+    tma::mbar_arrive_expect_tx(q_full, G::kQBytes);
+    for (int j = 0; j < G::kBoxes; ++j)
+      tma::tma_load_4d(sq + j * kRows * kBoxRow, &map_q, q_full, 64 * j, h,
+                       q0, b);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % S, k0 = k_first + i * kKeys;
+      const uint32_t ph = ((i / S) & 1) ^ 1;
+      tma::mbar_wait(k_empty(s), ph);
+      tma::mbar_arrive_expect_tx(k_full(s), G::kTileBytes);
+      for (int j = 0; j < G::kBoxes; ++j)
+        tma::tma_load_4d(k_tile(s) + j * kKeys * kBoxRow, &map_k, k_full(s),
+                         64 * j, kh, k0, b);
+      tma::mbar_wait(v_empty(s), ph);
+      tma::mbar_arrive_expect_tx(v_full(s), G::kTileBytes);
+      for (int j = 0; j < G::kBoxes; ++j)
+        tma::tma_load_4d(v_tile(s) + j * kKeys * kBoxRow, &map_v, v_full(s),
+                         64 * j, kh, k0, b);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wgi = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int r_lo = q0 + wgi * 64;       // the warpgroup's first row
+  const int p_lo = a.q_offset + r_lo, p_hi = p_lo + 63;
+  // this thread's rows: 16 warp + g and + 8 of the warpgroup's 64
+  const int row0 = r_lo + warp * 16 + g;
+  const int qpos[2] = {a.q_offset + row0, a.q_offset + row0 + 8};
+  const float sl2 = a.scale * kLog2e;   // scores in the log2 domain
+  const uint32_t qa = sq + wgi * 64 * kBoxRow;   // its rows in each box
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  // A tile no row of this warpgroup attends (causal: past its last row;
+  // window: before its first row's window) is released untouched.  Such
+  // tiles are a prefix (window) or a suffix (causal) of the walk.
+  auto dead = [&](int it) {
+    const int k0 = k_first + it * kKeys;
+    return (a.causal && k0 > p_hi) ||
+           (a.window && k0 + kKeys - 1 <= p_lo - a.window);
+  };
+  auto release = [&](int it) {
+    const int s = it % S;
+    const uint32_t ph = (it / S) & 1;
+    tma::mbar_wait(k_full(s), ph);
+    tma::mbar_arrive(k_empty(s));
+    tma::mbar_wait(v_full(s), ph);
+    tma::mbar_arrive(v_empty(s));
+  };
+  // S = Q K^T of the K tile in stage s, one wgmma group (the first
+  // instruction overwrites sc)
+  auto mma_s = [&](float (&sc)[kKeys / 2], int s) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int j = kk / 4, q = kk % 4;
+      const uint64_t da =
+          wg::make_desc(qa + j * kRows * kBoxRow + 32 * q, 16, 1024);
+      const uint64_t db =
+          wg::make_desc(k_tile(s) + j * kKeys * kBoxRow + 32 * q, 16, 1024);
+      wg::wgmma_bf16_n128<0>(sc, da, db, kk > 0);
+    }
+    wg::wgmma_commit();
+  };
+  // O += P V of the V tile in stage s, one wgmma group
+  auto mma_pv = [&](uint32_t (&pa)[kKeys / 16][4], int s) {
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      const uint64_t db = wg::make_desc(v_tile(s) + kk * 16 * kBoxRow,
+                                        kKeys * kBoxRow, 1024);
+      if constexpr (HD == 64)
+        wg::wgmma_bf16_rs_n64<1>(o, pa[kk], db, 1);
+      else
+        wg::wgmma_bf16_rs_n128<1>(o, pa[kk], db, 1);
+    }
+    wg::wgmma_commit();
+  };
+  // The online softmax of tile `it` on its scores sc (element i at row
+  // g + 8 ((i / 2) % 2) of the warp's 16, key k0 + 8 (i / 4) + 2 t4 +
+  // i % 2): scale into the log2 domain, mask where the tile crosses an
+  // edge, update m and l, and leave p in sc.  corr is the factor the
+  // running O must be scaled by.
+  auto softmax = [&](float (&sc)[kKeys / 2], int it, float (&corr)[2]) {
+    const int k0 = k_first + it * kKeys;
+    const bool edge = k0 + kKeys > a.Sk ||
+                      (a.causal && k0 + kKeys - 1 > p_lo) ||
+                      (a.window && k0 <= p_hi - a.window);
+    float mx[2] = {kNegInf, kNegInf};
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < kKeys / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        const int t = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        sc[i] = valid_key(a, qpos[r], t) ? sc[i] * sl2 : kNegInf;
+        mx[r] = fmaxf(mx[r], sc[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kKeys / 2; ++i) {
+        sc[i] *= sl2;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < kKeys / 2; ++i) {
+      sc[i] = ex2(sc[i] - m[(i >> 1) & 1]);
+      psum[(i >> 1) & 1] += sc[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
+  };
+  // p rounded to bf16 as the register A operand of P V, 16 keys a
+  // k-step: pa[kk][j] = the pair (sc[8 kk + 2 j], sc[8 kk + 2 j + 1])
+  auto pack = [&](const float (&sc)[kKeys / 2],
+                  uint32_t (&pa)[kKeys / 16][4]) {
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+  };
+
+  // Ping-pong: the two warpgroups take turns to issue their products
+  // (named barrier 3 + w: "warpgroup w may issue"), so one's softmax runs
+  // while the other's products hold the tensor cores.  Each takes
+  // n_tiles + 1 turns; warpgroup 1 lets warpgroup 0 go first and skips
+  // its last hand-over, so every arrival is consumed.
+  const int turns = n_tiles + 1;
+  int turn = 0;
+  auto turn_wait = [&]() { tma::bar_sync(3 + wgi, 256); };
+  auto turn_pass = [&]() {
+    if (!(wgi == 1 && turn == turns - 1)) bar_arrive(3 + (wgi ^ 1), 256);
+    ++turn;
+  };
+  tma::mbar_wait(q_full, 0);
+  if (n_tiles > 0) {
+    if (wgi == 1) bar_arrive(3, 256);
+    int first = 0, last = n_tiles;
+    while (first < last && dead(first)) {
+      turn_wait();
+      release(first++);
+      turn_pass();
+    }
+    while (last > first && dead(last - 1)) --last;
+    if (first < last) {
+      // The live tiles, software-pipelined within the warpgroup: S of
+      // tile it + 1 and P V of tile it go out in one wgmma stage, and the
+      // softmax of tile it + 1 runs while the tensor cores work on P V of
+      // tile it.  The last P V is peeled off, so no wgmma sits on a
+      // branch (ptxas would serialize every wgmma of the kernel).
+      float sc[kKeys / 2], corr[2];
+      uint32_t pa[kKeys / 16][4];
+#pragma unroll
+      for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
+      tma::mbar_wait(k_full(first % S), (first / S) & 1);
+      turn_wait();
+      wg::fence_regs(sc);
+      wg::wgmma_fence();
+      mma_s(sc, first % S);
+      turn_pass();
+      wg::wgmma_wait<0>();
+      wg::fence_regs(sc);
+      tma::mbar_arrive(k_empty(first % S));
+      softmax(sc, first, corr);       // O is zero: corr needs no rescale
+      pack(sc, pa);
+      for (int it = first; it + 1 < last; ++it) {
+        const int sn = (it + 1) % S, sv = it % S;
+        tma::mbar_wait(k_full(sn), ((it + 1) / S) & 1);
+        tma::mbar_wait(v_full(sv), (it / S) & 1);
+        turn_wait();
+        wg::fence_regs(sc);
+        wg::fence_regs(o);
+        fence_u32(pa);
+        wg::wgmma_fence();
+        mma_s(sc, sn);
+        mma_pv(pa, sv);
+        turn_pass();
+        wg::wgmma_wait<1>();            // S of tile it + 1 is done
+        wg::fence_regs(sc);
+        tma::mbar_arrive(k_empty(sn));
+        softmax(sc, it + 1, corr);
+        wg::wgmma_wait<0>();            // P V of tile it is done
+        wg::fence_regs(o);
+        fence_u32(pa);
+        tma::mbar_arrive(v_empty(sv));
+        pack(sc, pa);
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      }
+      const int sv = (last - 1) % S;
+      tma::mbar_wait(v_full(sv), ((last - 1) / S) & 1);
+      turn_wait();
+      wg::fence_regs(o);
+      fence_u32(pa);
+      wg::wgmma_fence();
+      mma_pv(pa, sv);
+      turn_pass();
+      wg::wgmma_wait<0>();
+      wg::fence_regs(o);
+      fence_u32(pa);
+      tma::mbar_arrive(v_empty(sv));
+    } else {
+      turn_wait();                      // the turn of a first S
+      turn_pass();
+    }
+    for (int it = last; it < n_tiles; ++it) {
+      turn_wait();
+      release(it);
+      turn_pass();
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const int row[2] = {row0, row0 + 8};
+  const bool empty[2] = {row[0] < a.Sq && m[0] == kNegInf,
+                         row[1] < a.Sq && m[1] == kNegInf};
+  const size_t ldq = (size_t)a.H * HD, ldk = (size_t)a.KH * HD;
+  float* vsum = vsum_all + wgi * HD;
+  if (bar_or(1 + wgi, 128, empty[0] || empty[1])) {
+    const bf16* vb = static_cast<const bf16*>(a.v) +
+                     ((size_t)b * a.Sk * a.KH + kh) * HD;
+    sum_v<bf16, HD>(vb, ldk, a.Sk, vsum, tid, 128);
+    tma::bar_sync(1 + wgi, 128);
+  }
+  // o / L rounded to bf16 into this warpgroup's rows of the Q boxes
+  // (128B swizzle, as TMA laid Q out), then 16-byte row pieces out
+  unsigned char* stage = base + wgi * 64 * kBoxRow;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float L = empty[r] ? (float)a.n_pad_keys : fmaxf(l[r], 1e-30f);
+    const int lr = warp * 16 + g + 8 * r;
+#pragma unroll
+    for (int c8 = 0; c8 < HD / 8; ++c8) {
+      const int c = 8 * c8 + 2 * t4;
+      const float x0 = empty[r] ? vsum[c] : o[4 * c8 + 2 * r];
+      const float x1 = empty[r] ? vsum[c + 1] : o[4 * c8 + 2 * r + 1];
+      const int cc = c % 64;
+      *reinterpret_cast<uint32_t*>(
+          stage + (c / 64) * kRows * kBoxRow + lr * kBoxRow +
+          (((cc / 8) ^ (lr & 7)) << 4) + (cc % 8) * 2) =
+          pack_bf16(x0 / L, x1 / L);
+    }
+    if (t4 == 0 && row[r] < a.Sq)
+      a.lse[(size_t)bh * a.Sq + row[r]] =
+          empty[r] ? kNegInf + logf(L) : m[r] / kLog2e + logf(L);
+  }
+  tma::bar_sync(1 + wgi, 128);
+  bf16* ob = static_cast<bf16*>(a.o) + ((size_t)b * a.Sq * a.H + h) * HD;
+  constexpr int kChunks = HD / 8;       // 16-byte pieces of a row
+#pragma unroll
+  for (int it = 0; it < 64 * kChunks / 128; ++it) {
+    const int ci = tid + 128 * it;
+    const int lr = ci / kChunks, ch = ci % kChunks;
+    if (r_lo + lr >= a.Sq) continue;
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        stage + (ch / 8) * kRows * kBoxRow + lr * kBoxRow +
+        (((ch % 8) ^ (lr & 7)) << 4));
+    *reinterpret_cast<uint4*>(ob + (size_t)(r_lo + lr) * ldq + ch * 8) = x;
+  }
+}
+
+}  // namespace fw
 
 // ---------------------------------------------------------------------
 // launch
@@ -452,9 +906,51 @@ dim3 grid_of(const Args& a, int rows) {
   return dim3((a.Sq + rows - 1) / rows, y, (bh + y - 1) / y);
 }
 
+enum Body { kWgmma = 0, kMmaSync = 1, kFma = 2 };
+
+// The rule: wgmma for bf16 at head_dim 64 and 128 (whole 128-byte box
+// rows of hd), mma_sync for bf16 at 16, 32 and 80, fma for float32.
+int body_of(int dtype, int hd) {
+  if (dtype == 0) return kFma;
+  return hd == 64 || hd == 128 ? kWgmma : kMmaSync;
+}
+
+// q [B,Sq,H,hd] as (hd, H, Sq, B) in boxes of (64, 1, rows, 1).
+cudaError_t map_of(CUtensorMap* map, const void* p, int hd, int heads,
+                   int S, int B, int rows) {
+  const uint64_t dims[4] = {(uint64_t)hd, (uint64_t)heads, (uint64_t)S,
+                            (uint64_t)B};
+  const uint64_t row = (uint64_t)heads * hd * 2;
+  const uint64_t strides[3] = {(uint64_t)hd * 2, row, row * S};
+  const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
+  return tma::make_map_4d(map, p, 2, dims, strides, box);
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const Args& a, cudaStream_t s) {
+  if constexpr (HD % 64 != 0) {
+    return cudaErrorInvalidValue;
+  } else {
+    CUtensorMap mq, mk, mv;
+    cudaError_t err = map_of(&mq, a.q, HD, a.H, a.Sq, a.B, fw::kRows);
+    if (err == cudaSuccess)
+      err = map_of(&mk, a.k, HD, a.KH, a.Sk, a.B, fw::kKeys);
+    if (err == cudaSuccess)
+      err = map_of(&mv, a.v, HD, a.KH, a.Sk, a.B, fw::kKeys);
+    if (err != cudaSuccess) return err;
+    auto kernel = fw::flash_fwd_wgmma<HD>;
+    err = tile::allow_smem(kernel, fw::Geo<HD>::kSmem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid_of(a, fw::kRows), fw::kThreads, fw::Geo<HD>::kSmem, s>>>(
+        mq, mk, mv, a);
+    return cudaGetLastError();
+  }
+}
+
 template <int HD>
 cudaError_t launch(int dtype, const Args& a, cudaStream_t s) {
   cudaError_t err;
+  if (body_of(dtype, HD) == kWgmma) return launch_wgmma<HD>(a, s);
   if (dtype == 1) {
     const int smem = bf16_smem_bytes<HD>();
     err = tile::allow_smem(flash_fwd_bf16<HD>, smem);
@@ -474,6 +970,10 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t s) {
 }  // namespace
 
 extern "C" {
+
+// The body flash_attention_fwd runs for (dtype, hd): 0 wgmma, 1
+// mma_sync, 2 fma.
+int flash_attention_body(int dtype, int hd) { return body_of(dtype, hd); }
 
 // dtype of q, k, v and o: 0 = float32, 1 = bfloat16.  q/o [B,Sq,H,hd],
 // k/v [B,Sk,KH,hd], lse [B,H,Sq] float32, all contiguous.  n_pad_keys:
@@ -495,6 +995,7 @@ int flash_attention_fwd(int dtype, int hd, const void* q, const void* k,
     case 16: return (int)launch<16>(dtype, a, s);
     case 32: return (int)launch<32>(dtype, a, s);
     case 64: return (int)launch<64>(dtype, a, s);
+    case 80: return (int)launch<80>(dtype, a, s);
     case 128: return (int)launch<128>(dtype, a, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -21,8 +21,24 @@
 //     staged element by element through shared memory, with warp-level
 //     mma.sync (m16n8k16 bf16 -> f32, m16n8k32 s8 -> s32, the paper's
 //     Table VII instructions).  B row-major.
-//   * fma (float32, always): the same walk on the CUDA cores in fmaf,
-//     not TF32 (the reference holds float32 to rtol 1e-5).
+//   * fma_tma (float32, bm and bn each 16, 32, 64 or 128, operands TMA
+//     can read: 16-byte-aligned bases, K and N multiples of 4, at most
+//     65535 column tiles): fma_pipe.cuh's ring, the tma body of
+//     pipelined_matmul (async_pipeline.cu).  A producer warp issues TMA
+//     loads of 64-float-deep K slices (two 128-byte boxes a row,
+//     whatever bk is) into a ring of two stages (64 KB each at
+//     128 x 128) with full / empty mbarriers, and the consumers run
+//     fma_tile.cuh's register-blocked fmaf tile on each (64 x 64 as two
+//     K groups).  Four stages of 32-float slices ran slower at both
+//     tiles on an H100 at M=2048, K=4096, N=11008, and more stages
+//     gained nothing (chip_smoke.py phase 8 times both rings through
+//     pipelined_matmul, which runs this kernel).  The tile's bk keeps
+//     its meaning for the shared-memory check: a float32 tile is held to
+//     the bytes the fma body would stage, so a tile refused before is
+//     refused still.
+//   * fma (float32, every other tile or operand): the mma_sync walk on
+//     the CUDA cores in fmaf.  Both float32 bodies accumulate in fmaf,
+//     never TF32 (the reference holds float32 to rtol 1e-5).
 //
 // single_tile_matmul_fwd: the synchronous one-tile analog (the paper's
 // Tables VI/VII, whose subject is the synchronous mma) -- a single block
@@ -71,12 +87,14 @@
 // persistent tile walk were both slower on the card, so neither is
 // here.  The mma_sync body stages element by element with a
 // __syncthreads pair per slice and stays well below the tensor-core
-// peak.
+// peak.  float32 is bound by the CUDA cores' fmaf rate: the fma_tma body
+// keeps the copies off the compute threads and out of their barriers.
 //
 // Entry points return the CUDA error of the launch (0 = launched).
 
 #include <type_traits>
 
+#include "fma_pipe.cuh"
 #include "fma_tile.cuh"
 #include "tile_common.cuh"
 #include "tma_common.cuh"
@@ -87,14 +105,20 @@ namespace {
 using namespace tile;
 
 enum Dtype { kF32 = 0, kBF16 = 1, kI8 = 2 };
-enum Body { kWgmma = 0, kMmaSync = 1, kFma = 2 };
+enum Body { kWgmma = 0, kMmaSync = 1, kFma = 2, kFmaTma = 3 };
+// the fma_tma body's ring: 64-float K slices, two stages
+constexpr int kFmaTmaBk = 64, kFmaTmaStages = 2;
 
 int elt_of(int dtype) { return dtype == kBF16 ? 2 : 1; }
 
 // The tile rule: which body a product runs.
 int body_of(int dtype, int M, int N, int K, int bm, int bn, int bk,
             bool aligned) {
-  if (dtype == kF32) return kFma;
+  if (dtype == kF32)   // the TMA ring: (bm, bn) on its grid, TMA-ready
+    return fpipe::on_grid(bm) && fpipe::on_grid(bn) &&
+                   fpipe::tma_ready(N, K, bn, aligned)
+               ? kFmaTma
+               : kFma;
   const int elt = elt_of(dtype);
   if (wg::on_grid(elt, false, bm, bn, bk) &&
       wg::tma_ready(elt, N, K, bn, aligned))
@@ -601,8 +625,8 @@ int matmul_wgmma_smem_bytes(int dtype, int bm, int bn, int bk) {
   return wg::smem_bytes(elt_of(dtype), bm, bn, bk);
 }
 
-// The body matmul_fwd runs: 0 wgmma, 1 mma_sync, 2 fma.  `aligned`:
-// both operands' base addresses are 16-byte aligned.
+// The body matmul_fwd runs: 0 wgmma, 1 mma_sync, 2 fma, 3 fma_tma.
+// `aligned`: both operands' base addresses are 16-byte aligned.
 int matmul_body(int dtype, int M, int N, int K, int bm, int bn, int bk,
                 int aligned) {
   return body_of(dtype, M, N, K, bm, bn, bk, aligned != 0);
@@ -617,7 +641,16 @@ int matmul_fwd(int dtype, const void* a, const void* b, void* c, int M, int N,
   if (M <= 0 || N <= 0 || K <= 0 || bm <= 0 || bn <= 0 || bk <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (body_of(dtype, M, N, K, bm, bn, bk, aligned16(a, b)) == kWgmma) {
+  const int body = body_of(dtype, M, N, K, bm, bn, bk, aligned16(a, b));
+  if (body == kFmaTma) {
+    // held to the bytes the fma body would stage for (bm, bn, bk)
+    if (b_kmajor || smem_bytes(kF32, bm, bn, bk) > kSmemLimit)
+      return cudaErrorInvalidValue;
+    return fpipe::run(bm, bn, static_cast<const float*>(a),
+                      static_cast<const float*>(b), static_cast<float*>(c),
+                      M, N, K, kFmaTmaBk, kFmaTmaStages, st);
+  }
+  if (body == kWgmma) {
     if (b_kmajor != (dtype == kI8)) return cudaErrorInvalidValue;
     if (wg::smem_bytes(elt_of(dtype), bm, bn, bk) > wg::kSmemLimit)
       return cudaErrorInvalidValue;

@@ -1,12 +1,14 @@
 // Tensor Memory Accelerator (TMA) and mbarrier pieces shared by the
 // Hopper (sm_90a) kernels that stage operands through shared memory:
 // the wgmma bodies (wgmma_common.cuh), the single-block mma.sync /
-// fmaf product (matmul.cu) and the staged float32 product
-// (async_pipeline.cu).
+// fmaf product (matmul.cu), the staged float32 product (fma_pipe.cuh)
+// and the flash-attention wgmma body (flash_attention.cu).
 //
-//   * make_map encodes a 2-D tensor map of a row-major matrix
-//     (cuTensorMapEncodeTiled, looked up at run time through
-//     cudaGetDriverEntryPoint, so nothing links against libcuda).  The
+//   * make_map encodes a 2-D tensor map of a row-major matrix, and
+//     make_map_4d one of a rank-4 tensor (flash_attention.cu's
+//     [B, S, heads, hd] operands, zero-filled past each batch's S),
+//     through cuTensorMapEncodeTiled, looked up at run time through
+//     cudaGetDriverEntryPoint, so nothing links against libcuda.  The
 //     swizzle follows the box's row bytes: 128 -> SWIZZLE_128B, 64 ->
 //     SWIZZLE_64B, 32 -> SWIZZLE_32B, anything else SWIZZLE_NONE.  Loads
 //     past the tensor's edge fill zeros.
@@ -17,8 +19,8 @@
 //     16-byte loads goes through it.
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and a wait that traps after kHangCycles instead of hanging the card.
-//   * tma_load: one box into shared memory, completing a barrier's
-//     transaction count.
+//   * tma_load / tma_load_4d: one box into shared memory, completing a
+//     barrier's transaction count.
 #pragma once
 
 #include <cuda.h>
@@ -91,6 +93,33 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int elt,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A rank-4 tensor, dims[0] innermost and contiguous, strides[i] the
+// byte stride of dims[i + 1] (whole 16 bytes), read in boxes of box[]
+// values, swizzled by the box's row bytes (box[0] * elt), zeros past
+// every dimension's edge: e.g. [B, S, heads, hd] as (hd, heads, S, B),
+// so a box of S rows stops at its own batch's last row.
+inline cudaError_t make_map_4d(CUtensorMap* map, const void* ptr, int elt,
+                               const uint64_t (&dims)[4],
+                               const uint64_t (&strides)[3],
+                               const uint32_t (&box)[4]) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return cudaErrorInitializationError;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUtensorMapDataType type =
+      elt == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : elt == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  CUresult r = fn(map, type, 4, const_cast<void*>(ptr), d, st, bx, estr,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  swizzle_for(static_cast<int>(box[0]) * elt),
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------------
 // device: swizzled addresses, shared memory, mbarriers, TMA
 // ---------------------------------------------------------------------
@@ -158,6 +187,18 @@ __device__ inline void tma_load(uint32_t dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One box of a rank-4 tensor map at (c0 innermost .. c3).
+__device__ inline void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                   uint32_t bar, int c0, int c1, int c2,
+                                   int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
       : "memory");
 }
 

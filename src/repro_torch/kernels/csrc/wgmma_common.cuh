@@ -1,5 +1,7 @@
 // Shared machinery of the warpgroup (wgmma) matrix-product kernels for
-// Hopper (sm_90a): matmul.cu's bf16 and int8 bodies and fp8_matmul.cu.
+// Hopper (sm_90a): matmul.cu's bf16 and int8 bodies and fp8_matmul.cu;
+// flash_attention.cu's wgmma body takes its descriptors, instructions
+// and synchronisation.
 //
 // One thread block owns a bm x bn output tile (bm 64 or 128, bn 64, 128
 // or 256) and walks K in stages of bk values:
@@ -22,7 +24,9 @@
 //   * wgmma: m64nNk16 bf16 -> f32 with B read MN-major (the row-major
 //     [K, N] operand as it lies, through the descriptor's transpose
 //     bit), m64nNk32 e4m3 / e5m2 -> f32 and s8 -> s32 with both
-//     operands K-major (8-bit operands have no transpose).  One
+//     operands K-major (8-bit operands have no transpose).  bf16 also
+//     in the register-A form (A from registers, B from shared memory),
+//     which flash_attention.cu uses for P V.  One
 //     instruction reads 32 bytes of K; a 128-byte box row holds four.
 //     The next instruction's operand starts 32 bytes further into the
 //     swizzled row (the address bits the swizzle reads stay those of the
@@ -254,6 +258,72 @@ __device__ inline void wgmma_bf16_n256(float (&d)[128], uint64_t da,
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
+// The register-A form (bf16): A, 64 x 16, from registers, four 32-bit
+// registers of bf16 pairs a thread in mma.sync m16n8k16's A layout per
+// warp (warp w holds rows 16 w .. 16 w + 15: a0 (row g, k 2t, 2t + 1),
+// a1 (row g + 8, same k), a2 (row g, k 2t + 8, 2t + 9), a3 (row g + 8,
+// same k); g = lane / 4, t = lane % 4).  That is the m64nN f32
+// accumulator's own layout for 16 of its columns packed pairwise, so an
+// accumulator rounded to bf16 feeds the next product without a trip
+// through shared memory (flash_attention.cu's P V).
+template <int TransB>
+__device__ inline void wgmma_bf16_rs_n64(float (&d)[32],
+                                        const uint32_t (&a)[4], uint64_t db,
+                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TransB));
+}
+
+template <int TransB>
+__device__ inline void wgmma_bf16_rs_n128(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TransB));
 }
 
 __device__ inline void wgmma_e4m3_n64(float (&d)[32], uint64_t da,

@@ -5,25 +5,38 @@ Pallas kernel ``flash_attention`` of ``repro/kernels/flash_attention.py``
 (body ``_flash_kernel``) and covers every argument of the reference's
 ``models/attention.flash_attention``: causal or not, a sliding
 ``window``, ``q_offset``, Sq != Sk with ragged tails, GQA (H % KH == 0),
-head_dim 16/32/64/128, float32 or bf16.  ``flash_attention_fwd``
+head_dim 16/32/64/80/128, float32 or bf16.  ``flash_attention_fwd``
 returns the output and the log-sum-exp rows [B,H,Sq] (float32) that the
 blockwise backward of models/attention.py reads; ``flash_attention`` is
 the reference kernel's interface (the output alone).
 
+The kernel runs one of three bodies, chosen by the rule ``body`` (a
+mirror of the source's ``flash_attention_body``; a choice by dtype and
+head_dim, never a fallback):
+
+* ``"wgmma"`` — bf16 at head_dim 64 and 128: 128-row query tiles, a
+  producer warpgroup loading Q and a ring of 128-key K/V tiles by TMA,
+  two consumer warpgroups multiplying with ``wgmma`` (S = Q K^T from
+  shared memory, P V with P in registers), the online softmax in exp2;
+* ``"mma_sync"`` — bf16 at head_dim 16, 32 and 80: 64-row tiles of
+  warp-level ``mma.sync``, K/V staged synchronously;
+* ``"fma"`` — float32: fmaf on the CUDA cores.
+
 For CUDA tensors ``flash_attention_fwd`` checks its operands, allocates
 the outputs, launches the kernel on the current stream, raises if the
-launch failed, and adds one to the launch count (``launch_counts``).  For CPU tensors
-it computes the plain version (``flash_attention_fwd_plain``: the
-blockwise online-softmax forward of models/attention.py, in the
-reference's block and pair order); it never falls back from CUDA to the
-plain version.  ``flash_attention_plain`` is the port of the
-reference's oracle ``ref.flash_attention`` (``attention_reference``).
+launch failed, and adds one to the launch count (``launch_counts``) and
+to its body's (``body_launches``).  For CPU tensors it computes the plain
+version (``flash_attention_fwd_plain``: the blockwise online-softmax
+forward of models/attention.py, in the reference's block and pair
+order); it never falls back from CUDA to the plain
+version.  ``flash_attention_plain`` is the port of the reference's oracle
+``ref.flash_attention`` (``attention_reference``).
 
-Tolerance against the plain version: the kernel walks 64-key (bf16) or
-32-key (float32) tiles where the plain version walks 512-key chunks, so
-its sums are grouped and rescaled in another order.  float32 within
-1e-4 of o and lse, as the reference's kernel tests hold B9; bf16 o
-within one bf16 step of max |o| (a p or an output on a rounding
+Tolerance against the plain version: the kernel walks 128- or 64-key
+(bf16) or 32-key (float32) tiles where the plain version walks 512-key
+chunks, so its sums are grouped and rescaled in another order.  float32
+within 1e-4 of o and lse, as the reference's kernel tests hold B9; bf16
+o within one bf16 step of max |o| (a p or an output on a rounding
 boundary may round the other way), lse within 1e-4 (float32).
 """
 
@@ -34,11 +47,24 @@ import torch
 from repro_torch.models import attention
 
 SOURCE = "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
+WGMMA_HEAD_DIMS = (64, 128)            # whole 128-byte TMA box rows
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# launches of the kernel; a dict, not an attribute of the wrapper, so the
-# count survives a caller that wraps `flash_attention_fwd`
+BODIES = ("wgmma", "mma_sync", "fma")  # the source's body codes
+# launches of the kernel, in all and by body; dicts, not attributes of
+# the wrapper, so the counts survive a caller that wraps
+# `flash_attention_fwd`
 _LAUNCHES = {"flash_attention": 0}
+_BODY_LAUNCHES = dict.fromkeys(BODIES, 0)
+
+
+def body(dtype: torch.dtype, hd: int) -> str:
+    """The body the kernel runs for (dtype, head_dim) (`flash_attention_body`
+    of the source): "wgmma" for bf16 at head_dim 64 and 128, "mma_sync"
+    for bf16 at the other head dims, "fma" for float32."""
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if hd in WGMMA_HEAD_DIMS else "mma_sync"
 
 
 def _check(q, k, v) -> None:
@@ -118,6 +144,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  int(bool(causal)), int(window), int(q_offset),
                  int(n_pad_keys), float(hd ** -0.5))
     _LAUNCHES["flash_attention"] += 1
+    _BODY_LAUNCHES[body(q.dtype, hd)] += 1
     return out, lse
 
 
@@ -132,7 +159,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def reset_launch_counts() -> None:
     _LAUNCHES["flash_attention"] = 0
+    _BODY_LAUNCHES.update(dict.fromkeys(BODIES, 0))
 
 
 def launch_counts() -> dict:
     return dict(_LAUNCHES)
+
+
+def body_launches() -> dict:
+    """Launches by body since the last reset."""
+    return dict(_BODY_LAUNCHES)

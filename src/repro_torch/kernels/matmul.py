@@ -22,8 +22,16 @@ chosen by the tile rule ``body`` (a mirror of the source's
   warp-level ``mma.sync`` (m16n8k16 bf16 -> f32, m16n8k32 s8 -> s32).
   A block holds at most a 128 x 256 output sub-tile in registers and
   walks a larger tile sub-tile by sub-tile.
-* ``"fma"`` — float32, always: the same walk in fmaf on the CUDA cores
-  (not TF32).
+* ``"fma_tma"`` — float32 whose bm and bn are each 16, 32, 64 or 128
+  and whose operands TMA can read (16-byte-aligned bases, K and N
+  multiples of 4, at most 65535 column tiles): the TMA + mbarrier ring
+  of ``pipelined_matmul``'s tma body (``csrc/fma_pipe.cuh``), two
+  stages of 64-float K slices (whatever bk is) feeding the
+  register-blocked fmaf tile of ``csrc/fma_tile.cuh``.
+* ``"fma"`` — every other float32 tile or operand: the mma_sync walk
+  in fmaf on the CUDA cores.  Neither float32 body uses TF32.  A
+  float32 tile is held to the bytes the fma body stages for (bm, bn,
+  bk) on either body, so a tile refused before fma_tma is refused still.
 
 ``single_tile_matmul`` computes the whole product in one block, on one
 of two bodies chosen by ``single_tile_body`` (a mirror of the source's
@@ -76,7 +84,7 @@ MAX_SUB_M, MAX_SUB_N = 128, 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _KF = {torch.bfloat16: 16, torch.int8: 32}    # mma.sync fragment depth
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
-BODIES = ("wgmma", "mma_sync", "fma")         # the source's body codes
+BODIES = ("wgmma", "mma_sync", "fma", "fma_tma")   # the source's codes
 SINGLE_BODIES = ("tma", "staged")             # single_tile_matmul's
 # the wgmma body (csrc/wgmma_common.cuh)
 WG_BM = (64, 128)                 # one or two consumer warpgroups
@@ -84,6 +92,7 @@ WG_BN = (64, 128, 256)            # fp8: 64, 128 (promoted accumulators)
 BOX_BYTES = 128                   # one 128-byte-swizzled row of a box
 MAX_STAGES = 6
 SMEM_SLACK = 1024 + 128           # 1024-byte alignment + mbarriers
+FMA_TMA_WIDTHS = (16, 32, 64, 128)   # bm and bn of the fma_tma body
 
 
 def _ru(x: int, m: int) -> int:
@@ -146,21 +155,30 @@ def tma_ready(dtype: torch.dtype, N: int, K: int, bn: int,
     return -(-N // bn) <= 65535
 
 
+def fma_tma_ready(N: int, K: int, bm: int, bn: int, aligned: bool) -> bool:
+    """The TMA ring of csrc/fma_pipe.cuh takes the tile and operands: bm
+    and bn on its grid, operands TMA can read (16-byte-aligned bases, K
+    and N multiples of 4), the grid's N extent within 65535 blocks (also
+    pipelined_matmul's rule, with its bk)."""
+    return (bm in FMA_TMA_WIDTHS and bn in FMA_TMA_WIDTHS and aligned
+            and K % 4 == 0 and N % 4 == 0 and -(-N // bn) <= 65535)
+
+
 def body(dtype: torch.dtype, M: int, N: int, K: int, bm: int, bn: int,
          bk: int, b_layout: str = "row", aligned: bool = True) -> str:
-    """The body a product runs: "wgmma", "mma_sync" or "fma" (the tile
-    rule, `matmul_body` / `fp8_matmul_body` of the sources).  `b_layout`
-    is B's layout as given, "row" (contiguous [K,N]) or "col" (a
-    column-major view, 8-bit types only); it does not change the body,
-    because a row-major 8-bit B is copied K-major for wgmma and a
-    column-major one row-major for mma_sync.  `aligned`: the operands
-    the kernel receives start on 16 bytes."""
+    """The body a product runs: "wgmma", "mma_sync", "fma" or "fma_tma"
+    (the tile rule, `matmul_body` / `fp8_matmul_body` of the sources).
+    `b_layout` is B's layout as given, "row" (contiguous [K,N]) or
+    "col" (a column-major view, 8-bit types only); it does not change
+    the body, because a row-major 8-bit B is copied K-major for wgmma
+    and a column-major one row-major for mma_sync.  `aligned`: the
+    operands the kernel receives start on 16 bytes."""
     if b_layout not in ("row", "col"):
         raise ValueError(f"b_layout {b_layout!r}: 'row' or 'col'")
     if b_layout == "col" and dtype.itemsize != 1:
         raise ValueError(f"{dtype}: B must be row-major")
     if dtype == torch.float32:
-        return "fma"
+        return "fma_tma" if fma_tma_ready(N, K, bm, bn, aligned) else "fma"
     if on_wgmma_grid(dtype, bm, bn, bk) and tma_ready(dtype, N, K, bn,
                                                       aligned):
         return "wgmma"
@@ -171,7 +189,9 @@ def smem_bytes(dtype: torch.dtype, bm: int, bn: int, bk: int,
                body_name: str = "mma_sync") -> int:
     """Shared memory one block stages for (bm, bn, bk) on `body_name`:
     `matmul_wgmma_smem_bytes` of the source for "wgmma", else
-    `matmul_smem_bytes` (the mma_sync / fma staging)."""
+    `matmul_smem_bytes` (the mma_sync / fma staging, which also holds a
+    float32 tile on "fma_tma": its own ring of two 64-deep stages, at
+    most 132224 bytes, always fits)."""
     if body_name == "wgmma":
         return wgmma_smem_bytes(dtype, bm, bn, bk)
     return mma_smem_bytes(dtype, bm, bn, bk)

@@ -14,8 +14,11 @@
   output, and its float32 sums end in one bf16 rounding).
 * `repro_torch.kernels.ops.flash_attention` (plain on the CPU) against
   `repro.kernels.ops.flash_attention`, the Pallas kernel B9 in interpret
-  mode, on the cases of tests/test_kernels.py at its tolerances, and the
-  tile policy (oversize tile raises, decode-length auto tile).
+  mode, on the cases of tests/test_kernels.py at its tolerances and at
+  head_dim 80, and the tile policy (oversize tile raises, decode-length
+  auto tile).
+* The body rule of the CUDA kernel (`flash_attention.body`) over a
+  table of dtypes and head dims.
 The CUDA kernel itself is held against the plain version on the card
 in tests/test_torch_gpu.py and chip_smoke.py.
 """
@@ -46,6 +49,10 @@ CASES = {
     "q_offset": (2, 24, 56, 4, 2, 16, True, 0, 32, 8, 16),
     "ragged": (1, 50, 50, 4, 2, 16, True, 0, 0, 16, 16),
     "no_valid_key_rows": (1, 12, 20, 4, 2, 16, False, 4, 24, 8, 8),
+    # head_dim 80 (the kernel's mma_sync and fma bodies take it)
+    "hd80_causal_G2": (1, 40, 40, 4, 2, 80, True, 0, 0, 16, 16),
+    "hd80_window_q_offset": (2, 24, 56, 4, 2, 80, True, 12, 32, 8, 16),
+    "hd80_no_valid_key_rows": (1, 12, 20, 2, 1, 80, False, 4, 24, 8, 8),
 }
 
 
@@ -152,6 +159,27 @@ def test_ops_flash_attention_vs_pallas(B, S, H, KH, hd, causal):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("B,S,H,KH,causal", [(1, 128, 4, 2, True),
+                                               (2, 64, 4, 4, False)])
+def test_flash_attention_hd80_vs_pallas(B, S, H, KH, causal):
+    """head_dim 80: the port's ops.flash_attention and B9's plain forward
+    (which the card's wrapper replaces) against the Pallas kernel in
+    interpret mode, at the reference's kernel-test tolerance."""
+    q, k, v, _ = _inputs(B, S, S, H, KH, 80, seed=80 + S)
+    want = ref_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=causal, bq=64,
+                                   bk=64)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal, bq=64,
+                              bk=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    fwd, _ = kfa.flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                     torch.from_numpy(v), causal=causal)
+    np.testing.assert_allclose(fwd.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
 def test_ops_flash_attention_bf16_vs_pallas():
     B, S, H, KH, hd = 1, 128, 4, 2, 32
     q, k, v, _ = _inputs(B, S, S, H, KH, hd, seed=11)
@@ -188,6 +216,39 @@ def test_ops_flash_attention_tile_policy():
                                atol=1e-4)
 
 
+BODY_TABLE = [      # dtype, head_dim, body (csrc/flash_attention.cu's rule)
+    (torch.bfloat16, 16, "mma_sync"),
+    (torch.bfloat16, 32, "mma_sync"),
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 80, "mma_sync"),
+    (torch.bfloat16, 128, "wgmma"),
+    (torch.float32, 16, "fma"),
+    (torch.float32, 64, "fma"),
+    (torch.float32, 80, "fma"),
+    (torch.float32, 128, "fma"),
+]
+
+
+@pytest.mark.parametrize("dtype,hd,want", BODY_TABLE)
+def test_flash_attention_body_rule(dtype, hd, want):
+    """The body B9 runs: wgmma for bf16 at head_dim 64 and 128 (whole
+    128-byte TMA box rows), mma_sync for bf16 at 16, 32 and 80, fma for
+    float32 (tests/test_torch_gpu.py holds the source to this table)."""
+    assert hd in kfa.HEAD_DIMS
+    assert kfa.body(dtype, hd) == want
+    assert want in kfa.BODIES
+
+
+def test_flash_attention_body_counts_start_at_zero():
+    kfa.reset_launch_counts()
+    assert kfa.body_launches() == dict.fromkeys(kfa.BODIES, 0)
+    assert kfa.launch_counts() == {"flash_attention": 0}
+    # the plain path on the CPU launches nothing
+    q = torch.zeros((1, 8, 2, 80))
+    kfa.flash_attention_fwd(q, q, q)
+    assert sum(kfa.body_launches().values()) == 0
+
+
 def test_kernel_wrapper_checks_operands():
     """What the card would refuse is refused before a launch, on any
     device (the CPU runs the plain version only for CPU tensors)."""
@@ -195,6 +256,11 @@ def test_kernel_wrapper_checks_operands():
     k = torch.zeros((1, 8, 2, 24))
     with pytest.raises(ValueError, match="head_dim"):
         kfa._check(q, k, k)
+    with pytest.raises(ValueError, match="head_dim"):
+        kfa._check(torch.zeros((1, 8, 4, 96)), torch.zeros((1, 8, 2, 96)),
+                   torch.zeros((1, 8, 2, 96)))
+    kfa._check(torch.zeros((1, 8, 4, 80)), torch.zeros((1, 8, 2, 80)),
+               torch.zeros((1, 8, 2, 80)))
     with pytest.raises(ValueError, match="do not match"):
         kfa._check(q, torch.zeros((1, 8, 3, 24)), torch.zeros((1, 8, 3, 24)))
     with pytest.raises(TypeError, match="dtypes"):

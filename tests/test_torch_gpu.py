@@ -10,19 +10,21 @@ and skips without one.  The kernels are held against their plain
 versions on the same inputs.  Paged attention (kernels/paged_attention.py):
 float32 q within 2e-5, bf16 q within 2e-2 (one bf16 rounding step at
 |o| < 4), on bf16/float32 pools and on e4m3 pools with per-row scales.
-Matrix products (kernels/{matmul,fp8_matmul,async_pipeline}.py): the
-limits of the reference's tests/test_kernels.py on its cases; at other
-shapes float32 within rtol 1e-5 / atol 1e-4, bf16 outputs within one
-bf16 rounding step (2**-7 of the value) plus 2**-12 of the largest
-(the float32 sums run in another order), integers exact.  DPX and
+Matrix products (kernels/{matmul,fp8_matmul,async_pipeline}.py), each
+case on the body its rule names: the limits of the reference's
+tests/test_kernels.py on its cases; at other shapes float32 within rtol
+1e-5 / atol 1e-4, bf16 outputs within one bf16 rounding step (2**-7 of
+the value) plus 2**-12 of the largest (the float32 sums run in another
+order), integers exact.  DPX and
 thread-block-cluster kernels (kernels/{dpx_kernel,dsm}.py): exact
 (integer results, float32 ring sums added in the same order).  Flash
-attention (kernels/flash_attention.py, B9) against the blockwise
-forward in torch ops: float32 o within 1e-4, bf16 o within one bf16
-step of max |o| (2**-7), lse within 1e-4 of max(1, max |lse|);
-gradients with the kernel forward against the plain forward within
-1e-4 (float32) or 2**-5 of max |g| (bf16: the backward reads the bf16
-output); the training loop restarts bit-exactly on the card.
+attention (kernels/flash_attention.py, B9; bodies wgmma, mma_sync and
+fma by dtype and head_dim) against the blockwise forward in torch ops:
+float32 o within 1e-4, bf16 o within one bf16 step of max |o| (2**-7),
+lse within 1e-4 of max(1, max |lse|); gradients with the kernel forward
+against the plain forward within 1e-4 (float32) or 2**-5 of max |g|
+(bf16: the backward reads the bf16 output); the training loop restarts
+bit-exactly on the card.
 """
 
 import numpy as np
@@ -494,6 +496,9 @@ RULE_CASES = [      # dtype, (M, N, K), tiles
     (torch.float8_e5m2, (512, 512, 512), (128, 256, 128)),
     (torch.float8_e4m3fn, (512, 512, 520), (128, 128, 128)),
     (torch.float32, (512, 512, 512), (128, 128, 128)),
+    (torch.float32, (2048, 11008, 4096), (64, 64, 64)),
+    (torch.float32, (200, 330, 200), (64, 64, 64)),
+    (torch.float32, (512, 512, 512), (128, 256, 128)),
 ]
 
 
@@ -520,6 +525,50 @@ def test_body_rule_python_mirror_matches_the_source(cuda, dtype, shape,
             n = build.load(mmk.SOURCE).matmul_wgmma_smem_bytes(
                 mmk._DTYPES[dtype], *tiles)
         assert n == mmk.smem_bytes(dtype, *tiles, "wgmma") <= mmk.SMEM_LIMIT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(200, 332, 516), (1, 8, 8),
+                                   (333, 1000, 1000), (256, 512, 192)])
+@pytest.mark.parametrize("tiles", [(128, 128, 128), (64, 64, 64),
+                                   (32, 32, 32), (16, 16, 16),
+                                   (128, 64, 32), (16, 128, 8)])
+def test_float32_tma_body_vs_plain(cuda, shape, tiles):
+    """float32 tiles on the fma_tma grid run the TMA ring at ragged M, N
+    and K (TMA's zero fill past the edge) and agree with the plain
+    product within rtol 1e-5."""
+    rng = np.random.default_rng(4)
+    a, b = _operands(rng, torch.float32, *shape, cuda)
+    got, want, ran = _product(torch.float32, a, b, tiles)
+    assert ran == "fma_tma" == mmk.body(torch.float32, *shape, *tiles)
+    _close(got, want, 1e-5, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["unaligned", "k_odd", "n_odd", "bn_256"])
+def test_float32_off_the_tma_grid_takes_fma(cuda, case):
+    """What TMA cannot read, or a tile off its grid, runs the fma body,
+    by the rule and not as a fallback, and agrees all the same."""
+    rng = np.random.default_rng(6)
+    M, N, K = 200, 332, 516
+    tiles = (128, 128, 128)
+    if case == "k_odd":
+        K = 514
+    if case == "n_odd":
+        N = 330
+    if case == "bn_256":
+        tiles = (128, 256, 64)
+    a, b = _operands(rng, torch.float32, M, N, K, cuda)
+    ok = True
+    if case == "unaligned":
+        buf = _normal(rng, (M * K + 1,), torch.float32, cuda)
+        a = buf[1:].view(M, K)
+        assert a.data_ptr() % 16
+        ok = False
+    got, want, ran = _product(torch.float32, a, b, tiles)
+    assert ran == "fma" == mmk.body(torch.float32, M, N, K, *tiles, "row",
+                                    ok)
+    _close(got, want, 1e-5, 1e-4)
 
 
 @pytest.mark.gpu
@@ -1122,6 +1171,20 @@ FLASH_CASES = [   # chip_smoke.py phase 10(a), at small sizes
     ("float32",  2, 100, 356,  8,  4, 32, True,   0, 256),
     ("float32",  1,  50,  70,  4,  2, 16, False,  5, 100),   # no valid key
     ("bfloat16", 1,  50,  70,  4,  2, 16, False,  5, 100),
+    # the wgmma body (bf16, hd 64 / 128): no valid key, GQA non-causal,
+    # a ragged window with q_offset, rows past several 128-row tiles
+    ("bfloat16", 1,  50,  70,  4,  2, 64, False,  5, 100),
+    ("bfloat16", 1,  64,  96,  4,  2, 128, False, 8, 128),
+    ("bfloat16", 2, 200, 200,  8,  2, 64, False,  0,   0),
+    ("bfloat16", 2, 130, 390,  8,  2, 128, True, 100, 260),
+    ("bfloat16", 1, 700, 700,  8,  1, 64, True, 100,   0),
+    # head_dim 80: bf16 on mma_sync, float32 on fma
+    ("bfloat16", 2, 333, 333,  8,  2, 80, True,   0,   0),
+    ("bfloat16", 1, 300, 300,  8,  2, 80, True,  64,   0),
+    ("bfloat16", 2, 100, 356,  8,  4, 80, True,   0, 256),
+    ("float32",  2, 333, 333,  8,  2, 80, True,   0,   0),
+    ("float32",  1, 100, 356,  8,  4, 80, True,  64, 256),
+    ("bfloat16", 1,  50,  70,  4,  2, 80, False,  5, 100),
 ]
 
 
@@ -1141,9 +1204,14 @@ def test_flash_attention_vs_plain(cuda, dtype, B, Sq, Sk, H, KH, hd, causal,
     q, k, v, _ = _flash_inputs(dtype, B, Sq, Sk, H, KH, hd, cuda)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     n0 = kfa.launch_counts()["flash_attention"]
+    b0 = kfa.body_launches()
     o, lse = kfa.flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
     assert kfa.launch_counts()["flash_attention"] == n0 + 1
+    b1 = kfa.body_launches()
+    name = kfa.body(q.dtype, hd)
+    assert {x: b1[x] - b0[x] for x in b1} == \
+        {x: int(x == name) for x in kfa.BODIES}
     po, plse = kfa.flash_attention_fwd_plain(q, k, v, **kw)
     assert o.dtype == q.dtype and lse.shape == (B, H, Sq)
     err = (o.float() - po.float()).abs().max().item()
@@ -1181,6 +1249,53 @@ def test_flash_attention_grads_kernel_vs_plain_forward(cuda, dtype, causal,
         top = b.float().abs().max().item()
         assert err <= (1e-4 if dtype == "float32" else 2.0 ** -5 * top), \
             (err, top)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,hd", [("bfloat16", 64), ("bfloat16", 80),
+                                      ("float32", 80)])
+def test_flash_attention_grads_through_each_body(cuda, dtype, hd,
+                                                 monkeypatch):
+    """Gradients with the wgmma (bf16 hd 64) and the head_dim-80 bodies'
+    forward against the plain forward, GQA, causal and a window."""
+    q, k, v, do = _flash_inputs(dtype, 2, 300, 300, 8, 2, hd, cuda, seed=2)
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+
+    def grads():
+        out = attention.flash_attention(*leaves, causal=True, window=200)
+        return torch.autograd.grad(out, leaves, do)
+
+    b0 = kfa.body_launches()
+    got = grads()
+    assert kfa.body_launches()[kfa.body(q.dtype, hd)] == \
+        b0[kfa.body(q.dtype, hd)] + 1
+    monkeypatch.setattr(kfa, "flash_attention_fwd",
+                        kfa.flash_attention_fwd_plain)
+    want = grads()
+    for a, b in zip(got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        top = b.float().abs().max().item()
+        assert err <= (1e-4 if dtype == "float32" else 2.0 ** -5 * top), \
+            (err, top)
+
+
+@pytest.mark.gpu
+def test_flash_attention_body_rule_matches_the_source(cuda):
+    """`flash_attention.body` is a mirror of the source's
+    `flash_attention_body`; the wrapper counts each launch on its body."""
+    lib = build.load(kfa.SOURCE)
+    for dtype, code in kfa._DTYPES.items():
+        for hd in kfa.HEAD_DIMS:
+            assert kfa.BODIES[lib.flash_attention_body(code, hd)] == \
+                kfa.body(dtype, hd)
+    kfa.reset_launch_counts()
+    for dtype, hd in (("bfloat16", 128), ("bfloat16", 64), ("bfloat16", 32),
+                      ("float32", 80), ("bfloat16", 128)):
+        q, k, v, _ = _flash_inputs(dtype, 1, 70, 70, 4, 2, hd, cuda)
+        kfa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert kfa.body_launches() == {"wgmma": 3, "mma_sync": 1, "fma": 1}
+    assert kfa.launch_counts() == {"flash_attention": 5}
 
 
 @pytest.mark.gpu

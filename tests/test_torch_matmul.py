@@ -251,8 +251,22 @@ RULE_TABLE = [
     (E4M3, FULL, (128, 256, 128), "col", True, "mma_sync"),    # promotion
     (E5M2, FULL, (32, 32, 32), "row", True, "mma_sync"),
     (E4M3, FULL, (128, 128, 128), "col", False, "mma_sync"),
-    (F32, FULL, (128, 128, 128), "row", True, "fma"),
-    (F32, FULL, (64, 64, 64), "row", True, "fma"),
+    (F32, FULL, (128, 256, 128), "row", True, "fma"),          # bn 256
+    (F32, (200, 330, 200), (64, 64, 64), "row", True, "fma"),  # N % 4
+    # float32 on the TMA ring (fma_tma): bm, bn each 16/32/64/128, TMA
+    # can read the operands; every other float32 tile keeps fma
+    (F32, FULL, (128, 128, 128), "row", True, "fma_tma"),
+    (F32, FULL, (64, 64, 64), "row", True, "fma_tma"),
+    (F32, (512, 512, 512), (128, 128, 128), "row", True, "fma_tma"),
+    (F32, (256, 256, 256), (128, 32, 128), "row", True, "fma_tma"),
+    (F32, (96, 64, 160), (32, 32, 32), "row", True, "fma_tma"),
+    (F32, (200, 332, 516), (16, 128, 8), "row", True, "fma_tma"),  # any bk
+    (F32, FULL, (128, 128, 128), "row", False, "fma"),         # alignment
+    (F32, (200, 328, 202), (128, 128, 128), "row", True, "fma"),  # K % 4
+    (F32, FULL, (16, 8, 16), "row", True, "fma"),              # bn 8
+    (F32, FULL, (256, 128, 128), "row", True, "fma"),          # bm 256
+    (F32, (64, 16 * 65535, 64), (16, 16, 16), "row", True, "fma_tma"),
+    (F32, (64, 16 * 65536, 64), (16, 16, 16), "row", True, "fma"),  # grid
 ]
 
 
@@ -263,6 +277,23 @@ def test_body_rule_table(dtype, shape, tiles, layout, aligned, want):
     if dtype.itemsize == 1:
         other = "row" if layout == "col" else "col"
         assert mmk.body(dtype, *shape, *tiles, other, aligned) == want
+
+
+@pytest.mark.parametrize("tiles", [(128, 128, 256), (64, 64, 512),
+                                   (128, 64, 512), (16, 128, 1024)])
+def test_float32_tma_tiles_keep_the_fma_shared_memory_check(tiles):
+    """A float32 tile on the fma_tma grid is held to the bytes the fma
+    body stages for (bm, bn, bk): a tile refused before the TMA ring is
+    refused still (ValueError before any launch), although the ring's
+    own two 64-deep stages would fit."""
+    bm, bn, bk = tiles
+    M, N, K = 256, 256, 2048
+    assert mmk.body(F32, M, N, K, *tiles) == "fma_tma"
+    assert mmk.smem_bytes(F32, *tiles, "fma_tma") == \
+        mmk.mma_smem_bytes(F32, *tiles) > mmk.SMEM_LIMIT
+    a = torch.zeros((M, K))
+    with pytest.raises(ValueError, match="shared memory"):
+        mmk.matmul(a, torch.zeros((K, N)), bm=bm, bn=bn, bk=bk)
 
 
 def test_body_rule_refuses_a_column_major_16_bit_b():
