@@ -8,15 +8,22 @@ last line):
   1. card   — CUDA device present; nvidia-smi name and power limit.
   2. build  — nvcc builds the kernels from src/repro_torch/kernels/csrc
               (ptxas registers, shared memory and spills printed).
-  3. kernels — each kernel against its plain PyTorch version at yi-6b
-              attention shapes (and head_dim 64, llama-te-mini), bf16
-              and float32 q, over pools of q's dtype (paged_decode,
-              paged_chunk) and over e4m3 pools with per-row scales
-              (paged_decode_fp8, paged_chunk_fp8): max abs error within
-              its limit, kernel time (CUDA events), plain time, the
-              time of PyTorch's scaled_dot_product_attention over the
-              gathered (for fp8: gathered and dequantized, untimed)
-              view (a yardstick the port never calls) and the bound.
+  3. kernels — each paged kernel against its plain PyTorch version at
+              yi-6b's serving shape, llama-te-mini's heads (hd 64),
+              zamba2-2.7b's attention (hd 80) and yi-6b's decode_32k
+              shape (B=8, every slot within bs of 32768 positions, bf16;
+              the chunk's plain version slot by slot), bf16 and float32
+              q, over pools of q's dtype (paged_decode, paged_chunk) and
+              over e4m3 pools with per-row scales (paged_decode_fp8,
+              paged_chunk_fp8): each call on the body and plan (splits,
+              rows, shared memory) its rule names, counted there once;
+              max abs error within its limit (bf16 also within one
+              bf16 step of each row's max |o|), kernel time back to back
+              (CUDA events) and as device time (a CUDA-graph replay),
+              plain time, the time of PyTorch's
+              scaled_dot_product_attention over the gathered (for fp8:
+              gathered and dequantized, untimed) view, back to back and
+              device (a yardstick the port never calls), and the bound.
   4. forward — full-width 32-layer yi-6b (random bf16 weights, seed 0):
               a chunk_step and decode_steps through the kernels, every
               kernel call held against its plain version on the same
@@ -144,8 +151,11 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 # a few float32 roundings of outputs of magnitude ~1
 F32_LIMIT = 2e-5
 # bf16 pools: p and the output are rounded to bf16, and a value on a
-# rounding boundary may round the other way: one bf16 step at |o| < 4
+# rounding boundary may round the other way: one bf16 step at |o| < 4,
+# and one bf16 step (2**-7) of its row's max |o|, which at long contexts
+# is small (|o| ~ 0.01 at 32768 positions)
 BF16_LIMIT = 2e-2
+BF16_ROW_STEP = 2.0 ** -7
 # a kernel call of the full-width forward against its plain version on
 # the same inputs: two bf16 steps (2**-6) of the output's magnitude
 ATTN_REL_LIMIT = 2.0 ** -6
@@ -250,14 +260,19 @@ def _graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _case_inputs(dtype, B, H, KH, hd, bs, MB, C, seed):
-    """Pool, block table with -1 tails, ragged lengths up to MB*bs."""
+def _case_inputs(dtype, B, H, KH, hd, bs, MB, C, seed, full=False):
+    """Pool, block table with -1 tails, ragged lengths up to MB*bs (with
+    `full`, every slot within bs of MB*bs)."""
     import torch
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     T = MB * bs
     NB = B * MB + 8
-    kv = torch.tensor([T - 8, 1, 17, 100, T - 17, 33, 128, 200][:B],
-                      dtype=torch.int32, device=DEVICE).clamp(1, T)
+    if full:
+        kv = T - torch.randint(0, bs, (B,), generator=g, device=DEVICE)
+        kv = kv.to(torch.int32)
+    else:
+        kv = torch.tensor([T - 8, 1, 17, 100, T - 17, 33, 128, 200][:B],
+                          dtype=torch.int32, device=DEVICE).clamp(1, T)
     ck = torch.randn((NB, bs, KH, hd), generator=g, device=DEVICE).to(dtype)
     cv = torch.randn((NB, bs, KH, hd), generator=g, device=DEVICE).to(dtype)
     bt = torch.randperm(NB, generator=g, device=DEVICE)[:B * MB]
@@ -311,31 +326,46 @@ def _sdpa_inputs(q, kg, vg, bound_rows):
     return q.transpose(1, 2).contiguous(), k, v, mask
 
 
+# phase 3 cases: name, q dtype, B, H, KH, hd, bs, MB, every slot full.
+# yi-6b's serving shape (max_len 264 at bs 16: 17 table entries), and
+# its decode_32k shape (configs/base.py SHAPES: 32768 positions, every
+# slot within bs of them; bf16 only); llama-te-mini's heads; zamba2-2.7b's
+# attention (hd 80, 32 heads over 32 kv heads).
+PAGED_CASES = [
+    ("yi-6b", "bfloat16", 8, 32, 4, 128, 16, 17, False),
+    ("yi-6b", "float32", 8, 32, 4, 128, 16, 17, False),
+    ("llama-te-mini", "bfloat16", 8, 12, 12, 64, 16, 17, False),
+    ("llama-te-mini", "float32", 8, 12, 12, 64, 16, 17, False),
+    ("zamba2-2.7b", "bfloat16", 8, 32, 32, 80, 16, 17, False),
+    ("zamba2-2.7b", "float32", 8, 32, 32, 80, 16, 17, False),
+    ("yi-6b decode_32k", "bfloat16", 8, 32, 4, 128, 16, 2048, True),
+]
+# float32 elements of the plain version's [B,KH,G,C,T,hd] product above
+# which it runs slot by slot (the decode_32k chunk's would take 69 GB)
+PLAIN_SLOT_ELEMENTS = 2 ** 31
+
+
 def phase_kernels() -> dict:
-    """Results keyed (kernel name, case name, q dtype)."""
+    """Results keyed (kernel name, case name, q dtype).  Every call runs
+    on the body and plan its rule names and is counted there once."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.models import attention
     from repro_torch.te import fp8
-    cases = [
-        # name, dtype, B, H, KH, hd, bs, MB
-        ("yi-6b", torch.bfloat16, 8, 32, 4, 128, 16, 17),
-        ("yi-6b", torch.float32, 8, 32, 4, 128, 16, 17),
-        ("llama-te-mini", torch.bfloat16, 8, 12, 12, 64, 16, 17),
-        ("llama-te-mini", torch.float32, 8, 12, 12, 64, 16, 17),
-    ]
     C = 16
     results = {}
-    for i, (name, dtype, B, H, KH, hd, bs, MB) in enumerate(cases):
+    for i, (name, dname, B, H, KH, hd, bs, MB, full) in enumerate(
+            PAGED_CASES):
+        dtype = getattr(torch, dname)
         qd, qc, ck, cv, bt, kv, pos = _case_inputs(dtype, B, H, KH, hd, bs,
-                                                   MB, C, seed=i)
+                                                   MB, C, seed=i, full=full)
         # e4m3 pools: the same rows, quantized per (token, kv head) row
         kq, ks = fp8.quantize_rowwise(ck.float())
         vq, vs = fp8.quantize_rowwise(cv.float())
-        dname = str(dtype).replace("torch.", "")
         limit = BF16_LIMIT if dtype == torch.bfloat16 else F32_LIMIT
         ar = torch.arange(C, device=DEVICE, dtype=torch.int32)
+        long_case = MB * bs > 4096
         for kernel in ("paged_decode", "paged_chunk", "paged_decode_fp8",
                        "paged_chunk_fp8"):
             decode = kernel.startswith("paged_decode")
@@ -345,48 +375,88 @@ def phase_kernels() -> dict:
             if kernel.endswith("fp8"):
                 args = (q, kq, vq, bt, lens)
                 kw = dict(k_scale=ks, v_scale=vs)
-                kg, vg = attention.gather_paged_cache_fp8(
-                    {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}, bt,
-                    out_dtype=dtype)
                 kv_elt, scale_bytes = 1, 4
             else:
                 args, kw = (q, ck, cv, bt, lens), {}
-                kg, vg = attention.gather_paged_cache(ck, cv, bt)
                 kv_elt, scale_bytes = ck.element_size(), 0
             fn = getattr(pk, kernel)
             plain_fn = getattr(pk, kernel + "_plain")
+            plan = pk.plan(dtype, hd, B, KH, H // KH, q.shape[1], MB * bs)
             kern = lambda: fn(*args, **kw)
-            plain = lambda: plain_fn(*args, **kw)
+            n0 = dict(fn.body_launches)
             got = kern()
             torch.cuda.synchronize()
-            want = plain()
-            err = (got.float() - want.float()).abs().max().item()
+            counted = {b: fn.body_launches[b] - n0[b] for b in n0}
+            if counted != {b: int(b == plan.body) for b in n0}:
+                fail(f"{kernel} {name} {dname}: launch counted {counted}, "
+                     f"not once on {plan.body}")
             if not torch.isfinite(got.float()).all():
                 fail(f"{kernel} {name} {dname}: non-finite kernel output")
-            ms = _time_ms(kern, 200)
-            plain_ms = _time_ms(plain, 10)
+            slots = (B if B * H * q.shape[1] * MB * bs * hd
+                     > PLAIN_SLOT_ELEMENTS else 1)
+            step = B // slots
+
+            def plain():
+                outs = [plain_fn(q[b:b + step], *args[1:3], bt[b:b + step],
+                                 lens[b:b + step], **kw)
+                        for b in range(0, B, step)]
+                return torch.cat(outs) if len(outs) > 1 else outs[0]
+            want = plain().float()
+            diff = (got.float() - want).abs()
+            err = diff.max().item()
+            row_limit = torch.full_like(want[..., :1], limit)
+            if dtype == torch.bfloat16:
+                row_limit = row_limit.minimum(
+                    BF16_ROW_STEP * want.abs().amax(-1, keepdim=True))
+            ok = bool((diff <= row_limit).all())
+            rel = ("" if dtype != torch.bfloat16 else
+                   f" and 2**-7 of its row's max |o|, tightest "
+                   f"{row_limit.min().item():.3e}")
+            del want, diff, row_limit
+            iters = 10 if long_case else 200
+            ms = _time_ms(kern, iters)
+            dev_ms = _graph_ms(kern, 5 if long_case else 20)
+            plain_ms = _time_ms(plain, 1 if long_case else 10,
+                                warm=1 if long_case else 3)
+            if kernel.endswith("fp8"):
+                kg, vg = attention.gather_paged_cache_fp8(
+                    {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}, bt,
+                    out_dtype=dtype)
+            else:
+                kg, vg = attention.gather_paged_cache(ck, cv, bt)
             sq, sk, sv, mask = _sdpa_inputs(q, kg, vg, rows_bound)
-            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                sq, sk, sv, attn_mask=mask), 50)
+            del kg, vg
+            sdpa = lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                          attn_mask=mask)
+            lib_ms = _time_ms(sdpa, 5 if long_case else 50)
+            lib_dev_ms = _graph_ms(sdpa, 5 if long_case else 20)
+            del sq, sk, sv, mask
             bound_ms, bound_by = _bound(
                 "decode" if decode else "chunk", dname, B, H, KH, hd, C, MB,
                 bs, lens.tolist(), q.element_size(), kv_elt, scale_bytes)
-            ok = err <= limit
             print(f"[kernels] {kernel} {name} q {dname} B={B} H={H} "
                   f"KH={KH} hd={hd} bs={bs} MB={MB}"
-                  f"{'' if decode else ' C=%d' % C}: "
-                  f"max_abs_err={err:.3e} (limit {limit:.0e}) "
-                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"sdpa_ms={lib_ms:.4f} bound_ms={bound_ms:.5f} "
-                  f"({bound_by}) {'ok' if ok else 'OVER LIMIT'}",
-                  flush=True)
+                  f"{'' if decode else ' C=%d' % C}: body {plan.body}, "
+                  f"plan splits={plan.splits} rows={plan.rows} "
+                  f"groups={plan.groups} split_len={plan.split_len} "
+                  f"smem={plan.smem}; max_abs_err={err:.3e} (limit "
+                  f"{limit:.0e}{rel}"
+                  f"{', plain slot by slot' if slots > 1 else ''}"
+                  f") ms={ms:.4f} device_ms={dev_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+                  f"sdpa_device_ms={lib_dev_ms:.4f} bound_ms={bound_ms:.5f}"
+                  f" ({bound_by}; device/bound {dev_ms / bound_ms:.2f}) "
+                  f"{'ok' if ok else 'OVER LIMIT'}", flush=True)
             if not ok:
-                fail(f"{kernel} {name} {dname}: max abs error {err} "
-                     f"over {limit}")
+                fail(f"{kernel} {name} {dname}: max abs error {err}, "
+                     f"over {limit}{rel}")
             results[(kernel, name, dname)] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": lib_ms}
+                "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms,
+                "library_device_ms": lib_dev_ms}
+        del qd, qc, ck, cv, bt, kq, vq, ks, vs
+        torch.cuda.empty_cache()
     return results
 
 
@@ -501,7 +571,7 @@ def phase_serve(cfg, params, fp8: bool = False):
     """Both waves on one server; with `fp8` the server stores an e4m3
     pool and serves fp8 linears, and every copy-on-write is checked to
     copy every leaf (codes and scales).  Returns (launch counts of the
-    waves, KV pool bytes)."""
+    waves, the same by body, KV pool bytes)."""
     import torch
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.models import api
@@ -550,6 +620,7 @@ def phase_serve(cfg, params, fp8: bool = False):
     finally:
         api.cow_copy_block = orig_cow
     launches = srv.launch_counts()            # main path ends here
+    by_body = pk.launches_by_body()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for name, reqs, st, cow in all_stats:
         print(f"[serve] {tag} {name}: {int(st['requests'])} requests, "
@@ -575,13 +646,16 @@ def phase_serve(cfg, params, fp8: bool = False):
                 fail(f"{tag} {name} request {r.rid}: token out of vocab")
     kv_bytes = all_stats[0][2]["kv_bytes_per_device"]
     print(f"[serve] {tag} peak memory {peak_gb:.2f} GB; KV pool "
-          f"{kv_bytes / 1e9:.4f} GB; launch counts {launches}; "
+          f"{kv_bytes / 1e9:.4f} GB; launch counts {launches}, by body "
+          f"{by_body}; "
           f"copy-on-write copies checked {len(cow_copies)}, leaves "
           f"{cow_copies[0][0] if cow_copies else ()}", flush=True)
     keys = (("paged_decode_fp8", "paged_chunk_fp8") if fp8
             else ("paged_decode", "paged_chunk"))
     if min(launches[k] for k in keys) <= 0:
         fail(f"a kernel of the {tag} path was never launched: {launches}")
+    if any(sum(by_body[k].values()) != launches[k] for k in keys):
+        fail(f"{tag} launches by body {by_body} do not add up to {launches}")
     if all_stats[1][3] <= 0 or all_stats[1][2]["prefix_hit_requests"] <= 0:
         fail(f"the {tag} sysprompt wave hit no prefix / resolved no "
              "copy-on-write")
@@ -590,7 +664,7 @@ def phase_serve(cfg, params, fp8: bool = False):
         fail(f"a {tag} copy-on-write did not copy every leaf: {cow_copies}")
     if fp8 and not all("k_scale" in leaves for leaves, _ in cow_copies):
         fail("an fp8 copy-on-write ran on a cache without scales")
-    return launches, kv_bytes
+    return launches, by_body, kv_bytes
 
 
 # ----------------------------------------------------------------------
@@ -2097,7 +2171,7 @@ def main() -> None:
     print(f"[init] yi-6b full width, {cfg.param_count() / 1e9:.2f} B "
           f"params in bf16, {time.perf_counter() - t0:.1f} s", flush=True)
     phase_forward(cfg, params)
-    launches, kv_bytes = phase_serve(cfg, params)
+    launches, by_body, kv_bytes = phase_serve(cfg, params)
     phase_profile(cfg, params)
     t0 = time.perf_counter()
     quant = te_linear.quantize_serving_params(params)
@@ -2107,9 +2181,12 @@ def main() -> None:
     phase_forward(cfg, params, quant)
     phase_profile(cfg, params, quant)
     del quant
-    fp8_launches, fp8_kv_bytes = phase_serve(cfg, params, fp8=True)
+    fp8_launches, fp8_by_body, fp8_kv_bytes = phase_serve(cfg, params,
+                                                          fp8=True)
     launches.update({k: v for k, v in fp8_launches.items()
                      if k.endswith("_fp8")})
+    by_body.update({k: v for k, v in fp8_by_body.items()
+                    if k.endswith("_fp8")})
     ratio = fp8_kv_bytes / kv_bytes
     want = (cfg.head_dim + 4) / (2 * cfg.head_dim)
     print(f"[serve] fp8 / bf16 KV pool bytes = {ratio} (expected {want})",
@@ -2132,9 +2209,12 @@ def main() -> None:
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": f"src/repro/kernels/paged_attention.py:{line_no}",
             "launches": launches[name],
+            "launches_by_body": by_body[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library_device_ms": r["library_device_ms"]})
     tiles = "bm=128 bn=128 bk=128"
     for name, source, replaces, key in (
             ("matmul", "matmul.cu", "matmul.py:45",

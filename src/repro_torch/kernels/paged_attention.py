@@ -8,29 +8,51 @@ Pallas kernels ``paged_decode`` and ``paged_chunk`` of
 scales [NB,bs,KH,1] and dequantize in-tile to q's dtype).  The public
 layout is the reference's.
 
+All four run one kernel, one launch a call: a split over the context.
+A thread-block cluster of ``splits`` blocks serves a (slot, kv head,
+row group); each block streams the K and then the V rows of its share
+of the positions through two shared-memory tiles (the next tiles wait
+in registers), keeps their scores in shared memory, and the cluster
+combines maxima, row sums and partial outputs over distributed shared
+memory in rank order, so p is rounded to q's dtype after normalisation,
+as the reference rounds it.  Body ``mma_sync`` (bf16 q: mma.sync
+m16n8k16, float32 accumulators) or ``fma`` (float32 q: fmaf, never
+TF32), by q's dtype (``body``).  The plan (``plan``, the only copy of
+the rule: the source lays out and checks the plan it is given) picks
+rows per cluster and splits from the shapes alone, never from the
+lengths, so one plan serves every step of a server and a CUDA graph can
+capture a call; ``splits=`` (and ``rows=`` for a chunk) force a choice,
+for tests.  A context longer than the largest cluster's shared memory
+holds (``max_context``) raises.
+
 For CUDA tensors a wrapper checks its operands, allocates the output,
-launches the kernel on the current stream, raises if the launch failed,
-and adds one to its ``launches`` count.  For CPU tensors it computes
-the kernel's plain version (``*_plain``: the gathered view, dequantized
-for fp8 pools, plus the multiply-and-sum attention of
-models/attention.py); it never falls back from CUDA to the plain
-version.
+launches the kernel on the current stream, raises if the launch failed
+(a cluster the card cannot schedule included), and adds one to its
+``launches`` count and to its body's (``body_launches``).  For CPU
+tensors it computes the kernel's plain version (``*_plain``: the
+gathered view, dequantized for fp8 pools, plus the multiply-and-sum
+attention of models/attention.py); it never falls back from CUDA to
+the plain version.
 
 Tolerance against the plain version.  The kernel computes the same
 function as the plain version but sums scores, softmax denominators
-and PV in another order (warp-shuffle trees, fused multiply-adds), so
-the two agree to float32 rounding, not bitwise: outputs within 2e-5 on
-float32 q and within one bf16 rounding step (2e-2 at |o| <~ 4) on
-bf16 q, where a p or an output that sits on a rounding boundary may
-round the other way.  On fp8 pools the dequantized K/V values are
-bitwise those of the plain version (the same float32 multiply and
-rounding), so the same limits hold.  The reference's own claim of
-bitwise kernel/gather parity does not carry over, and does not hold
-even there: its float32 G=1 decode case differs bitwise from its
+and PV in another order (tensor-core or fmaf sums, split partial sums
+added in rank order), so the two agree to float32 rounding, not
+bitwise: outputs within 2e-5 on float32 q and within one bf16 rounding
+step (2e-2 at |o| <~ 4) on bf16 q, where a p or an output that sits on
+a rounding boundary may round the other way.  On fp8 pools the
+dequantized K/V values are bitwise those of the plain version (the same
+float32 multiply and rounding), so the same limits hold.  Repeated
+calls are bitwise equal (fixed order, no atomics).  The reference's own
+claim of bitwise kernel/gather parity does not carry over, and does not
+hold even there: its float32 G=1 decode case differs bitwise from its
 gather oracle (ROADMAP, queue C).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -38,16 +60,126 @@ from repro_torch.models import attention
 from repro_torch.te.fp8 import E4M3
 
 SOURCE = "paged_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128)
-SMEM_LIMIT = 232448          # bytes of shared memory one block may use
-_THREADS, _ROW_BATCH = 128, 8  # kThreads, kRowBatch of the source
+HEAD_DIMS = (16, 32, 64, 80, 128)
+BODIES = ("mma_sync", "fma")   # the source's body codes
+SMEM_LIMIT = 232448            # bytes of shared memory one block may use
+TILE = 128                     # positions of a staged tile (kTile)
+MAX_ROWS = 128                 # query rows a cluster serves (kMaxRows)
+SPLITS = (1, 2, 4, 8, 16)      # cluster sizes; 16 is non-portable
+BLOCK_COST = 128               # a block's fixed cost in positions
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def smem_bytes(G: int, hd: int, MB: int, bs: int) -> int:
-    """Dynamic shared memory of one block: q, whole-row scores, and the
-    PV partial sums (float32)."""
-    return 4 * (G * hd + G * MB * bs + _THREADS * _ROW_BATCH)
+class Plan(NamedTuple):
+    """One launch's shape: body, blocks a cluster (splits), query rows a
+    cluster, shared memory a block (bytes), positions a split, row
+    groups of a (slot, kv head)."""
+    body: str
+    splits: int
+    rows: int
+    smem: int
+    split_len: int
+    groups: int
+
+
+def body(dtype: torch.dtype) -> str:
+    """"mma_sync" for bf16 q, "fma" for float32 q."""
+    return "fma" if dtype == torch.float32 else "mma_sync"
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def smem_bytes(dtype: torch.dtype, hd: int, rows: int, split_len: int,
+               splits: int) -> int:
+    """Shared memory of one block (the source's `Layout`, which refuses
+    a plan past SMEM_LIMIT): q rows, the
+    split's float32 scores, the work region (two tiles of q's dtype,
+    later the float32 partial output), four float32/int32 values a row
+    and the peers' maxima or sums gathered, `splits` a row.  Rows carry
+    16 bytes of padding."""
+    tsz = 4 if dtype == torch.float32 else 2
+    q = rows * (hd * tsz + 16)
+    scores = rows * (split_len + 8) * 4
+    tiles = 2 * TILE * (hd * tsz + 16)
+    return q + scores + max(tiles, rows * hd * 4) + (4 + splits) * rows * 4
+
+
+def max_context(dtype: torch.dtype, hd: int) -> int:
+    """The longest table (max_blocks * block_size) any plan takes: 8
+    rows a cluster over 16 splits."""
+    fixed = smem_bytes(dtype, hd, 8, 0, SPLITS[-1])
+    split_len = ((SMEM_LIMIT - fixed) // 32) // 16 * 16
+    return 16 * split_len
+
+
+def wave_clusters(S: int) -> int:
+    """Clusters of S blocks the H100 SXM runs at once at one block an SM
+    (`paged_attention_max_clusters`, cudaOccupancyMaxActiveClusters, on
+    the card): clusters of 4 and 8 reach only 120 of the 132 SMs,
+    clusters of 16 only 112."""
+    return {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}[S]
+
+
+@functools.lru_cache(maxsize=None)
+def plan(dtype: torch.dtype, hd: int, B: int, KH: int, G: int, C: int,
+         T: int, splits: int = 0, rows: int = 0) -> Plan:
+    """The plan rule for q of `dtype`, head_dim `hd`, B slots, KH kv
+    heads, G query heads a kv head, C query rows a slot and T =
+    max_blocks * block_size (e4m3 pools take the same plan: they are
+    dequantized into tiles of q's dtype).  Of the rows a cluster R
+    (min(round_up(C*G, 8), 128), halved down to 8) and splits S (1, 2,
+    4, 8, 16, at most the largest power of two <= ceil(T / TILE)) whose
+    block fits SMEM_LIMIT, the pair of least cost
+
+        waves * (BLOCK_COST + L * (1 + R / 16)),
+
+    waves = ceil(B*KH*groups / wave_clusters(S)), L the positions of a
+    split; ties to the larger R (fewer reads of K/V), then the smaller
+    S.  BLOCK_COST stands for a block's fixed chain of loads and cluster
+    barriers (~10 us against ~80 ns a position), and each position
+    weighs more with its rows' scores.  The wrapper passes the plan's
+    splits and rows to the launch.
+
+    `splits` / `rows` (non-zero) force a choice.  Raises ValueError when
+    nothing fits: T past `max_context`."""
+    if rows and (rows % 8 or not 0 < rows <= MAX_ROWS):
+        raise ValueError(f"rows {rows} is not a multiple of 8 in "
+                         f"[8, {MAX_ROWS}]")
+    if splits and splits not in SPLITS:
+        raise ValueError(f"splits {splits} not in {SPLITS}")
+    total_rows = C * G
+    tiles = -(-T // TILE)
+    smax = 1
+    while smax * 2 <= SPLITS[-1] and smax * 2 <= tiles:
+        smax *= 2
+    best, R = None, rows or min(_round_up(total_rows, 8), MAX_ROWS)
+    while True:
+        groups = -(-total_rows // R)
+        for S in SPLITS:
+            if S != splits if splits else S > smax:
+                continue
+            L = _round_up(-(-T // S), 16)
+            smem = smem_bytes(dtype, hd, R, L, S)
+            if smem > SMEM_LIMIT:
+                continue
+            waves = -(-(B * KH * groups) // wave_clusters(S))
+            cost = waves * (BLOCK_COST + L * (16 + R) // 16)
+            if best is None or cost < best[0]:
+                best = (cost, Plan(body(dtype), S, R, smem, L, groups))
+        if R == 8 or rows:
+            break
+        R = max(8, _round_up(R // 2, 8))
+    if best is None:
+        raise ValueError(
+            f"no plan fits max_blocks*block_size={T} (G={G}, C={C}, "
+            f"head_dim {hd}, {dtype}"
+            f"{', splits=%d' % splits if splits else ''}"
+            f"{', rows=%d' % rows if rows else ''}): a cluster of 16 blocks "
+            f"holds the scores of at most {max_context(dtype, hd)} "
+            f"positions in {SMEM_LIMIT} bytes of shared memory a block")
+    return best[1]
 
 
 def _per_slot(x, B: int, device) -> torch.Tensor:
@@ -57,10 +189,13 @@ def _per_slot(x, B: int, device) -> torch.Tensor:
     return x.to(torch.int32).expand(B).contiguous()
 
 
-def _check(q, ck, cv, block_table, k_scale=None, v_scale=None):
+def _check(q, ck, cv, block_table, k_scale=None, v_scale=None, *,
+           splits: int = 0, rows: int = 0):
     """Operands the kernel takes: q float32 or bf16; pools of q's dtype,
     or e4m3 pools with float32 scales [NB,bs,KH,1] (both scales or
-    neither); an int32 table; one device; contiguous."""
+    neither); an int32 table; one device; contiguous; pools on 16-byte
+    boundaries (rows move 16 bytes at a time); a table a plan fits
+    (`plan`, which raises past `max_context`)."""
     B, C, H, hd = q.shape
     NB, bs, KH, hd_k = ck.shape
     if cv.shape != ck.shape or hd_k != hd or H % KH:
@@ -95,24 +230,38 @@ def _check(q, ck, cv, block_table, k_scale=None, v_scale=None):
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+    for name, t in (("k", ck), ("v", cv)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on a 16-byte boundary")
     MB = block_table.shape[1]
-    smem = smem_bytes(H // KH, hd, MB, bs)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"{smem} bytes of shared memory for G={H // KH}, "
-            f"max_blocks*block_size={MB * bs} exceed the {SMEM_LIMIT}-byte "
-            "per-block limit (contexts this long need a split-K kernel)")
+    plan(q.dtype, hd, B, KH, H // KH, C, MB * bs, splits, rows)
     return B, C, H, hd, bs, KH, MB
 
 
-def _launch(entry: str, q, operands, *dims) -> torch.Tensor:
-    """Launch `entry` on q, the device `operands` (pools, scales, table,
-    lengths, in the C signature's order) and the int `dims`."""
+def _run(fn, entry: str, q, ck, cv, block_table, lens, scales=(), *,
+         decode: bool, splits: int, rows: int) -> torch.Tensor:
+    """Check, plan and launch `entry` of `fn` on the device operands
+    (pools, scales, table, lengths, in the C signature's order); count
+    the launch in all and by body."""
     from repro_torch.kernels import build
+    B, C, H, hd, bs, KH, MB = _check(q, ck, cv, block_table, *scales,
+                                     splits=splits, rows=rows)
+    if decode and C != 1:
+        raise ValueError(f"decode takes one query row per slot, got {C}")
+    p = plan(q.dtype, hd, B, KH, H // KH, C, MB * bs, splits, rows)
+    lens = _per_slot(lens, B, q.device)
+    if q.data_ptr() % 16:            # q rows move 16 bytes at a time
+        q = q.clone()
+    dims = ((B, H, KH, bs, MB, p.splits, p.rows) if decode
+            else (B, C, H, KH, bs, MB, p.splits, p.rows))
     out = torch.empty_like(q)
-    build.launch(SOURCE, entry, q.device, _DTYPES[q.dtype], q.shape[-1],
-                 q.data_ptr(), *(t.data_ptr() for t in operands),
-                 out.data_ptr(), *dims, float(q.shape[-1] ** -0.5))
+    build.launch(SOURCE, entry, q.device, _DTYPES[q.dtype], hd,
+                 q.data_ptr(),
+                 *(t.data_ptr() for t in (ck, cv, *scales, block_table,
+                                           lens)),
+                 out.data_ptr(), *dims, float(hd ** -0.5))
+    fn.launches += 1
+    fn.body_launches[p.body] += 1
     return out
 
 
@@ -152,42 +301,37 @@ def paged_chunk_fp8_plain(q, ck, cv, block_table, pos, *, k_scale,
 
 
 def paged_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                 block_table: torch.Tensor, kv_len) -> torch.Tensor:
+                 block_table: torch.Tensor, kv_len, *,
+                 splits: int = 0) -> torch.Tensor:
     """One-step paged decode.  q [B,1,H,hd]; pools [NB,bs,KH,hd];
     block_table [B,MB] int32 (-1 = unallocated); kv_len scalar or [B].
-    Returns [B,1,H,hd] in q.dtype."""
+    Returns [B,1,H,hd] in q.dtype.  `splits` (tests) forces the plan's
+    cluster size."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, ck, cv, block_table, kv_len)
-    B, C, H, hd, bs, KH, MB = _check(q, ck, cv, block_table)
-    if C != 1:
-        raise ValueError(f"decode takes one query row per slot, got {C}")
-    lens = _per_slot(kv_len, B, q.device)
-    out = _launch("paged_decode_fwd", q, (ck, cv, block_table, lens),
-                  B, H, KH, bs, MB)
-    paged_decode.launches += 1
-    return out
+    return _run(paged_decode, "paged_decode_fwd", q, ck, cv, block_table,
+                kv_len, decode=True, splits=splits, rows=0)
 
 
 def paged_chunk(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                block_table: torch.Tensor, pos) -> torch.Tensor:
+                block_table: torch.Tensor, pos, *, splits: int = 0,
+                rows: int = 0) -> torch.Tensor:
     """Paged chunk attention.  q [B,C,H,hd]; `pos` [B] is each slot's
     cache length BEFORE the chunk (row i sits at position pos+i and the
     chunk's k/v must already be scattered).  Rows past a slot's valid
-    token count produce garbage rows the caller discards."""
+    token count produce garbage rows the caller discards.  `splits` /
+    `rows` (tests) force the plan's cluster size / query rows a
+    cluster."""
     if q.device.type == "cpu":
         return paged_chunk_plain(q, ck, cv, block_table, pos)
-    B, C, H, hd, bs, KH, MB = _check(q, ck, cv, block_table)
-    lens = _per_slot(pos, B, q.device)
-    out = _launch("paged_chunk_fwd", q, (ck, cv, block_table, lens),
-                  B, C, H, KH, bs, MB)
-    paged_chunk.launches += 1
-    return out
+    return _run(paged_chunk, "paged_chunk_fwd", q, ck, cv, block_table, pos,
+                decode=False, splits=splits, rows=rows)
 
 
 def paged_decode_fp8(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                      block_table: torch.Tensor, kv_len, *,
-                     k_scale: torch.Tensor, v_scale: torch.Tensor
-                     ) -> torch.Tensor:
+                     k_scale: torch.Tensor, v_scale: torch.Tensor,
+                     splits: int = 0) -> torch.Tensor:
     """`paged_decode` over e4m3 pools: each K/V element is
     ``(float(code) * scale)`` rounded to q.dtype, with scale
     ``k_scale``/``v_scale`` [NB,bs,KH,1] float32 of its (token, kv
@@ -196,36 +340,24 @@ def paged_decode_fp8(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_fp8_plain(q, ck, cv, block_table, kv_len,
                                       k_scale=k_scale, v_scale=v_scale)
-    B, C, H, hd, bs, KH, MB = _check(q, ck, cv, block_table, k_scale,
-                                     v_scale)
-    if C != 1:
-        raise ValueError(f"decode takes one query row per slot, got {C}")
-    lens = _per_slot(kv_len, B, q.device)
-    out = _launch("paged_decode_fp8_fwd", q,
-                  (ck, cv, k_scale, v_scale, block_table, lens),
-                  B, H, KH, bs, MB)
-    paged_decode_fp8.launches += 1
-    return out
+    return _run(paged_decode_fp8, "paged_decode_fp8_fwd", q, ck, cv,
+                block_table, kv_len, (k_scale, v_scale), decode=True,
+                splits=splits, rows=0)
 
 
 def paged_chunk_fp8(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                     block_table: torch.Tensor, pos, *,
-                    k_scale: torch.Tensor, v_scale: torch.Tensor
-                    ) -> torch.Tensor:
+                    k_scale: torch.Tensor, v_scale: torch.Tensor,
+                    splits: int = 0, rows: int = 0) -> torch.Tensor:
     """`paged_chunk` over e4m3 pools, dequantized as in
     `paged_decode_fp8`.  Limits against `paged_chunk_fp8_plain`: 2e-5
     on float32 q, 2e-2 on bf16 q."""
     if q.device.type == "cpu":
         return paged_chunk_fp8_plain(q, ck, cv, block_table, pos,
                                      k_scale=k_scale, v_scale=v_scale)
-    B, C, H, hd, bs, KH, MB = _check(q, ck, cv, block_table, k_scale,
-                                     v_scale)
-    lens = _per_slot(pos, B, q.device)
-    out = _launch("paged_chunk_fp8_fwd", q,
-                  (ck, cv, k_scale, v_scale, block_table, lens),
-                  B, C, H, KH, bs, MB)
-    paged_chunk_fp8.launches += 1
-    return out
+    return _run(paged_chunk_fp8, "paged_chunk_fp8_fwd", q, ck, cv,
+                block_table, pos, (k_scale, v_scale), decode=False,
+                splits=splits, rows=rows)
 
 
 KERNELS = (paged_decode, paged_chunk, paged_decode_fp8, paged_chunk_fp8)
@@ -234,10 +366,16 @@ KERNELS = (paged_decode, paged_chunk, paged_decode_fp8, paged_chunk_fp8)
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+        fn.body_launches = dict.fromkeys(BODIES, 0)
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def launches_by_body() -> dict:
+    """{kernel name: {body: launches}} since the last reset."""
+    return {fn.__name__: dict(fn.body_launches) for fn in KERNELS}
 
 
 reset_launch_counts()

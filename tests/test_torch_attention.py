@@ -10,6 +10,11 @@
   Tolerances: float32 1e-5 (both sum the same float32 products in
   another order); bf16 outputs 2**-7 relative + 1e-6, one bf16 step
   (p and the output are rounded to bf16 on both sides).
+Head_dim 80 (zamba2-2.7b's, G=1, and a G=4 case) runs the same
+comparison.  The kernel's plan rule (`plan`, which the wrapper passes
+to the launch) is held at the serving, decode_32k, llama-te-mini and
+zamba2 shapes: it fits a block's shared memory, fills the card at B=8
+and raises past its stated limit.
 The CUDA kernels themselves are held against the plain versions on
 the card in tests/test_torch_gpu.py.
 """
@@ -34,6 +39,12 @@ CASES = [       # tests/test_paged_kernel.py CASES
     ("float32",  2, 6, 6, 16, 17,  4,  8, 3),    # G=1 matvec, small bs
     ("bfloat16", 4, 8, 2, 64, 32, 16,  4, 5),    # G=4, large bs
     ("float32",  6, 8, 4, 64, 40, 16,  5, 7),
+]
+HD80 = [        # head_dim 80: zamba2-2.7b's G=1, and a G=4 case
+    ("float32",  3, 2, 2, 80, 24,  8,  6, 31),
+    ("bfloat16", 3, 2, 2, 80, 24,  8,  6, 32),
+    ("float32",  2, 8, 2, 80, 20, 16,  4, 33),
+    ("bfloat16", 2, 8, 2, 80, 20, 16,  4, 34),
 ]
 
 
@@ -170,7 +181,7 @@ def test_init_paged_kv_cache_layout():
 # plain versions against the Pallas kernels (interpret mode)
 # ----------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype,B,H,KH,hd,NB,bs,MB,seed", CASES)
+@pytest.mark.parametrize("dtype,B,H,KH,hd,NB,bs,MB,seed", CASES + HD80)
 def test_decode_plain_vs_pallas(dtype, B, H, KH, hd, NB, bs, MB, seed):
     (q, ck, cv), (tq, tck, tcv), bt, kv_len = _mk(dtype, B, H, KH, hd, NB,
                                                   bs, MB, seed)
@@ -181,7 +192,7 @@ def test_decode_plain_vs_pallas(dtype, B, H, KH, hd, NB, bs, MB, seed):
     assert pk.paged_decode.launches == n0     # CPU: plain version
 
 
-@pytest.mark.parametrize("dtype,B,H,KH,hd,NB,bs,MB,seed", CASES)
+@pytest.mark.parametrize("dtype,B,H,KH,hd,NB,bs,MB,seed", CASES + HD80)
 def test_chunk_plain_vs_pallas(dtype, B, H, KH, hd, NB, bs, MB, seed):
     C = 4
     (q, ck, cv), (tq, tck, tcv), bt, kv_len = _mk(
@@ -240,8 +251,8 @@ def test_poisoned_unallocated_block_never_leaks(poison):
 
 def test_kernel_checks_raise_on_what_it_does_not_take():
     """The launch checks (run before any CUDA call) refuse head dims
-    without an instantiation, mixed dtypes and tables past the
-    shared-memory limit."""
+    without an instantiation, mixed dtypes and tables past what the
+    largest cluster's shared memory holds."""
     q = torch.zeros((2, 1, 4, 48))
     ck = torch.zeros((8, 16, 2, 48))
     bt = torch.zeros((2, 4), dtype=torch.int32)
@@ -252,15 +263,86 @@ def test_kernel_checks_raise_on_what_it_does_not_take():
         pk._check(q, ck.bfloat16(), ck.bfloat16(), bt)
     with pytest.raises(TypeError):
         pk._check(q, ck, ck, bt.long())
-    big = torch.zeros((2, 10000), dtype=torch.int32)
+    limit = pk.max_context(torch.float32, 64)
+    big = torch.zeros((2, limit // 16 + 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="shared memory"):
         pk._check(q, ck, ck, big)
+    fits = torch.zeros((2, limit // 16), dtype=torch.int32)
+    assert pk._check(q, ck, ck, fits) == (2, 1, 4, 64, 16, 2, limit // 16)
     assert pk._check(q, ck, ck, bt) == (2, 1, 4, 64, 16, 2, 4)
-    # yi-6b at max_len 264: G=8, 17 blocks of 16 fit
-    assert pk.smem_bytes(8, 128, 17, 16) <= pk.SMEM_LIMIT
+    # yi-6b at the reference's decode_32k shape (G=8, 32768 positions)
+    p = pk.plan(torch.bfloat16, 128, 8, 4, 8, 1, 32768)
+    assert p.smem <= pk.SMEM_LIMIT
 
 
 def test_reduced_config_shapes_fit_kernel():
     """The reduced yi-6b config the CPU tests serve has a head_dim the
     kernel is instantiated for, so the same path runs on the card."""
     assert ref_reduced_config("yi-6b").head_dim in pk.HEAD_DIMS
+
+
+# ----------------------------------------------------------------------
+# the plan rule
+# ----------------------------------------------------------------------
+
+PLAN_SHAPES = [   # name, q dtype, hd, B, KH, G, C, T (e4m3 pools plan alike)
+    ("serving decode", torch.bfloat16, 128, 8, 4, 8, 1, 272),
+    ("serving chunk", torch.bfloat16, 128, 8, 4, 8, 16, 272),
+    ("serving chunk float32", torch.float32, 128, 8, 4, 8, 16, 272),
+    ("decode_32k", torch.bfloat16, 128, 8, 4, 8, 1, 32768),
+    ("decode_32k chunk", torch.bfloat16, 128, 8, 4, 8, 16, 32768),
+    ("decode_32k float32", torch.float32, 128, 8, 4, 8, 1, 32768),
+    ("llama-te-mini decode", torch.bfloat16, 64, 8, 12, 1, 1, 272),
+    ("llama-te-mini chunk", torch.bfloat16, 64, 8, 12, 1, 16, 272),
+    ("zamba2 decode", torch.bfloat16, 80, 8, 32, 1, 1, 272),
+    ("zamba2 chunk", torch.bfloat16, 80, 8, 32, 1, 16, 272),
+    ("zamba2 decode float32", torch.float32, 80, 8, 32, 1, 1, 272),
+]
+
+
+@pytest.mark.parametrize("name,dtype,hd,B,KH,G,C,T", PLAN_SHAPES,
+                         ids=[s[0] for s in PLAN_SHAPES])
+def test_plan_fits_fills_and_raises_past_its_limit(name, dtype, hd, B, KH,
+                                                   G, C, T):
+    p = pk.plan(dtype, hd, B, KH, G, C, T)
+    assert p.body == pk.body(dtype)
+    assert p.body == ("fma" if dtype == torch.float32 else "mma_sync")
+    assert p.smem == pk.smem_bytes(dtype, hd, p.rows, p.split_len,
+                                   p.splits) <= pk.SMEM_LIMIT
+    assert p.splits in pk.SPLITS
+    assert p.rows % 8 == 0 and p.rows <= pk.MAX_ROWS
+    assert p.groups == -(-C * G // p.rows)
+    # the splits cover the table in whole 16-position steps
+    assert p.split_len % 16 == 0 and p.splits * p.split_len >= T
+    assert (p.splits - 1) * p.split_len < T
+    # at B=8 at least half the 132 SMs get a block (clusters of 4 and 8
+    # reach only 120 of them, so the plan weighs waves, not blocks)
+    assert B * KH * p.groups * p.splits >= 64
+    # a chunk keeps many of a (slot, kv head)'s rows in one cluster where
+    # they fit: K/V are read once for all of them, not once a row
+    if T <= 272:
+        assert p.rows >= min(pk._round_up(C * G, 8), 64)
+    # the plan depends on shapes alone: the same call, the same plan
+    assert pk.plan(dtype, hd, B, KH, G, C, T) == p
+    # forced split counts take their value, up to 16
+    for s in pk.SPLITS:
+        split_len = pk._round_up(-(-T // s), 16)
+        if pk.smem_bytes(dtype, hd, 8, split_len, s) <= pk.SMEM_LIMIT:
+            assert pk.plan(dtype, hd, B, KH, G, C, T, splits=s).splits == s
+    limit = pk.max_context(dtype, hd)
+    assert limit >= 32768
+    assert pk.plan(dtype, hd, B, KH, G, C, limit).splits == 16
+    with pytest.raises(ValueError, match="shared memory"):
+        pk.plan(dtype, hd, B, KH, G, C, limit + 1)
+
+
+def test_plan_rejects_forced_shapes_it_does_not_take():
+    with pytest.raises(ValueError, match="splits"):
+        pk.plan(torch.bfloat16, 128, 8, 4, 8, 1, 272, splits=3)
+    with pytest.raises(ValueError, match="rows"):
+        pk.plan(torch.bfloat16, 128, 8, 4, 8, 16, 272, rows=12)
+    with pytest.raises(ValueError, match="rows"):
+        pk.plan(torch.bfloat16, 128, 8, 4, 8, 16, 272, rows=256)
+    # 128 rows of scores over 32768 positions fit no cluster
+    with pytest.raises(ValueError, match="shared memory"):
+        pk.plan(torch.bfloat16, 128, 8, 4, 8, 16, 32768, rows=128)

@@ -11,8 +11,8 @@
   (drop rows, -1 tails, scalar pos); `gather_paged_cache_fp8` gives
   equal values; the plain versions of the fp8 kernels match the
   reference's Pallas kernels in interpret mode within the PR 11
-  tolerances (float32 1e-5; bf16 2**-7 relative + 1e-6); the COW copy
-  carries the scales.
+  tolerances (float32 1e-5; bf16 2**-7 relative + 1e-6), head_dim 80
+  too (zamba2-2.7b's, G=1 and G=4); the COW copy carries the scales.
 The CUDA kernels are held against the plain versions on the card in
 tests/test_torch_gpu.py.
 """
@@ -239,6 +239,41 @@ def test_fp8_plain_vs_pallas(kind, dtype):
     jl, tl = _fp8_layer(NB, bs, KH, hd, rng)
     T = MB * bs
     kv_len = np.array([1, bs + bs // 2 + 1, T], np.int32)
+    bt = rng.permutation(NB)[:B * MB].reshape(B, MB).astype(np.int32)
+    for b in range(B):
+        bt[b, -(-int(kv_len[b]) // bs):] = -1
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    q = jnp.asarray(rng.standard_normal((B, C, H, hd)), jd)
+    tq = to_torch(np.asarray(q))
+    scales = dict(k_scale=tl["k_scale"], v_scale=tl["v_scale"])
+    if kind == "decode":
+        want = _ref_decode_fp8(q, jl, bt, kv_len)
+        got = pk.paged_decode_fp8(tq, tl["k"], tl["v"], torch.from_numpy(bt),
+                                  torch.from_numpy(kv_len), **scales)
+    else:
+        pos = np.maximum(kv_len - C, 0).astype(np.int32)
+        want = _ref_chunk_fp8(q, jl, bt, pos)
+        got = pk.paged_chunk_fp8(tq, tl["k"], tl["v"], torch.from_numpy(bt),
+                                 torch.from_numpy(pos), **scales)
+    a, b = np.asarray(want, np.float32), got.float().numpy()
+    assert got.dtype == tq.dtype and a.shape == b.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
+    else:
+        assert (np.abs(a - b) <= 2.0 ** -7 * np.abs(a) + 1e-6).all()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind", ["decode", "chunk"])
+@pytest.mark.parametrize("H,KH", [(2, 2), (8, 2)], ids=["G1", "G4"])
+def test_fp8_head_dim_80_plain_vs_pallas(H, KH, kind, dtype):
+    """head_dim 80 (zamba2-2.7b's) over e4m3 pools, G=1 and G=4."""
+    B, hd, NB, bs, MB = 3, 80, 24, 8, 6
+    C = 1 if kind == "decode" else 4
+    rng = np.random.default_rng(41 if kind == "decode" else 43)
+    jl, tl = _fp8_layer(NB, bs, KH, hd, rng)
+    T = MB * bs
+    kv_len = np.array([3, bs + 5, T], np.int32)
     bt = rng.permutation(NB)[:B * MB].reshape(B, MB).astype(np.int32)
     for b in range(B):
         bt[b, -(-int(kv_len[b]) // bs):] = -1
