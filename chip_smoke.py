@@ -87,19 +87,27 @@ last line):
               the benchmarks' own inputs and at full size: the DPX
               functions over 2**26 int32 / int16 elements (an odd
               length too) with values at the type limits; the (max,+)
-              product at M=N=K=2048 (tiles 32^3 and 64/64/32); 4096
-              pairs of 256-base sequences and one 1500 x 1500 pair; a
+              product at M=N=K=64 and 2048 on its tma body, and at 2048
+              on its staged body (tiles 32^3 and 64/64/32, forced by
+              the rule with A off 16 bytes); 4096 pairs of 256-base
+              sequences (warp body), one 1500 x 1500 pair and one
+              random 12000 x 16000 pair past PR 14's shared-memory cap
+              (bands body), each call on the body its rule or plan
+              names; a 30000 x 30000 pair of identical sequences
+              against its closed-form score (match x 30000); a
               2**24-float ring at cluster sizes 2/4/8; 2**26 values in
               1024 to 65536 bins (past 32768 only the DSM histogram
               fits a block).  Kernel ms, plain ms, bound (int32
               instructions over SMs x 64 lanes x the maximum SM clock,
               or bytes over 3.35 TB/s) and a one-call PyTorch yardstick
               (torch.bincount, torch.roll, a permuting copy); the DPX
-              opcodes in the built library's SASS and the DPX rate
-              probe (csrc/dpx_rate_probe.cu: intrinsic against plain C
-              with operands in registers), both findings; then the
+              opcodes in the SASS of each kernel of the built library
+              (the redesigned kernels must hold VIADDMNMX) and the DPX
+              rate probe (csrc/dpx_rate_probe.cu: intrinsic against
+              plain C with operands in registers, a finding); then the
               dpx_functions, dpx_kernels and dsm benchmarks through the
-              kernels.
+              kernels, with tropical_matmul's and smith_waterman's
+              launches by body.
  10. train  — (a) the flash-attention forward (flash_attention, B9)
               against its plain version (the blockwise forward in torch
               ops), o and lse, on the reference's kernel-test cases,
@@ -1373,6 +1381,11 @@ DPX_N = 1 << 26
 TROPICAL_FULL = 2048
 SW_BATCH = (4096, 256, 256)
 SW_LONG = (1, 1500, 1500)
+# pairs past PR 14's shared-memory cap (La + 4 Lb above ~58000): a random
+# one held against the plain version (~28000 diagonals of torch ops),
+# and identical sequences whose score is match x length in closed form
+SW_PAST_CAP = (1, 12000, 16000)
+SW_IDENTICAL = 30000
 RING_N = 1 << 24
 HIST_N = 1 << 26
 # 1024 / 4096 bins as the benchmark; 16384-65536 where a private
@@ -1437,6 +1450,19 @@ def _exact(kernel: str, tag: str, kern, plain, iters: int, bound: tuple,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
+def _dpx_body(kernel, call) -> str:
+    """The body of the one launch `call` makes, by the kernel's count."""
+    import torch
+    before = dict(kernel.launches_by_body)
+    call()
+    torch.cuda.synchronize()
+    moved = [k for k, v in kernel.launches_by_body.items()
+             if v != before[k]]
+    if len(moved) != 1:
+        fail(f"{kernel.__name__}: launches by body moved {moved}")
+    return moved[0]
+
+
 def _limit_ints(n: int, dtype, g):
     """n integers over the whole range of `dtype`, the first few at and
     next to its limits (sums wrap, relu and max meet the extremes)."""
@@ -1475,17 +1501,40 @@ def _is_dpx(op: str) -> bool:
     return op.startswith(("VIADDMNMX", "VIMNMX"))
 
 
+def _kernel_label(mangled: str) -> str:
+    """A short label of a mangled dpx.cu kernel name: its identifier and
+    template arguments (sw_band_kernel<8>, ...<128,128,MaxPlusOp>)."""
+    import re
+    m = re.search(r"(sw_band_kernel|tropical_kernel|tma_pipelined_kernel|"
+                  r"dpx_fused_kernel)I(.*)", mangled)
+    if not m:
+        return mangled[:60]
+    args = re.findall(r"Li(\d+)E|Lb([01])E|(FmaOp|MaxPlusOp)", m.group(2))
+    return f"{m.group(1)}<{','.join(''.join(x) for x in args)}>"
+
+
 def _dpx_sass_opcodes() -> None:
-    """A finding, not a gate: the DPX opcodes in the built dpx library's
-    SASS: each intrinsic one instruction."""
+    """The DPX opcodes in the SASS of each kernel of the built dpx
+    library (each intrinsic one instruction); fails if a redesigned
+    kernel (tropical's tma body, sw_band_kernel) has no VIADDMNMX, where
+    the SASS can be read."""
     import collections
     from repro_torch.kernels import build
     path = build.library_path("dpx.cu")
-    ops = collections.Counter()
-    for counts in _sass_opcodes(path).values():
-        ops.update({k: v for k, v in counts.items() if _is_dpx(k)})
+    total = collections.Counter()
+    sass = _sass_opcodes(path)
+    for name, counts in sorted(sass.items()):
+        dpx = {k: v for k, v in counts.items() if _is_dpx(k)}
+        total.update(dpx)
+        label = _kernel_label(name)
+        print(f"[dpx_dsm]   SASS {label}: {sum(counts.values())} "
+              f"instructions, DPX {dict(sorted(dpx.items()))}", flush=True)
+        if (("sw_band" in label or "MaxPlusOp" in label)
+                and not dpx.get("VIADDMNMX")):
+            fail(f"{label}: no VIADDMNMX in its SASS ({dpx})")
     print(f"[dpx_dsm] DPX opcodes in the SASS of {os.path.relpath(path, ROOT)}"
-          f": {sum(ops.values())} ({dict(sorted(ops.items()))})", flush=True)
+          f": {sum(total.values())} ({dict(sorted(total.items()))})",
+          flush=True)
 
 
 DPX_RATE_OPS = ("viaddmax_s32", "viaddmax_s32_relu", "viaddmax_s16x2_relu")
@@ -1618,7 +1667,8 @@ def phase_dpx_dsm() -> tuple:
     opcodes and rate probe; then the dpx_functions, dpx_kernels and dsm
     benchmarks through the kernels.
     Returns (results keyed (kernel, case), launch counts of the
-    benchmark run)."""
+    benchmark run, and its launches by body of tropical_matmul and
+    smith_waterman)."""
     import torch
     from repro_torch.core import bench
     from repro_torch.kernels import dpx_kernel as dk
@@ -1646,38 +1696,77 @@ def phase_dpx_dsm() -> tuple:
                 20 if n > 1 << 16 else 50,
                 _ops_bound(instr, 4 * n * a.element_size(), rate))
         del a, b, c
-    # tropical (max,+) product: one viaddmax per (i, j, k)
-    for size, tiles_list, lim in ((64, ((32, 32, 32),), 50),
-                                  (TROPICAL_FULL, ((32, 32, 32), (64, 64, 32)),
-                                   1 << 20)):
+    # tropical (max,+) product: one viaddmax per (i, j, k), each call on
+    # the body its rule names; at full size the staged body too, forced
+    # by its rule with A 4 bytes off a 16-byte boundary
+    for size, cases, lim in (
+            (64, (("tma", (32, 32, 32)),), 50),
+            (TROPICAL_FULL, (("tma", (32, 32, 32)),
+                             ("staged", (32, 32, 32)),
+                             ("staged", (64, 64, 32))), 1 << 20)):
         a = torch.randint(-lim, lim, (size, size), generator=g, device=DEVICE,
                           dtype=torch.int32)
         b = torch.randint(-lim, lim, (size, size), generator=g, device=DEVICE,
                           dtype=torch.int32)
-        for bm, bn, bk in tiles_list:
-            res[("tropical_matmul", f"{size}/{bm}x{bn}x{bk}")] = _exact(
-                "tropical_matmul", f"M=N=K={size} bm={bm} bn={bn} bk={bk}",
-                lambda: dk.tropical_matmul(a, b, bm=bm, bn=bn, bk=bk),
+        a_off = torch.empty(size * size + 1, dtype=torch.int32,
+                            device=DEVICE)[1:].view(size, size)
+        a_off.copy_(a)
+        for want, (bm, bn, bk) in cases:
+            x = a if want == "tma" else a_off
+            name = _dpx_body(dk.tropical_matmul,
+                             lambda: dk.tropical_matmul(x, b, bm=bm, bn=bn,
+                                                        bk=bk))
+            if name != want or name != dk.body(size, size, size,
+                                               want == "tma"):
+                fail(f"tropical_matmul {size}^3: body {name}, expected "
+                     f"{want}")
+            key = f"{size}/{name}" + (f"/{bm}x{bn}x{bk}" if name == "staged"
+                                       else "")
+            res[("tropical_matmul", key)] = _exact(
+                "tropical_matmul", f"M=N=K={size} body={name}"
+                + (f" bm={bm} bn={bn} bk={bk}" if name == "staged" else
+                   " (128 x 128 tiles, 32-deep slices, 4 stages)"),
+                lambda: dk.tropical_matmul(x, b, bm=bm, bn=bn, bk=bk),
                 lambda: dk.tropical_matmul_plain(a, b),
                 5 if size > 64 else 50,
                 _ops_bound(size ** 3, 3 * size * size * 4, rate),
                 extra=f"; {size ** 3 / 1e9:.3g} G cells")
-        del a, b
+        del a, b, a_off, x
     # Smith-Waterman: three int32 instructions per cell (an add and two
-    # DPX instructions)
-    for B, la, lb in ((4, 64, 64), SW_BATCH, SW_LONG):
+    # DPX instructions), each case on the body its plan names
+    for B, la, lb in ((4, 64, 64), SW_BATCH, SW_LONG, SW_PAST_CAP):
         sa = torch.randint(0, 4, (B, la), generator=g, device=DEVICE,
                            dtype=torch.int32)
         sb = torch.randint(0, 4, (B, lb), generator=g, device=DEVICE,
                            dtype=torch.int32)
         cells = B * la * lb
+        p = dk.smith_waterman_plan(la, lb)
+        name = _dpx_body(dk.smith_waterman, lambda: dk.smith_waterman(sa, sb))
+        if name != p.body:
+            fail(f"smith_waterman {B}x{la}x{lb}: body {name}, plan {p}")
         res[("smith_waterman", f"{B}x{la}x{lb}")] = _exact(
-            "smith_waterman", f"B={B} La={la} Lb={lb}",
+            "smith_waterman", f"B={B} La={la} Lb={lb} body={name} S={p.S} "
+            f"bands={p.bands} warps={p.warps}",
             lambda: dk.smith_waterman(sa, sb),
             lambda: dk.smith_waterman_plain(sa, sb), 5 if B > 4 else 20,
             _ops_bound(3 * cells, 4 * (B * (la + lb) + B), rate),
             extra=f"; {cells / 1e9:.3g} G cells")
         del sa, sb
+    x = torch.randint(0, 4, (1, SW_IDENTICAL), generator=g, device=DEVICE,
+                      dtype=torch.int32)
+    y = x.clone()
+    got = dk.smith_waterman(x, y)
+    torch.cuda.synchronize()
+    want = 2 * SW_IDENTICAL                  # match x the whole diagonal
+    ms = _time_ms(lambda: dk.smith_waterman(x, y), 2, warm=0)
+    p = dk.smith_waterman_plan(SW_IDENTICAL, SW_IDENTICAL)
+    print(f"[dpx_dsm] smith_waterman B=1 La=Lb={SW_IDENTICAL} identical, "
+          f"body={p.body} bands={p.bands} warps={p.warps}: "
+          f"{int(got[0])} (closed form {want}) ms={ms:.4f}", flush=True)
+    if int(got[0]) != want:
+        fail(f"smith_waterman {SW_IDENTICAL}^2 identical: {int(got[0])}, "
+             f"closed form {want}")
+    del x, y
     # cluster kernels: bounded by device-memory bytes; first at the dsm
     # benchmark's own inputs (cluster size 4: a [4, 65536] ring, 1 MiB a
     # rank at CS 2/4/8, 4 * 32768 values in [0, 1024)), then at full size
@@ -1728,11 +1817,13 @@ def phase_dpx_dsm() -> tuple:
                   device=torch.device(DEVICE))
     torch.cuda.synchronize()
     launches = {**dk.launch_counts(), **dsk.launch_counts()}
+    bodies = {fn.__name__: dict(fn.launches_by_body)
+              for fn in (dk.tropical_matmul, dk.smith_waterman)}
     print(f"[dpx_dsm] benchmarks ran in {time.perf_counter() - t0:.1f} s; "
-          f"launch counts {launches}", flush=True)
+          f"launch counts {launches}; by body {bodies}", flush=True)
     if min(launches.values()) <= 0:
         fail(f"a kernel of the DPX/DSM path was never launched: {launches}")
-    return res, launches
+    return res, launches, bodies
 
 
 # ----------------------------------------------------------------------
@@ -2197,7 +2288,7 @@ def main() -> None:
     phase_small(fp8=False)
     phase_small(fp8=True)
     mm_results, mm_launches, mm_bodies = phase_matmul()
-    dd_results, dd_launches = phase_dpx_dsm()
+    dd_results, dd_launches, dd_bodies = phase_dpx_dsm()
     flash_results, flash_launches, flash_bodies = phase_training()
     line = []
     for name, line_no in (("paged_decode", 163), ("paged_chunk", 252),
@@ -2238,7 +2329,7 @@ def main() -> None:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     for name, source, replaces, case in (
             ("tropical_matmul", "dpx.cu", "kernels/dpx_kernel.py:48",
-             f"{TROPICAL_FULL}/32x32x32"),
+             f"{TROPICAL_FULL}/tma"),
             ("smith_waterman", "dpx.cu", "kernels/dpx_kernel.py:133",
              "x".join(map(str, SW_BATCH))),
             ("dpx_fused", "dpx.cu", "core/dpx.py:107",
@@ -2254,6 +2345,8 @@ def main() -> None:
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/{replaces}",
             "launches": dd_launches[name],
+            **({"launches_by_body": dd_bodies[name]} if name in dd_bodies
+               else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -103,12 +103,15 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "dpx_fused_fwd": (_I, _I, _P, _P, _P, _P, _L, _P),
         # bm, bn, bk
         "tropical_smem_bytes": (_I, _I, _I),
-        # a, b, c, M, N, K, bm, bn, bk, stream
-        "tropical_matmul_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-        # la, lb
-        "smith_waterman_smem_bytes": (_I, _I),
-        # seq_a, seq_b, out, B, la, lb, match, mismatch, gap, stream
-        "smith_waterman_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # a, b, c, M, N, K, bm, bn, bk, body, stream
+        "tropical_matmul_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _P),
+        # warps
+        "smith_waterman_smem_bytes": (_I,),
+        # rows' seq, columns' seq, out, edge, B, rows, cols, S, warps,
+        # pairs, match, mismatch, gap, stream
+        "smith_waterman_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P),
     },
     "dsm.cu": {
         # x, out, cluster size, shard length, hops, ilp, stream

@@ -18,38 +18,66 @@
 //
 // tropical_matmul_fwd: int32 C[i,j] = max(INT_MIN, max_k(A[i,k]+B[k,j]))
 //   with INT_MIN = iinfo(int32).min // 2 (dpx_kernel.py:27), the sums
-//   wrapping in int32 as JAX's do.  One block of 256 threads per
-//   (bm, bn) output tile; the TPU kernel carries its accumulator across
-//   a sequential K grid axis, here K is a loop inside the block, walked
-//   in bk slices staged in shared memory.  A block holds at most a
-//   64 x 64 sub-tile of accumulators in registers (16 a thread) and
-//   walks a larger tile sub-tile by sub-tile.  Inner step:
-//   acc = __viaddmax_s32(a, b, acc).  Bound by operations (one DPX
-//   instruction per (i, j, k)); this simple kernel reads two shared
-//   words per 1-4 instructions, so shared-memory loads, not the DPX
-//   rate, limit it.
+//   wrapping in int32 as JAX's do.  Bound by operations: one DPX
+//   instruction (acc = __viaddmax_s32(a, b, acc)) per (i, j, k), at the
+//   int32 rate of 64 lanes an SM a clock.  The TPU kernel carries its
+//   accumulator across a sequential K grid axis; here K is a loop inside
+//   the block.  Two bodies, which the caller names (the rule is
+//   kernels/dpx_kernel.py `body`):
+//   * tma: fma_pipe.cuh's ring on MaxPlusOp.  One block per 128 x 128
+//     output tile, a producer warp's TMA loads of 32-deep K slices into
+//     a four-stage mbarrier ring, and 256 consumer threads of 8 x 8
+//     accumulators reading A and B as 16-byte shared loads (16 LDS.128
+//     per 256 DPX instructions, half the shared-memory bandwidth at the
+//     DPX rate).  TMA fills past the edge with zeros, which is not
+//     neutral for (max,+) past K, so it runs only where 32 divides K;
+//     rows and columns past M and N are never stored.  The caller's
+//     tiles do not shape it.
+//   * staged (any other operands): one block of 256 threads per (bm, bn)
+//     tile, K walked in bk slices copied element by element into shared
+//     memory; a block holds at most a 64 x 64 sub-tile of accumulators
+//     in registers (16 a thread) and walks a larger tile sub-tile by
+//     sub-tile.  Shared-memory loads, not the DPX rate, limit it (two
+//     scalar loads per 1-4 DPX instructions).
 //
-// smith_waterman_fwd: best local-alignment score per pair.  One block
-//   per pair; both sequences staged in shared memory and the
-//   substitution score computed on the fly (the TPU kernel reads
-//   host-packed [D, 2, width] lanes instead).  The two previous
-//   anti-diagonals and the current one rotate through three
-//   shared-memory rows, one barrier per diagonal; threads stride over
-//   the columns j of a diagonal, so any length works.  Each diagonal
-//   writes its valid cells and the one cell past each end (0, as
-//   `valid` makes them at dpx_kernel.py:96), which is every cell the
-//   next two diagonals read.  Recurrence:
-//   H = __viaddmax_s32_relu(diag, s, __viaddmax_s32(up, gap, left + gap))
-//     = max(diag + s, up + gap, left + gap, 0).
-//   A block max reduction gives the score.  Bound by the per-diagonal
-//   barrier at these lengths: a diagonal holds at most min(La, Lb) + 2
-//   cells for up to 1024 threads.
+// smith_waterman_fwd: best local-alignment score per pair, linear gap:
+//   H[i][j] = max(H[i-1][j-1] + s, H[i-1][j] + gap, H[i][j-1] + gap, 0),
+//   H = 0 on row and column 0, s = match where the symbols are equal,
+//   else mismatch (symbols are any int32 values); the score is the
+//   largest H.  The TPU kernel walks anti-diagonals, one grid step each,
+//   over host-packed substitution lanes.  Here a warp computes a band of
+//   32 S columns, S a lane, in registers: at step t lane l computes row
+//   i = t - l of its columns, and lane l - 1 hands it by __shfl_up_sync
+//   the left neighbour H[i][j0-1] (its last column, computed one step
+//   earlier), the diagonal H[i-1][j0-1] (what it handed one step
+//   earlier) and the row's symbol.  A cell is two DPX instructions:
+//     e = __viaddmax_s32_relu(diag, s, up + gap) = max(diag+s, up+gap, 0)
+//     H = __viaddmax_s32(left, gap, e)           = max(left + gap, e),
+//   the same four terms as the plain version's, so equal bit for bit
+//   (sums wrap in int32); only the second is on the chain along the row.
+//   No block barrier runs inside the row loop.  A band's right edge (one
+//   int32 a row) goes to the next band through a scratch tensor the
+//   caller allocates; the warps of a pair's block take its bands in
+//   turn (band k on warp k % warps), and a warp publishes its rows in
+//   shared memory every 32 rows, so band k + 1 trails band k by about
+//   64 rows.  Shared memory does not grow with the lengths.  The caller
+//   passes the longer sequence as the rows (the score is symmetric) and
+//   the plan (S, warps, pairs a block; kernels/dpx_kernel.py
+//   `smith_waterman_plan`).  Bound by operations: about six int32
+//   instructions a cell (the compare and select of s, an add, two DPX
+//   instructions, a running max), all on the integer pipe (16 lanes a
+//   clock a quarter SM).  Steps run in chunks of 32, unrolled by 8: a
+//   chunk loads 32 rows' symbols (and the left edge) one a lane, so the
+//   per-step work besides the cells is three or four shuffles and the
+//   row test, not a chunk test and index arithmetic on every step.
 //
 // Entry points return the CUDA error of the launch (0 = launched).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "fma_pipe.cuh"
 
 namespace {
 
@@ -175,6 +203,12 @@ int launch_fused(int dtype, const void* a, const void* b, const void* c,
 // tropical (max, +) product
 // ---------------------------------------------------------------------
 
+enum TropicalBody { kTropTma = 0, kTropStaged = 1 };
+// the tma body's tile: 128 x 128 outputs, 32-deep K slices, four stages
+constexpr int kTropTile = 128, kTropBk = 32, kTropStages = 4;
+
+// the staged body's shared memory: a bk-deep slice of A (rows padded by
+// one word) and of B for one sub-tile of at most kSub x kSub
 int tropical_smem(int bm, int bn, int bk) {
   const int sm = bm < kSub ? bm : kSub, sn = bn < kSub ? bn : kSub;
   return 4 * bk * ((sm + 1) + sn);
@@ -259,65 +293,139 @@ int launch_tropical(dim3 grid, int smem, cudaStream_t stream, const int* a,
 }
 
 // ---------------------------------------------------------------------
-// Smith-Waterman wavefront
+// Smith-Waterman: a register wavefront in warps
 // ---------------------------------------------------------------------
 
-int sw_smem(int la, int lb) { return 4 * (la + lb + 3 * (lb + 1) + 32); }
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSwMaxWarps = 16;
 
-int sw_threads(int la, int lb) {
-  int cells = (la + 2 < lb + 1) ? la + 2 : lb + 1;   // widest diagonal
-  int t = (cells + 31) / 32 * 32;
-  return t > 1024 ? 1024 : t;
-}
+// Dynamic shared memory of a pair's block of `warps` warps: the rows
+// each warp has published (8 bytes) and its best score (4 bytes); none
+// when a warp holds a whole pair.
+int sw_smem(int warps) { return warps > 1 ? 12 * warps : 0; }
 
-__global__ void sw_kernel(const int* __restrict__ seq_a,
-                          const int* __restrict__ seq_b,
-                          int* __restrict__ out, int la, int lb, int match,
-                          int mismatch, int gap) {
-  extern __shared__ int smem[];
-  int* sa = smem;                            // [la]
-  int* sb = sa + la;                         // [lb]
-  int* rows3 = sb + lb;                      // 3 x [lb + 1] diagonals
-  int* red = rows3 + 3 * (lb + 1);           // [32] warp maxima
-  const size_t pair = blockIdx.x;
-  for (int t = threadIdx.x; t < la; t += blockDim.x)
-    sa[t] = seq_a[pair * la + t];
-  for (int t = threadIdx.x; t < lb; t += blockDim.x)
-    sb[t] = seq_b[pair * lb + t];
-  for (int t = threadIdx.x; t < 3 * (lb + 1); t += blockDim.x) rows3[t] = 0;
-  __syncthreads();
-  int* h2 = rows3;                           // diagonal d - 2, by column
-  int* h1 = rows3 + (lb + 1);                // diagonal d - 1
-  int* cur = rows3 + 2 * (lb + 1);           // diagonal d
-  int best = 0;
-  for (int d = 1; d <= la + lb; ++d) {
-    const int lo = max(0, d - la - 1), hi = min(lb, d);
-    for (int j = lo + threadIdx.x; j <= hi; j += blockDim.x) {
-      const int i = d - j;
-      int h = 0;
-      if (j >= 1 && i >= 1 && i <= la) {
-        const int s = sa[i - 1] == sb[j - 1] ? match : mismatch;
-        h = __viaddmax_s32_relu(h2[j - 1], s,
-                                __viaddmax_s32(h1[j], gap, h1[j - 1] + gap));
-        best = max(best, h);
-      }
-      cur[j] = h;
-    }
-    __syncthreads();                         // diagonal d is complete
-    int* t = h2;
-    h2 = h1;
-    h1 = cur;
-    cur = t;
+// A block runs `pairs` pairs of one band each (warps == 1), or one pair
+// whose bands its `warps` warps take in turn.  rseq [B, rows] holds the
+// rows' symbols, cseq [B, cols] the columns'; edge [B, bands - 1, rows]
+// the right edge of every band but the last.
+template <int S>
+__global__ void __launch_bounds__(kSwMaxWarps * 32)
+    sw_band_kernel(const int* __restrict__ rseq,
+                   const int* __restrict__ cseq, int* __restrict__ out,
+                   int* __restrict__ edge, int B, int rows, int cols,
+                   int warps, int pairs, int match, int mismatch, int gap) {
+  extern __shared__ long long sw_shared[];
+  long long* prog = sw_shared;                        // [warps]
+  int* red = reinterpret_cast<int*>(prog + warps);    // [warps]
+  constexpr int W = 32 * S;
+  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
+  const int w = wid % warps;
+  const long long pair = static_cast<long long>(blockIdx.x) * pairs +
+                         wid / warps;
+  const int bands = (cols + W - 1) / W;
+  const long long span = rows + 1LL;       // prog = band * span + rows done
+  if (warps > 1) {                         // then pairs == 1: no early exit
+    if (lane == 0) prog[w] = -1;
+    __syncthreads();
   }
-  best = __reduce_max_sync(0xffffffffu, best);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) red[warp] = best;
+  if (pair >= B) return;
+  const int* A = rseq + pair * rows;
+  const int* Bs = cseq + pair * cols;
+  int* E = edge + pair * (bands - 1) * static_cast<long long>(rows);
+  int best = 0;
+  for (int k = w; k < bands; k += warps) {
+    const int c0 = k * W + lane * S;
+    const int nv = min(max(cols - c0, 0), S);    // this lane's columns
+    int sym[S], h[S], top[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      sym[s] = s < nv ? Bs[c0 + s] : 0;
+      h[s] = 0;                                  // row 0
+      top[s] = 0;                                // best H of the column
+    }
+    const bool feeds = k < bands - 1;
+    const int* e_in = E + (k - 1) * static_cast<long long>(rows);
+    int* e_out = E + k * static_cast<long long>(rows);
+    const bool edge_lane = feeds && lane == 31;
+    int a_next = lane < rows ? A[lane] : 0;
+    int e_chunk = 0, a_cur = 0, left_prev = 0;
+    // 32 steps a chunk: at step t = base + 1 + r lane l computes row
+    // i = t - l; lane 0 takes row t's symbol (and, past band 0, the
+    // left edge) from the chunk's registers, lane r holding row base + r
+    for (int base = 0; base < rows + 31; base += 32) {
+      const int a_chunk = a_next;
+      a_next = base + 32 + lane < rows ? A[base + 32 + lane] : 0;
+      if (k > 0 && base < rows) {
+        // band k - 1's edge for these rows, once its warp published them
+        const long long need = (k - 1) * span + min(base + 32, rows);
+        const volatile long long* p = prog + (k - 1) % warps;
+        while (*p < need) {
+        }
+        __threadfence_block();
+        e_chunk = base + lane < rows ? __ldcg(e_in + base + lane) : 0;
+      }
+      const int n = min(32, rows + 31 - base);
+#pragma unroll 8
+      for (int r = 0; r < n; ++r) {
+        const int left_up = __shfl_up_sync(kFull, h[S - 1], 1);
+        const int a_up = __shfl_up_sync(kFull, a_cur, 1);
+        const int a0 = __shfl_sync(kFull, a_chunk, r);
+        const int left0 = k > 0 ? __shfl_sync(kFull, e_chunk, r) : 0;
+        const int left = lane == 0 ? left0 : left_up;  // H[i][j0 - 1]
+        a_cur = lane == 0 ? a0 : a_up;                 // a[i - 1]
+        int diag = left_prev;                          // H[i - 1][j0 - 1]
+        left_prev = left;
+        const int i = base + 1 + r - lane;
+        if (static_cast<unsigned>(i - 1) < static_cast<unsigned>(rows)) {
+          int hl = left;                               // H[i][j - 1]
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            const int up = h[s];
+            const int sc = a_cur == sym[s] ? match : mismatch;
+            const int e = __viaddmax_s32_relu(diag, sc, up + gap);
+            hl = __viaddmax_s32(hl, gap, e);
+            top[s] = max(top[s], hl);
+            diag = up;
+            h[s] = hl;
+          }
+          if (edge_lane) {
+            e_out[i - 1] = hl;
+            if (i % 32 == 0 || i == rows) {
+              __threadfence_block();
+              *reinterpret_cast<volatile long long*>(prog + w) =
+                  k * span + i;
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      if (s < nv) best = max(best, top[s]);
+  }
+  best = __reduce_max_sync(kFull, best);
+  if (warps == 1) {
+    if (lane == 0) out[pair] = best;
+    return;
+  }
+  if (lane == 0) red[w] = best;
   __syncthreads();
-  if (warp == 0) {
-    int v = lane < static_cast<int>(blockDim.x / 32) ? red[lane] : 0;
-    v = __reduce_max_sync(0xffffffffu, v);
+  if (wid == 0) {
+    int v = lane < warps ? red[lane] : 0;
+    v = __reduce_max_sync(kFull, v);
     if (lane == 0) out[pair] = v;
   }
+}
+
+template <int S>
+int launch_sw(const int* rseq, const int* cseq, int* out, int* edge, int B,
+              int rows, int cols, int warps, int pairs, int match,
+              int mismatch, int gap, cudaStream_t stream) {
+  const int grid = (B + pairs - 1) / pairs;
+  sw_band_kernel<S><<<grid, 32 * warps * pairs, sw_smem(warps), stream>>>(
+      rseq, cseq, out, edge, B, rows, cols, warps, pairs, match, mismatch,
+      gap);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -343,26 +451,38 @@ int dpx_fused_fwd(int f, int dtype, const void* a, const void* b,
   return cudaErrorInvalidValue;
 }
 
-// Bytes of dynamic shared memory one tropical block stages.
+// Bytes of dynamic shared memory one staged tropical block stages.
 int tropical_smem_bytes(int bm, int bn, int bk) {
   return tropical_smem(bm, bn, bk);
 }
 
-// int32 [M,K] (max,+) [K,N] -> int32 [M,N]; tiles divide the problem.
+// int32 [M,K] (max,+) [K,N] -> int32 [M,N] on `body` (0 tma, 1 staged).
+// tma: 32 divides K, N % 4 == 0, A and B start on 16 bytes; staged:
+// (bm, bn, bk) divide the problem and their staging fits.
 int tropical_matmul_fwd(const void* a, const void* b, void* c, int M, int N,
-                        int K, int bm, int bn, int bk, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || bm <= 0 || bn <= 0 || bk <= 0 ||
-      M % bm || N % bn || K % bk || M / bm > 65535)
+                        int K, int bm, int bn, int bk, int body,
+                        void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* pa = static_cast<const int*>(a);
+  const auto* pb = static_cast<const int*>(b);
+  auto* pc = static_cast<int*>(c);
+  if (body == kTropTma) {
+    const bool aligned = !(reinterpret_cast<uintptr_t>(a) % 16) &&
+                         !(reinterpret_cast<uintptr_t>(b) % 16);
+    if (K % kTropBk || !fpipe::tma_ready(N, K, kTropTile, aligned))
+      return cudaErrorInvalidValue;
+    return fpipe::launch<kTropTile, kTropTile, ftile::MaxPlusOp>(
+        pa, pb, pc, M, N, K, kTropBk, kTropStages, s);
+  }
+  if (body != kTropStaged || bm <= 0 || bn <= 0 || bk <= 0 || M % bm ||
+      N % bn || K % bk || M / bm > 65535)
     return cudaErrorInvalidValue;
   const int smem = tropical_smem(bm, bn, bk);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   const int sm = bm < kSub ? bm : kSub, sn = bn < kSub ? bn : kSub;
   const int edge = sm > sn ? sm : sn;
   dim3 grid(N / bn, M / bm);
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto* pa = static_cast<const int*>(a);
-  const auto* pb = static_cast<const int*>(b);
-  auto* pc = static_cast<int*>(c);
   if (edge <= 16)
     return launch_tropical<1>(grid, smem, s, pa, pb, pc, N, K, bm, bn, bk);
   if (edge <= 32)
@@ -370,25 +490,42 @@ int tropical_matmul_fwd(const void* a, const void* b, void* c, int M, int N,
   return launch_tropical<4>(grid, smem, s, pa, pb, pc, N, K, bm, bn, bk);
 }
 
-// Bytes of dynamic shared memory one Smith-Waterman block uses.
-int smith_waterman_smem_bytes(int la, int lb) { return sw_smem(la, lb); }
+// Bytes of dynamic shared memory a Smith-Waterman block of `warps`
+// warps uses.
+int smith_waterman_smem_bytes(int warps) { return sw_smem(warps); }
 
-// int32 seq_a [B,La], seq_b [B,Lb] -> int32 best score [B].
-int smith_waterman_fwd(const void* seq_a, const void* seq_b, void* out,
-                       int B, int la, int lb, int match, int mismatch,
+// int32 rseq [B,rows], cseq [B,cols] -> int32 best score [B], on the plan
+// (S columns a lane; `warps` warps a pair, or `pairs` pairs of one warp
+// a block); edge: int32 [B, bands - 1, rows] scratch (unused with one
+// band).
+int smith_waterman_fwd(const void* rseq, const void* cseq, void* out,
+                       void* edge, int B, int rows, int cols, int S,
+                       int warps, int pairs, int match, int mismatch,
                        int gap, void* stream) {
-  if (B <= 0 || la <= 0 || lb <= 0) return cudaErrorInvalidValue;
-  const int smem = sw_smem(la, lb);
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        sw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
+  if (B <= 0 || rows <= 0 || cols <= 0 ||
+      (S != 1 && S != 2 && S != 4 && S != 8) || warps < 1 ||
+      pairs < 1 || (warps > 1 && pairs > 1) || warps * pairs > kSwMaxWarps)
+    return cudaErrorInvalidValue;
+  // several bands need their hand-off: two warps or more, and the edge
+  const int bands = (cols + 32 * S - 1) / (32 * S);
+  if (bands > 1 && (warps < 2 || edge == nullptr))
+    return cudaErrorInvalidValue;
+  const auto* r = static_cast<const int*>(rseq);
+  const auto* c = static_cast<const int*>(cseq);
+  auto* o = static_cast<int*>(out);
+  auto* e = static_cast<int*>(edge);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (S) {
+    case 1: return launch_sw<1>(r, c, o, e, B, rows, cols, warps, pairs,
+                                match, mismatch, gap, st);
+    case 2: return launch_sw<2>(r, c, o, e, B, rows, cols, warps, pairs,
+                                match, mismatch, gap, st);
+    case 4: return launch_sw<4>(r, c, o, e, B, rows, cols, warps, pairs,
+                                match, mismatch, gap, st);
+    case 8: return launch_sw<8>(r, c, o, e, B, rows, cols, warps, pairs,
+                                match, mismatch, gap, st);
   }
-  sw_kernel<<<B, sw_threads(la, lb), smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(seq_a), static_cast<const int*>(seq_b),
-      static_cast<int*>(out), la, lb, match, mismatch, gap);
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

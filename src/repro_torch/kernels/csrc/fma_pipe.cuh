@@ -1,6 +1,8 @@
-// A TMA + mbarrier ring over the register-blocked float32 tile of
-// fma_tile.cuh: the tma body of async_pipeline.cu (pipelined_matmul)
-// and the fma_tma body of matmul.cu (matmul's float32 products).
+// A TMA + mbarrier ring over the register-blocked tile of fma_tile.cuh:
+// the tma body of async_pipeline.cu (pipelined_matmul) and the fma_tma
+// body of matmul.cu (matmul's float32 products), on FmaOp; the tma body
+// of dpx.cu's tropical_matmul, on MaxPlusOp (int32 operands through the
+// same 4-byte tensor maps: TMA copies bits).
 //
 // One block per (BM, BN) output tile, BM and BN each 16, 32, 64 or 128;
 // grid (M/BM, N/BN), M tiles fastest so a wave of blocks shares B's
@@ -11,7 +13,9 @@
 // each slice.  A ring of `stages` buffers with a `full` mbarrier (armed
 // with the slice's bytes, completed by TMA) and an `empty` mbarrier
 // (every consumer thread arrives once it has read the buffer) per
-// buffer.  Loads past the edge fill zeros (ragged M, N, K exact).
+// buffer.  Loads past the edge fill zeros (ragged M, N, K exact for
+// FmaOp; for MaxPlusOp a zero past K is not neutral, so its caller runs
+// the ring only where bk divides K).
 //
 // K groups: a tile of one warp (16 x 16) or an 8 x 8 tile of two warps
 // (64 x 64) runs two copies of itself, each over half of every stage's
@@ -66,21 +70,22 @@ __host__ __device__ inline int smem_bytes(int bm, int bn, int bk,
   return kSlack + (ring > red ? ring : red);
 }
 
-template <int BM, int BN>
+template <int BM, int BN, class Op = ftile::FmaOp>
 struct Pipe {
-  using Tile = ftile::Tile<BM, BN>;
+  using Tile = ftile::Tile<BM, BN, Op>;
   static_assert(Tile::kThreads == tile_threads(BM, BN), "tile threads");
   static constexpr int KG = k_groups(BM, BN);
   static constexpr int kConsumers = KG * Tile::kThreads;
   static constexpr int kThreads = kConsumers + 32;   // + a producer warp
 };
 
-template <int BM, int BN>
-__global__ void __launch_bounds__(Pipe<BM, BN>::kThreads)
+template <int BM, int BN, class Op = ftile::FmaOp>
+__global__ void __launch_bounds__(Pipe<BM, BN, Op>::kThreads)
     tma_pipelined_kernel(const __grid_constant__ CUtensorMap map_a,
-                         const __grid_constant__ CUtensorMap map_b, float* C,
-                         int M, int N, int K, int bk, int stages, int vec) {
-  using P = Pipe<BM, BN>;
+                         const __grid_constant__ CUtensorMap map_b,
+                         typename Op::T* C, int M, int N, int K, int bk,
+                         int stages, int vec) {
+  using P = Pipe<BM, BN, Op>;
   using Tile = typename P::Tile;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - tma::smem_u32(smem_raw) % 1024)
@@ -135,9 +140,9 @@ __global__ void __launch_bounds__(Pipe<BM, BN>::kThreads)
     tma::mbar_arrive(empty + 8 * s);
   }
   if constexpr (P::KG > 1) {
-    // every load has landed and every stage is read: add the halves
+    // every load has landed and every stage is read: join the halves
     // through the ring's memory
-    float* red = reinterpret_cast<float*>(base);
+    auto* red = reinterpret_cast<typename Op::T*>(base);
     tma::bar_sync(1, P::kConsumers);
     if (grp == 1) ft.spill(red, t);
     tma::bar_sync(1, P::kConsumers);
@@ -148,16 +153,17 @@ __global__ void __launch_bounds__(Pipe<BM, BN>::kThreads)
            vec != 0);
 }
 
-template <int BM, int BN>
-cudaError_t launch(const float* a, const float* b, float* c, int M, int N,
-                   int K, int bk, int stages, cudaStream_t stream) {
+template <int BM, int BN, class Op = ftile::FmaOp>
+cudaError_t launch(const typename Op::T* a, const typename Op::T* b,
+                   typename Op::T* c, int M, int N, int K, int bk,
+                   int stages, cudaStream_t stream) {
   CUtensorMap ma, mb;
   cudaError_t err =
       tma::make_map(&ma, a, 4, M, K, BM, ftile::box_vals(bk));
   if (err != cudaSuccess) return err;
   err = tma::make_map(&mb, b, 4, K, N, bk, ftile::box_vals(BN));
   if (err != cudaSuccess) return err;
-  auto kernel = tma_pipelined_kernel<BM, BN>;
+  auto kernel = tma_pipelined_kernel<BM, BN, Op>;
   const int smem = smem_bytes(BM, BN, bk, stages);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -165,7 +171,7 @@ cudaError_t launch(const float* a, const float* b, float* c, int M, int N,
   if (err != cudaSuccess) return err;
   const int vec = !(N % 4) && !(reinterpret_cast<uintptr_t>(c) % 16);
   dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  kernel<<<grid, Pipe<BM, BN>::kThreads, smem, stream>>>(
+  kernel<<<grid, Pipe<BM, BN, Op>::kThreads, smem, stream>>>(
       ma, mb, c, M, N, K, bk, stages, vec);
   return cudaGetLastError();
 }

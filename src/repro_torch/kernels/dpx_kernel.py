@@ -7,27 +7,53 @@ hardware path of the fused DPX family of ``core/dpx.py``:
 
   * tropical_matmul — int32 C[i,j] = max(INT_MIN, max_k(A[i,k]+B[k,j])),
     INT_MIN = iinfo(int32).min // 2 (the TPU kernel's accumulator
-    start), sums wrapping in int32; one block per (bm, bn) tile, K in bk
-    slices through shared memory, inner step ``__viaddmax_s32``.
+    start), sums wrapping in int32, inner step ``__viaddmax_s32``.  Two
+    bodies, chosen by the rule ``body(M, N, K, aligned)`` from the
+    shapes alone and passed to the launch:
+
+    - ``"tma"`` — 32 divides K, N % 4 == 0 and both operands start on
+      16 bytes: ``csrc/fma_pipe.cuh``'s TMA + mbarrier ring over the
+      register-blocked tile of ``csrc/fma_tile.cuh`` on int32 (128 x 128
+      outputs a block, 8 x 8 a thread, 32-deep K slices, four stages).
+      TMA fills zeros past an edge, which is harmless past M and N (never
+      stored) but not past K (0 + 0 beats a negative maximum), hence
+      the rule on K.  The caller's (bm, bn, bk) do not shape it.
+    - ``"staged"`` — any other operands: one block per (bm, bn) tile, K
+      in bk slices copied element by element into shared memory.
+
+    The caller's tiles keep the reference's contract on either body:
+    they divide the problem, and their staging fits a block's shared
+    memory.
   * smith_waterman — best local-alignment score per pair of int32
-    sequences [B, La], [B, Lb]; one block per pair, anti-diagonal
-    wavefront through ``__viaddmax_s32_relu``.
+    sequences [B, La], [B, Lb], linear gap; a register wavefront in
+    warps, 32 S columns a warp (S a lane), one row a step, neighbours
+    handed on by ``__shfl_up_sync``, two DPX instructions a cell.  The
+    plan ``smith_waterman_plan(La, Lb)`` takes the longer sequence as
+    the rows (the score is symmetric) and bands across the shorter one,
+    and names the body: ``"warp"`` (one band: a warp a pair, four pairs
+    a block) or ``"bands"`` (a block a pair, its warps taking the bands
+    in turn, each band's right edge handed to the next through a
+    scratch tensor allocated here).  Shared memory does not grow with
+    the lengths, so any pair runs.
   * dpx_fused — one elementwise kernel per call for viaddmax, viaddmin,
     viaddmax_relu, vimax3, vimax3_relu on int32, or int16 through the
     ``_s16x2`` forms on packed pairs.
 
 For CUDA tensors a wrapper checks its operands, allocates the output,
 launches the kernel on the current stream, raises if the launch failed
-and adds one to its ``launches`` count.  For CPU tensors it computes the
-plain version (``*_plain``).  It never falls back from CUDA to the plain
-version.  The results are integers: kernel and plain version agree
-exactly.
+and adds one to its ``launches`` count (``tropical_matmul`` and
+``smith_waterman`` also to ``launches_by_body[body]``).  For CPU tensors
+it computes the plain version (``*_plain``).  It never falls back from
+CUDA to the plain version, nor from one body to another.  The results
+are integers: kernel and plain version agree exactly.
 
 This module imports nothing of ``core/dpx.py`` (which calls
 ``dpx_fused``): the plain versions are written out here.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +63,12 @@ from repro_torch.kernels import matmul as _mm
 SOURCE = "dpx.cu"
 INT_MIN = -(2 ** 31) // 2           # iinfo(int32).min // 2
 SUB = 64                            # largest sub-tile edge of a block
+TROPICAL_BODIES = ("tma", "staged")   # the source's codes 0, 1
+TMA_TILE = 128                      # the tma body's output tile edge
+TMA_BK = 32                         # ... and its K slice
+SW_BODIES = ("warp", "bands")
+SW_MAX_WARPS = 16                   # bands in flight a pair
+SW_PAIRS = 4                        # pairs a block on the warp body
 FUNCTIONS = ("viaddmax", "viaddmin", "viaddmax_relu", "vimax3",
              "vimax3_relu")
 _FN_ID = {name: i for i, name in enumerate(FUNCTIONS)}
@@ -118,15 +150,53 @@ def smith_waterman_plain(seq_a: torch.Tensor, seq_b: torch.Tensor, *,
 # ----------------------------------------------------------------------
 
 def tropical_smem_bytes(bm: int, bn: int, bk: int) -> int:
-    """`tropical_smem_bytes` of the source: a bk-deep slice of A (rows
-    padded by one word) and of B for one sub-tile of at most SUB x SUB."""
+    """`tropical_smem_bytes` of the source: the staged body's bk-deep
+    slice of A (rows padded by one word) and of B for one sub-tile of at
+    most SUB x SUB."""
     return 4 * bk * (min(bm, SUB) + 1 + min(bn, SUB))
 
 
-def smith_waterman_smem_bytes(la: int, lb: int) -> int:
-    """`smith_waterman_smem_bytes` of the source: both sequences, three
-    diagonals of Lb + 1 cells, 32 warp maxima."""
-    return 4 * (la + lb + 3 * (lb + 1) + 32)
+def body(M: int, N: int, K: int, aligned: bool = True) -> str:
+    """The body tropical_matmul runs: "tma" where TMA_BK divides K and
+    TMA can read both operands (16-byte-aligned bases, N a multiple of
+    4, at most 65535 column tiles), else "staged".  `aligned`: both
+    operands start on 16 bytes."""
+    if (aligned and K % TMA_BK == 0 and N % 4 == 0
+            and -(-N // TMA_TILE) <= 65535):
+        return "tma"
+    return "staged"
+
+
+class SwPlan(NamedTuple):
+    """How smith_waterman lays a batch of pairs out on the card."""
+    body: str        # "warp" or "bands"
+    swap: bool       # seq_b gives the rows (it is the longer one)
+    rows: int        # the longer length: one step a row
+    cols: int        # the shorter length, banded
+    S: int           # columns a lane: a band is 32 S columns
+    bands: int
+    warps: int       # warps a pair
+    pairs: int       # pairs a block
+    smem_bytes: int  # dynamic shared memory a block
+    scratch: int     # int32 band edges a pair: (bands - 1) x rows
+
+
+def smith_waterman_plan(la: int, lb: int) -> SwPlan:
+    """The plan of a [B, La] x [B, Lb] batch (the only copy of the rule;
+    the wrapper passes it to the launch): rows = the longer sequence;
+    S the least of 1, 2, 4, 8 whose band covers the shorter one, else 8
+    and several bands; a warp a pair, SW_PAIRS a block, when one band
+    covers it, else a block a pair of min(bands, SW_MAX_WARPS) warps,
+    which the source's `smith_waterman_smem_bytes` sizes."""
+    swap = lb > la
+    rows, cols = (lb, la) if swap else (la, lb)
+    S = next((s for s in (1, 2, 4) if 32 * s >= cols), 8)
+    bands = -(-cols // (32 * S))
+    warps = min(bands, SW_MAX_WARPS)
+    one = bands == 1
+    return SwPlan("warp" if one else "bands", swap, rows, cols, S, bands,
+                  warps, SW_PAIRS if one else 1,
+                  0 if warps == 1 else 12 * warps, (bands - 1) * rows)
 
 
 def dpx_fused(name: str, a: torch.Tensor, b: torch.Tensor,
@@ -162,7 +232,8 @@ def dpx_fused(name: str, a: torch.Tensor, b: torch.Tensor,
 def tropical_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 32,
                     bn: int = 32, bk: int = 32) -> torch.Tensor:
     """(max,+) matrix product of int32 [M,K] and [K,N] with (bm, bn, bk)
-    tiles that divide the problem, as the TPU kernel requires."""
+    tiles that divide the problem, as the TPU kernel requires, on the
+    body `body` names (the tiles shape only the staged body's launch)."""
     M, N, K = _mm.check_operands("tropical_matmul", a, b, (torch.int32,))
     if min(bm, bn, bk) < 1 or M % bm or N % bn or K % bk:
         raise ValueError(f"tropical_matmul: tiles {(bm, bn, bk)} do not "
@@ -171,10 +242,13 @@ def tropical_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 32,
                    str((bm, bn, bk)))
     if a.device.type == "cpu":
         return tropical_matmul_plain(a, b)
+    name = body(M, N, K, _mm.aligned(a, b, False))
     out = torch.empty((M, N), dtype=torch.int32, device=a.device)
     build.launch(SOURCE, "tropical_matmul_fwd", a.device, a.data_ptr(),
-                 b.data_ptr(), out.data_ptr(), M, N, K, bm, bn, bk)
+                 b.data_ptr(), out.data_ptr(), M, N, K, bm, bn, bk,
+                 TROPICAL_BODIES.index(name))
     tropical_matmul.launches += 1
+    tropical_matmul.launches_by_body[name] += 1
     return out
 
 
@@ -198,16 +272,20 @@ def smith_waterman(seq_a: torch.Tensor, seq_b: torch.Tensor, *,
     lb = seq_b.shape[1]
     if min(B, la, lb) < 1:
         raise ValueError("smith_waterman: empty batch or sequence")
-    _mm.check_smem("smith_waterman", smith_waterman_smem_bytes(la, lb),
-                   f"(La={la}, Lb={lb})")
     if seq_a.device.type == "cpu":
         return smith_waterman_plain(seq_a, seq_b, match=match,
                                     mismatch=mismatch, gap=gap)
+    p = smith_waterman_plan(la, lb)
+    rseq, cseq = (seq_b, seq_a) if p.swap else (seq_a, seq_b)
     out = torch.empty(B, dtype=torch.int32, device=seq_a.device)
+    edge = (torch.empty((B, p.scratch), dtype=torch.int32,
+                        device=seq_a.device) if p.scratch else None)
     build.launch(SOURCE, "smith_waterman_fwd", seq_a.device,
-                 seq_a.data_ptr(), seq_b.data_ptr(), out.data_ptr(), B, la,
-                 lb, match, mismatch, gap)
+                 rseq.data_ptr(), cseq.data_ptr(), out.data_ptr(),
+                 edge.data_ptr() if edge is not None else None, B, p.rows,
+                 p.cols, p.S, p.warps, p.pairs, match, mismatch, gap)
     smith_waterman.launches += 1
+    smith_waterman.launches_by_body[p.body] += 1
     return out
 
 
@@ -217,6 +295,8 @@ KERNELS = (tropical_matmul, smith_waterman, dpx_fused)
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    tropical_matmul.launches_by_body = dict.fromkeys(TROPICAL_BODIES, 0)
+    smith_waterman.launches_by_body = dict.fromkeys(SW_BODIES, 0)
 
 
 def launch_counts() -> dict:

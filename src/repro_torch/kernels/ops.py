@@ -152,6 +152,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def tropical_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 0,
                     bn: int = 0, bk: int = 0) -> torch.Tensor:
+    """bm/bn/bk default 0 = auto ``min(32, dim)`` fitted to a divisor.
+    The reference's contract on the tiles is kept (a tile larger than
+    its operand raises here, one that does not divide the problem raises
+    in ``dpx_kernel.tropical_matmul``, and a tile whose staging exceeds
+    a block's shared memory raises there), but on the ``tma`` body
+    (``dpx_kernel.body``: 32 divides K, N % 4 == 0, operands on 16
+    bytes) the tiles do not shape the launch: its 128 x 128 tile and
+    32-deep K slices are fixed.  Only the ``staged`` body launches the
+    given tiles.  The results are integers, exact whatever the tiling."""
     m, n, k = a.shape[0], b.shape[1], a.shape[1]
     _check_tiles("tropical_matmul", bm=(bm, m), bn=(bn, n), bk=(bk, k))
     bm, bn, bk = _fit_tiles(m, n, k, bm or 32, bn or 32, bk or 32)

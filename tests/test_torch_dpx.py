@@ -202,19 +202,87 @@ def test_oversize_tiles_raise_value_error():
     assert torch.equal(ops.tropical_matmul(b, b), torch.zeros_like(b))
 
 
-def test_wrappers_check_their_operands_on_the_cpu():
+def test_wrappers_check_their_operands_on_the_cpu(monkeypatch):
     i32 = torch.zeros((8, 8), dtype=torch.int32)
     with pytest.raises(TypeError):
         dk.tropical_matmul(i32.float(), i32.float())
-    with pytest.raises(ValueError, match="shared memory"):
-        dk.smith_waterman(torch.zeros((1, 30000), dtype=torch.int32),
-                          torch.zeros((1, 30000), dtype=torch.int32))
+    # a 30000 x 30000 pair is taken (no shared-memory cap); the plain
+    # version is stubbed, since its 60000 diagonals take minutes here
+    calls = []
+    monkeypatch.setattr(dk, "smith_waterman_plain", lambda a, b, **kw: (
+        calls.append((tuple(a.shape), tuple(b.shape), kw))
+        or torch.zeros(a.shape[0], dtype=torch.int32)))
+    long = torch.zeros((1, 30000), dtype=torch.int32)
+    assert dk.smith_waterman(long, long).shape == (1,)
+    assert calls == [((1, 30000), (1, 30000),
+                      dict(match=2, mismatch=-1, gap=-1))]
     with pytest.raises(ValueError, match="unknown"):
         dk.dpx_fused("vimin7", i32, i32, i32)
     with pytest.raises(TypeError):
         dk.dpx_fused("viaddmax", i32.long(), i32.long(), i32.long())
     assert dk.launch_counts() == {"tropical_matmul": 0, "smith_waterman": 0,
                                   "dpx_fused": 0}
+    assert dk.tropical_matmul.launches_by_body == {"tma": 0, "staged": 0}
+    assert dk.smith_waterman.launches_by_body == {"warp": 0, "bands": 0}
+
+
+@pytest.mark.parametrize("M,N,K,aligned,want", [
+    (2048, 2048, 2048, True, "tma"),
+    (64, 64, 64, True, "tma"),
+    (136, 100, 64, True, "tma"),         # M, N ragged against 128
+    (64, 96, 32, True, "tma"),
+    (64, 96, 48, True, "staged"),        # 32 does not divide K
+    (8, 8, 8, True, "staged"),
+    (2048, 2048, 2048, False, "staged"),  # an operand off 16 bytes
+    (64, 98, 64, True, "staged"),        # N % 4 != 0
+    (64, 4 * 65536, 64, True, "tma"),    # 2048 column tiles
+])
+def test_tropical_body_rule(M, N, K, aligned, want):
+    """The tma body only where its 32-deep slices divide K (TMA's zero
+    fill is not neutral for (max,+)) and TMA can read the operands."""
+    assert dk.body(M, N, K, aligned) == want
+
+
+@pytest.mark.parametrize("la,lb,S,bands,warps,pairs", [
+    (1, 1, 1, 1, 1, dk.SW_PAIRS),
+    (255, 255, 8, 1, 1, dk.SW_PAIRS),
+    (256, 256, 8, 1, 1, dk.SW_PAIRS),
+    (257, 257, 8, 2, 2, 1),
+    (30000, 30000, 8, 118, dk.SW_MAX_WARPS, 1),
+    (1, 257, 1, 1, 1, dk.SW_PAIRS),      # one column of 257 rows
+    (257, 1, 1, 1, 1, dk.SW_PAIRS),
+    (255, 30000, 8, 1, 1, dk.SW_PAIRS),  # bands across the shorter
+    (30000, 256, 8, 1, 1, dk.SW_PAIRS),
+    (256, 30000, 8, 1, 1, dk.SW_PAIRS),
+    (257, 30000, 8, 2, 2, 1),
+    (40, 64, 2, 1, 1, dk.SW_PAIRS),
+    (1500, 1500, 8, 6, 6, 1),
+])
+def test_smith_waterman_plan(la, lb, S, bands, warps, pairs):
+    """Rows are the longer sequence, bands of 32 S columns across the
+    shorter; one band is a warp a pair, more a block a pair; shared
+    memory does not grow with the lengths; the band edges' scratch."""
+    p = dk.smith_waterman_plan(la, lb)
+    assert (p.rows, p.cols) == (max(la, lb), min(la, lb))
+    assert p.swap == (lb > la)
+    assert (p.S, p.bands, p.warps, p.pairs) == (S, bands, warps, pairs)
+    assert p.bands == -(-p.cols // (32 * p.S))
+    assert p.body == ("warp" if bands == 1 else "bands")
+    assert p.smem_bytes == (0 if warps == 1 else 12 * warps) <= 192
+    assert p.scratch == (bands - 1) * p.rows
+    assert 32 * p.warps * p.pairs <= 1024
+
+
+@pytest.mark.parametrize("la,lb", [(31, 9), (9, 31), (40, 40)])
+def test_smith_waterman_is_symmetric(la, lb):
+    """The score of (a, b) is that of (b, a), which lets the kernel take
+    the longer sequence as its rows."""
+    rng = np.random.default_rng(la * lb)
+    sa = torch.from_numpy(rng.integers(0, 3, (3, la)).astype(np.int32))
+    sb = torch.from_numpy(rng.integers(0, 3, (3, lb)).astype(np.int32))
+    for kw in (dict(), dict(match=1, mismatch=0, gap=1)):
+        assert torch.equal(dk.smith_waterman(sa, sb, **kw),
+                           dk.smith_waterman(sb, sa, **kw))
 
 
 @pytest.mark.parametrize("name", ["dpx_functions", "dpx_kernels"])

@@ -1090,16 +1090,44 @@ def test_dpx_fused_rejects_what_the_kernel_does_not_take(cuda):
     assert dk.dpx_fused.launches == n0
 
 
+def _off16(x):
+    """x copied to an address 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16
+    return y
+
+
+def _counted(fn, kernel, *args, **kwargs):
+    """fn(*args) and the body of the one launch it made."""
+    n0, by0 = kernel.launches, dict(kernel.launches_by_body)
+    got = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    bodies = [k for k, v in kernel.launches_by_body.items() if v != by0[k]]
+    assert len(bodies) == 1 and kernel.launches_by_body[bodies[0]] == \
+        by0[bodies[0]] + 1
+    return got, bodies[0]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,tiles", [
     ((64, 96, 64), (16, 16, 16)), ((64, 96, 64), (32, 32, 32)),
     ((64, 96, 64), (64, 32, 32)), ((64, 96, 64), (32, 96, 64)),
     ((256, 256, 128), (128, 128, 32)), ((256, 256, 128), (64, 64, 32)),
-    ((8, 8, 8), (8, 8, 8)), ((96, 32, 48), (96, 32, 16))])
+    ((8, 8, 8), (8, 8, 8)), ((96, 32, 48), (96, 32, 16)),
+    # M and N off the tma body's 128 x 128 tile
+    ((136, 100, 64), (8, 4, 32)), ((384, 260, 96), (128, 4, 32)),
+    # K not a multiple of its 32-deep slice, N % 4 != 0: staged
+    ((64, 64, 80), (32, 32, 16)), ((32, 30, 64), (32, 30, 32))])
 @pytest.mark.parametrize("values", ["small", "wrap", "floor"])
-def test_tropical_matmul_vs_plain(cuda, shape, tiles, values):
-    """Tiles below, at and above the 64 x 64 sub-tile; sums that wrap in
-    int32 and sums under the INT_MIN floor."""
+@pytest.mark.parametrize("offset", [False, True])
+def test_tropical_matmul_vs_plain(cuda, shape, tiles, values, offset):
+    """Both bodies, each counted where its rule sends the call (A off 16
+    bytes takes the staged body); tiles below, at and above the staged
+    body's 64 x 64 sub-tile; sums that wrap in int32 and sums under the
+    INT_MIN floor."""
     rng = np.random.default_rng(3)
     M, N, K = shape
     lo, hi = {"small": (-50, 50), "wrap": (2 ** 31 - 100, 2 ** 31 - 1),
@@ -1107,11 +1135,14 @@ def test_tropical_matmul_vs_plain(cuda, shape, tiles, values):
     a = torch.from_numpy(rng.integers(lo, hi, (M, K))).to(torch.int32)
     b = torch.from_numpy(rng.integers(lo, hi, (K, N))).to(torch.int32)
     a, b = a.to(cuda), b.to(cuda)
+    if offset:
+        a = _off16(a)
     bm, bn, bk = tiles
-    n0 = dk.tropical_matmul.launches
-    got = dk.tropical_matmul(a, b, bm=bm, bn=bn, bk=bk)
-    torch.cuda.synchronize()
-    assert dk.tropical_matmul.launches == n0 + 1
+    got, body = _counted(dk.tropical_matmul, dk.tropical_matmul, a, b,
+                         bm=bm, bn=bn, bk=bk)
+    assert body == dk.body(M, N, K, not offset)
+    if not offset and K % 32 == 0 and N % 4 == 0:
+        assert body == "tma"
     want = dk.tropical_matmul_plain(a, b)
     assert torch.equal(got, want)
     if values == "floor":
@@ -1121,6 +1152,10 @@ def test_tropical_matmul_vs_plain(cuda, shape, tiles, values):
 
 @pytest.mark.gpu
 def test_tropical_matmul_rejects_and_counts_shared_memory(cuda):
+    """The wrapper refuses tiles the reference refuses (on either body)
+    and staging past a block's shared memory; the source refuses a body
+    its operands do not fit; the shared-memory sizes mirror the
+    source's."""
     a = torch.zeros((64, 64), dtype=torch.int32, device=cuda)
     n0 = dk.tropical_matmul.launches
     with pytest.raises(ValueError, match="divide"):
@@ -1133,54 +1168,112 @@ def test_tropical_matmul_rejects_and_counts_shared_memory(cuda):
     with pytest.raises(TypeError):
         dk.tropical_matmul(a.float(), a.float())
     assert dk.tropical_matmul.launches == n0
+    k48 = torch.zeros((64, 48), dtype=torch.int32, device=cuda)
+    out = torch.empty((64, 64), dtype=torch.int32, device=cuda)
+    tma = dk.TROPICAL_BODIES.index("tma")
+    for x, y, K in ((k48, k48.t().contiguous(), 48),      # 32 does not divide K
+                    (_off16(a), a, 64)):                    # A off 16 bytes
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            build.launch(dk.SOURCE, "tropical_matmul_fwd", cuda,
+                         x.data_ptr(), y.data_ptr(), out.data_ptr(), 64, 64,
+                         K, 16, 16, 16, tma)
     lib = build.load(dk.SOURCE)
     for tiles in [(32, 32, 32), (16, 8, 16), (128, 256, 64), (7, 9, 33)]:
         assert lib.tropical_smem_bytes(*tiles) == dk.tropical_smem_bytes(
             *tiles)
-    for la, lb in [(256, 256), (1500, 1100), (1, 1), (40, 8)]:
-        assert lib.smith_waterman_smem_bytes(la, lb) == \
-            dk.smith_waterman_smem_bytes(la, lb)
+    for la, lb in [(256, 256), (1500, 1100), (1, 1), (40, 8), (257, 300),
+                   (30000, 30000)]:
+        p = dk.smith_waterman_plan(la, lb)
+        assert lib.smith_waterman_smem_bytes(p.warps) == p.smem_bytes
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,la,lb", [(2, 16, 16), (4, 24, 20), (1, 40, 8),
                                      (3, 7, 31), (5, 1, 1), (3, 300, 2),
                                      (2, 1500, 1100), (1, 1100, 1500),
-                                     (64, 256, 256)])
+                                     (64, 256, 256),
+                                     # band edges: Lb of 255, 256, 257,
+                                     # 513; La of 1 and 2
+                                     (3, 300, 255), (3, 300, 256),
+                                     (3, 300, 257), (2, 600, 513),
+                                     (2, 1, 300), (2, 2, 257), (2, 513, 2),
+                                     (1, 1, 513)])
 @pytest.mark.parametrize("scores", [(2, -1, -1), (3, -2, -2), (1, 0, 1)])
 def test_smith_waterman_vs_plain(cuda, B, la, lb, scores):
-    """Any lengths, Lb + 1 > 1024 threads included (threads stride over
-    the columns), non-default scores (a positive gap too)."""
+    """Any lengths, on the body the plan names (one band a warp, or
+    bands handed on through the scratch edge), non-default scores (a
+    positive gap too); the sequences swapped give the same scores."""
     rng = np.random.default_rng(B * la + lb)
     sa = torch.from_numpy(rng.integers(0, 4, (B, la))).to(torch.int32)
     sb = torch.from_numpy(rng.integers(0, 4, (B, lb))).to(torch.int32)
     sa, sb = sa.to(cuda), sb.to(cuda)
     match, mismatch, gap = scores
-    n0 = dk.smith_waterman.launches
-    got = ops.smith_waterman(sa, sb, match=match, mismatch=mismatch, gap=gap)
-    torch.cuda.synchronize()
-    assert dk.smith_waterman.launches == n0 + 1
-    want = dk.smith_waterman_plain(sa, sb, match=match, mismatch=mismatch,
-                                   gap=gap)
+    kw = dict(match=match, mismatch=mismatch, gap=gap)
+    got, body = _counted(ops.smith_waterman, dk.smith_waterman, sa, sb, **kw)
+    assert body == dk.smith_waterman_plan(la, lb).body
+    want = dk.smith_waterman_plain(sa, sb, **kw)
     assert got.dtype == torch.int32 and got.shape == (B,)
     assert torch.equal(got, want)
+    assert torch.equal(dk.smith_waterman(sb, sa, **kw), got)
     if B == 1 and la <= 40:
-        H = core_dpx.smith_waterman(sa[0], sb[0], match=match,
-                                    mismatch=mismatch, gap=gap)
+        H = core_dpx.smith_waterman(sa[0], sb[0], **kw)
         assert int(got[0]) == int(H.max())
 
 
 @pytest.mark.gpu
 def test_smith_waterman_rejects(cuda):
+    """Refused: a batch mismatch, other dtypes.  Taken: a pair past the
+    old shared-memory cap (La + 4 Lb above ~58000)."""
     s = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
     n0 = dk.smith_waterman.launches
     with pytest.raises(ValueError, match="shapes"):
         dk.smith_waterman(s, s[:1])
-    with pytest.raises(ValueError, match="shared memory"):
-        dk.smith_waterman(s, s[:, :1].repeat(1, 20000))
     with pytest.raises(TypeError):
         dk.smith_waterman(s.long(), s.long())
     assert dk.smith_waterman.launches == n0
+    got = dk.smith_waterman(s, s[:, :1].repeat(1, 20000))
+    assert got.tolist() == [2 * 8, 2 * 8]        # eight matches in a row
+    # the source refuses a plan it cannot run: S off 1/2/4/8, several
+    # bands on one warp or without the edge scratch, too many warps
+    out = torch.empty(2, dtype=torch.int32, device=cuda)
+    edge = torch.empty(2 * 8, dtype=torch.int32, device=cuda)
+    for S, warps, pairs, e, cols in ((3, 1, 1, None, 8), (0, 1, 1, None, 8),
+                                     (1, 1, 1, edge, 40), (1, 2, 1, None, 40),
+                                     (8, 17, 1, edge, 8), (8, 1, 17, None, 8),
+                                     (8, 2, 2, edge, 8)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            build.launch(dk.SOURCE, "smith_waterman_fwd", cuda, s.data_ptr(),
+                         s.data_ptr(), out.data_ptr(),
+                         e.data_ptr() if e is not None else None, 2, 8,
+                         cols, S, warps, pairs, 2, -1, -1)
+
+
+@pytest.mark.gpu
+def test_smith_waterman_30000_identical_pair(cuda):
+    """A 30000 x 30000 pair of identical sequences scores match x 30000
+    (the diagonal, every cell a match); 118 bands on 16 warps."""
+    rng = np.random.default_rng(30000)
+    x = torch.from_numpy(rng.integers(0, 4, (1, 30000))).to(torch.int32)
+    x = x.to(cuda)
+    got, body = _counted(dk.smith_waterman, dk.smith_waterman, x, x.clone())
+    assert body == "bands"
+    assert got.tolist() == [2 * 30000]
+    got = dk.smith_waterman(x, x.clone(), match=3, mismatch=-2, gap=-2)
+    assert got.tolist() == [3 * 30000]
+
+
+@pytest.mark.gpu
+def test_smith_waterman_beyond_the_old_cap_vs_plain(cuda):
+    """Random pairs that PR 14's kernel refused (La + 4 Lb = 60000 and
+    62000) against the plain version."""
+    rng = np.random.default_rng(14000)
+    for la, lb in ((4000, 14000), (14000, 12000)):
+        sa = torch.from_numpy(rng.integers(0, 4, (2, la))).to(torch.int32)
+        sb = torch.from_numpy(rng.integers(0, 4, (2, lb))).to(torch.int32)
+        sa, sb = sa.to(cuda), sb.to(cuda)
+        got, body = _counted(dk.smith_waterman, dk.smith_waterman, sa, sb)
+        assert body == "bands"
+        assert torch.equal(got, dk.smith_waterman_plain(sa, sb))
 
 
 @pytest.mark.gpu
