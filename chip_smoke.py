@@ -24,6 +24,9 @@ last line):
               scaled_dot_product_attention over the gathered (for fp8:
               gathered and dequantized, untimed) view, back to back and
               device (a yardstick the port never calls), and the bound.
+              Then paged_chunk and paged_chunk_fp8 at the verify shape
+              (yi-6b heads, B=8, C=5 = spec decode K=4, 128 cached
+              tokens a slot), the same numbers.
   4. forward — full-width 32-layer yi-6b (random bf16 weights, seed 0):
               a chunk_step and decode_steps through the kernels, every
               kernel call held against its plain version on the same
@@ -39,13 +42,44 @@ last line):
               fp8_linear=True): both fp8 kernels launched, every
               copy-on-write copies the scales, and the pool holds
               exactly (hd+4)/(2*hd) of the bf16 pool's bytes.
-  6. profile — wall and device time of a full-width decode step and
-              chunk step, bf16 and fp8, and the kernels that take the
-              device time.
+ 5b. spec   — the verify work unit on full-width yi-6b (8 slots, chunk
+              16, span 8, block 16, max_len 96, prefix cache; 8
+              repetitive requests, two 8-token motifs x 3, 48 new
+              tokens: the reference's spec A/B), bf16 then fp8 (e4m3
+              pool + fp8 linears): a greedy K=0 wave through the sample
+              head (recorded) and one through the all-greedy argmax
+              head (timed; equal tokens), then a K=4 cold and warm wave
+              on one spec server and on a fresh one, which must repeat
+              them exactly.  K=4 against K=0 is printed, not held: each
+              stream's first parting with the K=0 run's top-2 margin
+              there (the random-weight stack turns the verify and decode
+              steps' rounding into O(1) logits; the verify step's kernel
+              calls are held to plain instead, and token streams at the
+              reduced size, phase 7).  Every spec wave's streams are
+              rebuilt exactly from its verify steps' own windows,
+              positions and returned tokens; a warm wave whose drafts
+              stay out of the numerics (bf16; in the fp8 phase an e4m3
+              pool with bf16 linears) accepts at least ACCEPT_FLOOR of
+              them (with fp8 linears the drafts enter the per-call
+              activation scale: printed only).  bf16 also: a sampled
+              wave (temperature 0.5, top-k 4, seeds 300+i) K=0 against
+              K=4 warm (partings printed) and a KS test of K=4 against
+              K=0 at temperature 1.0 with disjoint seeds (p > 0.01).
+              Every spec wave launches the decode kernel 0 times and the
+              chunk kernel 32 x chunk steps in its chunk steps and 32 x
+              verify steps in its verify steps, counted around each
+              dispatch; acceptance, tokens a slot a verify step and wall
+              tokens/s against K=0 printed.
+  6. profile — wall and device time of a full-width decode step, chunk
+              step and verify step (K=4, sample head at every row),
+              bf16 and fp8, the kernels that take the device time, and
+              the sample head alone over [8, 64000] and [8, 5, 64000].
   7. small  — the reduced yi-6b served through the kernels on the card
-              and through the plain versions on the CPU, bf16 and fp8:
-              equal token streams, except where the CPU's own top-2
-              margin is small.
+              and through the plain versions on the CPU, bf16 and fp8,
+              greedy and sampled with spec decode K=3: equal token
+              streams, except where the CPU's own draw is within the
+              margin of another; in bf16 also spec K=3 against K=0 on
+              the card, greedy and sampled, by the same rule.
   8. matmul — the tensor-core and async-copy kernels (matmul,
               single_tile_matmul, fp8_matmul, pipelined_matmul) against
               their plain versions at the dissection benchmarks' shapes
@@ -95,9 +129,11 @@ last line):
               (bands body), each call on the body its rule or plan
               names; a 30000 x 30000 pair of identical sequences
               against its closed-form score (match x 30000); a
-              2**24-float ring at cluster sizes 2/4/8; 2**26 values in
+              2**24-float ring; 2**26 values in
               1024 to 65536 bins (past 32768 only the DSM histogram
-              fits a block).  Kernel ms, plain ms, bound (int32
+              fits a block), each at cluster sizes 1 (no DSM), 2, 4, 8
+              and 16 (non-portable), the ring also at ILP 8 and in int32
+              with sums that wrap.  Kernel ms, plain ms, bound (int32
               instructions over SMs x 64 lanes x the maximum SM clock,
               or bytes over 3.35 TB/s) and a one-call PyTorch yardstick
               (torch.bincount, torch.roll, a permuting copy); the DPX
@@ -135,9 +171,14 @@ last line):
               uninterrupted run bit for bit.
 Each serve phase, the benchmark runs of phases 8 and 9 and the
 Trainer.run of phase 10 set their kernels' launch counts to 0 just
-before their main path and read them just after.  Then one JSON line
-of per-kernel numbers (seventeen kernels; those with several bodies
-also their launches by body) and, last, the contract line
+before their main path and read them just after; phase 5b reads the
+paged kernels' counts (set to 0) after each spec wave, and its
+launches join phase 5's in paged_chunk's and paged_chunk_fp8's counts;
+phases 5 and 5b also read the counts around every work unit's
+dispatch, which gives those two kernels' launches by work unit (chunk,
+verify).  Then one JSON line of
+per-kernel numbers (seventeen kernels; those with several bodies also
+their launches by body) and, last, the contract line
 {"ok": true, "device": {...}}.
 """
 
@@ -468,6 +509,96 @@ def phase_kernels() -> dict:
     return results
 
 
+# the verify work unit's shape: spec decode K=4 scores C = K + 1 rows a
+# slot (40 query rows a kv head at yi-6b's G=8); B=8 slots, 128 cached
+# tokens each, as phase 6 profiles
+VERIFY_K = 4
+VERIFY_CASE = ("yi-6b verify", "bfloat16", 8, 32, 4, 128, 16, 17)
+
+
+def phase_verify_kernels(results: dict) -> None:
+    """paged_chunk and paged_chunk_fp8 at the verify shape against their
+    plain versions, with CUDA-event and graph-replay ms, the byte bound
+    and SDPA over the gathered view; added to `results` under the case
+    name."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.models import attention
+    from repro_torch.te import fp8
+    name, dname, B, H, KH, hd, bs, MB = VERIFY_CASE
+    dtype = getattr(torch, dname)
+    C = VERIFY_K + 1
+    g = torch.Generator(device=DEVICE).manual_seed(31)
+    NB = B * MB
+    ck = torch.randn((NB, bs, KH, hd), generator=g, device=DEVICE).to(dtype)
+    cv = torch.randn((NB, bs, KH, hd), generator=g, device=DEVICE).to(dtype)
+    bt = torch.randperm(NB, generator=g, device=DEVICE).reshape(B, MB)
+    bt = bt.to(torch.int32)
+    q = torch.randn((B, C, H, hd), generator=g, device=DEVICE).to(dtype)
+    pos = torch.full((B,), 128, dtype=torch.int32, device=DEVICE)
+    kq, ks = fp8.quantize_rowwise(ck.float())
+    vq, vs = fp8.quantize_rowwise(cv.float())
+    rows_bound = pos[:, None] + 1 + torch.arange(C, device=DEVICE)[None, :]
+    for kernel in ("paged_chunk", "paged_chunk_fp8"):
+        is_fp8 = kernel.endswith("fp8")
+        args = (q, kq, vq, bt, pos) if is_fp8 else (q, ck, cv, bt, pos)
+        kw = dict(k_scale=ks, v_scale=vs) if is_fp8 else {}
+        fn, plain_fn = getattr(pk, kernel), getattr(pk, kernel + "_plain")
+        plan = pk.plan(dtype, hd, B, KH, H // KH, C, MB * bs)
+        kern = lambda: fn(*args, **kw)
+        n0 = dict(fn.body_launches)
+        got = kern()
+        torch.cuda.synchronize()
+        counted = {b: fn.body_launches[b] - n0[b] for b in n0}
+        if counted != {b: int(b == plan.body) for b in n0}:
+            fail(f"{kernel} {name}: launch counted {counted}, not once on "
+                 f"{plan.body}")
+        want = plain_fn(*args, **kw).float()
+        diff = (got.float() - want).abs()
+        err = diff.max().item()
+        row_limit = torch.full_like(want[..., :1], BF16_LIMIT).minimum(
+            BF16_ROW_STEP * want.abs().amax(-1, keepdim=True))
+        ok = bool((diff <= row_limit).all()) and bool(
+            torch.isfinite(got.float()).all())
+        ms = _time_ms(kern, 200)
+        dev_ms = _graph_ms(kern, 20)
+        plain_ms = _time_ms(lambda: plain_fn(*args, **kw), 10)
+        if is_fp8:
+            kg, vg = attention.gather_paged_cache_fp8(
+                {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}, bt,
+                out_dtype=dtype)
+        else:
+            kg, vg = attention.gather_paged_cache(ck, cv, bt)
+        sq, sk, sv, mask = _sdpa_inputs(q, kg, vg, rows_bound)
+        sdpa = lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                      attn_mask=mask)
+        lib_ms = _time_ms(sdpa, 50)
+        lib_dev_ms = _graph_ms(sdpa, 20)
+        bound_ms, bound_by = _bound(
+            "chunk", dname, B, H, KH, hd, C, MB, bs, pos.tolist(),
+            q.element_size(), 1 if is_fp8 else 2, 4 if is_fp8 else 0)
+        print(f"[kernels] {kernel} {name} q {dname} B={B} H={H} KH={KH} "
+              f"hd={hd} bs={bs} MB={MB} C={C} (K={VERIFY_K}), 128 cached "
+              f"tokens a slot: body {plan.body}, plan splits={plan.splits} "
+              f"rows={plan.rows} groups={plan.groups} split_len="
+              f"{plan.split_len} smem={plan.smem}; max_abs_err={err:.3e} "
+              f"(limit {BF16_LIMIT:.0e} and 2**-7 of its row's max |o|) "
+              f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"sdpa_ms={lib_ms:.4f} sdpa_device_ms={lib_dev_ms:.4f} "
+              f"bound_ms={bound_ms:.5f} ({bound_by}; device/bound "
+              f"{dev_ms / bound_ms:.2f}) {'ok' if ok else 'OVER LIMIT'}",
+              flush=True)
+        if not ok:
+            fail(f"{kernel} {name}: max abs error {err} over the limit")
+        results[(kernel, name, dname)] = {
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "library_device_ms": lib_dev_ms}
+        del sq, sk, sv, mask, kg, vg
+
+
 # ----------------------------------------------------------------------
 # 4. full-width forward, kernels against the plain gather path
 # ----------------------------------------------------------------------
@@ -579,7 +710,8 @@ def phase_serve(cfg, params, fp8: bool = False):
     """Both waves on one server; with `fp8` the server stores an e4m3
     pool and serves fp8 linears, and every copy-on-write is checked to
     copy every leaf (codes and scales).  Returns (launch counts of the
-    waves, the same by body, KV pool bytes)."""
+    waves, the same by body and by work unit (measured around each
+    dispatch), KV pool bytes)."""
     import torch
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.models import api
@@ -617,6 +749,7 @@ def phase_serve(cfg, params, fp8: bool = False):
         return cache
 
     api.cow_copy_block = checked_cow
+    by_unit = _count_units(srv)
     torch.cuda.synchronize()
     pk.reset_launch_counts()                  # main path starts here
     all_stats = []
@@ -627,8 +760,10 @@ def phase_serve(cfg, params, fp8: bool = False):
                 "serving.cow.resolves")))
     finally:
         api.cow_copy_block = orig_cow
+        _uncount_units(srv)
     launches = srv.launch_counts()            # main path ends here
     by_body = pk.launches_by_body()
+    del by_unit["emitted"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for name, reqs, st, cow in all_stats:
         print(f"[serve] {tag} {name}: {int(st['requests'])} requests, "
@@ -664,6 +799,11 @@ def phase_serve(cfg, params, fp8: bool = False):
         fail(f"a kernel of the {tag} path was never launched: {launches}")
     if any(sum(by_body[k].values()) != launches[k] for k in keys):
         fail(f"{tag} launches by body {by_body} do not add up to {launches}")
+    # the decode kernel runs in the spans, the chunk kernel in the chunk
+    # steps, each as measured around the dispatches
+    if (by_unit["span"][keys[0]] != launches[keys[0]]
+            or by_unit["chunk"][keys[1]] != launches[keys[1]]):
+        fail(f"{tag} launches by work unit {by_unit} are not {launches}")
     if all_stats[1][3] <= 0 or all_stats[1][2]["prefix_hit_requests"] <= 0:
         fail(f"the {tag} sysprompt wave hit no prefix / resolved no "
              "copy-on-write")
@@ -672,7 +812,423 @@ def phase_serve(cfg, params, fp8: bool = False):
         fail(f"a {tag} copy-on-write did not copy every leaf: {cow_copies}")
     if fp8 and not all("k_scale" in leaves for leaves, _ in cow_copies):
         fail("an fp8 copy-on-write ran on a cache without scales")
-    return launches, by_body, kv_bytes
+    return launches, by_body, by_unit, kv_bytes
+
+
+# ----------------------------------------------------------------------
+# 5b. the verify work unit: sample head, speculative decoding
+# ----------------------------------------------------------------------
+
+# the reference's own spec A/B (benchmarks/llm_gen.py): 8 repetitive
+# requests (two motifs of 8 tokens tiled 3 times, 48 new tokens each)
+SPEC_SERVER = dict(batch_slots=8, chunk=16, span=8, block_size=16,
+                   max_len=96, prefix_cache=True)
+# the least share of its drafts a warm wave accepts: its prompts repeat
+# the cold wave's, so its drafts are the cold wave's own continuations
+# (bf16: 0.818 on the H100, PERF.md); a spec step that scatters, rolls
+# back or positions its window wrongly accepts few of them
+ACCEPT_FLOOR = 0.5
+
+
+def _spec_margin(lg) -> float:
+    """Four bf16 steps at the top logit's magnitude (at least
+    SMALL_MARGIN): two roundings apart can pick either token."""
+    return max(SMALL_MARGIN, 2.0 ** -5 * float(lg.float().abs().max()))
+
+
+UNITS = {"chunk": "_run_chunk_step", "span": "_run_decode_span",
+         "verify": "_run_spec_step"}
+
+
+def _count_units(srv) -> dict:
+    """Wrap `srv`'s work-unit dispatches so that each reads the paged
+    kernels' launch counts before and after it: returns {unit: Counter
+    of launches by kernel}, and under "emitted" each dispatch's (unit,
+    slot rids, the host's out_len before, after), filled as `srv`
+    serves until `_uncount_units`."""
+    import collections
+    from repro_torch.kernels import paged_attention as pk
+    by_unit = {u: collections.Counter() for u in UNITS}
+    by_unit["emitted"] = []
+
+    def unit(name, run):
+        def counted():
+            rids = [r.rid if r is not None else None for r in srv.slot_req]
+            before, out0 = pk.launch_counts(), srv.out_len.copy()
+            out = run()
+            after = pk.launch_counts()
+            by_unit[name].update({k: after[k] - before[k] for k in after})
+            by_unit["emitted"].append((name, rids, out0,
+                                       srv.out_len.copy()))
+            return out
+        return counted
+
+    for name, attr in UNITS.items():
+        setattr(srv, attr, unit(name, getattr(srv, attr)))
+    return by_unit
+
+
+def _uncount_units(srv) -> None:
+    for attr in UNITS.values():
+        delattr(srv, attr)
+
+
+def _spec_wave(srv, reqs, per_req=None, record=False):
+    """Serve a fresh copy of `reqs` on `srv`, the paged kernels' launch
+    counts set to 0 just before and read just after, and read again
+    around every dispatch of a work unit (chunk, span, verify step) for
+    the launches by unit.  Every verify step's window, positions and
+    returned tokens are recorded, with each unit's emissions (the host's
+    out_len before and after it), and the served streams are rebuilt
+    from them (`_check_chain`).  Returns (outputs, stats, those counts
+    (under "by_body" by body, under "by_unit" by work unit), the
+    sample-head recording or None)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.models import api
+    from repro_torch.runtime.server import clone_requests
+    rs = clone_requests(reqs)
+    for i, r in enumerate(rs):
+        if per_req is not None:
+            r.sampling = per_req(i)
+    by_unit, emitted, steps = _count_units(srv), [], []
+    orig_verify = api.verify_step
+
+    def verify_spy(cfg, params, cache, tokens, pos, block_table, **kw):
+        preds, cache = orig_verify(cfg, params, cache, tokens, pos,
+                                   block_table, **kw)
+        steps.append((srv.out_len.copy(), tokens.clone(), pos.clone(),
+                      preds.clone()))
+        return preds, cache
+
+    api.verify_step = verify_spy
+    torch.cuda.synchronize()
+    pk.reset_launch_counts()                  # this wave's path starts
+    try:
+        if record:
+            rec = _serve_recording(srv, rs)
+            stats = rec["stats"]
+        else:
+            rec, stats = None, srv.serve(rs)
+        torch.cuda.synchronize()
+        n = pk.launch_counts()                # and ends here
+    finally:
+        api.verify_step = orig_verify
+        _uncount_units(srv)
+    n["by_body"] = pk.launches_by_body()
+    emitted = by_unit.pop("emitted")
+    n["by_unit"] = {u: dict(c) for u, c in by_unit.items()}
+    for r in rs:
+        if not r.done or len(r.output) != r.max_new:
+            fail(f"request {r.rid}: done={r.done}, {len(r.output)} tokens")
+    _check_chain(rs, emitted, steps, srv.max_len)
+    return [r.output for r in rs], stats, n, rec
+
+
+def _check_chain(rs, emitted, steps, max_len) -> None:
+    """Rebuild the served streams from what each work unit emitted.
+    Every output index of every request is emitted by exactly one
+    dispatch (the host's out_len before and after it), and each verify
+    step's share is rebuilt from the step's own record: a decoding
+    slot's window starts with its last emitted token at the position
+    after its prompt and output (pos = prompt + emitted - 1), and the
+    step emits its first min(accepted + 1, budget) returned tokens,
+    `accepted` being the drafts that equal the returned token before
+    them.  Exact: a fault in the spec step's scatter, acceptance, budget,
+    cur_tok or positions shows whatever the model's numerics."""
+    by_rid = {r.rid: r for r in rs}
+    seen = {r.rid: [0] * len(r.output) for r in rs}
+    verify = iter(steps)
+    for name, rids, out0, out1 in emitted:
+        rec = None
+        if name == "verify":
+            out_len, window, pos, preds = next(verify)
+            rec = (window.cpu().tolist(), pos.cpu().tolist(),
+                   preds.cpu().tolist())
+            if list(out_len) != list(out0):
+                fail("a verify step saw other out_len than its dispatch")
+        for s, rid in enumerate(rids):
+            if rid is None or out1[s] == out0[s]:
+                continue
+            r, k, n = by_rid[rid], int(out0[s]), int(out1[s] - out0[s])
+            for i in range(k, k + n):
+                seen[rid][i] += 1
+            if rec is None:
+                continue
+            window, pos, preds = (x[s] for x in rec)
+            K = len(window) - 1
+            acc = next((j for j in range(K) if window[1 + j] != preds[j]),
+                       K)
+            want = min(acc + 1, r.max_new - k, max_len - 1 - pos)
+            if (pos != len(r.prompt) + k - 1 or window[0] != r.output[k - 1]
+                    or n != want or r.output[k:k + n] != preds[:n]):
+                fail(f"request {rid}, verify step at output {k}: window "
+                     f"{window} at pos {pos}, returned {preds}, emitted "
+                     f"{r.output[k:k + n]} ({n}, expected {want})")
+    if next(verify, None) is not None:
+        fail("a verify step ran outside a verify dispatch")
+    bad = {rid: c for rid, c in seen.items() if any(x != 1 for x in c)}
+    if bad:
+        fail(f"output indices not emitted exactly once: {bad}")
+
+
+def _held_partings(reqs, base, other, rec, per_req, fp8=False) -> list:
+    """Streams of `other` that part from `base`, each at the base run's
+    recorded draw: (call, rid, token index, margin, limit)."""
+    from repro_torch.models.sampling import GREEDY
+    out = []
+    for i, (r, a, b) in enumerate(zip(reqs, base, other)):
+        j = _parting(a, b)
+        if j is None:
+            continue
+        call, lg = rec[(r.rid, j)]
+        sp = per_req(i) if per_req is not None else GREEDY
+        out.append((call, r.rid, j, _draw_margin(lg, sp, len(r.prompt) + j),
+                    _spec_margin(lg)))
+    return out
+
+
+def _verify_step_vs_decode(cfg, params, reqs, fp8: bool) -> None:
+    """One full-width verify step, teacher-forced on the wave's prompts
+    (the step that emits token 1): every chunk-kernel call held against
+    its plain version on the same inputs (ATTN_REL_LIMIT of the
+    output's magnitude); and beside it, on the same pool, the logits of
+    the decode step that emits the same token through the decode kernel
+    and through the plain gather path: how far two valid computations
+    of one step lie apart at full width."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.models import api, transformer
+    from repro_torch.te import linear as te_linear
+    quant = te_linear.quantize_serving_params(params) if fp8 else None
+    B, bs = len(reqs), SPEC_SERVER["block_size"]
+    MB = SPEC_SERVER["max_len"] // bs
+    cache = api.init_cache(cfg, B, MB * bs, block_size=bs, num_blocks=B * MB,
+                           device=DEVICE, fp8_kv=fp8)
+    bt = torch.arange(B * MB, dtype=torch.int32, device=DEVICE).reshape(B, MB)
+    prompts = torch.tensor(np.stack([r.prompt for r in reqs]),
+                           dtype=torch.int32, device=DEVICE)
+    P = prompts.shape[1]
+    pos = torch.zeros(B, dtype=torch.int32, device=DEVICE)
+    lg0, _ = api.chunk_step(cfg, params, cache, prompts, pos,
+                            torch.full((B,), P, dtype=torch.int32,
+                                       device=DEVICE), bt, kernel=True,
+                            quant=quant)
+    tok0 = lg0.argmax(-1).to(torch.int32)
+    pos = torch.full((B,), P, dtype=torch.int32, device=DEVICE)
+    clones = [{k: v.clone() for k, v in cache.items()} for _ in range(2)]
+    dk, _ = api.decode_step(cfg, params, clones[0], tok0, pos, bt,
+                            kernel=True, quant=quant)
+    dp, _ = api.decode_step(cfg, params, clones[1], tok0, pos, bt,
+                            kernel=False, quant=quant)
+    window = tok0[:, None].expand(B, VERIFY_K + 1).contiguous()
+    worst, calls = [0.0], [0]
+    orig = transformer._cache_attend
+
+    def checked(q, k1, v1, cl, pos_, positions, block_table, *, decode,
+                kernel):
+        o = orig(q, k1, v1, cl, pos_, positions, block_table,
+                 decode=decode, kernel=kernel)
+        plain = pk.paged_chunk_fp8_plain if fp8 else pk.paged_chunk_plain
+        kw = ({"k_scale": cl["k_scale"], "v_scale": cl["v_scale"]}
+              if fp8 else {})
+        want = plain(q, cl["k"], cl["v"], block_table, pos_, **kw).float()
+        err = (o.float() - want).abs().max().item()
+        worst[0] = max(worst[0], err / max(want.abs().max().item(), 1e-30))
+        calls[0] += 1
+        return o
+
+    transformer._cache_attend = checked
+    try:
+        x = transformer._chunk_fwd(cfg, params, cache, window, pos, bt,
+                                   kernel=True, quant=quant)
+    finally:
+        transformer._cache_attend = orig
+    vk = transformer.logits_fn(cfg, params, x[:, :1])[:, 0]
+    torch.cuda.synchronize()
+    top = dk.float().topk(2, dim=-1).values
+    margin = (top[:, 0] - top[:, 1]).tolist()
+    kp = (dk.float() - dp.float()).abs().amax(-1).tolist()
+    vd = (vk.float() - dk.float()).abs().amax(-1).tolist()
+    print(f"[spec] {'fp8' if fp8 else 'bf16'} teacher-forced step emitting "
+          f"token 1 (B={B}, {P}-token prompts): verify step's "
+          f"{calls[0]} chunk-kernel calls vs plain on the same inputs, max "
+          f"|diff| / max |o| = {worst[0]:.3e} (limit {ATTN_REL_LIMIT:.3e}); "
+          f"per slot: decode-kernel top-2 margin "
+          f"{[round(m, 4) for m in margin]}, max |logit diff| decode kernel "
+          f"vs decode plain {[round(v, 4) for v in kp]}, verify row 0 vs "
+          f"decode kernel {[round(v, 4) for v in vd]}; argmax agree "
+          f"kernel/plain {int((dk.argmax(-1) == dp.argmax(-1)).sum())}/{B}, "
+          f"verify/decode {int((vk.argmax(-1) == dk.argmax(-1)).sum())}/{B}",
+          flush=True)
+    if calls[0] != cfg.num_layers or worst[0] > ATTN_REL_LIMIT:
+        fail(f"the verify step's kernel calls: {calls[0]} calls, worst "
+             f"{worst[0]:.3e} of the output's magnitude")
+    if not all(torch.isfinite(t.float()).all() for t in (vk, dk)):
+        fail("the teacher-forced verify step gave non-finite logits")
+
+
+def phase_spec(cfg, params, fp8: bool = False) -> dict:
+    """The verify work unit on full-width yi-6b: a greedy K=0 wave
+    (recorded), a K=4 cold and a warm wave on one spec server, and the
+    same two waves on a fresh spec server, which must repeat the tokens
+    exactly.  K=4 is not held to K=0 token for token here: the
+    random-weight 32-layer stack turns a rounding difference between the
+    verify step's and the decode step's sums into O(1) logit
+    differences (phase 4), so each stream's first parting from K=0 is
+    printed with the K=0 run's margin there, and the verify step is
+    held kernel call by kernel call against plain instead
+    (`_verify_step_vs_decode`, which also prints how far the decode
+    kernel and the plain path lie apart at the same step); token
+    streams are held at the reduced size (phase 7) and on the CPU (the
+    tests).  Every spec wave's streams are rebuilt exactly from its
+    verify steps' own records (`_check_chain`), and its launches are
+    held: paged_decode 0 times, paged_chunk 32 x chunk steps in the
+    chunk steps and 32 x verify steps in the verify steps.  A warm wave
+    whose drafts do not enter the numerics (bf16; in the fp8 phase a
+    server with the e4m3 pool and bf16 linears) must accept at least
+    ACCEPT_FLOOR of its drafts; with fp8 linears the drafts enter the
+    per-call activation scale, and acceptance is printed only.  bf16
+    also: a sampled wave (temperature 0.5, top-k 4, seeds 300+i) at K=0
+    against K=4 warm (partings printed), and a KS test of K=4 against
+    K=0 at temperature 1.0 with disjoint seeds (p > 0.01).  Returns
+    launches by kernel over the spec waves, by work unit and by body."""
+    import numpy as np
+    from repro_torch.models.sampling import SamplingParams, ks_two_sample
+    from repro_torch.runtime.server import ChunkedServer, repetitive_requests
+    tag = "fp8" if fp8 else "bf16"
+    t0 = time.perf_counter()
+    reqs = repetitive_requests(8, cfg.vocab_size, motif_len=8, reps=3,
+                               max_output=48, seed=2)
+    opts = dict(SPEC_SERVER, fp8_kv=fp8, fp8_linear=fp8, device=DEVICE)
+    chunk_key = "paged_chunk_fp8" if fp8 else "paged_chunk"
+    decode_key = "paged_decode_fp8" if fp8 else "paged_decode"
+    k0_srv = ChunkedServer(cfg, params, **opts)
+    base, st0, _, rec0 = _spec_wave(k0_srv, reqs, record=True)
+    if fp8:
+        # a prefix hit changes the prefill's rows and so its per-call
+        # activation scale: the same tokens need a fresh server
+        del k0_srv
+        k0_srv = ChunkedServer(cfg, params, **opts)
+    # the unrecorded K=0 wave is the one timed; it ends in the argmax
+    # head, the recorded one in the sample head: the same tokens
+    base2, st0, _, _ = _spec_wave(k0_srv, reqs)
+    if base2 != base:
+        fail(f"{tag} K=0 waves through the argmax and the sample head "
+             "gave different tokens")
+    del k0_srv
+    launches = {chunk_key: 0, decode_key: 0}
+    by_unit = {"chunk": 0, "verify": 0}
+    by_body = {}
+
+    def count(label, n, st):
+        """Hold one spec wave's launches, each work unit's as measured
+        around its dispatches, and add them up."""
+        L, u = cfg.num_layers, n["by_unit"]
+        want = {"chunk": L * int(st["chunk_steps"]),
+                "verify": L * int(st["spec_steps"])}
+        got = {k: u[k].get(chunk_key, 0) for k in want}
+        print(f"[spec] {tag} {label}: {chunk_key} launches {n[chunk_key]} "
+              f"(by work unit {got}), {decode_key} {n[decode_key]}",
+              flush=True)
+        if (n[decode_key] != 0 or got != want
+                or n[chunk_key] != sum(want.values())):
+            fail(f"{tag} {label}: {decode_key} launched {n[decode_key]} "
+                 f"times (expected 0), {chunk_key} {n[chunk_key]} times, "
+                 f"by work unit {got}, expected {L} x steps = {want}")
+        launches[chunk_key] += n[chunk_key]
+        for k in want:
+            by_unit[k] += got[k]
+        for b, c in n["by_body"][chunk_key].items():
+            by_body[b] = by_body.get(b, 0) + c
+
+    def spec_waves(label, floor=True, per_req=None, **kw):
+        """A cold and a warm wave on a fresh spec server."""
+        srv = ChunkedServer(cfg, params, spec_decode=VERIFY_K,
+                            **{**opts, **kw})
+        res = []
+        for wave in ("cold", "warm"):
+            out, st, n, _ = _spec_wave(srv, reqs, per_req=per_req)
+            print(f"[spec] {tag} {label} K={VERIFY_K} {wave}: "
+                  f"{int(st['tokens'])} tokens in {st['seconds']:.2f} s = "
+                  f"{st['tokens_per_s']:.1f} tok/s; acceptance "
+                  f"{st['spec_acceptance_rate']:.3f}, "
+                  f"{st['spec_tokens_per_step']:.2f} tokens a slot a verify "
+                  f"step; verify steps {int(st['spec_steps'])}, chunk steps "
+                  f"{int(st['chunk_steps'])}, span steps "
+                  f"{int(st['decode_spans'] - st['spec_steps'])}; streams "
+                  f"rebuilt from the verify steps", flush=True)
+            count(f"{label} {wave}", n, st)
+            res.append((out, st))
+        if floor and not res[1][1]["spec_acceptance_rate"] >= ACCEPT_FLOOR:
+            fail(f"{tag} {label}: the warm wave accepted "
+                 f"{res[1][1]['spec_acceptance_rate']:.3f} of its drafts "
+                 f"(floor {ACCEPT_FLOOR})")
+        return res
+
+    (cold, st_c), (warm, st_w) = spec_waves("server 1", floor=not fp8)
+    print(f"[spec] {tag} K=0 wave: {st0['tokens_per_s']:.1f} tok/s "
+          f"({int(st0['chunk_steps'])} chunk steps, "
+          f"{int(st0['decode_spans'])} spans of {SPEC_SERVER['span']}); warm "
+          f"K={VERIFY_K} / K=0 wall tokens/s "
+          f"{st_w['tokens_per_s'] / st0['tokens_per_s']:.3f}", flush=True)
+    (cold2, _), (warm2, _) = spec_waves("server 2 (fresh)", floor=not fp8)
+    for label, out in (("cold", cold), ("warm", warm)):
+        held = [(p[1], p[2], round(p[3], 4), round(p[4], 4))
+                for p in _held_partings(reqs, base, out, rec0, None)]
+        print(f"[spec] {tag} K={VERIFY_K} {label} vs K=0: {8 - len(held)}/8 "
+              f"streams equal; first partings (rid, token, K=0 top-2 "
+              f"margin, four bf16 steps), printed, not held: {held}",
+              flush=True)
+    print(f"[spec] {tag} a fresh spec server repeats cold "
+          f"{'exactly' if cold2 == cold else 'NOT'} and warm "
+          f"{'exactly' if warm2 == warm else 'NOT'}", flush=True)
+    if cold2 != cold or warm2 != warm:
+        fail(f"{tag} spec waves differ between two fresh servers")
+    if fp8:
+        # the e4m3 pool with bf16 linears: drafts stay out of the
+        # numerics, so the warm wave accepts the cold wave's tokens
+        spec_waves("server 3 (e4m3 pool, bf16 linears)", fp8_linear=False)
+    _verify_step_vs_decode(cfg, params, reqs, fp8)
+    if not fp8:
+        # sampled: K=0 against K=4 warm, request by request
+        sp = lambda i: SamplingParams(temperature=0.5, top_k=4,  # noqa
+                                      seed=300 + i)
+        s0_srv = ChunkedServer(cfg, params, **opts)
+        s0, _, _, srec = _spec_wave(s0_srv, reqs, per_req=sp, record=True)
+        del s0_srv
+        _, (s4, st_s) = spec_waves("sampled (t=0.5, top-k 4)", floor=False,
+                                   per_req=sp)
+        held = _held_partings(reqs, s0, s4, srec, sp)
+        print(f"[spec] bf16 sampled (t=0.5, top-k 4, seeds 300+i) K=0 vs "
+              f"K={VERIFY_K} warm: {8 - len(held)}/8 streams equal; first "
+              f"partings (rid, token, K=0 draw margin, four bf16 steps), "
+              f"printed, not held: "
+              f"{[(p[1], p[2], round(p[3], 4), round(p[4], 4)) for p in held]}"
+              f"; acceptance {st_s['spec_acceptance_rate']:.3f}",
+              flush=True)
+        if s0 == base:
+            fail("the sampled wave drew the greedy tokens")
+        # KS: disjoint seeds at temperature 1.0
+        ks0, _, _, _ = _spec_wave(
+            ChunkedServer(cfg, params, **opts), reqs,
+            per_req=lambda i: SamplingParams(temperature=1.0, seed=i))
+        ks4, st_k, n, _ = _spec_wave(
+            ChunkedServer(cfg, params, spec_decode=VERIFY_K, **opts), reqs,
+            per_req=lambda i: SamplingParams(temperature=1.0, seed=1000 + i))
+        count("KS (t=1.0)", n, st_k)
+        d, pval = ks_two_sample(np.concatenate(ks0), np.concatenate(ks4))
+        print(f"[spec] bf16 KS, K=0 vs K={VERIFY_K} at temperature 1.0, "
+              f"disjoint seeds, {sum(map(len, ks0))} tokens a side: D="
+              f"{d:.4f} p={pval:.4f} (must exceed 0.01)", flush=True)
+        if not pval > 0.01:
+            fail(f"K={VERIFY_K} and K=0 sampled distributions differ: "
+                 f"p={pval}")
+    print(f"[spec] {tag} phase in {time.perf_counter() - t0:.1f} s; "
+          f"launches over the spec waves {launches}, by work unit "
+          f"(measured around each dispatch) {by_unit}", flush=True)
+    return {"launches": launches, "by_unit": by_unit, "by_body": by_body}
 
 
 # ----------------------------------------------------------------------
@@ -695,13 +1251,16 @@ def _device_ms_by_kernel(prof, steps: int):
 
 
 def phase_profile(cfg, params, quant=None) -> None:
-    """Wall and device time of one full-width decode step and one chunk
-    step (B=8, 128 cached tokens per slot) through the kernels, with
-    the kernels that take the most device time (torch.profiler).  With
-    `quant` (fp8 linears) the pool is e4m3 too."""
+    """Wall and device time of one full-width decode step, one chunk
+    step and one verify step (K=4: C=5 rows, the sample head at every
+    row, temperature 0.5 / top-k 4) (B=8, 128 cached tokens per slot)
+    through the kernels, with the kernels that take the most device
+    time (torch.profiler); then the sample head alone over [8, 64000]
+    (a chunk or span step's) and [8, 5, 64000] (a verify step's)
+    logits.  With `quant` (fp8 linears) the pool is e4m3 too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import api
+    from repro_torch.models import api, sampling
     B, bs, C, steps = 8, 16, 16, 5
     MB = -(-264 // bs)
     fp8 = quant is not None
@@ -713,12 +1272,31 @@ def phase_profile(cfg, params, quant=None) -> None:
     tok = torch.zeros(B, dtype=torch.int32, device=DEVICE)
     toks = torch.zeros((B, C), dtype=torch.int32, device=DEVICE)
     n_tok = torch.full((B,), C, dtype=torch.int32, device=DEVICE)
+    win = torch.zeros((B, VERIFY_K + 1), dtype=torch.int32, device=DEVICE)
+    samp = (torch.full((B,), 0.5, device=DEVICE),
+            torch.full((B,), 4, dtype=torch.int32, device=DEVICE),
+            torch.ones(B, device=DEVICE),
+            torch.arange(B, dtype=torch.int32, device=DEVICE))
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    lg2 = torch.randn((B, cfg.vocab_size), generator=g, device=DEVICE)
+    lg3 = torch.randn((B, VERIFY_K + 1, cfg.vocab_size), generator=g,
+                      device=DEVICE)
+    lg2, lg3 = lg2.to(torch.bfloat16), lg3.to(torch.bfloat16)
+    ix3 = pos[:, None] + 1 + torch.arange(VERIFY_K + 1, dtype=torch.int32,
+                                          device=DEVICE)[None, :]
     units = {
         "decode_step": lambda: api.decode_step(cfg, params, cache, tok, pos,
                                                bt, kernel=True, quant=quant),
         "chunk_step": lambda: api.chunk_step(cfg, params, cache, toks, pos,
                                              n_tok, bt, kernel=True,
                                              quant=quant),
+        f"verify_step (K={VERIFY_K})": lambda: api.verify_step(
+            cfg, params, cache, win, pos, bt, kernel=True, quant=quant,
+            sample=samp),
+        "sample head [8, V]": lambda: sampling.sample_tokens(
+            lg2, *samp, pos + 1),
+        f"sample head [8, {VERIFY_K + 1}, V]": lambda: sampling.sample_tokens(
+            lg3, *samp, ix3),
     }
     for name, fn in units.items():
         for _ in range(2):
@@ -751,102 +1329,165 @@ def phase_profile(cfg, params, quant=None) -> None:
 
 def _serve_recording(srv, reqs) -> dict:
     """Serve `reqs` on `srv`, recording every occupied slot's logits at
-    every serving step under (rid, index of the output token emitted at
-    that step's emission position), with the step number.  Slots
-    mid-prompt get negative indices, finished slots in a span indices
-    past their output: neither is read."""
-    from repro_torch.runtime import server as server_mod
-    rec = {"steps": 0}
-    api = server_mod.api
-    chunk_step, decode_step = api.chunk_step, api.decode_step
+    every sample-head call (chunk, span and verify heads) under (rid,
+    index of the output token drawn at that row's emission position),
+    with the call's number.  A verify call records each of its rows;
+    a later call's record of a position is the one that emitted it.
+    Slots mid-prompt get negative indices, finished slots indices past
+    their output: neither is read.  The rows stay on the device until
+    the wave ends (no host read inside it).  An all-greedy wave goes
+    through the sample head here too (the server would end it in the
+    argmax, whose tokens are the sample head's greedy rows)."""
+    from repro_torch.models import sampling
+    calls = []
+    orig = sampling.sample_tokens
+    srv._samp = srv._samp_operands
 
-    def store(logits, emit_pos):
-        rec["steps"] += 1
-        for s, r in enumerate(srv.slot_req):
-            if r is not None:
-                rec[(r.rid, int(emit_pos[s]) - len(r.prompt))] = (
-                    rec["steps"], logits[s].float().cpu())
+    def spy(logits, temp, top_k, top_p, seed, index):
+        calls.append(([r.rid if r is not None else None
+                       for r in srv.slot_req], {r.rid: len(r.prompt)
+                                                for r in srv.slot_req
+                                                if r is not None},
+                      logits.detach().clone(), index.clone()))
+        return orig(logits, temp, top_k, top_p, seed, index)
 
-    def chunk(cfg, params, cache, tokens, pos, n_tokens, bt, **kw):
-        logits, cache = chunk_step(cfg, params, cache, tokens, pos,
-                                   n_tokens, bt, **kw)
-        store(logits, pos + n_tokens)
-        return logits, cache
-
-    def decode(cfg, params, cache, tok, pos, bt, **kw):
-        logits, cache = decode_step(cfg, params, cache, tok, pos, bt, **kw)
-        store(logits, pos + 1)
-        return logits, cache
-
-    api.chunk_step, api.decode_step = chunk, decode
+    sampling.sample_tokens = spy
     try:
-        srv.serve(reqs)
+        stats = srv.serve(reqs)
     finally:
-        api.chunk_step, api.decode_step = chunk_step, decode_step
+        sampling.sample_tokens = orig
+        del srv._samp
+    rec = {"steps": len(calls), "stats": stats}
+    for n, (rids, plen, logits, index) in enumerate(calls, 1):
+        index = index.cpu().reshape(logits.shape[0], -1)
+        logits = logits.reshape(index.shape + logits.shape[-1:])
+        for s_, rid in enumerate(rids):
+            if rid is None:
+                continue
+            for j in range(index.shape[1]):
+                rec[(rid, int(index[s_, j]) - plen[rid])] = (n, logits[s_, j])
     return rec
+
+
+def _parting(a, b):
+    """Index of the first token where streams a and b differ (None if
+    equal; the shorter length if one is a prefix of the other)."""
+    if a == b:
+        return None
+    n = min(len(a), len(b))
+    return next((i for i in range(n) if a[i] != b[i]), n)
+
+
+def _draw_margin(lg, sp, index) -> float:
+    """How near a recorded draw is to another, in logit units
+    (`sampling.draw_margins`: the top-2 gap, for sampled params of z + g
+    and at the top-k cut, times the temperature)."""
+    from repro_torch.models import sampling
+    gap, _, kgap, _ = sampling.draw_margins(lg, sp, index)
+    return min(gap, kgap) * (1.0 if sp.is_greedy else sp.temperature)
 
 
 def phase_small(fp8: bool) -> None:
     """The reduced yi-6b (2 layers, d_model 64, G=2) served through the
     kernels on the card and through the plain versions on the CPU, with
-    the same weights: the token streams must be equal, except that a
-    stream may part where the CPU run's own top-2 logit margin at that
-    step is within the margin (two roundings apart can pick either).
-    With fp8 linears the activation scale is one per call over the
-    whole batch, so once a stream parts the other slots' inputs change:
-    only the partings at the first parting step are held there."""
+    the same weights, greedy with decode spans and sampled with spec
+    decode K=3 (verify steps through the chunk kernel, the warm wave of
+    a spec server, whose table the cold wave taught; per-request
+    temperature 0.8, top-k 20, seeds 500+i): card and CPU streams must
+    be equal.  In bf16, on the card, spec K=3 must also equal K=0,
+    greedy and sampled.  A stream may part only where the base run's
+    own draw is within the margin of another (greedy: its top-2
+    logits; sampled: the top two of z + g or the top-k cut, in logit
+    units; the noise is integer-exact across devices, so a parting is
+    logit rounding only).  With fp8 linears the activation scale is one
+    per call over the whole batch (K=3 and K=0 batches differ, so they
+    are not compared), and once a stream parts the other slots' inputs
+    change: only the partings at the first parting step are held."""
     import dataclasses
     import torch
     from repro_torch.configs import reduced_config
     from repro_torch.models import api
+    from repro_torch.models.sampling import GREEDY, SamplingParams
     from repro_torch.runtime.server import (ChunkedServer, clone_requests,
                                             sharegpt_like_requests)
     cfg = dataclasses.replace(reduced_config("yi-6b"), num_kv_heads=2)
     cpu_params = api.init(cfg, 0, device="cpu")
     margin = SMALL_FP8_MARGIN if fp8 else SMALL_MARGIN
+    tag = "fp8_kv + fp8 linears" if fp8 else "bf16"
 
     def to(tree, device):
         if isinstance(tree, torch.Tensor):
             return tree.to(device)
         return {k: to(v, device) for k, v in tree.items()}
 
+    card_params = to(cpu_params, DEVICE)
     reqs = sharegpt_like_requests(8, cfg.vocab_size, max_input=32,
                                   max_output=16, seed=0)
-    outs = {}
-    for device, params in (("cpu", cpu_params), (DEVICE, to(cpu_params,
-                                                            DEVICE))):
-        rs = clone_requests(reqs)
+    greedy = lambda i: GREEDY                                   # noqa
+    sampled = lambda i: SamplingParams(temperature=0.8,         # noqa
+                                       top_k=20, seed=500 + i)
+
+    def serve(device, k, samp, record):
+        """One wave; with spec decode the second (warm) wave of a server
+        whose table the first taught, so that drafts are accepted."""
+        params = cpu_params if device == "cpu" else card_params
         srv = ChunkedServer(cfg, params, batch_slots=4, max_len=56, chunk=8,
-                            span=4, block_size=8, fp8_kv=fp8,
-                            fp8_linear=fp8, device=device)
-        if device == "cpu":
-            rec = _serve_recording(srv, rs)
-        else:
-            srv.serve(rs)
-        outs[device] = [r.output for r in rs]
-    partings = []
-    for r, a, b in zip(reqs, outs["cpu"], outs[DEVICE]):
-        if len(a) != len(b):
-            fail(f"small input, request {r.rid}: {len(a)} CPU tokens, "
-                 f"{len(b)} card tokens")
-        if a != b:
-            j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-            step, lg = rec[(r.rid, j)]
-            partings.append((step, r.rid, j, lg, b[j]))
-    first = min((p[0] for p in partings), default=0)
-    for step, rid, j, lg, tok in partings:
-        if fp8 and step > first:
-            continue
-        gap = float(_top2_margin(lg))
-        if gap > margin or lg.max() - lg[tok] > margin:
-            fail(f"small input {'fp8' if fp8 else 'bf16'}, request {rid}: "
-                 f"card and CPU part at token {j} where the CPU margin is "
-                 f"{gap:.4f}")
-    print(f"[small] reduced yi-6b (G=2) {'fp8_kv + fp8 linears' if fp8 else 'bf16'}"
-          f" card kernels vs CPU plain: {len(reqs) - len(partings)}/"
-          f"{len(reqs)} token streams equal, {len(partings)} part "
-          f"({sum(p[0] == first for p in partings)} at the first parting "
-          f"step, each at a CPU top-2 margin within {margin})", flush=True)
+                            span=4, block_size=8, fp8_kv=fp8, fp8_linear=fp8,
+                            spec_decode=k, device=device)
+        for _ in range(2 if k else 1):
+            rs = clone_requests(reqs)
+            for i, r in enumerate(rs):
+                r.sampling = samp(i)
+            rec = _serve_recording(srv, rs) if record else None
+            stats = rec["stats"] if record else srv.serve(rs)
+        return [r.output for r in rs], stats, rec
+
+    def held(label, base, rec, other, samp, stats):
+        partings = []
+        for i, (r, a, b) in enumerate(zip(reqs, base, other)):
+            if len(a) != len(b):
+                fail(f"small input {tag} {label}, request {r.rid}: "
+                     f"{len(a)} and {len(b)} tokens")
+            j = _parting(a, b)
+            if j is not None:
+                step, lg = rec[(r.rid, j)]
+                partings.append((step, r.rid, j, lg, b[j], samp(i),
+                                 len(r.prompt) + j))
+        first = min((p[0] for p in partings), default=0)
+        for step, rid, j, lg, tok, sp, index in partings:
+            if fp8 and step > first:
+                continue
+            gap = _draw_margin(lg, sp, index)
+            off = float(lg.float().max() - lg.float()[tok])
+            if gap > margin or (sp.is_greedy and off > margin):
+                fail(f"small input {tag} {label}, request {rid}: streams "
+                     f"part at token {j} where the base run's margin is "
+                     f"{gap:.4f}")
+        extra = (f"; {int(stats['spec_steps'])} verify steps, acceptance "
+                 f"{stats['spec_acceptance_rate']:.3f}"
+                 if "spec_steps" in stats else "")
+        print(f"[small] reduced yi-6b (G=2) {tag} {label}: "
+              f"{len(reqs) - len(partings)}/{len(reqs)} token streams "
+              f"equal, {len(partings)} part "
+              f"({sum(p[0] == first for p in partings)} at the first "
+              f"parting step, each at a margin within {margin}){extra}",
+              flush=True)
+
+    cpu_g0, _, cpu_rec = serve("cpu", 0, greedy, True)
+    card_g0, _, card_rec = serve(DEVICE, 0, greedy, not fp8)
+    held("greedy, card kernels vs CPU plain", cpu_g0, cpu_rec, card_g0,
+         greedy, {})
+    cpu_s3, _, cpu_rec = serve("cpu", 3, sampled, True)
+    card_s3, st, _ = serve(DEVICE, 3, sampled, False)
+    held("sampled spec K=3, card kernels vs CPU plain", cpu_s3, cpu_rec,
+         card_s3, sampled, st)
+    if not fp8:
+        card_g3, st, _ = serve(DEVICE, 3, greedy, False)
+        held("greedy on the card, spec K=3 vs K=0", card_g0, card_rec,
+             card_g3, greedy, st)
+        card_s0, _, card_rec = serve(DEVICE, 0, sampled, True)
+        held("sampled on the card, spec K=3 vs K=0", card_s0, card_rec,
+             card_s3, sampled, {})
 
 
 # ----------------------------------------------------------------------
@@ -1391,6 +2032,8 @@ HIST_N = 1 << 26
 # 1024 / 4096 bins as the benchmark; 16384-65536 where a private
 # histogram fills a block's shared memory (64, 128 KiB) or exceeds it
 HIST_BINS = (1024, 4096, 16384, 32768, 65536)
+# the cluster sizes the kernels take: 1 (no DSM) to 16 (non-portable)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
 
 
 def _int_rate() -> tuple:
@@ -1609,8 +2252,9 @@ def probe_dpx_rate(rate: float) -> None:
 
 def _rbc_case(res: dict, key: str, x, cs: int, hops: int, ilp: int) -> None:
     from repro_torch.kernels import dsm as dsk
+    dname = str(x.dtype).replace("torch.", "")
     r = _exact(
-        "rbc_ring_copy", f"{list(x.shape)} float32 CS={cs} hops={hops} "
+        "rbc_ring_copy", f"{list(x.shape)} {dname} CS={cs} hops={hops} "
         f"ilp={ilp}",
         lambda: dsk.rbc_ring_copy(x, cs, hops=hops, ilp=ilp),
         lambda: dsk.rbc_ring_copy_plain(x, cs, hops=hops), 20,
@@ -1781,13 +2425,20 @@ def phase_dpx_dsm() -> tuple:
             _rbc_case(res, f"bench/ones/{cs}/{ilp}", ones, cs, 1, ilp)
     _a2a_case(res, "bench/4", ring, 4)
     del ring, ones
-    for cs in (2, 4, 8):
+    # cluster sizes 1 (no DSM: a one-block ring adds copies of itself)
+    # to 16 (non-portable), ILP 8, and an int32 ring whose sums wrap
+    for cs in CLUSTER_SIZES:
         x = torch.randn((cs, RING_N // cs), generator=g, device=DEVICE)
-        for hops in sorted({1, min(3, cs - 1)}):
-            for ilp in (1, 4):
+        for hops in sorted({1, min(3, max(cs - 1, 1))}):
+            for ilp in (1, 4, 8) if cs in (4, 16) else (1, 4):
                 _rbc_case(res, f"{cs}/{hops}/{ilp}", x, cs, hops, ilp)
         _a2a_case(res, f"{cs}", x, cs)
         del x
+        if cs in (1, 4, 16):
+            xi = _limit_ints(RING_N, torch.int32, g).reshape(cs, -1)
+            hops = max(cs - 1, 3 if cs == 1 else 0)
+            _rbc_case(res, f"int32/{cs}/{hops}/8", xi, cs, hops, 8)
+            del xi
         probe = torch.arange(cs, dtype=torch.int32, device=DEVICE)
         probe = probe.reshape(cs, 1)
         res[("ring_latency_probe", f"{cs}")] = _exact(
@@ -1803,7 +2454,7 @@ def phase_dpx_dsm() -> tuple:
     for nbins in HIST_BINS:
         vals = torch.randint(0, nbins, (HIST_N,), generator=g, device=DEVICE,
                              dtype=torch.int32)
-        _hist_cases(res, f"{nbins}", vals, nbins, (2, 4, 8))
+        _hist_cases(res, f"{nbins}", vals, nbins, CLUSTER_SIZES)
     del vals
     _dpx_sass_opcodes()
     probe_dpx_rate(rate)
@@ -2255,6 +2906,7 @@ def main() -> None:
     from repro_torch.te import linear as te_linear
     phase_build()
     kernels = phase_kernels()
+    phase_verify_kernels(kernels)
     cfg = get_config("yi-6b")
     t0 = time.perf_counter()
     params = api.init(cfg, 0, device=DEVICE, dtype=torch.bfloat16)
@@ -2262,7 +2914,8 @@ def main() -> None:
     print(f"[init] yi-6b full width, {cfg.param_count() / 1e9:.2f} B "
           f"params in bf16, {time.perf_counter() - t0:.1f} s", flush=True)
     phase_forward(cfg, params)
-    launches, by_body, kv_bytes = phase_serve(cfg, params)
+    launches, by_body, units, kv_bytes = phase_serve(cfg, params)
+    spec = {"bf16": phase_spec(cfg, params)}
     phase_profile(cfg, params)
     t0 = time.perf_counter()
     quant = te_linear.quantize_serving_params(params)
@@ -2272,8 +2925,9 @@ def main() -> None:
     phase_forward(cfg, params, quant)
     phase_profile(cfg, params, quant)
     del quant
-    fp8_launches, fp8_by_body, fp8_kv_bytes = phase_serve(cfg, params,
-                                                          fp8=True)
+    fp8_launches, fp8_by_body, fp8_units, fp8_kv_bytes = phase_serve(
+        cfg, params, fp8=True)
+    spec["fp8"] = phase_spec(cfg, params, fp8=True)
     launches.update({k: v for k, v in fp8_launches.items()
                      if k.endswith("_fp8")})
     by_body.update({k: v for k, v in fp8_by_body.items()
@@ -2295,7 +2949,24 @@ def main() -> None:
                           ("paged_decode_fp8", 147),
                           ("paged_chunk_fp8", 234)):
         r = kernels[(name, "yi-6b", "bfloat16")]
-        line.append({
+        extra = {}
+        if name.startswith("paged_chunk"):
+            # the serve waves' launches plus the spec waves', by work
+            # unit as measured around each dispatch, and the verify shape
+            sp = spec["fp8" if name.endswith("fp8") else "bf16"]
+            served = (fp8_units if name.endswith("fp8") else units)
+            by_unit = {"chunk": served["chunk"][name]
+                       + sp["by_unit"]["chunk"],
+                       "verify": sp["by_unit"]["verify"]}
+            launches[name] += sp["launches"][name]
+            by_body[name] = {b: n + sp["by_body"].get(b, 0)
+                             for b, n in by_body[name].items()}
+            v = kernels[(name, VERIFY_CASE[0], "bfloat16")]
+            extra = {"launches_by_unit": by_unit,
+                     "verify_shape": {k: v[k] for k in (
+                         "max_abs_err", "ms", "device_ms", "bound_ms",
+                         "library_ms", "library_device_ms")}}
+        line.append({**extra,
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": f"src/repro/kernels/paged_attention.py:{line_no}",

@@ -2,7 +2,7 @@
 
 Hopper's DSM lets the blocks of a thread-block cluster read and write
 each other's shared memory over the SM-to-SM network.  Here a cluster
-of ``cluster_size`` blocks (2, 4 or 8) plays the mesh axis of the
+of ``cluster_size`` blocks (1, 2, 4, 8 or 16) plays the mesh axis of the
 reference, and rank r works on the r-th of ``cluster_size`` equal row
 blocks of the leading dimension, as ``P(axis)`` splits it.  The kernels
 are in ``kernels/dsm.py`` (``csrc/dsm.cu``); on CPU tensors each
@@ -32,7 +32,7 @@ def rbc_ring_copy(x: torch.Tensor, cluster_size: int, *, hops: int = 1,
     paper's instruction-level-parallelism knob in Fig. 8.  x is split
     over the cluster on its leading dim; the result has x's shape.
     """
-    assert hops < cluster_size
+    assert hops < cluster_size or cluster_size == 1
     return _k.rbc_ring_copy(x, cluster_size, hops=hops, ilp=ilp)
 
 

@@ -114,8 +114,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                                _I, _I, _P),
     },
     "dsm.cu": {
-        # x, out, cluster size, shard length, hops, ilp, stream
-        "rbc_ring_copy_fwd": (_P, _P, _I, _L, _I, _I, _P),
+        # dtype (0 float32, 1 int32), x, out, cluster size, shard
+        # length, hops, ilp, stream
+        "rbc_ring_copy_fwd": (_I, _P, _P, _I, _L, _I, _I, _P),
         # x, out, cluster size, stream
         "ring_latency_probe_fwd": (_P, _P, _I, _P),
         # dsm, nbins, cluster size
@@ -186,12 +187,21 @@ def load(source: str) -> ctypes.CDLL:
     return lib
 
 
+class LaunchError(RuntimeError):
+    """A C entry point refused or failed a launch; `code` is the CUDA
+    error it returned."""
+
+    def __init__(self, entry: str, code: int):
+        super().__init__(f"{entry} launch failed: CUDA error {code}")
+        self.code = code
+
+
 def launch(source: str, entry: str, device, *args) -> None:
     """Call `entry` of `source` with `args` and the current stream of
-    `device`; raise if the launch failed (the C entry points return the
-    CUDA error of the launch, 0 when it launched)."""
+    `device`; raise LaunchError if the launch failed (the C entry points
+    return the CUDA error of the launch, 0 when it launched)."""
     import torch
     fn = getattr(load(source), entry)
     err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+        raise LaunchError(entry, err)

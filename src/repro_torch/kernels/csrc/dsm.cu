@@ -9,10 +9,12 @@
 // run side by side, each on a tile of the shards, so the card is full.
 //
 // rbc_ring_copy_fwd: rank r accumulates ranks r-1, ..., r-hops (adding
-//   in that order, as the reference does).  A block holds a column tile
-//   of its rank's shard; the chunk that moves round the ring is double
-//   buffered in shared memory, one cluster.sync() per hop; each thread
-//   keeps `ilp` independent chunks (and `ilp` remote loads) in flight.
+//   in that order, as the reference does), float32 or int32 (wrapping
+//   adds).  A block holds a column tile of its rank's shard; the chunk
+//   that moves round the ring is double buffered in shared memory, one
+//   cluster.sync() per hop; each thread keeps `ilp` (1, 2, 4 or 8)
+//   independent chunks (and `ilp` remote loads) in flight.  A cluster
+//   of one block is its own ring: it adds `hops` copies of its chunk.
 // ring_latency_probe_fwd: one cluster; rank r reads rank r-1's word.
 // histogram_fwd: `dsm`=0: each block counts into a whole private
 //   histogram in its shared memory; `dsm`=1: each block owns nbins/CS
@@ -23,6 +25,14 @@
 //
 // A block whose shared memory its peers read must not exit before they
 // are done: every kernel ends its peer reads with a cluster.sync().
+//
+// Cluster sizes 1, 2, 4, 8 and 16.  A cluster of 1 is the no-DSM case
+// (map_shared_rank(p, 0) is the block's own shared memory).  16 is past
+// the portable 8 and needs cudaFuncAttributeNonPortableClusterSizeAllowed;
+// before such a launch cudaOccupancyMaxActiveClusters is asked whether a
+// cluster of 16 blocks with the kernel's shared memory fits the card, and
+// where none fits the launch is refused (cudaErrorInvalidConfiguration,
+// which the wrappers turn into a ValueError).
 //
 // What bounds them: device-memory bytes (each input read once, each
 // output written once); the peer traffic stays on the SM-to-SM network.
@@ -40,34 +50,67 @@ constexpr int kThreads = 256;
 constexpr int kSmemLimit = 232448;
 constexpr int kMaxBlocks = 132 * 8;       // blocks a launch aims at
 
-bool valid_cluster(int cs) { return cs == 2 || cs == 4 || cs == 8; }
+constexpr int kPortableCluster = 8;
 
-// Launch `kernel` on `clusters` clusters of `cs` blocks each.
-template <class... Params, class... Args>
-cudaError_t launch_cluster(void (*kernel)(Params...), long long clusters,
-                           int cs, int threads, int smem,
-                           cudaStream_t stream, Args... args) {
-  if (clusters < 1 || clusters * cs > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
+bool valid_cluster(int cs) {
+  return cs == 1 || cs == 2 || cs == 4 || cs == 8 || cs == 16;
+}
+
+// Set what a launch of `kernel` with `smem` bytes in clusters of `cs`
+// needs: the dynamic shared memory past 48 KiB, the non-portable size.
+template <class... Params>
+cudaError_t allow(void (*kernel)(Params...), int cs, int smem) {
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
+  if (cs > kPortableCluster)
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return cudaSuccess;
+}
+
+cudaLaunchConfig_t cluster_config(long long blocks, int cs, int threads,
+                                  int smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(clusters * cs), 1, 1);
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks), 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cs;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return cfg;
+}
+
+// Launch `kernel` on `clusters` clusters of `cs` blocks each; a cluster
+// of 16 only where the card holds one.
+template <class... Params, class... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), long long clusters,
+                           int cs, int threads, int smem,
+                           cudaStream_t stream, Args... args) {
+  if (clusters < 1 || clusters * cs > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow(kernel, cs, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  if (cs > kPortableCluster) {
+    int n = 0;
+    cudaLaunchConfig_t one = cluster_config(cs, cs, threads, smem, stream,
+                                            attr);
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &one);
+    if (err != cudaSuccess) return err;
+    if (n < 1) return cudaErrorInvalidConfiguration;
+  }
+  cudaLaunchConfig_t cfg = cluster_config(clusters * cs, cs, threads, smem,
+                                          stream, attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -76,33 +119,33 @@ cudaError_t launch_cluster(void (*kernel)(Params...), long long clusters,
 // ring-based copy
 // ---------------------------------------------------------------------
 
-template <int ILP>
+template <typename T, int ILP>
 __global__ void __launch_bounds__(kThreads)
-    rbc_kernel(const float* __restrict__ x, float* __restrict__ out,
-               long long L, int hops) {
-  extern __shared__ float buf[];             // [2][ILP * blockDim]
+    rbc_kernel(const T* __restrict__ x, T* __restrict__ out, long long L,
+               int hops) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* buf = reinterpret_cast<T*>(smem_raw);   // [2][ILP * blockDim]
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int prev = (rank + cs - 1) % cs;
   const int tile = ILP * blockDim.x;
   const long long base = static_cast<long long>(blockIdx.x / cs) * tile;
-  const float* xs = x + static_cast<long long>(rank) * L;
-  float acc[ILP];
+  const T* xs = x + static_cast<long long>(rank) * L;
+  T acc[ILP];
 #pragma unroll
   for (int k = 0; k < ILP; ++k) {
     const int slot = k * blockDim.x + threadIdx.x;
     const long long idx = base + slot;
-    const float v = idx < L ? xs[idx] : 0.0f;
+    const T v = idx < L ? xs[idx] : T(0);
     acc[k] = v;
     buf[slot] = v;
   }
   for (int h = 1; h <= hops; ++h) {
     cluster.sync();                          // hop h-1's chunk is written
-    const float* src =
-        cluster.map_shared_rank(buf + ((h - 1) & 1) * tile, prev);
-    float* dst = buf + (h & 1) * tile;
-    float moved[ILP];
+    const T* src = cluster.map_shared_rank(buf + ((h - 1) & 1) * tile, prev);
+    T* dst = buf + (h & 1) * tile;
+    T moved[ILP];
 #pragma unroll
     for (int k = 0; k < ILP; ++k) moved[k] = src[k * blockDim.x + threadIdx.x];
 #pragma unroll
@@ -205,29 +248,42 @@ __global__ void __launch_bounds__(kThreads)
   cluster.sync();                            // peers are done reading
 }
 
+template <typename T>
+cudaError_t rbc_dispatch(const void* x, void* out, int cs, long long L,
+                         int hops, int ilp, long long clusters,
+                         cudaStream_t s) {
+  const T* px = static_cast<const T*>(x);
+  T* po = static_cast<T*>(out);
+  const int smem = 2 * ilp * kThreads * static_cast<int>(sizeof(T));
+  switch (ilp) {
+    case 1: return launch_cluster(rbc_kernel<T, 1>, clusters, cs, kThreads,
+                                  smem, s, px, po, L, hops);
+    case 2: return launch_cluster(rbc_kernel<T, 2>, clusters, cs, kThreads,
+                                  smem, s, px, po, L, hops);
+    case 4: return launch_cluster(rbc_kernel<T, 4>, clusters, cs, kThreads,
+                                  smem, s, px, po, L, hops);
+    case 8: return launch_cluster(rbc_kernel<T, 8>, clusters, cs, kThreads,
+                                  smem, s, px, po, L, hops);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// float32 x and out [cs, L] (rank r's shard is row r).
-int rbc_ring_copy_fwd(const void* x, void* out, int cs, long long L,
-                      int hops, int ilp, void* stream) {
-  if (!valid_cluster(cs) || L <= 0 || hops < 0 || hops >= cs)
+// x and out [cs, L] (rank r's shard is row r), float32 (dtype 0) or
+// int32 (dtype 1); hops < cs, or any hops >= 0 for a cluster of one.
+int rbc_ring_copy_fwd(int dtype, const void* x, void* out, int cs,
+                      long long L, int hops, int ilp, void* stream) {
+  if (!valid_cluster(cs) || L <= 0 || hops < 0 || (hops >= cs && cs > 1) ||
+      (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   const long long clusters = (L + ilp * kThreads - 1) / (ilp * kThreads);
-  const int smem = 2 * ilp * kThreads * static_cast<int>(sizeof(float));
   auto s = static_cast<cudaStream_t>(stream);
-  const float* px = static_cast<const float*>(x);
-  float* po = static_cast<float*>(out);
-  switch (ilp) {
-    case 1: return launch_cluster(rbc_kernel<1>, clusters, cs, kThreads,
-                                  smem, s, px, po, L, hops);
-    case 2: return launch_cluster(rbc_kernel<2>, clusters, cs, kThreads,
-                                  smem, s, px, po, L, hops);
-    case 4: return launch_cluster(rbc_kernel<4>, clusters, cs, kThreads,
-                                  smem, s, px, po, L, hops);
-  }
-  return cudaErrorInvalidValue;
+  if (dtype == 1)
+    return rbc_dispatch<int>(x, out, cs, L, hops, ilp, clusters, s);
+  return rbc_dispatch<float>(x, out, cs, L, hops, ilp, clusters, s);
 }
 
 // int32 x [cs] -> out [cs], out[r] = x[(r - 1) mod cs].

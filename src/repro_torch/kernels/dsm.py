@@ -1,15 +1,20 @@
 """Thread-block-cluster kernels: wrappers of csrc/dsm.cu.
 
 The kernels behind ``core/dsm.py`` (paper §III-D-3, Figs. 8/9).  A
-cluster of ``cluster_size`` blocks (2, 4 or 8: portable sizes)
-plays the reference's mesh axis, and rank r of a cluster works on the
-r-th of ``cluster_size`` equal row blocks of the input's leading
-dimension, the shard ``P(axis)`` gives rank r.  Peers' shared memory is
-read through ``cooperative_groups::this_cluster().map_shared_rank``.
+cluster of ``cluster_size`` blocks (1, 2, 4, 8 or 16) plays the
+reference's mesh axis, and rank r of a cluster works on the r-th of
+``cluster_size`` equal row blocks of the input's leading dimension, the
+shard ``P(axis)`` gives rank r.  Peers' shared memory is read through
+``cooperative_groups::this_cluster().map_shared_rank``.  A cluster of 1
+is the no-DSM case (its own shared memory); 16 is past the portable
+size, and where the card holds no cluster of 16 blocks with the
+kernel's shared memory the source refuses the launch and the wrapper
+raises ValueError.
 
   * rbc_ring_copy — rank r accumulates ranks r-1 ... r-hops, in that
-    order (float32 results bitwise the reference's); ``ilp`` chunks in
-    flight per thread.
+    order (float32 results bitwise the reference's; int32 adds wrap);
+    ``ilp`` (1, 2, 4 or 8) chunks in flight per thread.  A cluster of
+    1 adds ``hops`` copies of its own chunk, as a one-rank ring does.
   * ring_latency_probe — one hop of one word per rank.
   * histogram_private / histogram_dsm — a whole private histogram per
     block in shared memory, or bins split over the cluster with every
@@ -32,8 +37,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels import matmul as _mm
 
 SOURCE = "dsm.cu"
-CLUSTER_SIZES = (2, 4, 8)
-ILPS = (1, 2, 4)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+PORTABLE_CLUSTER = 8
+ILPS = (1, 2, 4, 8)
+RING_DTYPES = (torch.float32, torch.int32)
+# what the source returns where no cluster past the portable size fits
+_NO_CLUSTER_FITS = 9                # cudaErrorInvalidConfiguration
 
 
 def _check_cluster(fn_name: str, cluster_size: int) -> None:
@@ -55,6 +64,20 @@ def _cuda_operand(fn_name: str, x: torch.Tensor, dtypes) -> None:
                         f"{sorted(map(str, dtypes))}")
     if not x.is_contiguous():
         raise ValueError(f"{fn_name}: the operand must be contiguous")
+
+
+def _launch(fn_name: str, entry: str, x: torch.Tensor, cluster_size: int,
+            *args) -> None:
+    """Launch `entry` on x's device; a cluster the card cannot hold is a
+    ValueError."""
+    try:
+        build.launch(SOURCE, entry, x.device, *args)
+    except build.LaunchError as e:
+        if cluster_size > PORTABLE_CLUSTER and e.code == _NO_CLUSTER_FITS:
+            raise ValueError(f"{fn_name}: no cluster of {cluster_size} "
+                             "blocks with this kernel's shared memory fits "
+                             "the card") from e
+        raise
 
 
 def histogram_smem_bytes(dsm: bool, nbins: int, cluster_size: int) -> int:
@@ -121,9 +144,10 @@ def all_to_all_exchange_plain(x: torch.Tensor,
 def rbc_ring_copy(x: torch.Tensor, cluster_size: int, *, hops: int = 1,
                   ilp: int = 1) -> torch.Tensor:
     """Ring-based copy over a cluster: rank r's row block plus ranks
-    r-1 ... r-hops' (float32)."""
+    r-1 ... r-hops' (float32 or int32).  hops < cluster_size, as the
+    reference asserts, except on a one-block ring."""
     _check_shards("rbc_ring_copy", x, cluster_size)
-    if not 0 <= hops < cluster_size:
+    if hops < 0 or (hops >= cluster_size and cluster_size != 1):
         raise ValueError(f"rbc_ring_copy: hops={hops} needs 0 <= hops < "
                          f"cluster_size={cluster_size}")
     if ilp not in ILPS or x.shape[-1] % ilp:
@@ -131,11 +155,12 @@ def rbc_ring_copy(x: torch.Tensor, cluster_size: int, *, hops: int = 1,
                          f"and divide the last dim {x.shape[-1]}")
     if x.device.type == "cpu":
         return rbc_ring_copy_plain(x, cluster_size, hops=hops)
-    _cuda_operand("rbc_ring_copy", x, (torch.float32,))
+    _cuda_operand("rbc_ring_copy", x, RING_DTYPES)
+    is_int = x.dtype == torch.int32
     out = torch.empty_like(x)
-    build.launch(SOURCE, "rbc_ring_copy_fwd", x.device, x.data_ptr(),
-                 out.data_ptr(), cluster_size,
-                 x.numel() // cluster_size, hops, ilp)
+    _launch("rbc_ring_copy", "rbc_ring_copy_fwd", x, cluster_size,
+            int(is_int), x.data_ptr(), out.data_ptr(), cluster_size,
+            x.numel() // cluster_size, hops, ilp)
     rbc_ring_copy.launches += 1
     return out
 
@@ -151,8 +176,8 @@ def ring_latency_probe(x: torch.Tensor) -> torch.Tensor:
         return ring_latency_probe_plain(x)
     _cuda_operand("ring_latency_probe", x, (torch.int32,))
     out = torch.empty_like(x)
-    build.launch(SOURCE, "ring_latency_probe_fwd", x.device, x.data_ptr(),
-                 out.data_ptr(), x.shape[0])
+    _launch("ring_latency_probe", "ring_latency_probe_fwd", x, x.shape[0],
+            x.data_ptr(), out.data_ptr(), x.shape[0])
     ring_latency_probe.launches += 1
     return out
 
@@ -174,9 +199,9 @@ def _histogram(fn, dsm: bool, values: torch.Tensor, nbins: int,
         return plain(values, nbins, cluster_size)
     _cuda_operand(name, values, (torch.int32,))
     out = torch.zeros(nbins, dtype=torch.int32, device=values.device)
-    build.launch(SOURCE, "histogram_fwd", values.device, int(dsm),
-                 values.data_ptr(), out.data_ptr(),
-                 values.numel() // cluster_size, nbins, cluster_size)
+    _launch(name, "histogram_fwd", values, cluster_size, int(dsm),
+            values.data_ptr(), out.data_ptr(),
+            values.numel() // cluster_size, nbins, cluster_size)
     fn.launches += 1
     return out
 
@@ -204,9 +229,9 @@ def all_to_all_exchange(x: torch.Tensor, cluster_size: int) -> torch.Tensor:
         return all_to_all_exchange_plain(x, cluster_size)
     _cuda_operand("all_to_all_exchange", x, (torch.float32, torch.int32))
     out = torch.empty_like(x)
-    build.launch(SOURCE, "all_to_all_fwd", x.device, x.data_ptr(),
-                 out.data_ptr(), cluster_size,
-                 x.numel() // (cluster_size * cluster_size))
+    _launch("all_to_all_exchange", "all_to_all_fwd", x, cluster_size,
+            x.data_ptr(), out.data_ptr(), cluster_size,
+            x.numel() // (cluster_size * cluster_size))
     all_to_all_exchange.launches += 1
     return out
 

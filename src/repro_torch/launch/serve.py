@@ -10,7 +10,11 @@ sysprompt`` serves the shared-prefix mix and prints the radix prefix
 cache's hit-rate stats; ``--no-prefix-cache`` turns the cache off.
 ``--fp8-kv`` stores the KV pool as e4m3 codes + per-row scales (read by
 the fp8 kernels) and ``--fp8-linear`` serves the projections through
-fp8-quantized weights.
+fp8-quantized weights.  ``--spec-decode K`` runs decode-only stretches
+as speculative verify steps (n-gram drafts, one [slots, K+1] verify
+through the paged chunk kernel a dispatch; the tokens of K=0) and
+prints the acceptance stats; ``--workload repetitive`` serves the
+tiled-motif mix on which the drafts hit.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import List, Optional
 
 from repro_torch.configs import list_archs, reduced_config
 from repro_torch.models import api
-from repro_torch.runtime.server import (ChunkedServer,
+from repro_torch.runtime.server import (ChunkedServer, repetitive_requests,
                                         sharegpt_like_requests,
                                         sysprompt_sharegpt_requests)
 
@@ -54,13 +58,23 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--eos-id", type=int, default=None,
                     help="stop a request when it emits this token id; "
                          "default: length-only stopping")
+    ap.add_argument("--spec-decode", type=int, default=0, metavar="K",
+                    help="speculative decoding: draft up to K tokens per "
+                         "slot from a device-resident n-gram table and "
+                         "verify them in one dispatch through the paged "
+                         "chunk kernel, accepting the longest prefix "
+                         "that matches the model's own chain (the tokens "
+                         "of K=0).  Default 0 = off (decode spans)")
     ap.add_argument("--workload", default="sharegpt",
-                    choices=("sharegpt", "sysprompt"),
+                    choices=("sharegpt", "sysprompt", "repetitive"),
                     help="sharegpt: log-normal independent prompts; "
                          "sysprompt: shared system-prompt templates x "
-                         "unique tails (exercises prefix sharing)")
+                         "unique tails (exercises prefix sharing); "
+                         "repetitive: tiled-motif prompts (high n-gram "
+                         "hit rate, exercises --spec-decode)")
     ap.add_argument("--templates", type=int, default=2,
-                    help="number of shared templates (sysprompt)")
+                    help="number of shared templates (sysprompt) / "
+                         "motifs (repetitive)")
     ap.add_argument("--max-input", type=int, default=32)
     ap.add_argument("--max-output", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
@@ -77,9 +91,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
                         block_size=args.block_size,
                         num_blocks=args.pool_blocks,
                         prefix_cache=not args.no_prefix_cache,
-                        eos_id=args.eos_id, fp8_kv=args.fp8_kv,
-                        fp8_linear=args.fp8_linear, device=args.device)
-    if args.workload == "sysprompt":
+                        eos_id=args.eos_id, spec_decode=args.spec_decode,
+                        fp8_kv=args.fp8_kv, fp8_linear=args.fp8_linear,
+                        device=args.device)
+    if args.workload == "repetitive":
+        reqs = repetitive_requests(args.requests, cfg.vocab_size,
+                                   num_motifs=args.templates,
+                                   motif_len=max(args.max_input // 4, 1),
+                                   reps=4, max_output=args.max_output,
+                                   seed=args.seed)
+    elif args.workload == "sysprompt":
         if args.max_input < 2:
             raise SystemExit(
                 "--workload sysprompt needs --max-input >= 2 (a shared "
@@ -112,6 +133,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
           f"(x{int(stats['block_size'])} tokens, "
           f"utilization={stats['pool_utilization']:.2f}, "
           f"stalls={int(stats['admission_stalls'])})")
+    if "spec_k" in stats:
+        print(f"  spec-decode: K={int(stats['spec_k'])} "
+              f"accepted={int(stats['spec_accepted_tokens'])}/"
+              f"{int(stats['spec_drafted_tokens'])} drafts "
+              f"(rate={stats['spec_acceptance_rate']:.2f}), "
+              f"{stats['spec_tokens_per_step']:.2f} tokens/step "
+              f"over {int(stats['spec_steps'])} verify dispatches")
     if "prefix_cache_enabled" in stats:
         print(f"  prefix-cache: hit-rate="
               f"{stats['prefix_hit_rate']:.2f} "

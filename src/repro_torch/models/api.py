@@ -7,6 +7,8 @@ PyTorch counterpart of ``repro/models/api.py`` for the dense family:
     init_cache / decode_step / chunk_step   paged serving (bf16 or fp8
                                             KV pool; ``quant=`` fp8
                                             linears)
+    verify_step                             speculative-decode verify
+    SamplingParams / sample_tokens          stochastic sample head
     cow_copy_block                          copy-on-write pool block copy
 
 Entry points run on the CUDA device unless the caller passes another
@@ -22,6 +24,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common, transformer
+from repro_torch.models.sampling import (GREEDY, SamplingParams,  # noqa: F401
+                                         ks_two_sample, sample_tokens)
 
 Params = Dict[str, Any]
 
@@ -103,6 +107,22 @@ def chunk_step(cfg: ModelConfig, params: Params, cache: Params,
         return transformer.chunk_step(cfg, params, cache, tokens, pos,
                                       n_tokens, block_table, kernel=kernel,
                                       quant=quant)
+
+
+def verify_step(cfg: ModelConfig, params: Params, cache: Params,
+                tokens: torch.Tensor, pos, block_table: torch.Tensor,
+                *, kernel: bool = False, quant: Optional[Params] = None,
+                sample=None) -> Tuple[torch.Tensor, Params]:
+    """Speculative-decode verify: score a [B, C] window of (current
+    token + C-1 drafts) per slot and return the next-token id at every
+    row (`chunk_step` returns only the last valid row's logits).
+    ``sample=(temp, top_k, top_p, seed)`` swaps the argmax chain for the
+    sample head (see transformer.verify_step)."""
+    _dense_only(cfg)
+    with torch.no_grad():
+        return transformer.verify_step(cfg, params, cache, tokens, pos,
+                                       block_table, kernel=kernel,
+                                       quant=quant, sample=sample)
 
 
 def cow_copy_block(cfg: ModelConfig, cache: Params, src: int,

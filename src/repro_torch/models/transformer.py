@@ -23,6 +23,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import sampling
 from repro_torch.models.common import (ParamSpec, apply_norm, apply_rope,
                                        chunked_softmax_xent, cross_entropy,
                                        norm_spec)
@@ -339,6 +340,22 @@ def decode_step(cfg, params, cache: Params, token: torch.Tensor, pos,
     return logits_fn(cfg, params, x)[:, 0], cache
 
 
+def _chunk_fwd(cfg, params, cache: Params, tokens: torch.Tensor,
+               pos: torch.Tensor, block_table: torch.Tensor, *,
+               kernel: bool, quant: Optional[Params]) -> torch.Tensor:
+    """Shared serving forward over a [B, C] token window written into
+    the pool at [pos, pos+C): the body of both `chunk_step` (which reads
+    out the last valid row) and `verify_step` (which reads out every
+    row).  Returns the final hidden [B, C, d]."""
+    C = tokens.shape[1]
+    x = _embed(params, tokens)                            # [B,C,d]
+    positions = pos[:, None] + torch.arange(C, dtype=torch.int32,
+                                            device=tokens.device)[None, :]
+    return _serving_scan(cfg, params, cache, x, pos, positions,
+                         block_table, decode=False, kernel=kernel,
+                         quant=quant)
+
+
 def chunk_step(cfg, params, cache: Params, tokens: torch.Tensor, pos,
                n_tokens: torch.Tensor, block_table: torch.Tensor, *,
                kernel: bool = False, quant: Optional[Params] = None
@@ -353,12 +370,45 @@ def chunk_step(cfg, params, cache: Params, tokens: torch.Tensor, pos,
     row, cache)."""
     B, C = tokens.shape
     pos = _per_slot_pos(pos, B, tokens.device)
-    x = _embed(params, tokens)                            # [B,C,d]
-    positions = pos[:, None] + torch.arange(C, dtype=torch.int32,
-                                            device=tokens.device)[None, :]
-    x = _serving_scan(cfg, params, cache, x, pos, positions, block_table,
-                      decode=False, kernel=kernel, quant=quant)
+    x = _chunk_fwd(cfg, params, cache, tokens, pos, block_table,
+                   kernel=kernel, quant=quant)
     last = (n_tokens.long() - 1).clamp(0, C - 1)          # [B]
     h_last = torch.gather(x, 1, last[:, None, None].expand(B, 1,
                                                             x.shape[-1]))
     return logits_fn(cfg, params, h_last)[:, 0], cache
+
+
+def verify_step(cfg, params, cache: Params, tokens: torch.Tensor, pos,
+                block_table: torch.Tensor, *, kernel: bool = False,
+                quant: Optional[Params] = None, sample=None
+                ) -> Tuple[torch.Tensor, Params]:
+    """Speculative-decode verify: score a [B, C] window (row 0 = each
+    slot's current token, rows 1..C-1 = draft tokens) in one call and
+    return the next-token id at EVERY row.
+
+    The `chunk_step` forward (the same k/v writes at [pos, pos+C), the
+    same causal read, through the paged chunk kernel with
+    ``kernel=True``), read out at every row.  Rows past the accepted
+    frontier leave k/v beyond it, which no later read sees before the
+    next window overwrites it; rows past the slot's allocated blocks
+    are dropped at the write.
+
+    ``sample=(temp, top_k, top_p, seed)`` (each ``[B]``) draws row j's
+    token with the sample head (models/sampling.sample_tokens) keyed by
+    ``(seed[b], pos[b] + 1 + j)``: the key the span loop uses for the
+    same emitted position.  Greedy rows stay the argmax.
+    ``sample=None`` is the argmax head.
+
+    Returns (preds [B, C] int32, cache)."""
+    B, C = tokens.shape
+    pos = _per_slot_pos(pos, B, tokens.device)
+    x = _chunk_fwd(cfg, params, cache, tokens, pos, block_table,
+                   kernel=kernel, quant=quant)
+    logits = logits_fn(cfg, params, x)                    # [B,C,V]
+    if sample is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    temp, top_k, top_p, seed = sample
+    index = pos[:, None] + 1 + torch.arange(C, dtype=torch.int32,
+                                            device=tokens.device)[None, :]
+    return sampling.sample_tokens(logits, temp, top_k, top_p, seed,
+                                  index), cache

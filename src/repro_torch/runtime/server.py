@@ -4,10 +4,23 @@ PyTorch counterpart of ``ChunkedServer`` in ``repro/runtime/server.py``:
 Sarathi-style chunked prefill packs prompt chunks and the single-token
 decodes of ongoing requests into one fixed-shape [slots, chunk] step
 (`models.api.chunk_step`); decode-only stretches run a device-resident
-`span`-step decode loop (greedy argmax, position advance, active-slot
-masking and stop detection all on the device); the host mirrors the
-deterministic bookkeeping in numpy and reads tokens only when it
-harvests finished requests (or every step when ``eos_id`` is set).
+`span`-step decode loop (sample head, position advance, active-slot
+masking and stop detection all on the device), or with
+``spec_decode=K`` one verify step a dispatch (runtime/spec_decode.py:
+n-gram drafts scored in one [slots, K+1] `api.verify_step`); the host
+mirrors the deterministic bookkeeping in numpy and reads tokens only
+when it harvests finished requests (or every step when ``eos_id`` is
+set; a verify step's acceptance is always read back).
+
+Every work unit ends in the sample head (models/sampling.py): per-slot
+temperature / top-k / top-p / seed mirrors, filled at admission from
+``Request.sampling`` or the server's default (greedy unless
+``sampling=`` is given), and a draw keyed by (seed, emission position),
+so the chunk, span and verify paths draw the same token for the same
+position.  When the mirrors make every slot greedy (the host knows it
+from admission), a dispatch ends in the argmax instead: the sample
+head's greedy rows are that argmax bit for bit, and its sorts and noise
+over [slots, vocab] are skipped.
 
 The KV cache is a paged block pool with per-slot block tables, a
 refcounted allocator with admission backpressure, and a radix-tree
@@ -30,9 +43,9 @@ weight to e4m3 once at init (te/linear.quantize_serving_params) and
 serves each projection through te/linear.fp8_serving_dot.  Both change
 numerics within fp8 rounding, as in the reference.
 
-Not ported yet: the contiguous layout (``paged=False``), speculative
-decoding, sampling, tensor parallelism, open-loop serving and the slot
-baseline; passing any of those options raises ``NotImplementedError``.
+Not ported yet: the contiguous layout (``paged=False``), tensor
+parallelism, open-loop serving and the slot baseline; passing any of
+those options raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,10 +59,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import paged_attention as pk
-from repro_torch.models import api
+from repro_torch.models import api, sampling
 from repro_torch.models.common import resolve_device
+from repro_torch.models.sampling import GREEDY, SamplingParams
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
+from repro_torch.runtime import spec_decode as spec
 from repro_torch.runtime.prefix_cache import BlockPool, RadixPrefixCache
 from repro_torch.te import linear as te_linear
 
@@ -66,6 +81,9 @@ class Request:
     # set at admission when in_len + max_new overruns the max_len
     # position cap: generation will stop at max_len - in_len tokens
     truncated: bool = False
+    # per-request sampling config (models/sampling.SamplingParams);
+    # None falls back to the server's default
+    sampling: Optional[SamplingParams] = None
 
 
 def sharegpt_like_requests(n: int, vocab: int, *, max_input: int = 128,
@@ -108,9 +126,29 @@ def sysprompt_sharegpt_requests(n: int, vocab: int, *,
     return reqs
 
 
+def repetitive_requests(n: int, vocab: int, *, num_motifs: int = 2,
+                        motif_len: int = 8, reps: int = 3,
+                        max_output: int = 48, seed: int = 0
+                        ) -> List[Request]:
+    """Highly repetitive mix: each prompt tiles one of a few short
+    motifs, so identical requests recur within and across waves — the
+    n-gram draft proposer's best case (the same draws as the reference
+    for the same seed)."""
+    rng = np.random.default_rng(seed)
+    motifs = [rng.integers(0, vocab, size=motif_len).astype(np.int32)
+              for _ in range(num_motifs)]
+    reqs = []
+    for i in range(n):
+        motif = motifs[int(rng.integers(num_motifs))]
+        reqs.append(Request(rid=i, prompt=np.tile(motif, reps),
+                            max_new=max_output))
+    return reqs
+
+
 def clone_requests(reqs: List[Request]) -> List[Request]:
     """Fresh Request objects for re-serving the same mix (A/B runs)."""
-    return [Request(rid=r.rid, prompt=r.prompt.copy(), max_new=r.max_new)
+    return [Request(rid=r.rid, prompt=r.prompt.copy(), max_new=r.max_new,
+                    sampling=r.sampling)
             for r in reqs]
 
 
@@ -127,6 +165,10 @@ class ChunkedServer:
         token at row 0.
       * decode span — `span` consecutive decode steps on the device
         when no prefill is pending, with no host read inside.
+      * verify step — with ``spec_decode=K``, decode-only stretches run
+        one [slots, K+1] speculative window a dispatch instead: n-gram
+        drafts verified against the model's own chain (the K=0 tokens,
+        >= 1 token per slot per dispatch).
 
     The host mirrors position/emission bookkeeping in numpy — greedy
     decoding with length-only stopping is deterministic, so the mirror
@@ -144,16 +186,19 @@ class ChunkedServer:
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefix_cache: bool = True,
                  eos_id: Optional[int] = None,
-                 spec_decode: int = 0, fp8_kv: bool = False,
+                 spec_decode: int = 0,
+                 spec_n_ctx: int = spec.DEFAULT_N_CTX,
+                 fp8_kv: bool = False,
                  fp8_linear: bool = False, tp: int = 1, mesh=None,
-                 sampling=None, tracer: Optional[Tracer] = None,
-                 device=None):
-        deferred = {"paged=False": not paged, "spec_decode": spec_decode,
-                    "tp": tp != 1, "mesh": mesh is not None,
-                    "sampling": sampling is not None}
+                 sampling: Optional[SamplingParams] = None,
+                 tracer: Optional[Tracer] = None, device=None):
+        deferred = {"paged=False": not paged, "tp": tp != 1,
+                    "mesh": mesh is not None}
         for name, on in deferred.items():
             if on:
                 raise NotImplementedError(f"{name} is not ported yet")
+        if spec_decode < 0:
+            raise ValueError(f"spec_decode must be >= 0, got {spec_decode}")
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (dense only)")
@@ -170,6 +215,10 @@ class ChunkedServer:
         self.chunk = chunk
         self.span = span
         self.eos_id = eos_id
+        # the default for requests without their own SamplingParams;
+        # greedy is a value (temperature 0), not another code path
+        self.sampling = sampling if sampling is not None else GREEDY
+        self.spec_decode = int(spec_decode)
         # host-side observability: `self.obs` records lifecycle events
         # only when a Tracer is passed; `self.metrics` is always a real
         # registry, so the per-phase breakdown exists untraced too
@@ -216,12 +265,27 @@ class ChunkedServer:
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.mode = ["idle"] * batch_slots    # idle | prefill | decode | done
         self.prompt_off = np.zeros(batch_slots, np.int32)
+        # per-slot sampling mirrors (filled at admission; idle slots
+        # hold greedy values, so they never draw)
+        self.samp_temp = np.zeros(batch_slots, np.float32)
+        self.samp_top_k = np.zeros(batch_slots, np.int32)
+        self.samp_top_p = np.ones(batch_slots, np.float32)
+        self.samp_seed = np.zeros(batch_slots, np.int32)
+        if self.spec_decode:
+            # shared by every slot, kept across runs (warm drafts)
+            self.ngram_table = spec.init_ngram_table(
+                self.spec_decode, spec_n_ctx, device=self.device)
+            self.spec_steps = 0
+            self.spec_slot_steps = 0
+            self.spec_drafted = 0
+            self.spec_accepted = 0
+            self.spec_emitted = 0
         if self.obs.enabled:
             self.obs.meta.update(
                 batch_slots=self.B, chunk=self.chunk, span=self.span,
                 max_len=self.max_len, num_layers=cfg.num_layers,
                 kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-                spec_decode=0, tp=1, paged=True,
+                spec_decode=self.spec_decode, tp=1, paged=True,
                 block_size=self.block_size, max_blocks=self.max_blocks,
                 num_blocks=self.num_blocks,
                 kv_read_mode="fp8_kernel" if self.fp8_kv else "kernel")
@@ -235,6 +299,29 @@ class ChunkedServer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _samp_operands(self) -> Tuple[torch.Tensor, ...]:
+        """The sampling mirrors as device operands."""
+        return tuple(self._put(a.copy()) for a in (
+            self.samp_temp, self.samp_top_k, self.samp_top_p,
+            self.samp_seed))
+
+    def _samp(self) -> Optional[Tuple[torch.Tensor, ...]]:
+        """The sample head's operands, or None when every slot is greedy
+        (idle slots hold greedy values): the argmax head then stands in,
+        equal to the sample head's greedy rows bit for bit."""
+        if np.all((self.samp_temp <= 0.0) | (self.samp_top_k == 1)):
+            return None
+        return self._samp_operands()
+
+    @staticmethod
+    def _head(logits: torch.Tensor, samp, index: torch.Tensor
+              ) -> torch.Tensor:
+        """The next token of every slot: `sampling.sample_tokens`, or the
+        argmax when `samp` is None."""
+        if samp is None:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return sampling.sample_tokens(logits, *samp, index)
+
     def launch_counts(self) -> Dict[str, int]:
         """Launches of the paged-attention kernels in this process (the
         wrappers' counts, bf16 and fp8 bodies; CPU runs launch none)."""
@@ -242,7 +329,7 @@ class ChunkedServer:
 
     # -- device work units ------------------------------------------------
     def _chunk_impl(self, tokens_host, pos, n_tokens, is_decode, emit,
-                    out_len, block_table) -> None:
+                    out_len, samp, block_table) -> None:
         B, C = tokens_host.shape
         col0 = torch.arange(C, device=self.device) == 0
         tokens = torch.where(is_decode[:, None] & col0[None, :],
@@ -250,14 +337,15 @@ class ChunkedServer:
         logits, self.cache = api.chunk_step(
             self.cfg, self.params, self.cache, tokens, pos, n_tokens,
             block_table, kernel=True, quant=self._quant)
-        # greedy head: argmax of the bf16 logits, first index on ties
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        # the emitted token sits at position pos + n_tokens: the key of
+        # the span and verify paths' draw for the same position
+        nxt = self._head(logits, samp, pos + n_tokens)
         self.cur_tok = torch.where(emit, nxt, self.cur_tok)
         idx = out_len.long().clamp(0, self.max_len - 1)
         self.out_buf[self._rows, idx] = torch.where(
             emit, nxt, self.out_buf[self._rows, idx])
 
-    def _span_impl(self, pos, out_len, active, max_new, block_table
+    def _span_impl(self, pos, out_len, active, max_new, samp, block_table
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         cap = self.max_len - 1
         tok = self.cur_tok
@@ -265,7 +353,8 @@ class ChunkedServer:
             logits, self.cache = api.decode_step(
                 self.cfg, self.params, self.cache, tok, pos, block_table,
                 kernel=True, quant=self._quant)
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            # emission position pos + 1 (before the increment)
+            nxt = self._head(logits, samp, pos + 1)
             idx = out_len.long().clamp(0, self.max_len - 1)
             self.out_buf[self._rows, idx] = torch.where(
                 active, nxt, self.out_buf[self._rows, idx])
@@ -279,6 +368,17 @@ class ChunkedServer:
                 active = active & (nxt != self.eos_id)
         self.cur_tok = tok
         return pos, out_len, active
+
+    def _spec_impl(self, pos, out_len, active, max_new, samp, block_table
+                   ) -> Tuple[torch.Tensor, ...]:
+        (self.cache, self.ngram_table, self.cur_tok, self.out_buf, pos,
+         out_len, active, n_emit) = spec.spec_decode_step(
+            self.cfg, self.params, self.cache, self.ngram_table,
+            self.cur_tok, self.out_buf, pos, out_len, active, max_new,
+            *(samp if samp is not None else (None,) * 4), block_table,
+            max_len=self.max_len, eos_id=self.eos_id,
+            fwd_kw={"kernel": True, "quant": self._quant})
+        return pos, out_len, active, n_emit
 
     # -- host-side refcounted block allocator -----------------------------
     def _blocks_needed(self, req: Request) -> int:
@@ -369,6 +469,26 @@ class ChunkedServer:
         self.peak_blocks = max(self.peak_blocks, in_use)
         self.metrics.gauge("serving.pool.blocks_in_use").set(float(in_use))
 
+    def _truncate_blocks(self, s: int, upto: int) -> int:
+        """Roll slot s's block-table frontier back so it owns exactly the
+        blocks covering virtual [0, upto): the rollback after a verify
+        step rejects drafts.  Blocks wholly past the frontier return to
+        the pool and their reservation is restored.  Shared prefix
+        blocks and a pending copy-on-write sit below the frontier, so
+        refcounts are untouched.  Returns the blocks rolled back."""
+        owned = self._slot_blocks[s]
+        keep = -(-upto // self.block_size)
+        assert keep >= int(self._num_shared[s]) + bool(self._cow_pending[s])
+        freed = 0
+        while len(owned) > keep:
+            b = owned.pop()
+            self.block_table[s, len(owned)] = -1
+            self.pool.decref(b)
+            self._reserved[s] += 1
+            self._reserved_total += 1
+            freed += 1
+        return freed
+
     def _free_slot_blocks(self, s: int) -> None:
         """free == decref: cached blocks stay resident (evictable),
         exclusively-owned blocks return to the free list."""
@@ -456,6 +576,13 @@ class ChunkedServer:
                 self.prompt_off[s] = matched
                 self.pos[s] = matched
                 self.out_len[s] = 0
+                # the request's sampling, or the server default
+                sp = (req.sampling if req.sampling is not None
+                      else self.sampling)
+                self.samp_temp[s] = sp.temperature
+                self.samp_top_k[s] = sp.top_k
+                self.samp_top_p[s] = sp.top_p
+                self.samp_seed[s] = sp.seed
                 self.metrics.counter("serving.requests.admitted").inc()
                 if self.obs.enabled:
                     self.obs.admit(req.rid, s, matched, req.truncated)
@@ -503,7 +630,7 @@ class ChunkedServer:
         self._chunk_impl(self._put(tokens_host), self._put(self.pos.copy()),
                          self._put(n_tokens), self._put(is_decode),
                          self._put(emit), self._put(self.out_len.copy()),
-                         self._put(self.block_table.copy()))
+                         self._samp(), self._put(self.block_table.copy()))
         self._sync()
         t1 = time.perf_counter()
         packed = int(n_tokens.sum())
@@ -574,7 +701,7 @@ class ChunkedServer:
             self._ensure_blocks(s, int(sim_pos[s]))
         pos_d, out_d, act_d = self._span_impl(
             self._put(self.pos.copy()), self._put(self.out_len.copy()),
-            self._put(active), self._put(max_new),
+            self._put(active), self._put(max_new), self._samp(),
             self._put(self.block_table.copy()))
         self._sync()
         t1 = time.perf_counter()
@@ -600,6 +727,63 @@ class ChunkedServer:
                           emitted=productive, kv_lens=kv_lens)
         for s in np.flatnonzero(done_now):
             self._mark_done(s)
+
+    def _run_spec_step(self) -> None:
+        """One draft -> verify -> accept step for every decoding slot
+        (runtime/spec_decode.py).  Acceptance is data-dependent, so the
+        final pos/out_len/active and the emitted counts are read back
+        every step; the block tables are then rolled back to each
+        slot's accepted frontier."""
+        t0 = time.perf_counter()
+        K = self.spec_decode
+        active = np.array([m == "decode" for m in self.mode])
+        if self.obs.enabled:
+            kv_lens = tuple(int(p) for p in self.pos[active])
+        max_new = np.array(
+            [r.max_new if r is not None else 0 for r in self.slot_req],
+            np.int32)
+        cap = self.max_len - 1
+        for s in np.flatnonzero(active):
+            # cover the window only up to the slot's emit budget: rows
+            # past it are never accepted and their writes drop past the
+            # table, so the admission reservation always suffices
+            budget = min(int(max_new[s]) - int(self.out_len[s]),
+                         cap - int(self.pos[s]))
+            self._ensure_blocks(
+                s, int(self.pos[s]) + min(K + 1, max(budget, 1)))
+        pos_d, out_d, act_d, emit_d = self._spec_impl(
+            self._put(self.pos.copy()), self._put(self.out_len.copy()),
+            self._put(active), self._put(max_new), self._samp(),
+            self._put(self.block_table.copy()))
+        emit = emit_d.cpu().numpy()
+        self.pos = pos_d.cpu().numpy().astype(np.int32)
+        self.out_len = out_d.cpu().numpy().astype(np.int32)
+        done_now = active & ~act_d.cpu().numpy()
+        t1 = time.perf_counter()
+        # rejected drafts: shrink each frontier back to the accepted
+        # positions (stale K/V past it is never read)
+        for s in np.flatnonzero(active):
+            rolled = self._truncate_blocks(s, int(self.pos[s]))
+            if rolled:
+                self.metrics.counter(
+                    "serving.spec.rollback_blocks").inc(rolled)
+                if self.obs.enabled:
+                    self.obs.event("spec_rollback", slot=int(s),
+                                   blocks=rolled)
+        for s in np.flatnonzero(done_now):
+            self._mark_done(s)
+        nact = int(active.sum())
+        emitted = int(emit.sum())
+        accepted = int(np.maximum(emit - 1, 0).sum())
+        self.spec_steps += 1
+        self.spec_slot_steps += nact
+        self.spec_drafted += K * nact
+        self.spec_emitted += emitted
+        self.spec_accepted += accepted
+        spec.record_dispatch(
+            self.metrics, self.obs, t0=t0, t1=t1, k=K, n_active=nact,
+            emitted=emitted, accepted=accepted,
+            kv_lens=kv_lens if self.obs.enabled else ())
 
     def _harvest(self) -> int:
         done_slots = [s for s in range(self.B) if self.mode[s] == "done"]
@@ -652,6 +836,13 @@ class ChunkedServer:
         self.prefix_hits = 0
         self._evict0 = (self.prefix_cache.evicted_blocks
                         if self.prefix_cache is not None else 0)
+        if self.spec_decode:
+            # per run too (the n-gram table persists: warm drafts)
+            self.spec_steps = 0
+            self.spec_slot_steps = 0
+            self.spec_drafted = 0
+            self.spec_accepted = 0
+            self.spec_emitted = 0
 
     def serve(self, requests: List[Request]) -> Dict[str, float]:
         queue = list(requests)
@@ -667,7 +858,10 @@ class ChunkedServer:
             if any(m == "prefill" for m in self.mode):
                 prefill_tokens += self._run_chunk_step()
             elif any(m == "decode" for m in self.mode):
-                self._run_decode_span()
+                if self.spec_decode:
+                    self._run_spec_step()
+                else:
+                    self._run_decode_span()
             served_tokens += self._harvest()
         dt = time.perf_counter() - t0
         return self._run_stats(requests, dt, served_tokens, prefill_tokens)
@@ -678,19 +872,38 @@ class ChunkedServer:
         m = self.metrics
         chunk_steps = m.counter_value("serving.dispatches.prefill")
         span_disp = m.counter_value("serving.dispatches.span")
+        verify_disp = m.counter_value("serving.dispatches.verify")
+        span_s = m.hist_total("serving.wall_s.span")
+        verify_s = m.hist_total("serving.wall_s.verify")
         stats = {
             "requests": float(len(requests)),
             "tokens": float(served_tokens),
             "seconds": dt,
             "tokens_per_s": served_tokens / dt if dt > 0 else 0.0,
             "prefill_seconds": m.hist_total("serving.wall_s.prefill"),
-            "decode_seconds": m.hist_total("serving.wall_s.span"),
+            "decode_seconds": span_s + verify_s,
+            "verify_seconds": verify_s,
             "prefill_tokens": float(prefill_tokens),
             "decode_tokens": float(sum(len(r.output) for r in requests)),
             "decode_steps": float(span_disp * self.span),
             "chunk_steps": float(chunk_steps),
-            "decode_spans": float(span_disp),
+            "decode_spans": float(span_disp + verify_disp),
         }
+        if self.spec_decode:
+            stats.update({
+                "spec_k": float(self.spec_decode),
+                "spec_steps": float(self.spec_steps),
+                "spec_drafted_tokens": float(self.spec_drafted),
+                "spec_accepted_tokens": float(self.spec_accepted),
+                "spec_acceptance_rate": (
+                    self.spec_accepted / self.spec_drafted
+                    if self.spec_drafted else 0.0),
+                # mean emitted tokens per slot per verify dispatch; the
+                # span loop's equivalent is exactly 1.0
+                "spec_tokens_per_step": (
+                    self.spec_emitted / self.spec_slot_steps
+                    if self.spec_slot_steps else 0.0),
+            })
         contiguous_tokens = self.B * (self.max_len + self.chunk)
         kv_bytes = sum(t.numel() * t.element_size()
                        for t in self.cache.values())

@@ -29,6 +29,14 @@ lse within 1e-4 of max(1, max |lse|); gradients with the kernel forward
 against the plain forward within 1e-4 (float32) or 2**-5 of max |g|
 (bf16: the backward reads the bf16 output); the training loop restarts
 bit-exactly on the card.
+The sample head (models/sampling.py) on the card: its random bits and
+uniforms equal the CPU's bit for bit, its Gumbel noise within two units
+of max(ulp(g), ulp(1)) (the card's log), its tokens equal except where
+the CPU's own draw is that close to another.  `verify_step` through the
+paged chunk kernel at K = 1, 2, 4 (bf16 and fp8): each kernel call
+within the paged limits of its plain version on the same inputs, the
+tokens equal to the gather path's but for small top-2 margins; a
+rolled-back verify window leaves nothing a later verify reads.
 """
 
 import numpy as np
@@ -47,7 +55,7 @@ from repro_torch.kernels import fp8_matmul as f8k
 from repro_torch.kernels import matmul as mmk
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pk
-from repro_torch.models import api, attention
+from repro_torch.models import api, attention, sampling, transformer
 from repro_torch.runtime import server
 from repro_torch.te import fp8
 
@@ -391,15 +399,19 @@ def test_decode_span_reads_nothing_back(cuda, fp8_opts):
                                  np.ones(srv.B, bool),
                                  np.full(srv.B, 8, np.int32),
                                  srv.block_table.copy())]
+    # the sample head's operands, and None: the all-greedy argmax head
+    heads = (srv._samp_operands(), srv._samp())
+    assert heads[1] is None
     torch.cuda.synchronize()
     n0 = srv.launch_counts()[key]
     torch.cuda.set_sync_debug_mode("error")
     try:
-        srv._span_impl(*ops)
+        for samp in heads:
+            srv._span_impl(*ops[:4], samp, ops[4])
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert srv.launch_counts()[key] == n0 + srv.span * cfg.num_layers
+    assert srv.launch_counts()[key] == n0 + 2 * srv.span * cfg.num_layers
 
 
 @pytest.mark.gpu
@@ -422,6 +434,216 @@ def test_server_on_card_completes_and_launches_both_kernels(cuda, fp8_opts):
     assert all(r.done and len(r.output) == r.max_new for r in reqs)
     n1 = srv.launch_counts()
     assert all(n1[k] > n0[k] for k in keys)
+
+
+# ----------------------------------------------------------------------
+# the sample head, verify_step and speculative decoding
+# ----------------------------------------------------------------------
+
+GUMBEL_ULPS = 2
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [0, 5])
+def test_sample_head_on_card_equals_cpu(cuda, dtype, C):
+    rng = np.random.default_rng(C)
+    B, V = 8, 64000
+    seeds = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, B)).to(
+        torch.int32)
+    index = torch.from_numpy(rng.integers(0, 2 ** 31, (B, C) if C else B))
+    index = index.to(torch.int32)
+    key = sampling.fold_in(sampling.prng_key(seeds[:, None].expand(-1, 3)),
+                           index.reshape(B, -1)[:, :3])
+    for fn in (sampling.random_bits, sampling.uniform_tiny):
+        cpu = fn(key, V)
+        card = fn(tuple(k.to(cuda) for k in key), V).cpu()
+        assert torch.equal(card.view(torch.int32) if card.is_floating_point()
+                           else card, cpu.view(torch.int32)
+                           if cpu.is_floating_point() else cpu), fn.__name__
+    g_cpu = sampling.gumbel(key, V)
+    g_card = sampling.gumbel(tuple(k.to(cuda) for k in key), V).cpu()
+    unit = torch.maximum(torch.ones_like(g_cpu) * EPS32,
+                         g_cpu.abs() * EPS32)
+    assert ((g_card - g_cpu).abs() <= GUMBEL_ULPS * unit).all()
+    shape = (B, C, V) if C else (B, V)
+    logits = torch.from_numpy(rng.standard_normal(shape) * 3).to(
+        getattr(torch, dtype))
+    temp = torch.tensor([0.0, 1.0, 0.5, 1.0, 0.8, 1.3, 1.0, 2.0])
+    top_k = torch.tensor([0, 1, 0, 4, 40, 0, 0, 8], dtype=torch.int32)
+    top_p = torch.tensor([1.0, 1.0, 1.0, 1.0, 1.0, 0.9, 0.5, 1.0])
+    ops = (temp, top_k, top_p, seeds, index)
+    cpu = sampling.sample_tokens(logits, *ops)
+    card = sampling.sample_tokens(logits.to(cuda),
+                                  *(x.to(cuda) for x in ops)).cpu()
+    assert card.dtype == torch.int32 and card.shape == cpu.shape
+    lg = logits.reshape(B, -1, V)
+    ambiguous = 0
+    for b in range(B):
+        for c in range(lg.shape[1]):
+            a, w = card.reshape(B, -1)[b, c], cpu.reshape(B, -1)[b, c]
+            if temp[b] <= 0 or top_k[b] == 1:
+                assert a == w == lg[b, c].float().argmax()
+            elif a != w:
+                gap, mag, kgap, cut = sampling.draw_margins(
+                    lg[b, c], sampling.SamplingParams(
+                        float(temp[b]), int(top_k[b]), float(top_p[b]),
+                        int(seeds[b])), int(index.reshape(B, -1)[b, c]))
+                tol = 6 * EPS32 * max(1.0, mag)
+                assert gap <= tol or kgap <= tol or cut <= 64 * EPS32, \
+                    (b, c, gap, kgap, cut)
+                ambiguous += 1
+    print(f"{dtype} C={C}: {ambiguous} rows drew another token where the "
+          "CPU's draw is ambiguous within the noise's rounding")
+
+
+def _prefilled(cfg, params, device, *, fp8_kv, B=3, bs=8, MB=8, ctx=13):
+    """A pool with `ctx` random tokens of context per slot, written by a
+    plain chunk_step, and its block table (all MB blocks allocated)."""
+    cache = api.init_cache(cfg, B, MB * bs, block_size=bs,
+                           num_blocks=B * MB, device=device, fp8_kv=fp8_kv)
+    bt = torch.arange(B * MB, dtype=torch.int32, device=device).reshape(B,
+                                                                        MB)
+    g = torch.Generator().manual_seed(ctx)
+    toks = torch.randint(0, cfg.vocab_size, (B, ctx), generator=g,
+                         dtype=torch.int32).to(device)
+    pos = torch.zeros(B, dtype=torch.int32, device=device)
+    api.chunk_step(cfg, params, cache, toks, pos,
+                   torch.full((B,), ctx, dtype=torch.int32, device=device),
+                   bt, kernel=False)
+    return cache, bt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fp8_opts", [{}, dict(fp8_kv=True,
+                                              fp8_linear=True)],
+                         ids=["bf16", "fp8"])
+@pytest.mark.parametrize("K", [1, 2, 4])
+def test_verify_step_kernel_vs_plain(cuda, fp8_opts, K):
+    """verify_step at C = K + 1 through the paged chunk kernel: every
+    kernel call within the paged limits of its plain version on the
+    same inputs; the tokens equal the gather path's where the plain
+    logits' top-2 margin is not small."""
+    from repro_torch.te import linear as te_linear
+    cfg = reduced_config("yi-6b")
+    params = api.init(cfg, 0, device=cuda)
+    quant = (te_linear.quantize_serving_params(params)
+             if fp8_opts else None)
+    fp8_kv = bool(fp8_opts)
+    B, ctx = 3, 13
+    cache, bt = _prefilled(cfg, params, cuda, fp8_kv=fp8_kv, B=B, ctx=ctx)
+    plain_cache = {k: v.clone() for k, v in cache.items()}
+    window = torch.randint(0, cfg.vocab_size, (B, K + 1), dtype=torch.int32,
+                           device=cuda)
+    pos = torch.tensor([ctx, ctx - 5, 2], dtype=torch.int32, device=cuda)
+    calls = []
+    orig = transformer._cache_attend
+
+    def checked(q, k1, v1, cl, pos_, positions, block_table, *, decode,
+                kernel):
+        o = orig(q, k1, v1, cl, pos_, positions, block_table,
+                 decode=decode, kernel=kernel)
+        if kernel:
+            plain = pk.paged_chunk_fp8_plain if fp8_kv else \
+                pk.paged_chunk_plain
+            kw = ({"k_scale": cl["k_scale"], "v_scale": cl["v_scale"]}
+                  if fp8_kv else {})
+            want = plain(q, cl["k"], cl["v"], block_table, pos_, **kw)
+            calls.append(_paged_err_ok(o, want, "bfloat16"))
+        return o
+
+    key = "paged_chunk_fp8" if fp8_kv else "paged_chunk"
+    n0 = pk.launch_counts()[key]
+    transformer._cache_attend = checked
+    try:
+        x = transformer._chunk_fwd(cfg, params, cache, window, pos, bt,
+                                   kernel=True, quant=quant)
+    finally:
+        transformer._cache_attend = orig
+    torch.cuda.synchronize()
+    assert pk.launch_counts()[key] == n0 + cfg.num_layers
+    assert len(calls) == cfg.num_layers and all(ok for _, ok in calls), \
+        calls
+    xp = transformer._chunk_fwd(cfg, params, plain_cache, window, pos, bt,
+                                kernel=False, quant=quant)
+    lk = transformer.logits_fn(cfg, params, x).float()
+    lp = transformer.logits_fn(cfg, params, xp).float()
+    preds, _ = api.verify_step(cfg, params, plain_cache, window, pos, bt,
+                               kernel=False, quant=quant)
+    assert torch.equal(preds, lp.argmax(-1).to(torch.int32))
+    top = lp.topk(2, dim=-1).values
+    clear = (top[..., 0] - top[..., 1]) > (0.5 if fp8_kv else 0.0625)
+    assert torch.equal(lk.argmax(-1)[clear], lp.argmax(-1)[clear])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fp8_kv", [False, True], ids=["bf16", "fp8"])
+def test_rolled_back_window_is_never_read(cuda, fp8_kv):
+    """A verify window that crosses a block boundary, rolled back: what
+    its rejected rows wrote past the frontier, and whatever a later
+    owner writes into the block that went back to the pool, never
+    reaches a later verify.  The next verify's hidden states equal,
+    bit for bit, those over a pool that held nothing past the
+    frontier."""
+    cfg = reduced_config("yi-6b")
+    params = api.init(cfg, 0, device=cuda)
+    B, bs, K, ctx = 3, 8, 4, 14        # the window [14, 18] crosses 16
+    clean, bt = _prefilled(cfg, params, cuda, fp8_kv=fp8_kv, B=B, ctx=ctx)
+    dirty = {k: v.clone() for k, v in clean.items()}
+    pos = torch.full((B,), ctx, dtype=torch.int32, device=cuda)
+    window = torch.randint(0, cfg.vocab_size, (B, K + 1), dtype=torch.int32,
+                           device=cuda)
+    api.verify_step(cfg, params, dirty, window, pos, bt, kernel=True)
+    # accept one token: the frontier is ctx + 1; block 2 (positions
+    # 16-23) went back to the pool and another slot wrote it
+    for leaf in dirty.values():
+        blocks = bt[:, 2].long()
+        if leaf.is_floating_point() and leaf.element_size() > 1:
+            leaf[:, blocks] = 1e4
+        else:
+            leaf.view(torch.uint8)[:, blocks] = 0x7e
+    nxt = torch.randint(0, cfg.vocab_size, (B, K + 1), dtype=torch.int32,
+                        device=cuda)
+    new_pos = pos + 1
+    # the clean pool gets the accepted row only, as a one-row write
+    api.verify_step(cfg, params, clean, window[:, :1], pos, bt, kernel=True)
+    xd = transformer._chunk_fwd(cfg, params, dirty, nxt, new_pos, bt,
+                                kernel=True, quant=None)
+    xc = transformer._chunk_fwd(cfg, params, clean, nxt, new_pos, bt,
+                                kernel=True, quant=None)
+    torch.cuda.synchronize()
+    assert torch.equal(xd, xc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fp8_opts", [{}, dict(fp8_kv=True,
+                                              fp8_linear=True)],
+                         ids=["bf16", "fp8"])
+def test_spec_server_on_card_launches_only_the_chunk_kernel(cuda, fp8_opts):
+    """A spec-decode wave: every verify step and chunk step launches the
+    chunk kernel once a layer, the decode kernel never; a second fresh
+    server gives the same tokens."""
+    cfg = reduced_config("yi-6b")
+    params = api.init(cfg, 0, device=cuda)
+    outs = []
+    for _ in range(2):
+        srv = server.ChunkedServer(cfg, params, batch_slots=3, max_len=64,
+                                   chunk=8, span=4, block_size=8,
+                                   spec_decode=3, device=cuda, **fp8_opts)
+        reqs = server.repetitive_requests(6, cfg.vocab_size, motif_len=4,
+                                          reps=3, max_output=12, seed=5)
+        n0 = srv.launch_counts()
+        stats = srv.serve(reqs)
+        n1 = srv.launch_counts()
+        sfx = "_fp8" if fp8_opts else ""
+        assert n1["paged_decode" + sfx] == n0["paged_decode" + sfx]
+        assert (n1["paged_chunk" + sfx] - n0["paged_chunk" + sfx]
+                == cfg.num_layers * (stats["chunk_steps"]
+                                     + stats["spec_steps"]))
+        assert all(r.done and len(r.output) == r.max_new for r in reqs)
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
 
 
 # ----------------------------------------------------------------------
@@ -1277,15 +1499,16 @@ def test_smith_waterman_beyond_the_old_cap_vs_plain(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cs", [2, 4, 8])
-@pytest.mark.parametrize("ilp", [1, 2, 4])
+@pytest.mark.parametrize("cs", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("ilp", [1, 2, 4, 8])
 def test_rbc_ring_copy_vs_plain(cuda, cs, ilp):
-    """Every hop count, a shard not a multiple of the tile; float32
-    bitwise (the kernel adds in the plain version's order)."""
+    """Every hop count (a one-block ring: 0-3 hops of itself), a shard
+    not a multiple of the tile; float32 bitwise (the kernel adds in the
+    plain version's order)."""
     rng = np.random.default_rng(cs * 10 + ilp)
     x = torch.from_numpy(rng.standard_normal((2 * cs, 1000 * 8)) * 1e3).to(
         torch.float32).to(cuda)
-    for hops in range(cs):
+    for hops in range(cs if cs > 1 else 4):
         n0 = dsk.rbc_ring_copy.launches
         got = core_dsm.rbc_ring_copy(x, cs, hops=hops, ilp=ilp)
         torch.cuda.synchronize()
@@ -1296,7 +1519,28 @@ def test_rbc_ring_copy_vs_plain(cuda, cs, ilp):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cs", [2, 4, 8])
+@pytest.mark.parametrize("cs", [1, 2, 4, 8, 16])
+def test_rbc_ring_copy_int32_vs_plain(cuda, cs):
+    """int32 rings, sums that wrap at the type's limits: equal at every
+    ILP and the most hops."""
+    rng = np.random.default_rng(cs)
+    x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (2 * cs, 8000))).to(
+        torch.int32)
+    x[:, :4] = torch.iinfo(torch.int32).max
+    x = x.to(cuda)
+    hops = max(cs - 1, 3 if cs == 1 else 0)
+    for ilp in (1, 2, 4, 8):
+        n0 = dsk.rbc_ring_copy.launches
+        got = core_dsm.rbc_ring_copy(x, cs, hops=hops, ilp=ilp)
+        torch.cuda.synchronize()
+        assert dsk.rbc_ring_copy.launches == n0 + 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got, dsk.rbc_ring_copy_plain(x, cs, hops=hops)), \
+            (cs, ilp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cs", [1, 2, 4, 8, 16])
 def test_ring_latency_probe_and_all_to_all(cuda, cs):
     got = core_dsm.ring_latency_probe(cs, device=cuda)
     want = torch.arange(cs, dtype=torch.int32).roll(1).reshape(cs, 1)
@@ -1312,7 +1556,7 @@ def test_ring_latency_probe_and_all_to_all(cuda, cs):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cs", [2, 4, 8])
+@pytest.mark.parametrize("cs", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("nbins", [64, 1024, 4096])
 def test_histograms_vs_plain(cuda, cs, nbins):
     """Both histograms equal the plain counts (values outside [0, nbins)
@@ -1331,7 +1575,7 @@ def test_histograms_vs_plain(cuda, cs, nbins):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cs", [2, 4, 8])
+@pytest.mark.parametrize("cs", [2, 4, 8, 16])
 def test_histogram_dsm_where_a_private_one_does_not_fit(cuda, cs):
     """65536 bins: a whole histogram (256 KiB) exceeds a block's shared
     memory, the cluster's share of it (256/CS KiB) does not."""
@@ -1358,10 +1602,14 @@ def test_dsm_rejects_what_the_kernels_do_not_take(cuda):
         dsk.rbc_ring_copy(x, 2, hops=2)
     with pytest.raises(ValueError, match="ilp"):
         dsk.rbc_ring_copy(x[:, :6], 2, ilp=4)
+    with pytest.raises(ValueError, match="cluster_size"):
+        dsk.rbc_ring_copy(torch.zeros((32, 8), device=cuda), 32)
+    with pytest.raises(ValueError, match="ilp"):
+        dsk.rbc_ring_copy(x, 2, ilp=16)
     with pytest.raises(TypeError):
         dsk.rbc_ring_copy(x.double(), 2)
     with pytest.raises(TypeError):
-        dsk.rbc_ring_copy(x.int(), 2)
+        dsk.rbc_ring_copy(x.long(), 2)
     vals = torch.zeros(64, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="split evenly"):
         dsk.histogram_dsm(vals, 100, 8)
@@ -1370,6 +1618,46 @@ def test_dsm_rejects_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="pieces"):
         dsk.all_to_all_exchange(torch.zeros((4, 3), device=cuda), 4)
     assert dsk.launch_counts() == counts
+
+
+@pytest.mark.gpu
+def test_clusters_of_16_fit_and_a_cluster_that_does_not_is_refused(
+        cuda, monkeypatch):
+    """Every cluster kernel launches clusters of 16 on the card at the
+    shared memory it uses; where the source finds none fits
+    (cudaOccupancyMaxActiveClusters) it refuses the launch, and the
+    wrapper raises ValueError and counts nothing."""
+    x = torch.ones((16, 4096), device=cuda)
+    i32 = torch.ones(16 * 4096, dtype=torch.int32, device=cuda)
+    counts = dsk.launch_counts()
+    dsk.rbc_ring_copy(x, 16, hops=15, ilp=8)
+    dsk.rbc_ring_copy(x.int(), 16, hops=15, ilp=8)
+    dsk.ring_latency_probe(torch.zeros((16, 1), dtype=torch.int32,
+                                       device=cuda))
+    dsk.histogram_private(i32, 4096, 16)
+    dsk.histogram_dsm(i32, 65536, 16)
+    dsk.all_to_all_exchange(x, 16)
+    torch.cuda.synchronize()
+    after = dsk.launch_counts()
+    assert after["rbc_ring_copy"] == counts["rbc_ring_copy"] + 2
+    assert all(after[k] == counts[k] + 1 for k in (
+        "ring_latency_probe", "histogram_private", "histogram_dsm",
+        "all_to_all_exchange"))
+    real = build.load(dsk.SOURCE)
+
+    class Refusing:                # the source's answer where none fits
+        def __getattr__(self, name):
+            fn = getattr(real, name)
+            return lambda *a: 9 if name.endswith("_fwd") else fn(*a)
+
+    monkeypatch.setattr(build, "load", lambda source: Refusing())
+    with pytest.raises(ValueError, match="no cluster of 16 blocks"):
+        dsk.rbc_ring_copy(x, 16)
+    with pytest.raises(ValueError, match="no cluster of 16 blocks"):
+        dsk.histogram_dsm(i32, 1024, 16)
+    with pytest.raises(build.LaunchError):    # a portable size: no mapping
+        dsk.rbc_ring_copy(x, 8)
+    assert dsk.launch_counts() == after
 
 
 @pytest.mark.gpu

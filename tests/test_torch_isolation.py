@@ -64,6 +64,17 @@ assert all(r.done and len(r.output) == r.max_new for r in reqs)
 stats = serve.main(["--device", "cpu", "--requests", "3", "--slots", "2",
                     "--workload", "sysprompt"])
 assert stats["requests"] == 3.0
+from repro_torch.models.sampling import SamplingParams
+spec_srv = ChunkedServer(cfg, params, batch_slots=2, max_len=32, chunk=8,
+                         span=4, block_size=8, spec_decode=2,
+                         sampling=SamplingParams(temperature=0.8, seed=3),
+                         device="cpu")
+reqs = sharegpt_like_requests(3, cfg.vocab_size, max_input=12,
+                              max_output=6, seed=1)
+assert spec_srv.serve(reqs)["spec_steps"] > 0
+stats = serve.main(["--device", "cpu", "--requests", "3", "--slots", "2",
+                    "--workload", "repetitive", "--spec-decode", "3"])
+assert stats["spec_k"] == 3.0
 from repro_torch.benchmarks import run as bench_run
 bench_run.main(["--device", "cpu", "tc_energy", "tc_n_sweep",
                 "dpx_functions", "dsm"])

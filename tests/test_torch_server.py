@@ -168,7 +168,8 @@ def test_served_outputs_and_host_state_match_reference(weights, mix, mode,
 
 
 def test_metrics_and_tracer_names(weights):
-    """The registry and tracer carry the reference's names."""
+    """The registry and tracer carry the reference's names, the verify
+    work unit's and spec decode's too."""
     from repro_torch.obs.tracer import Tracer
     _, _, cfg, tp = weights
     tracer = Tracer()
@@ -177,6 +178,20 @@ def test_metrics_and_tracer_names(weights):
     srv.serve(server.sysprompt_sharegpt_requests(
         10, 256, num_templates=2, template_len=12, max_input=20,
         max_output=12, seed=4))
+    spec_tracer = Tracer()
+    spec_srv = server.ChunkedServer(cfg, tp, device="cpu",
+                                    tracer=spec_tracer, spec_decode=3, **KW)
+    spec_srv.serve(server.repetitive_requests(6, 256, motif_len=4, reps=3,
+                                              max_output=12, seed=5))
+    snap = spec_tracer.metrics.snapshot()
+    assert {"serving.dispatches.verify", "serving.spec.drafted",
+            "serving.spec.accepted", "serving.spec.emitted",
+            "serving.spec.rollback_blocks"} <= set(snap["counters"])
+    assert {"serving.wall_s.verify", "serving.spec.tokens_per_slot",
+            "serving.spec.accept_rate"} <= set(snap["histograms"])
+    assert {"verify_dispatch", "spec_rollback"} <= {
+        e[1] for e in spec_tracer.events}
+    assert spec_tracer.meta["spec_decode"] == 3
     counters = set(tracer.metrics.snapshot()["counters"])
     assert {"serving.dispatches.prefill", "serving.dispatches.span",
             "serving.requests.admitted", "serving.requests.harvested",
@@ -213,8 +228,8 @@ def test_eos_stops_like_reference(weights):
 
 def test_deferred_options_raise(weights):
     _, _, cfg, tp = weights
-    for kw in (dict(paged=False), dict(spec_decode=2), dict(tp=2),
-               dict(tp=2, fp8_linear=True), dict(sampling=object())):
+    for kw in (dict(paged=False), dict(tp=2),
+               dict(tp=2, fp8_linear=True)):
         with pytest.raises(NotImplementedError):
             server.ChunkedServer(cfg, tp, device="cpu", **kw)
 
@@ -225,6 +240,10 @@ def test_requests_match_reference_generators():
         assert np.array_equal(a.prompt, b.prompt) and a.max_new == b.max_new
     for a, b in zip(server.sysprompt_sharegpt_requests(5, 100, seed=7),
                     ref_server.sysprompt_sharegpt_requests(5, 100, seed=7)):
+        assert np.array_equal(a.prompt, b.prompt) and a.max_new == b.max_new
+    for a, b in zip(server.repetitive_requests(6, 100, motif_len=5, seed=7),
+                    ref_server.repetitive_requests(6, 100, motif_len=5,
+                                                   seed=7)):
         assert np.array_equal(a.prompt, b.prompt) and a.max_new == b.max_new
     c = server.clone_requests(server.sharegpt_like_requests(2, 100))
     assert all(not r.output and not r.done for r in c)
