@@ -26,7 +26,13 @@ last line):
               device (a yardstick the port never calls), and the bound.
               Then paged_chunk and paged_chunk_fp8 at the verify shape
               (yi-6b heads, B=8, C=5 = spec decode K=4, 128 cached
-              tokens a slot), the same numbers.
+              tokens a slot), the same numbers; then the four kernels
+              past the held scores (yi-6b heads, every slot at 131072
+              positions, decode B=2 and a 16-row chunk B=1, bf16 and
+              e4m3 pools; float32 q at 65536) on the plan that
+              recomputes the scores, against plain (the chunk's row by
+              row), with the byte time of K twice and V once beside the
+              bound.
   4. forward — full-width 32-layer yi-6b (random bf16 weights, seed 0):
               a chunk_step and decode_steps through the kernels, every
               kernel call held against its plain version on the same
@@ -37,20 +43,29 @@ last line):
   5. serve  — ChunkedServer on full-width yi-6b: a ShareGPT-like wave
               (paper Table XII protocol) and a shared-system-prompt
               wave (radix prefix cache + copy-on-write); every request
-              complete at its expected length, both kernels launched.
-              Then both waves again on ChunkedServer(fp8_kv=True,
-              fp8_linear=True): both fp8 kernels launched, every
-              copy-on-write copies the scales, and the pool holds
-              exactly (hd+4)/(2*hd) of the bf16 pool's bytes.
+              complete at its expected length, both kernels launched,
+              32 x steps each, and as many launches run on the card
+              (the kernel's own counter).  Every work unit replays one
+              CUDA graph:
+              compile_counts(), captures and the graph pool's bytes
+              printed, each unit one program and captured once; a fresh
+              server whose units run eagerly serves both waves again
+              and must give the same streams bit for bit.  Then all of
+              it on ChunkedServer(fp8_kv=True, fp8_linear=True): both
+              fp8 kernels launched, every copy-on-write copies the
+              scales, and the pool holds exactly (hd+4)/(2*hd) of the
+              bf16 pool's bytes.
  5b. spec   — the verify work unit on full-width yi-6b (8 slots, chunk
               16, span 8, block 16, max_len 96, prefix cache; 8
               repetitive requests, two 8-token motifs x 3, 48 new
               tokens: the reference's spec A/B), bf16 then fp8 (e4m3
-              pool + fp8 linears): a greedy K=0 wave through the sample
-              head (recorded) and one through the all-greedy argmax
-              head (timed; equal tokens), then a K=4 cold and warm wave
-              on one spec server and on a fresh one, which must repeat
-              them exactly.  K=4 against K=0 is printed, not held: each
+              pool + fp8 linears): a greedy K=0 wave through the units'
+              eager calls (recorded) and one through their graphs on a
+              fresh server (timed; equal tokens bit for bit), then a
+              K=4 cold and warm wave on one spec server (graphs) and on
+              a fresh one whose units run eagerly, which must repeat
+              them exactly; every server's compile_counts() printed,
+              each unit one program, captured once where graphed.  K=4 against K=0 is printed, not held: each
               stream's first parting with the K=0 run's top-2 margin
               there (the random-weight stack turns the verify and decode
               steps' rounding into O(1) logits; the verify step's kernel
@@ -68,14 +83,23 @@ last line):
               Every spec wave launches the decode kernel 0 times and the
               chunk kernel 32 x chunk steps in its chunk steps and 32 x
               verify steps in its verify steps, counted around each
-              dispatch; acceptance, tokens a slot a verify step and wall
+              dispatch, and as many run on the card; acceptance, tokens a slot a verify step and wall
               tokens/s against K=0 printed.
-  6. profile — wall and device time of a full-width decode step, chunk
-              step and verify step (K=4, sample head at every row),
-              bf16 and fp8, the kernels that take the device time, and
-              the sample head alone over [8, 64000] and [8, 5, 64000].
+  6. profile — wall and device time of the full-width server's work
+              units as graph replays (a span of 8 decode steps, a chunk
+              step, a verify step at K=4; sample head in each), bf16
+              and fp8: wall around a replay and its sync, device by
+              CUDA events around back-to-back replays, the kernels that
+              take the device time (torch.profiler over replays; no
+              kernel seen fails), the paged kernel's launches run on
+              the card over those replays (its own counter) against
+              the unit's captured count, the graph pool's bytes; the
+              sample head alone over [8, 64000] and [8, 5, 64000],
+              eager and replayed.
   7. small  — the reduced yi-6b served through the kernels on the card
-              and through the plain versions on the CPU, bf16 and fp8,
+              (graph replays; the recorded waves through the eager
+              units) and through the plain versions on the CPU, bf16
+              and fp8,
               greedy and sampled with spec decode K=3: equal token
               streams, except where the CPU's own draw is within the
               margin of another; in bf16 also spec K=3 against K=0 on
@@ -218,6 +242,7 @@ SMALL_MARGIN = 0.0625
 # (tests/test_torch_server.py, FP8_MARGIN)
 SMALL_FP8_MARGIN = 0.5
 DEVICE = "cuda"
+SERVE_SPAN = 8          # phase 5's decode steps a span dispatch
 
 
 def fail(msg: str) -> None:
@@ -336,12 +361,14 @@ def _case_inputs(dtype, B, H, KH, hd, bs, MB, C, seed, full=False):
 
 
 def _bound(kind, dtype_name, B, H, KH, hd, C, MB, bs, lens, q_elt,
-           kv_elt, scale_bytes=0):
+           kv_elt, scale_bytes=0, kv_reads=1.0):
     """Least time for the work: each input byte read once (q, the K/V
     rows the rows attend at `kv_elt` bytes an element plus
     `scale_bytes` per (token, kv head) row of K and of V, table,
     lengths), output written once; 4*hd operations per (query head,
-    attended position) at the peak rate of q's dtype."""
+    attended position) at the peak rate of q's dtype.  `kv_reads` 1.5
+    gives instead the bytes a body that reads K twice and V once
+    moves."""
     lens = [int(x) for x in lens]
     T = MB * bs
     if kind == "decode":
@@ -352,7 +379,7 @@ def _bound(kind, dtype_name, B, H, KH, hd, C, MB, bs, lens, q_elt,
         tokens = [min(p + C, T) for p in lens]
         pairs = sum(min(p + 1 + i, T) for p in lens for i in range(C))
         rows = C
-    kv_bytes = 2 * sum(tokens) * KH * (hd * kv_elt + scale_bytes)
+    kv_bytes = kv_reads * 2 * sum(tokens) * KH * (hd * kv_elt + scale_bytes)
     qo_bytes = 2 * B * rows * H * hd * q_elt
     nbytes = kv_bytes + qo_bytes + 4 * B * (MB + 1)
     ops = 4 * hd * H * pairs
@@ -599,6 +626,131 @@ def phase_verify_kernels(results: dict) -> None:
         del sq, sk, sv, mask, kg, vg
 
 
+# yi-6b's attention heads past the held scores (~80k positions at bf16
+# hd 128, 46080 at float32): every slot at T positions, decode at B=2
+# and a 16-row chunk at B=1, on the plan that recomputes the scores;
+# bf16 q over bf16 and e4m3 pools at 131072, float32 q at 65536
+LONG_CASES = [
+    ("yi-6b 128k", "bfloat16", 131072,
+     ("paged_decode", "paged_chunk", "paged_decode_fp8", "paged_chunk_fp8")),
+    ("yi-6b 64k", "float32", 65536, ("paged_decode", "paged_chunk")),
+]
+
+
+def phase_long_kernels(results: dict) -> None:
+    """The paged kernels past the held scores against their plain
+    versions (the chunk's row by row: its [C, T, hd] product would not
+    fit), each call on the recompute plan its rule names and counted
+    there once; CUDA-event and graph-replay ms, plain ms, SDPA over the
+    gathered view, the bound (inputs read once) and the time of the
+    bytes the body reads (K twice, V once); added to `results` under
+    the case name."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.models import attention
+    from repro_torch.te import fp8
+    H, KH, hd, bs = 32, 4, 128, 16
+    for name, dname, T, kernels in LONG_CASES:
+        dtype = getattr(torch, dname)
+        limit = BF16_LIMIT if dtype == torch.bfloat16 else F32_LIMIT
+        MB = T // bs
+        for kernel in kernels:
+            decode = kernel.startswith("paged_decode")
+            is_fp8 = kernel.endswith("fp8")
+            B, C = (2, 1) if decode else (1, 16)
+            g = torch.Generator(device=DEVICE).manual_seed(T + C)
+            NB = B * MB
+            ck = torch.randn((NB, bs, KH, hd), generator=g,
+                             device=DEVICE).to(dtype)
+            cv = torch.randn((NB, bs, KH, hd), generator=g,
+                             device=DEVICE).to(dtype)
+            bt = torch.randperm(NB, generator=g, device=DEVICE).reshape(
+                B, MB).to(torch.int32)
+            q = torch.randn((B, C, H, hd), generator=g,
+                            device=DEVICE).to(dtype)
+            lens = torch.full((B,), T if decode else T - C,
+                              dtype=torch.int32, device=DEVICE)
+            kw = {}
+            if is_fp8:
+                ck, ks = fp8.quantize_rowwise(ck.float())
+                cv, vs = fp8.quantize_rowwise(cv.float())
+                kw = dict(k_scale=ks, v_scale=vs)
+            fn, plain_fn = getattr(pk, kernel), getattr(pk, kernel + "_plain")
+            plan = pk.plan(dtype, hd, B, KH, H // KH, C, T)
+            kern = lambda: fn(q, ck, cv, bt, lens, **kw)  # noqa: E731
+
+            def plain():
+                if decode:
+                    return plain_fn(q, ck, cv, bt, lens, **kw)
+                return torch.cat([plain_fn(q[:, c:c + 1].contiguous(), ck,
+                                           cv, bt, lens + c, **kw)
+                                  for c in range(C)], 1)
+            n0 = dict(fn.body_launches)
+            got = kern()
+            torch.cuda.synchronize()
+            counted = {b: fn.body_launches[b] - n0[b] for b in n0}
+            if not plan.recompute or counted != {
+                    b: int(b == plan.body) for b in n0}:
+                fail(f"{kernel} {name}: plan {plan}, launch counted "
+                     f"{counted}")
+            want = plain().float()
+            diff = (got.float() - want).abs()
+            err = diff.max().item()
+            row_limit = torch.full_like(want[..., :1], limit)
+            if dtype == torch.bfloat16:
+                row_limit = row_limit.minimum(
+                    BF16_ROW_STEP * want.abs().amax(-1, keepdim=True))
+            ok = bool((diff <= row_limit).all()) and bool(
+                torch.isfinite(got.float()).all())
+            del want, diff, row_limit
+            ms = _time_ms(kern, 10)
+            dev_ms = _graph_ms(kern, 5)
+            plain_ms = _time_ms(plain, 1, warm=0)
+            if is_fp8:
+                kg, vg = attention.gather_paged_cache_fp8(
+                    {"k": ck, "v": cv, **kw}, bt, out_dtype=dtype)
+            else:
+                kg, vg = attention.gather_paged_cache(ck, cv, bt)
+            rows_bound = (lens[:, None] if decode else lens[:, None] + 1
+                          + torch.arange(C, device=DEVICE)[None, :])
+            sq, sk, sv, mask = _sdpa_inputs(q, kg, vg, rows_bound)
+            del kg, vg
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                sq, sk, sv, attn_mask=mask)
+            lib_ms = _time_ms(sdpa, 5)
+            lib_dev_ms = _graph_ms(sdpa, 5)
+            del sq, sk, sv, mask
+            args = ("decode" if decode else "chunk", dname, B, H, KH, hd, C,
+                    MB, bs, lens.tolist(), q.element_size(),
+                    1 if is_fp8 else ck.element_size(), 4 if is_fp8 else 0)
+            bound_ms, bound_by = _bound(*args)
+            body_ms, _ = _bound(*args, kv_reads=1.5)
+            print(f"[kernels] {kernel} {name} q {dname} B={B} H={H} KH={KH} "
+                  f"hd={hd} T={T}{'' if decode else ' C=%d' % C}: body "
+                  f"{plan.body}, recompute plan splits={plan.splits} rows="
+                  f"{plan.rows} groups={plan.groups} split_len="
+                  f"{plan.split_len} smem={plan.smem}; max_abs_err="
+                  f"{err:.3e} (limit {limit:.0e}"
+                  f"{' and 2**-7 of its row max |o|' if dtype == torch.bfloat16 else ''}"
+                  f"{'' if decode else ', plain row by row'}) ms={ms:.4f} "
+                  f"device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms="
+                  f"{lib_ms:.4f} sdpa_device_ms={lib_dev_ms:.4f} bound_ms="
+                  f"{bound_ms:.5f} ({bound_by}; device/bound "
+                  f"{dev_ms / bound_ms:.2f}) body_bytes_ms={body_ms:.5f} "
+                  f"(K twice, V once; device/body bytes "
+                  f"{dev_ms / body_ms:.2f}) {'ok' if ok else 'OVER LIMIT'}",
+                  flush=True)
+            if not ok:
+                fail(f"{kernel} {name}: max abs error {err} over the limit")
+            results[(kernel, name, dname)] = {
+                "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms, "library_device_ms": lib_dev_ms}
+            del q, ck, cv, bt, kw, got
+            torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------------------
 # 4. full-width forward, kernels against the plain gather path
 # ----------------------------------------------------------------------
@@ -706,26 +858,76 @@ def phase_forward(cfg, params, quant=None) -> None:
 # 5. serving
 # ----------------------------------------------------------------------
 
+def _eager_units(srv) -> None:
+    """Run every work unit of `srv` through its private eager call (no
+    graph) until `_graph_units`."""
+    for unit in srv._units.values():
+        unit.run = unit._eager
+
+
+def _graph_units(srv) -> None:
+    for unit in srv._units.values():
+        unit.__dict__.pop("run", None)
+
+
+def _pool_bytes(srv):
+    """Bytes of the graph memory pool `srv`'s units share (the segments
+    torch.cuda.memory_snapshot() files under its id), or None where the
+    snapshot does not name pools."""
+    import torch
+    pool = next(iter(srv._units.values()))._pool
+    segs = torch.cuda.memory_snapshot()
+    if pool is None or not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(seg["total_size"] for seg in segs
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def _unit_report(srv, label: str, eager: bool = False) -> dict:
+    """Print `srv`'s compile_counts(), graphs captured, calls and graph
+    pool bytes; fail unless every unit it called is one program and,
+    on a graphed server, every unit called twice or more was captured
+    exactly once (an eager server captures none)."""
+    counts = srv.compile_counts()
+    units = srv._units
+    caps = {n: u.captures for n, u in units.items()}
+    calls = {n: u.calls for n, u in units.items()}
+    pool = None if eager else _pool_bytes(srv)
+    print(f"[units] {label}: compile_counts {counts}, graphs captured "
+          f"{caps}, calls {calls}, graph pool "
+          f"{'not measured' if pool is None else '%d bytes' % pool}",
+          flush=True)
+    for n, u in units.items():
+        want_caps = 0 if eager else int(u.calls >= 2)
+        if counts[n] != int(u.calls > 0) or u.captures != want_caps:
+            fail(f"{label}: unit {n} has {counts[n]} programs and "
+                 f"{u.captures} graphs after {u.calls} calls")
+    return {"counts": counts, "captures": caps, "pool_bytes": pool}
+
+
 def phase_serve(cfg, params, fp8: bool = False):
-    """Both waves on one server; with `fp8` the server stores an e4m3
-    pool and serves fp8 linears, and every copy-on-write is checked to
-    copy every leaf (codes and scales).  Returns (launch counts of the
-    waves, the same by body and by work unit (measured around each
-    dispatch), KV pool bytes)."""
+    """Both waves on one server, its work units replayed as CUDA graphs;
+    with `fp8` the server stores an e4m3 pool and serves fp8 linears.
+    Every copy-on-write is checked, after its unit's call, to have
+    copied every leaf (codes and scales).  Each unit is one program,
+    captured once; a fresh server whose units run eagerly serves the
+    same waves and must give the same streams bit for bit.  Returns
+    (launch counts of the waves, the same by body and by work unit
+    (measured around each dispatch), KV pool bytes)."""
     import torch
     from repro_torch.kernels import paged_attention as pk
-    from repro_torch.models import api
-    from repro_torch.runtime.server import (ChunkedServer,
+    from repro_torch.runtime.server import (ChunkedServer, clone_requests,
                                             sharegpt_like_requests,
                                             sysprompt_sharegpt_requests)
     tag = "fp8" if fp8 else "bf16"
     max_input, max_output = 128, 128
     max_len = max_input + max_output + 8       # as the CLI sizes it
+    opts = dict(batch_slots=8, max_len=max_len, chunk=16, span=SERVE_SPAN,
+                block_size=16, prefix_cache=True, fp8_kv=fp8,
+                fp8_linear=fp8, device=DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    srv = ChunkedServer(cfg, params, batch_slots=8, max_len=max_len,
-                        chunk=16, span=8, block_size=16, prefix_cache=True,
-                        fp8_kv=fp8, fp8_linear=fp8, device=DEVICE)
+    srv = ChunkedServer(cfg, params, **opts)
     waves = [
         ("sharegpt", sharegpt_like_requests(
             16, cfg.vocab_size, max_input=max_input,
@@ -737,20 +939,23 @@ def phase_serve(cfg, params, fp8: bool = False):
             max_input=max_input, max_output=max_output, seed=1)),
     ]
     cow_copies = []
-    orig_cow = api.cow_copy_block
+    cow_unit = srv._units["cow_copy"]
+    cow_run = cow_unit.run
 
-    def checked_cow(cfg_, cache, src, dst):
-        cache = orig_cow(cfg_, cache, src, dst)
+    def checked_cow(src, dst):
+        out = cow_run(src, dst)
+        torch.cuda.synchronize()
+        s_, d_ = int(src[0]), int(dst[0])
         same = all(torch.equal(*(x.view(torch.uint8)
                                  if x.element_size() == 1 else x
-                                 for x in (leaf[:, dst], leaf[:, src])))
-                   for leaf in cache.values())
-        cow_copies.append((tuple(sorted(cache)), same))
-        return cache
+                                 for x in (leaf[:, d_], leaf[:, s_])))
+                   for leaf in srv.cache.values())
+        cow_copies.append((tuple(sorted(srv.cache)), same))
+        return out
 
-    api.cow_copy_block = checked_cow
+    cow_unit.run = checked_cow
     by_unit = _count_units(srv)
-    torch.cuda.synchronize()
+    ran0 = pk.device_launches(DEVICE)         # synchronizes
     pk.reset_launch_counts()                  # main path starts here
     all_stats = []
     try:
@@ -759,10 +964,11 @@ def phase_serve(cfg, params, fp8: bool = False):
             all_stats.append((name, reqs, stats, srv.metrics.counter_value(
                 "serving.cow.resolves")))
     finally:
-        api.cow_copy_block = orig_cow
+        del cow_unit.run
         _uncount_units(srv)
     launches = srv.launch_counts()            # main path ends here
     by_body = pk.launches_by_body()
+    _check_ran(f"{tag} serve", pk.device_launches(DEVICE) - ran0, launches)
     del by_unit["emitted"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for name, reqs, st, cow in all_stats:
@@ -789,10 +995,29 @@ def phase_serve(cfg, params, fp8: bool = False):
                 fail(f"{tag} {name} request {r.rid}: token out of vocab")
     kv_bytes = all_stats[0][2]["kv_bytes_per_device"]
     print(f"[serve] {tag} peak memory {peak_gb:.2f} GB; KV pool "
-          f"{kv_bytes / 1e9:.4f} GB; launch counts {launches}, by body "
-          f"{by_body}; "
+          f"{kv_bytes / 1e9:.4f} GB; launch counts {launches} (as many "
+          f"run on the card), by body {by_body}; "
           f"copy-on-write copies checked {len(cow_copies)}, leaves "
           f"{cow_copies[0][0] if cow_copies else ()}", flush=True)
+    _unit_report(srv, f"{tag} serve")
+    del srv
+    # the same waves on a fresh server whose units run eagerly
+    t0 = time.perf_counter()
+    eager = ChunkedServer(cfg, params, **opts)
+    _eager_units(eager)
+    for name, reqs, _, _ in all_stats:
+        again = clone_requests(reqs)
+        eager.serve(again)
+        same = [r.output for r in again] == [r.output for r in reqs]
+        print(f"[serve] {tag} {name}: graph-replayed streams "
+              f"{'equal' if same else 'DIFFER FROM'} the eager units' "
+              f"bit for bit", flush=True)
+        if not same:
+            fail(f"{tag} {name}: graph-replayed and eager streams differ")
+    _unit_report(eager, f"{tag} serve, eager units", eager=True)
+    print(f"[serve] {tag} eager waves in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del eager
     keys = (("paged_decode_fp8", "paged_chunk_fp8") if fp8
             else ("paged_decode", "paged_chunk"))
     if min(launches[k] for k in keys) <= 0:
@@ -801,9 +1026,17 @@ def phase_serve(cfg, params, fp8: bool = False):
         fail(f"{tag} launches by body {by_body} do not add up to {launches}")
     # the decode kernel runs in the spans, the chunk kernel in the chunk
     # steps, each as measured around the dispatches
+    L = cfg.num_layers
+    st = [x[2] for x in all_stats]
+    spans = sum(int(x["decode_spans"]) for x in st) * SERVE_SPAN
+    chunks = sum(int(x["chunk_steps"]) for x in st)
     if (by_unit["span"][keys[0]] != launches[keys[0]]
-            or by_unit["chunk"][keys[1]] != launches[keys[1]]):
-        fail(f"{tag} launches by work unit {by_unit} are not {launches}")
+            or by_unit["chunk"][keys[1]] != launches[keys[1]]
+            or launches[keys[1]] != L * chunks
+            or launches[keys[0]] != L * spans):
+        fail(f"{tag} launches by work unit {by_unit} are not {launches}, "
+             f"or not {L} x chunk steps ({chunks}) and {L} x span steps "
+             f"({spans})")
     if all_stats[1][3] <= 0 or all_stats[1][2]["prefix_hit_requests"] <= 0:
         fail(f"the {tag} sysprompt wave hit no prefix / resolved no "
              "copy-on-write")
@@ -840,12 +1073,13 @@ UNITS = {"chunk": "_run_chunk_step", "span": "_run_decode_span",
          "verify": "_run_spec_step"}
 
 
-def _count_units(srv) -> dict:
+def _count_units(srv, after=None) -> dict:
     """Wrap `srv`'s work-unit dispatches so that each reads the paged
     kernels' launch counts before and after it: returns {unit: Counter
     of launches by kernel}, and under "emitted" each dispatch's (unit,
     slot rids, the host's out_len before, after), filled as `srv`
-    serves until `_uncount_units`."""
+    serves until `_uncount_units`.  `after(unit)` runs after each
+    dispatch."""
     import collections
     from repro_torch.kernels import paged_attention as pk
     by_unit = {u: collections.Counter() for u in UNITS}
@@ -856,16 +1090,28 @@ def _count_units(srv) -> dict:
             rids = [r.rid if r is not None else None for r in srv.slot_req]
             before, out0 = pk.launch_counts(), srv.out_len.copy()
             out = run()
-            after = pk.launch_counts()
-            by_unit[name].update({k: after[k] - before[k] for k in after})
+            after_counts = pk.launch_counts()
+            by_unit[name].update({k: after_counts[k] - before[k]
+                                  for k in after_counts})
             by_unit["emitted"].append((name, rids, out0,
                                        srv.out_len.copy()))
+            if after is not None:
+                after(name)
             return out
         return counted
 
     for name, attr in UNITS.items():
         setattr(srv, attr, unit(name, getattr(srv, attr)))
     return by_unit
+
+
+def _check_ran(what: str, ran: int, launches: dict) -> None:
+    """Fail unless the paged kernel ran `ran` times on the card (its
+    own counter) where the wrappers counted `launches` (a replay adds
+    the launches its capture counted)."""
+    if ran != sum(launches.values()):
+        fail(f"{what}: the paged kernel ran {ran} times on the card, the "
+             f"wrappers counted {launches}")
 
 
 def _uncount_units(srv) -> None:
@@ -877,12 +1123,15 @@ def _spec_wave(srv, reqs, per_req=None, record=False):
     """Serve a fresh copy of `reqs` on `srv`, the paged kernels' launch
     counts set to 0 just before and read just after, and read again
     around every dispatch of a work unit (chunk, span, verify step) for
-    the launches by unit.  Every verify step's window, positions and
-    returned tokens are recorded, with each unit's emissions (the host's
-    out_len before and after it), and the served streams are rebuilt
-    from them (`_check_chain`).  Returns (outputs, stats, those counts
-    (under "by_body" by body, under "by_unit" by work unit), the
-    sample-head recording or None)."""
+    the launches by unit.  Every verify step copies its window,
+    positions and returned tokens into buffers of `srv` (copies its
+    graph captures, so a replay refills them), read after each verify
+    dispatch, with each unit's emissions (the host's out_len before and
+    after it); the served streams are rebuilt from them
+    (`_check_chain`).  `record` serves through the units' eager calls,
+    recording every sample-head call (`_serve_recording`).  Returns
+    (outputs, stats, those counts (under "by_body" by body, under
+    "by_unit" by work unit), the sample-head recording or None)."""
     import torch
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.models import api
@@ -891,18 +1140,27 @@ def _spec_wave(srv, reqs, per_req=None, record=False):
     for i, r in enumerate(rs):
         if per_req is not None:
             r.sampling = per_req(i)
-    by_unit, emitted, steps = _count_units(srv), [], []
+    steps = []
     orig_verify = api.verify_step
 
     def verify_spy(cfg, params, cache, tokens, pos, block_table, **kw):
         preds, cache = orig_verify(cfg, params, cache, tokens, pos,
                                    block_table, **kw)
-        steps.append((srv.out_len.copy(), tokens.clone(), pos.clone(),
-                      preds.clone()))
+        bufs = srv.__dict__.get("_verify_record")
+        if bufs is None:      # at the unit's first (eager) call
+            bufs = srv._verify_record = tuple(
+                torch.empty_like(t) for t in (tokens, pos, preds))
+        for b, t in zip(bufs, (tokens, pos, preds)):
+            b.copy_(t)
         return preds, cache
 
+    def after(name):
+        if name == "verify":
+            steps.append(tuple(b.cpu().clone() for b in srv._verify_record))
+
+    by_unit = _count_units(srv, after)
     api.verify_step = verify_spy
-    torch.cuda.synchronize()
+    ran0 = pk.device_launches(DEVICE)         # synchronizes
     pk.reset_launch_counts()                  # this wave's path starts
     try:
         if record:
@@ -915,6 +1173,7 @@ def _spec_wave(srv, reqs, per_req=None, record=False):
     finally:
         api.verify_step = orig_verify
         _uncount_units(srv)
+    _check_ran("spec wave", pk.device_launches(DEVICE) - ran0, n)
     n["by_body"] = pk.launches_by_body()
     emitted = by_unit.pop("emitted")
     n["by_unit"] = {u: dict(c) for u, c in by_unit.items()}
@@ -942,11 +1201,7 @@ def _check_chain(rs, emitted, steps, max_len) -> None:
     for name, rids, out0, out1 in emitted:
         rec = None
         if name == "verify":
-            out_len, window, pos, preds = next(verify)
-            rec = (window.cpu().tolist(), pos.cpu().tolist(),
-                   preds.cpu().tolist())
-            if list(out_len) != list(out0):
-                fail("a verify step saw other out_len than its dispatch")
+            rec = tuple(t.tolist() for t in next(verify))
         for s, rid in enumerate(rids):
             if rid is None or out1[s] == out0[s]:
                 continue
@@ -966,7 +1221,7 @@ def _check_chain(rs, emitted, steps, max_len) -> None:
                      f"{window} at pos {pos}, returned {preds}, emitted "
                      f"{r.output[k:k + n]} ({n}, expected {want})")
     if next(verify, None) is not None:
-        fail("a verify step ran outside a verify dispatch")
+        fail("more verify records than verify dispatches")
     bad = {rid: c for rid, c in seen.items() if any(x != 1 for x in c)}
     if bad:
         fail(f"output indices not emitted exactly once: {bad}")
@@ -1106,17 +1361,22 @@ def phase_spec(cfg, params, fp8: bool = False) -> dict:
     decode_key = "paged_decode_fp8" if fp8 else "paged_decode"
     k0_srv = ChunkedServer(cfg, params, **opts)
     base, st0, _, rec0 = _spec_wave(k0_srv, reqs, record=True)
-    if fp8:
-        # a prefix hit changes the prefill's rows and so its per-call
-        # activation scale: the same tokens need a fresh server
-        del k0_srv
-        k0_srv = ChunkedServer(cfg, params, **opts)
-    # the unrecorded K=0 wave is the one timed; it ends in the argmax
-    # head, the recorded one in the sample head: the same tokens
+    _unit_report(k0_srv, f"{tag} spec K=0, recorded (eager units)",
+                 eager=True)
+    # a prefix hit changes the prefill's rows (and with fp8 linears its
+    # per-call activation scale): the same tokens need a fresh server
+    del k0_srv
+    k0_srv = ChunkedServer(cfg, params, **opts)
+    # the unrecorded K=0 wave, through the graphs, is the one timed; the
+    # recorded one ran the units eagerly: the same tokens bit for bit
     base2, st0, _, _ = _spec_wave(k0_srv, reqs)
+    _unit_report(k0_srv, f"{tag} spec K=0")
+    print(f"[spec] {tag} K=0: graph-replayed streams "
+          f"{'equal' if base2 == base else 'DIFFER FROM'} the eager units' "
+          "bit for bit", flush=True)
     if base2 != base:
-        fail(f"{tag} K=0 waves through the argmax and the sample head "
-             "gave different tokens")
+        fail(f"{tag} K=0 waves through the graphs and through the eager "
+             "units gave different tokens")
     del k0_srv
     launches = {chunk_key: 0, decode_key: 0}
     by_unit = {"chunk": 0, "verify": 0}
@@ -1143,10 +1403,13 @@ def phase_spec(cfg, params, fp8: bool = False) -> dict:
         for b, c in n["by_body"][chunk_key].items():
             by_body[b] = by_body.get(b, 0) + c
 
-    def spec_waves(label, floor=True, per_req=None, **kw):
-        """A cold and a warm wave on a fresh spec server."""
+    def spec_waves(label, floor=True, per_req=None, eager=False, **kw):
+        """A cold and a warm wave on a fresh spec server (its units run
+        eagerly with `eager`)."""
         srv = ChunkedServer(cfg, params, spec_decode=VERIFY_K,
                             **{**opts, **kw})
+        if eager:
+            _eager_units(srv)
         res = []
         for wave in ("cold", "warm"):
             out, st, n, _ = _spec_wave(srv, reqs, per_req=per_req)
@@ -1161,6 +1424,7 @@ def phase_spec(cfg, params, fp8: bool = False) -> dict:
                   f"rebuilt from the verify steps", flush=True)
             count(f"{label} {wave}", n, st)
             res.append((out, st))
+        _unit_report(srv, f"{tag} spec {label}", eager=eager)
         if floor and not res[1][1]["spec_acceptance_rate"] >= ACCEPT_FLOOR:
             fail(f"{tag} {label}: the warm wave accepted "
                  f"{res[1][1]['spec_acceptance_rate']:.3f} of its drafts "
@@ -1173,7 +1437,10 @@ def phase_spec(cfg, params, fp8: bool = False) -> dict:
           f"{int(st0['decode_spans'])} spans of {SPEC_SERVER['span']}); warm "
           f"K={VERIFY_K} / K=0 wall tokens/s "
           f"{st_w['tokens_per_s'] / st0['tokens_per_s']:.3f}", flush=True)
-    (cold2, _), (warm2, _) = spec_waves("server 2 (fresh)", floor=not fp8)
+    # a fresh server running its units eagerly must repeat server 1's
+    # graph-replayed waves exactly
+    (cold2, _), (warm2, _) = spec_waves("server 2 (fresh, eager units)",
+                                        floor=not fp8, eager=True)
     for label, out in (("cold", cold), ("warm", warm)):
         held = [(p[1], p[2], round(p[3], 4), round(p[4], 4))
                 for p in _held_partings(reqs, base, out, rec0, None)]
@@ -1181,11 +1448,12 @@ def phase_spec(cfg, params, fp8: bool = False) -> dict:
               f"streams equal; first partings (rid, token, K=0 top-2 "
               f"margin, four bf16 steps), printed, not held: {held}",
               flush=True)
-    print(f"[spec] {tag} a fresh spec server repeats cold "
-          f"{'exactly' if cold2 == cold else 'NOT'} and warm "
-          f"{'exactly' if warm2 == warm else 'NOT'}", flush=True)
+    print(f"[spec] {tag} a fresh spec server with eager units repeats the "
+          f"graph-replayed cold wave {'exactly' if cold2 == cold else 'NOT'}"
+          f" and warm {'exactly' if warm2 == warm else 'NOT'}", flush=True)
     if cold2 != cold or warm2 != warm:
-        fail(f"{tag} spec waves differ between two fresh servers")
+        fail(f"{tag} spec waves differ between the graphed and the eager "
+             "server")
     if fp8:
         # the e4m3 pool with bf16 linears: drafts stay out of the
         # numerics, so the warm wave accepts the cold wave's tokens
@@ -1250,55 +1518,127 @@ def _device_ms_by_kernel(prof, steps: int):
     return by_name
 
 
-def phase_profile(cfg, params, quant=None) -> None:
-    """Wall and device time of one full-width decode step, one chunk
-    step and one verify step (K=4: C=5 rows, the sample head at every
-    row, temperature 0.5 / top-k 4) (B=8, 128 cached tokens per slot)
-    through the kernels, with the kernels that take the most device
-    time (torch.profiler); then the sample head alone over [8, 64000]
-    (a chunk or span step's) and [8, 5, 64000] (a verify step's)
-    logits.  With `quant` (fp8 linears) the pool is e4m3 too."""
+def _kernel_launches(prof, name: str) -> int:
+    """Device launches of kernels whose name holds `name` in a
+    torch.profiler run."""
+    from torch.autograd import DeviceType
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and name in e.name)
+
+
+def phase_profile(cfg, params, fp8: bool = False) -> None:
+    """Wall and device time of full-width yi-6b's work units as the
+    server replays them (B=8, 128 cached tokens per slot, chunk 16,
+    span 8, the sample head at temperature 0.5 / top-k 4 in every
+    unit): a span of 8 decode steps, a chunk step and a verify step
+    (K=4: C=5 rows).  Each unit runs its eager call, its capture and a
+    replay first; then wall ms a dispatch (host clock around a replay
+    and the server's `_sync`), device ms a replay (CUDA events around
+    back-to-back replays), the graph pool's bytes, and the kernels that
+    take the device time, from torch.profiler over replays (no kernel
+    seen fails).  The paged kernel's own counter on the card
+    (`pk.device_launches`) over those replays must equal the launches
+    the unit counted at capture and adds per replay
+    (`unit.replay_launches`); the profiler's count of
+    `paged_attention_kernel` events is printed beside it, not held: it
+    drops records under load (1245 of 1280 in one run).  Then the sample head
+    alone over [8, 64000] (a chunk or span step's) and [8, 5, 64000] (a
+    verify step's) logits, eager and as a graph replay.  With `fp8` the
+    pool is e4m3 and the linears fp8."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import api, sampling
-    B, bs, C, steps = 8, 16, 16, 5
-    MB = -(-264 // bs)
-    fp8 = quant is not None
-    cache = api.init_cache(cfg, B, 264, block_size=bs, num_blocks=B * MB,
-                           device=DEVICE, fp8_kv=fp8)
-    bt = torch.arange(B * MB, dtype=torch.int32,
-                      device=DEVICE).reshape(B, MB)
-    pos = torch.full((B,), 128, dtype=torch.int32, device=DEVICE)
-    tok = torch.zeros(B, dtype=torch.int32, device=DEVICE)
-    toks = torch.zeros((B, C), dtype=torch.int32, device=DEVICE)
-    n_tok = torch.full((B,), C, dtype=torch.int32, device=DEVICE)
-    win = torch.zeros((B, VERIFY_K + 1), dtype=torch.int32, device=DEVICE)
-    samp = (torch.full((B,), 0.5, device=DEVICE),
-            torch.full((B,), 4, dtype=torch.int32, device=DEVICE),
-            torch.ones(B, device=DEVICE),
-            torch.arange(B, dtype=torch.int32, device=DEVICE))
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.models import sampling
+    from repro_torch.runtime.server import ChunkedServer
+    B, bs, C, steps, max_len = 8, 16, 16, 5, 264
+    tag = "fp8 " if fp8 else ""
+    srv = ChunkedServer(cfg, params, batch_slots=B, max_len=max_len,
+                        chunk=C, span=SERVE_SPAN, block_size=bs,
+                        spec_decode=VERIFY_K, fp8_kv=fp8, fp8_linear=fp8,
+                        device=DEVICE)
+    MB = srv.max_blocks
+    srv.block_table[:] = np.arange(B * MB, dtype=np.int32).reshape(B, MB)
+    srv.samp_temp[:], srv.samp_top_k[:] = 0.5, 4
+    srv.samp_seed[:] = np.arange(B)
+    i32 = lambda v: np.full(B, v, np.int32)               # noqa: E731
+    samp = srv._samp_mirrors()
+    ops = {
+        "chunk_step": (np.zeros((B, C), np.int32), i32(128), i32(C),
+                       np.zeros(B, bool), np.ones(B, bool), i32(0), *samp,
+                       srv.block_table),
+        "decode_span": (i32(128), i32(0), np.ones(B, bool), i32(10 ** 6),
+                        *samp, srv.block_table),
+        "verify_step": (i32(128), i32(0), np.ones(B, bool), i32(10 ** 6),
+                        *samp, srv.block_table),
+    }
+    for name, args in ops.items():
+        unit = srv._units[name]
+        for _ in range(3):                   # eager, capture, replay
+            unit.run(*args)
+        srv._sync()
+        if unit.captures != 1:
+            fail(f"profile: {name} was not captured")
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            unit.run(*args)
+            srv._sync()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            unit.run(*args)
+        end.record()
+        torch.cuda.synchronize()
+        dev = start.elapsed_time(end) / steps
+        ran0 = pk.device_launches(DEVICE)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                unit.run(*args)
+            torch.cuda.synchronize()
+        ran = pk.device_launches(DEVICE) - ran0
+        by_name = _device_ms_by_kernel(prof, steps)
+        prof_dev = sum(by_name.values())
+        if not prof_dev:
+            fail(f"profile: {tag}{name}: torch.profiler saw no kernel in "
+                 f"{steps} replays")
+        seen = _kernel_launches(prof, "paged_attention_kernel")
+        counted = steps * sum(n for n, _ in unit.replay_launches.values())
+        if ran != counted:
+            fail(f"profile: {tag}{name}: the paged kernel ran {ran} times "
+                 f"on the card in {steps} replays, the unit counts "
+                 f"{counted} (captured: {unit.replay_launches})")
+        top = "; ".join(f"{n[:48]} {ms:.2f}" for n, ms in
+                        by_name.most_common(6))
+        per = (f" = {wall / SERVE_SPAN:.2f} / {dev / SERVE_SPAN:.2f} a "
+               f"decode step" if name == "decode_span" else "")
+        print(f"[profile] {tag}{name} (graph replay) B={B} kv=128: wall "
+              f"{wall:.2f} ms, device {dev:.2f} ms (CUDA events, "
+              f"{dev / wall:.0%} busy){per}; torch.profiler over replays: "
+              f"{prof_dev:.2f} device ms; paged kernel launches run on "
+              f"the card {ran} = {steps} x captured (profiler events "
+              f"{seen}), top kernels (ms per call): {top}",
+              flush=True)
+    _unit_report(srv, f"{tag}profile server")
+    del srv
     g = torch.Generator(device=DEVICE).manual_seed(6)
     lg2 = torch.randn((B, cfg.vocab_size), generator=g, device=DEVICE)
     lg3 = torch.randn((B, VERIFY_K + 1, cfg.vocab_size), generator=g,
                       device=DEVICE)
     lg2, lg3 = lg2.to(torch.bfloat16), lg3.to(torch.bfloat16)
+    st = tuple(torch.as_tensor(a, device=DEVICE) for a in samp)
+    pos = torch.full((B,), 128, dtype=torch.int32, device=DEVICE)
     ix3 = pos[:, None] + 1 + torch.arange(VERIFY_K + 1, dtype=torch.int32,
                                           device=DEVICE)[None, :]
-    units = {
-        "decode_step": lambda: api.decode_step(cfg, params, cache, tok, pos,
-                                               bt, kernel=True, quant=quant),
-        "chunk_step": lambda: api.chunk_step(cfg, params, cache, toks, pos,
-                                             n_tok, bt, kernel=True,
-                                             quant=quant),
-        f"verify_step (K={VERIFY_K})": lambda: api.verify_step(
-            cfg, params, cache, win, pos, bt, kernel=True, quant=quant,
-            sample=samp),
+    heads = {
         "sample head [8, V]": lambda: sampling.sample_tokens(
-            lg2, *samp, pos + 1),
+            lg2, *st, pos + 1),
         f"sample head [8, {VERIFY_K + 1}, V]": lambda: sampling.sample_tokens(
-            lg3, *samp, ix3),
+            lg3, *st, ix3),
     }
-    for name, fn in units.items():
+    for name, fn in heads.items():
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
@@ -1314,13 +1654,10 @@ def phase_profile(cfg, params, quant=None) -> None:
             torch.cuda.synchronize()
         by_name = _device_ms_by_kernel(prof, steps)
         dev = sum(by_name.values())
-        top = "; ".join(f"{n[:48]} {ms:.2f}" for n, ms in
-                        by_name.most_common(6))
-        busy = (f"device {dev:.2f} ms ({dev / wall:.0%} busy); top kernels "
-                f"(ms per step): {top}" if dev else
-                "device time not measured (the profiler saw no kernel)")
-        print(f"[profile] {'fp8 ' if fp8 else ''}{name} B={B} kv=128: wall "
-              f"{wall:.2f} ms, {busy}", flush=True)
+        print(f"[profile] {tag}{name} B={B}: eager wall {wall:.2f} ms, "
+              f"device {dev:.2f} ms (profiler, {len(by_name)} kernel names)"
+              f"; as a graph replay {_graph_ms(fn, steps):.3f} device ms",
+              flush=True)
 
 
 # ----------------------------------------------------------------------
@@ -1335,13 +1672,13 @@ def _serve_recording(srv, reqs) -> dict:
     a later call's record of a position is the one that emitted it.
     Slots mid-prompt get negative indices, finished slots indices past
     their output: neither is read.  The rows stay on the device until
-    the wave ends (no host read inside it).  An all-greedy wave goes
-    through the sample head here too (the server would end it in the
-    argmax, whose tokens are the sample head's greedy rows)."""
+    the wave ends (no host read inside it).  The units run through
+    their eager calls (a graph replay calls no Python), which give the
+    graph replays' tokens bit for bit (phases 5 and 5b)."""
     from repro_torch.models import sampling
     calls = []
     orig = sampling.sample_tokens
-    srv._samp = srv._samp_operands
+    _eager_units(srv)
 
     def spy(logits, temp, top_k, top_p, seed, index):
         calls.append(([r.rid if r is not None else None
@@ -1356,7 +1693,7 @@ def _serve_recording(srv, reqs) -> dict:
         stats = srv.serve(reqs)
     finally:
         sampling.sample_tokens = orig
-        del srv._samp
+        _graph_units(srv)
     rec = {"steps": len(calls), "stats": stats}
     for n, (rids, plen, logits, index) in enumerate(calls, 1):
         index = index.cpu().reshape(logits.shape[0], -1)
@@ -2907,6 +3244,7 @@ def main() -> None:
     phase_build()
     kernels = phase_kernels()
     phase_verify_kernels(kernels)
+    phase_long_kernels(kernels)
     cfg = get_config("yi-6b")
     t0 = time.perf_counter()
     params = api.init(cfg, 0, device=DEVICE, dtype=torch.bfloat16)
@@ -2923,8 +3261,8 @@ def main() -> None:
     print(f"[init] yi-6b layer weights quantized to e4m3 in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_forward(cfg, params, quant)
-    phase_profile(cfg, params, quant)
     del quant
+    phase_profile(cfg, params, fp8=True)
     fp8_launches, fp8_by_body, fp8_units, fp8_kv_bytes = phase_serve(
         cfg, params, fp8=True)
     spec["fp8"] = phase_spec(cfg, params, fp8=True)
@@ -2966,6 +3304,12 @@ def main() -> None:
                      "verify_shape": {k: v[k] for k in (
                          "max_abs_err", "ms", "device_ms", "bound_ms",
                          "library_ms", "library_device_ms")}}
+        extra["long_context"] = {
+            f"{case} {dname}": {k: v[k] for k in (
+                "max_abs_err", "ms", "device_ms", "bound_ms",
+                "library_ms", "library_device_ms")}
+            for case, dname, _, names in LONG_CASES if name in names
+            for v in [kernels[(name, case, dname)]]}
         line.append({**extra,
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",

@@ -6,12 +6,9 @@ then a shared-system-prompt wave, 16 requests each (128 tokens in, 128
 out).  A warm-up wave of other requests runs first, so that neither
 timed wave pays the first call's set-up.
 
-    PYTHONPATH=src python3 scripts/serve_waves.py [--fp8] [--sample-head]
+    PYTHONPATH=src python3 scripts/serve_waves.py [--fp8]
 
---fp8 serves an e4m3 KV pool and fp8 linears.  --sample-head makes
-every dispatch end in the sample head; the server ends a dispatch whose
-slots are all greedy in the argmax instead, with the same tokens (a
-tree without that choice takes no --sample-head).  The script imports
+--fp8 serves an e4m3 KV pool and fp8 linears.  The script imports
 repro_torch from PYTHONPATH, so one copy of it times any tree of the
 port (an A/B: PYTHONPATH=<other tree>/src); it prints the card's name
 and power limit, then one line a wave.
@@ -27,7 +24,6 @@ import time
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--fp8", action="store_true")
-    ap.add_argument("--sample-head", action="store_true")
     args = ap.parse_args()
     import torch
     from repro_torch.configs import get_config
@@ -49,8 +45,6 @@ def main() -> None:
                         max_len=max_input + max_output + 8, chunk=16,
                         span=8, block_size=16, prefix_cache=True,
                         fp8_kv=args.fp8, fp8_linear=args.fp8, device="cuda")
-    if args.sample_head:
-        srv._samp = srv._samp_operands
     srv.serve(sharegpt_like_requests(8, cfg.vocab_size, max_input=32,
                                      max_output=32, seed=100))
     waves = [
@@ -67,7 +61,7 @@ def main() -> None:
         st = srv.serve(reqs)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        print(f"wave={name} fp8={args.fp8} sample_head={args.sample_head} "
+        print(f"wave={name} fp8={args.fp8} "
               f"tokens={int(st['tokens'])} "
               f"seconds={dt:.4f} tokens_per_s={st['tokens'] / dt:.2f} "
               f"decode_seconds={st['decode_seconds']:.4f} "

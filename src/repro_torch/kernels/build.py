@@ -37,25 +37,28 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "paged_attention.cu": {
-        # dtype, fp8, hd, G, C, T, splits, rows, n
+        # dtype, fp8, hd, G, C, T, splits, rows, recompute, n
         "paged_attention_max_clusters": (_I, _I, _I, _I, _I, _I, _I, _I,
-                                         _P),
+                                         _I, _P),
+        # n (unsigned long long *)
+        "paged_attention_device_launches": (_P,),
         # dtype, hd, q, k, v, block_table, kv_len, out,
-        # B, H, KH, bs, MB, splits, rows, scale, stream
+        # B, H, KH, bs, MB, splits, rows, recompute, scale, stream
         "paged_decode_fwd": (_I, _I, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _F, _P),
+                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         # dtype, hd, q, k, v, block_table, pos, out,
-        # B, C, H, KH, bs, MB, splits, rows, scale, stream
+        # B, C, H, KH, bs, MB, splits, rows, recompute, scale, stream
         "paged_chunk_fwd": (_I, _I, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         # dtype, hd, q, k, v, k_scale, v_scale, block_table, kv_len, out,
-        # B, H, KH, bs, MB, splits, rows, scale, stream
+        # B, H, KH, bs, MB, splits, rows, recompute, scale, stream
         "paged_decode_fp8_fwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _F, _P),
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         # dtype, hd, q, k, v, k_scale, v_scale, block_table, pos, out,
-        # B, C, H, KH, bs, MB, splits, rows, scale, stream
+        # B, C, H, KH, bs, MB, splits, rows, recompute, scale, stream
         "paged_chunk_fp8_fwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                _P),
     },
     "flash_attention.cu": {
         # dtype, hd

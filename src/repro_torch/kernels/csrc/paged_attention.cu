@@ -55,6 +55,23 @@
 //   5. cluster.sync() before exit: peers read this block's memory.
 // No float atomics: the same inputs give the same bits on every call.
 //
+// Plans that recompute the scores (RECOMP, the plan's `recompute`): a
+// table whose split's float32 scores do not fit a block (past ~80k
+// positions at bf16 hd 128) keeps one tile of scores, not the split's,
+// and reads K twice and V once, 1.5x the bytes of the plan that holds
+// them.  The order of the softmax stays the one above:
+//   1. pass 1 streams the split's K tiles: each tile's scores, then each
+//      row's running maximum m and sum l of exp(s - m), rescaled by
+//      exp(m_old - m_new) when the maximum grows;
+//   2. cluster.sync(); the peers' maxima give the cluster's m; each block
+//      rescales its l to that m; cluster.sync(); the sums in rank order
+//      give l;
+//   3. pass 2 streams K tile j, then V tile j: the tile's scores again,
+//      p = round_T(exp(s - m) / l), and the partial PV;
+//   4-5. as above.
+// l is summed in another order than the held plan's (a running rescaled
+// sum), so the two plans agree to float32 rounding, not bitwise.
+//
 // Bodies (by q's dtype, as the wrapper's `body` names them):
 //   * mma_sync (bf16 q; bf16 pools or e4m3 pools dequantized to bf16):
 //     S^T = K q^T and O^T = V^T P^T by mma.sync m16n8k16 with float32
@@ -67,17 +84,23 @@
 //     the same phases on fmaf (never TF32): a thread per (position, row
 //     set) for scores and one owner per (row, d) for PV, any head_dim.
 //
-// The plan (splits, rows) is the caller's: the wrapper's `plan` picks
-// it from shapes alone, never from the lengths, so one plan serves every
-// step of a server and a CUDA graph can capture the call.  The source
-// lays it out (split length, row groups, shared memory) and refuses a
-// plan the kernel does not take or whose block does not fit.
+// The plan (splits, rows, recompute) is the caller's: the wrapper's
+// `plan` picks it from shapes alone, never from the lengths, so one plan
+// serves every step of a server and a CUDA graph can capture the call.
+// The source lays it out (split length, row groups, shared memory) and
+// refuses a plan the kernel does not take or whose block does not fit.
 // Edge rules: a row with no valid position writes zeros; a split with
 // no valid position adds nothing; -1 table entries inside a row's bound
 // are clamped to block 0 (the reference's maximum(bt, 0)); nothing past
 // the cluster's bound (its last row's) is read, and tile rows past the
 // block's share are zeroed in shared memory before any product, so a
 // masked p of 0 never meets a stale or non-finite row.
+//
+// Launches the card ran: the grid's first thread adds one to a device
+// counter (`g_launches`, one atomicAdd a launch), read by
+// paged_attention_device_launches.  The wrappers count launches on the
+// host when they are called; a CUDA graph replays captured launches
+// without calling them, and this counter sees every launch that runs.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -106,7 +129,8 @@ __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 
 // Byte offsets of a block's shared memory: q rows [rows][hd + pad] of T;
-// scores [rows][L + 8] float32; the work region (two tile slots
+// scores [rows][L + 8] float32 (L: the split's positions, or one tile's
+// when the plan recomputes them); the work region (two tile slots
 // [128][hd + pad] of T; after the last product the partial output
 // [rows][hd] float32); per row its maximum, sum, bound and cluster-wide
 // value; the peers' maxima or sums [splits][rows] gathered over DSM.
@@ -125,22 +149,27 @@ struct Layout {
 
 struct Plan {
   int splits, rows, smem, split_len, groups;
+  bool recompute;
 };
 
 // The launch shape of `splits` blocks a cluster (1-16, a power of two)
 // and `rows` query rows a cluster (a multiple of 8 up to 128) over a
-// table of T positions; false when the kernel does not take them or a
-// block's shared memory passes the limit.
+// table of T positions, holding the split's scores or recomputing them;
+// false when the kernel does not take them or a block's shared memory
+// passes the limit.
 bool lay_out(int dtype, int hd, int G, int C, int T, int splits, int rows,
-             Plan* out) {
+             int recompute, Plan* out) {
   if (G <= 0 || C <= 0 || T <= 0) return false;
   if (rows < 8 || rows % 8 || rows > kMaxRows) return false;
   if (splits < 1 || splits > kMaxSplits || (splits & (splits - 1)))
     return false;
+  if (recompute != 0 && recompute != 1) return false;
   const int L = round_up((T + splits - 1) / splits, 16);
-  const int smem = Layout(dtype == 0 ? 4 : 2, hd, rows, L, splits).total;
+  const int smem = Layout(dtype == 0 ? 4 : 2, hd, rows,
+                          recompute ? kTile : L, splits).total;
   if (smem > kSmemLimit) return false;
-  *out = Plan{splits, rows, smem, L, (C * G + rows - 1) / rows};
+  *out = Plan{splits, rows, smem, L, (C * G + rows - 1) / rows,
+              recompute != 0};
   return true;
 }
 
@@ -252,6 +281,8 @@ __device__ __forceinline__ void dequant8(T* dst, uint2 codes, float sc) {
 // the kernel
 // ---------------------------------------------------------------------
 
+__device__ unsigned long long g_launches;   // launches run on this device
+
 // q/out [B, C, H, HD] of type T; pools [NB, bs, KH, HD] of type T, or
 // e4m3 codes with scales [NB, bs, KH, 1] float (FP8); block_table
 // [B, MB] int32; base [B] int32.
@@ -264,7 +295,7 @@ struct Params {
   float scale;
 };
 
-template <typename T, int HD, bool FP8>
+template <typename T, int HD, bool FP8, bool RECOMP>
 __global__ void __launch_bounds__(kThreads, 1)
     paged_attention_kernel(const Params p) {
   constexpr int TSZ = sizeof(T);
@@ -280,8 +311,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int kh = bkh % p.KH, b = bkh / p.KH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int R = p.rows, L = p.split_len, G = p.G;
-  const int Ls = L + 8;                    // score row stride (floats)
-  const Layout lay(TSZ, HD, R, L, S);
+  const int Lsc = RECOMP ? kTile : L;      // score columns a row holds
+  const int Ls = Lsc + 8;                  // score row stride (floats)
+  const Layout lay(TSZ, HD, R, Lsc, S);
   T* qs = reinterpret_cast<T*>(smem + lay.q);
   float* sb = reinterpret_cast<float*>(smem + lay.s);
   unsigned char* slots = smem + lay.work;
@@ -291,6 +323,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   int* rbound = reinterpret_cast<int*>(lpart + R);
   float* rowv = lpart + 2 * R;             // the cluster's max, then sum
   float* gath = rowv + R;                  // [S][R] from the peers
+
+  if (blockIdx.x == 0 && tid == 0) atomicAdd(&g_launches, 1ull);
 
   const int row0 = rg * R;
   const int nrows = imin(R, p.C * G - row0);
@@ -319,23 +353,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int t1 = imin(t0 + L, n_max);
   const int len = imax(t1 - t0, 0);
   const int ntile = (len + kTile - 1) / kTile;
+  const int nt = (RECOMP ? 3 : 2) * ntile; // tiles streamed
   const int* bt = p.bt + (size_t)b * p.MB;
 
-  for (int i = tid; i < R; i += kThreads)
+  for (int i = tid; i < R; i += kThreads) {
     rbound[i] = i < nrows
                     ? imax(0, imin(base + p.off + (row0 + i) / G, p.T))
                     : 0;
-  // Tile u: K tile u (u < ntile) or V tile u - ntile, positions ts(u)
-  // on.  Register staging: thread (row r, part) holds its 16-byte
-  // chunks of tile u + 2 in registers (ld.global.v4) while tile u is
-  // computed, then stores them (e4m3 dequantized on the way) into the
-  // slot tile u left; pool rows past t1 are zeros.  Its table entry for
-  // the next tile is read one tile ahead.
+    if constexpr (RECOMP) {                // running maximum and sum
+      mpart[i] = neg_inf();
+      lpart[i] = 0.f;
+    }
+  }
+  // Tile u of the stream: the split's K tiles 0..ntile-1, then its V
+  // tiles (RECOMP: K tile j, V tile j for each j); tile_idx is its index
+  // within the split.  Register staging: thread (row r, part) holds its
+  // 16-byte chunks of tile u + 2 in registers (ld.global.v4) while tile
+  // u is computed, then stores them (e4m3 dequantized on the way) into
+  // the slot tile u left; pool rows past t1 are zeros.  Its table entry
+  // for the next tile is read one tile ahead.
   const int bs_shift = (p.bs & (p.bs - 1)) ? -1 : __ffs(p.bs) - 1;
   auto div_bs = [&](int t) { return bs_shift >= 0 ? t >> bs_shift : t / p.bs; };
-  auto tile_start = [&](int u) {
-    return t0 + (u >= ntile ? u - ntile : u) * kTile;
+  auto tile_idx = [&](int u) {
+    return u < ntile ? u : RECOMP ? (u - ntile) >> 1 : u - ntile;
   };
+  auto is_v = [&](int u) {
+    return u >= ntile && (!RECOMP || ((u - ntile) & 1));
+  };
+  auto tile_start = [&](int u) { return t0 + tile_idx(u) * kTile; };
   constexpr int CPR = HD * PSZ / 16;       // 16-byte chunks a pool row
   constexpr int TPR = kThreads / kTile;   // threads a row
   constexpr int NCH = (CPR + TPR - 1) / TPR;
@@ -344,11 +389,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   float stg_sc = 0.f;
   auto entry = [&](int u) {                // table entry of this row
     const int t = tile_start(u) + r_own;
-    return u < 2 * ntile && t < t1 ? imax(bt[div_bs(t)], 0) : -1;
+    return u < nt && t < t1 ? imax(bt[div_bs(t)], 0) : -1;
   };
   int ent_next = entry(0);
   auto load = [&](int u) {
-    if (u >= 2 * ntile) return;
+    if (u >= nt) return;
     const int blk = ent_next;
     ent_next = entry(u + 1);
     const int t = tile_start(u) + r_own;
@@ -358,15 +403,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (blk < 0) return;
     const size_t row = ((size_t)blk * p.bs + (t - div_bs(t) * p.bs)) * p.KH + kh;
     const uint4* src = reinterpret_cast<const uint4*>(
-        static_cast<const unsigned char*>(u >= ntile ? p.v : p.k) +
+        static_cast<const unsigned char*>(is_v(u) ? p.v : p.k) +
         row * (HD * PSZ));
 #pragma unroll
     for (int i = 0; i < NCH; ++i)
       if (part + TPR * i < CPR) stg[i] = src[part + TPR * i];
-    if constexpr (FP8) stg_sc = (u >= ntile ? p.vs : p.ks)[row];
+    if constexpr (FP8) stg_sc = (is_v(u) ? p.vs : p.ks)[row];
   };
   auto store = [&](int u) {
-    if (u >= 2 * ntile) return;
+    if (u >= nt) return;
     T* dst = reinterpret_cast<T*>(slots + (u % 2) * lay.slot) + r_own * KS;
 #pragma unroll
     for (int i = 0; i < NCH; ++i) {
@@ -389,16 +434,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto tile_of = [&](int u) -> const T* {
     return reinterpret_cast<const T*>(slots + (u % 2) * lay.slot);
   };
-  load(0);
-  store(0);
-  load(1);
-  cp_async_wait_all();                     // q
-  __syncthreads();
+  // positions of the split's tile of stream tile u
+  auto tile_len = [&](int u) { return imin(kTile, len - tile_idx(u) * kTile); };
 
-  // ---- phase 1: scores of this split ---------------------------------
-  for (int u = 0; u < ntile; ++u) {
+  // The scores of the K tile of stream tile u into score columns col0 +
+  // [0, tile_len), -inf at positions past each row's bound.
+  auto score = [&](int u, int col0) {
     const T* kt = tile_of(u);
-    const int tl = imin(kTile, len - u * kTile);
+    const int tl = tile_len(u);
+    const int tpos = t0 + tile_idx(u) * kTile;   // the tile's first position
     if constexpr (MMA) {
       // S^T = K q^T: warp w takes m-tile w (16 positions of the tile's
       // 128) and every n-frag (8 rows)
@@ -432,10 +476,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (n >= nf) continue;
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int pl = u * kTile + m * 16 + g4 + 8 * (e / 2);
+            const int pl = m * 16 + g4 + 8 * (e / 2);
             const int row = n * 8 + 2 * t4 + (e % 2);
-            sb[row * Ls + pl] =
-                t0 + pl < rbound[row] ? acc[j][e] * p.scale : neg_inf();
+            sb[row * Ls + col0 + pl] =
+                tpos + pl < rbound[row] ? acc[j][e] * p.scale : neg_inf();
           }
         }
       }
@@ -466,14 +510,48 @@ __global__ void __launch_bounds__(kThreads, 1)
               }
             }
           }
-          const int pl = u * kTile + t;
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             const int r = rb + rq + RQ * j;
             if (r < R)
-              sb[r * Ls + pl] = t0 + pl < rbound[r] ? acc[j] * p.scale
-                                                    : neg_inf();
+              sb[r * Ls + col0 + t] = tpos + t < rbound[r]
+                                          ? acc[j] * p.scale
+                                          : neg_inf();
           }
+        }
+      }
+    }
+  };
+
+  load(0);
+  store(0);
+  load(1);
+  cp_async_wait_all();                     // q
+  __syncthreads();
+
+  // ---- phase 1: scores of this split ---------------------------------
+  for (int u = 0; u < ntile; ++u) {
+    score(u, RECOMP ? 0 : u * kTile);
+    if constexpr (RECOMP) {
+      // fold the tile into each row's running maximum and sum
+      __syncthreads();
+      const int tl = tile_len(u);
+      for (int r = warp; r < R; r += kWarps) {
+        float mt = neg_inf();
+        for (int t = lane; t < tl; t += 32) mt = fmaxf(mt, sb[r * Ls + t]);
+        mt = warp_max(mt);
+        const float m0 = mpart[r], m1 = fmaxf(m0, mt);
+        float sum = 0.f;
+        if (m1 != neg_inf()) {
+          for (int t = lane; t < tl; t += 32) {
+            const float s = sb[r * Ls + t];
+            sum += s == neg_inf() ? 0.f : expf(s - m1);
+          }
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) {
+          lpart[r] = (m0 == neg_inf() ? 0.f : lpart[r] * expf(m0 - m1)) + sum;
+          mpart[r] = m1;
         }
       }
     }
@@ -482,13 +560,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   // ---- phase 2: softmax over the cluster -----------------------------
-  for (int r = warp; r < R; r += kWarps) {
-    float m = neg_inf();
-    for (int t = lane; t < len; t += 32) m = fmaxf(m, sb[r * Ls + t]);
-    m = warp_max(m);
-    if (lane == 0) mpart[r] = m;
-  }
-  cluster.sync();                          // maxima are written
   // every peer value of every row at once, then one thread a row
   auto gather = [&](float* part, bool is_max) {
     for (int i = tid; i < S * R; i += kThreads)
@@ -502,30 +573,48 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
   };
-  gather(mpart, true);
-  for (int r = warp; r < R; r += kWarps) {
-    const float m = rowv[r];
-    float sum = 0.f;
-    for (int t = lane; t < len; t += 32) {
-      const float s = sb[r * Ls + t];
-      const float e = s == neg_inf() ? 0.f : expf(s - m);
-      sb[r * Ls + t] = e;
-      sum += e;
+  if constexpr (RECOMP) {
+    cluster.sync();                        // running maxima, sums written
+    gather(mpart, true);
+    for (int r = tid; r < R; r += kThreads)  // this block's sum at m
+      lpart[r] = mpart[r] == neg_inf() ? 0.f
+                                       : lpart[r] * expf(mpart[r] - rowv[r]);
+    cluster.sync();                        // sums written, maxima read
+    for (int r = tid; r < R; r += kThreads) mpart[r] = rowv[r];
+    gather(lpart, false);                  // mpart: m, rowv: l
+  } else {
+    for (int r = warp; r < R; r += kWarps) {
+      float m = neg_inf();
+      for (int t = lane; t < len; t += 32) m = fmaxf(m, sb[r * Ls + t]);
+      m = warp_max(m);
+      if (lane == 0) mpart[r] = m;
     }
-    sum = warp_sum(sum);
-    if (lane == 0) lpart[r] = sum;
-  }
-  cluster.sync();                          // partial sums are written
-  gather(lpart, false);
-  const int len16 = round_up(len, 16);
-  for (int r = warp; r < R; r += kWarps) {
-    const float l = rowv[r];
-    for (int t = lane; t < len16; t += 32) {
-      const float e = t < len ? sb[r * Ls + t] : 0.f;
-      sb[r * Ls + t] = l > 0.f ? to_f(from_f<T>(e / l)) : 0.f;
+    cluster.sync();                        // maxima are written
+    gather(mpart, true);
+    for (int r = warp; r < R; r += kWarps) {
+      const float m = rowv[r];
+      float sum = 0.f;
+      for (int t = lane; t < len; t += 32) {
+        const float s = sb[r * Ls + t];
+        const float e = s == neg_inf() ? 0.f : expf(s - m);
+        sb[r * Ls + t] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) lpart[r] = sum;
     }
+    cluster.sync();                        // partial sums are written
+    gather(lpart, false);
+    const int len16 = round_up(len, 16);
+    for (int r = warp; r < R; r += kWarps) {
+      const float l = rowv[r];
+      for (int t = lane; t < len16; t += 32) {
+        const float e = t < len ? sb[r * Ls + t] : 0.f;
+        sb[r * Ls + t] = l > 0.f ? to_f(from_f<T>(e / l)) : 0.f;
+      }
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // ---- phase 3: partial P V of this split ----------------------------
   constexpr int MT = HD / 16;               // mma: m-tiles of head_dim
@@ -537,10 +626,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int e = 0; e < (MMA ? 4 : 1); ++e) oacc[j][e] = 0.f;
   const int nf = R / 8;
-  for (int u = ntile; u < 2 * ntile; ++u) {
+  // the V tile of stream tile u against p in score columns pt + [0, tl)
+  auto pv = [&](int u, int pt) {
     const T* vt = tile_of(u);
-    const int pt = (u - ntile) * kTile;    // tile's first score column
-    const int tl = imin(kTile, len - pt);
+    const int tl = tile_len(u);
     if constexpr (MMA) {
       // O^T = V^T P^T: warp w takes tiles i = w + 8 j of (m-tile of hd,
       // n-frag of rows), i -> (i % MT, i / MT)
@@ -550,11 +639,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int j = 0; j < JP; ++j) {
           const int i = warp + kWarps * j;
           if (i < MT * nf) {
-            const int mt = i % MT, nt = i / MT;
+            const int mt = i % MT, nt_ = i / MT;
             uint32_t a[4];
             ldmatrix_x4_trans(a, vt + (k0 + (lane & 7) + 8 * (lane >> 4)) * KS +
                                      mt * 16 + 8 * ((lane >> 3) & 1));
-            const float* pr = sb + (nt * 8 + g4) * Ls + pt + k0 + 2 * t4;
+            const float* pr = sb + (nt_ * 8 + g4) * Ls + pt + k0 + 2 * t4;
             const float2 x0 = *reinterpret_cast<const float2*>(pr);
             const float2 x1 = *reinterpret_cast<const float2*>(pr + 8);
             tile::Mma<__nv_bfloat16>::run(oacc[j], a, pack_bf16(x0.x, x0.y),
@@ -576,7 +665,32 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
-    advance(u);
+  };
+  if constexpr (RECOMP) {
+    // pass 2: K tile j's scores again, p = round_T(exp(s - m) / l) over
+    // whole 16-column steps, then V tile j
+    for (int u = ntile; u < nt; u += 2) {
+      score(u, 0);
+      __syncthreads();
+      const int tl = tile_len(u), tl16 = round_up(tl, 16);
+      for (int r = warp; r < R; r += kWarps) {
+        const float m = mpart[r], l = rowv[r];
+        for (int t = lane; t < tl16; t += 32) {
+          const float s = t < tl ? sb[r * Ls + t] : neg_inf();
+          sb[r * Ls + t] = l > 0.f && s != neg_inf()
+                               ? to_f(from_f<T>(expf(s - m) / l))
+                               : 0.f;
+        }
+      }
+      advance(u);                          // p written, V tile j in place
+      pv(u + 1, 0);
+      advance(u + 1);
+    }
+  } else {
+    for (int u = ntile; u < nt; ++u) {
+      pv(u, (u - ntile) * kTile);
+      advance(u);
+    }
   }
   __syncthreads();                         // the slots are free: opart
   if constexpr (MMA) {
@@ -585,10 +699,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int j = 0; j < JP; ++j) {
       const int i = warp + kWarps * j;
       if (i < MT * nf) {
-        const int mt = i % MT, nt = i / MT;
+        const int mt = i % MT, nt_ = i / MT;
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          opart[(nt * 8 + 2 * t4 + (e % 2)) * HD + mt * 16 + g4 + 8 * (e / 2)] =
+          opart[(nt_ * 8 + 2 * t4 + (e % 2)) * HD + mt * 16 + g4 + 8 * (e / 2)] =
               oacc[j][e];
       }
     }
@@ -642,14 +756,14 @@ struct Args {
   const void* q; const void* k; const void* v;
   const float* ks; const float* vs;
   const int* bt; const int* base; void* out;
-  int B, C, H, KH, bs, MB, off, splits, rows;
+  int B, C, H, KH, bs, MB, off, splits, rows, recompute;
   float scale;
 };
 
 // Allow the kernel `smem` bytes of dynamic shared memory and, for
 // clusters past 8 blocks, non-portable cluster sizes, once a device (the
 // attributes persist; a serving step or a graph capture sets nothing).
-template <typename T, int HD, bool FP8>
+template <typename T, int HD, bool FP8, bool RECOMP>
 cudaError_t allow(const Plan& plan) {
   constexpr int kDevices = 64;
   static int smem_set[kDevices], nonportable_set[kDevices];
@@ -657,7 +771,7 @@ cudaError_t allow(const Plan& plan) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const bool known = dev >= 0 && dev < kDevices;
-  auto kernel = paged_attention_kernel<T, HD, FP8>;
+  auto kernel = paged_attention_kernel<T, HD, FP8, RECOMP>;
   if (!known || smem_set[dev] < plan.smem) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
@@ -673,10 +787,10 @@ cudaError_t allow(const Plan& plan) {
   return cudaSuccess;
 }
 
-template <typename T, int HD, bool FP8>
+template <typename T, int HD, bool FP8, bool RECOMP>
 cudaError_t launch(const Args& a, const Plan& plan, cudaStream_t stream) {
-  auto kernel = paged_attention_kernel<T, HD, FP8>;
-  cudaError_t err = allow<T, HD, FP8>(plan);
+  auto kernel = paged_attention_kernel<T, HD, FP8, RECOMP>;
+  cudaError_t err = allow<T, HD, FP8, RECOMP>(plan);
   if (err != cudaSuccess) return err;
   const Params p{a.q, a.k, a.v, a.ks, a.vs, a.bt, a.base, a.out,
                  a.C, a.H, a.KH, a.H / a.KH, a.bs, a.MB, a.off,
@@ -703,10 +817,10 @@ cudaError_t launch(const Args& a, const Plan& plan, cudaStream_t stream) {
 }
 
 // Clusters of the plan that fit the card at once (0: it cannot run).
-template <typename T, int HD, bool FP8>
+template <typename T, int HD, bool FP8, bool RECOMP>
 cudaError_t max_clusters(const Plan& plan, int* n) {
-  auto kernel = paged_attention_kernel<T, HD, FP8>;
-  cudaError_t err = allow<T, HD, FP8>(plan);
+  auto kernel = paged_attention_kernel<T, HD, FP8, RECOMP>;
+  cudaError_t err = allow<T, HD, FP8, RECOMP>(plan);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(plan.splits, 1, 1);
@@ -722,37 +836,42 @@ cudaError_t max_clusters(const Plan& plan, int* n) {
   return cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
 }
 
-// Call F<T, HD, FP8>::run(args...) for the runtime dtype, hd and fp8.
-template <template <typename, int, bool> class F, typename... A>
-cudaError_t dispatch(int dtype, int hd, bool fp8, A&&... args) {
-#define PA_HD(T, P)                                            \
+// Call F<T, HD, FP8, RECOMP>::run(args...) for the runtime dtype, hd,
+// fp8 and the plan's recompute.
+template <template <typename, int, bool, bool> class F, typename... A>
+cudaError_t dispatch(int dtype, int hd, bool fp8, bool recompute,
+                     A&&... args) {
+#define PA_HD(T, P, R)                                         \
   switch (hd) {                                                \
-    case 16: return F<T, 16, P>::run(args...);                 \
-    case 32: return F<T, 32, P>::run(args...);                 \
-    case 64: return F<T, 64, P>::run(args...);                 \
-    case 80: return F<T, 80, P>::run(args...);                 \
-    case 128: return F<T, 128, P>::run(args...);               \
+    case 16: return F<T, 16, P, R>::run(args...);              \
+    case 32: return F<T, 32, P, R>::run(args...);              \
+    case 64: return F<T, 64, P, R>::run(args...);              \
+    case 80: return F<T, 80, P, R>::run(args...);              \
+    case 128: return F<T, 128, P, R>::run(args...);            \
     default: return cudaErrorInvalidValue;                     \
   }
+#define PA_R(T, P)                                             \
+  if (recompute) { PA_HD(T, P, true) } else { PA_HD(T, P, false) }
   if (dtype == 0) {
-    if (fp8) { PA_HD(float, true) } else { PA_HD(float, false) }
+    if (fp8) { PA_R(float, true) } else { PA_R(float, false) }
   }
   if (dtype == 1) {
-    if (fp8) { PA_HD(__nv_bfloat16, true) } else { PA_HD(__nv_bfloat16, false) }
+    if (fp8) { PA_R(__nv_bfloat16, true) } else { PA_R(__nv_bfloat16, false) }
   }
+#undef PA_R
 #undef PA_HD
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int HD, bool FP8> struct Launch {
+template <typename T, int HD, bool FP8, bool RECOMP> struct Launch {
   static cudaError_t run(const Args& a, const Plan& plan, cudaStream_t s) {
-    return launch<T, HD, FP8>(a, plan, s);
+    return launch<T, HD, FP8, RECOMP>(a, plan, s);
   }
 };
 
-template <typename T, int HD, bool FP8> struct MaxClusters {
+template <typename T, int HD, bool FP8, bool RECOMP> struct MaxClusters {
   static cudaError_t run(const Plan& plan, int* n) {
-    return max_clusters<T, HD, FP8>(plan, n);
+    return max_clusters<T, HD, FP8, RECOMP>(plan, n);
   }
 };
 
@@ -764,9 +883,9 @@ int run(int dtype, int hd, bool fp8, const Args& a, void* stream) {
     return (int)cudaErrorInvalidValue;
   Plan plan;
   if (!lay_out(dtype, hd, a.H / a.KH, a.C, a.MB * a.bs, a.splits, a.rows,
-               &plan))
+               a.recompute, &plan))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch<Launch>(dtype, hd, fp8, a, plan,
+  return (int)dispatch<Launch>(dtype, hd, fp8, plan.recompute, a, plan,
                                static_cast<cudaStream_t>(stream));
 }
 
@@ -777,38 +896,49 @@ extern "C" {
 // Clusters of a plan the card holds at once, into *n (0: the launch
 // would be refused).  Returns the CUDA error of the query.
 int paged_attention_max_clusters(int dtype, int fp8, int hd, int G, int C,
-                                 int T, int splits, int rows, int* n) {
+                                 int T, int splits, int rows, int recompute,
+                                 int* n) {
   Plan plan;
   if ((dtype != 0 && dtype != 1) ||
-      !lay_out(dtype, hd, G, C, T, splits, rows, &plan))
+      !lay_out(dtype, hd, G, C, T, splits, rows, recompute, &plan))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch<MaxClusters>(dtype, hd, fp8 != 0, plan, n);
+  return (int)dispatch<MaxClusters>(dtype, hd, fp8 != 0, plan.recompute,
+                                    plan, n);
 }
 
-// q/out [B, 1, H, hd]; kv_len [B] int32; splits and rows: the plan.
-// Returns the CUDA error of the launch (0 = launched).
+// Launches of the kernel the current device has run since the library
+// was loaded, into *n (launches still running may or may not be in it:
+// the caller synchronizes the device first).  Returns the CUDA error of
+// the copy.
+int paged_attention_device_launches(unsigned long long* n) {
+  return (int)cudaMemcpyFromSymbol(n, g_launches, sizeof(*n));
+}
+
+// q/out [B, 1, H, hd]; kv_len [B] int32; splits, rows and recompute: the
+// plan.  Returns the CUDA error of the launch (0 = launched).
 int paged_decode_fwd(int dtype, int hd, const void* q, const void* k,
                      const void* v, const void* block_table,
                      const void* kv_len, void* out, int B, int H, int KH,
-                     int bs, int MB, int splits, int rows, float scale,
-                     void* stream) {
+                     int bs, int MB, int splits, int rows, int recompute,
+                     float scale, void* stream) {
   const Args a{q, k, v, nullptr, nullptr,
                static_cast<const int*>(block_table),
                static_cast<const int*>(kv_len), out, B, 1, H, KH, bs, MB,
-               0, splits, rows, scale};
+               0, splits, rows, recompute, scale};
   return run(dtype, hd, false, a, stream);
 }
 
 // q/out [B, C, H, hd]; pos [B] int32 (cache length before the chunk);
-// splits and rows: the plan.
+// splits, rows and recompute: the plan.
 int paged_chunk_fwd(int dtype, int hd, const void* q, const void* k,
                     const void* v, const void* block_table, const void* pos,
                     void* out, int B, int C, int H, int KH, int bs, int MB,
-                    int splits, int rows, float scale, void* stream) {
+                    int splits, int rows, int recompute, float scale,
+                    void* stream) {
   const Args a{q, k, v, nullptr, nullptr,
                static_cast<const int*>(block_table),
                static_cast<const int*>(pos), out, B, C, H, KH, bs, MB, 1,
-               splits, rows, scale};
+               splits, rows, recompute, scale};
   return run(dtype, hd, false, a, stream);
 }
 
@@ -819,12 +949,12 @@ int paged_decode_fp8_fwd(int dtype, int hd, const void* q, const void* k,
                          const void* v_scale, const void* block_table,
                          const void* kv_len, void* out, int B, int H,
                          int KH, int bs, int MB, int splits, int rows,
-                         float scale, void* stream) {
+                         int recompute, float scale, void* stream) {
   const Args a{q, k, v, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale),
                static_cast<const int*>(block_table),
                static_cast<const int*>(kv_len), out, B, 1, H, KH, bs, MB,
-               0, splits, rows, scale};
+               0, splits, rows, recompute, scale};
   return run(dtype, hd, true, a, stream);
 }
 
@@ -834,12 +964,12 @@ int paged_chunk_fp8_fwd(int dtype, int hd, const void* q, const void* k,
                         const void* v_scale, const void* block_table,
                         const void* pos, void* out, int B, int C, int H,
                         int KH, int bs, int MB, int splits, int rows,
-                        float scale, void* stream) {
+                        int recompute, float scale, void* stream) {
   const Args a{q, k, v, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale),
                static_cast<const int*>(block_table),
                static_cast<const int*>(pos), out, B, C, H, KH, bs, MB, 1,
-               splits, rows, scale};
+               splits, rows, recompute, scale};
   return run(dtype, hd, true, a, stream);
 }
 

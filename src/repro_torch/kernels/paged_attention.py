@@ -21,14 +21,18 @@ TF32), by q's dtype (``body``).  The plan (``plan``, the only copy of
 the rule: the source lays out and checks the plan it is given) picks
 rows per cluster and splits from the shapes alone, never from the
 lengths, so one plan serves every step of a server and a CUDA graph can
-capture a call; ``splits=`` (and ``rows=`` for a chunk) force a choice,
-for tests.  A context longer than the largest cluster's shared memory
-holds (``max_context``) raises.
+capture a call; ``splits=`` and ``rows=`` (for a chunk) force a
+choice, for tests.  A table longer than the
+largest cluster's shared memory holds the scores of
+(``held_scores_context``, ~80k positions at bf16 head_dim 128) takes a
+plan that recomputes the scores from K in a second pass (K read twice,
+V once: 1.5x the bytes); there is no cap on the context.
 
 For CUDA tensors a wrapper checks its operands, allocates the output,
 launches the kernel on the current stream, raises if the launch failed
 (a cluster the card cannot schedule included), and adds one to its
-``launches`` count and to its body's (``body_launches``).  For CPU
+``launches`` count and to its body's (``body_launches``).  The kernel
+also counts the launches it runs on the card (``device_launches``).  For CPU
 tensors it computes the kernel's plain version (``*_plain``: the
 gathered view, dequantized for fp8 pools, plus the multiply-and-sum
 attention of models/attention.py); it never falls back from CUDA to
@@ -51,6 +55,7 @@ gather oracle (ROADMAP, queue C).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -73,13 +78,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 class Plan(NamedTuple):
     """One launch's shape: body, blocks a cluster (splits), query rows a
     cluster, shared memory a block (bytes), positions a split, row
-    groups of a (slot, kv head)."""
+    groups of a (slot, kv head), and whether the split's scores are
+    recomputed from K (True) or held in shared memory."""
     body: str
     splits: int
     rows: int
     smem: int
     split_len: int
     groups: int
+    recompute: bool = False
 
 
 def body(dtype: torch.dtype) -> str:
@@ -92,23 +99,24 @@ def _round_up(x: int, m: int) -> int:
 
 
 def smem_bytes(dtype: torch.dtype, hd: int, rows: int, split_len: int,
-               splits: int) -> int:
+               splits: int, recompute: bool = False) -> int:
     """Shared memory of one block (the source's `Layout`, which refuses
-    a plan past SMEM_LIMIT): q rows, the
-    split's float32 scores, the work region (two tiles of q's dtype,
-    later the float32 partial output), four float32/int32 values a row
-    and the peers' maxima or sums gathered, `splits` a row.  Rows carry
-    16 bytes of padding."""
+    a plan past SMEM_LIMIT): q rows, the float32 scores (the split's, or
+    one tile's when the plan recomputes them), the work region (two
+    tiles of q's dtype, later the float32 partial output), four
+    float32/int32 values a row and the peers' maxima or sums gathered,
+    `splits` a row.  Rows carry 16 bytes of padding."""
     tsz = 4 if dtype == torch.float32 else 2
     q = rows * (hd * tsz + 16)
-    scores = rows * (split_len + 8) * 4
+    scores = rows * ((TILE if recompute else split_len) + 8) * 4
     tiles = 2 * TILE * (hd * tsz + 16)
     return q + scores + max(tiles, rows * hd * 4) + (4 + splits) * rows * 4
 
 
-def max_context(dtype: torch.dtype, hd: int) -> int:
-    """The longest table (max_blocks * block_size) any plan takes: 8
-    rows a cluster over 16 splits."""
+def held_scores_context(dtype: torch.dtype, hd: int) -> int:
+    """The longest table (max_blocks * block_size) whose scores a plan
+    holds in shared memory (8 rows a cluster over 16 splits); longer
+    tables take the plan that recomputes them."""
     fixed = smem_bytes(dtype, hd, 8, 0, SPLITS[-1])
     split_len = ((SMEM_LIMIT - fixed) // 32) // 16 * 16
     return 16 * split_len
@@ -124,14 +132,16 @@ def wave_clusters(S: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def plan(dtype: torch.dtype, hd: int, B: int, KH: int, G: int, C: int,
-         T: int, splits: int = 0, rows: int = 0) -> Plan:
+         T: int, splits: int = 0, rows: int = 0,
+         recompute: bool = False) -> Plan:
     """The plan rule for q of `dtype`, head_dim `hd`, B slots, KH kv
     heads, G query heads a kv head, C query rows a slot and T =
     max_blocks * block_size (e4m3 pools take the same plan: they are
     dequantized into tiles of q's dtype).  Of the rows a cluster R
     (min(round_up(C*G, 8), 128), halved down to 8) and splits S (1, 2,
     4, 8, 16, at most the largest power of two <= ceil(T / TILE)) whose
-    block fits SMEM_LIMIT, the pair of least cost
+    block fits SMEM_LIMIT holding its split's scores, the pair of least
+    cost
 
         waves * (BLOCK_COST + L * (1 + R / 16)),
 
@@ -139,11 +149,17 @@ def plan(dtype: torch.dtype, hd: int, B: int, KH: int, G: int, C: int,
     split; ties to the larger R (fewer reads of K/V), then the smaller
     S.  BLOCK_COST stands for a block's fixed chain of loads and cluster
     barriers (~10 us against ~80 ns a position), and each position
-    weighs more with its rows' scores.  The wrapper passes the plan's
-    splits and rows to the launch.
+    weighs more with its rows' scores.  Where no such block fits (T
+    past `held_scores_context`), the same search over plans that
+    recompute the scores (one tile of them a block), each position
+    weighing 1.5x for its second read of K.  The wrapper passes the
+    plan's splits, rows and recompute to the launch.
 
-    `splits` / `rows` (non-zero) force a choice.  Raises ValueError when
-    nothing fits: T past `max_context`."""
+    `splits` / `rows` (non-zero) / `recompute` force a choice (the
+    wrappers force splits and rows for tests; nothing but a test forces
+    `recompute`, by patching this function).  Raises
+    ValueError when nothing fits (forced rows or splits whose block
+    passes SMEM_LIMIT)."""
     if rows and (rows % 8 or not 0 < rows <= MAX_ROWS):
         raise ValueError(f"rows {rows} is not a multiple of 8 in "
                          f"[8, {MAX_ROWS}]")
@@ -154,31 +170,41 @@ def plan(dtype: torch.dtype, hd: int, B: int, KH: int, G: int, C: int,
     smax = 1
     while smax * 2 <= SPLITS[-1] and smax * 2 <= tiles:
         smax *= 2
-    best, R = None, rows or min(_round_up(total_rows, 8), MAX_ROWS)
-    while True:
-        groups = -(-total_rows // R)
-        for S in SPLITS:
-            if S != splits if splits else S > smax:
-                continue
-            L = _round_up(-(-T // S), 16)
-            smem = smem_bytes(dtype, hd, R, L, S)
-            if smem > SMEM_LIMIT:
-                continue
-            waves = -(-(B * KH * groups) // wave_clusters(S))
-            cost = waves * (BLOCK_COST + L * (16 + R) // 16)
-            if best is None or cost < best[0]:
-                best = (cost, Plan(body(dtype), S, R, smem, L, groups))
-        if R == 8 or rows:
-            break
-        R = max(8, _round_up(R // 2, 8))
+
+    def search(recomp: bool):
+        best, R = None, rows or min(_round_up(total_rows, 8), MAX_ROWS)
+        while True:
+            groups = -(-total_rows // R)
+            for S in SPLITS:
+                if S != splits if splits else S > smax:
+                    continue
+                L = _round_up(-(-T // S), 16)
+                smem = smem_bytes(dtype, hd, R, L, S, recomp)
+                if smem > SMEM_LIMIT:
+                    continue
+                waves = -(-(B * KH * groups) // wave_clusters(S))
+                weight = L * (16 + R) // 16
+                if recomp:
+                    weight = weight * 3 // 2
+                cost = waves * (BLOCK_COST + weight)
+                if best is None or cost < best[0]:
+                    best = (cost, Plan(body(dtype), S, R, smem, L, groups,
+                                       recomp))
+            if R == 8 or rows:
+                return best
+            R = max(8, _round_up(R // 2, 8))
+
+    best = None if recompute else search(False)
+    if best is None:
+        best = search(True)
     if best is None:
         raise ValueError(
             f"no plan fits max_blocks*block_size={T} (G={G}, C={C}, "
             f"head_dim {hd}, {dtype}"
             f"{', splits=%d' % splits if splits else ''}"
-            f"{', rows=%d' % rows if rows else ''}): a cluster of 16 blocks "
-            f"holds the scores of at most {max_context(dtype, hd)} "
-            f"positions in {SMEM_LIMIT} bytes of shared memory a block")
+            f"{', rows=%d' % rows if rows else ''}): a block of "
+            f"{'%d rows' % rows if rows else 'the forced plan'} does not "
+            f"fit {SMEM_LIMIT} bytes of shared memory")
     return best[1]
 
 
@@ -194,8 +220,8 @@ def _check(q, ck, cv, block_table, k_scale=None, v_scale=None, *,
     """Operands the kernel takes: q float32 or bf16; pools of q's dtype,
     or e4m3 pools with float32 scales [NB,bs,KH,1] (both scales or
     neither); an int32 table; one device; contiguous; pools on 16-byte
-    boundaries (rows move 16 bytes at a time); a table a plan fits
-    (`plan`, which raises past `max_context`)."""
+    boundaries (rows move 16 bytes at a time); a plan that fits
+    (`plan`, which raises only on forced splits or rows)."""
     B, C, H, hd = q.shape
     NB, bs, KH, hd_k = ck.shape
     if cv.shape != ck.shape or hd_k != hd or H % KH:
@@ -252,8 +278,9 @@ def _run(fn, entry: str, q, ck, cv, block_table, lens, scales=(), *,
     lens = _per_slot(lens, B, q.device)
     if q.data_ptr() % 16:            # q rows move 16 bytes at a time
         q = q.clone()
-    dims = ((B, H, KH, bs, MB, p.splits, p.rows) if decode
-            else (B, C, H, KH, bs, MB, p.splits, p.rows))
+    dims = ((B, H, KH, bs, MB, p.splits, p.rows, int(p.recompute))
+            if decode else
+            (B, C, H, KH, bs, MB, p.splits, p.rows, int(p.recompute)))
     out = torch.empty_like(q)
     build.launch(SOURCE, entry, q.device, _DTYPES[q.dtype], hd,
                  q.data_ptr(),
@@ -376,6 +403,28 @@ def launch_counts() -> dict:
 def launches_by_body() -> dict:
     """{kernel name: {body: launches}} since the last reset."""
     return {fn.__name__: dict(fn.body_launches) for fn in KERNELS}
+
+
+def device_launches(device) -> int:
+    """Launches of the kernel that `device` (a CUDA device) has run,
+    all four wrappers together, since the library was loaded, as the
+    kernel counts them itself (the grid's first thread adds one to a
+    device counter).  Graph replays are in it as they run; the wrappers'
+    `launches` add a replay's captured launches on the host
+    (`runtime/graphs.py`).  Synchronizes the device."""
+    from repro_torch.kernels import build
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"device_launches reads a CUDA device, not "
+                         f"{device}")
+    n = ctypes.c_ulonglong(0)
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        err = build.load(SOURCE).paged_attention_device_launches(
+            ctypes.byref(n))
+    if err != 0:
+        raise build.LaunchError("paged_attention_device_launches", err)
+    return n.value
 
 
 reset_launch_counts()

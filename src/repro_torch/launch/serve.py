@@ -123,10 +123,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
           f"tokens={int(stats['tokens'])} "
           f"throughput={stats['tokens_per_s']:.1f} tok/s "
           f"(paper Table XII protocol)")
+    counts = srv.compile_counts()
+    per_program = " ".join(f"{name}={n}"
+                           for name, n in sorted(counts.items()))
     print(f"  prefill={stats['prefill_seconds']:.2f}s/"
           f"{int(stats['chunk_steps'])}d "
           f"decode={stats['decode_seconds']:.2f}s/"
           f"{int(stats['decode_spans'])}d "
+          f"compiled_programs={sum(counts.values())} ({per_program}) "
           f"kernel_launches={srv.launch_counts()}")
     print(f"  paged-kv: {int(stats['peak_blocks_in_use'])}/"
           f"{int(stats['pool_blocks'])} blocks peak "

@@ -125,11 +125,12 @@ def verify_step(cfg: ModelConfig, params: Params, cache: Params,
                                        quant=quant, sample=sample)
 
 
-def cow_copy_block(cfg: ModelConfig, cache: Params, src: int,
-                   dst: int) -> Params:
+def cow_copy_block(cfg: ModelConfig, cache: Params, src, dst) -> Params:
     """Copy physical pool block `src` to `dst` in every layer and every
     leaf of the cache (the fp8 layout's scales too), in place: the
-    serving runtime's copy-on-write for a shared prefix block."""
+    serving runtime's copy-on-write for a shared prefix block.  `src` /
+    `dst` are ints or [1] int64 device tensors (the server's graphed
+    copy)."""
     _dense_only(cfg)
     from repro_torch.models import attention
     attention.copy_paged_block(cache["k"], cache["v"], src, dst)

@@ -558,13 +558,18 @@ def update_paged_cache_fp8(cache_layer: Dict[str, torch.Tensor],
                        scale.reshape(B * C, KH, 1))
 
 
-def copy_paged_block(ck: torch.Tensor, cv: torch.Tensor, src: int,
-                     dst: int) -> None:
+def copy_paged_block(ck: torch.Tensor, cv: torch.Tensor, src,
+                     dst) -> None:
     """Copy-on-write helper: duplicate physical block `src` into `dst`
     across every layer of the stacked pool ([L, NB, bs, KH, hd]), in
-    place."""
-    ck[:, dst].copy_(ck[:, src])
-    cv[:, dst].copy_(cv[:, src])
+    place.  `src` / `dst` are ints or [1] int64 tensors on the pool's
+    device (the form a CUDA graph captures: no host value in the copy);
+    8-bit pools are copied through uint8 views of the same bytes."""
+    src, dst = (torch.as_tensor(i, device=ck.device).reshape(1).long()
+                for i in (src, dst))
+    for pool in (ck, cv):
+        flat = pool.view(torch.uint8) if pool.element_size() == 1 else pool
+        flat.index_copy_(1, dst, flat.index_select(1, src))
 
 
 # ----------------------------------------------------------------------

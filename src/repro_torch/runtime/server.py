@@ -17,10 +17,17 @@ temperature / top-k / top-p / seed mirrors, filled at admission from
 ``Request.sampling`` or the server's default (greedy unless
 ``sampling=`` is given), and a draw keyed by (seed, emission position),
 so the chunk, span and verify paths draw the same token for the same
-position.  When the mirrors make every slot greedy (the host knows it
-from admission), a dispatch ends in the argmax instead: the sample
-head's greedy rows are that argmax bit for bit, and its sorts and noise
-over [slots, vocab] are skipped.
+position.  Greedy is a value, not another code path: a greedy row is
+the argmax, chosen inside the head.
+
+Each work unit (chunk step, decode span, verify step, copy-on-write
+copy) is one `runtime.graphs.WorkUnit`: on the card its first call runs
+eagerly, its second is captured into one CUDA graph, and every later
+call replays it, with the scheduler's operands copied into static
+buffers; `compile_counts()` reports the units' programs under the
+reference's keys, one each once used, whatever the lengths and the
+greedy/sampled mix.  On the CPU the units run eagerly through the same
+buffers and count the same way.
 
 The KV cache is a paged block pool with per-slot block tables, a
 refcounted allocator with admission backpressure, and a radix-tree
@@ -65,6 +72,7 @@ from repro_torch.models.sampling import GREEDY, SamplingParams
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
 from repro_torch.runtime import spec_decode as spec
+from repro_torch.runtime.graphs import WorkUnit
 from repro_torch.runtime.prefix_cache import BlockPool, RadixPrefixCache
 from repro_torch.te import linear as te_linear
 
@@ -169,6 +177,8 @@ class ChunkedServer:
         one [slots, K+1] speculative window a dispatch instead: n-gram
         drafts verified against the model's own chain (the K=0 tokens,
         >= 1 token per slot per dispatch).
+      * copy-on-write copy — one pool block into another, every layer.
+    Each is a `WorkUnit` (one CUDA graph on the card; `compile_counts`).
 
     The host mirrors position/emission bookkeeping in numpy — greedy
     decoding with length-only stopping is deterministic, so the mirror
@@ -280,6 +290,7 @@ class ChunkedServer:
             self.spec_drafted = 0
             self.spec_accepted = 0
             self.spec_emitted = 0
+        self._units = self._make_units()
         if self.obs.enabled:
             self.obs.meta.update(
                 batch_slots=self.B, chunk=self.chunk, span=self.span,
@@ -290,71 +301,76 @@ class ChunkedServer:
                 num_blocks=self.num_blocks,
                 kv_read_mode="fp8_kernel" if self.fp8_kv else "kernel")
 
-    def _put(self, x: np.ndarray) -> torch.Tensor:
-        """Host->device copy of a scheduler operand (a few hundred
-        int32s of intent, never activations or cache)."""
-        return torch.as_tensor(x, device=self.device)
-
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _samp_operands(self) -> Tuple[torch.Tensor, ...]:
-        """The sampling mirrors as device operands."""
-        return tuple(self._put(a.copy()) for a in (
-            self.samp_temp, self.samp_top_k, self.samp_top_p,
-            self.samp_seed))
-
-    def _samp(self) -> Optional[Tuple[torch.Tensor, ...]]:
-        """The sample head's operands, or None when every slot is greedy
-        (idle slots hold greedy values): the argmax head then stands in,
-        equal to the sample head's greedy rows bit for bit."""
-        if np.all((self.samp_temp <= 0.0) | (self.samp_top_k == 1)):
-            return None
-        return self._samp_operands()
-
-    @staticmethod
-    def _head(logits: torch.Tensor, samp, index: torch.Tensor
-              ) -> torch.Tensor:
-        """The next token of every slot: `sampling.sample_tokens`, or the
-        argmax when `samp` is None."""
-        if samp is None:
-            return torch.argmax(logits, dim=-1).to(torch.int32)
-        return sampling.sample_tokens(logits, *samp, index)
+    def _samp_mirrors(self) -> Tuple[np.ndarray, ...]:
+        """The sample head's per-slot operands (host mirrors)."""
+        return (self.samp_temp, self.samp_top_k, self.samp_top_p,
+                self.samp_seed)
 
     def launch_counts(self) -> Dict[str, int]:
         """Launches of the paged-attention kernels in this process (the
-        wrappers' counts, bf16 and fp8 bodies; CPU runs launch none)."""
+        wrappers' counts, bf16 and fp8 bodies, replays included; CPU runs
+        launch none)."""
         return pk.launch_counts()
 
+    def compile_counts(self) -> Dict[str, int]:
+        """Programs per work unit, under the reference's keys: one
+        operand signature each once used (0 before), so O(1) whatever
+        the lengths and the greedy/sampled mix; on the card each unit
+        with two calls or more is one captured CUDA graph.
+        ``cow_copy`` is 0 until the first copy-on-write, and
+        ``verify_step`` exists with spec decode only."""
+        return {name: unit.programs for name, unit in self._units.items()}
+
     # -- device work units ------------------------------------------------
-    def _chunk_impl(self, tokens_host, pos, n_tokens, is_decode, emit,
-                    out_len, samp, block_table) -> None:
-        B, C = tokens_host.shape
+    def _make_units(self) -> Dict[str, WorkUnit]:
+        """The work units, sharing one graph memory pool on the card (they
+        never run at once)."""
+        pool = (torch.cuda.graph_pool_handle()
+                if self.device.type == "cuda" else None)
+        bodies = {"chunk_step": self._chunk_body,
+                  "decode_span": self._span_body,
+                  "cow_copy": self._cow_body}
+        if self.spec_decode:
+            bodies["verify_step"] = self._spec_body
+        return {name: WorkUnit(name, body, self.device, pool=pool,
+                               counted=pk.KERNELS)
+                for name, body in bodies.items()}
+
+    def _chunk_body(self, tokens_host, pos, n_tokens, is_decode, emit,
+                    out_len, temp, top_k, top_p, seed, block_table
+                    ) -> Tuple[torch.Tensor, ...]:
+        C = tokens_host.shape[1]
         col0 = torch.arange(C, device=self.device) == 0
         tokens = torch.where(is_decode[:, None] & col0[None, :],
                              self.cur_tok[:, None], tokens_host)
-        logits, self.cache = api.chunk_step(
+        logits, _ = api.chunk_step(
             self.cfg, self.params, self.cache, tokens, pos, n_tokens,
             block_table, kernel=True, quant=self._quant)
         # the emitted token sits at position pos + n_tokens: the key of
         # the span and verify paths' draw for the same position
-        nxt = self._head(logits, samp, pos + n_tokens)
-        self.cur_tok = torch.where(emit, nxt, self.cur_tok)
+        nxt = sampling.sample_tokens(logits, temp, top_k, top_p, seed,
+                                     pos + n_tokens)
+        self.cur_tok.copy_(torch.where(emit, nxt, self.cur_tok))
         idx = out_len.long().clamp(0, self.max_len - 1)
         self.out_buf[self._rows, idx] = torch.where(
             emit, nxt, self.out_buf[self._rows, idx])
+        return ()
 
-    def _span_impl(self, pos, out_len, active, max_new, samp, block_table
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def _span_body(self, pos, out_len, active, max_new, temp, top_k, top_p,
+                   seed, block_table) -> Tuple[torch.Tensor, ...]:
         cap = self.max_len - 1
         tok = self.cur_tok
         for _ in range(self.span):
-            logits, self.cache = api.decode_step(
+            logits, _ = api.decode_step(
                 self.cfg, self.params, self.cache, tok, pos, block_table,
                 kernel=True, quant=self._quant)
             # emission position pos + 1 (before the increment)
-            nxt = self._head(logits, samp, pos + 1)
+            nxt = sampling.sample_tokens(logits, temp, top_k, top_p, seed,
+                                         pos + 1)
             idx = out_len.long().clamp(0, self.max_len - 1)
             self.out_buf[self._rows, idx] = torch.where(
                 active, nxt, self.out_buf[self._rows, idx])
@@ -366,19 +382,25 @@ class ChunkedServer:
             if self.eos_id is not None:
                 # the EOS token itself is emitted, then the slot stops
                 active = active & (nxt != self.eos_id)
-        self.cur_tok = tok
+        self.cur_tok.copy_(tok)
         return pos, out_len, active
 
-    def _spec_impl(self, pos, out_len, active, max_new, samp, block_table
-                   ) -> Tuple[torch.Tensor, ...]:
-        (self.cache, self.ngram_table, self.cur_tok, self.out_buf, pos,
-         out_len, active, n_emit) = spec.spec_decode_step(
+    def _spec_body(self, pos, out_len, active, max_new, temp, top_k, top_p,
+                   seed, block_table) -> Tuple[torch.Tensor, ...]:
+        (_, table, cur_tok, _, pos, out_len, active,
+         n_emit) = spec.spec_decode_step(
             self.cfg, self.params, self.cache, self.ngram_table,
             self.cur_tok, self.out_buf, pos, out_len, active, max_new,
-            *(samp if samp is not None else (None,) * 4), block_table,
-            max_len=self.max_len, eos_id=self.eos_id,
+            temp, top_k, top_p, seed, block_table, max_len=self.max_len,
+            eos_id=self.eos_id,
             fwd_kw={"kernel": True, "quant": self._quant})
+        self.ngram_table.copy_(table)
+        self.cur_tok.copy_(cur_tok)
         return pos, out_len, active, n_emit
+
+    def _cow_body(self, src, dst) -> Tuple[torch.Tensor, ...]:
+        api.cow_copy_block(self.cfg, self.cache, src, dst)
+        return ()
 
     # -- host-side refcounted block allocator -----------------------------
     def _blocks_needed(self, req: Request) -> int:
@@ -446,7 +468,8 @@ class ChunkedServer:
             ci = int(self._num_shared[s])
             src = owned[ci]
             dst = self._take_block()
-            self.cache = api.cow_copy_block(self.cfg, self.cache, src, dst)
+            self._units["cow_copy"].run(np.array([src], np.int64),
+                                        np.array([dst], np.int64))
             self.block_table[s, ci] = dst
             owned[ci] = dst
             self.pool.decref(src)
@@ -627,10 +650,9 @@ class ChunkedServer:
                 is_decode[s] = True
                 emit[s] = True
                 self._ensure_blocks(s, int(self.pos[s]) + 1)
-        self._chunk_impl(self._put(tokens_host), self._put(self.pos.copy()),
-                         self._put(n_tokens), self._put(is_decode),
-                         self._put(emit), self._put(self.out_len.copy()),
-                         self._samp(), self._put(self.block_table.copy()))
+        self._units["chunk_step"].run(
+            tokens_host, self.pos, n_tokens, is_decode, emit, self.out_len,
+            *self._samp_mirrors(), self.block_table)
         self._sync()
         t1 = time.perf_counter()
         packed = int(n_tokens.sum())
@@ -699,10 +721,9 @@ class ChunkedServer:
                     sim_act[s] = False
         for s in np.flatnonzero(active):
             self._ensure_blocks(s, int(sim_pos[s]))
-        pos_d, out_d, act_d = self._span_impl(
-            self._put(self.pos.copy()), self._put(self.out_len.copy()),
-            self._put(active), self._put(max_new), self._samp(),
-            self._put(self.block_table.copy()))
+        pos_d, out_d, act_d = self._units["decode_span"].run(
+            self.pos, self.out_len, active, max_new, *self._samp_mirrors(),
+            self.block_table)
         self._sync()
         t1 = time.perf_counter()
         prev_out = self.out_len
@@ -751,10 +772,9 @@ class ChunkedServer:
                          cap - int(self.pos[s]))
             self._ensure_blocks(
                 s, int(self.pos[s]) + min(K + 1, max(budget, 1)))
-        pos_d, out_d, act_d, emit_d = self._spec_impl(
-            self._put(self.pos.copy()), self._put(self.out_len.copy()),
-            self._put(active), self._put(max_new), self._samp(),
-            self._put(self.block_table.copy()))
+        pos_d, out_d, act_d, emit_d = self._units["verify_step"].run(
+            self.pos, self.out_len, active, max_new, *self._samp_mirrors(),
+            self.block_table)
         emit = emit_d.cpu().numpy()
         self.pos = pos_d.cpu().numpy().astype(np.int32)
         self.out_len = out_d.cpu().numpy().astype(np.int32)
@@ -791,7 +811,8 @@ class ChunkedServer:
             return 0
         # gather only the finished slots' rows before the host copy
         rows = self.out_buf.index_select(
-            0, self._put(np.asarray(done_slots, np.int64))).cpu().numpy()
+            0, torch.as_tensor(done_slots, device=self.device)
+        ).cpu().numpy()
         served = 0
         for i, s in enumerate(done_slots):
             req = self.slot_req[s]

@@ -127,10 +127,8 @@ def spec_decode_step(cfg, params, cache, table: torch.Tensor,
                      cur_tok: torch.Tensor, out_buf: torch.Tensor,
                      pos: torch.Tensor, out_len: torch.Tensor,
                      active: torch.Tensor, max_new: torch.Tensor,
-                     samp_temp: Optional[torch.Tensor],
-                     samp_top_k: Optional[torch.Tensor],
-                     samp_top_p: Optional[torch.Tensor],
-                     samp_seed: Optional[torch.Tensor],
+                     samp_temp: torch.Tensor, samp_top_k: torch.Tensor,
+                     samp_top_p: torch.Tensor, samp_seed: torch.Tensor,
                      block_table: torch.Tensor, *, max_len: int,
                      eos_id: Optional[int], fwd_kw: Optional[dict] = None
                      ) -> Tuple[torch.Tensor, ...]:
@@ -142,9 +140,7 @@ def spec_decode_step(cfg, params, cache, table: torch.Tensor,
     (the EOS itself is emitted, then the slot stops).  The emitted
     tokens are the model's own chain ``preds[:, :n_emit]`` (argmax for
     greedy slots, the position-keyed draws for sampled ones); drafts
-    only decide how many rows of it are usable.  ``samp_temp=None``
-    (every slot greedy) runs the argmax head, the sample head's greedy
-    rows bit for bit.
+    only decide how many rows of it are usable.
 
     Returns (cache, table, cur_tok, out_buf, pos, out_len, active,
     n_emit), n_emit 0 for inactive slots; `out_buf` is updated in place
@@ -158,8 +154,7 @@ def spec_decode_step(cfg, params, cache, table: torch.Tensor,
 
     drafts = propose(table, cur_tok, out_buf, out_len)        # [B, K]
     window = torch.cat([cur_tok[:, None], drafts], dim=1)
-    sample = (None if samp_temp is None
-              else (samp_temp, samp_top_k, samp_top_p, samp_seed))
+    sample = (samp_temp, samp_top_k, samp_top_p, samp_seed)
     preds, cache = api.verify_step(cfg, params, cache, window, pos,
                                    block_table, sample=sample,
                                    **(fwd_kw or {}))          # [B, K+1]

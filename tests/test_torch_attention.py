@@ -251,8 +251,9 @@ def test_poisoned_unallocated_block_never_leaks(poison):
 
 def test_kernel_checks_raise_on_what_it_does_not_take():
     """The launch checks (run before any CUDA call) refuse head dims
-    without an instantiation, mixed dtypes and tables past what the
-    largest cluster's shared memory holds."""
+    without an instantiation and mixed dtypes; a table past what the
+    largest cluster's shared memory holds the scores of is taken, with
+    the plan that recomputes them."""
     q = torch.zeros((2, 1, 4, 48))
     ck = torch.zeros((8, 16, 2, 48))
     bt = torch.zeros((2, 4), dtype=torch.int32)
@@ -263,12 +264,13 @@ def test_kernel_checks_raise_on_what_it_does_not_take():
         pk._check(q, ck.bfloat16(), ck.bfloat16(), bt)
     with pytest.raises(TypeError):
         pk._check(q, ck, ck, bt.long())
-    limit = pk.max_context(torch.float32, 64)
+    limit = pk.held_scores_context(torch.float32, 64)
     big = torch.zeros((2, limit // 16 + 1), dtype=torch.int32)
-    with pytest.raises(ValueError, match="shared memory"):
-        pk._check(q, ck, ck, big)
+    assert pk._check(q, ck, ck, big) == (2, 1, 4, 64, 16, 2, limit // 16 + 1)
+    assert pk.plan(torch.float32, 64, 2, 2, 2, 1, limit + 16).recompute
     fits = torch.zeros((2, limit // 16), dtype=torch.int32)
     assert pk._check(q, ck, ck, fits) == (2, 1, 4, 64, 16, 2, limit // 16)
+    assert not pk.plan(torch.float32, 64, 2, 2, 2, 1, limit).recompute
     assert pk._check(q, ck, ck, bt) == (2, 1, 4, 64, 16, 2, 4)
     # yi-6b at the reference's decode_32k shape (G=8, 32768 positions)
     p = pk.plan(torch.bfloat16, 128, 8, 4, 8, 1, 32768)
@@ -329,11 +331,18 @@ def test_plan_fits_fills_and_raises_past_its_limit(name, dtype, hd, B, KH,
         split_len = pk._round_up(-(-T // s), 16)
         if pk.smem_bytes(dtype, hd, 8, split_len, s) <= pk.SMEM_LIMIT:
             assert pk.plan(dtype, hd, B, KH, G, C, T, splits=s).splits == s
-    limit = pk.max_context(dtype, hd)
+    # up to the longest table whose scores a cluster holds; past it the
+    # plan recomputes them, and any length is taken
+    limit = pk.held_scores_context(dtype, hd)
     assert limit >= 32768
-    assert pk.plan(dtype, hd, B, KH, G, C, limit).splits == 16
-    with pytest.raises(ValueError, match="shared memory"):
-        pk.plan(dtype, hd, B, KH, G, C, limit + 1)
+    held = pk.plan(dtype, hd, B, KH, G, C, limit)
+    assert held.splits == 16 and not held.recompute and not p.recompute
+    for longer in (limit + 1, 4 * limit):
+        r = pk.plan(dtype, hd, B, KH, G, C, longer)
+        assert r.recompute and r.body == p.body
+        assert r.smem == pk.smem_bytes(dtype, hd, r.rows, r.split_len,
+                                       r.splits, True) <= pk.SMEM_LIMIT
+        assert r.splits * r.split_len >= longer
 
 
 def test_plan_rejects_forced_shapes_it_does_not_take():
@@ -343,6 +352,9 @@ def test_plan_rejects_forced_shapes_it_does_not_take():
         pk.plan(torch.bfloat16, 128, 8, 4, 8, 16, 272, rows=12)
     with pytest.raises(ValueError, match="rows"):
         pk.plan(torch.bfloat16, 128, 8, 4, 8, 16, 272, rows=256)
-    # 128 rows of scores over 32768 positions fit no cluster
+    # 128 rows of scores over 32768 positions fit no cluster: the plan
+    # recomputes them; 128 float32 rows at head_dim 128 fit no block
+    assert pk.plan(torch.bfloat16, 128, 8, 4, 8, 16, 32768,
+                   rows=128).recompute
     with pytest.raises(ValueError, match="shared memory"):
-        pk.plan(torch.bfloat16, 128, 8, 4, 8, 16, 32768, rows=128)
+        pk.plan(torch.float32, 128, 8, 4, 8, 16, 32768, rows=128)

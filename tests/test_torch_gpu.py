@@ -212,6 +212,91 @@ def test_every_split_count_vs_plain(cuda, kernel, dtype, B, H, KH, hd, NB,
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["paged_decode", "paged_chunk",
                                     "paged_decode_fp8", "paged_chunk_fp8"])
+@pytest.mark.parametrize("dtype,B,H,KH,hd,NB,bs,MB,seed", CASES)
+def test_recompute_plan_vs_plain(cuda, kernel, dtype, B, H, KH, hd, NB, bs,
+                                 MB, seed, monkeypatch):
+    """The plan that recomputes the scores (two passes over K, one tile
+    of scores a block), forced on short tables by patching `pk.plan`
+    (the wrappers take no such option), at its own splits and at one
+    and sixteen splits (blocks with no position), against the plain
+    version at the same limits, counted once on its body."""
+    q, ck, cv, bt, kv = _mk(dtype, B, H, KH, hd, NB, bs, MB, seed, cuda)
+    decode = kernel.startswith("paged_decode")
+    q = q[:, :1].contiguous() if decode else q
+    lens = kv if decode else torch.clamp(kv - q.shape[1], min=0)
+    fn = getattr(pk, kernel)
+    held_plan = pk.plan
+    monkeypatch.setattr(pk, "plan", lambda *a, **k: held_plan(
+        *a, **k, recompute=True))
+    for kw in (dict(), dict(splits=1), dict(splits=16)):
+        p = pk.plan(q.dtype, hd, B, KH, H // KH, q.shape[1], MB * bs, **kw)
+        assert p.recompute
+        n0 = dict(fn.body_launches)
+        got, want = _paged_call(kernel, q, ck, cv, bt, lens, **kw)
+        torch.cuda.synchronize()
+        assert fn.body_launches[p.body] == n0[p.body] + 1
+        err, ok = _paged_err_ok(got, want, dtype)
+        assert ok, (kw, err)
+
+
+# yi-6b's attention heads past the held scores: every slot at `T`
+# positions, bf16 and e4m3 pools at 131072, float32 q at 65536
+LONG_CASES = [("bfloat16", False, 131072), ("bfloat16", True, 131072),
+              ("float32", False, 65536)]
+
+
+def _long_inputs(dtype, B, T, C, device, seed):
+    """q [B, C, 32, 128], pools of B * T / 16 blocks of 16 positions (4
+    kv heads), a shuffled full table, every slot at T positions."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    td = getattr(torch, dtype)
+    bs, MB = 16, T // 16
+    NB = B * MB
+    ck = torch.randn((NB, bs, 4, 128), generator=g, device=device).to(td)
+    cv = torch.randn((NB, bs, 4, 128), generator=g, device=device).to(td)
+    bt = torch.randperm(NB, generator=g, device=device).reshape(B, MB)
+    q = torch.randn((B, C, 32, 128), generator=g, device=device).to(td)
+    return q, ck, cv, bt.to(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,fp8_pool,T", LONG_CASES)
+def test_long_context_decode_and_chunk_vs_plain(cuda, dtype, fp8_pool, T):
+    """Past ~80k positions (bf16 hd 128; 46080 at float32) a cluster no
+    longer holds a row's scores: decode at B=2 and a 16-row chunk at B=1
+    take the recompute plan and agree with the plain version at phase
+    3's limits (the chunk's plain version row by row: its [C, T, hd]
+    product would not fit the card)."""
+    for kind, B, C in (("decode", 2, 1), ("chunk", 1, 16)):
+        q, ck, cv, bt = _long_inputs(dtype, B, T, C, cuda, seed=T + C)
+        kw = {}
+        if fp8_pool:
+            ck, cv, kw = _quantized(ck, cv)
+        name = f"paged_{kind}" + ("_fp8" if fp8_pool else "")
+        fn, plain = getattr(pk, name), getattr(pk, name + "_plain")
+        p = pk.plan(q.dtype, 128, B, 4, 8, C, T)
+        assert p.recompute
+        lens = torch.full((B,), T if kind == "decode" else T - C,
+                          dtype=torch.int32, device=cuda)
+        n0 = fn.body_launches[p.body]
+        got = fn(q, ck, cv, bt, lens, **kw)
+        torch.cuda.synchronize()
+        assert fn.body_launches[p.body] == n0 + 1
+        if kind == "decode":
+            want = plain(q, ck, cv, bt, lens, **kw)
+        else:
+            want = torch.cat([plain(q[:, c:c + 1].contiguous(), ck, cv, bt,
+                                    lens + c, **kw) for c in range(C)], 1)
+        assert torch.isfinite(got.float()).all()
+        err, ok = _paged_err_ok(got, want, dtype)
+        assert ok, (kind, err)
+        del q, ck, cv, bt, got, want
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["paged_decode", "paged_chunk",
+                                    "paged_decode_fp8", "paged_chunk_fp8"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_repeat_calls_and_graph_replay_bitwise_equal(cuda, kernel, dtype):
     """No float atomics and a plan that never reads the lengths: two
@@ -283,7 +368,11 @@ def test_every_plan_schedules_on_the_card(cuda):
             (torch.bfloat16, 128, 8, 4, 8, 16, 32768),
             (torch.float32, 128, 8, 4, 8, 16, 272),
             (torch.bfloat16, 64, 8, 12, 1, 1, 272),
-            (torch.bfloat16, 80, 8, 32, 1, 16, 272)]:
+            (torch.bfloat16, 80, 8, 32, 1, 16, 272),
+            (torch.bfloat16, 128, 2, 4, 8, 1, 131072),
+            (torch.bfloat16, 128, 1, 4, 8, 16, 131072),
+            (torch.float32, 128, 2, 4, 8, 1, 65536),
+            (torch.float32, 128, 1, 4, 8, 16, 65536)]:
         for s in (0,) + pk.SPLITS:
             try:
                 p = pk.plan(dt, hd, B, KH, G, C, T, splits=s)
@@ -292,14 +381,19 @@ def test_every_plan_schedules_on_the_card(cuda):
             for fp8_pools in (0, 1):
                 assert lib.paged_attention_max_clusters(
                     pk._DTYPES[dt], fp8_pools, hd, G, C, T, p.splits, p.rows,
-                    ctypes.addressof(n)) == 0
+                    int(p.recompute), ctypes.addressof(n)) == 0
                 assert n.value >= 1, (dt, hd, B, KH, G, C, T, s)
-    for splits, rows in ((3, 8), (32, 8), (2, 12), (2, 136), (0, 8), (2, 0)):
+    for splits, rows, recompute in ((3, 8, 0), (32, 8, 0), (2, 12, 0),
+                                    (2, 136, 0), (0, 8, 0), (2, 0, 0),
+                                    (2, 8, 2)):
         assert lib.paged_attention_max_clusters(
-            1, 0, 128, 8, 1, 272, splits, rows, ctypes.addressof(n)) != 0
+            1, 0, 128, 8, 1, 272, splits, rows, recompute,
+            ctypes.addressof(n)) != 0
+    long = 4 * pk.held_scores_context(torch.bfloat16, 128)
     assert lib.paged_attention_max_clusters(          # past SMEM_LIMIT
-        1, 0, 128, 8, 1, 4 * pk.max_context(torch.bfloat16, 128), 16, 8,
-        ctypes.addressof(n)) != 0
+        1, 0, 128, 8, 1, long, 16, 8, 0, ctypes.addressof(n)) != 0
+    assert lib.paged_attention_max_clusters(          # recomputed: fits
+        1, 0, 128, 8, 1, long, 16, 8, 1, ctypes.addressof(n)) == 0
 
 
 @pytest.mark.gpu
@@ -385,8 +479,10 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
 def test_decode_span_reads_nothing_back(cuda, fp8_opts):
     """A decode span through the kernels takes no host sync: the pool
     scatter (and the fp8 quantization, its scales and the fp8 products),
-    the kernels and the span bookkeeping stay on the device
-    (torch.cuda's sync debug mode raises on any sync)."""
+    the kernels, the sample head and the span bookkeeping stay on the
+    device, in the unit's eager call and in its graph's replays
+    (torch.cuda's sync debug mode raises on any sync); the launches of
+    a replay are counted as those of the eager call."""
     cfg = reduced_config("yi-6b")
     params = api.init(cfg, 0, device=cuda)
     srv = server.ChunkedServer(cfg, params, batch_slots=3, max_len=64,
@@ -394,24 +490,168 @@ def test_decode_span_reads_nothing_back(cuda, fp8_opts):
                                **fp8_opts)
     key = "paged_decode_fp8" if fp8_opts else "paged_decode"
     srv.block_table[:, :2] = np.arange(2 * srv.B).reshape(srv.B, 2)
-    ops = [srv._put(x) for x in (np.full(srv.B, 3, np.int32),
-                                 np.zeros(srv.B, np.int32),
-                                 np.ones(srv.B, bool),
-                                 np.full(srv.B, 8, np.int32),
-                                 srv.block_table.copy())]
-    # the sample head's operands, and None: the all-greedy argmax head
-    heads = (srv._samp_operands(), srv._samp())
-    assert heads[1] is None
+    unit = srv._units["decode_span"]
+    ops = (np.full(srv.B, 3, np.int32), np.zeros(srv.B, np.int32),
+           np.ones(srv.B, bool), np.full(srv.B, 8, np.int32),
+           *srv._samp_mirrors(), srv.block_table)
+    unit.run(*ops)                      # the first call: eager, set-up
+    unit.run(*ops)                      # capture + one replay
     torch.cuda.synchronize()
     n0 = srv.launch_counts()[key]
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for samp in heads:
-            srv._span_impl(*ops[:4], samp, ops[4])
+        unit._eager(*ops)
+        unit.run(*ops)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    assert unit.captures == 1 and unit.calls == 4
     assert srv.launch_counts()[key] == n0 + 2 * srv.span * cfg.num_layers
+
+
+# ----------------------------------------------------------------------
+# one CUDA graph per work unit
+# ----------------------------------------------------------------------
+
+GRAPH_SERVERS = {
+    "bf16": dict(),
+    "fp8": dict(fp8_kv=True, fp8_linear=True),
+    "bf16-spec": dict(spec_decode=3),
+    "fp8-spec": dict(spec_decode=3, fp8_kv=True, fp8_linear=True),
+}
+
+
+def _graph_waves(srv, cfg, sampled):
+    """Two shared-prompt waves (the second meets the first's prefixes and
+    copies on write) then a repetitive one; returns the streams."""
+    outs = []
+    for reqs in (
+            server.sysprompt_sharegpt_requests(
+                6, cfg.vocab_size, num_templates=2, template_len=12,
+                max_input=20, max_output=8, seed=4),
+            server.sysprompt_sharegpt_requests(
+                6, cfg.vocab_size, num_templates=2, template_len=12,
+                max_input=20, max_output=8, seed=4),
+            server.repetitive_requests(6, cfg.vocab_size, motif_len=4,
+                                       reps=3, max_output=12, seed=5)):
+        for i, r in enumerate(reqs):
+            if sampled:
+                r.sampling = sampling.SamplingParams(temperature=0.8,
+                                                     top_k=20, seed=i)
+        srv.serve(reqs)
+        assert all(r.done for r in reqs)
+        outs.append([r.output for r in reqs])
+    return outs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("mode", list(GRAPH_SERVERS))
+def test_graph_replays_equal_eager_units(cuda, mode, sampled):
+    """Two fresh servers serve the same waves, one through its units'
+    graphs, one through their private eager calls: equal streams, and
+    equal pools, current tokens, output buffers and n-gram tables, bit
+    for bit.  On the graph server every unit was captured once (and
+    replayed), each reports one program, and the eager server none."""
+    cfg = reduced_config("yi-6b")
+    params = api.init(cfg, 0, device=cuda)
+    kw = dict(batch_slots=3, max_len=64, chunk=8, span=4, block_size=8,
+              device=cuda, **GRAPH_SERVERS[mode])
+    graphed = server.ChunkedServer(cfg, params, **kw)
+    eager = server.ChunkedServer(cfg, params, **kw)
+    for unit in eager._units.values():
+        unit.run = unit._eager
+    assert _graph_waves(graphed, cfg, sampled) == _graph_waves(
+        eager, cfg, sampled)
+    for name in ("cache", "cur_tok", "out_buf", "ngram_table"):
+        a, b = getattr(graphed, name, None), getattr(eager, name, None)
+        if isinstance(a, dict):
+            assert all(torch.equal(a[k].view(torch.uint8), b[k].view(
+                torch.uint8)) for k in a), name
+        elif a is not None:
+            assert torch.equal(a, b), name
+    want = {"chunk_step": 1, "decode_span": 1, "cow_copy": 1}
+    if "spec" in mode:
+        want = dict(want, decode_span=0, verify_step=1)
+    assert graphed.compile_counts() == eager.compile_counts() == want
+    for name, unit in graphed._units.items():
+        if want[name]:
+            assert unit.calls >= 3 and unit.captures == 1, name
+            assert eager._units[name].captures == 0
+
+
+@pytest.mark.gpu
+def test_replays_add_their_captured_launches(cuda):
+    """A replay adds the launches counted while its graph was captured:
+    a span's decode kernel once a layer a step, a chunk step's and a
+    verify step's chunk kernel once a layer, nothing else; and the
+    kernel's own counter on the card (`device_launches`) sees as many
+    launches run, over the whole wave and over each replay."""
+    cfg = reduced_config("yi-6b")
+    params = api.init(cfg, 0, device=cuda)
+    srv = server.ChunkedServer(cfg, params, batch_slots=3, max_len=64,
+                               chunk=8, span=4, block_size=8, device=cuda,
+                               spec_decode=3)
+    d0, n0 = pk.device_launches(cuda), sum(srv.launch_counts().values())
+    srv.serve(server.repetitive_requests(6, cfg.vocab_size, motif_len=4,
+                                         reps=3, max_output=12, seed=5))
+    assert pk.device_launches(cuda) - d0 == \
+        sum(srv.launch_counts().values()) - n0
+    L = cfg.num_layers
+    want = {"chunk_step": {"paged_chunk": L}, "verify_step":
+            {"paged_chunk": L}}
+    for name, kernels in want.items():
+        unit = srv._units[name]
+        assert unit.captures == 1
+        got = {k: n for k, (n, _) in unit.replay_launches.items() if n}
+        assert got == kernels
+        assert unit.replay_launches["paged_chunk"][1] == {"mma_sync": L,
+                                                          "fma": 0}
+        ops = [t.cpu().numpy() for t in unit._inputs]
+        d0 = pk.device_launches(cuda)
+        n0, b0 = srv.launch_counts(), pk.launches_by_body()
+        unit.run(*ops)
+        torch.cuda.synchronize()
+        n1, b1 = srv.launch_counts(), pk.launches_by_body()
+        assert {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]} == kernels
+        assert pk.device_launches(cuda) - d0 == L
+        assert b1["paged_chunk"]["mma_sync"] - b0["paged_chunk"][
+            "mma_sync"] == L
+
+
+@pytest.mark.gpu
+def test_greedy_wave_syncs_only_at_its_dispatch_ends(cuda):
+    """Once its units are captured (a capture synchronizes the device
+    once), a greedy wave without EOS raises nothing under torch.cuda's
+    sync debug mode "error" between each dispatch and its `_sync`:
+    staging copies from pinned memory, graph replays and launch
+    counting, no host read."""
+    cfg = reduced_config("yi-6b")
+    params = api.init(cfg, 0, device=cuda)
+    srv = server.ChunkedServer(cfg, params, batch_slots=3, max_len=64,
+                               chunk=8, span=4, block_size=8, device=cuda)
+
+    def wave(seed):
+        return server.sharegpt_like_requests(6, cfg.vocab_size,
+                                             max_input=16, max_output=8,
+                                             seed=seed)
+
+    srv.serve(wave(3))
+    runs = []
+    for unit in srv._units.values():
+        def checked(*ops, _run=unit.run):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _run(*ops)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                runs.append(1)
+        unit.run = checked
+    second = wave(7)
+    srv.serve(second)
+    assert len(runs) >= 4 and all(r.done for r in second)
+    assert srv._units["chunk_step"].captures == 1
+    assert srv._units["decode_span"].captures == 1
 
 
 @pytest.mark.gpu
