@@ -85,6 +85,38 @@ last line):
               verify steps in its verify steps, counted around each
               dispatch, and as many run on the card; acceptance, tokens a slot a verify step and wall
               tokens/s against K=0 printed.
+ 5c. contiguous — ChunkedServer(paged=False) on full-width yi-6b, bf16:
+              phase 5's ShareGPT wave cold and warm (graphs; compile
+              counts {chunk_step, decode_span}, no cow_copy; tokens/s
+              beside phase 5's paged server and a paged server without
+              prefix cache), spec K=4 on 5b's traffic on a graphed and
+              an eager-unit server (equal bit for bit), no paged kernel
+              run (the kernel's counter on the card and the wrappers');
+              each stream's first parting from the paged streams
+              printed with the paged top-2 margin there; a chunk and a
+              decode step on a contiguous cache, every plain attention
+              call held to the paged kernel on the same inputs.
+ 5d. slot   — the reference's Table XII rows at full width: SlotServer,
+              contiguous and paged ChunkedServer on 8 ShareGPT-like
+              requests (4 slots, max_len 96), first waves (chunked also
+              warm): tokens/s, chunked / slot; the slot server's compile
+              counts and captures; no paged kernel run.
+ 5e. online — open-loop serving on phase 5's server and wave, bf16 then
+              fp8 KV + fp8 linears: serve_online(closed_stream) equals
+              serve() (streams, admission order, compile counts); sync
+              debug mode finds no synchronization of a warm online wave
+              that serve() does not have, none inside a unit call; the
+              reference's rate sweep (calibrate at 0.5x the closed-loop
+              rate, SLO 2x its p99 TTFT / TPOT; Poisson at 0.5x, 1x, 3x)
+              with TTFT, TPOT, queue delay, attainment, goodput, peak
+              queue depth and windows; in bf16 every sample-head row
+              of the calibration and of each rate is recorded through
+              the graphs, and every row whose stream and work-unit
+              history up to it equal the calibration's must have its
+              logits bit for bit (a row that depends on its neighbours
+              fails), each recorded row's argmax must be the emitted
+              token, and a stream may part only after another unit's
+              token; the paged kernel's counter equals the wrappers'.
   6. profile — wall and device time of the full-width server's work
               units as graph replays (a span of 8 decode steps, a chunk
               step, a verify step at K=4; sample head in each), bf16
@@ -103,7 +135,10 @@ last line):
               greedy and sampled with spec decode K=3: equal token
               streams, except where the CPU's own draw is within the
               margin of another; in bf16 also spec K=3 against K=0 on
-              the card, greedy and sampled, by the same rule.
+              the card, greedy and sampled, by the same rule; by the
+              same rule serve_online(closed_stream) on the card against
+              the CPU's serve(), and in bf16 the contiguous layout and
+              SlotServer, card against CPU.
   8. matmul — the tensor-core and async-copy kernels (matmul,
               single_tile_matmul, fp8_matmul, pipelined_matmul) against
               their plain versions at the dissection benchmarks' shapes
@@ -197,10 +232,10 @@ Each serve phase, the benchmark runs of phases 8 and 9 and the
 Trainer.run of phase 10 set their kernels' launch counts to 0 just
 before their main path and read them just after; phase 5b reads the
 paged kernels' counts (set to 0) after each spec wave, and its
-launches join phase 5's in paged_chunk's and paged_chunk_fp8's counts;
-phases 5 and 5b also read the counts around every work unit's
-dispatch, which gives those two kernels' launches by work unit (chunk,
-verify).  Then one JSON line of
+launches join phase 5's in paged_chunk's and paged_chunk_fp8's counts,
+and phase 5e's join all four paged kernels' counts; phases 5, 5b and
+5e also read the counts around every work unit's dispatch, which gives
+the paged kernels' launches by work unit (chunk, span, verify).  Then one JSON line of
 per-kernel numbers (seventeen kernels; those with several bodies also
 their launches by body) and, last, the contract line
 {"ok": true, "device": {...}}.
@@ -913,7 +948,8 @@ def phase_serve(cfg, params, fp8: bool = False):
     captured once; a fresh server whose units run eagerly serves the
     same waves and must give the same streams bit for bit.  Returns
     (launch counts of the waves, the same by body and by work unit
-    (measured around each dispatch), KV pool bytes)."""
+    (measured around each dispatch), KV pool bytes, and the ShareGPT
+    wave's requests, stats and eager recording)."""
     import torch
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.runtime.server import (ChunkedServer, clone_requests,
@@ -1001,13 +1037,20 @@ def phase_serve(cfg, params, fp8: bool = False):
           f"{cow_copies[0][0] if cow_copies else ()}", flush=True)
     _unit_report(srv, f"{tag} serve")
     del srv
-    # the same waves on a fresh server whose units run eagerly
+    # the same waves on a fresh server whose units run eagerly, the
+    # first recorded at every sample-head call (the contiguous phase
+    # reads its partings there)
     t0 = time.perf_counter()
     eager = ChunkedServer(cfg, params, **opts)
     _eager_units(eager)
+    recorded = None
     for name, reqs, _, _ in all_stats:
         again = clone_requests(reqs)
-        eager.serve(again)
+        if recorded is None:
+            recorded = _serve_recording(eager, again)
+            _eager_units(eager)
+        else:
+            eager.serve(again)
         same = [r.output for r in again] == [r.output for r in reqs]
         print(f"[serve] {tag} {name}: graph-replayed streams "
               f"{'equal' if same else 'DIFFER FROM'} the eager units' "
@@ -1045,7 +1088,9 @@ def phase_serve(cfg, params, fp8: bool = False):
         fail(f"a {tag} copy-on-write did not copy every leaf: {cow_copies}")
     if fp8 and not all("k_scale" in leaves for leaves, _ in cow_copies):
         fail("an fp8 copy-on-write ran on a cache without scales")
-    return launches, by_body, by_unit, kv_bytes
+    first = {"reqs": all_stats[0][1], "stats": all_stats[0][2],
+             "rec": recorded}
+    return launches, by_body, by_unit, kv_bytes, first
 
 
 # ----------------------------------------------------------------------
@@ -1500,6 +1545,611 @@ def phase_spec(cfg, params, fp8: bool = False) -> dict:
 
 
 # ----------------------------------------------------------------------
+# 5c-5e. the contiguous layout, the slot baseline, open-loop serving
+# ----------------------------------------------------------------------
+
+SERVE_MAX_LEN = 128 + 128 + 8      # phase 5's max_len, as the CLI sizes it
+
+
+def _paged_unmoved(what: str, ran0: int, counts0: dict) -> None:
+    """Fail unless no paged kernel ran since (ran0, counts0): the
+    kernel's own counter on the card and the wrappers' counts."""
+    from repro_torch.kernels import paged_attention as pk
+    ran, counts = pk.device_launches(DEVICE) - ran0, pk.launch_counts()
+    print(f"[{what}] paged kernels run on the card in this phase: {ran}; "
+          f"wrappers' counts {'unchanged' if counts == counts0 else counts}",
+          flush=True)
+    if ran or counts != counts0:
+        fail(f"{what}: the paged kernels ran ({ran} on the card, counts "
+             f"{counts} from {counts0})")
+
+
+def _tps(st) -> str:
+    return (f"{int(st['tokens'])} tokens in {st['seconds']:.2f} s = "
+            f"{st['tokens_per_s']:.1f} tok/s")
+
+
+def _contiguous_steps_vs_kernel(cfg, params, reqs) -> None:
+    """A chunk step (each of 8 prompts' first 16 tokens) and a decode
+    step on a full-width contiguous cache, every attention call (the
+    plain attention over the contiguous cache) held against the paged
+    kernel on the same q and the same K/V, laid out as a pool of
+    8-position blocks through an identity table: ATTN_REL_LIMIT of the
+    output's magnitude, the bar phase 5b holds the verify step's kernel
+    calls to.  (The same inputs: the served streams part because the
+    two reads round differently, which the random-weight stack carries
+    to O(1) logits.)"""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.models import api, transformer
+    B, C, bs = 8, 16, 8
+    T = SERVE_MAX_LEN + C
+    cache = api.init_cache(cfg, B, T, paged=False, device=DEVICE)
+    nb = T // bs
+    bt = (torch.arange(B, device=DEVICE)[:, None] * nb
+          + torch.arange(nb, device=DEVICE)[None, :]).to(torch.int32)
+    toks = np.zeros((B, C), np.int32)
+    n_tok = np.zeros(B, np.int32)
+    for b, r in enumerate(reqs[:B]):
+        n_tok[b] = min(len(r.prompt), C)
+        toks[b, :n_tok[b]] = r.prompt[:n_tok[b]]
+    worst, calls = [0.0], [0]
+    orig = transformer._cache_attend
+
+    def checked(q, k1, v1, cl, pos_, positions, block_table, *, decode,
+                kernel):
+        o = orig(q, k1, v1, cl, pos_, positions, block_table,
+                 decode=decode, kernel=kernel)
+        pool = [cl[k].reshape(B * nb, bs, *cl[k].shape[2:])
+                for k in ("k", "v")]
+        want = (pk.paged_decode(q, *pool, bt, pos_ + 1) if decode
+                else pk.paged_chunk(q, *pool, bt, pos_)).float()
+        err = (o.float() - want).abs().max().item()
+        worst[0] = max(worst[0], err / max(want.abs().max().item(), 1e-30))
+        calls[0] += 1
+        return o
+
+    t = lambda a: torch.from_numpy(a).to(DEVICE)      # noqa: E731
+    transformer._cache_attend = checked
+    try:
+        lg, _ = api.chunk_step(cfg, params, cache, t(toks),
+                               t(np.zeros(B, np.int32)), t(n_tok))
+        lg2, _ = api.decode_step(cfg, params, cache,
+                                 lg.argmax(-1).to(torch.int32), t(n_tok))
+    finally:
+        transformer._cache_attend = orig
+    torch.cuda.synchronize()
+    print(f"[contiguous] a chunk step and a decode step on a full-width "
+          f"contiguous cache (T={T}): {calls[0]} plain attention calls vs "
+          f"the paged kernel on the same inputs, max |diff| / max |o| = "
+          f"{worst[0]:.3e} (limit {ATTN_REL_LIMIT:.3e})", flush=True)
+    if calls[0] != 2 * cfg.num_layers or worst[0] > ATTN_REL_LIMIT:
+        fail(f"contiguous attention vs the kernel: {calls[0]} calls, "
+             f"worst {worst[0]:.3e} of the output's magnitude")
+    if not all(torch.isfinite(x.float()).all() for x in (lg, lg2)):
+        fail("the contiguous steps gave non-finite logits")
+
+
+def phase_contiguous(cfg, params, paged: dict) -> None:
+    """(a) ChunkedServer(paged=False) on full-width yi-6b (bf16): phase
+    5's ShareGPT wave cold and warm on one server whose units replay
+    CUDA graphs (compile_counts {chunk_step, decode_span}, no
+    cow_copy; the warm wave repeats the cold one's tokens); tokens/s
+    beside phase 5's paged server (cold) and a paged server without
+    prefix cache (warm) on the same wave.  The contiguous streams part
+    from the paged ones (plain attention against the kernel): each
+    stream's first parting is printed with the paged run's top-2 margin
+    there (phase 5's eager recording) and four bf16 steps
+    (`_spec_margin`), not held, as phase 5b prints K=4 against K=0; the
+    contiguous attention calls are held to the kernel on the same
+    inputs instead (`_contiguous_steps_vs_kernel`).  Then spec K=4 on
+    phase 5b's repetitive traffic (4 < chunk), cold and warm, on a
+    graphed server and on one whose units run eagerly: the same streams
+    bit for bit.  No paged kernel runs in the contiguous waves (their
+    counter on the card and the wrappers')."""
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.runtime.server import (ChunkedServer, clone_requests,
+                                            repetitive_requests)
+    t0 = time.perf_counter()
+    opts = dict(batch_slots=8, max_len=SERVE_MAX_LEN, chunk=16,
+                span=SERVE_SPAN, paged=False, device=DEVICE)
+    reqs = paged["reqs"]
+    psrv = ChunkedServer(cfg, params, **dict(opts, paged=True,
+                                             block_size=16,
+                                             prefix_cache=False))
+    psrv.serve(clone_requests(reqs))
+    st_pw = psrv.serve(clone_requests(reqs))
+    del psrv
+    ran0, counts0 = pk.device_launches(DEVICE), pk.launch_counts()
+    srv = ChunkedServer(cfg, params, **opts)
+    cold, warm = clone_requests(reqs), clone_requests(reqs)
+    st_cold, st_warm = srv.serve(cold), srv.serve(warm)
+    out = [r.output for r in cold]
+    for r in cold:
+        want = min(r.max_new, SERVE_MAX_LEN - len(r.prompt))
+        if not r.done or len(r.output) != want:
+            fail(f"contiguous request {r.rid}: {len(r.output)} tokens, "
+                 f"expected {want}")
+    if [r.output for r in warm] != out:
+        fail("the contiguous server's warm wave gave other tokens")
+    rep = _unit_report(srv, "bf16 contiguous")
+    if rep["counts"] != {"chunk_step": 1, "decode_span": 1}:
+        fail(f"contiguous compile_counts {rep['counts']}")
+    del srv
+    print(f"[contiguous] ShareGPT wave, bf16: contiguous cold "
+          f"{_tps(st_cold)}, warm {_tps(st_warm)} (prefill "
+          f"{st_warm['prefill_seconds']:.2f} s, decode "
+          f"{st_warm['decode_seconds']:.2f} s); paged (phase 5, cold) "
+          f"{paged['stats']['tokens_per_s']:.1f} tok/s, paged without "
+          f"prefix cache, warm {_tps(st_pw)}; contiguous / paged warm "
+          f"{st_warm['tokens_per_s'] / st_pw['tokens_per_s']:.3f}",
+          flush=True)
+    partings = []
+    for r, c in zip(reqs, out):
+        j = _parting(r.output, c)
+        if j is None:
+            continue
+        _, lg = paged["rec"][(r.rid, j)]
+        top = lg.float().topk(2).values
+        partings.append((r.rid, j, round(float(top[0] - top[1]), 4),
+                         round(_spec_margin(lg), 4)))
+    print(f"[contiguous] {len(reqs) - len(partings)}/{len(reqs)} streams "
+          f"equal the paged server's; first partings (rid, token, paged "
+          f"top-2 margin, four bf16 steps), printed, not held: {partings}",
+          flush=True)
+    # spec decode on the contiguous layout: phase 5b's traffic
+    spec_reqs = repetitive_requests(8, cfg.vocab_size, motif_len=8, reps=3,
+                                    max_output=48, seed=2)
+    sopts = dict(opts, max_len=SPEC_SERVER["max_len"],
+                 spec_decode=VERIFY_K)
+    spec_out = []
+    for eager_units in (False, True):
+        sp = ChunkedServer(cfg, params, **sopts)
+        if eager_units:
+            _eager_units(sp)
+        waves = []
+        for wave in ("cold", "warm"):
+            rs = clone_requests(spec_reqs)
+            st = sp.serve(rs)
+            if not all(r.done and len(r.output) == r.max_new for r in rs):
+                fail(f"contiguous spec {wave} wave: a request is short")
+            waves.append([r.output for r in rs])
+            print(f"[contiguous] spec K={VERIFY_K} {wave} "
+                  f"({'eager units' if eager_units else 'graphs'}): "
+                  f"{_tps(st)}; acceptance "
+                  f"{st['spec_acceptance_rate']:.3f}, "
+                  f"{st['spec_tokens_per_step']:.2f} tokens a slot a "
+                  f"verify step over {int(st['spec_steps'])} verify steps",
+                  flush=True)
+        rep = _unit_report(sp, f"bf16 contiguous spec K={VERIFY_K}"
+                           + (", eager units" if eager_units else ""),
+                           eager=eager_units)
+        if rep["counts"] != {"chunk_step": 1, "decode_span": 0,
+                             "verify_step": 1}:
+            fail(f"contiguous spec compile_counts {rep['counts']}")
+        spec_out.append(waves)
+        del sp
+    print(f"[contiguous] spec graph-replayed streams "
+          f"{'equal' if spec_out[0] == spec_out[1] else 'DIFFER FROM'} "
+          f"the eager units' bit for bit (cold and warm)", flush=True)
+    if spec_out[0] != spec_out[1]:
+        fail("contiguous spec streams differ between graphs and eager")
+    _paged_unmoved("contiguous", ran0, counts0)
+    _contiguous_steps_vs_kernel(cfg, params, reqs)
+    print(f"[contiguous] phase in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def phase_slot(cfg, params) -> None:
+    """(b) The slot baseline at full width, as the reference measures it
+    (benchmarks/llm_gen.py): SlotServer, ChunkedServer(paged=False) and
+    a paged ChunkedServer (12 blocks, no prefix cache), 4 slots,
+    max_len 96, chunk 16, span 8, on 8 ShareGPT-like requests (seed 0,
+    max_input 32, max_output 16: the CLI's defaults), each a fresh
+    server's first wave (the reference's rows include its compiles;
+    here the units' first, eager calls and captures); the chunked
+    servers also a warm wave.  Tokens/s side by side: chunked / slot is
+    the reference's measured speedup.  The slot server's
+    compile_counts() is one decode program and one prefill program a
+    distinct prompt length, every unit called twice or more captured
+    once, and no paged kernel runs in its wave."""
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.runtime.server import (ChunkedServer, SlotServer,
+                                            clone_requests,
+                                            sharegpt_like_requests)
+    t0 = time.perf_counter()
+    reqs = sharegpt_like_requests(8, cfg.vocab_size, max_input=32,
+                                  max_output=16, seed=0)
+    ran0, counts0 = pk.device_launches(DEVICE), pk.launch_counts()
+    slot = SlotServer(cfg, params, batch_slots=4, max_len=96, device=DEVICE)
+    rs = clone_requests(reqs)
+    st_slot = slot.serve(rs)
+    base = [r.output for r in rs]
+    if not all(r.done and len(r.output) == r.max_new for r in rs):
+        fail("slot wave: a request is short")
+    _paged_unmoved("slot", ran0, counts0)
+    counts = slot.compile_counts()
+    units = [slot._decode, *slot._prefill.values()]
+    print(f"[slot] compile_counts {counts} "
+          f"({len({len(r.prompt) for r in reqs})} distinct prompt "
+          f"lengths); units called twice or more "
+          f"{sum(u.calls >= 2 for u in units)}, graphs captured "
+          f"{sum(u.captures for u in units)}", flush=True)
+    if (counts != {"decode_step": 1,
+                   "prefill_one": len({len(r.prompt) for r in reqs})}
+            or any(u.captures != int(u.calls >= 2) for u in units)):
+        fail(f"slot server: compile_counts {counts}, or a unit not "
+             f"captured once")
+    del slot
+    runs = {}
+    for name, kw in (("contiguous", dict(paged=False)),
+                     ("paged", dict(block_size=16, num_blocks=12,
+                                    prefix_cache=False))):
+        srv = ChunkedServer(cfg, params, batch_slots=4, max_len=96,
+                            chunk=16, span=8, device=DEVICE, **kw)
+        for wave in ("cold", "warm"):
+            rs = clone_requests(reqs)
+            runs[(name, wave)] = (srv.serve(rs), [r.output for r in rs])
+        del srv
+    st = {k: v[0] for k, v in runs.items()}
+    print(f"[slot] first waves: slot {_tps(st_slot)} (prefill "
+          f"{st_slot['prefill_seconds']:.2f} s, decode "
+          f"{st_slot['decode_seconds']:.2f} s); chunked contiguous "
+          f"{_tps(st[('contiguous', 'cold')])}; chunked paged "
+          f"{_tps(st[('paged', 'cold')])}; chunked contiguous / slot "
+          f"{st[('contiguous', 'cold')]['tokens_per_s'] / st_slot['tokens_per_s']:.2f}x"
+          f"; warm chunked contiguous {_tps(st[('contiguous', 'warm')])}, "
+          f"paged {_tps(st[('paged', 'warm')])}", flush=True)
+    for name in ("contiguous", "paged"):
+        other = runs[(name, "cold")][1]
+        parted = [(r.rid, _parting(a, b)) for r, a, b in
+                  zip(reqs, base, other) if a != b]
+        print(f"[slot] chunked {name} vs slot: {8 - len(parted)}/8 streams "
+              f"equal, first partings (rid, token), printed: {parted}",
+              flush=True)
+    print(f"[slot] phase in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _sync_warnings(fn):
+    """(fn's result, a Counter of the places (file:line) of the
+    synchronizations torch.cuda's sync debug mode "warn" reports while
+    it runs)."""
+    import collections
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in seen
+        if "synchroniz" in str(w.message).lower())
+
+
+def _error_on_sync_in_units(srv) -> list:
+    """Run every unit call of `srv` under sync debug mode "error" (the
+    previous mode restored after it); returns the list the calls append
+    to."""
+    import torch
+    calls = []
+    for unit in srv._units.values():
+        def checked(*ops, _run=unit.run):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _run(*ops)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+                calls.append(1)
+        unit.run = checked
+    return calls
+
+
+class _HeadRecorder:
+    """Every sample-head call of one server's work units, kept per
+    dispatch, through its CUDA graphs.  Installed as
+    `sampling.sample_tokens`, the spy copies each call's logits and
+    emission positions into static buffers while a unit's body runs in
+    Python (its eager call and its capture), so every replay refills
+    them; after each dispatch, while `keep` is set, they are cloned on
+    the device (no host read) with the dispatch's slots.  The spy must
+    be in place before the server's units are first called."""
+
+    def __init__(self, srv):
+        from repro_torch.models import sampling
+        self.srv, self.sampling = srv, sampling
+        self.orig = sampling.sample_tokens
+        self.unit, self.k = None, 0
+        self.bufs = {}            # (unit, k-th head call) -> buffers
+        self.keep = False
+        self.kept = []
+        sampling.sample_tokens = self._spy
+        for name, attr in UNITS.items():
+            setattr(srv, attr, self._wrap(name, getattr(srv, attr)))
+
+    def close(self) -> None:
+        self.sampling.sample_tokens = self.orig
+
+    def _spy(self, logits, temp, top_k, top_p, seed, index):
+        if self.unit is not None:
+            key = (self.unit, self.k)
+            self.k += 1
+            if key not in self.bufs:      # at the unit's eager call
+                self.bufs[key] = (logits.detach().clone(), index.clone())
+            for buf, t in zip(self.bufs[key], (logits, index)):
+                buf.copy_(t)
+        return self.orig(logits, temp, top_k, top_p, seed, index)
+
+    def _wrap(self, name, run):
+        def recorded():
+            slots = [(r.rid, len(r.prompt)) if r is not None else None
+                     for r in self.srv.slot_req]
+            self.unit, self.k = name, 0
+            try:
+                out = run()
+            finally:
+                self.unit = None
+            if self.keep:
+                calls = sorted(k for u, k in self.bufs if u == name)
+                self.kept.append((name, slots, [
+                    tuple(b.clone() for b in self.bufs[(name, k)])
+                    for k in calls]))
+            return out
+        return recorded
+
+    def table(self) -> dict:
+        """{(rid, output index): (unit, logits row)} of the kept
+        dispatches, then forgets them.  A later call's record of a
+        position is the one that emitted it; mid-prompt slots get
+        negative indices and finished slots indices past their output,
+        which nothing reads."""
+        import torch
+        calls = [(name, slots, lg, ix) for name, slots, heads in self.kept
+                 for lg, ix in heads]
+        self.kept = []
+        if not calls:
+            return {}
+        index = torch.stack([ix for _, _, _, ix in calls]).cpu()
+        out = {}
+        for (name, slots, lg, _), ix in zip(calls, index):
+            for s_, slot in enumerate(slots):
+                if slot is not None:
+                    rid, plen = slot
+                    out[(rid, int(ix[s_]) - plen)] = (name, lg[s_])
+        return out
+
+
+def _emitted_rows(label, reqs, outs, tab) -> None:
+    """Fail unless every output token of the recorded wave has a
+    recorded row whose argmax is that token."""
+    import torch
+    rows = [tab[(r.rid, i)][1] for r, o in zip(reqs, outs)
+            for i in range(len(o))]
+    if torch.stack(rows).argmax(-1).cpu().tolist() != [
+            t for o in outs for t in o]:
+        fail(f"bf16 online {label}: a recorded row's argmax is not the "
+             "token it emitted")
+
+
+def _held_rows(label, reqs, base, base_tab, outs, tab) -> str:
+    """Hold one recorded wave's streams `outs` against the recorded base
+    wave's (both greedy bf16, one server).  Row i of a stream depends on
+    its tokens before i and on the work unit that processed each of
+    them (the one that emitted the next token): where both match the
+    base's up to and including row i, its logits must equal the base's
+    bit for bit, since only the batch around it differs; a stream may
+    therefore part only after a row that another unit emitted (the
+    recording is the emission's: `_emitted_rows`).  Returns the summary
+    printed."""
+    import torch
+    compared, moved, partings = 0, [], []
+    for r, a, b in zip(reqs, base, outs):
+        j = _parting(a, b)
+        n = len(a) if j is None else min(j + 1, len(a), len(b))
+        d = next((i for i in range(n)
+                  if base_tab[(r.rid, i)][0] != tab[(r.rid, i)][0]), n)
+        for i in range(d):
+            compared += 1
+            if not torch.equal(base_tab[(r.rid, i)][1], tab[(r.rid, i)][1]):
+                moved.append((r.rid, i))
+        if j is not None and j < n:
+            lb, lo = base_tab[(r.rid, j)][1], tab[(r.rid, j)][1]
+            partings.append((r.rid, j, d,
+                             round(float(_top2_margin(lb)), 4),
+                             round(float((lb.float() - lo.float()).abs()
+                                         .max()), 4)))
+    if moved or not compared:
+        fail(f"bf16 online {label}: rows whose tokens and work units up to "
+             f"them equal the base's differ from its logits: {moved} "
+             f"({compared} compared)")
+    return (f"{compared} rows with the base's tokens and units compared, "
+            f"bit for bit equal; partings (rid, token, first row another "
+            f"unit emitted, base top-2 margin, max |logit diff| there): "
+            f"{partings}")
+
+
+def phase_online(cfg, params, fp8: bool = False) -> dict:
+    """(c) Open-loop serving on the paged server with the kernels
+    (phase 5's server and ShareGPT wave), bf16 or, with `fp8`, e4m3 KV
+    and fp8 linears: serve_online(closed_stream) on one server and
+    serve() on another give the same streams bit for bit, admission
+    order and compile counts; around one warm wave of each, sync debug
+    mode "warn" finds no synchronization in the online loop that
+    serve() does not have (by place, file:line, and count), and
+    "error" around every unit call of the online wave raises none.
+    Then the reference's rate sweep (benchmarks/llm_gen.py): calibrate
+    at 0.5x the closed-loop request rate (Poisson, seed 4), SLO = 2x
+    its p99 TTFT and p99 TPOT, then Poisson streams (seed 5) at 0.5x,
+    1x and 3x, each with offered rps, tokens/s, TTFT, TPOT and
+    queue-delay p50/p99, attainment, goodput, peak queue depth and the
+    windowed summary; the knee (max_sustainable_rate at 0.9).  Streams
+    against the calibration run's: in bf16 every sample-head row of the
+    calibration and of each rate is recorded through the online
+    server's graphs (`_HeadRecorder`) and held by `_held_rows` (which
+    unit emits a token depends on the arrivals, and a decode row of a
+    chunk step and a span's decode step round differently: products of
+    M = 128 and M = 8 rows, the chunk and decode kernels); in fp8
+    (per-call activation scales: a row depends on its neighbours) the
+    partings are printed.  The paged kernel's counter on the card
+    equals the wrappers' counts over the phase.  Returns its launches,
+    by body and by work unit."""
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime.server import (ChunkedServer,
+                                            sharegpt_like_requests)
+    tag = "fp8" if fp8 else "bf16"
+    t0 = time.perf_counter()
+    opts = dict(batch_slots=8, max_len=SERVE_MAX_LEN, chunk=16,
+                span=SERVE_SPAN, block_size=16, prefix_cache=True,
+                fp8_kv=fp8, fp8_linear=fp8, device=DEVICE)
+    reqs = sharegpt_like_requests(16, cfg.vocab_size, max_input=128,
+                                  max_output=128, seed=0)
+    ta, tb = Tracer(), Tracer()
+    a = ChunkedServer(cfg, params, tracer=ta, **opts)
+    b = ChunkedServer(cfg, params, tracer=tb, **opts)
+    units_a, units_b = _count_units(a), _count_units(b)
+    heads = None if fp8 else _HeadRecorder(b)     # before b's captures
+    try:
+        out = _online_waves(a, b, ta, tb, reqs, tag, heads)
+    finally:
+        if heads is not None:
+            heads.close()
+    _uncount_units(a)
+    _uncount_units(b)
+    out["by_unit"] = {u: dict(units_a[u] + units_b[u])
+                      for u in ("chunk", "span")}
+    print(f"[online] {tag} phase in {time.perf_counter() - t0:.1f} s; "
+          f"paged launches {out['launches']} (as many run on the card), "
+          f"by work unit {out['by_unit']}", flush=True)
+    return out
+
+
+def _online_waves(a, b, ta, tb, reqs, tag, heads) -> dict:
+    """phase_online's waves on servers `a` and `b` (tracers `ta`, `tb`;
+    `heads` records b's sample heads in bf16, None in fp8)."""
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.obs import (SLOSpec, max_sustainable_rate,
+                                 request_latency_summary, slo_report,
+                                 window_series, window_summary)
+    from repro_torch.runtime.arrivals import closed_stream, poisson_stream
+    from repro_torch.runtime.server import clone_requests
+    ran0 = pk.device_launches(DEVICE)         # synchronizes
+    pk.reset_launch_counts()                  # the phase's path starts
+    ra, rb = clone_requests(reqs), clone_requests(reqs)
+    a.serve(ra)
+    b.serve_online(closed_stream(rb))
+
+    def admits(tr):
+        return [(x["rid"], x["slot"]) for _, k, x in tr.events
+                if k == "admit"]
+
+    same = ([r.output for r in ra] == [r.output for r in rb]
+            and admits(ta) == admits(tb)
+            and a.compile_counts() == b.compile_counts())
+    print(f"[online] {tag} serve_online(closed_stream) vs serve(): streams, "
+          f"admission order and compile_counts {a.compile_counts()} "
+          f"{'equal' if same else 'DIFFER'}", flush=True)
+    if not same:
+        fail(f"{tag} serve_online on a closed stream differs from serve()")
+    st_closed, at_serve = _sync_warnings(
+        lambda: a.serve(clone_requests(reqs)))
+    calls = _error_on_sync_in_units(b)
+    st_open, at_online = _sync_warnings(
+        lambda: b.serve_online(closed_stream(clone_requests(reqs))))
+    for unit in b._units.values():
+        del unit.run
+    extra = at_online - at_serve
+    print(f"[online] {tag} warm closed wave: serve() {_tps(st_closed)}, "
+          f"synchronizations {dict(at_serve)}; serve_online(closed_stream)"
+          f" {_tps(st_open)}, {dict(at_online)}, none inside its "
+          f"{len(calls)} unit calls; none that serve() does not have: "
+          f"{'yes' if not extra else dict(extra)}", flush=True)
+    if extra or not calls:
+        fail(f"{tag} the online wave synchronizes where serve() does not: "
+             f"{dict(extra)}")
+    closed_rps = st_open["requests"] / st_open["seconds"]
+
+    def recorded(run, stream):
+        """Serve `stream` open-loop on b, its sample heads kept (bf16)."""
+        tb.clear()
+        if heads is not None:
+            heads.keep = True
+        try:
+            st = b.serve_online(stream)
+        finally:
+            if heads is not None:
+                heads.keep = False
+        tab = heads.table() if heads is not None else None
+        if tab is not None:
+            _emitted_rows(tag, run, [r.output for r in run], tab)
+        return st, tab
+
+    cal = clone_requests(reqs)
+    cal_st, cal_tab = recorded(
+        cal, poisson_stream(cal, 0.5 * closed_rps, seed=4))
+    cal_lat = request_latency_summary(tb)
+    slo = SLOSpec(ttft_s=max(2.0 * cal_lat["ttft_s"]["p99"], 1e-3),
+                  tpot_s=max(2.0 * cal_lat["tpot_s"]["p99"], 1e-3))
+    window_s = max(cal_st["seconds"] / 8.0, 0.02)
+    cal_out = [r.output for r in cal]
+    print(f"[online] {tag} closed-loop rate {closed_rps:.3f} req/s; "
+          f"calibration at 0.5x (seed 4): {_tps(cal_st)}, p99 TTFT "
+          f"{cal_lat['ttft_s']['p99'] * 1e3:.1f} ms, p99 TPOT "
+          f"{cal_lat['tpot_s']['p99'] * 1e3:.2f} ms -> SLO TTFT "
+          f"{slo.ttft_s * 1e3:.1f} ms, TPOT {slo.tpot_s * 1e3:.2f} ms; "
+          f"windows of {window_s * 1e3:.0f} ms", flush=True)
+
+    def run_at(rate):
+        run = clone_requests(reqs)
+        st, tab = recorded(run, poisson_stream(run, rate, seed=5))
+        rep = slo_report(tb, slo, st["seconds"])
+        lat = request_latency_summary(tb)
+        wsum = window_summary(window_series(tb, window_s))
+        outs = [r.output for r in run]
+        label = f"{rate / closed_rps:.1f}x"
+        if tab is None:
+            parted = [(r.rid, _parting(c, o))
+                      for r, c, o in zip(run, cal_out, outs) if c != o]
+            rows = f"first partings (rid, token), printed: {parted}"
+        else:
+            rows = _held_rows(label, run, cal_out, cal_tab, outs, tab)
+        ms = {k: (lat[k]["p50"] * 1e3, lat[k]["p99"] * 1e3)
+              for k in ("ttft_s", "tpot_s", "queue_delay_s")}
+        tps = wsum["tokens_per_s"]
+        print(f"[online] {tag} {label}: offered "
+              f"{st['offered_rate_rps']:.3f} req/s, {_tps(st)}; TTFT p50/p99 "
+              f"{ms['ttft_s'][0]:.1f}/{ms['ttft_s'][1]:.1f} ms, TPOT "
+              f"{ms['tpot_s'][0]:.2f}/{ms['tpot_s'][1]:.2f} ms, queue "
+              f"delay {ms['queue_delay_s'][0]:.1f}/"
+              f"{ms['queue_delay_s'][1]:.1f} ms; attainment "
+              f"{rep['attainment_strict']:.3f} ({rep['met']}/"
+              f"{rep['finished'] + rep['unfinished']}), goodput "
+              f"{rep['goodput_tok_s']:.1f} of {rep['throughput_tok_s']:.1f}"
+              f" tok/s; peak queue depth {int(st['peak_queue_depth'])}, "
+              f"idle {st['idle_s']:.2f} s; windowed ({wsum['n_windows']} x "
+              f"{window_s * 1e3:.0f} ms) tok/s p50/p95/p99 "
+              f"{tps['p50']:.1f}/{tps['p95']:.1f}/{tps['p99']:.1f}, busy "
+              f"p50 {wsum['busy_frac']['p50']:.2f}; streams: "
+              f"{sum(c == o for c, o in zip(cal_out, outs))}/{len(run)} "
+              f"equal the calibration's; {rows}", flush=True)
+        return rep
+
+    knee = max_sustainable_rate(
+        run_at, [closed_rps * m for m in (0.5, 1.0, 3.0)],
+        target_attainment=0.9)
+    print(f"[online] {tag} max sustainable rate at attainment >= 0.9: "
+          f"{knee['max_sustainable_rps']:.3f} req/s "
+          f"({knee['max_sustainable_rps'] / closed_rps:.1f}x)", flush=True)
+    launches = pk.launch_counts()             # the phase's path ends
+    by_body = pk.launches_by_body()
+    _check_ran(f"{tag} online", pk.device_launches(DEVICE) - ran0, launches)
+    return {"launches": launches, "by_body": by_body}
+
+
+# ----------------------------------------------------------------------
 # 6. where the time goes
 # ----------------------------------------------------------------------
 
@@ -1739,13 +2389,18 @@ def phase_small(fp8: bool) -> None:
     logit rounding only).  With fp8 linears the activation scale is one
     per call over the whole batch (K=3 and K=0 batches differ, so they
     are not compared), and once a stream parts the other slots' inputs
-    change: only the partings at the first parting step are held."""
+    change: only the partings at the first parting step are held.  By
+    the same rule: serve_online(closed_stream) on the card against the
+    CPU's serve(), and in bf16 ChunkedServer(paged=False) and SlotServer
+    on the card against the same on the CPU."""
     import dataclasses
     import torch
     from repro_torch.configs import reduced_config
     from repro_torch.models import api
     from repro_torch.models.sampling import GREEDY, SamplingParams
-    from repro_torch.runtime.server import (ChunkedServer, clone_requests,
+    from repro_torch.runtime.arrivals import closed_stream
+    from repro_torch.runtime.server import (ChunkedServer, SlotServer,
+                                            clone_requests,
                                             sharegpt_like_requests)
     cfg = dataclasses.replace(reduced_config("yi-6b"), num_kv_heads=2)
     cpu_params = api.init(cfg, 0, device="cpu")
@@ -1764,20 +2419,50 @@ def phase_small(fp8: bool) -> None:
     sampled = lambda i: SamplingParams(temperature=0.8,         # noqa
                                        top_k=20, seed=500 + i)
 
-    def serve(device, k, samp, record):
+    def serve(device, k, samp, record, online=False, **kw):
         """One wave; with spec decode the second (warm) wave of a server
-        whose table the first taught, so that drafts are accepted."""
+        whose table the first taught, so that drafts are accepted;
+        `online` serves it through serve_online(closed_stream)."""
         params = cpu_params if device == "cpu" else card_params
         srv = ChunkedServer(cfg, params, batch_slots=4, max_len=56, chunk=8,
                             span=4, block_size=8, fp8_kv=fp8, fp8_linear=fp8,
-                            spec_decode=k, device=device)
+                            spec_decode=k, device=device, **kw)
         for _ in range(2 if k else 1):
             rs = clone_requests(reqs)
             for i, r in enumerate(rs):
                 r.sampling = samp(i)
             rec = _serve_recording(srv, rs) if record else None
-            stats = rec["stats"] if record else srv.serve(rs)
+            stats = (rec["stats"] if record
+                     else srv.serve_online(closed_stream(rs)) if online
+                     else srv.serve(rs))
         return [r.output for r in rs], stats, rec
+
+    def slot_wave(device, record=False):
+        """One wave on SlotServer; `record` keeps each slot's logits at
+        its prefill and at every decode step (its argmax, on the host)
+        under (rid, output index)."""
+        srv = SlotServer(cfg, cpu_params if device == "cpu" else card_params,
+                         batch_slots=4, max_len=56, device=device)
+        rs, rec = clone_requests(reqs), {}
+        if record:
+            admit, run = srv.admit, srv._decode.run
+
+            def recorded_admit(req, slot):
+                lg = admit(req, slot)
+                rec[(req.rid, 0)] = (len(rec) + 1, lg.detach().clone())
+                return lg
+
+            def recorded_run(*ops):
+                out = run(*ops)
+                for s_, r in enumerate(srv.slot_req):
+                    if r is not None:
+                        rec[(r.rid, len(r.output))] = (len(rec) + 1,
+                                                       out[0][s_].clone())
+                return out
+
+            srv.admit, srv._decode.run = recorded_admit, recorded_run
+        srv.serve(rs)
+        return [r.output for r in rs], rec
 
     def held(label, base, rec, other, samp, stats):
         partings = []
@@ -1814,6 +2499,18 @@ def phase_small(fp8: bool) -> None:
     card_g0, _, card_rec = serve(DEVICE, 0, greedy, not fp8)
     held("greedy, card kernels vs CPU plain", cpu_g0, cpu_rec, card_g0,
          greedy, {})
+    card_o, _, _ = serve(DEVICE, 0, greedy, False, online=True)
+    held("greedy serve_online(closed_stream) on the card vs CPU serve()",
+         cpu_g0, cpu_rec, card_o, greedy, {})
+    if not fp8:
+        # neither takes an e4m3 pool
+        cpu_c, _, rec_c = serve("cpu", 0, greedy, True, paged=False)
+        card_c, _, _ = serve(DEVICE, 0, greedy, False, paged=False)
+        held("greedy contiguous, card vs CPU", cpu_c, rec_c, card_c, greedy,
+             {})
+        cpu_sl, rec_sl = slot_wave("cpu", record=True)
+        held("slot baseline, card vs CPU", cpu_sl, rec_sl,
+             slot_wave(DEVICE)[0], greedy, {})
     cpu_s3, _, cpu_rec = serve("cpu", 3, sampled, True)
     card_s3, st, _ = serve(DEVICE, 3, sampled, False)
     held("sampled spec K=3, card kernels vs CPU plain", cpu_s3, cpu_rec,
@@ -3252,7 +3949,11 @@ def main() -> None:
     print(f"[init] yi-6b full width, {cfg.param_count() / 1e9:.2f} B "
           f"params in bf16, {time.perf_counter() - t0:.1f} s", flush=True)
     phase_forward(cfg, params)
-    launches, by_body, units, kv_bytes = phase_serve(cfg, params)
+    launches, by_body, units, kv_bytes, sharegpt = phase_serve(cfg, params)
+    phase_contiguous(cfg, params, sharegpt)
+    del sharegpt
+    phase_slot(cfg, params)
+    online = {"bf16": phase_online(cfg, params)}
     spec = {"bf16": phase_spec(cfg, params)}
     phase_profile(cfg, params)
     t0 = time.perf_counter()
@@ -3263,9 +3964,10 @@ def main() -> None:
     phase_forward(cfg, params, quant)
     del quant
     phase_profile(cfg, params, fp8=True)
-    fp8_launches, fp8_by_body, fp8_units, fp8_kv_bytes = phase_serve(
+    fp8_launches, fp8_by_body, fp8_units, fp8_kv_bytes, _ = phase_serve(
         cfg, params, fp8=True)
     spec["fp8"] = phase_spec(cfg, params, fp8=True)
+    online["fp8"] = phase_online(cfg, params, fp8=True)
     launches.update({k: v for k, v in fp8_launches.items()
                      if k.endswith("_fp8")})
     by_body.update({k: v for k, v in fp8_by_body.items()
@@ -3287,23 +3989,31 @@ def main() -> None:
                           ("paged_decode_fp8", 147),
                           ("paged_chunk_fp8", 234)):
         r = kernels[(name, "yi-6b", "bfloat16")]
-        extra = {}
+        tag = "fp8" if name.endswith("fp8") else "bf16"
+        served = fp8_units if tag == "fp8" else units
+        # the serve waves' launches plus the online phase's, by work
+        # unit as measured around each dispatch
+        on = online[tag]
+        launches[name] += on["launches"][name]
+        by_body[name] = {b: n + on["by_body"][name].get(b, 0)
+                         for b, n in by_body[name].items()}
+        extra = {"launches_by_unit": {
+            "span": served["span"][name] + on["by_unit"]["span"].get(name,
+                                                                     0)}}
         if name.startswith("paged_chunk"):
-            # the serve waves' launches plus the spec waves', by work
-            # unit as measured around each dispatch, and the verify shape
-            sp = spec["fp8" if name.endswith("fp8") else "bf16"]
-            served = (fp8_units if name.endswith("fp8") else units)
-            by_unit = {"chunk": served["chunk"][name]
-                       + sp["by_unit"]["chunk"],
-                       "verify": sp["by_unit"]["verify"]}
+            # the spec waves' too, and the verify shape
+            sp = spec[tag]
+            extra["launches_by_unit"] = {
+                "chunk": (served["chunk"][name] + sp["by_unit"]["chunk"]
+                          + on["by_unit"]["chunk"].get(name, 0)),
+                "verify": sp["by_unit"]["verify"]}
             launches[name] += sp["launches"][name]
             by_body[name] = {b: n + sp["by_body"].get(b, 0)
                              for b, n in by_body[name].items()}
             v = kernels[(name, VERIFY_CASE[0], "bfloat16")]
-            extra = {"launches_by_unit": by_unit,
-                     "verify_shape": {k: v[k] for k in (
-                         "max_abs_err", "ms", "device_ms", "bound_ms",
-                         "library_ms", "library_device_ms")}}
+            extra["verify_shape"] = {k: v[k] for k in (
+                "max_abs_err", "ms", "device_ms", "bound_ms",
+                "library_ms", "library_device_ms")}
         extra["long_context"] = {
             f"{case} {dname}": {k: v[k] for k in (
                 "max_abs_err", "ms", "device_ms", "bound_ms",

@@ -1,12 +1,14 @@
-"""Model API of the port: parameters, paged cache and the serving steps.
+"""Model API of the port: parameters, KV cache and the serving steps.
 
 PyTorch counterpart of ``repro/models/api.py`` for the dense family:
 
     param_shapes / init                     parameters
     loss_fn                                 training objective
-    init_cache / decode_step / chunk_step   paged serving (bf16 or fp8
-                                            KV pool; ``quant=`` fp8
-                                            linears)
+    init_cache / decode_step / chunk_step   serving over a paged pool
+                                            (bf16 or fp8 KV) or, with
+                                            ``paged=False`` and no block
+                                            table, a contiguous cache;
+                                            ``quant=`` fp8 linears
     verify_step                             speculative-decode verify
     SamplingParams / sample_tokens          stochastic sample head
     cow_copy_block                          copy-on-write pool block copy
@@ -69,8 +71,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, paged: bool = True,
                block_size: int = 16, num_blocks: Optional[int] = None,
                device=None, fp8_kv: bool = False) -> Params:
-    """``fp8_kv`` stores the pool as e4m3 codes + per-row float32
-    scales, read by the fp8 kernels."""
+    """A paged block pool or, with ``paged=False``, the contiguous cache
+    [L, batch, max_len, KH, hd].  ``fp8_kv`` (paged only) stores the
+    pool as e4m3 codes + per-row float32 scales, read by the fp8
+    kernels."""
     _dense_only(cfg)
     return transformer.init_cache(cfg, batch, max_len, dtype, paged=paged,
                                   block_size=block_size,
@@ -80,12 +84,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
-                token: torch.Tensor, pos, block_table: torch.Tensor,
-                *, kernel: bool = False, quant: Optional[Params] = None
+                token: torch.Tensor, pos,
+                block_table: Optional[torch.Tensor] = None, *,
+                kernel: bool = False, quant: Optional[Params] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """``kernel=True`` reads the paged pool through the CUDA
     block-table kernel (its plain version for CPU tensors);
-    ``kernel=False`` is the gather oracle.  ``quant`` (te/linear.
+    ``kernel=False`` is the gather oracle.  With no `block_table` the
+    cache is contiguous and read by the plain attention.  ``quant`` (te/linear.
     quantize_serving_params output) serves the linears in fp8."""
     _dense_only(cfg)
     with torch.no_grad():
@@ -96,11 +102,12 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
 
 def chunk_step(cfg: ModelConfig, params: Params, cache: Params,
                tokens: torch.Tensor, pos, n_tokens: torch.Tensor,
-               block_table: torch.Tensor, *, kernel: bool = False,
+               block_table: Optional[torch.Tensor] = None, *,
+               kernel: bool = False,
                quant: Optional[Params] = None
                ) -> Tuple[torch.Tensor, Params]:
     """Chunk-write serving step: per slot, write `n_tokens[b]` of the
-    C-wide `tokens[b]` into the pool at `pos[b]` and return logits at
+    C-wide `tokens[b]` into the cache at `pos[b]` and return logits at
     each slot's last valid row."""
     _dense_only(cfg)
     with torch.no_grad():
@@ -110,8 +117,9 @@ def chunk_step(cfg: ModelConfig, params: Params, cache: Params,
 
 
 def verify_step(cfg: ModelConfig, params: Params, cache: Params,
-                tokens: torch.Tensor, pos, block_table: torch.Tensor,
-                *, kernel: bool = False, quant: Optional[Params] = None,
+                tokens: torch.Tensor, pos,
+                block_table: Optional[torch.Tensor] = None, *,
+                kernel: bool = False, quant: Optional[Params] = None,
                 sample=None) -> Tuple[torch.Tensor, Params]:
     """Speculative-decode verify: score a [B, C] window of (current
     token + C-1 drafts) per slot and return the next-token id at every

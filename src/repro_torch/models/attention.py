@@ -1,10 +1,11 @@
-"""GQA serving attention over a paged KV pool.
+"""GQA serving attention over a paged KV pool or a contiguous cache.
 
 PyTorch counterpart of the serving half of ``repro/models/attention.py``:
 projections (bf16, or through pre-quantized fp8 weights), the plain
-decode/chunk attention over a gathered cache view, and the paged block
-pool (init, gather, in-place scatter, COW block copy) in bf16/float32
-or as e4m3 codes with per-row scales.  ``paged_decode_attention`` /
+decode/chunk attention over a cache view, the contiguous cache (init,
+in-place window write), and the paged block pool (init, gather,
+in-place scatter, COW block copy) in bf16/float32 or as e4m3 codes
+with per-row scales.  ``paged_decode_attention`` /
 ``paged_chunk_attention`` route through the hand-written CUDA kernels
 of ``repro_torch/kernels/paged_attention.py``.
 
@@ -179,6 +180,46 @@ def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
     o = _masked_softmax_pv(s, mask[:, None, None], vt[:, :, None, None],
                            v_cache.dtype, t_axis=4)          # [B,KH,G,C,hd]
     return o.permute(0, 3, 1, 2, 4).reshape(B, C, H, hd).to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# contiguous KV cache: one [T, KH, hd] region per slot
+# ----------------------------------------------------------------------
+
+def init_kv_cache(cfg, batch: int, max_len: int, *, layers: int,
+                  dtype=torch.bfloat16, device=None
+                  ) -> Dict[str, torch.Tensor]:
+    """Stacked contiguous cache {"k", "v"}: [layers, batch, max_len, KH,
+    hd] zeros, plus the reference's scalar int32 "length" leaf."""
+    shape = (layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "length": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def update_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 k1: torch.Tensor, v1: torch.Tensor, pos
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write a step's k/v ([B, C, KH, hd], C=1 for decode or a whole
+    chunk) at `pos` into [B, T, KH, hd], in place (the reference returns
+    new arrays; the port updates the cache where the reference donates
+    it).  Returns the two caches.
+
+    `pos` is a scalar (lockstep decode) or a per-slot [B] vector.  As
+    ``lax.dynamic_update_slice`` does, a start past T - C is clamped to
+    T - C (and a negative one to 0), so an out-of-range window shifts
+    onto the tail of the cache: servers allocate T = max_len + chunk so
+    that theirs never do.  The clamp runs on the device (no host read),
+    so the write can be captured into a CUDA graph."""
+    B, C = k1.shape[:2]
+    T = cache_k.shape[1]
+    pos = torch.as_tensor(pos, device=cache_k.device)
+    start = pos.to(torch.int64).expand(B).clamp(0, max(T - C, 0))
+    rows = start[:, None] + torch.arange(C, device=cache_k.device)[None, :]
+    idx = rows.reshape(B, C, 1, 1).expand(k1.shape)
+    cache_k.scatter_(1, idx, k1.to(cache_k.dtype))
+    cache_v.scatter_(1, idx, v1.to(cache_v.dtype))
+    return cache_k, cache_v
 
 
 # ----------------------------------------------------------------------

@@ -7,8 +7,8 @@ unchanged); the reference's scan over layers becomes a Python loop over
 layer slices.  The training forward runs each layer under the config's
 remat policy (none | dots | full | full_save_attn) through
 ``torch.utils.checkpoint``; remat changes what is kept for the backward,
-never the numbers.  The paged KV pool of the serving steps is updated
-in place.
+never the numbers.  The serving steps' KV cache (the paged pool, or
+the contiguous layout with no block table) is updated in place.
 """
 
 from __future__ import annotations
@@ -233,14 +233,21 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
                num_blocks: Optional[int] = None, device=None,
                fp8_kv: bool = False) -> Params:
     """Paged block pool [L, num_blocks, block_size, KH, hd] addressed
-    through a per-slot block table.  The default pool matches the
-    contiguous capacity (batch * ceil(max_len / block_size) blocks).
-    ``fp8_kv`` stores e4m3 codes + per-row float32 scales
-    (attention.init_paged_kv_cache).  The contiguous layout of the
-    reference is not ported yet."""
+    through a per-slot block table or, with ``paged=False``, the
+    contiguous cache {"k", "v"} [L, batch, max_len, KH, hd].  The
+    default pool matches the contiguous capacity (batch *
+    ceil(max_len / block_size) blocks).  ``fp8_kv`` (paged only) stores
+    e4m3 codes + per-row float32 scales (attention.init_paged_kv_cache)."""
     if not paged:
-        raise NotImplementedError("the contiguous KV layout (paged=False) "
-                                  "is not ported yet")
+        if fp8_kv:
+            raise NotImplementedError(
+                "fp8_kv requires the paged cache layout")
+        # the reference's serving cache carries no "length" leaf
+        cache = attn.init_kv_cache(cfg, batch, max_len,
+                                   layers=cfg.num_layers, dtype=dtype,
+                                   device=device)
+        del cache["length"]
+        return cache
     if num_blocks is None:
         num_blocks = batch * -(-max_len // block_size)
     return attn.init_paged_kv_cache(num_blocks, block_size,
@@ -251,11 +258,23 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
 
 def _cache_attend(q, k1, v1, cl, pos, positions, block_table, *,
                   decode: bool, kernel: bool) -> torch.Tensor:
-    """Write a window's k/v into one layer's pools `cl` (in place: bf16
-    {"k","v"}, or fp8 {"k","v","k_scale","v_scale"}, detected by key)
-    and attend over the result.  ``kernel=True`` reads through the CUDA
-    block-table kernels; ``kernel=False`` gathers the virtual view and
-    runs the plain attention (the A/B oracle)."""
+    """Write a window's k/v into one layer's cache slice `cl` (in place:
+    contiguous {"k","v"} when `block_table` is None, else paged bf16
+    {"k","v"} or fp8 {"k","v","k_scale","v_scale"}, detected by key)
+    and attend over the result.  The contiguous layout reads through
+    the plain attention, as in the reference; the kernels take a block
+    table, so ``kernel=True`` without one raises.  ``kernel=True`` reads
+    the pool through the CUDA block-table kernels; ``kernel=False``
+    gathers the virtual view and runs the plain attention (the A/B
+    oracle)."""
+    if block_table is None:
+        if kernel:
+            raise ValueError("kernel=True reads the paged pool through "
+                             "its block table: pass block_table")
+        ck, cv = attn.update_cache(cl["k"], cl["v"], k1, v1, pos)
+        if decode:
+            return attn.decode_attention(q, ck, cv, pos + 1)
+        return attn.chunk_attention(q, ck, cv, positions)
     if "k_scale" in cl:
         attn.update_paged_cache_fp8(cl, k1, v1, pos, block_table)
         scales = {"k_scale": cl["k_scale"], "v_scale": cl["v_scale"]}
@@ -324,12 +343,13 @@ def _per_slot_pos(pos, B: int, device) -> torch.Tensor:
 
 
 def decode_step(cfg, params, cache: Params, token: torch.Tensor, pos,
-                block_table: torch.Tensor, *, kernel: bool = False,
-                quant: Optional[Params] = None
+                block_table: Optional[torch.Tensor] = None, *,
+                kernel: bool = False, quant: Optional[Params] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  token [B]; pos scalar or [B] int32 (current
-    length): each layer writes its k/v at `pos` through the table and
-    attends to positions <= pos.  ``quant`` routes the linears through
+    length): each layer writes its k/v at `pos` (through the table, or
+    into the contiguous cache when `block_table` is None) and attends
+    to positions <= pos.  ``quant`` routes the linears through
     pre-quantized fp8 weights.  Returns (logits [B, vocab], cache); the
     cache is the same pool, updated in place."""
     B = token.shape[0]
@@ -341,7 +361,7 @@ def decode_step(cfg, params, cache: Params, token: torch.Tensor, pos,
 
 
 def _chunk_fwd(cfg, params, cache: Params, tokens: torch.Tensor,
-               pos: torch.Tensor, block_table: torch.Tensor, *,
+               pos: torch.Tensor, block_table: Optional[torch.Tensor], *,
                kernel: bool, quant: Optional[Params]) -> torch.Tensor:
     """Shared serving forward over a [B, C] token window written into
     the pool at [pos, pos+C): the body of both `chunk_step` (which reads
@@ -357,7 +377,8 @@ def _chunk_fwd(cfg, params, cache: Params, tokens: torch.Tensor,
 
 
 def chunk_step(cfg, params, cache: Params, tokens: torch.Tensor, pos,
-               n_tokens: torch.Tensor, block_table: torch.Tensor, *,
+               n_tokens: torch.Tensor,
+               block_table: Optional[torch.Tensor] = None, *,
                kernel: bool = False, quant: Optional[Params] = None
                ) -> Tuple[torch.Tensor, Params]:
     """One chunked-prefill/decode step for a batch of server slots.
@@ -366,7 +387,8 @@ def chunk_step(cfg, params, cache: Params, tokens: torch.Tensor, pos,
     request (rows past n_tokens[b] are padding); pos [B] int32 — each
     slot's cache length; the chunk's k/v is written at [pos, pos+C)
     through the table (padding rows whose virtual block is unallocated
-    are dropped).  Returns (logits [B, vocab] at each slot's last valid
+    are dropped) or, with no table, into the contiguous cache (padding
+    rows land past the frontier, where the next write lands first).  Returns (logits [B, vocab] at each slot's last valid
     row, cache)."""
     B, C = tokens.shape
     pos = _per_slot_pos(pos, B, tokens.device)
@@ -379,7 +401,8 @@ def chunk_step(cfg, params, cache: Params, tokens: torch.Tensor, pos,
 
 
 def verify_step(cfg, params, cache: Params, tokens: torch.Tensor, pos,
-                block_table: torch.Tensor, *, kernel: bool = False,
+                block_table: Optional[torch.Tensor] = None, *,
+                kernel: bool = False,
                 quant: Optional[Params] = None, sample=None
                 ) -> Tuple[torch.Tensor, Params]:
     """Speculative-decode verify: score a [B, C] window (row 0 = each

@@ -43,6 +43,7 @@ device (for tests, and to hold replays against eager calls).
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -144,13 +145,27 @@ class WorkUnit:
     def _capture(self) -> None:
         """Capture the body (the wrappers count its launches as they are
         recorded), then replay it once: the capture itself runs
-        nothing."""
+        nothing.
+
+        A server is a reference cycle (its units' bodies are its bound
+        methods), so a dead one is freed only by the garbage collector,
+        with its graphs, pinned staging and events.  Freed inside a
+        capture, they invalidate it.  So the collector runs before the
+        capture and is off while it lasts."""
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         before = self._launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-            self._step()
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._stream):
+                self._step()
+        finally:
+            if collecting:
+                gc.enable()
         after = self._launch_counts()
         self.replay_launches = {
             k: (after[k][0] - before[k][0],

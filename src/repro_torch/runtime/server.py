@@ -33,13 +33,21 @@ The KV cache is a paged block pool with per-slot block tables, a
 refcounted allocator with admission backpressure, and a radix-tree
 prefix cache whose shared blocks are copied on write
 (`api.cow_copy_block`) — all host-side, as in the reference.
+``paged=False`` restores the reference's contiguous layout for A/B: one
+``max_len + chunk`` region a slot, no pool, no prefix cache and no
+copy-on-write unit; the work units take a dummy [slots, 1] block table
+so their operands keep one signature, and read the cache through the
+plain attention (as the reference's, whose kernels need a table).  On
+the CPU, where the paged kernels run their plain versions, both layouts
+give the same greedy tokens (masked positions weigh exactly 0).
 
-Every work unit reads the pool through the hand-written CUDA kernels
-of kernels/paged_attention.py (``kernel=True``; for CPU tensors the
-wrappers compute their plain versions).  The kernels agree with the
-plain gather path to float32 rounding, not bitwise: they sum in
-another order, so a bf16 value on a rounding boundary may round the
-other way (tolerances in kernels/paged_attention.py).  Greedy tokens
+Every work unit of the paged layout reads the pool through the
+hand-written CUDA kernels of kernels/paged_attention.py
+(``kernel=True``; for CPU tensors the wrappers compute their plain
+versions).  The kernels agree with the plain gather path to float32
+rounding, not bitwise: they sum in another order, so a bf16 value on a
+rounding boundary may round the other way (tolerances in
+kernels/paged_attention.py).  Greedy tokens
 can therefore differ from the gather path where two logits are within
 that rounding of each other.
 
@@ -50,9 +58,17 @@ weight to e4m3 once at init (te/linear.quantize_serving_params) and
 serves each projection through te/linear.fp8_serving_dot.  Both change
 numerics within fp8 rounding, as in the reference.
 
-Not ported yet: the contiguous layout (``paged=False``), tensor
-parallelism, open-loop serving and the slot baseline; passing any of
-those options raises ``NotImplementedError``.
+``serve_online`` serves an open-loop stream (runtime/arrivals.py):
+requests are released to the admission queue when the clock passes
+their arrival stamps, and their queue delay and TTFT are charged from
+the arrival.
+
+``SlotServer`` is the reference's measured baseline: prefill steps one
+token at a time through `decode_step` (one work unit a distinct prompt
+length), and every decode step reads its argmax back to the host.
+
+Not ported yet: tensor parallelism; passing ``tp`` or ``mesh`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -177,17 +193,20 @@ class ChunkedServer:
         one [slots, K+1] speculative window a dispatch instead: n-gram
         drafts verified against the model's own chain (the K=0 tokens,
         >= 1 token per slot per dispatch).
-      * copy-on-write copy — one pool block into another, every layer.
+      * copy-on-write copy — one pool block into another, every layer
+        (paged only).
     Each is a `WorkUnit` (one CUDA graph on the card; `compile_counts`).
 
     The host mirrors position/emission bookkeeping in numpy — greedy
     decoding with length-only stopping is deterministic, so the mirror
     never reads device state; with ``eos_id`` set the span's final
-    pos/out_len/active state is read back instead.  `_ensure_blocks`
-    assigns physical blocks as a slot's frontier advances, `_admit`
-    reserves a request's worst case minus its prefix-cache hit and
-    backpressures when the pool cannot hold it, and `_harvest` drops
-    the slot's references.  The pool is updated in place.
+    pos/out_len/active state is read back instead.  With the paged pool
+    (default), `_ensure_blocks` assigns physical blocks as a slot's
+    frontier advances, `_admit` reserves a request's worst case minus
+    its prefix-cache hit and backpressures when the pool cannot hold
+    it, and `_harvest` drops the slot's references.  ``paged=False``
+    keeps one contiguous ``max_len + chunk`` region a slot instead.  The
+    cache is updated in place.
     """
 
     def __init__(self, cfg: ModelConfig, params: Params, *,
@@ -202,13 +221,20 @@ class ChunkedServer:
                  fp8_linear: bool = False, tp: int = 1, mesh=None,
                  sampling: Optional[SamplingParams] = None,
                  tracer: Optional[Tracer] = None, device=None):
-        deferred = {"paged=False": not paged, "tp": tp != 1,
-                    "mesh": mesh is not None}
+        deferred = {"tp": tp != 1, "mesh": mesh is not None}
         for name, on in deferred.items():
             if on:
                 raise NotImplementedError(f"{name} is not ported yet")
         if spec_decode < 0:
             raise ValueError(f"spec_decode must be >= 0, got {spec_decode}")
+        if fp8_kv and not paged:
+            raise ValueError("fp8_kv requires the paged KV pool (paged=True)")
+        if spec_decode and not paged and spec_decode >= chunk:
+            # the contiguous cache's + chunk headroom must absorb the
+            # verify window's writes past the frontier (paged scatters
+            # drop them past the block table)
+            raise ValueError(
+                "spec_decode window (K+1) must fit the chunk headroom")
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (dense only)")
@@ -224,6 +250,7 @@ class ChunkedServer:
         self.max_len = max_len
         self.chunk = chunk
         self.span = span
+        self.paged = bool(paged)
         self.eos_id = eos_id
         # the default for requests without their own SamplingParams;
         # greedy is a value (temperature 0), not another code path
@@ -235,33 +262,44 @@ class ChunkedServer:
         self.obs = tracer if tracer is not None else NULL_TRACER
         self.metrics = (tracer.metrics if tracer is not None
                         else MetricsRegistry())
-        self.block_size = block_size
-        # virtual blocks per slot; real writes never pass max_len
-        self.max_blocks = -(-max_len // block_size)
-        self.num_blocks = (batch_slots * self.max_blocks
-                           if num_blocks is None else num_blocks)
-        self.cache = api.init_cache(cfg, batch_slots, max_len,
-                                    block_size=block_size,
-                                    num_blocks=self.num_blocks,
-                                    device=self.device, fp8_kv=self.fp8_kv)
-        self.block_table = np.full((batch_slots, self.max_blocks), -1,
-                                   np.int32)
-        self.pool = BlockPool(self.num_blocks)
         self.prefix_cache: Optional[RadixPrefixCache] = None
-        if prefix_cache:
-            self.prefix_cache = RadixPrefixCache(self.pool, block_size,
-                                                 tracer=self.obs,
-                                                 metrics=self.metrics)
-        self._slot_blocks: List[List[int]] = [[] for _ in range(batch_slots)]
-        self._num_shared = np.zeros(batch_slots, np.int32)
-        self._cow_pending = [False] * batch_slots
-        self._reserved = np.zeros(batch_slots, np.int32)
-        self._reserved_total = 0
-        self.peak_blocks = 0
-        self.admission_stalls = 0
-        self.total_prompt_tokens = 0
-        self.cached_prompt_tokens = 0
-        self.prefix_hits = 0
+        if self.paged:
+            self.block_size = block_size
+            # virtual blocks per slot; real writes never pass max_len
+            self.max_blocks = -(-max_len // block_size)
+            self.num_blocks = (batch_slots * self.max_blocks
+                               if num_blocks is None else num_blocks)
+            self.cache = api.init_cache(cfg, batch_slots, max_len,
+                                        block_size=block_size,
+                                        num_blocks=self.num_blocks,
+                                        device=self.device,
+                                        fp8_kv=self.fp8_kv)
+            self.block_table = np.full((batch_slots, self.max_blocks), -1,
+                                       np.int32)
+            self.pool = BlockPool(self.num_blocks)
+            if prefix_cache:
+                self.prefix_cache = RadixPrefixCache(self.pool, block_size,
+                                                     tracer=self.obs,
+                                                     metrics=self.metrics)
+            self._slot_blocks: List[List[int]] = [
+                [] for _ in range(batch_slots)]
+            self._num_shared = np.zeros(batch_slots, np.int32)
+            self._cow_pending = [False] * batch_slots
+            self._reserved = np.zeros(batch_slots, np.int32)
+            self._reserved_total = 0
+            self.peak_blocks = 0
+            self.admission_stalls = 0
+            self.total_prompt_tokens = 0
+            self.cached_prompt_tokens = 0
+            self.prefix_hits = 0
+        else:
+            # + chunk headroom: chunk and verify writes start at the
+            # valid frontier and must never clamp (attention.update_cache)
+            self.cache = api.init_cache(cfg, batch_slots, max_len + chunk,
+                                        paged=False, device=self.device)
+            # the work units' block-table operand: a dummy, so their
+            # operand signatures do not vary with the layout
+            self.block_table = np.zeros((batch_slots, 1), np.int32)
         # device-resident state: tokens cross to the host only at harvest
         self.cur_tok = torch.zeros(batch_slots, dtype=torch.int32,
                                    device=self.device)
@@ -292,14 +330,19 @@ class ChunkedServer:
             self.spec_emitted = 0
         self._units = self._make_units()
         if self.obs.enabled:
+            # server geometry next to the events: the roofline view
+            # (obs/views.roofline_efficiency) prices each recorded
+            # decode dispatch through core/roofline with these
             self.obs.meta.update(
                 batch_slots=self.B, chunk=self.chunk, span=self.span,
                 max_len=self.max_len, num_layers=cfg.num_layers,
                 kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-                spec_decode=self.spec_decode, tp=1, paged=True,
-                block_size=self.block_size, max_blocks=self.max_blocks,
-                num_blocks=self.num_blocks,
-                kv_read_mode="fp8_kernel" if self.fp8_kv else "kernel")
+                spec_decode=self.spec_decode, tp=1, paged=self.paged)
+            if self.paged:
+                self.obs.meta.update(
+                    block_size=self.block_size, max_blocks=self.max_blocks,
+                    num_blocks=self.num_blocks,
+                    kv_read_mode="fp8_kernel" if self.fp8_kv else "kernel")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -321,8 +364,9 @@ class ChunkedServer:
         operand signature each once used (0 before), so O(1) whatever
         the lengths and the greedy/sampled mix; on the card each unit
         with two calls or more is one captured CUDA graph.
-        ``cow_copy`` is 0 until the first copy-on-write, and
-        ``verify_step`` exists with spec decode only."""
+        ``cow_copy`` is 0 until the first copy-on-write and exists with
+        the paged pool only, and ``verify_step`` exists with spec decode
+        only."""
         return {name: unit.programs for name, unit in self._units.items()}
 
     # -- device work units ------------------------------------------------
@@ -332,8 +376,9 @@ class ChunkedServer:
         pool = (torch.cuda.graph_pool_handle()
                 if self.device.type == "cuda" else None)
         bodies = {"chunk_step": self._chunk_body,
-                  "decode_span": self._span_body,
-                  "cow_copy": self._cow_body}
+                  "decode_span": self._span_body}
+        if self.paged:
+            bodies["cow_copy"] = self._cow_body
         if self.spec_decode:
             bodies["verify_step"] = self._spec_body
         return {name: WorkUnit(name, body, self.device, pool=pool,
@@ -349,7 +394,8 @@ class ChunkedServer:
                              self.cur_tok[:, None], tokens_host)
         logits, _ = api.chunk_step(
             self.cfg, self.params, self.cache, tokens, pos, n_tokens,
-            block_table, kernel=True, quant=self._quant)
+            block_table if self.paged else None, kernel=self.paged,
+            quant=self._quant)
         # the emitted token sits at position pos + n_tokens: the key of
         # the span and verify paths' draw for the same position
         nxt = sampling.sample_tokens(logits, temp, top_k, top_p, seed,
@@ -364,10 +410,11 @@ class ChunkedServer:
                    seed, block_table) -> Tuple[torch.Tensor, ...]:
         cap = self.max_len - 1
         tok = self.cur_tok
+        bt = block_table if self.paged else None
         for _ in range(self.span):
             logits, _ = api.decode_step(
-                self.cfg, self.params, self.cache, tok, pos, block_table,
-                kernel=True, quant=self._quant)
+                self.cfg, self.params, self.cache, tok, pos, bt,
+                kernel=self.paged, quant=self._quant)
             # emission position pos + 1 (before the increment)
             nxt = sampling.sample_tokens(logits, temp, top_k, top_p, seed,
                                          pos + 1)
@@ -391,9 +438,10 @@ class ChunkedServer:
          n_emit) = spec.spec_decode_step(
             self.cfg, self.params, self.cache, self.ngram_table,
             self.cur_tok, self.out_buf, pos, out_len, active, max_new,
-            temp, top_k, top_p, seed, block_table, max_len=self.max_len,
+            temp, top_k, top_p, seed,
+            block_table if self.paged else None, max_len=self.max_len,
             eos_id=self.eos_id,
-            fwd_kw={"kernel": True, "quant": self._quant})
+            fwd_kw={"kernel": self.paged, "quant": self._quant})
         self.ngram_table.copy_(table)
         self.cur_tok.copy_(cur_tok)
         return pos, out_len, active, n_emit
@@ -525,6 +573,70 @@ class ChunkedServer:
         self._reserved[s] = 0
 
     # -- host-side scheduling --------------------------------------------
+    def _admit_blocks(self, s: int, req: Request) -> Optional[int]:
+        """Map the request's prefix-cache hit into slot s's block table
+        and reserve its worst case minus the hit against the pool.
+        Returns the prompt tokens the hit covers, or None when the pool
+        cannot hold the request yet (backpressure: the queue head
+        waits for a harvest)."""
+        matched = 0
+        shared: List[int] = []
+        cow, cow_len = None, 0
+        # cheap lower bound first: when even a fully-cached
+        # prompt could not admit, skip the radix walk
+        best_shared = (max((len(req.prompt) - 1) // self.block_size, 0)
+                       if self.prefix_cache is not None else 0)
+        fail_fast = (self._blocks_needed(req) - best_shared
+                     > self._available_blocks())
+        if not fail_fast and self.prefix_cache is not None:
+            shared, cow, cow_len = self._match_prefix(req.prompt)
+            # pin the hit before the supply check
+            for b in shared:
+                self.pool.incref(b)
+            if cow is not None:
+                self.pool.incref(cow)
+            matched = len(shared) * self.block_size + cow_len
+        # worst case minus the cache-covered prefix
+        needed = self._blocks_needed(req) - len(shared)
+        if cow is not None and needed > self._available_blocks():
+            # tight supply: drop the partial match and recompute
+            # its < block_size tokens rather than stall
+            self.pool.decref(cow)
+            cow, cow_len = None, 0
+            matched = len(shared) * self.block_size
+        if fail_fast or needed > self._available_blocks():
+            for b in shared:        # roll the pin back
+                self.pool.decref(b)
+            if cow is not None:
+                self.pool.decref(cow)
+            if not any(r is not None for r in self.slot_req):
+                raise ValueError(
+                    f"request {req.rid}: needs "
+                    f"{self._blocks_needed(req)} KV blocks "
+                    f"but the pool has {self.num_blocks}; "
+                    f"grow num_blocks")
+            # backpressure: wait for a harvest to free blocks
+            self.admission_stalls += 1
+            self.metrics.counter("serving.admission.stalls").inc()
+            if self.obs.enabled:
+                self.obs.event("stall", rid=req.rid,
+                               needed_blocks=needed)
+            return None
+        self._reserved[s] = needed
+        self._reserved_total += needed
+        self._slot_blocks[s] = list(shared)
+        for i, b in enumerate(shared):
+            self.block_table[s, i] = b
+        self._num_shared[s] = len(shared)
+        self._cow_pending[s] = cow is not None
+        if cow is not None:
+            self.block_table[s, len(shared)] = cow
+            self._slot_blocks[s].append(cow)
+        self.total_prompt_tokens += len(req.prompt)
+        self.cached_prompt_tokens += matched
+        self.prefix_hits += matched > 0
+        return matched
+
     def _admit(self, queue: List[Request]) -> None:
         for s in range(self.B):
             if self.slot_req[s] is None and queue:
@@ -535,62 +647,10 @@ class ChunkedServer:
                         f"request {req.rid}: prompt length "
                         f"{len(req.prompt)} exceeds max_len {self.max_len}")
                 matched = 0
-                shared: List[int] = []
-                cow, cow_len = None, 0
-                # cheap lower bound first: when even a fully-cached
-                # prompt could not admit, skip the radix walk
-                best_shared = (max((len(req.prompt) - 1)
-                                   // self.block_size, 0)
-                               if self.prefix_cache is not None else 0)
-                fail_fast = (self._blocks_needed(req) - best_shared
-                             > self._available_blocks())
-                if not fail_fast and self.prefix_cache is not None:
-                    shared, cow, cow_len = self._match_prefix(req.prompt)
-                    # pin the hit before the supply check
-                    for b in shared:
-                        self.pool.incref(b)
-                    if cow is not None:
-                        self.pool.incref(cow)
-                    matched = len(shared) * self.block_size + cow_len
-                # worst case minus the cache-covered prefix
-                needed = self._blocks_needed(req) - len(shared)
-                if cow is not None and needed > self._available_blocks():
-                    # tight supply: drop the partial match and recompute
-                    # its < block_size tokens rather than stall
-                    self.pool.decref(cow)
-                    cow, cow_len = None, 0
-                    matched = len(shared) * self.block_size
-                if fail_fast or needed > self._available_blocks():
-                    for b in shared:        # roll the pin back
-                        self.pool.decref(b)
-                    if cow is not None:
-                        self.pool.decref(cow)
-                    if not any(r is not None for r in self.slot_req):
-                        raise ValueError(
-                            f"request {req.rid}: needs "
-                            f"{self._blocks_needed(req)} KV blocks "
-                            f"but the pool has {self.num_blocks}; "
-                            f"grow num_blocks")
-                    # backpressure: wait for a harvest to free blocks
-                    self.admission_stalls += 1
-                    self.metrics.counter("serving.admission.stalls").inc()
-                    if self.obs.enabled:
-                        self.obs.event("stall", rid=req.rid,
-                                       needed_blocks=needed)
-                    break
-                self._reserved[s] = needed
-                self._reserved_total += needed
-                self._slot_blocks[s] = list(shared)
-                for i, b in enumerate(shared):
-                    self.block_table[s, i] = b
-                self._num_shared[s] = len(shared)
-                self._cow_pending[s] = cow is not None
-                if cow is not None:
-                    self.block_table[s, len(shared)] = cow
-                    self._slot_blocks[s].append(cow)
-                self.total_prompt_tokens += len(req.prompt)
-                self.cached_prompt_tokens += matched
-                self.prefix_hits += matched > 0
+                if self.paged:
+                    matched = self._admit_blocks(s, req)
+                    if matched is None:
+                        break
                 queue.pop(0)
                 req.truncated = len(req.prompt) + req.max_new > self.max_len
                 self.slot_req[s] = req
@@ -644,12 +704,14 @@ class ChunkedServer:
                 tokens_host[s, :n] = req.prompt[off:off + n]
                 n_tokens[s] = n
                 emit[s] = off + n == len(req.prompt)
-                self._ensure_blocks(s, int(self.pos[s]) + n)
+                if self.paged:
+                    self._ensure_blocks(s, int(self.pos[s]) + n)
             elif self.mode[s] == "decode":
                 n_tokens[s] = 1
                 is_decode[s] = True
                 emit[s] = True
-                self._ensure_blocks(s, int(self.pos[s]) + 1)
+                if self.paged:
+                    self._ensure_blocks(s, int(self.pos[s]) + 1)
         self._units["chunk_step"].run(
             tokens_host, self.pos, n_tokens, is_decode, emit, self.out_len,
             *self._samp_mirrors(), self.block_table)
@@ -719,8 +781,9 @@ class ChunkedServer:
                 sim_pos[s] += 1
                 if sim_out[s] >= max_new[s] or sim_pos[s] >= cap:
                     sim_act[s] = False
-        for s in np.flatnonzero(active):
-            self._ensure_blocks(s, int(sim_pos[s]))
+        if self.paged:
+            for s in np.flatnonzero(active):
+                self._ensure_blocks(s, int(sim_pos[s]))
         pos_d, out_d, act_d = self._units["decode_span"].run(
             self.pos, self.out_len, active, max_new, *self._samp_mirrors(),
             self.block_table)
@@ -754,7 +817,9 @@ class ChunkedServer:
         (runtime/spec_decode.py).  Acceptance is data-dependent, so the
         final pos/out_len/active and the emitted counts are read back
         every step; the block tables are then rolled back to each
-        slot's accepted frontier."""
+        slot's accepted frontier (the contiguous layout rolls back the
+        position mirror alone: rejected rows sit past the frontier, in
+        the chunk headroom, where the next window writes first)."""
         t0 = time.perf_counter()
         K = self.spec_decode
         active = np.array([m == "decode" for m in self.mode])
@@ -764,14 +829,15 @@ class ChunkedServer:
             [r.max_new if r is not None else 0 for r in self.slot_req],
             np.int32)
         cap = self.max_len - 1
-        for s in np.flatnonzero(active):
-            # cover the window only up to the slot's emit budget: rows
-            # past it are never accepted and their writes drop past the
-            # table, so the admission reservation always suffices
-            budget = min(int(max_new[s]) - int(self.out_len[s]),
-                         cap - int(self.pos[s]))
-            self._ensure_blocks(
-                s, int(self.pos[s]) + min(K + 1, max(budget, 1)))
+        if self.paged:
+            for s in np.flatnonzero(active):
+                # cover the window only up to the slot's emit budget:
+                # rows past it are never accepted and their writes drop
+                # past the table, so the admission reservation suffices
+                budget = min(int(max_new[s]) - int(self.out_len[s]),
+                             cap - int(self.pos[s]))
+                self._ensure_blocks(
+                    s, int(self.pos[s]) + min(K + 1, max(budget, 1)))
         pos_d, out_d, act_d, emit_d = self._units["verify_step"].run(
             self.pos, self.out_len, active, max_new, *self._samp_mirrors(),
             self.block_table)
@@ -782,14 +848,15 @@ class ChunkedServer:
         t1 = time.perf_counter()
         # rejected drafts: shrink each frontier back to the accepted
         # positions (stale K/V past it is never read)
-        for s in np.flatnonzero(active):
-            rolled = self._truncate_blocks(s, int(self.pos[s]))
-            if rolled:
-                self.metrics.counter(
-                    "serving.spec.rollback_blocks").inc(rolled)
-                if self.obs.enabled:
-                    self.obs.event("spec_rollback", slot=int(s),
-                                   blocks=rolled)
+        if self.paged:
+            for s in np.flatnonzero(active):
+                rolled = self._truncate_blocks(s, int(self.pos[s]))
+                if rolled:
+                    self.metrics.counter(
+                        "serving.spec.rollback_blocks").inc(rolled)
+                    if self.obs.enabled:
+                        self.obs.event("spec_rollback", slot=int(s),
+                                       blocks=rolled)
         for s in np.flatnonzero(done_now):
             self._mark_done(s)
         nact = int(active.sum())
@@ -826,9 +893,10 @@ class ChunkedServer:
                                n_out=len(req.output))
             self.slot_req[s] = None
             self.mode[s] = "idle"
-            if self.prefix_cache is not None:
-                self._insert_prefix(s, req)
-            self._free_slot_blocks(s)
+            if self.paged:
+                if self.prefix_cache is not None:
+                    self._insert_prefix(s, req)
+                self._free_slot_blocks(s)
         return served
 
     def _insert_prefix(self, s: int, req: Request) -> None:
@@ -847,16 +915,18 @@ class ChunkedServer:
 
     # -- main loop ---------------------------------------------------------
     def _reset_run_counters(self) -> None:
-        """Per-run metric and pool state (the tracer's event log
-        accumulates across runs until the caller clears it)."""
+        """Per-run metric and pool state, shared by ``serve`` and
+        ``serve_online`` (the tracer's event log accumulates across runs
+        until the caller clears it)."""
         self.metrics.reset()
-        self.peak_blocks = self._blocks_in_use()
-        self.admission_stalls = 0
-        self.total_prompt_tokens = 0
-        self.cached_prompt_tokens = 0
-        self.prefix_hits = 0
-        self._evict0 = (self.prefix_cache.evicted_blocks
-                        if self.prefix_cache is not None else 0)
+        if self.paged:
+            self.peak_blocks = self._blocks_in_use()
+            self.admission_stalls = 0
+            self.total_prompt_tokens = 0
+            self.cached_prompt_tokens = 0
+            self.prefix_hits = 0
+            self._evict0 = (self.prefix_cache.evicted_blocks
+                            if self.prefix_cache is not None else 0)
         if self.spec_decode:
             # per run too (the n-gram table persists: warm drafts)
             self.spec_steps = 0
@@ -866,15 +936,76 @@ class ChunkedServer:
             self.spec_emitted = 0
 
     def serve(self, requests: List[Request]) -> Dict[str, float]:
-        queue = list(requests)
+        """Serve a closed batch: every request queued at the start."""
         self._reset_run_counters()
         if self.obs.enabled:
-            for r in queue:
+            for r in requests:
                 self.obs.enqueue(r.rid, len(r.prompt), r.max_new)
-        t0 = time.perf_counter()
+        return self._serve_loop(list(requests), [])
+
+    def serve_online(self, stream, *,
+                     max_idle_sleep_s: float = 0.02) -> Dict[str, float]:
+        """Open-loop serving: admit by arrival time against a monotonic
+        clock (runtime/arrivals.py streams).
+
+        ``stream`` is a sequence of ``TimedRequest``-shaped objects
+        (``.t_arrival`` seconds from the loop epoch, ``.request`` a
+        ``Request``).  The epoch is ``time.perf_counter()`` at entry; a
+        request is released to the admission queue once the clock
+        passes its stamp, so the engine runs under sustained, bursty
+        load instead of a pre-loaded batch.  Between dispatches the
+        loop polls arrivals again, and when it is drained with arrivals
+        still pending it sleeps (on the host, at most
+        ``max_idle_sleep_s`` at a time) toward the next stamp.
+
+        The tracer's enqueue stamp is the request's scheduled arrival
+        (epoch + t_arrival), not the moment the loop saw it: a request
+        arriving mid-dispatch is charged its queue delay, and so its
+        TTFT, from its arrival.  Everything else is ``serve``'s loop
+        (`_serve_loop`): the same work units (compile counts unchanged),
+        the same host mirrors, and on a ``closed_stream`` the same
+        admission order and tokens as ``serve`` on the same requests.
+
+        Returns the ``serve`` stats plus the online extras: ``online``,
+        ``arrival_span_s``, the realized ``offered_rate_rps``,
+        ``idle_s`` and ``peak_queue_depth`` (also kept live in the
+        ``serving.queue.depth`` gauge for the windowed views)."""
+        arrivals = sorted(stream, key=lambda tr: tr.t_arrival)
+        self._reset_run_counters()
+        return self._serve_loop([], arrivals, max_idle_sleep_s)
+
+    def _serve_loop(self, queue: List[Request], arrivals: list,
+                    max_idle_sleep_s: Optional[float] = None
+                    ) -> Dict[str, float]:
+        """The scheduler loop of both: release the arrivals whose stamp
+        the clock has passed, admit, run one dispatch, harvest.
+        ``max_idle_sleep_s`` None is the closed batch (``queue`` holds
+        every request, no arrivals, no online extras)."""
+        online = max_idle_sleep_s is not None
+        requests = queue + [tr.request for tr in arrivals]
         served_tokens = 0
         prefill_tokens = 0
-        while queue or any(r is not None for r in self.slot_req):
+        idle_s = 0.0
+        peak_queue_depth = 0
+        next_i = 0
+        t0 = time.perf_counter()
+        while (next_i < len(arrivals) or queue
+               or any(r is not None for r in self.slot_req)):
+            if online:
+                now = time.perf_counter() - t0
+                while (next_i < len(arrivals)
+                       and arrivals[next_i].t_arrival <= now):
+                    tr = arrivals[next_i]
+                    next_i += 1
+                    queue.append(tr.request)
+                    if self.obs.enabled:
+                        self.obs.enqueue(tr.request.rid,
+                                         len(tr.request.prompt),
+                                         tr.request.max_new,
+                                         t=t0 + tr.t_arrival)
+                peak_queue_depth = max(peak_queue_depth, len(queue))
+                self.metrics.gauge("serving.queue.depth").set(
+                    float(len(queue)))
             self._admit(queue)
             if any(m == "prefill" for m in self.mode):
                 prefill_tokens += self._run_chunk_step()
@@ -883,9 +1014,29 @@ class ChunkedServer:
                     self._run_spec_step()
                 else:
                     self._run_decode_span()
+            elif not queue and next_i < len(arrivals):
+                # drained with arrivals still scheduled: sleep toward
+                # the next stamp instead of spinning
+                wait = (t0 + arrivals[next_i].t_arrival
+                        - time.perf_counter())
+                if wait > 0:
+                    nap = min(wait, max_idle_sleep_s)
+                    time.sleep(nap)
+                    idle_s += nap
             served_tokens += self._harvest()
         dt = time.perf_counter() - t0
-        return self._run_stats(requests, dt, served_tokens, prefill_tokens)
+        stats = self._run_stats(requests, dt, served_tokens, prefill_tokens)
+        if online:
+            span_s = arrivals[-1].t_arrival if arrivals else 0.0
+            stats.update({
+                "online": 1.0,
+                "arrival_span_s": float(span_s),
+                "offered_rate_rps": (len(arrivals) / span_s
+                                     if span_s > 0 else 0.0),
+                "idle_s": idle_s,
+                "peak_queue_depth": float(peak_queue_depth),
+            })
+        return stats
 
     def _run_stats(self, requests: List[Request], dt: float,
                    served_tokens: int, prefill_tokens: int
@@ -909,6 +1060,8 @@ class ChunkedServer:
             "decode_steps": float(span_disp * self.span),
             "chunk_steps": float(chunk_steps),
             "decode_spans": float(span_disp + verify_disp),
+            "compiled_programs": float(sum(self.compile_counts().values())),
+            "tp": 1.0,
         }
         if self.spec_decode:
             stats.update({
@@ -925,6 +1078,8 @@ class ChunkedServer:
                     self.spec_emitted / self.spec_slot_steps
                     if self.spec_slot_steps else 0.0),
             })
+        if not self.paged:
+            return stats
         contiguous_tokens = self.B * (self.max_len + self.chunk)
         kv_bytes = sum(t.numel() * t.element_size()
                        for t in self.cache.values())
@@ -956,3 +1111,177 @@ class ChunkedServer:
                     self.prefix_cache.cached_block_count()),
             })
         return stats
+
+
+# ----------------------------------------------------------------------
+# Baseline slot engine (the reference's seed engine, kept for A/B)
+# ----------------------------------------------------------------------
+
+class SlotServer:
+    """Slot-based continuous-batching decode server: the baseline that
+    the reference reports beside ChunkedServer.
+
+    Prefill steps one token at a time through `decode_step`, one
+    program a distinct prompt length; the decode loop reads its argmax
+    back to the host every step.  That host read is what the baseline
+    measures, and it stays.  The cache is contiguous ([max_len] a slot,
+    read by the plain attention), as in the reference.  With the
+    reference's two fixes over its seed: `pos0` is a real prefill
+    operand (see `_prefill_body`), and the first emitted token is
+    stop-checked, so max_new is honored even at 1.  ``eos_id`` stops a
+    slot after it emits that token (ChunkedServer's rule).
+
+    Each program is a `runtime.graphs.WorkUnit`: ``decode_step`` one
+    unit, ``prefill_one`` one unit a distinct prompt length (its first
+    call eager, its second captured into a CUDA graph, later calls
+    replayed), so `compile_counts()` equals the reference's on the same
+    traffic.  The server's position mirror lives on the host: the
+    reference keeps it on the device and reads it back at every stop
+    check, and both hold the same values.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Params, *,
+                 batch_slots: int = 8, max_len: int = 512,
+                 eos_id: Optional[int] = None, device=None):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (dense only)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.B = batch_slots
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.cache = api.init_cache(cfg, batch_slots, max_len, paged=False,
+                                    device=self.device)
+        self.pos = np.zeros(batch_slots, np.int32)
+        self.slot_req: List[Optional[Request]] = [None] * batch_slots
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        self._decode = self._unit("decode_step", self._decode_body)
+        self._prefill: Dict[int, WorkUnit] = {}
+
+    def _unit(self, name: str, body) -> WorkUnit:
+        return WorkUnit(name, body, self.device, pool=self._pool,
+                        counted=pk.KERNELS)
+
+    # -- device work units ------------------------------------------------
+    def _decode_body(self, tok, pos) -> Tuple[torch.Tensor, ...]:
+        logits, _ = api.decode_step(self.cfg, self.params, self.cache, tok,
+                                    pos)
+        return (logits,)
+
+    def _prefill_body(self, prompt, slot_onehot, pos0
+                      ) -> Tuple[torch.Tensor, ...]:
+        """Prefill one prompt into one slot by stepping its tokens
+        through `decode_step` (every slot steps; the others write token
+        0 at their own frontier, which their next step overwrites).
+
+        `pos0` (the per-slot positions at admission) must be a real
+        operand: the reference's seed closed over its position state,
+        which jit froze as a constant per prompt length, so every later
+        admission with an already-seen length replayed stale positions
+        and wrote garbage at position 0 of the other slots' caches, and
+        outputs depended on what else was in flight.  A captured graph
+        would freeze it the same way; here it comes through the unit's
+        static operand buffer, refilled every call."""
+        pos = pos0
+        for i in range(prompt.shape[0]):
+            token_b = torch.where(slot_onehot > 0, prompt[i],
+                                  torch.zeros_like(prompt[i]))
+            logits, _ = api.decode_step(self.cfg, self.params, self.cache,
+                                        token_b, pos)
+            pos = pos + slot_onehot
+        return (logits,)
+
+    # -- admission -------------------------------------------------------
+    def admit(self, req: Request, slot: int) -> torch.Tensor:
+        """Prefill `req` into `slot`; returns its last prompt position's
+        logits [vocab] on the device."""
+        if len(req.prompt) > self.max_len:
+            raise ValueError(
+                f"request {req.rid}: prompt length {len(req.prompt)} "
+                f"exceeds max_len {self.max_len}")
+        # ChunkedServer's truncation rule: the pos cap limits
+        # generation to max_len - in_len tokens
+        req.truncated = len(req.prompt) + req.max_new > self.max_len
+        in_len = len(req.prompt)
+        onehot = np.zeros(self.B, np.int32)
+        onehot[slot] = 1
+        self.pos[slot] = 0
+        unit = self._prefill.get(in_len)
+        if unit is None:
+            unit = self._prefill[in_len] = self._unit(
+                f"prefill_one[{in_len}]", self._prefill_body)
+        (logits,) = unit.run(np.asarray(req.prompt, np.int32), onehot,
+                             self.pos)
+        self.pos[slot] = in_len
+        self.slot_req[slot] = req
+        return logits[slot]
+
+    def compile_counts(self) -> Dict[str, int]:
+        """One decode program + one prefill program per distinct prompt
+        length, under the reference's keys."""
+        return {"decode_step": self._decode.programs,
+                "prefill_one": sum(u.programs
+                                   for u in self._prefill.values())}
+
+    def _stopped(self, req: Request, slot: int, tok: int) -> bool:
+        return (len(req.output) >= req.max_new
+                or int(self.pos[slot]) >= self.max_len - 1
+                or (self.eos_id is not None and tok == self.eos_id))
+
+    # -- main loop ---------------------------------------------------------
+    def serve(self, requests: List[Request]) -> Dict[str, float]:
+        queue = list(requests)
+        next_tok = np.zeros(self.B, np.int32)
+        t0 = time.perf_counter()
+        served_tokens = 0
+        prefill_s = decode_s = 0.0
+        while queue or any(r is not None for r in self.slot_req):
+            # refill free slots
+            for s in range(self.B):
+                if self.slot_req[s] is None and queue:
+                    req = queue.pop(0)
+                    tc = time.perf_counter()
+                    logits = self.admit(req, s)
+                    tok = int(torch.argmax(logits))
+                    prefill_s += time.perf_counter() - tc
+                    req.output.append(tok)
+                    next_tok[s] = tok
+                    if self._stopped(req, s, tok):
+                        req.done = True
+                        served_tokens += len(req.prompt) + len(req.output)
+                        self.slot_req[s] = None
+            if not any(r is not None for r in self.slot_req):
+                # every admitted request stopped on its first token
+                # (max_new=1 or an immediate EOS): back to admission (a
+                # `break` here would drop the rest of the queue)
+                continue
+            # one lockstep decode step for all slots, its argmax read
+            # back to the host
+            tc = time.perf_counter()
+            (logits,) = self._decode.run(next_tok, self.pos)
+            active = np.array([r is not None for r in self.slot_req],
+                              np.int32)
+            self.pos = self.pos + active
+            toks = torch.argmax(logits, dim=-1).cpu().numpy()
+            decode_s += time.perf_counter() - tc
+            for s, req in enumerate(self.slot_req):
+                if req is None:
+                    continue
+                req.output.append(int(toks[s]))
+                next_tok[s] = toks[s]
+                if self._stopped(req, s, int(toks[s])):
+                    req.done = True
+                    served_tokens += len(req.prompt) + len(req.output)
+                    self.slot_req[s] = None
+        dt = time.perf_counter() - t0
+        return {
+            "requests": float(len(requests)),
+            "tokens": float(served_tokens),
+            "seconds": dt,
+            "tokens_per_s": served_tokens / dt if dt > 0 else 0.0,
+            "prefill_seconds": prefill_s,
+            "decode_seconds": decode_s,
+        }

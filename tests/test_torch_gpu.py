@@ -37,7 +37,17 @@ paged chunk kernel at K = 1, 2, 4 (bf16 and fp8): each kernel call
 within the paged limits of its plain version on the same inputs, the
 tokens equal to the gather path's but for small top-2 margins; a
 rolled-back verify window leaves nothing a later verify reads.
+The contiguous layout (``paged=False``) and `SlotServer` on the card:
+graph replays equal eager units bit for bit and no paged kernel runs
+(the wrappers' counts and the kernel's own counter); open-loop
+`serve_online` on a closed stream equals `serve()`, and sync debug
+mode finds no synchronization around a warm online wave that a
+`serve()` wave does not have, and none inside a dispatch.
 """
+
+import collections
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -57,6 +67,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pk
 from repro_torch.models import api, attention, sampling, transformer
 from repro_torch.runtime import server
+from repro_torch.runtime.graphs import WorkUnit
 from repro_torch.te import fp8
 
 CASES = [       # the CASES of tests/test_paged_kernel.py, then more
@@ -652,6 +663,180 @@ def test_greedy_wave_syncs_only_at_its_dispatch_ends(cuda):
     assert len(runs) >= 4 and all(r.done for r in second)
     assert srv._units["chunk_step"].captures == 1
     assert srv._units["decode_span"].captures == 1
+
+
+# ----------------------------------------------------------------------
+# the contiguous layout, the slot baseline and open-loop serving
+# ----------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [0, 3], ids=["span", "spec"])
+def test_contiguous_graph_replays_equal_eager_units(cuda, spec):
+    """paged=False on the card: a server whose units replay graphs and
+    one whose units run eagerly serve the same waves to the same
+    streams, caches, current tokens, output buffers and n-gram tables,
+    bit for bit; each unit one program, captured once; no copy-on-write
+    unit; and no paged kernel ran (the wrappers' counts and the
+    kernel's own counter on the card stay put)."""
+    cfg = reduced_config("yi-6b")
+    params = api.init(cfg, 0, device=cuda)
+    kw = dict(batch_slots=3, max_len=64, chunk=8, span=4, paged=False,
+              spec_decode=spec, device=cuda)
+    graphed = server.ChunkedServer(cfg, params, **kw)
+    eager = server.ChunkedServer(cfg, params, **kw)
+    for unit in eager._units.values():
+        unit.run = unit._eager
+    d0, n0 = pk.device_launches(cuda), pk.launch_counts()
+    assert _graph_waves(graphed, cfg, False) == _graph_waves(eager, cfg,
+                                                             False)
+    assert pk.device_launches(cuda) == d0 and pk.launch_counts() == n0
+    for name in ("cur_tok", "out_buf", "ngram_table"):
+        a, b = getattr(graphed, name, None), getattr(eager, name, None)
+        assert a is None or torch.equal(a, b), name
+    assert all(torch.equal(graphed.cache[k], eager.cache[k])
+               for k in ("k", "v"))
+    want = ({"chunk_step": 1, "decode_span": 0, "verify_step": 1} if spec
+            else {"chunk_step": 1, "decode_span": 1})
+    assert graphed.compile_counts() == eager.compile_counts() == want
+    for name, unit in graphed._units.items():
+        if want[name]:
+            assert unit.calls >= 3 and unit.captures == 1, name
+
+
+@pytest.mark.gpu
+def test_slot_server_on_card(cuda, monkeypatch):
+    """SlotServer on the card: every request complete, one decode
+    program and one prefill program a distinct prompt length (the
+    reference's counts), its graphs' streams equal its eager units',
+    and no paged kernel ran."""
+    cfg = reduced_config("yi-6b")
+    params = api.init(cfg, 0, device=cuda)
+    reqs = server.sharegpt_like_requests(8, cfg.vocab_size, max_input=12,
+                                         max_output=6, seed=2)
+    outs = []
+    d0, n0 = pk.device_launches(cuda), pk.launch_counts()
+    for eager in (False, True):
+        if eager:               # every unit of this server runs eagerly
+            monkeypatch.setattr(WorkUnit, "run", WorkUnit._eager)
+        srv = server.SlotServer(cfg, params, batch_slots=3, max_len=32,
+                                device=cuda)
+        rs = server.clone_requests(reqs)
+        srv.serve(rs)
+        assert all(r.done and len(r.output) == r.max_new for r in rs)
+        assert srv.compile_counts() == {
+            "decode_step": 1,
+            "prefill_one": len({len(r.prompt) for r in reqs})}
+        outs.append([r.output for r in rs])
+        assert eager or srv._decode.captures == 1
+    assert outs[0] == outs[1]
+    assert pk.device_launches(cuda) == d0 and pk.launch_counts() == n0
+
+
+def _sync_warnings(fn) -> collections.Counter:
+    """The places (file, line) of the synchronizations torch.cuda's sync
+    debug mode "warn" reports while `fn` runs."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return collections.Counter((w.filename, w.lineno) for w in seen
+                               if "synchroniz" in str(w.message).lower())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+def test_online_wave_equals_serve_and_syncs_no_more(cuda, paged):
+    """On the card: serve_online on a closed stream gives serve()'s
+    streams and compile counts; around one warm wave of each on the
+    same traffic (no prefix cache, so the dispatches repeat), sync
+    debug mode reports no synchronization of the online loop that
+    serve() does not have (by place and count), and none inside any
+    dispatch ("error" around each unit's call)."""
+    from repro_torch.runtime.arrivals import closed_stream
+    cfg = reduced_config("yi-6b")
+    params = api.init(cfg, 0, device=cuda)
+    kw = dict(batch_slots=3, max_len=64, chunk=8, span=4, block_size=8,
+              paged=paged, prefix_cache=False, device=cuda)
+
+    def wave(seed):
+        return server.sharegpt_like_requests(6, cfg.vocab_size,
+                                             max_input=16, max_output=8,
+                                             seed=seed)
+
+    a, b = server.ChunkedServer(cfg, params, **kw), server.ChunkedServer(
+        cfg, params, **kw)
+    ra, rb = wave(3), wave(3)
+    a.serve(ra)
+    b.serve_online(closed_stream(rb))
+    assert [r.output for r in ra] == [r.output for r in rb]
+    assert a.compile_counts() == b.compile_counts()
+    n_serve = _sync_warnings(lambda: a.serve(wave(7)))
+    runs = []
+    for unit in b._units.values():
+        def checked(*ops, _run=unit.run):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _run(*ops)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+                runs.append(1)
+        unit.run = checked
+    online = wave(7)
+    n_online = _sync_warnings(
+        lambda: b.serve_online(closed_stream(online)))
+    assert len(runs) >= 4 and all(r.done for r in online)
+    assert not n_online - n_serve, (n_online, n_serve)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["chunked", "slot"])
+def test_a_dead_server_is_collected_before_a_capture(cuda, engine):
+    """A server is a reference cycle (its units' bodies are its bound
+    methods), so only the garbage collector frees a dead one, with its
+    graphs, pinned staging and events.  A unit collects before it
+    captures and keeps the collector off while it captures: a collection
+    forced inside a live server's capture finds the dead server gone,
+    and the capture holds."""
+    cfg = reduced_config("yi-6b")
+    params = api.init(cfg, 0, device=cuda)
+
+    def make():
+        if engine == "slot":
+            return server.SlotServer(cfg, params, batch_slots=3, max_len=32,
+                                     device=cuda)
+        return server.ChunkedServer(cfg, params, batch_slots=3, max_len=64,
+                                    chunk=8, span=4, block_size=8,
+                                    device=cuda)
+
+    def wave():
+        return server.sharegpt_like_requests(6, cfg.vocab_size,
+                                             max_input=12, max_output=6,
+                                             seed=3)
+
+    dead = make()
+    dead.serve(wave())
+    gone = weakref.ref(dead)
+    del dead
+    live = make()
+    unit = live._decode if engine == "slot" else live._units["chunk_step"]
+    seen = []
+
+    def collecting(*ops, _body=unit._body):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append((gc.isenabled(), gone() is None))
+            gc.collect()
+        return _body(*ops)
+
+    unit._body = collecting
+    reqs = wave()
+    live.serve(reqs)
+    assert all(r.done for r in reqs) and unit.captures == 1
+    assert seen == [(False, True)]
 
 
 @pytest.mark.gpu

@@ -3,7 +3,9 @@
 (a) every import in src/repro_torch and chip_smoke.py, read from the
     AST, names neither `jax` nor `repro` (`repro_torch` is fine);
 (b) a subprocess where importing `jax` or `repro` fails imports the
-    port, serves three requests on the CPU, runs the CLI, runs the
+    port, serves three requests on the CPU (paged, and open-loop on the
+    contiguous layout with its SLO and windowed views, and through the
+    slot baseline), runs the CLI (both engines), runs the
     dissection benchmarks tc_energy, tc_n_sweep, dpx_functions and dsm
     with `--device cpu`, and trains three steps of the reduced yi-6b
     through the port's `Trainer` on the CPU;
@@ -75,6 +77,28 @@ assert spec_srv.serve(reqs)["spec_steps"] > 0
 stats = serve.main(["--device", "cpu", "--requests", "3", "--slots", "2",
                     "--workload", "repetitive", "--spec-decode", "3"])
 assert stats["spec_k"] == 3.0
+from repro_torch.runtime.arrivals import closed_stream, poisson_stream
+from repro_torch.runtime.server import SlotServer, clone_requests
+from repro_torch.obs import (SLOSpec, Tracer, slo_report, summary_table,
+                             window_series, write_chrome_trace, write_jsonl)
+from repro_torch.core import roofline
+tracer = Tracer()
+online = ChunkedServer(cfg, params, batch_slots=2, max_len=32, chunk=8,
+                       span=4, paged=False, tracer=tracer, device="cpu")
+reqs = sharegpt_like_requests(3, cfg.vocab_size, max_input=12,
+                              max_output=6, seed=1)
+slot_reqs = clone_requests(reqs)
+assert online.serve_online(poisson_stream(reqs, 500.0))["online"] == 1.0
+assert slo_report(tracer, SLOSpec(60.0, 60.0), 1.0)["met"] == 3
+assert window_series(tracer, 0.01) and summary_table(tracer)
+SlotServer(cfg, params, batch_slots=2, max_len=32, device="cpu").serve(
+    slot_reqs)
+assert [r.output for r in slot_reqs] == [r.output for r in reqs]
+assert roofline.paged_decode_speedup(20, block_size=8, max_blocks=4,
+                                     kv_heads=2, head_dim=16)
+stats = serve.main(["--device", "cpu", "--requests", "2", "--slots", "2",
+                    "--engine", "slot"])
+assert stats["requests"] == 2.0
 from repro_torch.benchmarks import run as bench_run
 bench_run.main(["--device", "cpu", "tc_energy", "tc_n_sweep",
                 "dpx_functions", "dsm"])

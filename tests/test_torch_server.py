@@ -227,11 +227,15 @@ def test_eos_stops_like_reference(weights):
 
 
 def test_deferred_options_raise(weights):
+    """Tensor parallelism is not ported; the contiguous layout is, but
+    refuses an fp8 pool as the reference does."""
     _, _, cfg, tp = weights
-    for kw in (dict(paged=False), dict(tp=2),
-               dict(tp=2, fp8_linear=True)):
+    for kw in (dict(tp=2), dict(tp=2, fp8_linear=True)):
         with pytest.raises(NotImplementedError):
             server.ChunkedServer(cfg, tp, device="cpu", **kw)
+    with pytest.raises(ValueError, match="paged"):
+        server.ChunkedServer(cfg, tp, device="cpu", paged=False,
+                             fp8_kv=True)
 
 
 def test_requests_match_reference_generators():

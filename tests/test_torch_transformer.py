@@ -174,7 +174,7 @@ def test_kernel_flag_paths_agree_on_cpu():
 
 def test_deferred_options_raise():
     _, cfg = _configs(4)
-    with pytest.raises(NotImplementedError):
-        api.init_cache(cfg, 2, 16, paged=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="paged"):
+        api.init_cache(cfg, 2, 16, paged=False, device="cpu", fp8_kv=True)
     with pytest.raises(NotImplementedError):
         api.param_shapes(reduced_config("dbrx-132b"))
