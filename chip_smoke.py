@@ -228,7 +228,32 @@ last line):
               card: a run that fails
               and restarts from its checkpoint gives the losses of an
               uninterrupted run bit for bit.
-Each serve phase, the benchmark runs of phases 8 and 9 and the
+ 11. memory_te — (a) the memory-hierarchy kernels (csrc/memory.cu)
+              against their plain versions, exactly: the pointer chase's
+              last index against the host walk's at every Table IV level
+              (L1 .ca 16 KB, shared 16 KB, L2 .cg 8 MB, device memory .cg
+              1 GB, on the reference's chain) and along the classic .cg
+              sweep from 4 KB to 1 GB by doubling (chains made on the
+              card; a level row past L1 within 10% of the sweep at its
+              size), cycles and %globaltimer ns a hop; the stream
+              y = 2x + 1 bitwise (8 MB x 256 passes from L2, 2 GB from
+              device memory) against torch.add's one call; one block an
+              SM reading 16 KB from shared memory and from L1, checksums
+              exact, bytes a clock an SM; each with its ms, plain ms and
+              bound; (b) te_linear and its backward on the card against
+              the port on the CPU on the same inputs, parameters, state
+              and cotangent at 66 tokens (not a multiple of 16), 256 ->
+              512: e4m3 and e5m2 codes and new states bitwise, y, dx, dw
+              within the stated limits; Fig. 4's sweep (N 256 to 16384,
+              bf16 against fp8 GFLOP/s, back to back and as a CUDA-graph
+              replay, the crossover) and one profiler pass of te_linear
+              at N=512 and 16384; (c) te_transformer_layer at Table II's
+              five hidden sizes, B=4, S=512: finite, histories rolled, B9
+              launched once a call on its wgmma body under sync debug
+              mode "error", its latency against layer_fwd's in bf16
+              (Fig. 5); then the memory_latency, memory_throughput,
+              te_linear and te_layer benchmarks through the kernels.
+Each serve phase, the benchmark runs of phases 8, 9 and 11 and the
 Trainer.run of phase 10 set their kernels' launch counts to 0 just
 before their main path and read them just after; phase 5b reads the
 paged kernels' counts (set to 0) after each spec wave, and its
@@ -236,8 +261,9 @@ launches join phase 5's in paged_chunk's and paged_chunk_fp8's counts,
 and phase 5e's join all four paged kernels' counts; phases 5, 5b and
 5e also read the counts around every work unit's dispatch, which gives
 the paged kernels' launches by work unit (chunk, span, verify).  Then one JSON line of
-per-kernel numbers (seventeen kernels; those with several bodies also
-their launches by body) and, last, the contract line
+per-kernel numbers (twenty kernels; those with several bodies also
+their launches by body, flash_attention its launches by path: Trainer
+and te_layer) and, last, the contract line
 {"ok": true, "device": {...}}.
 """
 
@@ -3533,6 +3559,9 @@ FLASH_CASES = [
     ("no-valid-key-bf16", "bfloat16", 1, 64, 96, 4, 2, 128, False, 8, 128),
     ("hd80-bf16", "bfloat16", 2, 2048, 2048, 16, 2, 80, True, 0, 0),
     ("hd80-f32", "float32", 1, 333, 333, 8, 2, 80, True, 64, 0),
+    # multi-head (KH = H) at head_dim 128: te_transformer_layer's shape
+    # at Table II's hidden 8192
+    ("te-h8192", "bfloat16", 4, 512, 512, 64, 64, 128, True, 0, 0),
 ]
 # B9 against its plain version: float32 o within 1e-4 (the reference's
 # kernel tests); bf16 o within one bf16 step of max |o| (2**-7 * max|o|);
@@ -3931,6 +3960,572 @@ def phase_training() -> tuple:
     return flash, launches, bodies
 
 
+# ----------------------------------------------------------------------
+# 11. memory hierarchy and Transformer Engine (Tables II, IV, V; Figs. 3-5)
+# ----------------------------------------------------------------------
+
+# the classic pointer-chase sweep, past L1 (.cg), 4 KB to 1 GB by doubling
+MEM_SWEEP = tuple(4096 << i for i in range(19))
+MEM_SWEEP_ITERS = 4096
+# a Table IV row past L1 and the sweep's point at its size chase chains
+# of one size through the same level: within 10% of each other
+PLATEAU_TOLERANCE = 0.10
+# shared memory's 32 banks of 4 bytes a clock, an SM
+SMEM_BYTES_PER_CLK = 128
+# te_linear card against CPU: 33 x 2 = 66 tokens (wgrad contracts over
+# them: not a multiple of 16), 256 -> 512
+TE_CHECK = (33, 2, 256, 512)
+# y and dx (bf16) within one bf16 step of each value, y, dx and dw within
+# 2**-8 of their largest |value|: the card sums the exact fp8 products on
+# the tensor cores, which keep about 14 bits between float32 promotions,
+# the CPU in float32 in another order
+TE_BF16_STEP = 2.0 ** -7
+TE_SUM_REL = 2.0 ** -8
+# te_transformer_layer on the card against the port on the CPU at this
+# Table II hidden size
+TE_LAYER_CPU_HIDDEN = 1024
+# te_linear calls a profiler pass records (after one warm-up step)
+TE_PROFILE_CALLS = 3
+# where a te_linear call's device time goes, by kernel name (the first
+# group whose pattern the name holds; the rest is "other")
+TE_KERNEL_GROUPS = {
+    "product (cuBLAS fp8)": ("gemm", "xmma", "nvjet", "cutlass"),
+    "amax (abs, reduce)": ("AbsFunctor", "reduce_kernel"),
+    "state update (history cat)": ("CatArrayBatchedCopy",),
+    "layout (zero fill, strided copies)": ("FillFunctor",
+                                           "at::native::elementwise_kernel<"),
+    "quantize (float casts, divide, clamp, fp8 cast)": (
+        "vectorized_elementwise_kernel", "unrolled_elementwise_kernel"),
+}
+
+
+def _sweep_chain(size: int, g):
+    """A random one-cycle chain of size // 8 int64 entries made on the
+    card (the sweep's; Table IV's rows use the reference's chain)."""
+    import torch
+    n = size // 8
+    perm = torch.randperm(n, generator=g, device=DEVICE)
+    chain = torch.empty_like(perm)
+    chain[perm] = perm.roll(1)
+    return chain
+
+
+def _chase_checked(what: str, chain, load: str, iters: int, warm: int):
+    """One chase on the card, its last index held to the host walk's.
+    Returns (cycles a hop, ns a hop, host walk ms)."""
+    from repro_torch.kernels import memory as mk
+    last, cycles, ns = mk.pchase(chain, load, iters=iters,
+                                 warm=warm).tolist()
+    t0 = time.perf_counter()
+    want = int(mk.pchase_plain(chain.cpu(), warm, iters)[0])
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if last != want:
+        fail(f"pchase {what}: last index {last}, the host walk's {want}")
+    return cycles / iters, ns / iters, plain_ms
+
+
+def phase_memory() -> tuple:
+    """11(a), before the benchmarks: the pointer-chase sweep (every
+    size's last index held to the host walk's), and the kernel-line
+    numbers the memory benchmarks do not give: a global-sized chase's
+    call time against its host walk, the stream's plain version and
+    torch.add yardstick, the on-chip read's plain version, and each
+    kernel's bound.  The benchmarks time the kernels and hold each to
+    its plain version.  Returns (cycles a hop by sweep size, results
+    keyed (kernel, case))."""
+    import torch
+    from repro_torch.benchmarks import memory as mb
+    from repro_torch.kernels import memory as mk
+    t0 = time.perf_counter()
+    _, mhz = _int_rate()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device=DEVICE).manual_seed(24)
+    global_size = next(s for n, _, s in mb.LEVELS if n == "global")
+    sweep, res = {}, {}
+    for size in MEM_SWEEP:
+        chain = _sweep_chain(size, g)
+        iters = MEM_SWEEP_ITERS
+        cyc, ns, _ = _chase_checked(f".cg {size} B", chain, "cg", iters,
+                                    mb.warm_hops(chain.numel(), iters))
+        sweep[size] = cyc
+        print(f"[memory] sweep .cg {size:>10} B: {cyc:7.1f} cycles "
+              f"{ns:7.1f} ns a hop (last index = host walk)", flush=True)
+        if size == global_size:
+            # the global row's work: its hops on a chain of its size
+            iters = mb.LATENCY_ITERS
+            warm = mb.warm_hops(chain.numel(), iters)
+            _, _, plain_ms = _chase_checked("global-sized", chain, "cg",
+                                            iters, warm)
+            ms = _time_ms(lambda: mk.pchase(chain, "cg", iters=iters,
+                                            warm=warm), 2, warm=0)
+            res[("pchase", "global")] = {
+                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": 8 * (warm + iters) / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "library_ms": None}
+        del chain
+    if ("pchase", "global") not in res:
+        fail(f"the sweep has no point at the global row's {global_size} B")
+    for name, size, passes in mb.STREAMS:
+        x = torch.arange(size // 4, dtype=torch.float32, device=DEVICE)
+        one = torch.ones((), device=DEVICE)
+        # the plain version and the library call make one pass a call:
+        # `passes` calls do the kernel's work
+        res[("stream", name)] = {
+            "max_abs_err": 0.0,
+            "plain_ms": _time_ms(lambda: mk.stream_plain(x), 5) * passes,
+            "library_ms": _time_ms(lambda: torch.add(one, x, alpha=2.0),
+                                   5) * passes,
+            "bound_ms": 2 * size * passes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+        del x
+    src = torch.arange(mk.BW_WORDS, dtype=torch.int32, device=DEVICE)
+    nbytes = sms * mb.ONCHIP_REPS * 4 * mk.BW_WORDS
+    for name, _ in mb.ONCHIP:
+        t1 = time.perf_counter()
+        mk.onchip_bw_plain(src, mb.ONCHIP_REPS, sms)
+        res[("onchip_bw", name)] = {
+            "max_abs_err": 0.0,
+            "plain_ms": (time.perf_counter() - t1) * 1e3,
+            "bound_ms": nbytes / (SMEM_BYTES_PER_CLK * sms * mhz * 1e6) * 1e3,
+            "bound_by": "bytes", "library_ms": None}
+    print(f"[memory] 11(a) sweep and plain versions in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return sweep, res
+
+
+def report_memory(rows: dict, sweep: dict, res: dict) -> None:
+    """11(a), after the benchmarks: Table IV and V from their rows, the
+    paper's H800 beside them; each row past L1 on the sweep's plateau at
+    its size; the kernel line's ms from the rows."""
+    import torch
+    from repro_torch.benchmarks import device_label
+    from repro_torch.benchmarks import memory as mb
+    label = device_label(DEVICE)
+    lat = {t.name: t for t in rows["memory_latency"]}
+    h800 = dict(zip(("L1", "shared", "L2", "global"),
+                    dict(mb.PAPER_LATENCY)["H800"]))
+    for name, load, size in mb.LEVELS:
+        t = lat[f"measured({label})/{name}"]
+        cyc, ns = t.derived, t.us_per_call * 1e3
+        on = ""
+        if load == "cg":
+            off = abs(cyc / sweep[size] - 1)
+            on = (f"; sweep at {size} B {sweep[size]:.1f} cycles "
+                  f"({off:.1%} off)")
+            if off > PLATEAU_TOLERANCE:
+                fail(f"pchase {name}: {cyc:.1f} cycles a hop, the sweep "
+                     f"{sweep[size]:.1f} at the same size")
+        print(f"[memory] Table IV {name} ({load}, {size} B, "
+              f"{mb.LATENCY_ITERS} hops): {cyc:.1f} cycles {ns:.1f} ns a "
+              f"hop, last index = host walk (paper H800 {h800[name]} "
+              f"cycles){on}", flush=True)
+    r = res[("pchase", "global")]
+    print(f"[memory] pchase global-sized call: ms={r['ms']:.4f} plain_ms="
+          f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} (bytes; a "
+          f"dependent chain measures latency)", flush=True)
+    thr = {t.name: t for t in rows["memory_throughput"]}
+    for name, size, passes in mb.STREAMS:
+        t = thr[f"measured({label})/{name}"]
+        r = res[("stream", name)]
+        r["ms"] = t.us_per_call / 1e3
+        nbytes = 2 * size * passes
+        print(f"[memory] Table V stream {name} ({size} B x {passes} "
+              f"passes): bitwise x * 2 + 1; ms={r['ms']:.4f} "
+              f"({t.derived:.1f} GB/s) plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} (torch.add, {passes} "
+              f"calls: {nbytes / r['library_ms'] / 1e6:.1f} GB/s) "
+              f"bound_ms={r['bound_ms']:.5f} (bytes over the device-memory "
+              f"rate; L2-resident passes can beat it) "
+              f"{r['ms'] / r['bound_ms']:.2f}x bound", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, _ in mb.ONCHIP:
+        t = thr[f"measured({label})/{name}_bytes_per_clk_per_sm"]
+        r = res[("onchip_bw", name)]
+        r["ms"] = t.us_per_call / 1e3
+        print(f"[memory] Table V {name}: {sms} blocks x {mb.ONCHIP_REPS} x "
+              f"16 KB, checksums equal; {t.derived:.1f} bytes/clk/SM; "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.5f} (bytes at {SMEM_BYTES_PER_CLK} "
+              f"B/clk/SM) {r['ms'] / r['bound_ms']:.2f}x bound", flush=True)
+    ratio = thr[f"measured({label})/l2_vs_global_ratio"].derived
+    print(f"[memory] Table V L2 / global {ratio:.3f} (paper: RTX4090 4.67, "
+          f"A100 2.01, H800 4.23); paper H800 global "
+          f"{dict(mb.PAPER_GLOBAL_GBPS)['H800']} GB/s", flush=True)
+
+
+def _te_err(name: str, got, want, step: float) -> float:
+    """|card - CPU| against one `step` of each value plus TE_SUM_REL of
+    the largest |value|; fails past it.  Returns the error over the
+    largest |value|."""
+    a, b = want.float(), got.detach().float().cpu()
+    top = a.abs().max().item()
+    err = (a - b).abs()
+    over = (err > step * a.abs() + TE_SUM_REL * top).sum().item()
+    rel = err.max().item() / top
+    print(f"[te] te_linear {name}: max |card - CPU| {err.max().item():.3e} "
+          f"= {rel:.3e} of max |{name}| {top:.3f} (limit {step:g} of each "
+          f"value + {TE_SUM_REL:g} of the max); {over} over", flush=True)
+    if over:
+        fail(f"te_linear {name}: {over} values past the limit")
+    return rel
+
+
+def _bits(t):
+    """The bytes of a tensor, on the host."""
+    import torch
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+def phase_te_linear_check() -> None:
+    """11(b): te_linear and its backward on the card against the port on
+    the CPU on the same inputs, parameters, state and cotangent, at a
+    token count that is not a multiple of 16."""
+    import numpy as np
+    import torch
+    from repro_torch.te import fp8
+    from repro_torch.te.fp8 import E4M3, E5M2, DelayedScalingRecipe
+    from repro_torch.te import linear
+    B, S, K, N = TE_CHECK
+    recipe = DelayedScalingRecipe()
+    rng = np.random.default_rng(24)
+    w = torch.from_numpy((rng.standard_normal((K, N)) * K ** -0.5)
+                         .astype(np.float32))
+    xs = [torch.from_numpy(rng.standard_normal((B, S, K)) * s).to(
+        torch.bfloat16) for s in (1.0, 3.0)]
+    g = torch.from_numpy(rng.standard_normal((B, S, N)) * 2.0).to(
+        torch.bfloat16)
+    outs = {}
+    for dev in ("cpu", DEVICE):
+        st = linear.init_state(recipe, dev)
+        p = {"w": w.to(dev)}
+        _, st = linear.te_linear(p, st, xs[0].to(dev), recipe)   # warm
+        x = xs[1].to(dev).detach().clone().requires_grad_()
+        wg = p["w"].detach().clone().requires_grad_()
+        y, new = linear.te_linear({"w": wg}, st, x, recipe)
+        y.backward(g.to(dev))
+        sg = fp8.compute_scale(fp8.amax(g.to(dev)), E5M2)
+        outs[dev] = {
+            "xq": fp8.quantize(x.detach(), st["x"]["scale"], E4M3),
+            "wq": fp8.quantize(wg.detach(), st["w"]["scale"], E4M3),
+            "gq": fp8.quantize(g.to(dev), sg, E5M2), "sg": sg,
+            "state": new, "y": y.detach(), "dx": x.grad, "dw": wg.grad}
+    cpu, card = outs["cpu"], outs[DEVICE]
+    for k in ("xq", "wq", "gq", "sg"):
+        if not torch.equal(_bits(card[k]), _bits(cpu[k])):
+            fail(f"te_linear: the card's {k} differs from the CPU's")
+    for t in ("x", "w"):
+        for f in ("history", "scale"):
+            if not torch.equal(_bits(card["state"][t][f]),
+                               _bits(cpu["state"][t][f])):
+                fail(f"te_linear: new state {t}/{f} differs card vs CPU")
+    print(f"[te] te_linear {B}x{S} tokens, {K} -> {N}: e4m3 codes of x and "
+          f"w, e5m2 codes and scale of the cotangent, and the new states "
+          f"bitwise equal card vs CPU", flush=True)
+    _te_err("y", card["y"], cpu["y"], TE_BF16_STEP)
+    _te_err("dx", card["dx"], cpu["dx"], TE_BF16_STEP)
+    _te_err("dw", card["dw"], cpu["dw"], 0.0)
+
+
+class _KeepAttentionInputs:
+    """Within the block, models/attention.flash_attention keeps the q, k,
+    v and options of its last call in `args`, and runs as before."""
+
+    def __enter__(self):
+        from repro_torch.models import attention
+        self.orig = orig = attention.flash_attention
+
+        def keep(q, k, v, **kw):
+            self.args = (q.detach(), k.detach(), v.detach(), kw)
+            return orig(q, k, v, **kw)
+
+        attention.flash_attention = keep
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+        attention.flash_attention = self.orig
+
+
+def _te_flash_check(hidden: int, args) -> None:
+    """B9 on the te layer's own q, k, v against its plain version, at
+    FLASH_BF16_STEP of max |o| and FLASH_F32_LIMIT of the lse."""
+    from repro_torch.kernels import flash_attention as kfa
+    q, k, v, kw = args
+    o, lse = kfa.flash_attention_fwd(q, k, v, **kw)
+    po, plse = kfa.flash_attention_fwd_plain(q, k, v, **kw)
+    err = (o.float() - po.float()).abs().max().item()
+    top = po.float().abs().max().item()
+    lse_err = _lse_err(lse, plse)
+    ok = err <= FLASH_BF16_STEP * top and lse_err <= FLASH_F32_LIMIT
+    print(f"[te] h{hidden} B9 on the layer's q {tuple(q.shape)}, k "
+          f"{tuple(k.shape)} {q.dtype} {kw}: max_abs_err o={err:.3e} "
+          f"(limit {FLASH_BF16_STEP * top:.3e}, max|o| {top:.3f}) lse="
+          f"{lse_err:.3e} (relative, limit {FLASH_F32_LIMIT:.0e}) "
+          f"{'ok' if ok else 'OVER LIMIT'}", flush=True)
+    if not ok:
+        fail(f"te_transformer_layer h{hidden}: B9 o error {err}, lse error "
+             f"{lse_err} against its plain version")
+
+
+def _histories(tree, path=""):
+    """(path, history) of every fp8 state in a state tree."""
+    if "history" in tree:
+        return [(path, tree["history"])]
+    return [x for k in tree for x in _histories(tree[k], f"{path}/{k}")]
+
+
+def _te_layer_vs_cpu(cfg, params, x, y, new) -> None:
+    """te_transformer_layer's second call from a fresh state, card (y,
+    new) against the port on the CPU on the same weights and input: the
+    weight histories bitwise; the output nearer the CPU's than the CPU's
+    fp8 output is to the bf16 layer_fwd on the same weights (the CPU
+    tests' fp8 bar: e4m3 turns a one-step bf16 difference into a
+    one-step e4m3 difference)."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.te.fp8 import DelayedScalingRecipe
+    from repro_torch.te.layer import (te_transformer_layer,
+                                      transformer_layer_state)
+    recipe = DelayedScalingRecipe()
+    t0 = time.perf_counter()
+    p = _tree_to(params, "cpu")
+    xc = x.cpu()
+    st = transformer_layer_state(cfg, recipe, "cpu")
+    _, st = te_transformer_layer(cfg, p, st, xc, recipe)
+    want, st = te_transformer_layer(cfg, p, st, xc, recipe)
+    d, H, KH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lp = {"ln1": p["ln1"], "ln2": p["mlp"]["ln"],
+          "attn": {"wq": p["wq"]["w"].reshape(d, H, hd),
+                   "wk": p["wk"]["w"].reshape(d, KH, hd),
+                   "wv": p["wv"]["w"].reshape(d, KH, hd),
+                   "wo": p["wo"]["w"].reshape(H, hd, d)},
+          "mlp": {"w_up": p["mlp"]["up"]["w"],
+                  "w_gate": p["mlp"]["gate"]["w"],
+                  "w_down": p["mlp"]["down"]["w"]}}
+    B, S = xc.shape[:2]
+    bf16, _ = transformer.layer_fwd(cfg, lp, xc,
+                                    torch.arange(S).expand(B, S))
+    diff = (y.float().cpu() - want.float()).abs().max().item()
+    quant = (want.float() - bf16.float()).abs().max().item()
+    weights, act = 0, 0.0
+    for (path, a), (_, b) in zip(_histories(st), _histories(new)):
+        if path.endswith("/w"):
+            weights += 1
+            if not torch.equal(_bits(a), _bits(b)):
+                fail(f"te_transformer_layer: weight history {path} differs "
+                     f"card vs CPU")
+        else:
+            top = a.abs().max().item()
+            act = max(act, (a - b.cpu()).abs().max().item() / top)
+    print(f"[te] te_transformer_layer h{cfg.d_model} B={B} S={S} card vs "
+          f"CPU (second call from a fresh state): max |card - CPU| "
+          f"{diff:.4f}, max |CPU fp8 - CPU bf16 layer_fwd| {quant:.4f} "
+          f"(ratio {diff / quant:.3f}, limit 1); {weights} weight histories "
+          f"bitwise; activation histories within {act:.3e} (relative); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not diff < quant:
+        fail(f"te_transformer_layer: card vs CPU {diff}, not under the fp8 "
+             f"bar {quant}")
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_te_layer() -> None:
+    """11(c): te_transformer_layer at Table II's five hidden sizes, B=4,
+    S=512, from a fresh state: B9 on the layer's own q, k, v against its
+    plain version; the second call finite, histories rolled, B9 launched
+    once on its wgmma body, no host synchronization; at
+    TE_LAYER_CPU_HIDDEN the card against the port on the CPU."""
+    import torch
+    from repro_torch.benchmarks import te_layer as bt
+    from repro_torch.configs.llama_te import te_layer_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.te.fp8 import DelayedScalingRecipe
+    from repro_torch.te.layer import (te_transformer_layer,
+                                      transformer_layer_specs,
+                                      transformer_layer_state)
+    recipe = DelayedScalingRecipe()
+    B, S = bt.CARD_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(25)
+    for hidden in bt.CARD_HIDDEN:
+        cfg = te_layer_config(hidden)
+        params = bt._params(transformer_layer_specs(cfg), 0, DEVICE)
+        state = transformer_layer_state(cfg, recipe, DEVICE)
+        x = torch.randn((B, S, hidden), generator=g,
+                        device=DEVICE).to(torch.bfloat16)
+        with _KeepAttentionInputs() as kept:
+            _, state = te_transformer_layer(cfg, params, state, x, recipe)
+        _te_flash_check(hidden, kept.args)
+        del kept
+        torch.cuda.synchronize()
+        kfa.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, new = te_transformer_layer(cfg, params, state, x, recipe)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        launches, bodies = kfa.launch_counts(), kfa.body_launches()
+        hist = new["wq"]["x"]["history"]
+        if not torch.isfinite(y.float()).all():
+            fail(f"te_transformer_layer h{hidden}: non-finite output")
+        if not (hist[:2] > 0).all() or hist[2:].any():
+            fail(f"te_transformer_layer h{hidden}: history {hist.tolist()} "
+                 "did not roll by one a call")
+        if launches["flash_attention"] != 1 or bodies["wgmma"] != 1:
+            fail(f"te_transformer_layer h{hidden}: B9 launches {launches}, "
+                 f"by body {bodies}; expected one on wgmma")
+        print(f"[te] te_transformer_layer h{hidden} (ffn {cfg.d_ff}, "
+              f"{cfg.num_heads} heads of {cfg.head_dim}), B={B} S={S}: "
+              f"finite, histories rolled, B9 once on wgmma, no host sync",
+              flush=True)
+        if hidden == TE_LAYER_CPU_HIDDEN:
+            _te_layer_vs_cpu(cfg, params, x, y, new)
+        del params, state, new, y, x
+        torch.cuda.empty_cache()
+
+
+def report_te(rows: dict) -> None:
+    """11(b) and (c), after the benchmarks: Fig. 4 (bf16 and fp8 GFLOP/s
+    a size, back to back and as a graph replay; the crossover and the
+    largest ratio; the quantize fraction) and Fig. 5 (fp8 / bf16 a
+    hidden size) from the te_linear and te_layer rows."""
+    from repro_torch.benchmarks import device_label
+    from repro_torch.benchmarks import te_layer as bt
+    from repro_torch.benchmarks import te_linear as bl
+    label = device_label(DEVICE)
+    lin = {t.name: t.derived for t in rows["te_linear"]}
+    rates = {}
+    for n in bl.CARD_SIZES:
+        r = {f"{t}{s}": lin[f"measured({label})/{t}/N{n}{s}"]
+             for t in ("bf16", "fp8") for s in ("", "/graph")}
+        rates[n] = r["fp8"] / r["bf16"]
+        print(f"[te] Fig. 4 N={n}: bf16 {r['bf16']:.1f} GFLOP/s (graph "
+              f"{r['bf16/graph']:.1f}), fp8 {r['fp8']:.1f} (graph "
+              f"{r['fp8/graph']:.1f}); fp8 / bf16 {rates[n]:.3f} (graph "
+              f"{r['fp8/graph'] / r['bf16/graph']:.3f})", flush=True)
+    wins = [n for n in bl.CARD_SIZES if rates[n] > 1]
+    best = max(bl.CARD_SIZES, key=rates.get)
+    print(f"[te] Fig. 4: fp8 first beats bf16 at N={wins[0] if wins else None}"
+          f"; largest fp8 / bf16 {rates[best]:.3f} at N={best}; quantize "
+          f"fraction at N=512 "
+          f"{lin[f'measured({label})/quantize_fraction_N512']:.3f}",
+          flush=True)
+    lay = {t.name: t.us_per_call for t in rows["te_layer"]}
+    B, S = bt.CARD_SHAPE
+    for hidden in bt.CARD_HIDDEN:
+        f8, b16 = (lay[f"measured({label})/{t}/h{hidden}"] / 1e3
+                   for t in ("fp8", "bf16"))
+        print(f"[te] Fig. 5 h{hidden}, B={B} S={S}: fp8 {f8:.4f} ms, bf16 "
+              f"layer_fwd {b16:.4f} ms, fp8 / bf16 {f8 / b16:.3f}",
+              flush=True)
+    print("[te] paper (Fig. 5): fp8 beats 16-bit only above hidden 4096",
+          flush=True)
+
+
+def phase_te_profile() -> None:
+    """Where a te_linear call's device time goes at N=512 and at the
+    largest N: one profiler pass of TE_PROFILE_CALLS calls after a
+    warm-up step, by kernel group, a call being one launch of the fp8
+    product's kernel as the profiler saw them."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.benchmarks import te_linear as bl
+    from repro_torch.te.fp8 import DelayedScalingRecipe
+    from repro_torch.te.linear import init_state, te_linear
+    recipe = DelayedScalingRecipe()
+    product = TE_KERNEL_GROUPS["product (cuBLAS fp8)"]
+    for n in (512, bl.CARD_SIZES[-1]):
+        params, x = bl.layer_inputs(n, DEVICE)
+        st = init_state(recipe, DEVICE)
+        _, st = te_linear(params, st, x, recipe)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1,
+                                       active=TE_PROFILE_CALLS,
+                                       repeat=1)) as prof:
+            for _ in range(1 + TE_PROFILE_CALLS):
+                te_linear(params, st, x, recipe)
+                torch.cuda.synchronize()
+                prof.step()
+        # the schedule's step spans are annotations, not kernels
+        by_name = collections.Counter({
+            k: ms for k, ms in _device_ms_by_kernel(prof, 1).items()
+            if not k.startswith("ProfilerStep")})
+        gemms = collections.Counter(
+            e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and any(p in e.name for p in product))
+        calls = max(gemms.values(), default=0)
+        if not calls:
+            fail(f"te_linear N={n}: the profiler saw no fp8 product "
+                 f"({len(by_name)} kernel names)")
+        groups = {k: 0.0 for k in TE_KERNEL_GROUPS}
+        for name, ms in by_name.items():
+            k = next((k for k, keys in TE_KERNEL_GROUPS.items()
+                      if any(key in name for key in keys)), "other")
+            groups[k] = groups.get(k, 0.0) + ms / calls
+        dev = sum(by_name.values()) / calls
+        print(f"[te] profile te_linear N={n}: {calls} calls seen of "
+              f"{TE_PROFILE_CALLS} (product launches {dict(gemms)}); device "
+              f"{dev:.4f} ms a call: " + "; ".join(
+                  f"{k} {ms:.4f}" for k, ms in groups.items())
+              + "; kernels (ms a call): " + "; ".join(
+                  f"{nm[:150]} {ms / calls:.4f}"
+                  for nm, ms in by_name.most_common(12)), flush=True)
+        del params, x, st
+
+
+def phase_memory_te() -> tuple:
+    """Phase 11, all of it: the checks and plain versions of (a)-(c),
+    then the memory_latency, memory_throughput, te_linear and te_layer
+    benchmarks, the main path of this phase, with the counts set to 0
+    just before and read just after; then the tables from their rows and
+    the te_linear profile.  Returns (results by (kernel, case), the
+    memory kernels' launches, B9's launches, B9's launches by body)."""
+    import torch
+    from repro_torch.benchmarks import run as _registers  # noqa: F401
+    from repro_torch.core import bench
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import memory as mk
+    t0 = time.perf_counter()
+    sweep, res = phase_memory()
+    phase_te_linear_check()
+    phase_te_layer()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mk.reset_launch_counts()
+    kfa.reset_launch_counts()
+    t1 = time.perf_counter()
+    rows = {}
+    if bench.run_all(["memory_latency", "memory_throughput", "te_linear",
+                      "te_layer"], fail_fast=True,
+                     device=torch.device(DEVICE), rows=rows):
+        fail("a memory or TE benchmark failed")
+    torch.cuda.synchronize()
+    launches, flash = mk.launch_counts(), kfa.launch_counts()
+    bodies = kfa.body_launches()
+    print(f"[te] benchmarks ran in {time.perf_counter() - t1:.1f} s; launch "
+          f"counts {launches}, flash_attention {flash} by body {bodies}",
+          flush=True)
+    if min(launches.values()) <= 0 or flash["flash_attention"] <= 0:
+        fail(f"a kernel of the memory / TE path was never launched: "
+             f"{launches}, {flash}")
+    torch.cuda.empty_cache()
+    report_memory(rows, sweep, res)
+    report_te(rows)
+    phase_te_profile()
+    torch.cuda.empty_cache()
+    print(f"[te] phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return res, launches, flash["flash_attention"], bodies
+
+
 def main() -> None:
     t_start = time.perf_counter()
     device = phase_card()
@@ -3984,6 +4579,7 @@ def main() -> None:
     mm_results, mm_launches, mm_bodies = phase_matmul()
     dd_results, dd_launches, dd_bodies = phase_dpx_dsm()
     flash_results, flash_launches, flash_bodies = phase_training()
+    mem_results, mem_launches, te_flash, te_bodies = phase_memory_te()
     line = []
     for name, line_no in (("paged_decode", 163), ("paged_chunk", 252),
                           ("paged_decode_fp8", 147),
@@ -4080,11 +4676,29 @@ def main() -> None:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
-        "launches": flash_launches["flash_attention"],
-        "launches_by_body": flash_bodies,
+        "launches": flash_launches["flash_attention"] + te_flash,
+        "launches_by_path": {"trainer": flash_launches["flash_attention"],
+                             "te_layer": te_flash},
+        "launches_by_body": {b: n + te_bodies.get(b, 0)
+                             for b, n in flash_bodies.items()},
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # not TPU kernels: what each measures on the card, the reference
+    # times on the host
+    for name, case, replaces in (
+            ("pchase", "global", "benchmarks/memory.py:22"),
+            ("stream", "global", "benchmarks/memory.py:40"),
+            ("onchip_bw", "shared", "benchmarks/memory.py:84")):
+        r = mem_results[(name, case)]
+        line.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/memory.cu",
+            "replaces": f"not a TPU kernel ({replaces})",
+            "launches": mem_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -2,10 +2,12 @@
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [names...] [--device cpu]
 
-Registers the tensor-core (``tc_mma``, ``tc_wgmma``, ``tc_n_sweep``,
-``tc_energy``), async-copy (``async_copy``), DPX (``dpx_functions``,
-``dpx_kernels``) and distributed-shared-memory (``dsm``) benchmarks and
-prints ``name,us_per_call,derived`` CSV (plus # section markers).  Runs on the
+Registers the memory-hierarchy (``memory_latency``,
+``memory_throughput``), tensor-core (``tc_mma``, ``tc_wgmma``,
+``tc_n_sweep``, ``tc_energy``), async-copy (``async_copy``), DPX
+(``dpx_functions``, ``dpx_kernels``), distributed-shared-memory
+(``dsm``) and Transformer Engine (``te_linear``, ``te_layer``)
+benchmarks and prints ``name,us_per_call,derived`` CSV (plus # section markers).  Runs on the
 CUDA device unless ``--device`` names another; without CUDA and without
 ``--device cpu`` it raises.  Exits non-zero if any benchmark failed.
 """
@@ -17,6 +19,7 @@ from typing import List, Optional
 
 # importing registers every benchmark
 from repro_torch.benchmarks import (async_copy, dpx, dsm,  # noqa: F401
+                                    memory, te_layer, te_linear,
                                     tensorcore)
 from repro_torch.core.bench import run_all
 from repro_torch.models.common import resolve_device

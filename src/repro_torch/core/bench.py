@@ -43,10 +43,12 @@ def registry() -> Dict[str, Benchmark]:
 
 
 def run_all(names: Optional[List[str]] = None, fail_fast: bool = False,
-            device=None) -> int:
+            device=None, rows: Optional[Dict[str, List[Timing]]] = None
+            ) -> int:
     """Run (a subset of) the registry on `device` (the CUDA device
     unless the caller names one; without CUDA that raises), printing
-    CSV.  Returns #failures."""
+    CSV.  With `rows`, each benchmark's rows are also kept there under
+    its name.  Returns #failures."""
     device = resolve_device(device)
     failures = 0
     print("name,us_per_call,derived")
@@ -55,8 +57,11 @@ def run_all(names: Optional[List[str]] = None, fail_fast: bool = False,
             continue
         print(f"# --- {bname} ({bench.paper_ref}) ---")
         try:
-            for t in bench.fn(device):
+            out = bench.fn(device)
+            for t in out:
                 print(t.row())
+            if rows is not None:
+                rows[bname] = out
         except Exception:  # noqa: BLE001 - report and continue
             failures += 1
             print(f"# FAILED {bname}")

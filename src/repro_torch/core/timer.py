@@ -103,6 +103,38 @@ def measure(
     )
 
 
+def measure_graph(
+    fn: Callable[[], Any],
+    *,
+    name: str = "",
+    calls: int = 10,
+    reps: int = 3,
+) -> Timing:
+    """Device time of one call of CUDA work: `calls` calls captured in
+    one CUDA graph (no host time between launches), replayed once to
+    warm and then `reps` times, each replay timed with CUDA events.
+    One eager call first (it builds and loads what the capture needs)."""
+    _block(fn())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) * 1e3 / calls)
+    del graph
+    return Timing(name=name, us_per_call=statistics.mean(samples),
+                  std_us=statistics.pstdev(samples), reps=reps)
+
+
 def measure_jitted(
     fn: Callable[..., Any],
     args: Sequence[Any],

@@ -129,6 +129,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # x, out, cluster size, piece length, stream
         "all_to_all_fwd": (_P, _P, _I, _L, _P),
     },
+    "memory.cu": {
+        # load, chain, n, warm, iters, out, stream
+        "pchase_fwd": (_I, _P, _L, _L, _I, _P, _P),
+        # x, y, n, passes, stream
+        "stream_fwd": (_P, _P, _L, _I, _P),
+        # mode, src twice over, reps, blocks, sums, cycles, stream
+        "onchip_bw_fwd": (_I, _P, _I, _I, _P, _P, _P),
+    },
 }
 
 

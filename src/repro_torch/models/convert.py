@@ -1,10 +1,13 @@
 """Bridge the reference's parameters into the port.
 
-``from_reference`` takes the reference's parameter tree as numpy arrays
-(``jax.tree_util.tree_map(np.asarray, params)``: nested dicts with
-stacked ``[L, ...]`` layer leaves) and returns the port's tree on
-`device`.  The two packages share the layout, so each leaf keeps its
-shape and values and both compute the same function.
+``from_reference_tree`` takes a parameter tree of the reference as
+numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``: nested
+dicts) and returns the port's tree on `device`, checked leaf by leaf
+against a spec tree of the port (a model's ``api.param_shapes(cfg)``,
+a TE layer's ``transformer_layer_specs(cfg)``, ...);
+``from_reference`` is the walk over a model's specs.  The two packages
+share the layout, so each leaf keeps its shape and values and both
+compute the same function.
 """
 
 from __future__ import annotations
@@ -36,10 +39,10 @@ def to_torch(a: np.ndarray, device=None) -> torch.Tensor:
     return t.to(device)
 
 
-def from_reference(np_params: Dict[str, Any], cfg,
-                   device=None) -> Dict[str, Any]:
-    """The reference's numpy parameter tree as the port's parameters,
-    checked leaf by leaf against ``api.param_shapes(cfg)``."""
+def from_reference_tree(np_params: Dict[str, Any], specs,
+                        device=None) -> Dict[str, Any]:
+    """A numpy parameter tree as the port's tensors, checked leaf by
+    leaf (keys and shapes) against the spec tree `specs`."""
     dev = resolve_device(device)
 
     def walk(spec, tree, path):
@@ -53,4 +56,11 @@ def from_reference(np_params: Dict[str, Any], cfg,
                              f"{sorted(spec)}")
         return {k: walk(spec[k], tree[k], f"{path}/{k}") for k in spec}
 
-    return walk(api.param_shapes(cfg), np_params, "")
+    return walk(specs, np_params, "")
+
+
+def from_reference(np_params: Dict[str, Any], cfg,
+                   device=None) -> Dict[str, Any]:
+    """The reference's numpy model parameters as the port's, checked
+    against ``api.param_shapes(cfg)``."""
+    return from_reference_tree(np_params, api.param_shapes(cfg), device)

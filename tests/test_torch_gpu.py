@@ -43,6 +43,16 @@ graph replays equal eager units bit for bit and no paged kernel runs
 `serve_online` on a closed stream equals `serve()`, and sync debug
 mode finds no synchronization around a warm online wave that a
 `serve()` wave does not have, and none inside a dispatch.
+The memory-hierarchy kernels (kernels/memory.py): the chase's last
+index, the stream and the on-chip checksums exactly their plain
+versions'.  The Transformer Engine slice (te/): `fp8_dot` at K and N
+that are not multiples of 16 and on mixed e4m3 / e5m2 operands within
+2**-8 of the largest |value| of the plain product (fp8 tensor-core sums
+keep about 14 bits between float32 promotions); `te_linear` forward and
+backward on the card against the port on the CPU (codes and states
+bitwise, outputs within one bf16 step of each value plus 2**-8 of the
+largest); `te_transformer_layer` with no host synchronization and one
+B9 launch a call; the memory and TE benchmarks through the kernels.
 """
 
 import collections
@@ -63,6 +73,7 @@ from repro_torch.kernels import dsm as dsk
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import fp8_matmul as f8k
 from repro_torch.kernels import matmul as mmk
+from repro_torch.kernels import memory as memk
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pk
 from repro_torch.models import api, attention, sampling, transformer
@@ -1682,7 +1693,9 @@ def test_dissection_benchmarks_run_on_card(cuda):
     assert all(v > 0 for v in counts.values()), counts
     assert set(bench.registry()) == {"tc_mma", "tc_wgmma", "tc_n_sweep",
                                      "tc_energy", "async_copy",
-                                     "dpx_functions", "dpx_kernels", "dsm"}
+                                     "dpx_functions", "dpx_kernels", "dsm",
+                                     "memory_latency", "memory_throughput",
+                                     "te_linear", "te_layer"}
     assert run.main(["tc_energy"]) is None
 
 
@@ -2146,6 +2159,8 @@ FLASH_CASES = [   # chip_smoke.py phase 10(a), at small sizes
     ("bfloat16", 2, 200, 200,  8,  2, 64, False,  0,   0),
     ("bfloat16", 2, 130, 390,  8,  2, 128, True, 100, 260),
     ("bfloat16", 1, 700, 700,  8,  1, 64, True, 100,   0),
+    # multi-head at head_dim 128: te_transformer_layer's attention
+    ("bfloat16", 2, 512, 512, 16, 16, 128, True,  0,   0),
     # head_dim 80: bf16 on mma_sync, float32 on fma
     ("bfloat16", 2, 333, 333,  8,  2, 80, True,   0,   0),
     ("bfloat16", 1, 300, 300,  8,  2, 80, True,  64,   0),
@@ -2350,3 +2365,204 @@ def test_trainer_on_card_restarts_bit_exact(cuda, tmp_path):
     assert dict(a) == dict(b) and a[2] == a[3]
     assert all(np.isfinite([loss for _, loss in b]))
     assert lb["flash_attention"] == 6 * 2 * cfg.num_layers
+
+
+# ----------------------------------------------------------------------
+# memory hierarchy (Tables IV, V) and the Transformer Engine slice
+# ----------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [4096, 16 << 10, 200 << 10])
+def test_pchase_walks_the_chain_on_card(cuda, size):
+    nxt = memk.pointer_chain(size)
+    chain = torch.tensor(nxt, device=cuda)
+    loads = ("ca", "cg", "shared") if size <= memk.SHARED_CHAIN_BYTES \
+        else ("ca", "cg")
+    for load in loads:
+        for warm, iters in ((0, 1), (len(nxt), 999), (5, 4096)):
+            before = memk.pchase.launches
+            got = memk.pchase(chain, load, iters=iters, warm=warm).cpu()
+            want = memk.pchase_plain(chain.cpu(), warm, iters)
+            assert memk.pchase.launches == before + 1
+            assert int(got[0]) == int(want[0]), (load, warm, iters)
+            assert int(got[1]) > 0 and int(got[2]) >= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,passes", [(4099, 1), (1 << 20, 3), (5, 2)])
+def test_stream_bitwise_on_card(cuda, n, passes):
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(n)
+                         .astype(np.float32) * 1e3).to(cuda)
+    y = memk.stream(x, passes)
+    assert torch.equal(y.view(torch.int32),
+                       memk.stream_plain(x).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(memk.BW_MODES))
+def test_onchip_bw_checksums_on_card(cuda, mode):
+    src = torch.randint(-2 ** 31, 2 ** 31 - 1, (memk.BW_WORDS,),
+                        dtype=torch.int32, device=cuda)
+    for reps in (8, 64):
+        sums, cycles = memk.onchip_bw(src, mode, reps=reps)
+        want, _ = memk.onchip_bw_plain(src, reps, sums.numel())
+        assert torch.equal(sums.cpu(), want)
+        assert (cycles > 0).all()
+    assert sums.numel() == torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+
+
+def _fp8_codes(shape, fmt, seed, device):
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(shape)
+                         .astype(np.float32) * 20)
+    return x.to(fmt).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(66, 256, 512), (33, 40, 24), (5, 7, 3),
+                                   (128, 80, 48)])
+@pytest.mark.parametrize("fx,fw", [("e4m3", "e4m3"), ("e5m2", "e4m3"),
+                                   ("e4m3", "e5m2")])
+def test_fp8_dot_any_shape_and_mixed_formats(cuda, M, K, N, fx, fw):
+    fmts = {"e4m3": fp8.E4M3, "e5m2": fp8.E5M2}
+    xq = _fp8_codes((M, K), fmts[fx], M * K, cuda)
+    wq = _fp8_codes((K, N), fmts[fw], K * N + 1, cuda)
+    sx, sw = (torch.tensor(v, device=cuda) for v in (0.013, 0.7))
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for w in (wq, wq.t().contiguous().t()):    # row- and column-major
+            got = fp8.fp8_dot(xq, sx, w, sw, out_dtype)
+            want = fp8.fp8_dot(xq.cpu(), sx.cpu(), w.cpu(), sw.cpu(),
+                               out_dtype)
+            assert got.shape == (M, N) and got.dtype == out_dtype
+            top = want.float().abs().max()
+            step = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
+            lim = step * want.float().abs() + 2.0 ** -8 * top
+            assert ((got.float().cpu() - want.float()).abs() <= lim).all()
+
+
+@pytest.mark.gpu
+def test_te_linear_forward_backward_on_card_vs_cpu(cuda):
+    from repro_torch.te import linear
+    recipe = fp8.DelayedScalingRecipe()
+    rng = np.random.default_rng(24)
+    w = torch.from_numpy((rng.standard_normal((256, 512)) / 16)
+                         .astype(np.float32))
+    xs = [torch.from_numpy(rng.standard_normal((33, 2, 256)) * s).to(
+        torch.bfloat16) for s in (1.0, 3.0)]
+    g = torch.from_numpy(rng.standard_normal((33, 2, 512))).to(
+        torch.bfloat16)
+    outs = []
+    for dev in ("cpu", cuda):
+        st = linear.init_state(recipe, dev)
+        _, st = linear.te_linear({"w": w.to(dev)}, st, xs[0].to(dev), recipe)
+        x = xs[1].to(dev).detach().clone().requires_grad_()
+        wg = w.to(dev).detach().clone().requires_grad_()
+        y, new = linear.te_linear({"w": wg}, st, x, recipe)
+        y.backward(g.to(dev))
+        outs.append((y.detach().cpu(), x.grad.cpu(), wg.grad.cpu(),
+                     {t: {f: v.cpu() for f, v in new[t].items()}
+                      for t in new},
+                     fp8.quantize(x.detach(), st["x"]["scale"]).cpu()))
+    (y0, dx0, dw0, st0, xq0), (y1, dx1, dw1, st1, xq1) = outs
+    assert torch.equal(xq0.view(torch.uint8), xq1.view(torch.uint8))
+    for t in st0:
+        for f in st0[t]:
+            assert torch.equal(st0[t][f], st1[t][f]), (t, f)
+    for want, got, step in ((y0, y1, 2.0 ** -7), (dx0, dx1, 2.0 ** -7),
+                            (dw0, dw1, 0.0)):
+        a, b = want.float(), got.float()
+        lim = step * a.abs() + 2.0 ** -8 * a.abs().max()
+        assert ((a - b).abs() <= lim).all()
+
+
+@pytest.mark.gpu
+def test_te_transformer_layer_on_card_syncs_not(cuda):
+    from repro_torch.configs.llama_te import te_layer_config
+    from repro_torch.models.common import init_params
+    from repro_torch.te import layer
+    cfg = te_layer_config(1024)
+    recipe = fp8.DelayedScalingRecipe()
+    params = init_params(layer.transformer_layer_specs(cfg),
+                         torch.Generator(device=cuda).manual_seed(0), cuda,
+                         torch.float32)
+    state = layer.transformer_layer_state(cfg, recipe, cuda)
+    x = torch.randn((2, 200, 1024), device=cuda).to(torch.bfloat16)
+    _, state = layer.te_transformer_layer(cfg, params, state, x, recipe)
+    torch.cuda.synchronize()
+    kfa.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, new = layer.te_transformer_layer(cfg, params, state, x, recipe)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(y.float()).all() and y.shape == x.shape
+    assert kfa.launch_counts()["flash_attention"] == 1
+    assert kfa.body_launches()["wgmma"] == 1
+    hist = new["mlp"]["down"]["x"]["history"]
+    assert (hist[:2] > 0).all() and not hist[2:].any()
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.gpu
+def test_te_transformer_layer_card_vs_cpu(cuda):
+    """The second call from a fresh state, card against the port on the
+    CPU on the same weights and input: weight histories bitwise, the
+    output nearer the CPU's than the CPU's is to the bf16 layer_fwd on
+    the same weights (the fp8 bar of tests/test_torch_te.py)."""
+    from repro_torch.configs.llama_te import te_layer_config
+    from repro_torch.models import transformer
+    from repro_torch.models.common import init_params
+    from repro_torch.te import layer
+    cfg = te_layer_config(1024)
+    recipe = fp8.DelayedScalingRecipe()
+    params = init_params(layer.transformer_layer_specs(cfg),
+                         torch.Generator().manual_seed(0), "cpu",
+                         torch.float32)
+    B, S = 2, 200
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (B, S, 1024))).to(torch.bfloat16)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _tree_to(params, dev)
+        st = layer.transformer_layer_state(cfg, recipe, dev)
+        _, st = layer.te_transformer_layer(cfg, p, st, x.to(dev), recipe)
+        y, st = layer.te_transformer_layer(cfg, p, st, x.to(dev), recipe)
+        out[dev] = (y.float().cpu(), st)
+    d, H, hd = 1024, cfg.num_heads, cfg.head_dim
+    lp = {"ln1": params["ln1"], "ln2": params["mlp"]["ln"],
+          "attn": {n: params[n]["w"].reshape(d, H, hd)
+                   for n in ("wq", "wk", "wv")},
+          "mlp": {"w_up": params["mlp"]["up"]["w"],
+                  "w_gate": params["mlp"]["gate"]["w"],
+                  "w_down": params["mlp"]["down"]["w"]}}
+    lp["attn"]["wo"] = params["wo"]["w"].reshape(H, hd, d)
+    bf16, _ = transformer.layer_fwd(cfg, lp, x, torch.arange(S).expand(B, S))
+    want, got = out["cpu"][0], out[cuda][0]
+    assert (got - want).abs().max() < (want - bf16.float()).abs().max()
+    for t in ("wq", "wk", "wv", "wo"):
+        assert torch.equal(out[cuda][1][t]["w"]["history"].cpu(),
+                           out["cpu"][1][t]["w"]["history"])
+
+
+@pytest.mark.gpu
+def test_memory_and_te_benchmarks_run_on_card(cuda, monkeypatch):
+    """At cut sizes (chip_smoke.py phase 11 runs them at full size)."""
+    from repro_torch.benchmarks import memory, run, te_layer, te_linear  # noqa
+    from repro_torch.core import bench
+    monkeypatch.setattr(memory, "LEVELS", memory.LEVELS[:3] + (
+        ("global", "cg", 64 << 20),))
+    monkeypatch.setattr(memory, "STREAMS", (("L2", 8 << 20, 4),
+                                            ("global", 256 << 20, 1)))
+    monkeypatch.setattr(te_linear, "CARD_SIZES", (256, 1024))
+    monkeypatch.setattr(te_layer, "CARD_HIDDEN", (1024,))
+    memk.reset_launch_counts()
+    kfa.reset_launch_counts()
+    assert bench.run_all(["memory_latency", "memory_throughput", "te_linear",
+                          "te_layer"], fail_fast=True, device=cuda) == 0
+    assert all(v > 0 for v in memk.launch_counts().values())
+    assert kfa.launch_counts()["flash_attention"] > 0

@@ -6,8 +6,9 @@
     port, serves three requests on the CPU (paged, and open-loop on the
     contiguous layout with its SLO and windowed views, and through the
     slot baseline), runs the CLI (both engines), runs the
-    dissection benchmarks tc_energy, tc_n_sweep, dpx_functions and dsm
-    with `--device cpu`, and trains three steps of the reduced yi-6b
+    dissection benchmarks tc_energy, tc_n_sweep, dpx_functions, dsm and
+    te_linear (the fp8 training linear at the CPU sizes) with
+    `--device cpu`, and trains three steps of the reduced yi-6b
     through the port's `Trainer` on the CPU;
 (c) an entry point called without a device on a host without CUDA
     raises instead of running on the CPU (the serving entry points, the
@@ -101,7 +102,7 @@ stats = serve.main(["--device", "cpu", "--requests", "2", "--slots", "2",
 assert stats["requests"] == 2.0
 from repro_torch.benchmarks import run as bench_run
 bench_run.main(["--device", "cpu", "tc_energy", "tc_n_sweep",
-                "dpx_functions", "dsm"])
+                "dpx_functions", "dsm", "te_linear"])
 import tempfile
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data.pipeline import SyntheticLMData

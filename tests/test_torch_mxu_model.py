@@ -97,8 +97,9 @@ def test_registry_names_and_paper_refs():
     from repro_torch.benchmarks import run  # noqa: F401  (registers)
     import benchmarks.run  # noqa: F401  (registers the reference's)
     port, ref = bench.registry(), ref_bench.registry()
-    names = ["tc_mma", "tc_wgmma", "tc_n_sweep", "tc_energy", "async_copy",
-             "dpx_functions", "dpx_kernels", "dsm"]
+    names = ["memory_latency", "memory_throughput", "tc_mma", "tc_wgmma",
+             "tc_n_sweep", "tc_energy", "async_copy", "dpx_functions",
+             "dpx_kernels", "dsm", "te_linear", "te_layer"]
     assert sorted(port) == sorted(names)
     for n in names:
         assert port[n].paper_ref == ref[n].paper_ref
@@ -144,3 +145,82 @@ def test_benchmark_rows_named_as_reference(name, monkeypatch):
         if t.us_per_call > 0:
             assert t.derived is not None and t.derived > 0
             assert t.derived_name == "TFLOPs(cpu)"
+
+
+# The reference's memory rows that are TPU constants with no H100
+# counterpart (VREG / VMEM / HBM cycles, VMEM bytes a clock, VMEM / HBM):
+# the port drops them; on the card its measured rows take their place.
+# model(v5e)/hbm of Table V becomes model(<target>)/hbm.
+DROPPED_MEMORY_ROWS = {
+    "memory_latency": {"model(v5e)/vreg", "model(v5e)/vmem",
+                       "model(v5e)/hbm"},
+    "memory_throughput": {"model(v5e)/vmem_bytes_per_clk",
+                          "model(v5e)/vmem_vs_hbm_ratio"},
+}
+
+
+def _stub_timing(f, name="", **kw):
+    return RefTiming(name, 1.0, 0.0, 1)
+
+
+def _port_stub_timing(f, name="", **kw):
+    return Timing(name, 1.0, 0.0, 1)
+
+
+def _ref_te_rows(name, monkeypatch):
+    """The reference's Table IV/V and Fig. 4/5 rows with their timing
+    and their heavy calls stubbed (the names do not depend on them)."""
+    import benchmarks.memory as ref_memory
+    import benchmarks.te_layer as ref_te_layer
+    import benchmarks.te_linear as ref_te_linear
+    import repro.models.common as ref_common
+    import repro.models.transformer as ref_transformer
+    if name.startswith("memory"):
+        monkeypatch.setattr(ref_memory, "_pchase_latency_ns",
+                            lambda size: 1.0)
+        monkeypatch.setattr(ref_memory, "_stream_bandwidth_gbps",
+                            lambda size: 1.0)
+        fn = {"memory_latency": ref_memory.latency_table,
+              "memory_throughput": ref_memory.throughput_table}[name]
+        return [t.name for t in fn()]
+    if name == "te_linear":
+        monkeypatch.setattr(ref_te_linear, "measure", _stub_timing)
+        monkeypatch.setattr(ref_te_linear, "RNG", np.random.default_rng(5))
+        return [t.name for t in ref_te_linear.te_linear_throughput()]
+    monkeypatch.setattr(ref_te_layer, "measure", _stub_timing)
+    monkeypatch.setattr(ref_te_layer, "init_params", lambda specs, key: None)
+    monkeypatch.setattr(ref_te_layer, "te_transformer_layer",
+                        lambda cfg, p, s, x, recipe: (x, s))
+    monkeypatch.setattr(ref_common, "init_params", lambda specs, key: None)
+    monkeypatch.setattr(ref_transformer, "layer_fwd",
+                        lambda cfg, p, x, pos: (x, 0.0))
+    return [t.name for t in ref_te_layer.te_layer_latency()]
+
+
+@pytest.mark.parametrize("name", ["memory_latency", "memory_throughput",
+                                  "te_linear", "te_layer"])
+def test_te_and_memory_rows_named_as_reference(name, monkeypatch):
+    """On the CPU the port's Table IV/V and Fig. 4/5 rows are the
+    reference's with `cpu` for the device label and the H100's name for
+    `v5e`, less the memory tables' TPU-constant rows
+    (DROPPED_MEMORY_ROWS).  The port's memory rows run at small host
+    sizes here and its timing is stubbed; te_linear's and te_layer's
+    warm calls run."""
+    from repro_torch.benchmarks import memory, te_layer, te_linear
+    dropped = DROPPED_MEMORY_ROWS.get(name, set())
+    want = [n.replace("(v5e)", f"({hw.TARGET.name})")
+            for n in _ref_te_rows(name, monkeypatch) if n not in dropped]
+    monkeypatch.setattr(memory, "HOST_LATENCY",
+                        tuple((n, 4096) for n, _ in memory.HOST_LATENCY))
+    monkeypatch.setattr(memory, "HOST_LATENCY_ITERS", 64)
+    monkeypatch.setattr(memory, "HOST_STREAMS",
+                        tuple((n, 4096) for n, _ in memory.HOST_STREAMS))
+    monkeypatch.setattr(te_linear, "measure", _port_stub_timing)
+    monkeypatch.setattr(te_layer, "measure", _port_stub_timing)
+    monkeypatch.setattr(te_layer, "CPU_SHAPE", (1, 16))
+    rows = bench.registry()[name].fn("cpu")
+    assert [t.name for t in rows] == want
+    for t in rows:
+        if t.name.startswith("measured(cpu)/") and "fraction" not in t.name \
+                and name != "te_layer":
+            assert t.derived is not None and t.derived > 0, t.name
