@@ -253,6 +253,28 @@ last line):
               mode "error", its latency against layer_fwd's in bf16
               (Fig. 5); then the memory_latency, memory_throughput,
               te_linear and te_layer benchmarks through the kernels.
+ 12. families — the moe and vlm families (models/moe.py): (a)
+              moonshot-v1-16b-a3b at full width and depth (48 layers, d
+              2048, 64 experts top-6, vocab 163840, 56.1 GB of random
+              bf16 weights, seed 0; yi-6b freed first): phase 4's
+              forward check (bf16 and an e4m3 pool), phase 5's waves in
+              bf16 and with an e4m3 pool (bf16 linears: moe refuses
+              fp8 linears) through graphs captured once, equal bit for
+              bit to a fresh eager server, a K=4 spec wave cold and warm
+              (acceptance printed, not held: a moe call couples its
+              rows), phase 6's profile of the units, tokens/s, peak
+              memory and the decode step's device ms against its bytes
+              bound (every weight read once, KV); (b) internvl2-1b at
+              full width and depth (G=7, hd 64, tied embeddings): the
+              forward check and phase 5's waves; (c) reduced moonshot,
+              dbrx and internvl2-1b card against CPU by phase 7's rules
+              (bf16; a moe call couples its rows, so only the first
+              parting step is held), and one full-width moonshot
+              moe_mlp call (T=128) card against CPU; (d) moonshot at
+              full width cut to 2 layers and internvl2-1b at full depth
+              (B=2, S=2048, prefix_embeds): phase 10's checked train
+              step and Trainer.run on fresh batches (moonshot: the mean
+              loss of its own batches must fall; internvl2-1b's printed).
 Each serve phase, the benchmark runs of phases 8, 9 and 11 and the
 Trainer.run of phase 10 set their kernels' launch counts to 0 just
 before their main path and read them just after; phase 5b reads the
@@ -262,8 +284,9 @@ and phase 5e's join all four paged kernels' counts; phases 5, 5b and
 5e also read the counts around every work unit's dispatch, which gives
 the paged kernels' launches by work unit (chunk, span, verify).  Then one JSON line of
 per-kernel numbers (twenty kernels; those with several bodies also
-their launches by body, flash_attention its launches by path: Trainer
-and te_layer) and, last, the contract line
+their launches by body, flash_attention its launches by path: Trainer,
+te_layer and phase 12's Trainer; the paged kernels phase 12's launches
+apart too) and, last, the contract line
 {"ok": true, "device": {...}}.
 """
 
@@ -476,6 +499,12 @@ PAGED_CASES = [
     ("zamba2-2.7b", "bfloat16", 8, 32, 32, 80, 16, 17, False),
     ("zamba2-2.7b", "float32", 8, 32, 32, 80, 16, 17, False),
     ("yi-6b decode_32k", "bfloat16", 8, 32, 4, 128, 16, 2048, True),
+    # phase 12's families: moonshot-v1-16b-a3b (G=1, hd 128) and
+    # internvl2-1b (G=7, hd 64: 7 / 112 query rows a kv head)
+    ("moonshot-v1-16b-a3b", "bfloat16", 8, 16, 16, 128, 16, 17, False),
+    ("moonshot-v1-16b-a3b", "float32", 8, 16, 16, 128, 16, 17, False),
+    ("internvl2-1b", "bfloat16", 8, 14, 2, 64, 16, 17, False),
+    ("internvl2-1b", "float32", 8, 14, 2, 64, 16, 17, False),
 ]
 # float32 elements of the plain version's [B,KH,G,C,T,hd] product above
 # which it runs slot by slot (the decode_32k chunk's would take 69 GB)
@@ -821,17 +850,19 @@ def _top2_margin(logits):
     return top[..., 0] - top[..., 1]
 
 
-def phase_forward(cfg, params, quant=None) -> None:
-    """One chunk_step and `steps` decode_steps of full-width yi-6b
-    through the kernels, every kernel call held against its plain
-    version on the same inputs (the pool the call reads, its q); then
-    the same steps through the plain path, for the end-to-end logits.
-    With `quant` (fp8 linears) the pool is e4m3 too."""
+def phase_forward(cfg, params, quant=None, fp8_kv=None) -> None:
+    """One chunk_step and `steps` decode_steps of a full-width model
+    (yi-6b; phase 12's families) through the kernels, every kernel call
+    held against its plain version on the same inputs (the pool the call
+    reads, its q); then the same steps through the plain path, for the
+    end-to-end logits.  With `quant` (fp8 linears) the pool is e4m3 too,
+    unless `fp8_kv` says otherwise."""
     import torch
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.models import api, transformer
-    fp8 = quant is not None
-    tag = "fp8_kv + fp8 linears" if fp8 else "bf16"
+    fp8 = quant is not None if fp8_kv is None else fp8_kv
+    tag = ("fp8_kv + fp8 linears" if quant is not None
+           else "fp8_kv" if fp8 else "bf16")
     B, C, bs, steps = 4, 16, 16, 3
     MB = -(-264 // bs)
     g = torch.Generator(device=DEVICE).manual_seed(1)
@@ -889,7 +920,8 @@ def phase_forward(cfg, params, quant=None) -> None:
     worst = max(r[1] for r in calls.values())
     e2e = (lk.float() - lp.float()).abs().max().item()
     agree = int((lk.argmax(-1) == lp.argmax(-1)).sum())
-    print(f"[forward] yi-6b {tag} {cfg.num_layers} layers d={cfg.d_model}, "
+    print(f"[forward] {cfg.name} {tag} {cfg.num_layers} layers "
+          f"d={cfg.d_model}, "
           f"B={B}: 1 chunk_step + {steps} decode_steps; kernel calls vs "
           f"plain on the same inputs: {calls['chunk'][0]} chunk + "
           f"{calls['decode'][0]} decode, max |diff| / max |o| = "
@@ -966,9 +998,12 @@ def _unit_report(srv, label: str, eager: bool = False) -> dict:
     return {"counts": counts, "captures": caps, "pool_bytes": pool}
 
 
-def phase_serve(cfg, params, fp8: bool = False):
+def phase_serve(cfg, params, fp8: bool = False, fp8_linear=None,
+                label=None):
     """Both waves on one server, its work units replayed as CUDA graphs;
-    with `fp8` the server stores an e4m3 pool and serves fp8 linears.
+    with `fp8` the server stores an e4m3 pool and serves fp8 linears
+    (bf16 linears with ``fp8_linear=False``: the moe family refuses
+    them).  `label` names the run in the output (default bf16 / fp8).
     Every copy-on-write is checked, after its unit's call, to have
     copied every leaf (codes and scales).  Each unit is one program,
     captured once; a fresh server whose units run eagerly serves the
@@ -981,12 +1016,13 @@ def phase_serve(cfg, params, fp8: bool = False):
     from repro_torch.runtime.server import (ChunkedServer, clone_requests,
                                             sharegpt_like_requests,
                                             sysprompt_sharegpt_requests)
-    tag = "fp8" if fp8 else "bf16"
+    tag = label or ("fp8" if fp8 else "bf16")
     max_input, max_output = 128, 128
     max_len = max_input + max_output + 8       # as the CLI sizes it
     opts = dict(batch_slots=8, max_len=max_len, chunk=16, span=SERVE_SPAN,
                 block_size=16, prefix_cache=True, fp8_kv=fp8,
-                fp8_linear=fp8, device=DEVICE)
+                fp8_linear=fp8 if fp8_linear is None else fp8_linear,
+                device=DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     srv = ChunkedServer(cfg, params, **opts)
@@ -1115,7 +1151,8 @@ def phase_serve(cfg, params, fp8: bool = False):
     if fp8 and not all("k_scale" in leaves for leaves, _ in cow_copies):
         fail("an fp8 copy-on-write ran on a cache without scales")
     first = {"reqs": all_stats[0][1], "stats": all_stats[0][2],
-             "rec": recorded}
+             "rec": recorded, "peak_gb": peak_gb,
+             "waves": [(n, st) for n, _, st, _ in all_stats]}
     return launches, by_body, by_unit, kv_bytes, first
 
 
@@ -2202,7 +2239,7 @@ def _kernel_launches(prof, name: str) -> int:
                if e.device_type == DeviceType.CUDA and name in e.name)
 
 
-def phase_profile(cfg, params, fp8: bool = False) -> None:
+def phase_profile(cfg, params, fp8: bool = False, label=None) -> dict:
     """Wall and device time of full-width yi-6b's work units as the
     server replays them (B=8, 128 cached tokens per slot, chunk 16,
     span 8, the sample head at temperature 0.5 / top-k 4 in every
@@ -2220,7 +2257,8 @@ def phase_profile(cfg, params, fp8: bool = False) -> None:
     drops records under load (1245 of 1280 in one run).  Then the sample head
     alone over [8, 64000] (a chunk or span step's) and [8, 5, 64000] (a
     verify step's) logits, eager and as a graph replay.  With `fp8` the
-    pool is e4m3 and the linears fp8."""
+    pool is e4m3 and the linears fp8.  `label` prefixes the output (default "fp8 " / "").  Returns each
+    unit's wall ms, device ms and top kernels."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2228,7 +2266,7 @@ def phase_profile(cfg, params, fp8: bool = False) -> None:
     from repro_torch.models import sampling
     from repro_torch.runtime.server import ChunkedServer
     B, bs, C, steps, max_len = 8, 16, 16, 5, 264
-    tag = "fp8 " if fp8 else ""
+    tag = label or ("fp8 " if fp8 else "")
     srv = ChunkedServer(cfg, params, batch_slots=B, max_len=max_len,
                         chunk=C, span=SERVE_SPAN, block_size=bs,
                         spec_decode=VERIFY_K, fp8_kv=fp8, fp8_linear=fp8,
@@ -2248,6 +2286,7 @@ def phase_profile(cfg, params, fp8: bool = False) -> None:
         "verify_step": (i32(128), i32(0), np.ones(B, bool), i32(10 ** 6),
                         *samp, srv.block_table),
     }
+    res = {}
     for name, args in ops.items():
         unit = srv._units[name]
         for _ in range(3):                   # eager, capture, replay
@@ -2286,6 +2325,8 @@ def phase_profile(cfg, params, fp8: bool = False) -> None:
             fail(f"profile: {tag}{name}: the paged kernel ran {ran} times "
                  f"on the card in {steps} replays, the unit counts "
                  f"{counted} (captured: {unit.replay_launches})")
+        res[name] = {"wall_ms": wall, "device_ms": dev, "by_name": by_name,
+                     "kernels": _kernel_launches(prof, "") / steps}
         top = "; ".join(f"{n[:48]} {ms:.2f}" for n, ms in
                         by_name.most_common(6))
         per = (f" = {wall / SERVE_SPAN:.2f} / {dev / SERVE_SPAN:.2f} a "
@@ -2334,6 +2375,7 @@ def phase_profile(cfg, params, fp8: bool = False) -> None:
               f"device {dev:.2f} ms (profiler, {len(by_name)} kernel names)"
               f"; as a graph replay {_graph_ms(fn, steps):.3f} device ms",
               flush=True)
+    return res
 
 
 # ----------------------------------------------------------------------
@@ -2400,8 +2442,9 @@ def _draw_margin(lg, sp, index) -> float:
     return min(gap, kgap) * (1.0 if sp.is_greedy else sp.temperature)
 
 
-def phase_small(fp8: bool) -> None:
-    """The reduced yi-6b (2 layers, d_model 64, G=2) served through the
+def phase_small(fp8: bool, arch: str = "yi-6b") -> None:
+    """The reduced yi-6b (2 layers, d_model 64, G=2; phase 12: the
+    reduced `arch`, bf16) served through the
     kernels on the card and through the plain versions on the CPU, with
     the same weights, greedy with decode spans and sampled with spec
     decode K=3 (verify steps through the chunk kernel, the warm wave of
@@ -2418,7 +2461,10 @@ def phase_small(fp8: bool) -> None:
     change: only the partings at the first parting step are held.  By
     the same rule: serve_online(closed_stream) on the card against the
     CPU's serve(), and in bf16 ChunkedServer(paged=False) and SlotServer
-    on the card against the same on the CPU."""
+    on the card against the same on the CPU.  A moe model couples the
+    rows of a call (capacity counts every row), as fp8 linears do: only
+    the first parting step is held, and spec K=3 is not held to K=0
+    (the verify and decode calls batch other rows)."""
     import dataclasses
     import torch
     from repro_torch.configs import reduced_config
@@ -2428,10 +2474,16 @@ def phase_small(fp8: bool) -> None:
     from repro_torch.runtime.server import (ChunkedServer, SlotServer,
                                             clone_requests,
                                             sharegpt_like_requests)
-    cfg = dataclasses.replace(reduced_config("yi-6b"), num_kv_heads=2)
+    cfg = reduced_config(arch)
+    if arch == "yi-6b":
+        cfg = dataclasses.replace(cfg, num_kv_heads=2)
     cpu_params = api.init(cfg, 0, device="cpu")
     margin = SMALL_FP8_MARGIN if fp8 else SMALL_MARGIN
     tag = "fp8_kv + fp8 linears" if fp8 else "bf16"
+    coupled = fp8 or cfg.family == "moe"
+    model = ("reduced yi-6b (G=2)" if arch == "yi-6b"
+             else f"reduced {arch} ({cfg.family}, "
+                  f"G={cfg.num_heads // cfg.num_kv_heads})")
 
     def to(tree, device):
         if isinstance(tree, torch.Tensor):
@@ -2503,7 +2555,7 @@ def phase_small(fp8: bool) -> None:
                                  len(r.prompt) + j))
         first = min((p[0] for p in partings), default=0)
         for step, rid, j, lg, tok, sp, index in partings:
-            if fp8 and step > first:
+            if coupled and step > first:
                 continue
             gap = _draw_margin(lg, sp, index)
             off = float(lg.float().max() - lg.float()[tok])
@@ -2514,7 +2566,7 @@ def phase_small(fp8: bool) -> None:
         extra = (f"; {int(stats['spec_steps'])} verify steps, acceptance "
                  f"{stats['spec_acceptance_rate']:.3f}"
                  if "spec_steps" in stats else "")
-        print(f"[small] reduced yi-6b (G=2) {tag} {label}: "
+        print(f"[small] {model} {tag} {label}: "
               f"{len(reqs) - len(partings)}/{len(reqs)} token streams "
               f"equal, {len(partings)} part "
               f"({sum(p[0] == first for p in partings)} at the first "
@@ -2541,7 +2593,7 @@ def phase_small(fp8: bool) -> None:
     card_s3, st, _ = serve(DEVICE, 3, sampled, False)
     held("sampled spec K=3, card kernels vs CPU plain", cpu_s3, cpu_rec,
          card_s3, sampled, st)
-    if not fp8:
+    if not coupled:
         card_g3, st, _ = serve(DEVICE, 3, greedy, False)
         held("greedy on the card, spec K=3 vs K=0", card_g0, card_rec,
              card_g3, greedy, st)
@@ -3764,12 +3816,13 @@ def _train_config(cfg, layers: int):
     return dataclasses.replace(cfg, num_layers=layers, remat="dots")
 
 
-def phase_train_step(cfg) -> None:
+def phase_train_step(cfg, B: int = 2, S: int = 4096, extra=None) -> None:
     """10(c): one full-width training step (8 layers, remat dots, fp32
     parameters and moments), every flash-attention call held against
     its plain version on the same inputs; the loss of the same batch
     through the plain forward printed beside it (random full-width
-    stacks are chaotic: not gated)."""
+    stacks are chaotic: not gated).  Phase 12 runs it on the families
+    (`extra`: SyntheticLMData's extra inputs, a vlm's prefix_embeds)."""
     import torch
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import flash_attention as kfa
@@ -3781,9 +3834,10 @@ def phase_train_step(cfg) -> None:
     opt = AdamW(learning_rate=1e-3, warmup_steps=1, total_steps=100)
     state = opt.init(params)
     batch = {k: v.to(DEVICE) for k, v in next(
-        SyntheticLMData(cfg.vocab_size, 2, 4096).batches(0)).items()}
+        SyntheticLMData(cfg.vocab_size, B, S,
+                        extra=extra).batches(0)).items()}
     torch.cuda.synchronize()
-    print(f"[train] yi-6b full width, {cfg.num_layers} layers: "
+    print(f"[train] {cfg.name} full width, {cfg.num_layers} layers: "
           f"{cfg.param_count() / 1e9:.2f} B float32 params + AdamW state "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     with torch.no_grad(), _PlainForward():
@@ -3828,25 +3882,47 @@ def phase_train_step(cfg) -> None:
              f"version: o {worst[1]:.3e} of max |o|, lse {worst[2]:.3e}")
 
 
-def phase_trainer(cfg, steps: int = 4) -> dict:
-    """10(d): Trainer.run on the full-width 8-layer config; the main
-    path of this phase, with B9's count set to 0 just before and read
-    just after.  Then one more step under torch.profiler: the device
-    time by kernel.  Returns the launch counts."""
+def phase_trainer(cfg, steps: int = 4, B: int = 2, S: int = 4096,
+                  extra=None, descent: str = "steps") -> tuple:
+    """10(d): Trainer.run on the full-width 8-layer config (phase 12:
+    the families' configs, `extra` as in phase_train_step), fresh
+    batches every step; the main path of this phase, with B9's count
+    set to 0 just before and read just after.  `descent` names the gate
+    on the losses: "steps" (phase 10: the last step's loss below the
+    first's), "batches" (the mean loss of the run's own batches falls
+    from before the steps to after them: four steps move a fresh
+    batch's loss less than the batches differ) or "" (that mean printed,
+    not gated: on a random 24-layer internvl2-1b stack, chaotic in the
+    reference as in the port, four steps move it by about a thousandth;
+    PERF.md §6).  Then one more step under
+    torch.profiler: the device time by kernel.  Returns the launch
+    counts, by body too."""
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import api
     from repro_torch.runtime.trainer import Trainer
-    B, S = 2, 4096
     with tempfile.TemporaryDirectory() as td:
         tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1,
                            total_steps=100, ckpt_every=10 ** 6, ckpt_dir=td)
-        tr = Trainer(cfg, tcfg, data=SyntheticLMData(cfg.vocab_size, B, S),
-                     device=DEVICE)
+        data = SyntheticLMData(cfg.vocab_size, B, S, extra=extra)
+        tr = Trainer(cfg, tcfg, data=data, device=DEVICE)
         tr.init()
+        seen = []
+        if descent != "steps":
+            it = data.batches(0)
+            seen = [{k: v.to(DEVICE) for k, v in next(it).items()}
+                    for _ in range(steps)]
+
+        def seen_loss():
+            with torch.no_grad():
+                return sum(api.loss_fn(cfg, tr.params, b).item()
+                           for b in seen) / max(len(seen), 1)
+
+        before = seen_loss()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kfa.reset_launch_counts()
@@ -3855,6 +3931,7 @@ def phase_trainer(cfg, steps: int = 4) -> dict:
         launches = kfa.launch_counts()
         bodies = kfa.body_launches()
         peak = torch.cuda.max_memory_allocated()
+        after = seen_loss()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -3870,7 +3947,8 @@ def phase_trainer(cfg, steps: int = 4) -> dict:
               f"{B * S / m.step_time_s:.1f}", flush=True)
     steady = hist[1:] or hist
     step_s = sum(m.step_time_s for m in steady) / len(steady)
-    print(f"[train] yi-6b full width {cfg.num_layers} layers, B={B} S={S}, "
+    print(f"[train] {cfg.name} full width {cfg.num_layers} layers, B={B} "
+          f"S={S}, "
           f"remat {cfg.remat}: {steps} steps, steady step_ms "
           f"{step_s * 1e3:.1f}, tokens/s {B * S / step_s:.1f}, peak memory "
           f"{peak / 1e9:.2f} GB, flash_attention launches "
@@ -3895,8 +3973,15 @@ def phase_trainer(cfg, steps: int = 4) -> dict:
           flush=True)
     if not all(math.isfinite(x) for x in losses):
         fail(f"Trainer.run gave non-finite losses {losses}")
-    if not losses[-1] < losses[0]:
+    if seen:
+        print(f"[train] {cfg.name}: mean loss of the run's {steps} batches "
+              f"before the steps {before:.5f}, after {after:.5f}"
+              + ("" if descent else " (printed, not gated)"), flush=True)
+    if descent == "steps" and not losses[-1] < losses[0]:
         fail(f"Trainer.run losses did not fall: {losses}")
+    if descent == "batches" and not after < before:
+        fail(f"Trainer.run did not lower the loss of its own batches: "
+             f"{before} before the steps, {after} after")
     if launches["flash_attention"] != 2 * cfg.num_layers * steps:
         fail(f"flash_attention launched {launches} times in {steps} steps, "
              f"not {2 * cfg.num_layers} a step")
@@ -4526,6 +4611,326 @@ def phase_memory_te() -> tuple:
     return res, launches, flash["flash_attention"], bodies
 
 
+# ----------------------------------------------------------------------
+# 12. the moe and vlm families
+# ----------------------------------------------------------------------
+
+FAMILY_MOE = "moonshot-v1-16b-a3b"     # 64 experts, top-6, 28.06 B params
+FAMILY_VLM = "internvl2-1b"            # G=7, hd 64, tied embeddings
+FAMILY_SMALL = ("moonshot-v1-16b-a3b", "dbrx-132b", "internvl2-1b")
+# layers and loss gate (phase_trainer's `descent`) of the families'
+# training: moonshot's fp32 parameters and AdamW state at 48 layers
+# (449 GB) do not fit, so it is cut to 2; internvl2-1b runs at its full
+# depth, where the random stack is chaotic in the reference as in the
+# port (its init draws wq at std H^-0.5, saturating the softmax; the
+# gradient norm grows from ~1e2 at 2 layers past 1e8 at 24: tests/
+# test_torch_moe.py::test_deep_stack_readings_match_the_reference) and
+# four steps move its batches' mean loss by about a thousandth: printed
+FAMILY_TRAIN_LAYERS = {"moonshot-v1-16b-a3b": (2, "batches"),
+                       "internvl2-1b": (24, "")}
+FAMILY_TRAIN = (2, 2048)               # B, S of the families' train steps
+# device kernel names by kind, for the moe decode step's split
+FAMILY_KERNEL_GROUPS = {
+    "paged attention": ("paged_attention",),
+    "GEMMs (expert, projection, router, unembedding)": (
+        "nvjet", "gemm", "gemv", "sm90", "cutlass", "Kernel2", "splitK"),
+    "sorts": ("sort", "Sort", "radix", "Radix"),
+    "gathers, scatters, searchsorted": ("index", "scatter", "gather",
+                                        "searchsorted", "Index"),
+}
+
+
+def _free_card() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _decode_bytes_bound(cfg, B: int, kv_tokens: int) -> tuple:
+    """(ms, weight bytes, KV bytes) of the least time a bf16 decode step
+    of B slots at `kv_tokens` cached tokens each can take, bytes over
+    HBM_BYTES_PER_S: every weight read once (a moe layer at B=8 runs all
+    its experts: each takes `moe.capacity` >= 8 rows), but only B rows
+    of an untied embedding table; each slot's K and V read and its new
+    row written, every layer."""
+    n = cfg.param_count()
+    if not cfg.tie_embeddings:
+        n -= cfg.padded_vocab_size * cfg.d_model - B * cfg.d_model
+    weights = 2 * n
+    row = 2 * cfg.num_kv_heads * cfg.head_dim * 2          # k and v, bf16
+    kv = cfg.num_layers * B * (kv_tokens + 1) * row
+    return (weights + kv) / HBM_BYTES_PER_S * 1e3, weights, kv
+
+
+def _kernel_split(by_name) -> str:
+    """Device ms by kind of a profiler's {kernel name: ms}."""
+    groups = {g: 0.0 for g in FAMILY_KERNEL_GROUPS}
+    other = 0.0
+    for name, ms in by_name.items():
+        g = next((g for g, keys in FAMILY_KERNEL_GROUPS.items()
+                  if any(k in name for k in keys)), None)
+        if g is None:
+            other += ms
+        else:
+            groups[g] += ms
+    groups["other (elementwise, norms, casts)"] = other
+    return "; ".join(f"{g} {ms / SERVE_SPAN:.3f}"
+                     for g, ms in groups.items())
+
+
+def _family_spec(cfg, params) -> dict:
+    """A cold and a warm K=4 spec wave (phase 5b's traffic) on one
+    graphed server: streams rebuilt from the verify steps, paged_decode
+    never launched, paged_chunk L x steps in each unit.  Acceptance is
+    printed, not held: a moe call couples its rows, drafts included.
+    Returns the launches and their split by unit and body."""
+    from repro_torch.runtime.server import ChunkedServer, repetitive_requests
+    reqs = repetitive_requests(8, cfg.vocab_size, motif_len=8, reps=3,
+                               max_output=48, seed=2)
+    srv = ChunkedServer(cfg, params, spec_decode=VERIFY_K, **SPEC_SERVER,
+                        device=DEVICE)
+    L = cfg.num_layers
+    total = {"paged_chunk": 0, "by_unit": {"chunk": 0, "verify": 0},
+             "by_body": {}}
+    for wave in ("cold", "warm"):
+        _, st, n, _ = _spec_wave(srv, reqs)
+        u = n["by_unit"]
+        want = {"chunk": L * int(st["chunk_steps"]),
+                "verify": L * int(st["spec_steps"])}
+        got = {k: u[k].get("paged_chunk", 0) for k in want}
+        print(f"[families] {cfg.name} spec K={VERIFY_K} {wave}: "
+              f"{int(st['tokens'])} tokens in {st['seconds']:.2f} s = "
+              f"{st['tokens_per_s']:.1f} tok/s; acceptance "
+              f"{st['spec_acceptance_rate']:.3f} (printed, not held), "
+              f"{st['spec_tokens_per_step']:.2f} tokens a slot a verify "
+              f"step, {int(st['spec_steps'])} verify steps; paged_chunk "
+              f"{n['paged_chunk']} by unit {got}, paged_decode "
+              f"{n['paged_decode']}; streams rebuilt from the verify steps",
+              flush=True)
+        if n["paged_decode"] or got != want or \
+                n["paged_chunk"] != sum(want.values()):
+            fail(f"{cfg.name} spec {wave}: paged_decode {n['paged_decode']}"
+                 f", paged_chunk by unit {got}, expected {want}")
+        total["paged_chunk"] += n["paged_chunk"]
+        for k in want:
+            total["by_unit"][k] += got[k]
+        for b, c in n["by_body"]["paged_chunk"].items():
+            total["by_body"][b] = total["by_body"].get(b, 0) + c
+    _unit_report(srv, f"{cfg.name} spec K={VERIFY_K}")
+    return total
+
+
+def _moe_kept(idx, E: int, C: int):
+    """[T, K] bool: whether each (token, k) assignment of expert ids
+    `idx` keeps its row (an expert keeps its first C assignments in
+    (token, k) order, as moe.moe_mlp)."""
+    import torch
+    flat = idx.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    start = torch.searchsorted(flat[order], torch.arange(E))
+    pos = torch.empty_like(flat)
+    pos[order] = torch.arange(flat.numel()) - start[flat[order]]
+    return (pos < C).view(idx.shape)
+
+
+def _moe_mlp_card_vs_cpu(cfg) -> None:
+    """One full-width moe_mlp call (one layer's bf16 weights, T=128 rows:
+    8 slots x a 16-token chunk) on the card and on the CPU: expert ids
+    equal except at a near tie of the CPU's probabilities (ratio within
+    2^-5), drops equal, and outputs within four bf16 steps of max |y| on
+    every row whose ids and kept assignments are equal on both sides (a
+    parted row moves the rows behind it in its experts' runs); its
+    graph-replay device ms against the bytes of the weights it reads."""
+    import torch
+    from repro_torch.models import common, moe
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    p = common.init_params(moe.moe_specs(cfg), gen, torch.device(DEVICE),
+                           torch.bfloat16)
+    x = torch.randn((8, 16, cfg.d_model), generator=gen,
+                    device=DEVICE).to(torch.bfloat16)
+    T, C = 128, moe.capacity(cfg, 128)
+    with torch.no_grad():
+        y, aux = moe.moe_mlp(cfg, p, x)
+        _, idx, _ = moe.route(cfg, p, x.reshape(T, -1))
+        pc = {k: v.cpu() for k, v in p.items()}
+        xc = x.cpu()
+        t0 = time.perf_counter()
+        yc, auxc = moe.moe_mlp(cfg, pc, xc)
+        cpu_s = time.perf_counter() - t0
+        _, idxc, _ = moe.route(cfg, pc, xc.reshape(T, -1))
+        logits = (xc.reshape(T, -1) @ pc["router"]).float()
+        probs = torch.softmax(logits, -1).sort(-1, descending=True).values
+        dev_ms = _graph_ms(lambda: moe.moe_mlp(cfg, p, x), 20)
+    idx = idx.cpu()
+    parted = (idx != idxc).any(-1).nonzero().flatten().tolist()
+    for t in parted:
+        j = int((idx[t] != idxc[t]).nonzero()[0])
+        ratio = float(probs[t, j] / probs[t, j + 1]) - 1
+        if ratio > 2.0 ** -5:
+            fail(f"moe_mlp card vs CPU: row {t} rank {j} expert ids "
+                 f"{idx[t].tolist()} vs {idxc[t].tolist()} away from a tie "
+                 f"({ratio:.3e})")
+    drops = [int((torch.bincount(i.flatten(), minlength=cfg.num_experts)
+                  - C).clamp(min=0).sum()) for i in (idx, idxc)]
+    kept = [_moe_kept(i, cfg.num_experts, C) for i in (idx, idxc)]
+    held = ((idx == idxc) & (kept[0] == kept[1])).all(-1)
+    if not held.any():
+        fail("moe_mlp card vs CPU: no row has equal ids and kept rows")
+    diff = (y.float().cpu() - yc.float()).reshape(T, -1).abs()
+    err = diff[held].max().item()
+    top = yc.float().abs().max().item()
+    nbytes = sum(v.numel() * v.element_size() for v in p.values()) \
+        + 2 * x.numel() * x.element_size()
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[families] (c) {cfg.name} moe_mlp at full width (E="
+          f"{cfg.num_experts}, top-{cfg.top_k}, d {cfg.d_model}, ff "
+          f"{cfg.d_ff}), T={T} rows, C={C}: card vs CPU expert ids parted "
+          f"in {len(parted)} rows (near ties), drops {drops[0]} / "
+          f"{drops[1]}, max |y diff| {err:.4e} on the {int(held.sum())} "
+          f"rows with equal ids and kept rows, of max |y| {top:.4f} "
+          f"(limit four bf16 steps {4 * 2.0 ** -7 * top:.4e}), aux "
+          f"{aux.item():.6f} / {auxc.item():.6f}; card {dev_ms:.4f} device "
+          f"ms (graph replay) against the {bound:.4f} ms of its "
+          f"{nbytes / 1e9:.3f} GB (bytes), CPU {cpu_s:.2f} s", flush=True)
+    if drops[0] != drops[1] or not torch.isfinite(y.float()).all():
+        fail(f"moe_mlp card vs CPU: drops {drops} or non-finite output")
+    if err > 4 * 2.0 ** -7 * top:
+        fail(f"moe_mlp card vs CPU: max |y diff| {err} over four bf16 "
+             f"steps of {top}")
+
+
+def phase_families() -> dict:
+    """Phase 12: (a) full-width, full-depth moonshot-v1-16b-a3b in bf16
+    (random weights, seed 0): the forward's kernel calls against plain
+    (bf16 and an e4m3 pool), phase 5's two waves through ChunkedServer
+    in bf16 and with an e4m3 pool (bf16 linears: moe refuses fp8
+    linears), graphs captured once and streams equal to a fresh eager
+    server's bit for bit, a K=4 spec wave cold and warm, each unit's
+    wall and device ms with its top kernels, peak memory, tokens/s, and
+    the decode step's device ms against its bytes bound; (b) full-width
+    internvl2-1b: the forward's kernel calls against plain and phase 5's
+    waves; (c) reduced moonshot, dbrx and internvl2-1b, card against
+    CPU (phase 7's rules, bf16), and one full-width moonshot moe_mlp
+    call card against CPU; (d) full-width moonshot cut to 2 layers and
+    internvl2-1b at full depth (with prefix_embeds; FAMILY_TRAIN_LAYERS):
+    one train step with every B9 call against plain, then Trainer.run
+    on fresh batches.  Each serve and train main
+    path sets its kernels' counts to 0 just before and reads them just
+    after.  Returns the paged kernels' and B9's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    t_start = time.perf_counter()
+    _free_card()
+    paged = {"paged_decode": 0, "paged_chunk": 0, "paged_decode_fp8": 0,
+             "paged_chunk_fp8": 0}
+    bodies = {k: {} for k in paged}
+
+    def add(launches, by_body):
+        for k, v in launches.items():
+            if k in paged:
+                paged[k] += v
+                for b, c in by_body.get(k, {}).items():
+                    bodies[k][b] = bodies[k].get(b, 0) + c
+
+    # (a) moonshot-v1-16b-a3b at full width and depth
+    cfg = get_config(FAMILY_MOE)
+    t0 = time.perf_counter()
+    params = api.init(cfg, 0, device=DEVICE, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"[families] (a) {cfg.name} full width and depth: "
+          f"{cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_experts} "
+          f"experts top-{cfg.top_k}, vocab {cfg.vocab_size}: "
+          f"{cfg.param_count() / 1e9:.2f} B params "
+          f"({api.active_param_count(cfg) / 1e9:.2f} B active), "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated in bf16,"
+          f" init {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_forward(cfg, params)
+    phase_forward(cfg, params, fp8_kv=True)
+    served = {}
+    for fp8 in (False, True):
+        label = f"{cfg.name} {'fp8_kv' if fp8 else 'bf16'}"
+        launches, by_body, _, kv_bytes, first = phase_serve(
+            cfg, params, fp8=fp8, fp8_linear=False, label=label)
+        add(launches, by_body)
+        served[label] = first
+        del first["rec"]
+        _free_card()
+    spec = _family_spec(cfg, params)
+    add({"paged_chunk": spec["paged_chunk"]},
+        {"paged_chunk": spec["by_body"]})
+    prof = phase_profile(cfg, params, label=f"{cfg.name} ")
+    B, kv_tokens = 8, 128
+    bound, w_bytes, kv_b = _decode_bytes_bound(cfg, B, kv_tokens)
+    span = prof["decode_span"]
+    step_dev = span["device_ms"] / SERVE_SPAN
+    print(f"[families] {cfg.name} bf16 decode step (B={B}, {kv_tokens} "
+          f"cached tokens a slot, graph replay): {step_dev:.3f} device ms, "
+          f"{span['wall_ms'] / SERVE_SPAN:.3f} wall ms, against its bytes "
+          f"bound {bound:.3f} ms ({w_bytes / 1e9:.2f} GB of weights + "
+          f"{kv_b / 1e9:.4f} GB of KV over {HBM_BYTES_PER_S / 1e12:.2f} "
+          f"TB/s; {step_dev / bound:.2f}x); "
+          f"{span['kernels'] / SERVE_SPAN:.0f} kernels a step; device ms "
+          f"by kind a decode step (profiler): "
+          f"{_kernel_split(span['by_name'])}; top kernels "
+          f"(ms a step): " + "; ".join(
+              f"{n[:56]} {ms / SERVE_SPAN:.3f}"
+              for n, ms in span["by_name"].most_common(8)), flush=True)
+    for label, first in served.items():
+        waves = "; ".join(f"{n} {st['tokens_per_s']:.1f} tok/s"
+                          for n, st in first["waves"])
+        print(f"[families] {label}: {waves}; peak memory "
+              f"{first['peak_gb']:.2f} GB", flush=True)
+    del params, served
+    _free_card()
+    _moe_mlp_card_vs_cpu(cfg)
+    _free_card()
+    # (b) internvl2-1b at full width and depth
+    vcfg = get_config(FAMILY_VLM)
+    vparams = api.init(vcfg, 0, device=DEVICE, dtype=torch.bfloat16)
+    print(f"[families] (b) {vcfg.name} full width and depth: "
+          f"{vcfg.num_layers} layers, d {vcfg.d_model}, H {vcfg.num_heads} "
+          f"over KH {vcfg.num_kv_heads} (G="
+          f"{vcfg.num_heads // vcfg.num_kv_heads}), hd {vcfg.head_dim}, "
+          f"tied embeddings: {vcfg.param_count() / 1e9:.3f} B params",
+          flush=True)
+    phase_forward(vcfg, vparams)
+    launches, by_body, _, _, first = phase_serve(
+        vcfg, vparams, label=f"{vcfg.name} bf16")
+    add(launches, by_body)
+    print(f"[families] {vcfg.name} bf16: " + "; ".join(
+        f"{n} {st['tokens_per_s']:.1f} tok/s" for n, st in first["waves"])
+        + f"; peak memory {first['peak_gb']:.2f} GB", flush=True)
+    del vparams, first
+    _free_card()
+    # (c) reduced models, card against CPU
+    for arch in FAMILY_SMALL:
+        phase_small(False, arch)
+    # (d) training
+    flash, flash_bodies = {"flash_attention": 0}, {}
+    Bt, St = FAMILY_TRAIN
+    for base, extra in (
+            (cfg, None),
+            (vcfg, {"prefix_embeds": ((vcfg.num_prefix_tokens,
+                                       vcfg.d_model), np.float32)})):
+        layers, descent = FAMILY_TRAIN_LAYERS[base.name]
+        tcfg = _train_config(base, layers)
+        phase_train_step(tcfg, B=Bt, S=St, extra=extra)
+        _free_card()
+        n, b = phase_trainer(tcfg, B=Bt, S=St, extra=extra, descent=descent)
+        flash["flash_attention"] += n["flash_attention"]
+        for k, v in b.items():
+            flash_bodies[k] = flash_bodies.get(k, 0) + v
+        _free_card()
+    print(f"[families] phase 12 in {time.perf_counter() - t_start:.1f} s; "
+          f"paged launches {paged}, by body {bodies}; flash_attention "
+          f"{flash['flash_attention']} by body {flash_bodies}", flush=True)
+    return {"paged": paged, "paged_bodies": bodies,
+            "flash": flash["flash_attention"], "flash_bodies": flash_bodies}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     device = phase_card()
@@ -4580,6 +4985,7 @@ def main() -> None:
     dd_results, dd_launches, dd_bodies = phase_dpx_dsm()
     flash_results, flash_launches, flash_bodies = phase_training()
     mem_results, mem_launches, te_flash, te_bodies = phase_memory_te()
+    fam = phase_families()
     line = []
     for name, line_no in (("paged_decode", 163), ("paged_chunk", 252),
                           ("paged_decode_fp8", 147),
@@ -4610,6 +5016,11 @@ def main() -> None:
             extra["verify_shape"] = {k: v[k] for k in (
                 "max_abs_err", "ms", "device_ms", "bound_ms",
                 "library_ms", "library_device_ms")}
+        # phase 12's serve, spec and profile-free waves (moe and vlm)
+        launches[name] += fam["paged"][name]
+        by_body[name] = {b: n + fam["paged_bodies"][name].get(b, 0)
+                         for b, n in by_body[name].items()}
+        extra["launches_families"] = fam["paged"][name]
         extra["long_context"] = {
             f"{case} {dname}": {k: v[k] for k in (
                 "max_abs_err", "ms", "device_ms", "bound_ms",
@@ -4676,10 +5087,13 @@ def main() -> None:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
-        "launches": flash_launches["flash_attention"] + te_flash,
+        "launches": (flash_launches["flash_attention"] + te_flash
+                     + fam["flash"]),
         "launches_by_path": {"trainer": flash_launches["flash_attention"],
-                             "te_layer": te_flash},
+                             "te_layer": te_flash,
+                             "families_trainer": fam["flash"]},
         "launches_by_body": {b: n + te_bodies.get(b, 0)
+                             + fam["flash_bodies"].get(b, 0)
                              for b, n in flash_bodies.items()},
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

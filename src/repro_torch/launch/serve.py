@@ -18,7 +18,8 @@ prints the acceptance stats; ``--workload repetitive`` serves the
 tiled-motif mix on which the drafts hit.  ``--contiguous`` serves the
 contiguous per-slot KV layout instead of the paged pool, and ``--engine
 slot`` the slot baseline (token-at-a-time prefill, a host read every
-decode step).
+decode step).  ``--arch`` takes the dense, moe (e.g. moonshot-v1-16b-a3b,
+dbrx-132b; ``--fp8-linear`` refused) and vlm (internvl2-1b) archs.
 
 ``--arrival-rate R`` switches from the closed batch to open-loop
 serving: requests arrive on a Poisson stream at R req/s
@@ -167,27 +168,29 @@ def main(argv: Optional[List[str]] = None) -> dict:
         args.requests = max(1, round(args.arrival_rate * args.duration))
 
     cfg = reduced_config(args.arch)
-    if cfg.family != "dense":
-        raise SystemExit(f"{args.arch} ({cfg.family}): only the dense "
-                         "family is ported")
-    params = api.init(cfg, args.seed, device=args.device)
-    max_len = args.max_input + args.max_output + 8
-    tracer = Tracer() if args.trace else None
-    if args.engine == "chunked":
-        srv = ChunkedServer(cfg, params, batch_slots=args.slots,
-                            max_len=max_len, chunk=args.chunk,
-                            span=args.span, paged=not args.contiguous,
-                            block_size=args.block_size,
-                            num_blocks=args.pool_blocks,
-                            prefix_cache=not args.no_prefix_cache,
-                            eos_id=args.eos_id,
-                            spec_decode=args.spec_decode,
-                            fp8_kv=args.fp8_kv, fp8_linear=args.fp8_linear,
-                            tracer=tracer, device=args.device)
-    else:
-        srv = SlotServer(cfg, params, batch_slots=args.slots,
-                         max_len=max_len, eos_id=args.eos_id,
-                         device=args.device)
+    try:
+        params = api.init(cfg, args.seed, device=args.device)
+        max_len = args.max_input + args.max_output + 8
+        tracer = Tracer() if args.trace else None
+        if args.engine == "chunked":
+            srv = ChunkedServer(cfg, params, batch_slots=args.slots,
+                                max_len=max_len, chunk=args.chunk,
+                                span=args.span, paged=not args.contiguous,
+                                block_size=args.block_size,
+                                num_blocks=args.pool_blocks,
+                                prefix_cache=not args.no_prefix_cache,
+                                eos_id=args.eos_id,
+                                spec_decode=args.spec_decode,
+                                fp8_kv=args.fp8_kv,
+                                fp8_linear=args.fp8_linear,
+                                tracer=tracer, device=args.device)
+        else:
+            srv = SlotServer(cfg, params, batch_slots=args.slots,
+                             max_len=max_len, eos_id=args.eos_id,
+                             device=args.device)
+    except NotImplementedError as e:
+        # an unported family, or fp8 linears with moe
+        raise SystemExit(f"{args.arch} ({cfg.family}): {e}")
     if args.workload == "repetitive":
         reqs = repetitive_requests(args.requests, cfg.vocab_size,
                                    num_motifs=args.templates,

@@ -1,6 +1,8 @@
 """Model API of the port: parameters, KV cache and the serving steps.
 
-PyTorch counterpart of ``repro/models/api.py`` for the dense family:
+PyTorch counterpart of ``repro/models/api.py`` for the transformer
+families (dense, moe, vlm); ssm, hybrid and encdec raise
+``NotImplementedError``:
 
     param_shapes / init                     parameters
     loss_fn                                 training objective
@@ -12,6 +14,7 @@ PyTorch counterpart of ``repro/models/api.py`` for the dense family:
     verify_step                             speculative-decode verify
     SamplingParams / sample_tokens          stochastic sample head
     cow_copy_block                          copy-on-write pool block copy
+    active_param_count                      N (dense) or N_active (moe)
 
 Entry points run on the CUDA device unless the caller passes another
 ``device`` (``"cpu"`` for the tests); with no CUDA device and no
@@ -32,14 +35,11 @@ from repro_torch.models.sampling import (GREEDY, SamplingParams,  # noqa: F401
 Params = Dict[str, Any]
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+check_family = transformer.check_family
 
 
 def param_shapes(cfg: ModelConfig) -> Params:
-    _dense_only(cfg)
+    check_family(cfg)
     return transformer.transformer_specs(cfg)
 
 
@@ -61,9 +61,10 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None,
 
 def loss_fn(cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Causal-LM loss of the dense family (transformer.loss_fn); the
-    other families are not ported yet."""
-    _dense_only(cfg)
+    """Causal-LM loss of the transformer families (transformer.loss_fn):
+    cross-entropy plus ``aux_loss_weight`` times the moe layers' aux
+    loss; a vlm batch may carry ``prefix_embeds``."""
+    check_family(cfg)
     return transformer.loss_fn(cfg, params, batch)
 
 
@@ -75,7 +76,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     [L, batch, max_len, KH, hd].  ``fp8_kv`` (paged only) stores the
     pool as e4m3 codes + per-row float32 scales, read by the fp8
     kernels."""
-    _dense_only(cfg)
+    check_family(cfg)
     return transformer.init_cache(cfg, batch, max_len, dtype, paged=paged,
                                   block_size=block_size,
                                   num_blocks=num_blocks,
@@ -93,7 +94,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     ``kernel=False`` is the gather oracle.  With no `block_table` the
     cache is contiguous and read by the plain attention.  ``quant`` (te/linear.
     quantize_serving_params output) serves the linears in fp8."""
-    _dense_only(cfg)
+    check_family(cfg)
     with torch.no_grad():
         return transformer.decode_step(cfg, params, cache, token, pos,
                                        block_table, kernel=kernel,
@@ -109,7 +110,7 @@ def chunk_step(cfg: ModelConfig, params: Params, cache: Params,
     """Chunk-write serving step: per slot, write `n_tokens[b]` of the
     C-wide `tokens[b]` into the cache at `pos[b]` and return logits at
     each slot's last valid row."""
-    _dense_only(cfg)
+    check_family(cfg)
     with torch.no_grad():
         return transformer.chunk_step(cfg, params, cache, tokens, pos,
                                       n_tokens, block_table, kernel=kernel,
@@ -126,7 +127,7 @@ def verify_step(cfg: ModelConfig, params: Params, cache: Params,
     row (`chunk_step` returns only the last valid row's logits).
     ``sample=(temp, top_k, top_p, seed)`` swaps the argmax chain for the
     sample head (see transformer.verify_step)."""
-    _dense_only(cfg)
+    check_family(cfg)
     with torch.no_grad():
         return transformer.verify_step(cfg, params, cache, tokens, pos,
                                        block_table, kernel=kernel,
@@ -139,10 +140,23 @@ def cow_copy_block(cfg: ModelConfig, cache: Params, src, dst) -> Params:
     serving runtime's copy-on-write for a shared prefix block.  `src` /
     `dst` are ints or [1] int64 device tensors (the server's graphed
     copy)."""
-    _dense_only(cfg)
+    check_family(cfg)
     from repro_torch.models import attention
     attention.copy_paged_block(cache["k"], cache["v"], src, dst)
     if "k_scale" in cache:
         attention.copy_paged_block(cache["k_scale"], cache["v_scale"], src,
                                    dst)
     return cache
+
+
+def active_param_count(cfg: ModelConfig) -> float:
+    """N (dense, vlm) or N_active (moe: experts counted at top_k/E)."""
+    total = float(common.count_params(param_shapes(cfg)))
+    if cfg.family != "moe":
+        return total
+    expert = common.count_params(
+        {k: v for k, v in transformer.layer_specs(cfg)["moe"].items()
+         if k != "router"})
+    expert_total = float(expert * cfg.num_layers)
+    frac = cfg.top_k / cfg.num_experts
+    return total - expert_total * (1.0 - frac)

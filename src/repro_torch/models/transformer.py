@@ -1,7 +1,9 @@
-"""Decoder-only transformer LM (dense family): training and serving.
+"""Decoder-only transformer LM (dense, moe, vlm): training and serving.
 
-PyTorch counterpart of ``repro/models/transformer.py`` for the dense
-family.  Layer parameters keep the reference's stacked layout (every
+PyTorch counterpart of ``repro/models/transformer.py``: the dense
+family, the moe family (its MLP is ``models/moe.moe_mlp``) and the vlm
+backbone (the dense body, with ``prefix_embeds`` in place of the first
+token rows).  Layer parameters keep the reference's stacked layout (every
 leaf under "layers" has a leading [L] axis, so weights bridge across
 unchanged); the reference's scan over layers becomes a Python loop over
 layer slices.  The training forward runs each layer under the config's
@@ -23,6 +25,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import sampling
 from repro_torch.models.common import (ParamSpec, apply_norm, apply_rope,
                                        chunked_softmax_xent, cross_entropy,
@@ -35,13 +38,32 @@ Params = Dict[str, Any]
 # specs
 # ----------------------------------------------------------------------
 
+# the families this module serves and trains (the reference's
+# api._TRANSFORMER_FAMILIES)
+FAMILIES = ("dense", "moe", "vlm")
+
+
+def check_family(cfg) -> None:
+    """Raise NotImplementedError, naming the family, unless `cfg` is of
+    a transformer family (dense, moe, vlm): the ssm, hybrid and encdec
+    families are not ported."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (transformer "
+            f"families {FAMILIES} only)")
+
+
 def layer_specs(cfg) -> Params:
-    return {
+    specs: Params = {
         "ln1": norm_spec(cfg, cfg.d_model),
         "ln2": norm_spec(cfg, cfg.d_model),
         "attn": attn.attn_specs(cfg),
-        "mlp": mlp_mod.mlp_specs(cfg),
     }
+    if cfg.family == "moe":
+        specs["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        specs["mlp"] = mlp_mod.mlp_specs(cfg)
+    return specs
 
 
 def stack_specs(specs: Params, n: int) -> Params:
@@ -112,12 +134,16 @@ def attn_block(cfg, p, x: torch.Tensor, positions: torch.Tensor
 
 def layer_fwd(cfg, p, x: torch.Tensor, positions: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pre-norm block (dense). Returns (x, aux_loss)."""
+    """Pre-norm block. Returns (x, aux_loss)."""
     h = apply_norm(cfg, x, p["ln1"])
     x = x + attn_block(cfg, p["attn"], h, positions)
     h = apply_norm(cfg, x, p["ln2"])
-    y = mlp_mod.mlp(cfg, p["mlp"], h)
-    return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "moe":
+        y, aux = moe_mod.moe_mlp(cfg, p["moe"], h)
+    else:
+        y = mlp_mod.mlp(cfg, p["mlp"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 # the 2-D products a layer runs (projections, MLP): what "dots" keeps,
@@ -169,9 +195,7 @@ def forward(cfg, params, tokens: torch.Tensor, *,
             prefix_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B,S] -> (final hidden [B,S,d] (pre-unembed), aux)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+    check_family(cfg)
     B, S = tokens.shape
     x = embed_tokens(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
@@ -304,7 +328,10 @@ def _serving_scan(cfg, params, cache, x, pos, positions, block_table, *,
     """All layers over x [B, S, d] (each layer's pools updated in
     place), then the final norm.  ``quant`` (te/linear.
     quantize_serving_params output) routes the projections and the MLP
-    through the pre-quantized fp8 weights."""
+    through the pre-quantized fp8 weights (dense and vlm only).  The
+    moe family's MLP is `moe_mlp` over the whole [B, S] window, padding
+    rows included (they count in its capacity, as in the reference);
+    its aux loss is dropped."""
     ga, gm = serving_det_groups(cfg)
     for i in range(cfg.num_layers):
         lp = layer_slice(params["layers"], i)
@@ -324,7 +351,9 @@ def _serving_scan(cfg, params, cache, x, pos, positions, block_table, *,
         else:
             x = x + attn.out_project_fp8(lp["attn"], qlp["attn"], o)
         h = apply_norm(cfg, x, lp["ln2"])
-        if qlp is None:
+        if cfg.family == "moe":
+            x = x + moe_mod.moe_mlp(cfg, lp["moe"], h)[0]
+        elif qlp is None:
             x = x + mlp_mod.mlp(cfg, lp["mlp"], h, groups=gm)
         else:
             x = x + mlp_mod.mlp_fp8(cfg, lp["mlp"], qlp["mlp"], h)

@@ -67,6 +67,12 @@ the arrival.
 token at a time through `decode_step` (one work unit a distinct prompt
 length), and every decode step reads its argmax back to the host.
 
+Both servers serve the transformer families, as the reference's: dense,
+moe (its MLP is `models/moe.moe_mlp` over each unit's whole window,
+padding rows included, so one request's tokens depend on what is
+batched with it, as in the reference) and vlm.  ``fp8_linear`` with
+moe raises ``NotImplementedError``, as the reference refuses it.
+
 Not ported yet: tensor parallelism; passing ``tp`` or ``mesh`` raises
 ``NotImplementedError``.
 """
@@ -181,7 +187,7 @@ def clone_requests(reqs: List[Request]) -> List[Request]:
 # ----------------------------------------------------------------------
 
 class ChunkedServer:
-    """Chunked-prefill continuous-batching server (dense transformers).
+    """Chunked-prefill continuous-batching server (transformer families).
 
     Work units, plain functions on device tensors:
       * chunk step  — [slots, chunk] tokens; prefilling slots consume up
@@ -235,15 +241,18 @@ class ChunkedServer:
             # drop them past the block table)
             raise ValueError(
                 "spec_decode window (K+1) must fit the chunk headroom")
-        if cfg.family != "dense":
+        api.check_family(cfg)
+        if fp8_linear and cfg.family == "moe":
+            # the reference refuses it too (its fp8 linears quantize the
+            # dense MLP's weights only)
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense only)")
+                "fp8_linear serving is dense/vlm-only for now")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
         self.fp8_kv = bool(fp8_kv)
-        # fp8_linear is tp=1 and dense only, as in the reference; the
-        # port has neither tp nor other families yet, checked above
+        # fp8_linear is tp=1 and dense/vlm only, as in the reference
+        # (tp is not ported, checked above)
         self._quant = (te_linear.quantize_serving_params(params)
                        if fp8_linear else None)
         self.B = batch_slots
@@ -1143,9 +1152,7 @@ class SlotServer:
     def __init__(self, cfg: ModelConfig, params: Params, *,
                  batch_slots: int = 8, max_len: int = 512,
                  eos_id: Optional[int] = None, device=None):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense only)")
+        api.check_family(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

@@ -2566,3 +2566,109 @@ def test_memory_and_te_benchmarks_run_on_card(cuda, monkeypatch):
                           "te_layer"], fail_fast=True, device=cuda) == 0
     assert all(v > 0 for v in memk.launch_counts().values())
     assert kfa.launch_counts()["flash_attention"] > 0
+
+
+# ----------------------------------------------------------------------
+# the moe and vlm families
+# ----------------------------------------------------------------------
+
+FAMILY_ARCHS = ("moonshot-v1-16b-a3b", "dbrx-132b", "internvl2-1b")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [0, 3], ids=["span", "spec"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_server_graph_replays_equal_eager_units(cuda, arch, spec):
+    """A reduced moe / vlm server completes on the card; every unit used
+    is captured once and replayed, and a fresh server whose units run
+    eagerly serves the same waves to the same streams and pools, bit for
+    bit (the moe MLP's combine adds in a fixed order, no atomics)."""
+    cfg = reduced_config(arch)
+    params = api.init(cfg, 0, device=cuda, dtype=torch.bfloat16)
+    kw = dict(batch_slots=3, max_len=64, chunk=8, span=4, block_size=8,
+              device=cuda, spec_decode=spec)
+    graphed = server.ChunkedServer(cfg, params, **kw)
+    eager = server.ChunkedServer(cfg, params, **kw)
+    for unit in eager._units.values():
+        unit.run = unit._eager
+    n0 = dict(pk.launch_counts())
+    outs = _graph_waves(graphed, cfg, sampled=False)
+    assert outs == _graph_waves(eager, cfg, sampled=False)
+    assert all(len(o) for wave in outs for o in wave)
+    for k in graphed.cache:
+        assert torch.equal(graphed.cache[k].view(torch.uint8),
+                           eager.cache[k].view(torch.uint8)), k
+    want = {"chunk_step": 1, "decode_span": 0 if spec else 1, "cow_copy": 1}
+    if spec:
+        want["verify_step"] = 1
+    assert graphed.compile_counts() == eager.compile_counts() == want
+    for name, unit in graphed._units.items():
+        if want[name]:
+            assert unit.calls >= 3 and unit.captures == 1, name
+    ran = {k: v - n0[k] for k, v in pk.launch_counts().items()}
+    assert ran["paged_chunk"] > 0
+    assert (ran["paged_decode"] > 0) == (spec == 0)
+
+
+@pytest.mark.gpu
+def test_moe_mlp_bitwise_run_to_run_and_replayed(cuda):
+    """Full-width moonshot-v1-16b-a3b's moe_mlp (64 experts, top-6, one
+    layer's bf16 weights) on 128 rows: two calls and a CUDA-graph replay
+    give the same bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, moe
+    cfg = get_config("moonshot-v1-16b-a3b")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = common.init_params(moe.moe_specs(cfg), gen, cuda, torch.bfloat16)
+    x = torch.randn((8, 16, cfg.d_model), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        y1, a1 = moe.moe_mlp(cfg, p, x)
+        y2, a2 = moe.moe_mlp(cfg, p, x)
+        assert torch.equal(y1, y2) and torch.equal(a1, a2)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            moe.moe_mlp(cfg, p, x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y3, a3 = moe.moe_mlp(cfg, p, x)
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(y1, y3) and torch.equal(a1, a3)
+    assert torch.isfinite(y1.float()).all()
+
+
+# the families' attention shapes: internvl2-1b (H=14, KH=2: G=7, hd 64)
+# and moonshot-v1-16b-a3b (H=KH=16: G=1, hd 128)
+FAMILY_PAGED_CASES = [
+    # dtype      B  H  KH  hd  NB  bs  MB seed
+    ("bfloat16", 4, 14, 2, 64, 40, 16, 8, 21),
+    ("float32",  4, 14, 2, 64, 40, 16, 8, 22),
+    ("bfloat16", 4, 16, 16, 128, 40, 16, 8, 23),
+    ("float32",  4, 16, 16, 128, 40, 16, 8, 24),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 5, 16])
+@pytest.mark.parametrize("dtype,B,H,KH,hd,NB,bs,MB,seed", FAMILY_PAGED_CASES)
+def test_paged_kernels_at_family_shapes_vs_plain(cuda, dtype, B, H, KH, hd,
+                                                 NB, bs, MB, seed, C):
+    """Decode (C=1) and chunk (C=5, the verify shape at K=4; C=16) calls
+    at G=7 / hd 64 and G=1 / hd 128, bf16/float32 and e4m3 pools."""
+    q, ck, cv, bt, kv = _mk(dtype, B, H, KH, hd, NB, bs, MB, seed, cuda,
+                            C=C)
+    kq, vq, sc = _quantized(ck, cv)
+    for pools, kw in (((ck, cv), {}), ((kq, vq), sc)):
+        suffix = "_fp8" if kw else ""
+        if C == 1:
+            name, lens = "paged_decode" + suffix, kv
+        else:
+            name, lens = "paged_chunk" + suffix, torch.clamp(kv - C, min=0)
+        fn = getattr(pk, name)
+        got = fn(q, *pools, bt, lens, **kw)
+        want = getattr(pk, name + "_plain")(q, *pools, bt, lens, **kw)
+        err, ok = _paged_err_ok(got, want, dtype)
+        assert ok, (name, err)

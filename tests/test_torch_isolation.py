@@ -8,8 +8,9 @@
     slot baseline), runs the CLI (both engines), runs the
     dissection benchmarks tc_energy, tc_n_sweep, dpx_functions, dsm and
     te_linear (the fp8 training linear at the CPU sizes) with
-    `--device cpu`, and trains three steps of the reduced yi-6b
-    through the port's `Trainer` on the CPU;
+    `--device cpu`, trains three steps of the reduced yi-6b through
+    the port's `Trainer` on the CPU, and serves and trains a step of
+    the reduced moonshot-v1-16b-a3b (models/moe.py) and internvl2-1b;
 (c) an entry point called without a device on a host without CUDA
     raises instead of running on the CPU (the serving entry points, the
     benchmark runner, the training CLI and `Trainer.init`);
@@ -115,6 +116,21 @@ with tempfile.TemporaryDirectory() as td:
     hist = tr.run(3)
 assert [m.step for m in hist] == [1, 2, 3], hist
 assert all(m.loss == m.loss for m in hist)
+for arch in ("moonshot-v1-16b-a3b", "internvl2-1b"):
+    fcfg = reduced_config(arch)
+    fparams = api.init(fcfg, 0, device="cpu")
+    freqs = sharegpt_like_requests(2, fcfg.vocab_size, max_input=12,
+                                   max_output=4, seed=2)
+    ChunkedServer(fcfg, fparams, batch_slots=2, max_len=32, chunk=8,
+                  span=4, block_size=8, device="cpu").serve(freqs)
+    assert all(r.done for r in freqs)
+    with tempfile.TemporaryDirectory() as td:
+        tr = Trainer(fcfg, TrainConfig(total_steps=1, warmup_steps=1,
+                                       ckpt_every=2, ckpt_dir=td),
+                     data=SyntheticLMData(fcfg.vocab_size, 2, 16),
+                     device="cpu")
+        tr.init()
+        assert tr.run(1)[0].loss == tr.history[0].loss
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")
@@ -122,6 +138,8 @@ print("OK")
 
 
 def test_port_serves_without_jax():
+    # the scan of (a) covers every module, models/moe.py among them
+    assert ROOT / "src" / "repro_torch" / "models" / "moe.py" in PORT_FILES
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD % {"src": str(ROOT / "src")}],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
