@@ -33,18 +33,20 @@ last line):
               recomputes the scores, against plain (the chunk's row by
               row), with the byte time of K twice and V once beside the
               bound.
-  4. forward — full-width 32-layer yi-6b (random bf16 weights, seed 0):
+  4. forward — full-width yi-6b, its depth cut to SERVE_LAYERS (16 of
+              32) for the script's time limit, as in phases 5-6
+              (random bf16 weights, seed 0):
               a chunk_step and decode_steps through the kernels, every
               kernel call held against its plain version on the same
               inputs; the end-to-end logits against the plain path are
-              printed (random weights make the 32-layer stack chaotic:
+              printed (random weights make the deep stack chaotic:
               a one-step rounding difference grows layer by layer).
               Then the same with an e4m3 pool and fp8 linears.
   5. serve  — ChunkedServer on full-width yi-6b: a ShareGPT-like wave
               (paper Table XII protocol) and a shared-system-prompt
               wave (radix prefix cache + copy-on-write); every request
               complete at its expected length, both kernels launched,
-              32 x steps each, and as many launches run on the card
+              L x steps each, and as many launches run on the card
               (the kernel's own counter).  Every work unit replays one
               CUDA graph:
               compile_counts(), captures and the graph pool's bytes
@@ -81,7 +83,7 @@ last line):
               K=4 warm (partings printed) and a KS test of K=4 against
               K=0 at temperature 1.0 with disjoint seeds (p > 0.01).
               Every spec wave launches the decode kernel 0 times and the
-              chunk kernel 32 x chunk steps in its chunk steps and 32 x
+              chunk kernel L x chunk steps in its chunk steps and L x
               verify steps in its verify steps, counted around each
               dispatch, and as many run on the card; acceptance, tokens a slot a verify step and wall
               tokens/s against K=0 printed.
@@ -254,8 +256,9 @@ last line):
               (Fig. 5); then the memory_latency, memory_throughput,
               te_linear and te_layer benchmarks through the kernels.
  12. families — the moe and vlm families (models/moe.py): (a)
-              moonshot-v1-16b-a3b at full width and depth (48 layers, d
-              2048, 64 experts top-6, vocab 163840, 56.1 GB of random
+              moonshot-v1-16b-a3b at full width, its depth cut to 12
+              of 48 layers to keep the script inside its time limit (d
+              2048, 64 experts top-6, vocab 163840, ~15.0 GB of random
               bf16 weights, seed 0; yi-6b freed first): phase 4's
               forward check (bf16 and an e4m3 pool), phase 5's waves in
               bf16 and with an e4m3 pool (bf16 linears: moe refuses
@@ -275,9 +278,37 @@ last line):
               (B=2, S=2048, prefix_embeds): phase 10's checked train
               step and Trainer.run on fresh batches (moonshot: the mean
               loss of its own batches must fall; internvl2-1b's printed).
-Each serve phase, the benchmark runs of phases 8, 9 and 11 and the
-Trainer.run of phase 10 set their kernels' launch counts to 0 just
-before their main path and read them just after; phase 5b reads the
+ 13. ssm    — the ssm and hybrid families (models/ssm.py, ssm_lm.py,
+              hybrid.py): (a) falcon-mamba-7b at full width and depth
+              (64 layers, d 4096, d_inner 8192, N 16, vocab 65024, 7.27
+              B random bf16 weights, seed 0): api.prefill on B=8 x 512
+              equal bit for bit to ssm_lm.forward + logits_fn at the
+              last position; the prompt's last 16 tokens decoded one by
+              one from the state after the rest, the first step within
+              SSM_TAIL_STEPS bf16 steps of the forward's row (the rest
+              and the stack's own bf16 noise printed: the random stack
+              is chaotic); the decode step as a runtime.graphs.WorkUnit
+              (eager, then one CUDA graph), equal bit for bit to an
+              eager step, and 64 greedy steps through its replays;
+              prefill ms and tokens/s, the eager step's wall ms, the
+              replay's device ms against its bytes bound, its kernels
+              by kind, peak memory; (b) zamba2-2.7b at full width and
+              depth (54 layers = 9 super-blocks of 6, H = KH = 32, hd
+              80): api.prefill (the forward) with each of its 9 B9
+              calls (mma_sync) held to plain, the prompt fed token by
+              token from state zero and 32 greedy steps through the
+              decode step's graph, the same numbers; (c) the reduced
+              falcon-mamba-7b and zamba2-2.7b card against CPU (tokens
+              by phase 7's margin rule, logits within max(4, 3 x the
+              CPU's own bf16-vs-float32 distance) bf16 steps); (d)
+              falcon-mamba-7b cut to 4 layers and zamba2-2.7b to 12 (2
+              super-blocks), B=2 x 2048: phase 10's checked train step
+              and Trainer.run on fresh batches (the mean loss of the
+              run's own batches must fall).
+Each serve phase, the benchmark runs of phases 8, 9 and 11, the
+Trainer.run of phases 10, 12 and 13 and phase 13's prefill set their
+kernels' launch counts to 0 just before their main path and read them
+just after; phase 5b reads the
 paged kernels' counts (set to 0) after each spec wave, and its
 launches join phase 5's in paged_chunk's and paged_chunk_fp8's counts,
 and phase 5e's join all four paged kernels' counts; phases 5, 5b and
@@ -285,8 +316,9 @@ and phase 5e's join all four paged kernels' counts; phases 5, 5b and
 the paged kernels' launches by work unit (chunk, span, verify).  Then one JSON line of
 per-kernel numbers (twenty kernels; those with several bodies also
 their launches by body, flash_attention its launches by path: Trainer,
-te_layer and phase 12's Trainer; the paged kernels phase 12's launches
-apart too) and, last, the contract line
+te_layer, phase 12's Trainer, phase 13's prefill and Trainer; the
+paged kernels phase 12's launches apart too) and, last, the contract
+line
 {"ok": true, "device": {...}}.
 """
 
@@ -327,6 +359,10 @@ SMALL_MARGIN = 0.0625
 SMALL_FP8_MARGIN = 0.5
 DEVICE = "cuda"
 SERVE_SPAN = 8          # phase 5's decode steps a span dispatch
+# the serving depth of phases 4-6: yi-6b at full width, 16 of its 32
+# layers, so that the script with phases 12 and 13 ends well inside its
+# 1200 s (every count and bound below follows cfg.num_layers)
+SERVE_LAYERS = 16
 
 
 def fail(msg: str) -> None:
@@ -1437,7 +1473,7 @@ def phase_spec(cfg, params, fp8: bool = False) -> dict:
     (recorded), a K=4 cold and a warm wave on one spec server, and the
     same two waves on a fresh spec server, which must repeat the tokens
     exactly.  K=4 is not held to K=0 token for token here: the
-    random-weight 32-layer stack turns a rounding difference between the
+    random-weight deep stack turns a rounding difference between the
     verify step's and the decode step's sums into O(1) logit
     differences (phase 4), so each stream's first parting from K=0 is
     printed with the K=0 run's margin there, and the verify step is
@@ -1447,8 +1483,8 @@ def phase_spec(cfg, params, fp8: bool = False) -> dict:
     streams are held at the reduced size (phase 7) and on the CPU (the
     tests).  Every spec wave's streams are rebuilt exactly from its
     verify steps' own records (`_check_chain`), and its launches are
-    held: paged_decode 0 times, paged_chunk 32 x chunk steps in the
-    chunk steps and 32 x verify steps in the verify steps.  A warm wave
+    held: paged_decode 0 times, paged_chunk L x chunk steps in the
+    chunk steps and L x verify steps in the verify steps.  A warm wave
     whose drafts do not enter the numerics (bf16; in the fp8 phase a
     server with the e4m3 pool and bf16 linears) must accept at least
     ACCEPT_FLOOR of its drafts; with fp8 linears the drafts enter the
@@ -2216,27 +2252,40 @@ def _online_waves(a, b, ta, tb, reqs, tag, heads) -> dict:
 # 6. where the time goes
 # ----------------------------------------------------------------------
 
+def _device_profile():
+    """torch.profiler over the device's activity alone: the readings
+    below need only its kernels, and host-side op records cost far more
+    to record and to parse than the device time they sit beside
+    (scripts/profiler_cost.py measures both on a training step)."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def _device_events(prof) -> list:
+    """(name, ms) of each device event (kernel, copy, set) of a
+    torch.profiler run, read from its raw trace: the same events and
+    durations as prof.events() gives, without building its event tree
+    (scripts/profiler_cost.py holds the two equal and times both)."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.duration_ns() / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def _device_ms_by_kernel(prof, steps: int):
     """Device ms a step of each kernel name in a torch.profiler run of
     `steps` steps."""
     import collections
-    from torch.autograd import DeviceType
     by_name = collections.Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "device_time_total", None)
-            if us is None:
-                us = e.cuda_time_total
-            by_name[e.name] += us / steps / 1e3
+    for name, ms in _device_events(prof):
+        by_name[name] += ms / steps
     return by_name
 
 
 def _kernel_launches(prof, name: str) -> int:
     """Device launches of kernels whose name holds `name` in a
     torch.profiler run."""
-    from torch.autograd import DeviceType
-    return sum(1 for e in prof.events()
-               if e.device_type == DeviceType.CUDA and name in e.name)
+    return sum(1 for n, _ in _device_events(prof) if name in n)
 
 
 def phase_profile(cfg, params, fp8: bool = False, label=None) -> dict:
@@ -2261,7 +2310,6 @@ def phase_profile(cfg, params, fp8: bool = False, label=None) -> dict:
     unit's wall ms, device ms and top kernels."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.models import sampling
     from repro_torch.runtime.server import ChunkedServer
@@ -2308,8 +2356,7 @@ def phase_profile(cfg, params, fp8: bool = False, label=None) -> dict:
         torch.cuda.synchronize()
         dev = start.elapsed_time(end) / steps
         ran0 = pk.device_launches(DEVICE)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _device_profile() as prof:
             for _ in range(steps):
                 unit.run(*args)
             torch.cuda.synchronize()
@@ -2364,8 +2411,7 @@ def phase_profile(cfg, params, fp8: bool = False, label=None) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _device_profile() as prof:
             for _ in range(steps):
                 fn()
             torch.cuda.synchronize()
@@ -3816,13 +3862,16 @@ def _train_config(cfg, layers: int):
     return dataclasses.replace(cfg, num_layers=layers, remat="dots")
 
 
-def phase_train_step(cfg, B: int = 2, S: int = 4096, extra=None) -> None:
+def phase_train_step(cfg, B: int = 2, S: int = 4096, extra=None,
+                     flash_calls=None) -> None:
     """10(c): one full-width training step (8 layers, remat dots, fp32
     parameters and moments), every flash-attention call held against
     its plain version on the same inputs; the loss of the same batch
     through the plain forward printed beside it (random full-width
-    stacks are chaotic: not gated).  Phase 12 runs it on the families
-    (`extra`: SyntheticLMData's extra inputs, a vlm's prefix_embeds)."""
+    stacks are chaotic: not gated).  Phases 12 and 13 run it on the
+    families (`extra`: SyntheticLMData's extra inputs, a vlm's
+    prefix_embeds; `flash_calls`: the step's flash forwards, forward
+    and remat recompute, when not two a layer)."""
     import torch
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import flash_attention as kfa
@@ -3874,16 +3923,18 @@ def phase_train_step(cfg, B: int = 2, S: int = 4096, extra=None) -> None:
     if not (torch.isfinite(metrics["loss"]) and
             torch.isfinite(metrics["grad_norm"])):
         fail("full-width training step gave a non-finite loss or gradient")
-    if worst[0] != 2 * cfg.num_layers:
-        fail(f"the step ran {worst[0]} flash forwards, not "
-             f"{2 * cfg.num_layers} (forward + recompute of each layer)")
+    want = 2 * cfg.num_layers if flash_calls is None else flash_calls
+    if worst[0] != want:
+        fail(f"the step ran {worst[0]} flash forwards, not {want} "
+             f"(forward + recompute of each attention)")
     if worst[1] > FLASH_BF16_STEP or worst[2] > FLASH_F32_LIMIT:
         fail(f"a flash call of the training step differs from its plain "
              f"version: o {worst[1]:.3e} of max |o|, lse {worst[2]:.3e}")
 
 
 def phase_trainer(cfg, steps: int = 4, B: int = 2, S: int = 4096,
-                  extra=None, descent: str = "steps") -> tuple:
+                  extra=None, descent: str = "steps", flash_calls=None,
+                  flash_body: str = "wgmma") -> tuple:
     """10(d): Trainer.run on the full-width 8-layer config (phase 12:
     the families' configs, `extra` as in phase_train_step), fresh
     batches every step; the main path of this phase, with B9's count
@@ -3894,12 +3945,12 @@ def phase_trainer(cfg, steps: int = 4, B: int = 2, S: int = 4096,
     batch's loss less than the batches differ) or "" (that mean printed,
     not gated: on a random 24-layer internvl2-1b stack, chaotic in the
     reference as in the port, four steps move it by about a thousandth;
-    PERF.md §6).  Then one more step under
-    torch.profiler: the device time by kernel.  Returns the launch
-    counts, by body too."""
+    PERF.md §6).  `flash_calls` (B9 launches a step, default two a
+    layer) and `flash_body` (the body they run) as phase 13's families
+    need.  Then one more step under torch.profiler: the device time by
+    kernel.  Returns the launch counts, by body too."""
     import tempfile
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import flash_attention as kfa
@@ -3933,8 +3984,7 @@ def phase_trainer(cfg, steps: int = 4, B: int = 2, S: int = 4096,
         peak = torch.cuda.max_memory_allocated()
         after = seen_loss()
         t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _device_profile() as prof:
             tr.run(1)
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
@@ -3982,11 +4032,12 @@ def phase_trainer(cfg, steps: int = 4, B: int = 2, S: int = 4096,
     if descent == "batches" and not after < before:
         fail(f"Trainer.run did not lower the loss of its own batches: "
              f"{before} before the steps, {after} after")
-    if launches["flash_attention"] != 2 * cfg.num_layers * steps:
+    per_step = 2 * cfg.num_layers if flash_calls is None else flash_calls
+    if launches["flash_attention"] != per_step * steps:
         fail(f"flash_attention launched {launches} times in {steps} steps, "
-             f"not {2 * cfg.num_layers} a step")
-    if bodies["wgmma"] != launches["flash_attention"]:
-        fail(f"the training step ran B9 off its wgmma body: {bodies}")
+             f"not {per_step} a step")
+    if bodies[flash_body] != launches["flash_attention"]:
+        fail(f"the training step ran B9 off its {flash_body} body: {bodies}")
     return launches, bodies
 
 
@@ -4519,7 +4570,6 @@ def phase_te_profile() -> None:
     product's kernel as the profiler saw them."""
     import collections
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.benchmarks import te_linear as bl
     from repro_torch.te.fp8 import DelayedScalingRecipe
@@ -4544,9 +4594,8 @@ def phase_te_profile() -> None:
             k: ms for k, ms in _device_ms_by_kernel(prof, 1).items()
             if not k.startswith("ProfilerStep")})
         gemms = collections.Counter(
-            e.name for e in prof.events()
-            if e.device_type == DeviceType.CUDA
-            and any(p in e.name for p in product))
+            nm for nm, _ in _device_events(prof)
+            if any(p in nm for p in product))
         calls = max(gemms.values(), default=0)
         if not calls:
             fail(f"te_linear N={n}: the profiler saw no fp8 product "
@@ -4616,6 +4665,9 @@ def phase_memory_te() -> tuple:
 # ----------------------------------------------------------------------
 
 FAMILY_MOE = "moonshot-v1-16b-a3b"     # 64 experts, top-6, 28.06 B params
+# its serving depth in (a): 12 of its 48 layers, so that the script
+# with phase 13 ends well inside its 1200 s
+FAMILY_MOE_LAYERS = 12
 FAMILY_VLM = "internvl2-1b"            # G=7, hd 64, tied embeddings
 FAMILY_SMALL = ("moonshot-v1-16b-a3b", "dbrx-132b", "internvl2-1b")
 # layers and loss gate (phase_trainer's `descent`) of the families'
@@ -4663,20 +4715,23 @@ def _decode_bytes_bound(cfg, B: int, kv_tokens: int) -> tuple:
     return (weights + kv) / HBM_BYTES_PER_S * 1e3, weights, kv
 
 
-def _kernel_split(by_name) -> str:
-    """Device ms by kind of a profiler's {kernel name: ms}."""
-    groups = {g: 0.0 for g in FAMILY_KERNEL_GROUPS}
-    other = 0.0
+def _kernel_split(by_name, groups=None, steps: int = SERVE_SPAN,
+                  other: str = "other (elementwise, norms, casts)") -> str:
+    """Device ms a step by kind of a profiler's {kernel name: ms} over
+    `steps` steps, kinds by name patterns (`groups`, default
+    FAMILY_KERNEL_GROUPS)."""
+    groups = FAMILY_KERNEL_GROUPS if groups is None else groups
+    ms_by = {g: 0.0 for g in groups}
+    rest = 0.0
     for name, ms in by_name.items():
-        g = next((g for g, keys in FAMILY_KERNEL_GROUPS.items()
+        g = next((g for g, keys in groups.items()
                   if any(k in name for k in keys)), None)
         if g is None:
-            other += ms
+            rest += ms
         else:
-            groups[g] += ms
-    groups["other (elementwise, norms, casts)"] = other
-    return "; ".join(f"{g} {ms / SERVE_SPAN:.3f}"
-                     for g, ms in groups.items())
+            ms_by[g] += ms
+    ms_by[other] = rest
+    return "; ".join(f"{g} {ms / steps:.3f}" for g, ms in ms_by.items())
 
 
 def _family_spec(cfg, params) -> dict:
@@ -4801,8 +4856,9 @@ def _moe_mlp_card_vs_cpu(cfg) -> None:
 
 
 def phase_families() -> dict:
-    """Phase 12: (a) full-width, full-depth moonshot-v1-16b-a3b in bf16
-    (random weights, seed 0): the forward's kernel calls against plain
+    """Phase 12: (a) full-width moonshot-v1-16b-a3b cut to
+    FAMILY_MOE_LAYERS layers in bf16 (random weights, seed 0): the
+    forward's kernel calls against plain
     (bf16 and an e4m3 pool), phase 5's two waves through ChunkedServer
     in bf16 and with an e4m3 pool (bf16 linears: moe refuses fp8
     linears), graphs captured once and streams equal to a fresh eager
@@ -4818,6 +4874,7 @@ def phase_families() -> dict:
     on fresh batches.  Each serve and train main
     path sets its kernels' counts to 0 just before and reads them just
     after.  Returns the paged kernels' and B9's launches."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -4835,12 +4892,13 @@ def phase_families() -> dict:
                 for b, c in by_body.get(k, {}).items():
                     bodies[k][b] = bodies[k].get(b, 0) + c
 
-    # (a) moonshot-v1-16b-a3b at full width and depth
-    cfg = get_config(FAMILY_MOE)
+    # (a) moonshot-v1-16b-a3b at full width, depth cut
+    cfg = dataclasses.replace(get_config(FAMILY_MOE),
+                              num_layers=FAMILY_MOE_LAYERS)
     t0 = time.perf_counter()
     params = api.init(cfg, 0, device=DEVICE, dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    print(f"[families] (a) {cfg.name} full width and depth: "
+    print(f"[families] (a) {cfg.name} full width, depth cut: "
           f"{cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_experts} "
           f"experts top-{cfg.top_k}, vocab {cfg.vocab_size}: "
           f"{cfg.param_count() / 1e9:.2f} B params "
@@ -4931,9 +4989,567 @@ def phase_families() -> dict:
             "flash": flash["flash_attention"], "flash_bodies": flash_bodies}
 
 
+# ----------------------------------------------------------------------
+# 13. the state-space families
+# ----------------------------------------------------------------------
+
+SSM_ARCH = "falcon-mamba-7b"           # Mamba-1: 64 layers, 7.27 B params
+HYBRID_ARCH = "zamba2-2.7b"            # Mamba-2 + a shared block at hd 80
+SSM_PROMPT = (8, 512)                  # B, S of the prefills
+SSM_DECODE = {SSM_ARCH: 64, HYBRID_ARCH: 32}    # greedy steps after them
+# falcon-mamba-7b: the prompt's last SSM_TAIL tokens decoded one by one
+# from the state after the rest, against the chunked forward's rows (the
+# one-token and the chunked scan multiply in other orders; the reduced
+# model reads 0 bf16 steps, on the CPU and card against CPU).  The
+# random 64-layer stack is chaotic: its bf16 forward lies 45-103 bf16
+# steps (2**-7 of max |logit| each) from the same forward with float32
+# activations, and the tail steps part from the rows as they go (10.1
+# steps at the first, 62 by the ninth, on an NVIDIA H100 80GB HBM3 at
+# 700.00 W).
+# So the first step is held to SSM_TAIL_STEPS and the rest printed, with
+# the stack's own noise (slot 0)
+SSM_TAIL = 16
+SSM_TAIL_STEPS = 16.0
+SSM_SMALL = (SSM_ARCH, HYBRID_ARCH)
+SSM_SMALL_SHAPE = (4, 24, 16)          # B, prompt, decode steps
+# card against CPU at the reduced size: logits within max(SSM_SMALL_STEPS,
+# SSM_NOISE x the CPU's own bf16-vs-float32 distance) bf16 steps (the
+# reduced zamba2 is chaotic in bf16: tests/test_torch_hybrid.py)
+SSM_SMALL_STEPS = 4.0
+SSM_NOISE = 3.0
+# layers of the cut-depth trainings (B, S = FAMILY_TRAIN): fp32
+# parameters and AdamW moments at full depth need 116 GB (falcon-mamba)
+# and 38 GB plus activations (zamba2)
+SSM_TRAIN_LAYERS = {SSM_ARCH: 4, HYBRID_ARCH: 12}
+SSM_REPLAYS = 20                       # replays a device-ms reading
+SSM_KERNEL_GROUPS = {
+    "GEMMs (projections, unembedding)": (
+        "nvjet", "gemm", "gemv", "sm90", "cutlass", "Kernel2", "splitK"),
+    "reductions (norms, readout, softmax)": ("reduce", "Reduce", "softmax"),
+    "copies, cats, scatters": ("copy", "Copy", "cat", "Cat", "scatter",
+                               "index", "gather"),
+}
+SSM_OTHER = "other elementwise (scan, exp, silu, casts)"
+
+
+def _tree_clone(tree):
+    from repro_torch.core.tree import tree_map
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def _tree_copy_(dst, src) -> None:
+    from repro_torch.core.tree import leaves
+    for d, t in zip(leaves(dst), leaves(src)):
+        d.copy_(t)
+
+
+def _tree_equal(a, b) -> bool:
+    import torch
+    from repro_torch.core.tree import leaves
+    return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.core.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def _bf16_steps(want, got) -> float:
+    """max |got - want| in bf16 steps of want's scale (2**-7 max |want|)."""
+    want, got = want.float().cpu(), got.float().cpu()
+    return ((got - want).abs().max()
+            / (2.0 ** -7 * want.abs().max())).item()
+
+
+def _ssm_bytes_bound(cfg, params, cache, B: int, kv_read: int) -> tuple:
+    """(ms, weight bytes, state bytes) of the least time a decode step
+    of B sequences can take, bytes over HBM_BYTES_PER_S: every weight
+    read once (the hybrid's shared block once a super-block), but only B
+    rows of an untied embedding table; the recurrent states read and
+    written; the hybrid's K and V read at `kv_read` positions a slot
+    and a row of each written, a super-block."""
+    from repro_torch.models import hybrid
+    weights = _tree_bytes(params)
+    emb = params["embed"]
+    if not cfg.tie_embeddings:
+        weights -= (emb.shape[0] - B) * emb.shape[1] * emb.element_size()
+    state = 0
+    if cfg.family == "hybrid":
+        ns = hybrid.n_superblocks(cfg)
+        weights += (ns - 1) * _tree_bytes(params["shared"])
+        state = 2 * _tree_bytes(cache["mamba"])
+        row = cache["k"][0, :, 0].numel() * cache["k"].element_size()
+        state += ns * 2 * row * (kv_read + 1)
+    else:
+        state = 2 * _tree_bytes(cache)
+    return (weights + state) / HBM_BYTES_PER_S * 1e3, weights, state
+
+
+def _decode_unit(cfg, params, cache, tok, pos: int, label: str) -> tuple:
+    """A WorkUnit of api.decode_step over `cache` (call 1 eager on a side
+    stream, call 2 captured and replayed), each held bit for bit to an
+    eager step from the same state (logits and every cache leaf); the
+    eager step's wall ms, the replay's device ms (CUDA events over
+    SSM_REPLAYS replays), its kernels and their device ms by kind
+    (torch.profiler over 5 replays).  `cache` is left as it was given.
+    Returns (unit, readings)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    from repro_torch.runtime.graphs import WorkUnit
+    unit = WorkUnit("decode_step", lambda t, p: (api.decode_step(
+        cfg, params, cache, t, p)[0],), DEVICE)
+    ops = (tok.cpu().numpy().astype(np.int32), np.array([pos], np.int32))
+    snap = _tree_clone(cache)
+    eager = _tree_clone(snap)
+    want, _ = api.decode_step(cfg, params, eager, tok, pos)
+    walls = []
+    for _ in range(3):
+        probe = _tree_clone(snap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.decode_step(cfg, params, probe, tok, pos)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        del probe
+    for call in ("eager (side stream)", "captured and replayed"):
+        _tree_copy_(cache, snap)
+        got = unit.run(*ops)[0]
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and _tree_equal(cache, eager)):
+            fail(f"{label} decode step, {call}: logits or state differ "
+                 f"from the eager step's")
+    _tree_copy_(cache, snap)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(SSM_REPLAYS):
+        unit.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    dev_ms = start.elapsed_time(end) / SSM_REPLAYS
+    with _device_profile() as prof:
+        for _ in range(5):
+            unit.graph.replay()
+        torch.cuda.synchronize()
+    by_name = _device_ms_by_kernel(prof, 5)
+    kernels = len(_device_events(prof)) / 5
+    _tree_copy_(cache, snap)
+    del snap, eager
+    return unit, {"wall_ms": sorted(walls)[1], "device_ms": dev_ms,
+                  "by_name": by_name, "kernels": kernels}
+
+
+def _greedy(unit, tok, pos: int, steps: int, vocab: int) -> list:
+    """`steps` greedy tokens through the unit's replays from `tok` at
+    `pos`: each in the vocabulary, each step's logits finite."""
+    import numpy as np
+    import torch
+    out = []
+    for i in range(steps):
+        logits = unit.run(tok.cpu().numpy().astype(np.int32),
+                          np.array([pos + i], np.int32))[0]
+        if not torch.isfinite(logits.float()).all():
+            fail(f"decode step {i} gave non-finite logits")
+        tok = logits.argmax(-1).to(torch.int32)
+        out.append(tok.cpu())
+    toks = torch.stack(out, 1)
+    if not ((toks >= 0) & (toks < vocab)).all():
+        fail("a greedy token fell outside the vocabulary")
+    return toks
+
+
+def _report_decode(label, cfg, params, cache, B, kv_read, unit_stats,
+                   prefill_ms, S, peak) -> dict:
+    bound, w, st = _ssm_bytes_bound(cfg, params, cache, B, kv_read)
+    dev = unit_stats["device_ms"]
+    top = "; ".join(f"{n[:56]} {ms:.3f}"
+                    for n, ms in unit_stats["by_name"].most_common(6))
+    print(f"[ssm] {label}: prefill B={B} S={S} {prefill_ms:.1f} ms = "
+          f"{B * S / prefill_ms * 1e3:.0f} tokens/s; decode step (B={B}) "
+          f"eager {unit_stats['wall_ms']:.2f} wall ms, graph replay "
+          f"{dev:.3f} device ms against its bytes bound {bound:.3f} ms "
+          f"({w / 1e9:.3f} GB of weights + {st / 1e6:.1f} MB of state"
+          f"{' and KV' if cfg.family == 'hybrid' else ''} over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {dev / bound:.2f}x), "
+          f"{unit_stats['kernels']:.0f} kernels a step; device ms by kind "
+          f"a step (profiler): {_kernel_split(unit_stats['by_name'], SSM_KERNEL_GROUPS, 1, SSM_OTHER)}; top "
+          f"kernels (ms a step): {top}; peak memory {peak / 1e9:.2f} GB",
+          flush=True)
+    return {"prefill_ms": prefill_ms, "device_ms": dev, "bound_ms": bound}
+
+
+def _ssm_model(name: str, seed: int = 0):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    params = api.init(cfg, seed, device=DEVICE, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"[ssm] {name} full width and depth: {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, N {cfg.ssm_state}, vocab "
+          f"{cfg.vocab_size}: {cfg.param_count() / 1e9:.3f} B params, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated in bf16, "
+          f"init {time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    B, S = SSM_PROMPT
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    return cfg, params, toks
+
+
+def _timed_prefill(cfg, params, toks, max_len):
+    """api.prefill on a fresh cache twice (the second timed): equal
+    logits.  Returns (logits, cache, ms)."""
+    import torch
+    from repro_torch.models import api
+    B = toks.shape[0]
+    first, _ = api.prefill(cfg, params, {"tokens": toks},
+                           api.init_cache(cfg, B, max_len, device=DEVICE))
+    cache = api.init_cache(cfg, B, max_len, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(cfg, params, {"tokens": toks}, cache)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(first, logits):
+        fail(f"{cfg.name} prefill is not bitwise repeatable")
+    return logits, cache, ms
+
+
+def _phase_falcon() -> dict:
+    """13(a)."""
+    import torch
+    from repro_torch.models import api, ssm_lm, transformer
+    cfg, params, toks = _ssm_model(SSM_ARCH)
+    B, S = SSM_PROMPT
+    steps = SSM_DECODE[SSM_ARCH]
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache, prefill_ms = _timed_prefill(cfg, params, toks, S + steps)
+    print(f"[ssm] {cfg.name}: prefill {prefill_ms:.1f} ms", flush=True)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        h, _ = ssm_lm.forward(cfg, params, toks)
+        last = transformer.logits_fn(cfg, params, h[:, -1:])[:, 0]
+        rows = transformer.logits_fn(cfg, params, h[:, S - SSM_TAIL:])
+        with _Float32Rows():
+            h, _ = ssm_lm.forward(cfg, params, toks[:1])
+            rows32 = transformer.logits_fn(cfg, params, h[:, S - SSM_TAIL:])
+    del h
+    noise = [_bf16_steps(rows32[0, j], rows[0, j]) for j in range(SSM_TAIL)]
+    del rows32
+    print(f"[ssm] {cfg.name}: forward in bf16 and (slot 0) with float32 "
+          f"activations ({time.perf_counter() - t0:.1f} s): the bf16 rows' "
+          f"own noise at the last {SSM_TAIL} positions, bf16 steps of max "
+          f"|logit|: {', '.join(f'{x:.2f}' for x in noise)}", flush=True)
+    if not torch.equal(logits, last):
+        fail(f"{cfg.name}: prefill's last logits differ from the forward's "
+             f"(max |diff| {(logits.float() - last.float()).abs().max()})")
+    print(f"[ssm] {cfg.name}: api.prefill's last-position logits equal "
+          f"ssm_lm.forward + logits_fn's bit for bit", flush=True)
+    # the prompt's tail, one token at a time, against the forward's rows
+    t0 = time.perf_counter()
+    tail = api.init_cache(cfg, B, S, device=DEVICE)
+    api.prefill(cfg, params, {"tokens": toks[:, :S - SSM_TAIL]}, tail)
+    got = []
+    for j in range(SSM_TAIL):
+        p = S - SSM_TAIL + j
+        lg, tail = api.decode_step(cfg, params, tail, toks[:, p], p)
+        got.append(_bf16_steps(rows[:, j], lg))
+    del tail, rows
+    bar = SSM_TAIL_STEPS
+    print(f"[ssm] {cfg.name}: the prompt's last {SSM_TAIL} tokens decoded "
+          f"one by one from the state after position {S - SSM_TAIL - 1} "
+          f"({time.perf_counter() - t0:.1f} s), against the chunked "
+          f"forward's rows, in bf16 steps of max |logit|: "
+          f"{', '.join(f'{x:.2f}' for x in got)} (the first held to "
+          f"{bar:.2f}, the rest printed)", flush=True)
+    if not got[0] <= bar:
+        fail(f"{cfg.name}: the first tail step is {got[0]:.2f} bf16 steps "
+             f"from the forward's row (limit {bar:.2f})")
+    tok = logits.argmax(-1).to(torch.int32)
+    unit, st = _decode_unit(cfg, params, cache, tok, S, cfg.name)
+    print(f"[ssm] {cfg.name}: the decode step's graph replay gives the "
+          f"eager step's logits and state bit for bit", flush=True)
+    gen = _greedy(unit, tok, S, steps, cfg.vocab_size)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[ssm] {cfg.name}: {steps} greedy steps through the replays, "
+          f"slot 0's first tokens {gen[0, :12].tolist()}", flush=True)
+    out = _report_decode(cfg.name, cfg, params, cache, B, 0, st,
+                         prefill_ms, S, peak)
+    del params, cache, unit
+    _free_card()
+    return out
+
+
+def _phase_zamba2() -> dict:
+    """13(b).  Returns its readings and B9's launches on the main
+    path (the checked prefill), by body too."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import api, hybrid
+    cfg, params, toks = _ssm_model(HYBRID_ARCH)
+    B, S = SSM_PROMPT
+    steps = SSM_DECODE[HYBRID_ARCH]
+    ns = hybrid.n_superblocks(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    orig = kfa.flash_attention_fwd
+    worst = [0, 0.0, 0.0]                   # calls, o / max|o|, lse
+
+    qkv = []                                # the first call's q, k, v
+
+    def checked(q, k, v, **kw):
+        o, lse = orig(q, k, v, **kw)
+        with torch.no_grad():
+            po, plse = kfa.flash_attention_fwd_plain(q, k, v, **kw)
+            worst[0] += 1
+            worst[1] = max(worst[1], ((o.float() - po.float()).abs().max()
+                                      / po.float().abs().max()).item())
+            worst[2] = max(worst[2], _lse_err(lse, plse))
+        if not qkv:
+            qkv.append((q.detach().clone(), k.detach().clone(),
+                        v.detach().clone(), kw))
+        return o, lse
+
+    kfa.reset_launch_counts()
+    kfa.flash_attention_fwd = checked
+    try:
+        first, _ = api.prefill(cfg, params, {"tokens": toks},
+                               api.init_cache(cfg, B, S, device=DEVICE))
+        torch.cuda.synchronize()
+    finally:
+        kfa.flash_attention_fwd = orig
+    launches = kfa.launch_counts()["flash_attention"]
+    bodies = kfa.body_launches()
+    print(f"[ssm] {cfg.name}: api.prefill (the forward) ran B9 "
+          f"{launches} times, by body {bodies}, q/k/v [{B}, {S}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}, {cfg.head_dim}]; each call "
+          f"against its plain version: max |o - plain| / max |o| "
+          f"{worst[1]:.3e} (limit {FLASH_BF16_STEP:.3e}), lse "
+          f"{worst[2]:.3e} (limit {FLASH_F32_LIMIT:.0e})", flush=True)
+    if launches != ns or bodies["mma_sync"] != ns or worst[0] != ns:
+        fail(f"{cfg.name} prefill: B9 launched {launches} times ({bodies}),"
+             f" checked {worst[0]}, not {ns} on mma_sync")
+    if worst[1] > FLASH_BF16_STEP or worst[2] > FLASH_F32_LIMIT:
+        fail(f"{cfg.name} prefill: a B9 call differs from its plain version")
+    flash = _flash_at(qkv.pop(), worst[1])
+    logits, cache, prefill_ms = _timed_prefill(cfg, params, toks, S + steps)
+    if not torch.equal(first, logits):
+        fail(f"{cfg.name}: the checked prefill's logits differ")
+    if not all(not leaf.any() for leaf in (cache["k"], cache["v"],
+                                           *cache["mamba"].values())):
+        fail(f"{cfg.name}: api.prefill wrote into the cache")
+    # the serving path of the family: the prompt fed token by token from
+    # state zero through the decode step's graph, then greedy steps
+    unit, st = _decode_unit(cfg, params, cache, toks[:, 0], 0, cfg.name)
+    print(f"[ssm] {cfg.name}: the decode step's graph replay gives the "
+          f"eager step's logits, states and KV bit for bit", flush=True)
+    t0 = time.perf_counter()
+    for t in range(S):
+        lg = unit.run(toks[:, t].cpu().numpy().astype(np.int32),
+                      np.array([t], np.int32))[0]
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    print(f"[ssm] {cfg.name}: the {S}-token prompt fed through the decode "
+          f"step's replays in {feed_s:.2f} s; its last logits "
+          f"{_bf16_steps(logits, lg):.2f} bf16 steps from the prefill's "
+          f"(printed)", flush=True)
+    gen = _greedy(unit, lg.argmax(-1).to(torch.int32), S, steps,
+                  cfg.vocab_size)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[ssm] {cfg.name}: {steps} greedy steps, slot 0's first tokens "
+          f"{gen[0, :12].tolist()}", flush=True)
+    out = _report_decode(cfg.name, cfg, params, cache, B, S + steps // 2,
+                         st, prefill_ms, S, peak)
+    del params, cache, unit
+    _free_card()
+    return out, launches, bodies, flash
+
+
+def _flash_at(qkvkw, rel_err: float) -> dict:
+    """B9 at the shared block's shape, on the prefill's first q, k, v:
+    kernel ms (CUDA events, back to back), plain ms, the ms of
+    scaled_dot_product_attention (a yardstick the port never calls)
+    and the bound (phase 10's rule)."""
+    from repro_torch.kernels import flash_attention as kfa
+    q, k, v, kw = qkvkw
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    q_offset = kw.get("q_offset", 0)
+    ms = _time_ms(lambda: kfa.flash_attention_fwd(q, k, v, **kw), 20)
+    plain_ms = _time_ms(lambda: kfa.flash_attention_fwd_plain(q, k, v, **kw),
+                        3, warm=1)
+    lib_ms = _time_ms(_sdpa_yardstick(q, k, v, causal, window, q_offset), 20)
+    bound_ms, bound_by = _flash_bound("bfloat16", B, S, S, H, KH, hd, causal,
+                                      window, q_offset, q.element_size())
+    tflops = 4 * hd * _attended_pairs(B, S, S, H, causal, window,
+                                      q_offset) / (ms * 1e-3) / 1e12
+    print(f"[ssm] B9 at the shared block's shape (B={B}, S={S}, H={H}, "
+          f"KH={KH}, hd={hd}, causal, bf16, body {kfa.body(q.dtype, hd)}): "
+          f"{ms:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+          f"SDPA {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
+          f"max |o - plain| / max |o| over the prefill's calls "
+          f"{rel_err:.3e}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "rel_err": rel_err}
+
+
+class _Float32Rows:
+    """Within the block the recurrent families' embeddings give float32
+    rows (forward and decode), so the activations stay float32 whatever
+    the weights' dtype (the tests' `_keep_f32_rows`)."""
+
+    def __enter__(self):
+        import torch.nn.functional as F
+        from repro_torch.models import hybrid, ssm_lm
+        self.saved = [(m, n, getattr(m, n)) for m in (ssm_lm, hybrid)
+                      for n in ("embed_tokens", "_embed")]
+        for m in (ssm_lm, hybrid):
+            m.embed_tokens = (lambda cfg, params, tokens, prefix_embeds=None:
+                              F.embedding(tokens.long(),
+                                          params["embed"]).float())
+            m._embed = (lambda params, tokens:
+                        params["embed"][tokens.long()].float())
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+def _small_run(cfg, params, toks, steps, device, dtype):
+    """api.prefill, then `steps` greedy decode steps: [(logits on the
+    CPU, token)] a step, each device feeding its own argmax."""
+    import torch
+    from repro_torch.models import api
+    B, S = toks.shape
+    cache = api.init_cache(cfg, B, S + steps, dtype, device=device)
+    lg, cache = api.prefill(cfg, params, {"tokens": toks.to(device)}, cache)
+    out = []
+    for i in range(steps + 1):
+        tok = lg.argmax(-1).to(torch.int32)
+        out.append((lg.float().cpu(), tok.cpu()))
+        if i < steps:
+            lg, cache = api.decode_step(cfg, params, cache, tok, S + i)
+    return out
+
+
+def _phase_ssm_small(arch: str) -> None:
+    """13(c): the reduced model (float32 weights, bf16 activations) on
+    the card and on the CPU, the same prompt: every greedy step's tokens
+    equal until a step where the CPU's top-2 margin is within
+    SMALL_MARGIN (nothing is held after it), and the logits before it
+    within max(SSM_SMALL_STEPS, SSM_NOISE x the CPU's own distance from
+    its float32 run) bf16 steps."""
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import api
+    cfg = reduced_config(arch)
+    B, S, steps = SSM_SMALL_SHAPE
+    cpu_params = api.init(cfg, 0, device="cpu")
+    params = _tree_to(cpu_params, DEVICE)
+    toks = torch.randint(0, cfg.vocab_size, (B, S),
+                         generator=torch.Generator().manual_seed(7),
+                         dtype=torch.int32)
+    card = _small_run(cfg, params, toks, steps, DEVICE, torch.bfloat16)
+    cpu = _small_run(cfg, cpu_params, toks, steps, "cpu", torch.bfloat16)
+    with _Float32Rows():
+        f32 = _small_run(cfg, cpu_params, toks, 0, "cpu", torch.float32)
+    noise = _bf16_steps(f32[0][0], cpu[0][0])
+    bar = max(SSM_SMALL_STEPS, SSM_NOISE * noise)
+    worst, parted = 0.0, None
+    for i, ((lc, tc), (lg, tg)) in enumerate(zip(cpu, card)):
+        worst = max(worst, _bf16_steps(lc, lg))
+        if not torch.equal(tc, tg):
+            top2 = lc.topk(2, -1).values
+            margin = (top2[:, 0] - top2[:, 1])[tc != tg].max().item()
+            if margin > SMALL_MARGIN:
+                fail(f"{cfg.name} card vs CPU: step {i} parts at a top-2 "
+                     f"margin {margin:.4f} > {SMALL_MARGIN}")
+            parted = (i, margin)
+            break
+    print(f"[ssm] (c) {cfg.name} card vs CPU, B={B}, prompt {S}, {steps} "
+          f"greedy steps: logits within {worst:.2f} bf16 steps of max "
+          f"|logit| (limit {bar:.2f}: the CPU's bf16 run lies {noise:.2f} "
+          f"steps from its float32 run), "
+          + ("streams equal" if parted is None else
+             f"parted at step {parted[0]} at a CPU top-2 margin "
+             f"{parted[1]:.4f} (<= {SMALL_MARGIN})"), flush=True)
+    if worst > bar:
+        fail(f"{cfg.name} card vs CPU: logits {worst:.2f} bf16 steps apart "
+             f"(limit {bar:.2f})")
+
+
+def phase_ssm_families() -> dict:
+    """Phase 13: (a) full-width, full-depth falcon-mamba-7b (random bf16
+    weights, seed 0): api.prefill on B=8 prompts of 512 tokens, equal
+    bit for bit to ssm_lm.forward + logits_fn at the last position; the
+    prompt's last 16 tokens decoded one by one from the state after the
+    rest, against the forward's rows; the decode step as a WorkUnit
+    (eager, then one CUDA graph), equal bit for bit to an eager step;
+    64 greedy steps through the replays; prefill ms and tokens/s, the
+    step's eager wall ms and replay device ms against its bytes bound,
+    its kernels by kind, peak memory.  (b) zamba2-2.7b the same way:
+    api.prefill (the forward) with every B9 call (hd 80, mma_sync) held
+    to its plain version, then the prompt fed token by token from state
+    zero and 32 greedy steps through the graph.  (c) the reduced models,
+    card against CPU.  (d) falcon-mamba-7b cut to 4 layers and zamba2
+    cut to 2 super-blocks, full width, B=2, S=2048: phase 10's checked
+    step and Trainer.run on fresh batches (the mean loss of the run's
+    own batches must fall).  The B9 launches of the main paths (the
+    prefill, the trainer) are counted from 0.  Returns them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid
+    t_start = time.perf_counter()
+    _free_card()
+    falcon = _phase_falcon()
+    print(f"[ssm] (a) in {time.perf_counter() - t_start:.1f} s", flush=True)
+    zamba, launches, bodies, flash_hd80 = _phase_zamba2()
+    print(f"[ssm] (a)-(b) in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    for arch in SSM_SMALL:
+        _phase_ssm_small(arch)
+    flash = {"prefill": launches, "trainer": 0}
+    flash_bodies = dict(bodies)
+    Bt, St = FAMILY_TRAIN
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        tcfg = _train_config(get_config(arch), SSM_TRAIN_LAYERS[arch])
+        calls = (2 * hybrid.n_superblocks(tcfg) if tcfg.family == "hybrid"
+                 else 0)
+        phase_train_step(tcfg, B=Bt, S=St, flash_calls=calls)
+        _free_card()
+        n, b = phase_trainer(tcfg, B=Bt, S=St, descent="batches",
+                             flash_calls=calls, flash_body="mma_sync")
+        if calls:
+            print(f"[ssm] {tcfg.name} ({tcfg.num_layers} layers, "
+                  f"{calls // 2} super-blocks): B9 {calls} calls a step, "
+                  f"{calls // 2} in the forward and {calls // 2} in the "
+                  f"remat recompute of the shared block", flush=True)
+        flash["trainer"] += n["flash_attention"]
+        for k, v in b.items():
+            flash_bodies[k] = flash_bodies.get(k, 0) + v
+        _free_card()
+    print(f"[ssm] phase 13 in {time.perf_counter() - t_start:.1f} s; "
+          f"{SSM_ARCH} prefill {falcon['prefill_ms']:.1f} ms, decode "
+          f"{falcon['device_ms']:.3f} / bound {falcon['bound_ms']:.3f} ms; "
+          f"{HYBRID_ARCH} prefill {zamba['prefill_ms']:.1f} ms, decode "
+          f"{zamba['device_ms']:.3f} / bound {zamba['bound_ms']:.3f} ms; "
+          f"flash_attention {flash} by body {flash_bodies}", flush=True)
+    return {"flash": flash["prefill"] + flash["trainer"],
+            "flash_by_path": flash, "flash_bodies": flash_bodies,
+            "flash_hd80": flash_hd80}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     device = phase_card()
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import api
@@ -4942,12 +5558,14 @@ def main() -> None:
     kernels = phase_kernels()
     phase_verify_kernels(kernels)
     phase_long_kernels(kernels)
-    cfg = get_config("yi-6b")
+    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=SERVE_LAYERS)
     t0 = time.perf_counter()
     params = api.init(cfg, 0, device=DEVICE, dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    print(f"[init] yi-6b full width, {cfg.param_count() / 1e9:.2f} B "
-          f"params in bf16, {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[init] yi-6b full width, {cfg.num_layers} of "
+          f"{get_config('yi-6b').num_layers} layers, "
+          f"{cfg.param_count() / 1e9:.2f} B params in bf16, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_forward(cfg, params)
     launches, by_body, units, kv_bytes, sharegpt = phase_serve(cfg, params)
     phase_contiguous(cfg, params, sharegpt)
@@ -4986,6 +5604,7 @@ def main() -> None:
     flash_results, flash_launches, flash_bodies = phase_training()
     mem_results, mem_launches, te_flash, te_bodies = phase_memory_te()
     fam = phase_families()
+    ssm = phase_ssm_families()
     line = []
     for name, line_no in (("paged_decode", 163), ("paged_chunk", 252),
                           ("paged_decode_fp8", 147),
@@ -5088,16 +5707,22 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
         "launches": (flash_launches["flash_attention"] + te_flash
-                     + fam["flash"]),
+                     + fam["flash"] + ssm["flash"]),
         "launches_by_path": {"trainer": flash_launches["flash_attention"],
                              "te_layer": te_flash,
-                             "families_trainer": fam["flash"]},
+                             "families_trainer": fam["flash"],
+                             "ssm_families_prefill":
+                                 ssm["flash_by_path"]["prefill"],
+                             "ssm_families_trainer":
+                                 ssm["flash_by_path"]["trainer"]},
         "launches_by_body": {b: n + te_bodies.get(b, 0)
                              + fam["flash_bodies"].get(b, 0)
+                             + ssm["flash_bodies"].get(b, 0)
                              for b, n in flash_bodies.items()},
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "zamba2_shared_block": ssm["flash_hd80"]})
     # not TPU kernels: what each measures on the card, the reference
     # times on the host
     for name, case, replaces in (

@@ -42,13 +42,13 @@ from typing import List, Optional
 
 from repro_torch.configs import list_archs, reduced_config
 from repro_torch.kernels import paged_attention as pk
-from repro_torch.models import api
+from repro_torch.models import api, transformer
 from repro_torch.obs import (SLOSpec, Tracer, slo_report, summary_table,
                              window_series, window_summary,
                              write_chrome_trace, write_jsonl)
 from repro_torch.runtime.arrivals import poisson_stream
-from repro_torch.runtime.server import (ChunkedServer, SlotServer,
-                                        repetitive_requests,
+from repro_torch.runtime.server import (SERVING, ChunkedServer,
+                                        SlotServer, repetitive_requests,
                                         sharegpt_like_requests,
                                         sysprompt_sharegpt_requests)
 
@@ -169,6 +169,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     cfg = reduced_config(args.arch)
     try:
+        # the engines serve the transformer families alone (the
+        # reference's CLI exits here too)
+        transformer.check_family(cfg, SERVING)
         params = api.init(cfg, args.seed, device=args.device)
         max_len = args.max_input + args.max_output + 8
         tracer = Tracer() if args.trace else None
@@ -189,7 +192,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                              max_len=max_len, eos_id=args.eos_id,
                              device=args.device)
     except NotImplementedError as e:
-        # an unported family, or fp8 linears with moe
+        # a family the engines do not serve, or fp8 linears with moe
         raise SystemExit(f"{args.arch} ({cfg.family}): {e}")
     if args.workload == "repetitive":
         reqs = repetitive_requests(args.requests, cfg.vocab_size,

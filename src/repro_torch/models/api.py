@@ -1,24 +1,31 @@
-"""Model API of the port: parameters, KV cache and the serving steps.
+"""Model API of the port: parameters, caches and the serving steps.
 
 PyTorch counterpart of ``repro/models/api.py`` for the transformer
-families (dense, moe, vlm); ssm, hybrid and encdec raise
+families (dense, moe, vlm), the ssm family (models/ssm_lm.py) and the
+hybrid family (models/hybrid.py); encdec raises
 ``NotImplementedError``:
 
     param_shapes / init                     parameters
     loss_fn                                 training objective
-    init_cache / decode_step / chunk_step   serving over a paged pool
+    init_cache / prefill / decode_step      serving: the transformer
+                                            families over a paged pool
                                             (bf16 or fp8 KV) or, with
-                                            ``paged=False`` and no block
-                                            table, a contiguous cache;
-                                            ``quant=`` fp8 linears
+                                            ``paged=False``, a
+                                            contiguous cache; ssm over
+                                            its recurrent state; hybrid
+                                            over its states and a
+                                            contiguous cache
+    chunk_step                              chunked-prefill serving
     verify_step                             speculative-decode verify
     SamplingParams / sample_tokens          stochastic sample head
     cow_copy_block                          copy-on-write pool block copy
-    active_param_count                      N (dense) or N_active (moe)
+    active_param_count                      N (N_active for moe)
 
-Entry points run on the CUDA device unless the caller passes another
-``device`` (``"cpu"`` for the tests); with no CUDA device and no
-explicit choice they raise.
+The paged pool, ``chunk_step``, ``verify_step``, ``cow_copy_block``
+and the kernel / fp8 serving options are transformer-only, as in the
+reference.  Entry points run on the CUDA device unless the caller
+passes another ``device`` (``"cpu"`` for the tests); with no CUDA
+device and no explicit choice they raise.
 """
 
 from __future__ import annotations
@@ -28,18 +35,30 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, transformer
+from repro_torch.models import common, hybrid, ssm_lm, transformer
 from repro_torch.models.sampling import (GREEDY, SamplingParams,  # noqa: F401
                                          ks_two_sample, sample_tokens)
 
 Params = Dict[str, Any]
 
+FAMILIES = transformer.FAMILIES + ("ssm", "hybrid")
 
-check_family = transformer.check_family
+
+def check_family(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError, naming the family, unless the port has
+    `cfg`'s family (encdec is not ported yet)."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (families "
+            f"{FAMILIES})")
 
 
 def param_shapes(cfg: ModelConfig) -> Params:
     check_family(cfg)
+    if cfg.family == "ssm":
+        return ssm_lm.ssm_lm_specs(cfg)
+    if cfg.family == "hybrid":
+        return hybrid.hybrid_specs(cfg)
     return transformer.transformer_specs(cfg)
 
 
@@ -47,11 +66,11 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None,
          dtype: torch.dtype = torch.float32) -> Params:
     """Random parameters from a seeded ``torch.Generator`` on `device`,
     by the reference's per-leaf rules.  Matrices are stored in `dtype`
-    and norm scales in float32; since the serving forward casts every
-    weight to its bf16 activations at use, ``dtype=torch.bfloat16``
-    serves the same numbers in half the memory.  The draws differ from
-    JAX's: to compute the reference's function, bridge its weights with
-    ``convert.from_reference``."""
+    and norm scales (every "ones" leaf) in float32; since the forward
+    casts every weight to its bf16 activations at use,
+    ``dtype=torch.bfloat16`` serves the same numbers in half the
+    memory.  The draws differ from JAX's: to compute the reference's
+    function, bridge its weights with ``convert.from_reference``."""
     dev = common.resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -59,29 +78,41 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None,
         return common.init_params(param_shapes(cfg), gen, dev, dtype)
 
 
+def _model(cfg: ModelConfig):
+    """The module of `cfg`'s family."""
+    return {"ssm": ssm_lm, "hybrid": hybrid}.get(cfg.family, transformer)
+
+
 def loss_fn(cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Causal-LM loss of the transformer families (transformer.loss_fn):
-    cross-entropy plus ``aux_loss_weight`` times the moe layers' aux
-    loss; a vlm batch may carry ``prefix_embeds``."""
+    """Causal-LM loss: cross-entropy (plus ``aux_loss_weight`` times the
+    moe layers' aux loss); a vlm batch may carry ``prefix_embeds``."""
     check_family(cfg)
-    return transformer.loss_fn(cfg, params, batch)
+    return _model(cfg).loss_fn(cfg, params, batch)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, *, paged: bool = True,
+               dtype=torch.bfloat16, *, paged: Optional[bool] = None,
                block_size: int = 16, num_blocks: Optional[int] = None,
                device=None, fp8_kv: bool = False) -> Params:
-    """A paged block pool or, with ``paged=False``, the contiguous cache
-    [L, batch, max_len, KH, hd].  ``fp8_kv`` (paged only) stores the
-    pool as e4m3 codes + per-row float32 scales, read by the fp8
-    kernels."""
+    """The family's own cache by default: for the transformer families
+    a paged block pool or, with ``paged=False``, the contiguous cache
+    [L, batch, max_len, KH, hd] (``fp8_kv``, paged only, stores the
+    pool as e4m3 codes + per-row float32 scales); for ssm the recurrent
+    state (ssm_lm.init_cache); for hybrid the states and the contiguous
+    cache of its shared attention (hybrid.init_cache).  A paged or fp8
+    cache is transformer-only, as in the reference."""
     check_family(cfg)
-    return transformer.init_cache(cfg, batch, max_len, dtype, paged=paged,
-                                  block_size=block_size,
-                                  num_blocks=num_blocks,
-                                  device=common.resolve_device(device),
-                                  fp8_kv=fp8_kv)
+    dev = common.resolve_device(device)
+    if cfg.family in transformer.FAMILIES:
+        return transformer.init_cache(cfg, batch, max_len, dtype,
+                                      paged=True if paged is None else paged,
+                                      block_size=block_size,
+                                      num_blocks=num_blocks, device=dev,
+                                      fp8_kv=fp8_kv)
+    if paged or fp8_kv:
+        transformer.check_family(cfg, "a paged or fp8 KV cache")
+    return _model(cfg).init_cache(cfg, batch, max_len, dtype, device=dev)
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
@@ -89,16 +120,25 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 block_table: Optional[torch.Tensor] = None, *,
                 kernel: bool = False, quant: Optional[Params] = None
                 ) -> Tuple[torch.Tensor, Params]:
-    """``kernel=True`` reads the paged pool through the CUDA
+    """One decode step, the cache updated in place.  Transformer
+    families: ``kernel=True`` reads the paged pool through the CUDA
     block-table kernel (its plain version for CPU tensors);
-    ``kernel=False`` is the gather oracle.  With no `block_table` the
-    cache is contiguous and read by the plain attention.  ``quant`` (te/linear.
-    quantize_serving_params output) serves the linears in fp8."""
+    ``kernel=False`` is the gather oracle; with no `block_table` the
+    cache is contiguous and read by the plain attention; ``quant``
+    (te/linear.quantize_serving_params output) serves the linears in
+    fp8.  ssm and hybrid take none of these options."""
     check_family(cfg)
+    if cfg.family not in transformer.FAMILIES:
+        if kernel or quant is not None:
+            transformer.check_family(cfg, "kernel/fp8 serving")
+        if block_table is not None:
+            transformer.check_family(cfg, "a paged KV cache")
     with torch.no_grad():
-        return transformer.decode_step(cfg, params, cache, token, pos,
-                                       block_table, kernel=kernel,
-                                       quant=quant)
+        if cfg.family in transformer.FAMILIES:
+            return transformer.decode_step(cfg, params, cache, token, pos,
+                                           block_table, kernel=kernel,
+                                           quant=quant)
+        return _model(cfg).decode_step(cfg, params, cache, token, pos)
 
 
 def chunk_step(cfg: ModelConfig, params: Params, cache: Params,
@@ -109,8 +149,11 @@ def chunk_step(cfg: ModelConfig, params: Params, cache: Params,
                ) -> Tuple[torch.Tensor, Params]:
     """Chunk-write serving step: per slot, write `n_tokens[b]` of the
     C-wide `tokens[b]` into the cache at `pos[b]` and return logits at
-    each slot's last valid row."""
+    each slot's last valid row.  Transformer-only: ssm and hybrid
+    serve through prefill / decode_step."""
     check_family(cfg)
+    transformer.check_family(cfg, "chunked prefill (use prefill / "
+                                  "decode_step)")
     with torch.no_grad():
         return transformer.chunk_step(cfg, params, cache, tokens, pos,
                                       n_tokens, block_table, kernel=kernel,
@@ -126,8 +169,10 @@ def verify_step(cfg: ModelConfig, params: Params, cache: Params,
     token + C-1 drafts) per slot and return the next-token id at every
     row (`chunk_step` returns only the last valid row's logits).
     ``sample=(temp, top_k, top_p, seed)`` swaps the argmax chain for the
-    sample head (see transformer.verify_step)."""
+    sample head (see transformer.verify_step).  Transformer-only."""
     check_family(cfg)
+    transformer.check_family(cfg, "speculative decoding (use prefill / "
+                                  "decode_step)")
     with torch.no_grad():
         return transformer.verify_step(cfg, params, cache, tokens, pos,
                                        block_table, kernel=kernel,
@@ -139,8 +184,9 @@ def cow_copy_block(cfg: ModelConfig, cache: Params, src, dst) -> Params:
     leaf of the cache (the fp8 layout's scales too), in place: the
     serving runtime's copy-on-write for a shared prefix block.  `src` /
     `dst` are ints or [1] int64 device tensors (the server's graphed
-    copy)."""
+    copy).  Transformer-only (the paged pool)."""
     check_family(cfg)
+    transformer.check_family(cfg, "a paged KV cache")
     from repro_torch.models import attention
     attention.copy_paged_block(cache["k"], cache["v"], src, dst)
     if "k_scale" in cache:
@@ -149,8 +195,35 @@ def cow_copy_block(cfg: ModelConfig, cache: Params, src, dst) -> Params:
     return cache
 
 
+def prefill(cfg: ModelConfig, params: Params,
+            batch: Dict[str, torch.Tensor], cache: Params
+            ) -> Tuple[torch.Tensor, Params]:
+    """Run a prompt batch ({"tokens": [B, S]}, a vlm's ``prefix_embeds``
+    too).  Returns (last-position logits [B, vocab], cache).
+
+    * transformer families: transformer.prefill fills the contiguous
+      cache (``init_cache(..., paged=False)``) and returns {"k", "v"};
+    * ssm: the recurrence from the cache's state, the final state left
+      in the cache;
+    * hybrid: the training forward, read at the last position; the
+      cache comes back as it came, its states and KV untouched, as in
+      the reference (its serving rebuilds the state through
+      decode_step)."""
+    check_family(cfg)
+    with torch.no_grad():
+        if cfg.family in transformer.FAMILIES:
+            return transformer.prefill(
+                cfg, params, batch["tokens"], cache,
+                prefix_embeds=batch.get("prefix_embeds"))
+        if cfg.family == "ssm":
+            return ssm_lm.prefill(cfg, params, batch["tokens"], cache)
+        h, _ = hybrid.forward(cfg, params, batch["tokens"])
+        return transformer.logits_fn(cfg, params, h[:, -1:])[:, 0], cache
+
+
 def active_param_count(cfg: ModelConfig) -> float:
-    """N (dense, vlm) or N_active (moe: experts counted at top_k/E)."""
+    """N (dense, vlm, ssm, hybrid) or N_active (moe: experts counted at
+    top_k/E)."""
     total = float(common.count_params(param_shapes(cfg)))
     if cfg.family != "moe":
         return total

@@ -149,13 +149,18 @@ def norm_spec(cfg, d: int) -> Dict[str, ParamSpec]:
     return out
 
 
-def activation(cfg, x: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-    """SwiGLU, the activation of every dense config (the reference's
-    GELU branches serve the enc-dec and hybrid families, not ported)."""
-    if cfg.activation != "swiglu":
-        raise NotImplementedError(f"activation {cfg.activation!r} is not "
-                                  "ported yet")
-    return F.silu(gate) * x
+def activation(cfg, x: torch.Tensor,
+               gate: Optional[torch.Tensor]) -> torch.Tensor:
+    """swiglu: silu(gate) * x; otherwise geglu, gelu(gate) * x, when a
+    gate is given, else gelu(x) (zamba2's ungated MLP).  GELU is the
+    tanh approximation, ``jax.nn.gelu``'s default."""
+    if cfg.activation == "swiglu":
+        if gate is None:
+            raise ValueError("swiglu needs a gate")
+        return F.silu(gate) * x
+    if gate is not None:
+        return F.gelu(gate, approximate="tanh") * x
+    return F.gelu(x, approximate="tanh")
 
 
 # --- rotary embeddings -------------------------------------------------

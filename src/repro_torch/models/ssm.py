@@ -1,0 +1,306 @@
+"""State-space mixers: Mamba-1 selective scan and Mamba-2 SSD.
+
+PyTorch counterpart of ``repro/models/ssm.py``.  Both mixers are
+written chunk-wise: a loop over sequence chunks carries the recurrent
+state, and only one chunk's [B, C, d, N] (Mamba-1) or [B, H, C, C]
+(SSD) intermediates are live at a time.  The recurrence runs in
+float32; the projections run in the activations' dtype.
+
+Mamba-1's in-chunk recurrence h_t = dA_t h_{t-1} + dBx_t is the
+reference's ``lax.associative_scan`` of (a1 a2, a2 b1 + b2), rebuilt
+pair for pair (``associative_scan``): the same float32 products in the
+same tree, O(log C) ops a chunk.  Everything here is torch ops: the
+reference's scans are XLA ops and reach no Pallas kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ParamSpec, rmsnorm
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0), with no threshold (torch's
+    ``F.softplus`` returns x itself past 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+# ----------------------------------------------------------------------
+# Mamba-1 (falcon-mamba-7b)
+# ----------------------------------------------------------------------
+
+def mamba1_specs(cfg) -> Dict[str, ParamSpec]:
+    d, di, N, R, W = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                      cfg.dt_rank, cfg.conv_width)
+    return {
+        "w_in": ParamSpec((d, 2 * di)),
+        "conv_w": ParamSpec((W, di), scale=W ** -0.5),
+        "conv_b": ParamSpec((di,), init="zeros"),
+        "w_x": ParamSpec((di, R + 2 * N)),
+        "w_dt": ParamSpec((R, di)),
+        "dt_bias": ParamSpec((di,), init="zeros"),
+        "a_log": ParamSpec((di, N), init="ones"),
+        "d_skip": ParamSpec((di,), init="ones"),
+        "w_out": ParamSpec((di, d)),
+    }
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv. x: [B,L,C]; w: [W,C]. Returns (y, new_state).
+
+    `state` is the trailing W-1 inputs of the previous segment
+    ([B,W-1,C]); zeros at the start of a sequence.  The W taps are
+    added in float32 in order, then the bias; y is cast to x.dtype.
+    """
+    B, L, C = x.shape
+    W = w.shape[0]
+    if state is None:
+        state = torch.zeros((B, W - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)       # [B, L+W-1, C]
+    y = torch.zeros((B, L, C), dtype=torch.float32, device=x.device)
+    for i in range(W):
+        y = y + xp[:, i:i + L].float() * w[i].float()
+    y = y + b.float()
+    return y.to(x.dtype), xp[:, L:]
+
+
+def _combine(e1, e2):
+    """The scan's operator on (a, b) pairs: (a1 a2, a2 b1 + b2)."""
+    a1, b1 = e1
+    a2, b2 = e2
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """even[0], odd[0], even[1], odd[1], ... along dim 1 (even has as
+    many rows as odd or one more)."""
+    n = odd.shape[1]
+    out = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
+    if even.shape[1] > n:
+        out = torch.cat([out, even[:, n:]], dim=1)
+    return out
+
+
+def associative_scan(a: torch.Tensor, b: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of (a, b) along dim 1 under `_combine`, in
+    ``lax.associative_scan``'s tree: adjacent pairs combined, the
+    half-length scan by recursion (the odd outputs), then each odd
+    output combined with the next even input (the even outputs)."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    ra, rb = _combine((a[:, 0:n - 1:2], b[:, 0:n - 1:2]),
+                      (a[:, 1::2], b[:, 1::2]))
+    oa, ob = associative_scan(ra, rb)
+    if n % 2 == 0:
+        ea, eb = _combine((oa[:, :-1], ob[:, :-1]), (a[:, 2::2], b[:, 2::2]))
+    else:
+        ea, eb = _combine((oa, ob), (a[:, 2::2], b[:, 2::2]))
+    ea = torch.cat([a[:, :1], ea], dim=1)
+    eb = torch.cat([b[:, :1], eb], dim=1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def _scan_chunk(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Within-chunk scan of h_t = dA_t h_{t-1} + dBx_t.
+
+    dA, dBx: [B, C, d, N]; h0: [B, d, N].  Returns (h over chunk, h_last).
+    """
+    a, b = associative_scan(dA, dBx)
+    h = a * h0[:, None] + b
+    return h, h[:, -1]
+
+
+def _pad_rows(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero rows appended along dim 1 of [B, L, ...]."""
+    return F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) if pad else t
+
+
+def mamba1_mixer(cfg, p, x: torch.Tensor, *, chunk: int = 128,
+                 state: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: [B,L,d] -> ([B,L,d], new_state{ssm,conv}). fp32 recurrence.
+
+    Chunks of `chunk` rows (the last zero-padded past L: a zero delta
+    gives dA = 1 and dBx = 0, so the state passes the padding
+    unchanged); the returned state is new tensors."""
+    B, L, d = x.shape
+    di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    dt = x.dtype
+
+    xz = x @ p["w_in"].to(dt)
+    xs, z = xz.split(di, dim=-1)
+
+    conv_state = None if state is None else state["conv"]
+    xs, conv_state = causal_conv1d(xs, p["conv_w"], p["conv_b"], conv_state)
+    xs = F.silu(xs)
+
+    proj = xs @ p["w_x"].to(dt)
+    dt_lr, Bm, Cm = proj.split([R, N, N], dim=-1)
+    delta = softplus((dt_lr @ p["w_dt"].to(dt)).float()
+                     + p["dt_bias"].float())                  # [B,L,di]
+    A = -torch.exp(p["a_log"].float())                        # [di,N]
+
+    h = (torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
+         if state is None else state["ssm"])
+
+    C_ = min(chunk, L)
+    pad = (-L) % C_
+    xs_p, delta, Bm, Cm = (_pad_rows(t, pad) for t in (xs, delta, Bm, Cm))
+    ys = []
+    for c in range((L + pad) // C_):
+        rows = slice(c * C_, (c + 1) * C_)
+        dc = delta[:, rows]
+        dA = torch.exp(dc[..., None] * A)                     # [B,C,di,N]
+        dBx = (dc * xs_p[:, rows].float())[..., None] \
+            * Bm[:, rows].float()[:, :, None, :]              # [B,C,di,N]
+        hs, h = _scan_chunk(dA, dBx, h)
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs, Cm[:, rows].float()))
+    y = torch.cat(ys, dim=1)[:, :L]
+
+    y = y + xs.float() * p["d_skip"].float()
+    y = y.to(dt) * F.silu(z)
+    out = y @ p["w_out"].to(dt)
+    return out, {"ssm": h, "conv": conv_state}
+
+
+def mamba1_state(cfg, batch: int, dtype=torch.bfloat16, device=None
+                 ) -> Dict[str, torch.Tensor]:
+    return {
+        "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.d_inner),
+                            dtype=dtype, device=device),
+    }
+
+
+# ----------------------------------------------------------------------
+# Mamba-2 / SSD (zamba2)
+# ----------------------------------------------------------------------
+
+def mamba2_specs(cfg) -> Dict[str, ParamSpec]:
+    d, di, N, W = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.conv_width
+    H = di // cfg.ssm_head_dim
+    conv_dim = di + 2 * N          # x, B, C all pass the conv
+    return {
+        "w_in": ParamSpec((d, 2 * di + 2 * N + H)),
+        "conv_w": ParamSpec((W, conv_dim), scale=W ** -0.5),
+        "conv_b": ParamSpec((conv_dim,), init="zeros"),
+        "a_log": ParamSpec((H,), init="ones"),
+        "dt_bias": ParamSpec((H,), init="zeros"),
+        "d_skip": ParamSpec((H,), init="ones"),
+        "norm_scale": ParamSpec((di,), init="ones"),
+        "w_out": ParamSpec((di, d)),
+    }
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x: [..., T] -> [..., T, T] with out[...,i,j] = sum_{j<k<=i} x_k
+    (differences of the cumulative sum); -inf above the diagonal, set
+    before the caller's exp."""
+    T = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    d = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
+    return d.masked_fill(~mask, float("-inf"))
+
+
+def mamba2_mixer(cfg, p, x: torch.Tensor, *, chunk: int = 64,
+                 state: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """SSD forward. x: [B,L,d]. State: {ssm:[B,H,P,N], conv:[B,W-1,conv]}.
+
+    Per chunk of `chunk` rows: the intra-chunk quadratic term, the
+    inter-chunk term from the carried state and the state update; then
+    the d_skip term and the gated RMSNorm (epsilon 1e-6, as
+    common.rmsnorm) before the output projection."""
+    B, L, d = x.shape
+    di, N, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    H = di // P
+    dt = x.dtype
+
+    proj = x @ p["w_in"].to(dt)
+    z, xBC, dt_raw = proj.split([di, di + 2 * N, H], dim=-1)
+    conv_state = None if state is None else state["conv"]
+    xBC, conv_state = causal_conv1d(xBC, p["conv_w"], p["conv_b"],
+                                    conv_state)
+    xBC = F.silu(xBC)
+    xs, Bm, Cm = xBC.split([di, N, N], dim=-1)
+
+    delta = softplus(dt_raw.float() + p["dt_bias"].float())   # [B,L,H]
+    A = -torch.exp(p["a_log"].float())                        # [H]
+    dA = delta * A                                            # [B,L,H]
+
+    Q = min(chunk, L)
+    pad = (-L) % Q
+    xs_p, Bm, Cm, dA, delta = (_pad_rows(t, pad)
+                               for t in (xs, Bm, Cm, dA, delta))
+
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if state is None else state["ssm"])
+    ys = []
+    for c in range((L + pad) // Q):
+        rows = slice(c * Q, (c + 1) * Q)
+        bcf = Bm[:, rows].float()                             # [B,Q,N]
+        ccf = Cm[:, rows].float()
+        ac = dA[:, rows].transpose(1, 2)                      # [B,H,Q]
+        # delta-weighted x, [B,Q,H,P]
+        xcf = xs_p[:, rows].reshape(B, Q, H, P).float() \
+            * delta[:, rows][..., None]
+        a_cum = torch.cumsum(ac, dim=-1)                      # [B,H,Q]
+        # intra-chunk (the "attention-like" quadratic term)
+        Lmat = torch.exp(_segsum(ac))                         # [B,H,Q,Q]
+        scores = torch.einsum("bln,bsn->bls", ccf, bcf)[:, None] * Lmat
+        y_diag = torch.einsum("bhls,bshp->blhp", scores, xcf)
+        # inter-chunk via carried state
+        y_off = torch.einsum("bln,bhpn->blhp", ccf, h) \
+            * torch.exp(a_cum).transpose(1, 2)[..., None]
+        # state update for the next chunk
+        decay = torch.exp(a_cum[..., -1:] - a_cum)            # [B,H,Q]
+        h = h * torch.exp(a_cum[..., -1])[..., None, None] \
+            + torch.einsum("bsn,bshp->bhpn", bcf,
+                           xcf * decay.transpose(1, 2)[..., None])
+        ys.append(y_diag + y_off)
+    y = torch.cat(ys, dim=1)[:, :L]                           # [B,L,H,P]
+    y = y + xs.reshape(B, L, H, P).float() * p["d_skip"].float()[:, None]
+    y = y.reshape(B, L, di).to(dt)
+
+    # gated RMSNorm (mamba2's norm-before-out)
+    y = rmsnorm(y * F.silu(z), p["norm_scale"], eps=1e-6)
+    out = y @ p["w_out"].to(dt)
+    return out, {"ssm": h, "conv": conv_state}
+
+
+def mamba2_state(cfg, batch: int, dtype=torch.bfloat16, device=None
+                 ) -> Dict[str, torch.Tensor]:
+    H = cfg.d_inner // cfg.ssm_head_dim
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    return {
+        "ssm": torch.zeros((batch, H, cfg.ssm_head_dim, cfg.ssm_state),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, conv_dim),
+                            dtype=dtype, device=device),
+    }
+
+
+def ssm_flops_per_token(cfg, mamba2: bool = False) -> float:
+    """Projection + scan FLOPs per token (fwd)."""
+    d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    proj = 2.0 * d * (2 * di) + 2.0 * di * d     # in/out projections
+    if mamba2:
+        H = di // cfg.ssm_head_dim
+        proj = 2.0 * d * (2 * di + 2 * N + H) + 2.0 * di * d
+        scan = 2.0 * di * N * 4                  # state update + readout
+    else:
+        proj += 2.0 * di * (cfg.dt_rank + 2 * N) + 2.0 * cfg.dt_rank * di
+        scan = 2.0 * di * N * 4
+    return proj + scan

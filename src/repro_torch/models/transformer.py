@@ -10,7 +10,10 @@ layer slices.  The training forward runs each layer under the config's
 remat policy (none | dots | full | full_save_attn) through
 ``torch.utils.checkpoint``; remat changes what is kept for the backward,
 never the numbers.  The serving steps' KV cache (the paged pool, or
-the contiguous layout with no block table) is updated in place.
+the contiguous layout with no block table) is updated in place;
+``prefill`` runs a whole prompt into the contiguous cache through
+``flash_attention``.  ``embed_tokens``, ``_remat``, ``lm_xent`` and the
+stacked-layer helpers serve the ssm and hybrid families too.
 """
 
 from __future__ import annotations
@@ -43,14 +46,15 @@ Params = Dict[str, Any]
 FAMILIES = ("dense", "moe", "vlm")
 
 
-def check_family(cfg) -> None:
+def check_family(cfg, what: str = "this path") -> None:
     """Raise NotImplementedError, naming the family, unless `cfg` is of
-    a transformer family (dense, moe, vlm): the ssm, hybrid and encdec
-    families are not ported."""
+    a transformer family (dense, moe, vlm): `what` (the paged cache,
+    the serving engines, ...) serves those alone, as in the
+    reference."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (transformer "
-            f"families {FAMILIES} only)")
+            f"{what}: transformer families {FAMILIES} only for now, not "
+            f"family {cfg.family!r}")
 
 
 def layer_specs(cfg) -> Params:
@@ -207,19 +211,24 @@ def forward(cfg, params, tokens: torch.Tensor, *,
     return apply_norm(cfg, x, params["final_norm"]), aux
 
 
-def loss_fn(cfg, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Causal-LM loss; big vocabs go through the chunked-CE loop."""
-    h, aux = forward(cfg, params, batch["tokens"],
-                     prefix_embeds=batch.get("prefix_embeds"))
+def lm_xent(cfg, params, h: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy of the final hidden h [B,S,d] against labels [B,S];
+    big vocabs go through the chunked-CE loop (every family's loss)."""
     B, S, d = h.shape
-    labels = batch["labels"]
     w = unembed_matrix(cfg, params).to(h.dtype)
     if cfg.vocab_size * S * B > 2 ** 28:       # big-vocab: chunk token dim
-        ce = chunked_softmax_xent(h.reshape(B * S, d), w,
-                                  labels.reshape(B * S))
-    else:
-        ce = cross_entropy(h @ w, labels)
-    return ce + cfg.aux_loss_weight * aux
+        return chunked_softmax_xent(h.reshape(B * S, d), w,
+                                    labels.reshape(B * S))
+    return cross_entropy(h @ w, labels)
+
+
+def loss_fn(cfg, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Causal-LM loss plus ``aux_loss_weight`` times the moe aux loss."""
+    h, aux = forward(cfg, params, batch["tokens"],
+                     prefix_embeds=batch.get("prefix_embeds"))
+    return lm_xent(cfg, params, h, batch["labels"]) \
+        + cfg.aux_loss_weight * aux
 
 
 # ----------------------------------------------------------------------
@@ -464,3 +473,41 @@ def verify_step(cfg, params, cache: Params, tokens: torch.Tensor, pos,
                                             device=tokens.device)[None, :]
     return sampling.sample_tokens(logits, temp, top_k, top_p, seed,
                                   index), cache
+
+
+def prefill(cfg, params, tokens: torch.Tensor, cache: Params, *,
+            prefix_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Params]:
+    """Run the full prompt, filling the contiguous cache {"k", "v"}
+    [L, B, T, KH, hd] (``init_cache(..., paged=False)``) at positions
+    [0, S) in place; attention over the prompt is flash_attention (B9
+    on the card).  Returns (last-position logits [B, vocab], {"k",
+    "v"})."""
+    B, S = tokens.shape
+    ck, cv = cache["k"], cache["v"]
+    if "k_scale" in cache or ck.ndim != 5 or ck.shape[1] != B \
+            or ck.shape[2] < S:
+        raise ValueError(
+            f"prefill fills a contiguous cache [L, {B}, >= {S}, KH, hd], "
+            f"not {tuple(ck.shape)} (init_cache(..., paged=False))")
+    x = embed_tokens(cfg, params, tokens, prefix_embeds)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    for i in range(cfg.num_layers):
+        lp = layer_slice(params["layers"], i)
+        h = apply_norm(cfg, x, lp["ln1"])
+        q, k, v = attn.qkv_project(cfg, lp["attn"], h)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        ck[i, :, :S] = k.to(ck.dtype)
+        cv[i, :, :S] = v.to(cv.dtype)
+        o = attn.flash_attention(q, k, v, causal=True,
+                                 window=cfg.sliding_window)
+        x = x + attn.out_project(lp["attn"], o)
+        h = apply_norm(cfg, x, lp["ln2"])
+        if cfg.family == "moe":
+            y, _ = moe_mod.moe_mlp(cfg, lp["moe"], h)
+        else:
+            y = mlp_mod.mlp(cfg, lp["mlp"], h)
+        x = x + y
+    x = apply_norm(cfg, x, params["final_norm"])
+    return logits_fn(cfg, params, x[:, -1:])[:, 0], {"k": ck, "v": cv}

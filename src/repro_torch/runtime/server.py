@@ -88,7 +88,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import paged_attention as pk
-from repro_torch.models import api, sampling
+from repro_torch.models import api, sampling, transformer
 from repro_torch.models.common import resolve_device
 from repro_torch.models.sampling import GREEDY, SamplingParams
 from repro_torch.obs.metrics import MetricsRegistry
@@ -97,6 +97,11 @@ from repro_torch.runtime import spec_decode as spec
 from repro_torch.runtime.graphs import WorkUnit
 from repro_torch.runtime.prefix_cache import BlockPool, RadixPrefixCache
 from repro_torch.te import linear as te_linear
+
+# the servers' gate: they drive the transformer decode path, as the
+# reference's (ssm and hybrid serve through api.prefill / decode_step)
+SERVING = ("the serving engines (ChunkedServer, SlotServer; ssm and hybrid "
+           "decode through api.prefill / api.decode_step)")
 
 Params = Any
 
@@ -241,7 +246,7 @@ class ChunkedServer:
             # drop them past the block table)
             raise ValueError(
                 "spec_decode window (K+1) must fit the chunk headroom")
-        api.check_family(cfg)
+        transformer.check_family(cfg, SERVING)
         if fp8_linear and cfg.family == "moe":
             # the reference refuses it too (its fp8 linears quantize the
             # dense MLP's weights only)
@@ -1152,7 +1157,7 @@ class SlotServer:
     def __init__(self, cfg: ModelConfig, params: Params, *,
                  batch_slots: int = 8, max_len: int = 512,
                  eos_id: Optional[int] = None, device=None):
-        api.check_family(cfg)
+        transformer.check_family(cfg, SERVING)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

@@ -53,6 +53,11 @@ backward on the card against the port on the CPU (codes and states
 bitwise, outputs within one bf16 step of each value plus 2**-8 of the
 largest); `te_transformer_layer` with no host synchronization and one
 B9 launch a call; the memory and TE benchmarks through the kernels.
+The state-space families (models/ssm.py, ssm_lm.py, hybrid.py): each
+reduced mixer card against CPU (float32 within 1e-5, bf16 within four
+bf16 steps of max |x|), B9 at zamba2-2.7b's shared-attention shape (hd
+80, mma_sync) against its plain version, and the decode step as a
+graph-replayed work unit bit for bit against eager steps.
 """
 
 import collections
@@ -2672,3 +2677,91 @@ def test_paged_kernels_at_family_shapes_vs_plain(cuda, dtype, B, H, KH, hd,
         want = getattr(pk, name + "_plain")(q, *pools, bt, lens, **kw)
         err, ok = _paged_err_ok(got, want, dtype)
         assert ok, (name, err)
+
+
+# ----------------------------------------------------------------------
+# the state-space families (models/ssm.py, ssm_lm.py, hybrid.py)
+# ----------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_ssm_mixer_card_vs_cpu(cuda, arch, dtype):
+    """One reduced Mamba-1 / Mamba-2 mixer at chunk 8 over L=20 (two
+    chunks and a padded one), from a zero and then the carried state,
+    card against CPU: float32 within 1e-5 of max |x|, bf16 within four
+    bf16 steps of max |x| (exp, the einsums and cuBLAS round apart)."""
+    from repro_torch.models import ssm
+    cfg = reduced_config(arch)
+    params = api.init(cfg, 0, device="cpu")
+    if cfg.family == "ssm":
+        mixer, p = ssm.mamba1_mixer, {k: v[0] for k, v in
+                                      params["layers"]["mixer"].items()}
+    else:
+        mixer, p = ssm.mamba2_mixer, {k: v[0, 0] for k, v in
+                                      params["mamba"]["mixer"].items()}
+    x = torch.randn((2, 20, cfg.d_model),
+                    generator=torch.Generator().manual_seed(3)).to(
+        getattr(torch, dtype))
+    outs = []
+    for dev in ("cpu", cuda):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        y, st = mixer(cfg, pd, x.to(dev), chunk=8)
+        y2, st2 = mixer(cfg, pd, x[:, :5].to(dev), chunk=8, state=st)
+        outs.append([t.float().cpu() for t in
+                     (y, y2, st["ssm"], st2["ssm"], st["conv"], st2["conv"])])
+    rel = 1e-5 if dtype == "float32" else 4 * 2.0 ** -7
+    for i, (a, b) in enumerate(zip(*outs)):
+        assert (a - b).abs().max() <= rel * a.abs().max(), i
+
+
+@pytest.mark.gpu
+def test_flash_at_zamba2_shared_block_shape(cuda):
+    """B9 at zamba2-2.7b's shared attention (B=2, S=512, H = KH = 32,
+    hd 80, causal, bf16) runs its mma_sync body, once, within one bf16
+    step of max |o| of its plain version and lse within 1e-4."""
+    g = torch.Generator(device=cuda).manual_seed(26)
+    q, k, v = (torch.randn((2, 512, 32, 80), generator=g, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    kfa.reset_launch_counts()
+    o, lse = kfa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert kfa.launch_counts()["flash_attention"] == 1
+    assert kfa.body_launches()["mma_sync"] == 1
+    po, plse = kfa.flash_attention_fwd_plain(q, k, v, causal=True)
+    assert (o.float() - po.float()).abs().max() \
+        <= 2.0 ** -7 * po.float().abs().max()
+    assert ((lse - plse).abs().max()
+            / plse.abs().max().clamp(min=1.0)) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_ssm_decode_step_graph_replays_equal_eager(cuda, arch):
+    """The reduced model's api.decode_step as a runtime.graphs.WorkUnit
+    (call 1 eager on a side stream, call 2 captured and replayed, then
+    replays) gives the eager steps' logits and every cache leaf (states,
+    the hybrid's KV) bit for bit, step after step from a prefilled
+    state."""
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.runtime.graphs import WorkUnit
+    cfg = reduced_config(arch)
+    params = api.init(cfg, 0, device=cuda, dtype=torch.bfloat16)
+    B, S, steps = 3, 12, 4
+    toks = torch.randint(0, cfg.vocab_size, (B, S + steps),
+                         generator=torch.Generator().manual_seed(4),
+                         dtype=torch.int32)
+    graphed = api.init_cache(cfg, B, S + steps, device=cuda)
+    api.prefill(cfg, params, {"tokens": toks[:, :S].to(cuda)}, graphed)
+    eager = tree_map(lambda t: t.clone(), graphed)
+    unit = WorkUnit("decode_step", lambda t, p: (api.decode_step(
+        cfg, params, graphed, t, p)[0],), cuda)
+    for i in range(steps):
+        tok, pos = toks[:, S + i], S + i
+        got = unit.run(tok.numpy(), np.array([pos], np.int32))[0].clone()
+        want, _ = api.decode_step(cfg, params, eager, tok.to(cuda), pos)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), i
+        assert all(torch.equal(x, y)
+                   for x, y in zip(leaves(graphed), leaves(eager))), i
+    assert unit.captures == 1 and unit.calls == steps

@@ -9,8 +9,10 @@
     dissection benchmarks tc_energy, tc_n_sweep, dpx_functions, dsm and
     te_linear (the fp8 training linear at the CPU sizes) with
     `--device cpu`, trains three steps of the reduced yi-6b through
-    the port's `Trainer` on the CPU, and serves and trains a step of
-    the reduced moonshot-v1-16b-a3b (models/moe.py) and internvl2-1b;
+    the port's `Trainer` on the CPU, serves and trains a step of the
+    reduced moonshot-v1-16b-a3b (models/moe.py) and internvl2-1b, and
+    prefills, decodes and trains a step of the reduced falcon-mamba-7b
+    and zamba2-2.7b (models/ssm.py, ssm_lm.py, hybrid.py);
 (c) an entry point called without a device on a host without CUDA
     raises instead of running on the CPU (the serving entry points, the
     benchmark runner, the training CLI and `Trainer.init`);
@@ -131,6 +133,23 @@ for arch in ("moonshot-v1-16b-a3b", "internvl2-1b"):
                      device="cpu")
         tr.init()
         assert tr.run(1)[0].loss == tr.history[0].loss
+import torch
+from repro_torch.models import hybrid, ssm, ssm_lm  # noqa: F401
+for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
+    fcfg = reduced_config(arch)
+    fparams = api.init(fcfg, 0, device="cpu")
+    cache = api.init_cache(fcfg, 2, 16, device="cpu")
+    toks = torch.randint(0, fcfg.vocab_size, (2, 12))
+    lg, cache = api.prefill(fcfg, fparams, {"tokens": toks}, cache)
+    lg, cache = api.decode_step(fcfg, fparams, cache, lg.argmax(-1), 12)
+    assert lg.shape == (2, fcfg.vocab_size)
+    with tempfile.TemporaryDirectory() as td:
+        tr = Trainer(fcfg, TrainConfig(total_steps=1, warmup_steps=1,
+                                       ckpt_every=2, ckpt_dir=td),
+                     data=SyntheticLMData(fcfg.vocab_size, 2, 16),
+                     device="cpu")
+        tr.init()
+        assert tr.run(1)[0].loss == tr.history[0].loss
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")
@@ -138,8 +157,9 @@ print("OK")
 
 
 def test_port_serves_without_jax():
-    # the scan of (a) covers every module, models/moe.py among them
-    assert ROOT / "src" / "repro_torch" / "models" / "moe.py" in PORT_FILES
+    # the scan of (a) covers every module, the families' among them
+    for name in ("moe.py", "ssm.py", "ssm_lm.py", "hybrid.py"):
+        assert ROOT / "src" / "repro_torch" / "models" / name in PORT_FILES
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD % {"src": str(ROOT / "src")}],
         capture_output=True, text=True, timeout=300, cwd=ROOT)

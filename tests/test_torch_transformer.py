@@ -176,6 +176,6 @@ def test_deferred_options_raise():
     _, cfg = _configs(4)
     with pytest.raises(NotImplementedError, match="paged"):
         api.init_cache(cfg, 2, 16, paged=False, device="cpu", fp8_kv=True)
-    # moe and vlm are ported; an ssm arch is not
-    with pytest.raises(NotImplementedError, match="ssm"):
-        api.param_shapes(reduced_config("falcon-mamba-7b"))
+    # moe, vlm, ssm and hybrid are ported; an encdec arch is not
+    with pytest.raises(NotImplementedError, match="encdec"):
+        api.param_shapes(reduced_config("whisper-small"))
