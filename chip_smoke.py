@@ -305,10 +305,34 @@ last line):
               super-blocks), B=2 x 2048: phase 10's checked train step
               and Trainer.run on fresh batches (the mean loss of the
               run's own batches must fall).
+ 14. encdec — the encoder-decoder family (models/encdec.py):
+              full-width whisper-small (12 + 12 layers, d 768, H = KH =
+              12, hd 64, vocab 51865; 0.24 B random bf16 weights, seed
+              0) on B=8 random bf16 30-second windows of 1500 x 768
+              frames (api.make_batch): (a) B9 at its encoder (1500 x
+              1500, non-causal, a ragged last key tile) and
+              cross-attention (448 x 1500) shapes runs in phase 10(a)'s
+              cases (whisper-enc, whisper-cross); (b) api.prefill with
+              every B9 call held to its plain version, 12 launches on
+              wgmma, prefill ms and frames/s; (c) the decode step as a
+              runtime.graphs.WorkUnit (one CUDA graph), greedy from the
+              start-of-transcript token to max_target_len (447 steps),
+              the first 16 steps' logits equal an eager run's bit for
+              bit, the replay's device ms with the cache full against
+              its bytes bound, its kernels a step, the eager wall ms;
+              (d) loss_fn and its backward (float32 parameters, remat
+              dots) on a B=2 batch of 1500 frames and 448 tokens: every
+              B9 call checked, 72 launches on wgmma, loss and gradient
+              norm finite, B9's dq/dk/dv at the step's encoder, decoder
+              and cross shapes with the kernel forward within phase
+              10's bar of the plain forward's, step ms and peak memory,
+              apply_ef(int8_ef) of the gradients on the card bit for bit
+              the CPU's; (e) the reduced whisper-small card against CPU
+              (phase 13(c)'s rule).
 Each serve phase, the benchmark runs of phases 8, 9 and 11, the
-Trainer.run of phases 10, 12 and 13 and phase 13's prefill set their
-kernels' launch counts to 0 just before their main path and read them
-just after; phase 5b reads the
+Trainer.run of phases 10, 12 and 13, phase 13's prefill and phase 14's
+prefill and training step set their kernels' launch counts to 0 just
+before their main path and read them just after; phase 5b reads the
 paged kernels' counts (set to 0) after each spec wave, and its
 launches join phase 5's in paged_chunk's and paged_chunk_fp8's counts,
 and phase 5e's join all four paged kernels' counts; phases 5, 5b and
@@ -316,7 +340,9 @@ and phase 5e's join all four paged kernels' counts; phases 5, 5b and
 the paged kernels' launches by work unit (chunk, span, verify).  Then one JSON line of
 per-kernel numbers (twenty kernels; those with several bodies also
 their launches by body, flash_attention its launches by path: Trainer,
-te_layer, phase 12's Trainer, phase 13's prefill and Trainer; the
+te_layer, phase 12's Trainer, phase 13's prefill and Trainer, phase
+14's prefill and training step, and its whisper-enc and whisper-cross
+readings; the
 paged kernels phase 12's launches apart too) and, last, the contract
 line
 {"ok": true, "device": {...}}.
@@ -3660,6 +3686,12 @@ FLASH_CASES = [
     # multi-head (KH = H) at head_dim 128: te_transformer_layer's shape
     # at Table II's hidden 8192
     ("te-h8192", "bfloat16", 4, 512, 512, 64, 64, 128, True, 0, 0),
+    # whisper-small (phase 14) on a batch of 8 30-second windows: the
+    # bidirectional encoder over 1500 frames (1500 = 11 x 128 + 92: a
+    # ragged last key tile) and cross-attention of the 448 decoder rows
+    # against them
+    ("whisper-enc", "bfloat16", 8, 1500, 1500, 12, 12, 64, False, 0, 0),
+    ("whisper-cross", "bfloat16", 8, 448, 1500, 12, 12, 64, False, 0, 0),
 ]
 # B9 against its plain version: float32 o within 1e-4 (the reference's
 # kernel tests); bf16 o within one bf16 step of max |o| (2**-7 * max|o|);
@@ -3818,6 +3850,41 @@ class _PlainForward:
         kfa.flash_attention_fwd = self.orig
 
 
+class _CheckedFlash:
+    """Within the block every B9 launch (kernels.flash_attention.
+    flash_attention_fwd) is also run through its plain version on its
+    own inputs: `calls`, the worst o error over max |o| (`worst`) and
+    lse error (`lse`), and the first call's inputs of each (Sq, Sk,
+    causal) (`first`: q, k, v, keywords)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as kfa
+        self.kfa, self.orig = kfa, kfa.flash_attention_fwd
+        self.calls, self.worst, self.lse, self.first = 0, 0.0, 0.0, {}
+
+        def checked(q, k, v, **kw):
+            import torch
+            o, lse = self.orig(q, k, v, **kw)
+            with torch.no_grad():
+                po, plse = kfa.flash_attention_fwd_plain(q, k, v, **kw)
+                self.calls += 1
+                self.worst = max(self.worst, (
+                    (o.float() - po.float()).abs().max()
+                    / po.float().abs().max()).item())
+                self.lse = max(self.lse, _lse_err(lse, plse))
+            key = (q.shape[1], k.shape[1], kw.get("causal", True))
+            if key not in self.first:
+                self.first[key] = tuple(x.detach().clone()
+                                        for x in (q, k, v)) + (kw,)
+            return o, lse
+
+        kfa.flash_attention_fwd = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.kfa.flash_attention_fwd = self.orig
+
+
 def phase_flash_grads() -> None:
     """10(b): dq, dk, dv of the autograd function with the kernel
     forward against the same function with the plain forward, on the
@@ -3874,7 +3941,6 @@ def phase_train_step(cfg, B: int = 2, S: int = 4096, extra=None,
     and remat recompute, when not two a layer)."""
     import torch
     from repro_torch.data.pipeline import SyntheticLMData
-    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models import api
     from repro_torch.optim.adamw import AdamW
     from repro_torch.runtime.trainer import make_train_step
@@ -3891,32 +3957,16 @@ def phase_train_step(cfg, B: int = 2, S: int = 4096, extra=None,
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     with torch.no_grad(), _PlainForward():
         plain_loss = api.loss_fn(cfg, params, batch).item()
-    orig = kfa.flash_attention_fwd
-    worst = [0, 0.0, 0.0]                   # calls, o / max|o|, lse
-
-    def checked(q, k, v, **kw):
-        o, lse = orig(q, k, v, **kw)
-        with torch.no_grad():
-            po, plse = kfa.flash_attention_fwd_plain(q, k, v, **kw)
-            worst[0] += 1
-            worst[1] = max(worst[1], ((o.float() - po.float()).abs().max()
-                                      / po.float().abs().max()).item())
-            worst[2] = max(worst[2], _lse_err(lse, plse))
-        return o, lse
-
-    kfa.flash_attention_fwd = checked
-    try:
+    with _CheckedFlash() as chk:
         t0 = time.perf_counter()
         params, state, metrics = make_train_step(cfg, opt)(params, state,
                                                            batch)
         loss = metrics["loss"].item()
-    finally:
-        kfa.flash_attention_fwd = orig
     print(f"[train] one step with every flash call checked "
-          f"({time.perf_counter() - t0:.1f} s): {worst[0]} calls "
+          f"({time.perf_counter() - t0:.1f} s): {chk.calls} calls "
           f"(forward + remat recompute), max |kernel - plain| / max |o| = "
-          f"{worst[1]:.3e} (limit {FLASH_BF16_STEP:.3e}), lse "
-          f"{worst[2]:.3e} (relative, limit {FLASH_F32_LIMIT:.0e}); loss "
+          f"{chk.worst:.3e} (limit {FLASH_BF16_STEP:.3e}), lse "
+          f"{chk.lse:.3e} (relative, limit {FLASH_F32_LIMIT:.0e}); loss "
           f"{loss:.5f} "
           f"(plain forward: {plain_loss:.5f}), grad_norm "
           f"{metrics['grad_norm'].item():.4f}", flush=True)
@@ -3924,12 +3974,12 @@ def phase_train_step(cfg, B: int = 2, S: int = 4096, extra=None,
             torch.isfinite(metrics["grad_norm"])):
         fail("full-width training step gave a non-finite loss or gradient")
     want = 2 * cfg.num_layers if flash_calls is None else flash_calls
-    if worst[0] != want:
-        fail(f"the step ran {worst[0]} flash forwards, not {want} "
+    if chk.calls != want:
+        fail(f"the step ran {chk.calls} flash forwards, not {want} "
              f"(forward + recompute of each attention)")
-    if worst[1] > FLASH_BF16_STEP or worst[2] > FLASH_F32_LIMIT:
+    if chk.worst > FLASH_BF16_STEP or chk.lse > FLASH_F32_LIMIT:
         fail(f"a flash call of the training step differs from its plain "
-             f"version: o {worst[1]:.3e} of max |o|, lse {worst[2]:.3e}")
+             f"version: o {chk.worst:.3e} of max |o|, lse {chk.lse:.3e}")
 
 
 def phase_trainer(cfg, steps: int = 4, B: int = 2, S: int = 4096,
@@ -5296,46 +5346,25 @@ def _phase_zamba2() -> dict:
     steps = SSM_DECODE[HYBRID_ARCH]
     ns = hybrid.n_superblocks(cfg)
     torch.cuda.reset_peak_memory_stats()
-    orig = kfa.flash_attention_fwd
-    worst = [0, 0.0, 0.0]                   # calls, o / max|o|, lse
-
-    qkv = []                                # the first call's q, k, v
-
-    def checked(q, k, v, **kw):
-        o, lse = orig(q, k, v, **kw)
-        with torch.no_grad():
-            po, plse = kfa.flash_attention_fwd_plain(q, k, v, **kw)
-            worst[0] += 1
-            worst[1] = max(worst[1], ((o.float() - po.float()).abs().max()
-                                      / po.float().abs().max()).item())
-            worst[2] = max(worst[2], _lse_err(lse, plse))
-        if not qkv:
-            qkv.append((q.detach().clone(), k.detach().clone(),
-                        v.detach().clone(), kw))
-        return o, lse
-
     kfa.reset_launch_counts()
-    kfa.flash_attention_fwd = checked
-    try:
+    with _CheckedFlash() as chk:
         first, _ = api.prefill(cfg, params, {"tokens": toks},
                                api.init_cache(cfg, B, S, device=DEVICE))
         torch.cuda.synchronize()
-    finally:
-        kfa.flash_attention_fwd = orig
     launches = kfa.launch_counts()["flash_attention"]
     bodies = kfa.body_launches()
     print(f"[ssm] {cfg.name}: api.prefill (the forward) ran B9 "
           f"{launches} times, by body {bodies}, q/k/v [{B}, {S}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads}, {cfg.head_dim}]; each call "
           f"against its plain version: max |o - plain| / max |o| "
-          f"{worst[1]:.3e} (limit {FLASH_BF16_STEP:.3e}), lse "
-          f"{worst[2]:.3e} (limit {FLASH_F32_LIMIT:.0e})", flush=True)
-    if launches != ns or bodies["mma_sync"] != ns or worst[0] != ns:
+          f"{chk.worst:.3e} (limit {FLASH_BF16_STEP:.3e}), lse "
+          f"{chk.lse:.3e} (limit {FLASH_F32_LIMIT:.0e})", flush=True)
+    if launches != ns or bodies["mma_sync"] != ns or chk.calls != ns:
         fail(f"{cfg.name} prefill: B9 launched {launches} times ({bodies}),"
-             f" checked {worst[0]}, not {ns} on mma_sync")
-    if worst[1] > FLASH_BF16_STEP or worst[2] > FLASH_F32_LIMIT:
+             f" checked {chk.calls}, not {ns} on mma_sync")
+    if chk.worst > FLASH_BF16_STEP or chk.lse > FLASH_F32_LIMIT:
         fail(f"{cfg.name} prefill: a B9 call differs from its plain version")
-    flash = _flash_at(qkv.pop(), worst[1])
+    flash = _flash_at(next(iter(chk.first.values())), chk.worst)
     logits, cache, prefill_ms = _timed_prefill(cfg, params, toks, S + steps)
     if not torch.equal(first, logits):
         fail(f"{cfg.name}: the checked prefill's logits differ")
@@ -5401,21 +5430,23 @@ def _flash_at(qkvkw, rel_err: float) -> dict:
 
 
 class _Float32Rows:
-    """Within the block the recurrent families' embeddings give float32
-    rows (forward and decode), so the activations stay float32 whatever
-    the weights' dtype (the tests' `_keep_f32_rows`)."""
+    """Within the block the recurrent and encoder-decoder families'
+    embeddings give float32 rows (forward and decode), so the
+    activations stay float32 whatever the weights' dtype (the tests'
+    `_keep_f32_rows`; encdec's with float32 frames)."""
 
     def __enter__(self):
         import torch.nn.functional as F
-        from repro_torch.models import hybrid, ssm_lm
-        self.saved = [(m, n, getattr(m, n)) for m in (ssm_lm, hybrid)
-                      for n in ("embed_tokens", "_embed")]
-        for m in (ssm_lm, hybrid):
-            m.embed_tokens = (lambda cfg, params, tokens, prefix_embeds=None:
-                              F.embedding(tokens.long(),
-                                          params["embed"]).float())
-            m._embed = (lambda params, tokens:
-                        params["embed"][tokens.long()].float())
+        from repro_torch.models import encdec, hybrid, ssm_lm
+        fns = {"embed_tokens": (lambda cfg, params, tokens,
+                                prefix_embeds=None: F.embedding(
+                                    tokens.long(), params["embed"]).float()),
+               "_embed": (lambda params, tokens:
+                          params["embed"][tokens.long()].float())}
+        self.saved = [(m, n, getattr(m, n)) for m in (ssm_lm, hybrid, encdec)
+                      for n in fns if hasattr(m, n)]
+        for m, n, _ in self.saved:
+            setattr(m, n, fns[n])
         return self
 
     def __exit__(self, *exc):
@@ -5546,6 +5577,428 @@ def phase_ssm_families() -> dict:
             "flash_hd80": flash_hd80}
 
 
+# ----------------------------------------------------------------------
+# 14. the encoder-decoder family
+# ----------------------------------------------------------------------
+
+ENCDEC_ARCH = "whisper-small"          # 12 + 12 layers, d 768, hd 64
+ENCDEC_PREFILL = 8                     # B of 30-second windows (1500 frames)
+ENCDEC_TRAIN = 2                       # B of the training step
+ENCDEC_EAGER_STEPS = 16                # graph replays held bit for bit
+ENCDEC_SOT = 50258                     # whisper's start-of-transcript id
+ENCDEC_REPLAYS = 20                    # replays a device-ms reading
+# B9 launches a training step: 12 encoder, 12 decoder self and 12
+# cross-attention calls, each again in the remat recompute
+ENCDEC_SMALL_SHAPE = (4, 24, 15)       # B, frames, greedy decode steps
+
+
+def _encdec_checked(chk, what: str, want: int) -> None:
+    """Phase 14's bars on a `_CheckedFlash` run: `want` calls, each o
+    within one bf16 step of max |o| and lse within 1e-4."""
+    print(f"[encdec] {what}: {chk.calls} B9 calls, each against its "
+          f"plain version: max |o - plain| / max |o| {chk.worst:.3e} "
+          f"(limit {FLASH_BF16_STEP:.3e}), lse {chk.lse:.3e} (limit "
+          f"{FLASH_F32_LIMIT:.0e})", flush=True)
+    if chk.calls != want:
+        fail(f"{what}: {chk.calls} B9 calls, not {want}")
+    if chk.worst > FLASH_BF16_STEP or chk.lse > FLASH_F32_LIMIT:
+        fail(f"{what}: a B9 call differs from its plain version")
+
+
+def _encdec_bytes_bound(cfg, params, cache, B: int, kv_read: int) -> tuple:
+    """(ms, weight bytes, KV bytes) of the least time a decode step of B
+    sequences can take, bytes over HBM_BYTES_PER_S: the decoder's
+    weights and the tied embedding (the unembedding reads every row)
+    read once, B rows of dec_pos; the self K and V read at `kv_read`
+    positions a sequence and a row of each written, every layer; the
+    cross K and V read whole; the logits written."""
+    elt = cache["k"].element_size()
+    L, _, _, KH, hd = cache["k"].shape
+    weights = (_tree_bytes(params["dec_layers"])
+               + _tree_bytes(params["final_norm"])
+               + _tree_bytes(params["embed"])
+               + B * cfg.d_model * params["dec_pos"].element_size())
+    kv = 2 * L * B * (kv_read + 1) * KH * hd * elt
+    kv += _tree_bytes({"xk": cache["xk"], "xv": cache["xv"]})
+    logits = B * cfg.vocab_size * 2
+    return ((weights + kv + logits) / HBM_BYTES_PER_S * 1e3, weights, kv)
+
+
+def _encdec_model():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api
+    cfg = get_config(ENCDEC_ARCH)
+    t0 = time.perf_counter()
+    params = api.init(cfg, 0, device=DEVICE, dtype=torch.bfloat16)
+    frames = api.make_batch(cfg, ShapeConfig(
+        "prefill_30s", cfg.max_source_len, ENCDEC_PREFILL, "prefill"), 0,
+        device=DEVICE)["frames"]
+    torch.cuda.synchronize()
+    print(f"[encdec] {cfg.name} full width and depth: {cfg.enc_layers} + "
+          f"{cfg.dec_layers} layers, d {cfg.d_model}, H = KH = "
+          f"{cfg.num_heads}, hd {cfg.head_dim}, ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} (padded {cfg.padded_vocab_size}): "
+          f"{cfg.param_count() / 1e9:.3f} B params in bf16, frames "
+          f"{list(frames.shape)} {frames.dtype}, init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, params, frames
+
+
+def _encdec_prefill(cfg, params, frames) -> tuple:
+    """14(b): api.prefill with every B9 call checked (the main path:
+    counts from 0 around it), then twice unchecked, the second timed;
+    the three encoder outputs and cross K/V equal.  Returns (cache,
+    launches, bodies, ms)."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import api
+    B, S = frames.shape[:2]
+    kfa.reset_launch_counts()
+    with _CheckedFlash() as chk:
+        enc0, c0 = api.prefill(cfg, params, {"frames": frames},
+                               api.init_cache(cfg, B, cfg.max_target_len,
+                                              device=DEVICE))
+        torch.cuda.synchronize()
+    launches = kfa.launch_counts()["flash_attention"]
+    bodies = kfa.body_launches()
+    _encdec_checked(chk, f"{cfg.name} api.prefill (B={B}, {S} frames)",
+                    cfg.enc_layers)
+    if launches != cfg.enc_layers or bodies["wgmma"] != cfg.enc_layers:
+        fail(f"{cfg.name} prefill: B9 launched {launches} times "
+             f"({bodies}), not {cfg.enc_layers} on wgmma")
+    api.prefill(cfg, params, {"frames": frames},
+                api.init_cache(cfg, B, cfg.max_target_len, device=DEVICE))
+    cache = api.init_cache(cfg, B, cfg.max_target_len, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc, cache = api.prefill(cfg, params, {"frames": frames}, cache)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(enc, enc0) and _tree_equal(cache, c0)):
+        fail(f"{cfg.name} prefill is not bitwise repeatable")
+    if not torch.isfinite(enc.float()).all() or \
+            tuple(enc.shape) != (B, S, cfg.d_model):
+        fail(f"{cfg.name} prefill: encoder output {tuple(enc.shape)} "
+             "non-finite or misshapen")
+    if cache["xk"].shape[2] != S:
+        fail(f"{cfg.name} prefill: cross K/V of {cache['xk'].shape[2]} rows,"
+             f" not {S}")
+    print(f"[encdec] {cfg.name}: api.prefill B={B} x {S} frames "
+          f"{ms:.2f} ms = {B * S / ms * 1e3:.0f} frames/s; B9 launches "
+          f"{launches} by body {bodies}", flush=True)
+    del enc0, c0, enc
+    return cache, launches, bodies, ms
+
+
+def _encdec_decode(cfg, params, cache) -> dict:
+    """14(c): the decode step as one CUDA graph (runtime.graphs.WorkUnit:
+    call 1 eager on a side stream, call 2 captured and replayed), greedy
+    from the start-of-transcript token to max_target_len: the first
+    ENCDEC_EAGER_STEPS steps' logits equal an eager run's bit for bit,
+    every step's logits finite and tokens in the vocabulary; then the
+    replay's device ms with the cache full against its bytes bound, its
+    kernels a step, and an eager step's wall ms."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    from repro_torch.runtime.graphs import WorkUnit
+    B = cache["k"].shape[1]
+    steps = cfg.max_target_len - 1
+    snap = _tree_clone(cache)
+    tok0 = torch.full((B,), ENCDEC_SOT, dtype=torch.int32, device=DEVICE)
+    eager, tok = [], tok0
+    probe = _tree_clone(snap)
+    for i in range(ENCDEC_EAGER_STEPS):
+        lg, _ = api.decode_step(cfg, params, probe, tok, i)
+        eager.append(lg)
+        tok = lg.argmax(-1).to(torch.int32)
+    walls = []
+    for _ in range(3):
+        probe = _tree_clone(snap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.decode_step(cfg, params, probe, tok0, 0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    del probe
+    unit = WorkUnit("decode_step", lambda t, p: (api.decode_step(
+        cfg, params, cache, t, p)[0],), DEVICE)
+    tok, out = tok0, []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        lg = unit.run(tok.cpu().numpy().astype(np.int32),
+                      np.array([i], np.int32))[0]
+        if i < ENCDEC_EAGER_STEPS and not torch.equal(lg, eager[i]):
+            fail(f"{cfg.name} decode step {i} ({'eager call' if i == 0 else 'capture' if i == 1 else 'replay'}): "
+                 f"logits differ from the eager step's (max |diff| "
+                 f"{(lg.float() - eager[i].float()).abs().max().item()})")
+        if not torch.isfinite(lg.float()).all():
+            fail(f"{cfg.name} decode step {i} gave non-finite logits")
+        tok = lg.argmax(-1).to(torch.int32)
+        out.append(tok.cpu())
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    toks = torch.stack(out, 1)
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail("a greedy token fell outside the vocabulary")
+    print(f"[encdec] {cfg.name}: decode step as one CUDA graph: steps 0-"
+          f"{ENCDEC_EAGER_STEPS - 1} equal an eager run's logits bit for "
+          f"bit; {steps} greedy steps from token {ENCDEC_SOT} in "
+          f"{loop_s:.2f} s (host loop, a token read back a step), slot "
+          f"0's first tokens {toks[0, :12].tolist()}", flush=True)
+    # the cache is full: time the last step's replay
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ENCDEC_REPLAYS):
+        unit.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    dev_ms = start.elapsed_time(end) / ENCDEC_REPLAYS
+    with _device_profile() as prof:
+        for _ in range(5):
+            unit.graph.replay()
+        torch.cuda.synchronize()
+    by_name = _device_ms_by_kernel(prof, 5)
+    kernels = len(_device_events(prof)) / 5
+    bound, w, kv = _encdec_bytes_bound(cfg, params, cache, B,
+                                       cache["k"].shape[2])
+    top = "; ".join(f"{n[:56]} {ms:.3f}" for n, ms in by_name.most_common(6))
+    print(f"[encdec] {cfg.name}: decode step (B={B}, self cache full at "
+          f"{cache['k'].shape[2]}, cross {cache['xk'].shape[2]} rows) eager "
+          f"{sorted(walls)[1]:.2f} wall ms, graph replay {dev_ms:.3f} device "
+          f"ms against its bytes bound {bound:.3f} ms ({w / 1e9:.3f} GB of "
+          f"weights + {kv / 1e9:.3f} GB of self and cross K/V over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {dev_ms / bound:.2f}x), "
+          f"{kernels:.0f} kernels a step; device ms by kind a step "
+          f"(profiler): {_kernel_split(by_name, SSM_KERNEL_GROUPS, 1, SSM_OTHER)}"
+          f"; top kernels (ms a step): {top}", flush=True)
+    del unit, snap, eager
+    return {"device_ms": dev_ms, "bound_ms": bound,
+            "wall_ms": sorted(walls)[1], "kernels": kernels}
+
+
+def _encdec_train(cfg) -> tuple:
+    """14(d): api.loss_fn and its backward (float32 parameters, remat
+    dots) on one make_batch batch (B=2, 1500 frames, 448 tokens): every
+    B9 call held to its plain version, loss and gradient norm finite,
+    the norm > 0; the launches of the checked step (the main path:
+    counts from 0 around it) all on wgmma; B9's gradients at the
+    encoder's and the cross-attention's shapes, on the step's own q, k,
+    v, with the kernel forward against the plain forward (phase 10's
+    bar); the model's gradients with the plain forward printed beside
+    them; a timed step and its peak memory; then apply_ef(int8_ef) of
+    the gradients on the card bit for bit the same call on the CPU."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.tree import items_with_path, leaves, tree_map
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import api, attention
+    from repro_torch.optim import compress
+    from repro_torch.runtime.trainer import value_and_grad
+    params = api.init(cfg, 0, device=DEVICE, dtype=torch.float32)
+    batch = api.make_batch(cfg, ShapeConfig(
+        "train_30s", cfg.max_source_len, ENCDEC_TRAIN, "train"), 1,
+        device=DEVICE)
+    calls = 2 * (cfg.enc_layers + 2 * cfg.dec_layers)
+    kfa.reset_launch_counts()
+    with _CheckedFlash() as chk:
+        loss, grads = value_and_grad(cfg, params, batch)
+        torch.cuda.synchronize()
+    launches = kfa.launch_counts()["flash_attention"]
+    bodies = kfa.body_launches()
+    _encdec_checked(chk, f"{cfg.name} loss_fn + backward (B={ENCDEC_TRAIN}, "
+                    f"{cfg.max_source_len} frames, {cfg.max_target_len} "
+                    f"tokens, remat {cfg.remat})", calls)
+    if launches != calls or bodies["wgmma"] != calls:
+        fail(f"{cfg.name} training step: B9 launched {launches} times "
+             f"({bodies}), not {calls} on wgmma")
+    gnorm = torch.sqrt(sum(g.float().square().sum() for g in leaves(grads)))
+    if not (torch.isfinite(loss) and torch.isfinite(gnorm)
+            and gnorm.item() > 0):
+        fail(f"{cfg.name} training step: loss {loss.item()} or grad norm "
+             f"{gnorm.item()} not finite and positive")
+    # B9's own gradients at whisper's shapes (phase 10(b)'s check)
+    worst = 0.0
+    for (Sq, Sk, causal), (q, k, v, kw) in sorted(chk.first.items()):
+        g = torch.Generator(device=DEVICE).manual_seed(Sq + Sk)
+        do = torch.randn(q.shape, generator=g, device=DEVICE).to(q.dtype)
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+
+        def grads_of():
+            out = attention.flash_attention(*xs, causal=causal)
+            return torch.autograd.grad(out, xs, do)
+
+        got = grads_of()
+        with _PlainForward():
+            want = grads_of()
+        rel = max(((a.float() - b.float()).abs().max()
+                   / b.float().abs().max()).item()
+                  for a, b in zip(got, want))
+        worst = max(worst, rel)
+        print(f"[encdec] B9 grads on the step's q, k, v (Sq={Sq}, Sk={Sk}, "
+              f"causal={causal}): max |kernel - plain| / max |plain| over "
+              f"dq, dk, dv {rel:.3e} (limit {FLASH_GRAD_REL_LIMIT:.3e})",
+              flush=True)
+    if worst > FLASH_GRAD_REL_LIMIT:
+        fail(f"{cfg.name}: B9 gradients with the kernel forward differ from "
+             f"the plain forward's by {worst:.3e} of max |g|")
+    with _PlainForward():
+        ploss, pgrads = value_and_grad(cfg, tree_map(
+            lambda t: t.detach(), params), batch)
+    # per leaf; the key biases' exact gradient is 0 (a shift of one
+    # query's scores), rounding noise on both sides: left out
+    model_rel = max(
+        (((a.float() - b.float()).abs().max()
+          / b.float().abs().max()).item(), path)
+        for (path, a), (_, b) in zip(items_with_path(grads),
+                                     items_with_path(pgrads))
+        if not path.endswith("attn/bk"))
+    del pgrads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    value_and_grad(cfg, tree_map(lambda t: t.detach(), params), batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[encdec] {cfg.name} training step: loss {loss.item():.5f} "
+          f"(plain forward {ploss.item():.5f}), grad norm "
+          f"{gnorm.item():.4f}; the model's gradients with the plain "
+          f"forward: worst leaf max |diff| / max |g| {model_rel[0]:.3e} "
+          f"({model_rel[1]}; printed); loss + backward {step_ms:.1f} ms, peak memory "
+          f"{peak / 1e9:.2f} GB; B9 launches {launches} by body {bodies}",
+          flush=True)
+    cg, ce = compress.apply_ef(grads, compress.make_ef_state(grads),
+                               "int8_ef")
+    cpu = tree_map(lambda t: t.cpu(), grads)
+    hg, he = compress.apply_ef(cpu, compress.make_ef_state(cpu), "int8_ef")
+    for name, a, b in (("gradients", cg, hg), ("error state", ce, he)):
+        for (path, x), (_, y) in zip(items_with_path(a), items_with_path(b)):
+            if not torch.equal(x.cpu(), y):
+                fail(f"apply_ef int8_ef on the card: {name} {path} differs "
+                     f"from the CPU's")
+    print(f"[encdec] apply_ef(int8_ef) of the step's {len(leaves(grads))} "
+          f"gradient leaves on the card equals the CPU's bit for bit "
+          f"(compressed gradients and error state)", flush=True)
+    del params, grads, cg, ce, cpu, hg, he
+    return launches, bodies, {"step_ms": step_ms, "peak_gb": peak / 1e9}
+
+
+def _encdec_small_run(cfg, params, frames, steps, device, dtype):
+    """api.prefill, then `steps` greedy decode steps from token 0:
+    [(logits on the CPU, token)] a step, each device feeding its own
+    argmax."""
+    import torch
+    from repro_torch.models import api
+    B = frames.shape[0]
+    cache = api.init_cache(cfg, B, cfg.max_target_len, dtype, device=device)
+    _, cache = api.prefill(cfg, params, {"frames": frames.to(device, dtype)},
+                           cache)
+    tok = torch.zeros(B, dtype=torch.int32, device=device)
+    out = []
+    for i in range(steps):
+        lg, cache = api.decode_step(cfg, params, cache, tok, i)
+        tok = lg.argmax(-1).to(torch.int32)
+        out.append((lg.float().cpu(), tok.cpu()))
+    return out
+
+
+def _encdec_small() -> None:
+    """14(e): the reduced whisper-small (float32 weights, bf16
+    activations) on the card and on the CPU, the same frames: every
+    greedy step's tokens equal until a step where the CPU's top-2 margin
+    is within SMALL_MARGIN (nothing is held after it), the logits before
+    it within max(SSM_SMALL_STEPS, SSM_NOISE x the CPU's own distance
+    from its float32 run) bf16 steps (phase 13(c)'s rule)."""
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api
+    cfg = reduced_config(ENCDEC_ARCH)
+    B, S, steps = ENCDEC_SMALL_SHAPE
+    cpu_params = api.init(cfg, 0, device="cpu")
+    params = _tree_to(cpu_params, DEVICE)
+    frames = api.make_batch(cfg, ShapeConfig("p", S, B, "prefill"), 7,
+                            device="cpu")["frames"].float()
+    card = _encdec_small_run(cfg, params, frames, steps, DEVICE,
+                             torch.bfloat16)
+    cpu = _encdec_small_run(cfg, cpu_params, frames, steps, "cpu",
+                            torch.bfloat16)
+    with _Float32Rows():
+        f32 = _encdec_small_run(cfg, cpu_params, frames, 1, "cpu",
+                                torch.float32)
+    noise = _bf16_steps(f32[0][0], cpu[0][0])
+    bar = max(SSM_SMALL_STEPS, SSM_NOISE * noise)
+    worst, parted = 0.0, None
+    for i, ((lc, tc), (lg, tg)) in enumerate(zip(cpu, card)):
+        worst = max(worst, _bf16_steps(lc, lg))
+        if not torch.equal(tc, tg):
+            top2 = lc.topk(2, -1).values
+            margin = (top2[:, 0] - top2[:, 1])[tc != tg].max().item()
+            if margin > SMALL_MARGIN:
+                fail(f"{cfg.name} card vs CPU: step {i} parts at a top-2 "
+                     f"margin {margin:.4f} > {SMALL_MARGIN}")
+            parted = (i, margin)
+            break
+    print(f"[encdec] (e) {cfg.name} card vs CPU, B={B}, {S} frames, {steps} "
+          f"greedy steps: logits within {worst:.2f} bf16 steps of max "
+          f"|logit| (limit {bar:.2f}: the CPU's bf16 run lies {noise:.2f} "
+          f"steps from its float32 run), "
+          + ("streams equal" if parted is None else
+             f"parted at step {parted[0]} at a CPU top-2 margin "
+             f"{parted[1]:.4f} (<= {SMALL_MARGIN})"), flush=True)
+    if worst > bar:
+        fail(f"{cfg.name} card vs CPU: logits {worst:.2f} bf16 steps apart "
+             f"(limit {bar:.2f})")
+
+
+def phase_encdec() -> dict:
+    """Phase 14: full-width whisper-small (random bf16 weights, seed 0;
+    B=8 random bf16 30-second windows of 1500 x 768 frames, make_batch's
+    draw).  (a) B9 at whisper's encoder and cross-attention shapes runs
+    in phase 10's FLASH_CASES (whisper-enc, whisper-cross).  (b)
+    api.prefill with every B9 call held to its plain version, 12
+    launches on wgmma; prefill ms and frames/s.  (c) the decode step as
+    one CUDA graph, greedy to max_target_len, the first 16 steps equal
+    an eager run's bit for bit; device ms against the bytes bound.  (d)
+    loss_fn and its backward on a B=2 batch, every B9 call checked,
+    B9's gradients at whisper's shapes kernel vs plain forward, apply_ef
+    card vs CPU bit for bit.  (e) the reduced model card vs CPU.
+    Returns B9's launches on the main paths (prefill, training) by
+    path and by body."""
+    import torch
+    t_start = time.perf_counter()
+    _free_card()
+    cfg, params, frames = _encdec_model()
+    torch.cuda.reset_peak_memory_stats()
+    cache, pre_n, pre_bodies, prefill_ms = _encdec_prefill(cfg, params,
+                                                           frames)
+    dec = _encdec_decode(cfg, params, cache)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[encdec] {cfg.name} serving (B={ENCDEC_PREFILL}): peak memory "
+          f"{peak / 1e9:.2f} GB; (b)-(c) in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    del params, cache, frames
+    _free_card()
+    train_n, train_bodies, train = _encdec_train(cfg)
+    _free_card()
+    _encdec_small()
+    bodies = {b: pre_bodies.get(b, 0) + train_bodies.get(b, 0)
+              for b in set(pre_bodies) | set(train_bodies)}
+    print(f"[encdec] phase 14 in {time.perf_counter() - t_start:.1f} s; "
+          f"prefill {prefill_ms:.2f} ms, decode {dec['device_ms']:.3f} / "
+          f"bound {dec['bound_ms']:.3f} ms, training step "
+          f"{train['step_ms']:.1f} ms; flash_attention prefill {pre_n}, "
+          f"training {train_n}, by body {bodies}", flush=True)
+    return {"flash": pre_n + train_n,
+            "flash_by_path": {"prefill": pre_n, "trainer": train_n},
+            "flash_bodies": bodies, "prefill_ms": prefill_ms,
+            "decode": dec, "train": train}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     device = phase_card()
@@ -5605,6 +6058,7 @@ def main() -> None:
     mem_results, mem_launches, te_flash, te_bodies = phase_memory_te()
     fam = phase_families()
     ssm = phase_ssm_families()
+    ed = phase_encdec()
     line = []
     for name, line_no in (("paged_decode", 163), ("paged_chunk", 252),
                           ("paged_decode_fp8", 147),
@@ -5707,22 +6161,30 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
         "launches": (flash_launches["flash_attention"] + te_flash
-                     + fam["flash"] + ssm["flash"]),
+                     + fam["flash"] + ssm["flash"] + ed["flash"]),
         "launches_by_path": {"trainer": flash_launches["flash_attention"],
                              "te_layer": te_flash,
                              "families_trainer": fam["flash"],
                              "ssm_families_prefill":
                                  ssm["flash_by_path"]["prefill"],
                              "ssm_families_trainer":
-                                 ssm["flash_by_path"]["trainer"]},
+                                 ssm["flash_by_path"]["trainer"],
+                             "encdec_prefill":
+                                 ed["flash_by_path"]["prefill"],
+                             "encdec_trainer":
+                                 ed["flash_by_path"]["trainer"]},
         "launches_by_body": {b: n + te_bodies.get(b, 0)
                              + fam["flash_bodies"].get(b, 0)
                              + ssm["flash_bodies"].get(b, 0)
+                             + ed["flash_bodies"].get(b, 0)
                              for b, n in flash_bodies.items()},
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "zamba2_shared_block": ssm["flash_hd80"]})
+        "zamba2_shared_block": ssm["flash_hd80"],
+        **{case.replace("-", "_"): {k: flash_results[case][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for case in ("whisper-enc", "whisper-cross")}})
     # not TPU kernels: what each measures on the card, the reference
     # times on the host
     for name, case, replaces in (

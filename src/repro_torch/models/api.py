@@ -1,9 +1,8 @@
 """Model API of the port: parameters, caches and the serving steps.
 
-PyTorch counterpart of ``repro/models/api.py`` for the transformer
-families (dense, moe, vlm), the ssm family (models/ssm_lm.py) and the
-hybrid family (models/hybrid.py); encdec raises
-``NotImplementedError``:
+PyTorch counterpart of ``repro/models/api.py`` for every family: the
+transformer families (dense, moe, vlm), ssm (models/ssm_lm.py), hybrid
+(models/hybrid.py) and encdec (models/encdec.py):
 
     param_shapes / init                     parameters
     loss_fn                                 training objective
@@ -14,12 +13,15 @@ hybrid family (models/hybrid.py); encdec raises
                                             contiguous cache; ssm over
                                             its recurrent state; hybrid
                                             over its states and a
-                                            contiguous cache
+                                            contiguous cache; encdec
+                                            over its self and cross K/V
     chunk_step                              chunked-prefill serving
     verify_step                             speculative-decode verify
     SamplingParams / sample_tokens          stochastic sample head
     cow_copy_block                          copy-on-write pool block copy
-    active_param_count                      N (N_active for moe)
+    input_specs / cache_specs / make_batch  shape cells (meta-device
+                                            stand-ins; seeded batches)
+    active_param_count / model_flops        N (N_active for moe), 6ND
 
 The paged pool, ``chunk_step``, ``verify_step``, ``cow_copy_block``
 and the kernel / fp8 serving options are transformer-only, as in the
@@ -34,19 +36,19 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, hybrid, ssm_lm, transformer
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models import common, encdec, hybrid, ssm_lm, transformer
 from repro_torch.models.sampling import (GREEDY, SamplingParams,  # noqa: F401
                                          ks_two_sample, sample_tokens)
 
 Params = Dict[str, Any]
 
-FAMILIES = transformer.FAMILIES + ("ssm", "hybrid")
+FAMILIES = transformer.FAMILIES + ("ssm", "hybrid", "encdec")
 
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise NotImplementedError, naming the family, unless the port has
-    `cfg`'s family (encdec is not ported yet)."""
+    `cfg`'s family."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (families "
@@ -59,6 +61,8 @@ def param_shapes(cfg: ModelConfig) -> Params:
         return ssm_lm.ssm_lm_specs(cfg)
     if cfg.family == "hybrid":
         return hybrid.hybrid_specs(cfg)
+    if cfg.family == "encdec":
+        return encdec.encdec_specs(cfg)
     return transformer.transformer_specs(cfg)
 
 
@@ -80,13 +84,16 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None,
 
 def _model(cfg: ModelConfig):
     """The module of `cfg`'s family."""
-    return {"ssm": ssm_lm, "hybrid": hybrid}.get(cfg.family, transformer)
+    return {"ssm": ssm_lm, "hybrid": hybrid,
+            "encdec": encdec}.get(cfg.family, transformer)
 
 
 def loss_fn(cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Causal-LM loss: cross-entropy (plus ``aux_loss_weight`` times the
-    moe layers' aux loss); a vlm batch may carry ``prefix_embeds``."""
+    moe layers' aux loss); a vlm batch may carry ``prefix_embeds``, an
+    encdec batch carries ``frames`` (the decoder's tokens against the
+    encoded frames)."""
     check_family(cfg)
     return _model(cfg).loss_fn(cfg, params, batch)
 
@@ -100,8 +107,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     [L, batch, max_len, KH, hd] (``fp8_kv``, paged only, stores the
     pool as e4m3 codes + per-row float32 scales); for ssm the recurrent
     state (ssm_lm.init_cache); for hybrid the states and the contiguous
-    cache of its shared attention (hybrid.init_cache).  A paged or fp8
-    cache is transformer-only, as in the reference."""
+    cache of its shared attention (hybrid.init_cache); for encdec the
+    decoder's self K/V (at most max_target_len positions) and the cross
+    K/V (encdec.init_cache).  A paged or fp8 cache is transformer-only,
+    as in the reference."""
     check_family(cfg)
     dev = common.resolve_device(device)
     if cfg.family in transformer.FAMILIES:
@@ -126,7 +135,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     ``kernel=False`` is the gather oracle; with no `block_table` the
     cache is contiguous and read by the plain attention; ``quant``
     (te/linear.quantize_serving_params output) serves the linears in
-    fp8.  ssm and hybrid take none of these options."""
+    fp8.  ssm, hybrid and encdec take none of these options."""
     check_family(cfg)
     if cfg.family not in transformer.FAMILIES:
         if kernel or quant is not None:
@@ -149,8 +158,8 @@ def chunk_step(cfg: ModelConfig, params: Params, cache: Params,
                ) -> Tuple[torch.Tensor, Params]:
     """Chunk-write serving step: per slot, write `n_tokens[b]` of the
     C-wide `tokens[b]` into the cache at `pos[b]` and return logits at
-    each slot's last valid row.  Transformer-only: ssm and hybrid
-    serve through prefill / decode_step."""
+    each slot's last valid row.  Transformer-only: ssm, hybrid and
+    encdec serve through prefill / decode_step."""
     check_family(cfg)
     transformer.check_family(cfg, "chunked prefill (use prefill / "
                                   "decode_step)")
@@ -199,7 +208,8 @@ def prefill(cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor], cache: Params
             ) -> Tuple[torch.Tensor, Params]:
     """Run a prompt batch ({"tokens": [B, S]}, a vlm's ``prefix_embeds``
-    too).  Returns (last-position logits [B, vocab], cache).
+    too; encdec: {"frames": [B, S_enc, d]}).  Returns (last-position
+    logits [B, vocab], cache), for encdec (encoder output, cache).
 
     * transformer families: transformer.prefill fills the contiguous
       cache (``init_cache(..., paged=False)``) and returns {"k", "v"};
@@ -208,7 +218,10 @@ def prefill(cfg: ModelConfig, params: Params,
     * hybrid: the training forward, read at the last position; the
       cache comes back as it came, its states and KV untouched, as in
       the reference (its serving rebuilds the state through
-      decode_step)."""
+      decode_step);
+    * encdec: encodes the frames and writes each decoder layer's cross
+      K/V into the cache (encdec.prefill; the returned cache's cross
+      K/V are views of the S_enc rows written)."""
     check_family(cfg)
     with torch.no_grad():
         if cfg.family in transformer.FAMILIES:
@@ -217,13 +230,92 @@ def prefill(cfg: ModelConfig, params: Params,
                 prefix_embeds=batch.get("prefix_embeds"))
         if cfg.family == "ssm":
             return ssm_lm.prefill(cfg, params, batch["tokens"], cache)
+        if cfg.family == "encdec":
+            return encdec.prefill(cfg, params, batch["frames"], cache)
         h, _ = hybrid.forward(cfg, params, batch["tokens"])
         return transformer.logits_fn(cfg, params, h[:, -1:])[:, 0], cache
 
 
+# ----------------------------------------------------------------------
+# shape cells: meta-device input specs and concrete seeded batches
+# ----------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig
+                ) -> Dict[str, torch.Tensor]:
+    """Stand-ins on the meta device (shape and dtype, no storage) for
+    every model input of this cell.  encdec: the cell's seq_len is the
+    source frame count (clamped to max_source_len); its decoder runs at
+    max_target_len."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    frames = (B, min(S, cfg.max_source_len), cfg.d_model)
+    prefix = (cfg.family == "vlm" and cfg.num_prefix_tokens)
+    if shape.kind == "train":
+        if cfg.family == "encdec":
+            T = cfg.max_target_len
+            return {"frames": spec(frames, bf16),
+                    "tokens": spec((B, T), i32),
+                    "labels": spec((B, T), i32)}
+        out = {"tokens": spec((B, S), i32), "labels": spec((B, S), i32)}
+        if prefix:
+            out["prefix_embeds"] = spec(
+                (B, cfg.num_prefix_tokens, cfg.d_model), bf16)
+        return out
+    if shape.kind == "prefill":
+        if cfg.family == "encdec":
+            return {"frames": spec(frames, bf16)}
+        out = {"tokens": spec((B, S), i32)}
+        if prefix:
+            out["prefix_embeds"] = spec(
+                (B, cfg.num_prefix_tokens, cfg.d_model), bf16)
+        return out
+    # decode: one new token against a seq_len-deep cache
+    return {"token": spec((B,), i32), "pos": spec((), i32)}
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> Params:
+    """The serving cache of this cell on the meta device: the
+    reference's (``init_cache`` at its defaults: the contiguous layout
+    for the transformer families)."""
+    paged = False if cfg.family in transformer.FAMILIES else None
+    return init_cache(cfg, shape.global_batch, shape.seq_len, paged=paged,
+                      device="meta")
+
+
+def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0, *,
+               device=None) -> Dict[str, torch.Tensor]:
+    """A random batch of `input_specs` on `device`, drawn in the specs'
+    order from one seeded ``torch.Generator``: token ids uniform in
+    [0, vocab_size), floats standard normal cast to the spec's dtype,
+    the scalar pos min(seq_len - 1, 1).  The draws differ from JAX's;
+    the shapes, dtypes and ranges are the reference's."""
+    dev = common.resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out = {}
+    for k, s in input_specs(cfg, shape).items():
+        if s.dtype == torch.int32:
+            if not s.shape:
+                out[k] = torch.tensor(min(shape.seq_len - 1, 1),
+                                      dtype=torch.int32, device=dev)
+                continue
+            hi = (cfg.vocab_size if k in ("tokens", "labels", "token")
+                  else max(shape.seq_len - 1, 1))
+            out[k] = torch.randint(0, hi, s.shape, generator=gen,
+                                   dtype=torch.int32, device=dev)
+        else:
+            out[k] = torch.randn(s.shape, generator=gen, dtype=torch.float32,
+                                 device=dev).to(s.dtype)
+    return out
+
+
 def active_param_count(cfg: ModelConfig) -> float:
-    """N (dense, vlm, ssm, hybrid) or N_active (moe: experts counted at
-    top_k/E)."""
+    """N (dense, vlm, ssm, hybrid, encdec) or N_active (moe: experts
+    counted at top_k/E)."""
     total = float(common.count_params(param_shapes(cfg)))
     if cfg.family != "moe":
         return total
@@ -233,3 +325,23 @@ def active_param_count(cfg: ModelConfig) -> float:
     expert_total = float(expert * cfg.num_layers)
     frac = cfg.top_k / cfg.num_experts
     return total - expert_total * (1.0 - frac)
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """6*N*D for a train cell, 2*N*D for prefill and decode (one token a
+    sequence).  encdec counts the source frames (clamped to
+    max_source_len) plus, in training, the max_target_len decoder
+    tokens."""
+    n_active = active_param_count(cfg)
+    src = min(shape.seq_len, cfg.max_source_len)
+    if shape.kind == "train":
+        if cfg.family == "encdec":
+            tokens = shape.global_batch * (src + cfg.max_target_len)
+        else:
+            tokens = shape.tokens
+        return 6.0 * n_active * tokens
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * (
+            src if cfg.family == "encdec" else shape.seq_len)
+        return 2.0 * n_active * tokens
+    return 2.0 * n_active * shape.global_batch

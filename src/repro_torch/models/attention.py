@@ -144,7 +144,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_len) -> torch.Tensor:
     """One-step decode: q [B,1,H,hd] vs cache [B,T,KH,hd]; row b attends
     positions t < kv_len[b].  Scores and PV are explicit float32
-    multiply + sum, as in the reference."""
+    multiply + sum, as in the reference.  `kv_len` is a tensor (scalar
+    or [B]) or a Python int (no copy to the device: the call can be
+    captured into a CUDA graph)."""
     B, _, H, hd = q.shape
     T, KH = k_cache.shape[1], k_cache.shape[2]
     G = H // KH
@@ -152,8 +154,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     kt = k_cache.transpose(1, 2).float()              # [B,KH,T,hd]
     vt = v_cache.transpose(1, 2).float()
     s = (qg[:, :, :, None, :] * kt[:, :, None, :, :]).sum(-1) * hd ** -0.5
-    kv_len = torch.as_tensor(kv_len, device=q.device)
-    bound = kv_len.reshape(-1, 1, 1, 1) if kv_len.ndim == 1 else kv_len
+    if isinstance(kv_len, int):
+        bound = kv_len
+    else:
+        kv_len = torch.as_tensor(kv_len, device=q.device)
+        bound = kv_len.reshape(-1, 1, 1, 1) if kv_len.ndim == 1 else kv_len
     valid = torch.arange(T, device=q.device)[None, None, None, :] < bound
     o = _masked_softmax_pv(s, valid, vt[:, :, None, :, :], v_cache.dtype,
                            t_axis=3)                  # [B,KH,G,hd]

@@ -58,6 +58,13 @@ reduced mixer card against CPU (float32 within 1e-5, bf16 within four
 bf16 steps of max |x|), B9 at zamba2-2.7b's shared-attention shape (hd
 80, mma_sync) against its plain version, and the decode step as a
 graph-replayed work unit bit for bit against eager steps.
+The encoder-decoder family (models/encdec.py): B9 at whisper-small's
+encoder (1500 x 1500) and cross-attention (448 x 1500) shapes on wgmma
+(forward and gradients by the flash bars), api.prefill at full width
+(2 + 2 layers) launching B9 once an encoder layer on wgmma, the reduced
+model's decode step as a graph-replayed work unit bit for bit against
+eager steps, and optim/compress.apply_ef on the card bit for bit the
+CPU's.
 """
 
 import collections
@@ -2765,3 +2772,150 @@ def test_ssm_decode_step_graph_replays_equal_eager(cuda, arch):
         assert all(torch.equal(x, y)
                    for x, y in zip(leaves(graphed), leaves(eager))), i
     assert unit.captures == 1 and unit.calls == steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq", [1500, 448], ids=["encoder", "cross"])
+def test_flash_at_whisper_shapes(cuda, Sq):
+    """B9 at whisper-small's bidirectional encoder (1500 x 1500 frames:
+    a ragged last 92-key tile) and cross-attention (448 decoder rows x
+    1500 frames) shapes, H = KH = 12, hd 64, non-causal, bf16: one
+    launch on its wgmma body, o within one bf16 step of max |o| of its
+    plain version, lse within 1e-4; gradients with the kernel forward
+    within 2**-5 of max |g| of the plain forward's."""
+    g = torch.Generator(device=cuda).manual_seed(Sq)
+    q = torch.randn((2, Sq, 12, 64), generator=g, device=cuda).to(
+        torch.bfloat16)
+    k, v = (torch.randn((2, 1500, 12, 64), generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    kfa.reset_launch_counts()
+    o, lse = kfa.flash_attention_fwd(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert kfa.launch_counts()["flash_attention"] == 1
+    assert kfa.body_launches()["wgmma"] == 1
+    po, plse = kfa.flash_attention_fwd_plain(q, k, v, causal=False)
+    assert (o.float() - po.float()).abs().max() \
+        <= 2.0 ** -7 * po.float().abs().max()
+    assert ((lse - plse).abs().max()
+            / plse.abs().max().clamp(min=1.0)) <= 1e-4
+    do = torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def grads():
+        return torch.autograd.grad(
+            attention.flash_attention(*xs, causal=False), xs, do)
+
+    got = grads()
+    orig = kfa.flash_attention_fwd
+    kfa.flash_attention_fwd = kfa.flash_attention_fwd_plain
+    try:
+        want = grads()
+    finally:
+        kfa.flash_attention_fwd = orig
+    for a, b in zip(got, want):
+        assert (a.float() - b.float()).abs().max() \
+            <= 2.0 ** -5 * b.float().abs().max()
+
+
+def _whisper_cut(layers=2):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("whisper-small"), enc_layers=layers,
+                               dec_layers=layers)
+
+
+@pytest.mark.gpu
+def test_encdec_prefill_runs_b9_on_wgmma(cuda):
+    """whisper-small at full width cut to 2 + 2 layers: api.prefill on
+    1500 bf16 frames launches B9 once an encoder layer, on wgmma, each
+    call within the bars of its plain version; the cross K/V hold
+    exactly the frames' rows; the step's logits finite."""
+    from repro_torch.configs.base import ShapeConfig
+    cfg = _whisper_cut()
+    params = api.init(cfg, 0, device=cuda, dtype=torch.bfloat16)
+    frames = api.make_batch(cfg, ShapeConfig("p", 1500, 2, "prefill"), 0,
+                            device=cuda)["frames"]
+    orig, worst = kfa.flash_attention_fwd, []
+
+    def checked(q, k, v, **kw):
+        o, lse = orig(q, k, v, **kw)
+        po, plse = kfa.flash_attention_fwd_plain(q, k, v, **kw)
+        worst.append(((o.float() - po.float()).abs().max()
+                      / po.float().abs().max()).item())
+        return o, lse
+
+    kfa.reset_launch_counts()
+    kfa.flash_attention_fwd = checked
+    try:
+        enc, cache = api.prefill(cfg, params, {"frames": frames},
+                                 api.init_cache(cfg, 2, 448, device=cuda))
+        torch.cuda.synchronize()
+    finally:
+        kfa.flash_attention_fwd = orig
+    assert kfa.launch_counts()["flash_attention"] == cfg.enc_layers
+    assert kfa.body_launches()["wgmma"] == cfg.enc_layers
+    assert len(worst) == cfg.enc_layers and max(worst) <= 2.0 ** -7
+    assert enc.shape == (2, 1500, cfg.d_model) and cache["xk"].shape[2] == 1500
+    lg, _ = api.decode_step(cfg, params, cache,
+                            torch.zeros(2, dtype=torch.int32, device=cuda), 0)
+    assert lg.shape == (2, cfg.vocab_size) and torch.isfinite(lg.float()).all()
+
+
+@pytest.mark.gpu
+def test_encdec_decode_step_graph_replays_equal_eager(cuda):
+    """The reduced whisper-small's api.decode_step as a WorkUnit (call 1
+    eager on a side stream, call 2 captured, then replays), after a
+    prefill of 24 frames (< max_source_len: the cross K/V are views of
+    24 rows of the 32-row buffers): logits and every cache leaf equal
+    eager steps' bit for bit."""
+    from repro_torch.core.tree import leaves, tree_map
+    cfg = reduced_config("whisper-small")
+    params = api.init(cfg, 0, device=cuda, dtype=torch.bfloat16)
+    B, S, steps = 3, 24, 6
+    frames = torch.randn((B, S, cfg.d_model),
+                         generator=torch.Generator().manual_seed(5)).to(
+        cuda, torch.bfloat16)
+    _, graphed = api.prefill(cfg, params, {"frames": frames},
+                             api.init_cache(cfg, B, 16, device=cuda))
+    assert graphed["xk"].shape[2] == S
+    eager = tree_map(lambda t: t.clone(), graphed)
+    unit = WorkUnit("decode_step", lambda t, p: (api.decode_step(
+        cfg, params, graphed, t, p)[0],), cuda)
+    tok = torch.zeros(B, dtype=torch.int32)
+    for i in range(steps):
+        got = unit.run(tok.numpy(), np.array([i], np.int32))[0].clone()
+        want, _ = api.decode_step(cfg, params, eager, tok.to(cuda), i)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), i
+        assert all(torch.equal(x, y)
+                   for x, y in zip(leaves(graphed), leaves(eager))), i
+        tok = got.argmax(-1).to(torch.int32).cpu()
+    assert unit.captures == 1 and unit.calls == steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["int8_ef", "bf16", "none"])
+def test_apply_ef_on_card_equals_cpu(cuda, method):
+    """optim/compress.apply_ef over three steps of a gradient tree
+    (float32 and bf16 leaves, an all-zero leaf) on the card: the
+    compressed gradients and the error state equal the CPU's bit for
+    bit (divisions tensor by tensor: correctly rounded on both)."""
+    from repro_torch.core.tree import items_with_path, tree_map
+    from repro_torch.optim import compress
+    g = torch.Generator().manual_seed(9)
+    ef_d = ef_h = None
+    for _ in range(3):
+        grads = {"a": torch.randn(4096, generator=g) * 3e-3,
+                 "b": {"w": torch.randn((768, 3072), generator=g).to(
+                     torch.bfloat16)},
+                 "z": torch.zeros(17)}
+        dev = tree_map(lambda t: t.to(cuda), grads)
+        if ef_d is None:
+            ef_d, ef_h = compress.make_ef_state(dev), \
+                compress.make_ef_state(grads)
+        yd, ef_d = compress.apply_ef(dev, ef_d, method)
+        yh, ef_h = compress.apply_ef(grads, ef_h, method)
+        for a, b in ((yd, yh), (ef_d, ef_h)):
+            for (path, x), (_, y) in zip(items_with_path(a),
+                                         items_with_path(b)):
+                assert torch.equal(x.cpu(), y), path

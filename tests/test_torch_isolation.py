@@ -12,7 +12,11 @@
     the port's `Trainer` on the CPU, serves and trains a step of the
     reduced moonshot-v1-16b-a3b (models/moe.py) and internvl2-1b, and
     prefills, decodes and trains a step of the reduced falcon-mamba-7b
-    and zamba2-2.7b (models/ssm.py, ssm_lm.py, hybrid.py);
+    and zamba2-2.7b (models/ssm.py, ssm_lm.py, hybrid.py), prefills,
+    decodes and takes a loss and its gradients of the reduced
+    whisper-small on a `make_batch` batch (models/encdec.py), runs a
+    scheduler fuzz trace (runtime/fuzz.py) and compresses the gradients
+    with error feedback (optim/compress.py);
 (c) an entry point called without a device on a host without CUDA
     raises instead of running on the CPU (the serving entry points, the
     benchmark runner, the training CLI and `Trainer.init`);
@@ -150,6 +154,23 @@ for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
                      device="cpu")
         tr.init()
         assert tr.run(1)[0].loss == tr.history[0].loss
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.optim import compress
+from repro_torch.runtime.fuzz import run_fuzz_trace
+from repro_torch.runtime.trainer import value_and_grad
+wcfg = reduced_config("whisper-small")
+wparams = api.init(wcfg, 0, device="cpu")
+batch = api.make_batch(wcfg, ShapeConfig("t", 24, 2, "train"), 0,
+                       device="cpu")
+cache = api.init_cache(wcfg, 2, 16, device="cpu")
+enc, cache = api.prefill(wcfg, wparams, {"frames": batch["frames"]}, cache)
+lg, cache = api.decode_step(wcfg, wparams, cache,
+                            torch.zeros(2, dtype=torch.int32), 0)
+assert lg.shape == (2, wcfg.vocab_size) and cache["xk"].shape[2] == 24
+loss, grads = value_and_grad(wcfg, wparams, batch)
+g, ef = compress.apply_ef(grads, compress.make_ef_state(grads), "int8_ef")
+assert loss == loss and g["embed"].shape == grads["embed"].shape
+assert run_fuzz_trace(0, device="cpu").audits > 0
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")
@@ -158,8 +179,10 @@ print("OK")
 
 def test_port_serves_without_jax():
     # the scan of (a) covers every module, the families' among them
-    for name in ("moe.py", "ssm.py", "ssm_lm.py", "hybrid.py"):
-        assert ROOT / "src" / "repro_torch" / "models" / name in PORT_FILES
+    for name in ("models/moe.py", "models/ssm.py", "models/ssm_lm.py",
+                 "models/hybrid.py", "models/encdec.py", "runtime/fuzz.py",
+                 "optim/compress.py"):
+        assert ROOT / "src" / "repro_torch" / name in PORT_FILES
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD % {"src": str(ROOT / "src")}],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
@@ -183,6 +206,12 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
         ChunkedServer(cfg, params, batch_slots=2, max_len=16)
     with pytest.raises(RuntimeError, match="CUDA"):
         api.init(cfg, device="cuda")
+    from repro_torch.configs.base import ShapeConfig
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.make_batch(cfg, ShapeConfig("t", 8, 2, "train"))
+    from repro_torch.runtime.fuzz import run_fuzz_trace
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_fuzz_trace(0)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--requests", "1"])         # --device defaults to cuda
     from repro_torch.benchmarks import run as bench_run

@@ -26,8 +26,8 @@ by `convert.from_reference` for whole models).  The bar:
   LOGIT_STEPS bf16 steps of max |logit|, argmax equal where the
   reference's top-2 margin is clear of twice that; verify predictions
   equal where clear;
-* the refusals: ssm / hybrid / encdec raise NotImplementedError naming
-  the family, moe + fp8_linear and tp refuse.
+* the refusals: the servers and the serve CLI refuse ssm / hybrid /
+  encdec naming the family, moe + fp8_linear and tp refuse.
 """
 
 import dataclasses
@@ -527,23 +527,16 @@ def test_teacher_forced_chunk_decode_verify(name):
 @pytest.mark.parametrize("name", ["falcon-mamba-7b", "zamba2-2.7b",
                                   "whisper-small"])
 def test_unported_families_raise_naming_the_family(name):
-    """ssm and hybrid are ported: the api runs them, while both servers
-    and the serve CLI (transformer-only, as the reference's) refuse them
-    naming the family.  encdec (whisper-small) is refused everywhere."""
+    """ssm, hybrid and encdec (whisper-small) are ported: the api runs
+    them, while both servers and the serve CLI (transformer-only, as
+    the reference's) refuse them naming the family."""
     cfg = reduced_config(name)
     api_calls = (lambda: api.param_shapes(cfg),
                  lambda: api.init(cfg, 0, device="cpu"),
                  lambda: api.init_cache(cfg, 2, 16, device="cpu"))
-    if cfg.family == "encdec":
-        api_calls += (lambda: api.loss_fn(cfg, {}, {}),)
-        for call in api_calls:
-            with pytest.raises(NotImplementedError, match=cfg.family):
-                call()
-        params = {}
-    else:
-        for call in api_calls:
-            call()
-        params = api.init(cfg, 0, device="cpu")
+    for call in api_calls:
+        call()
+    params = api.init(cfg, 0, device="cpu")
     for call in (lambda: server.ChunkedServer(cfg, params, device="cpu"),
                  lambda: server.SlotServer(cfg, params, device="cpu")):
         with pytest.raises(NotImplementedError, match=cfg.family):

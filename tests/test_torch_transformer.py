@@ -176,6 +176,8 @@ def test_deferred_options_raise():
     _, cfg = _configs(4)
     with pytest.raises(NotImplementedError, match="paged"):
         api.init_cache(cfg, 2, 16, paged=False, device="cpu", fp8_kv=True)
-    # moe, vlm, ssm and hybrid are ported; an encdec arch is not
-    with pytest.raises(NotImplementedError, match="encdec"):
-        api.param_shapes(reduced_config("whisper-small"))
+    # every family is ported; tensor parallelism is not
+    from repro_torch.runtime.server import ChunkedServer
+    with pytest.raises(NotImplementedError, match="tp"):
+        ChunkedServer(cfg, api.init(cfg, 0, device="cpu"), tp=2,
+                      device="cpu")
