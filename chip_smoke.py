@@ -8,6 +8,17 @@ last line):
   1. card   — CUDA device present; nvidia-smi name and power limit.
   2. build  — nvcc builds the kernels from src/repro_torch/kernels/csrc
               (ptxas registers, shared memory and spills printed).
+ 2b. analysis — the port's serving-contract analyzer
+              (repro_torch.analysis, in process, --strict) on the card:
+              the AST layer; the launch lint's 13 workloads planned from
+              the wrappers' rules, run, and every planned launch matched
+              to one real build.launch; the work-unit layer over the 13
+              flag combos (each unit of each combo called 3+ times, one
+              program and one CUDA graph each, bodies recorded and
+              replays under sync debug mode "error", the pool updated in
+              place, the paged kernels launched).  Findings by layer,
+              units x combos, captures, planned vs matched launches and
+              the phase's seconds printed; any finding fails.
   3. kernels — each paged kernel against its plain PyTorch version at
               yi-6b's serving shape, llama-te-mini's heads (hd 64),
               zamba2-2.7b's attention (hd 80) and yi-6b's decode_32k
@@ -155,7 +166,10 @@ last line):
               at the nine tc_mma cases; pipelined_matmul at 16^3, 32^3
               and 64^3 tiles, stages 1-3, at the async_copy shape and at
               full width, and at 128 x 128 with the fma_tma ring's two
-              64-deep stages and four 32-deep ones.  Each case's body
+              64-deep stages and four 32-deep ones; ops.fp8_matmul
+              with auto tiles (the tile model's sweep on the warpgroup
+              grid) at full width, B column-major and contiguous, on
+              the wgmma body.  Each case's body
               (wgmma, mma_sync, fma, fma_tma; tma, staged; tma,
               cp_async) by its rule, held to the source's
               own rule and to the per-body launch count; max abs error
@@ -439,6 +453,67 @@ def phase_build() -> None:
         build.load(src)
     print(f"[build] {len(sources)} sources loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_analysis() -> dict:
+    """The serving-contract analyzer on the card, in process and strict:
+    all three layers; fails on any finding, on a unit of a combo that is
+    not one program and one capture, or on a planned launch that no
+    real launch matched.  The kernels' launch counts are set back to 0
+    after it (later phases count their own paths)."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.analysis.__main__ import main as analyze
+    from repro_torch.analysis import contracts
+    from repro_torch.kernels import (async_pipeline, dpx_kernel,
+                                     flash_attention, fp8_matmul, matmul,
+                                     paged_attention)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "analysis_report.json")
+        rc = analyze(["--strict", "--report", path])
+        with open(path) as fh:
+            rep = json.load(fh)
+    secs = time.perf_counter() - t0
+    layer = {"AST": 0, "KL": 0, "JX": 0}
+    for f in rep["findings"]:
+        layer[f["rule"].rstrip("0123456789")] += 1
+    units = rep["graph_units"]
+    combos = {u["combo"] for u in units}
+    planned = len(rep["kernel_launches"])
+    matched = rep["kernel_launches_matched"]
+    captures = sum(u["captures"] for u in units)
+    print(f"[analysis] findings by layer: ast {layer['AST']}, kernel "
+          f"{layer['KL']}, graph {layer['JX']} (exit code {rc}, "
+          f"{len(rep['suppressed'])} suppressed); {len(units)} units x "
+          f"combos over {len(combos)} combos, {captures} captures, "
+          f"calls {sum(u['calls'] for u in units)}; launches planned "
+          f"{planned}, matched {matched}; layer seconds "
+          f"{ {k: round(v, 2) for k, v in rep['layer_seconds'].items()} }; "
+          f"phase {secs:.1f} s", flush=True)
+    for u in units:
+        if u.get("paged_launches"):
+            print(f"[analysis]   {u['unit']} [{u['combo']}]: calls "
+                  f"{u['calls']}, programs {u['programs']}, captures "
+                  f"{u['captures']}, graph launches {u['paged_launches']}")
+    if rc != 0 or rep["findings"]:
+        fail(f"the analyzer found {len(rep['findings'])} finding(s): "
+             f"{rep['summary']}")
+    bad = [u for u in units if u["programs"] != 1 or u["captures"] != 1]
+    if bad:
+        fail(f"units not one program and one capture: {bad}")
+    if len(combos) != len(contracts.serving_combos()):
+        fail(f"the graph layer checked {len(combos)} combos")
+    if planned != matched or planned < 13:
+        fail(f"{matched} of {planned} planned launches matched")
+    for mod in (async_pipeline, dpx_kernel, flash_attention, fp8_matmul,
+                matmul, paged_attention):
+        mod.reset_launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seconds": secs, "units": len(units), "combos": len(combos),
+            "captures": captures, "planned": planned, "matched": matched}
 
 
 # ----------------------------------------------------------------------
@@ -2957,6 +3032,7 @@ def phase_matmul() -> tuple:
     from repro_torch.kernels import async_pipeline as apk
     from repro_torch.kernels import fp8_matmul as f8k
     from repro_torch.kernels import matmul as mmk
+    from repro_torch.kernels import ops
     from repro_torch.benchmarks import run as _registers  # noqa: F401
     M, N, K = FULL_WIDTH
     e4m3, e5m2 = "float8_e4m3fn", "float8_e5m2"
@@ -3006,6 +3082,11 @@ def phase_matmul() -> tuple:
                 layout == "row")), e4m3, (M, N, K), tiles, 10, layout))
     cases.append(("fp8_matmul", "full_width", e5m2, (M, N, K), t128, 10,
                   "col"))
+    # the public wrapper with auto tiles: the tile model's sweep on the
+    # warpgroup grid (its earlier (128, 256, 128) ran mma_sync)
+    for layout in ("col", "row"):
+        cases.append(("ops.fp8_matmul", "full_width_auto" + ("_rowB" * (
+            layout == "row")), e4m3, (M, N, K), {}, 10, layout))
     for bs in (64, 32, 16):
         for st in (1, 2, 3):
             cases.append(("pipelined_matmul", "full_width", "float32",
@@ -3017,13 +3098,15 @@ def phase_matmul() -> tuple:
         cases.append(("pipelined_matmul", "full_width", "float32",
                       (M, N, K), dict(bm=128, bn=128, bk=bk, stages=st), 5,
                       "row"))
-    fns = {"matmul": (mmk.matmul, mmk.matmul_plain),
+    fns = {"ops.fp8_matmul": (ops.fp8_matmul, f8k.fp8_matmul_plain),
+           "matmul": (mmk.matmul, mmk.matmul_plain),
            "single_tile_matmul": (mmk.single_tile_matmul,
                                   mmk.single_tile_matmul_plain),
            "fp8_matmul": (f8k.fp8_matmul, f8k.fp8_matmul_plain),
            "pipelined_matmul": (apk.pipelined_matmul,
                                 apk.pipelined_matmul_plain)}
     counters = {"matmul": mmk.matmul, "fp8_matmul": f8k.fp8_matmul,
+                "ops.fp8_matmul": f8k.fp8_matmul,
                 "single_tile_matmul": mmk.single_tile_matmul,
                 "pipelined_matmul": apk.pipelined_matmul}
     results, inputs, plain_cache = {}, {}, {}
@@ -3052,7 +3135,7 @@ def phase_matmul() -> tuple:
                 views["unalignedA"] = buf[1:].view(a.shape)
                 views["unalignedA"].copy_(a)
             a = views["unalignedA"]
-        if kernel == "fp8_matmul":
+        if kernel.endswith("fp8_matmul"):
             sx = torch.tensor([0.37], device=DEVICE)
             sw = torch.tensor([1.9], device=DEVICE)
             args = (a, b, sx, sw)
@@ -3062,7 +3145,16 @@ def phase_matmul() -> tuple:
             lib = _mm_library(dt, a, b)
         kern = lambda: fn(*args, **kw)
         plain = lambda: plain_fn(*args)
-        body = _body_of(kernel, dt, m, n, k, kw, a, b)
+        if kernel == "ops.fp8_matmul":
+            # the tiles the wrapper picks, named for the rule
+            tiles = ops.product_tiles(m, n, k, getattr(torch, dt))
+            body = _body_of("fp8_matmul", dt, m, n, k,
+                            dict(zip(("bm", "bn", "bk"), tiles)), a, b)
+            if body != "wgmma":
+                fail(f"ops.fp8_matmul {dt} {(m, n, k)}: auto tiles {tiles} "
+                     f"run {body}, not wgmma")
+        else:
+            body = _body_of(kernel, dt, m, n, k, kw, a, b)
         if kernel == "matmul" and dt == "float32" and \
                 case.startswith("full_width"):
             want_body = "fma" if layout == "unalignedA" else "fma_tma"
@@ -3109,6 +3201,9 @@ def phase_matmul() -> tuple:
             sm_txt += (f" device_ms={dev_ms:.4f} library_device_ms="
                        + (f"{lib_dev_ms:.4f}" if lib_dev_ms else "none"))
         tag = " ".join(f"{x}={y}" for x, y in kw.items())
+        if kernel == "ops.fp8_matmul":
+            tag = "auto " + " ".join(f"{x}={y}" for x, y in zip(
+                ("bm", "bn", "bk"), tiles))
         ok = err <= limit
         lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
         copy_txt = ""
@@ -6008,6 +6103,7 @@ def main() -> None:
     from repro_torch.models import api
     from repro_torch.te import linear as te_linear
     phase_build()
+    phase_analysis()
     kernels = phase_kernels()
     phase_verify_kernels(kernels)
     phase_long_kernels(kernels)
@@ -6123,7 +6219,15 @@ def main() -> None:
              ("full_width", "float32", FULL_WIDTH,
               "bm=64 bn=64 bk=64 stages=2"))):
         r = mm_results[(name,) + key]
-        line.append({
+        extra = {}
+        if name == "fp8_matmul":
+            # ops.fp8_matmul with auto tiles at the same shape
+            extra["auto_tiles"] = {
+                f"{case} {tag}": {k: v[k] for k in ("body", "max_abs_err",
+                                                    "ms", "library_ms")}
+                for (kern, case, _, _, tag), v in mm_results.items()
+                if kern == "ops.fp8_matmul"}
+        line.append({**extra,
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}",

@@ -3,7 +3,9 @@ tile policy (``repro/kernels/ops.py``).
 
 Tile shapes default to the tile model's autotuner
 (``core/mxu_model.pick_tile`` for ``hw.TARGET``, with ``stages=1``: the
-kernels stage one slice at a time) or, where a kernel has fixed
+kernels stage one slice at a time; for bf16, int8 and the fp8 formats
+its sweep keeps the tiles on the warpgroup grid, so an auto tile runs
+``wgmma``) or, where a kernel has fixed
 defaults (``pipelined_matmul``, ``tropical_matmul``: 32), to an automatic
 ``min(default, operand)`` fit.  Tile policy: ``0`` means "auto"; an
 explicitly passed tile may be *smaller* than the operand (it is still
@@ -87,11 +89,43 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def _on_wgmma_grid(dtype, m, n, k, bm, bn, bk) -> bool:
+    """The tile, fitted to (m, n, k), lies on the warpgroup grid of
+    `dtype` and the wgmma body's ring holds at least one stage of it."""
+    t = _fit_tiles(m, n, k, bm, bn, bk)
+    return _mm.on_wgmma_grid(dtype, *t) and _mm.wgmma_stages(dtype, *t) > 0
+
+
 def _auto_tiles(m, n, k, dtype) -> tuple:
-    """The model's tile for (m, n, k) on ``hw.TARGET``, one stage."""
-    t = mxu_model.pick_tile(m, n, k, _dtype_name(dtype), chip=hw.TARGET,
-                            stages=1)
-    return t.bm, t.bn, t.bk
+    """The model's tile for (m, n, k) on ``hw.TARGET``, one stage
+    (``pick_tile``).  For a dtype with a warpgroup grid (bf16, int8,
+    e4m3, e5m2) the same sweep keeps only the candidates on that grid
+    (`_on_wgmma_grid`), so the product runs ``wgmma`` and not
+    ``mma_sync``; where none is on it (an operand narrower than every
+    grid tile), the sweep's best as it is."""
+    name = _dtype_name(dtype)
+    best = None
+    for bm, bn, bk in mxu_model.candidate_tiles(m, n, k):
+        t = mxu_model.MatmulModel(m, n, k, bm, bn, bk, name, hw.TARGET, 1)
+        if not t.fits_vmem() or not _on_wgmma_grid(dtype, m, n, k, bm, bn,
+                                                    bk):
+            continue
+        if best is None or t.predicted_flops_per_s > \
+                best.predicted_flops_per_s:
+            best = t
+    if best is None:
+        best = mxu_model.pick_tile(m, n, k, name, chip=hw.TARGET, stages=1)
+    return best.bm, best.bn, best.bk
+
+
+def product_tiles(m, n, k, dtype, bm: int = 0, bn: int = 0,
+                  bk: int = 0) -> tuple:
+    """The (bm, bn, bk) that `matmul` / `fp8_matmul` launch for the
+    requested tiles (any 0: the model's, `_auto_tiles`), divisor-fitted
+    to the problem."""
+    if not (bm and bn and bk):
+        bm, bn, bk = _auto_tiles(m, n, k, dtype)
+    return _fit_tiles(m, n, k, bm, bn, bk)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 0, bn: int = 0,
@@ -100,9 +134,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 0, bn: int = 0,
     n = b.shape[1]
     _check_tiles("matmul", _fragment(a.dtype), bm=(bm, m), bn=(bn, n),
                  bk=(bk, k))
-    if not (bm and bn and bk):
-        bm, bn, bk = _auto_tiles(m, n, k, a.dtype)
-    bm, bn, bk = _fit_tiles(m, n, k, bm, bn, bk)
+    bm, bn, bk = product_tiles(m, n, k, a.dtype, bm, bn, bk)
     return _mm.matmul(a, b, bm=bm, bn=bn, bk=bk)
 
 
@@ -112,10 +144,26 @@ def fp8_matmul(aq: torch.Tensor, bq: torch.Tensor, sx, sw, *, bm: int = 0,
     n = bq.shape[1]
     _check_tiles("fp8_matmul", _fragment(aq.dtype), bm=(bm, m), bn=(bn, n),
                  bk=(bk, k))
-    if not (bm and bn and bk):
-        bm, bn, bk = _auto_tiles(m, n, k, aq.dtype)
-    bm, bn, bk = _fit_tiles(m, n, k, bm, bn, bk)
+    bm, bn, bk = product_tiles(m, n, k, aq.dtype, bm, bn, bk)
     return _fp8.fp8_matmul(aq, bq, sx, sw, bm=bm, bn=bn, bk=bk)
+
+
+def pipelined_tiles(m, n, k, bm: int = 0, bn: int = 0, bk: int = 0,
+                    stages: int = 2, aligned: bool = True) -> tuple:
+    """The (bm, bn, bk) that `pipelined_matmul` launches: the requested
+    tiles (0: 32) divisor-fitted to the problem, then the K slice halved
+    (and fitted again) until `stages` slices of the tile fit a block's
+    shared memory.  The reference stages its slices in a TPU core's
+    16 MiB of VMEM, where a 128^3 tile fits at any stage count; an H100
+    block holds 232448 bytes, which two 128-deep slices of a 128 x 128
+    tile pass.  The product is the same: each output still sums K in
+    order, a slice at a time."""
+    bm, bn, bk = _fit_tiles(m, n, k, bm or 32, bn or 32, bk or 32)
+    while bk > 1 and _async.smem_bytes(
+            bm, bn, bk, stages,
+            _async.body(m, n, k, bm, bn, bk, aligned)) > _mm.SMEM_LIMIT:
+        bm, bn, bk = _fit_tiles(m, n, k, bm, bn, bk // 2)
+    return bm, bn, bk
 
 
 def pipelined_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 0,
@@ -124,7 +172,8 @@ def pipelined_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 0,
     m, n, k = a.shape[0], b.shape[1], a.shape[1]
     _check_tiles("pipelined_matmul", _fragment(a.dtype), bm=(bm, m),
                  bn=(bn, n), bk=(bk, k))
-    bm, bn, bk = _fit_tiles(m, n, k, bm or 32, bn or 32, bk or 32)
+    bm, bn, bk = pipelined_tiles(m, n, k, bm, bn, bk, stages,
+                                 _mm.aligned(a, b, False))
     return _async.pipelined_matmul(a, b, bm=bm, bn=bn, bk=bk, stages=stages)
 
 

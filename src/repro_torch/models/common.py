@@ -91,6 +91,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+@torch.library.custom_op("repro_torch::mark", mutates_args=())
+def mark(x: torch.Tensor, name: str) -> None:
+    """A named point on a path: the reference's ``checkpoint_name`` tag
+    without its copy.  The op computes nothing and launches nothing; a
+    ``TorchDispatchMode`` (analysis/graph_check) sees it with its name,
+    so a work unit's recorded ops show which path its body took."""
+
+
+@mark.register_fake
+def _(x, name):
+    return None
+
+
 def fixed_tree_sum(parts: torch.Tensor) -> torch.Tensor:
     """Sum over the leading axis with a FIXED halving tree.
 

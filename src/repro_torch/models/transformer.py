@@ -32,7 +32,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import sampling
 from repro_torch.models.common import (ParamSpec, apply_norm, apply_rope,
                                        chunked_softmax_xent, cross_entropy,
-                                       norm_spec)
+                                       mark, norm_spec)
 
 Params = Dict[str, Any]
 
@@ -366,7 +366,11 @@ def _serving_scan(cfg, params, cache, x, pos, positions, block_table, *,
             x = x + mlp_mod.mlp(cfg, lp["mlp"], h, groups=gm)
         else:
             x = x + mlp_mod.mlp_fp8(cfg, lp["mlp"], qlp["mlp"], h)
-    return apply_norm(cfg, x, params["final_norm"])
+    h = apply_norm(cfg, x, params["final_norm"])
+    # the serving forward's hook (the reference tags the same hidden
+    # state with checkpoint_name): the analyzer's JX006 looks for it
+    mark(h, "serving_hot_path")
+    return h
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:

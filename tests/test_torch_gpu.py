@@ -65,6 +65,13 @@ encoder (1500 x 1500) and cross-attention (448 x 1500) shapes on wgmma
 model's decode step as a graph-replayed work unit bit for bit against
 eager steps, and optim/compress.apply_ef on the card bit for bit the
 CPU's.
+The serving-contract analyzer (repro_torch.analysis) on the card: the
+work-unit layer over every flag combo clean, each unit one program and
+one CUDA graph after 3+ calls, its captured graph launching the pool's
+paged kernels; a host read inside a body caught by sync debug mode
+(JX001), while the same body without it captures once and replays
+clean; the launch lint's 13 workloads run and every planned launch
+matched by one real launch, none unplanned; the CLI strict and clean.
 """
 
 import collections
@@ -2919,3 +2926,103 @@ def test_apply_ef_on_card_equals_cpu(cuda, method):
             for (path, x), (_, y) in zip(items_with_path(a),
                                          items_with_path(b)):
                 assert torch.equal(x.cpu(), y), path
+
+
+@pytest.mark.gpu
+def test_analysis_graph_layer_on_card(cuda):
+    """Every combo's work units on the card: no finding, one program
+    and one capture each, the paged ones launching their kernels."""
+    from repro_torch.analysis import contracts, graph_check
+    from repro_torch.analysis.report import Report
+    rep = Report()
+    graph_check.run(rep, device=cuda)
+    assert rep.findings == [], [str(f) for f in rep.findings]
+    units = rep.extras["graph_units"]
+    assert len({u["combo"] for u in units}) == \
+        len(contracts.serving_combos())
+    for u in units:
+        assert (u["programs"], u["captures"]) == (1, 1), u
+        assert u["calls"] >= graph_check.MIN_CALLS, u
+        for kernel, n in u.get("paged_launches", {}).items():
+            assert n > 0, u
+    assert sum("paged_launches" in u for u in units) >= 20
+
+
+@pytest.mark.gpu
+def test_analysis_sync_debug_catches_a_host_read(cuda):
+    """A toy unit whose body reads a device value on the host fails its
+    eager first call under sync debug mode "error" (JX001); the same
+    unit without the read captures once and replays clean."""
+    from repro_torch.analysis import contracts, graph_check
+    from repro_torch.analysis.report import Report
+    from repro_torch.models.common import mark
+
+    class Toy:
+        def __init__(self, read):
+            self.device = cuda
+            self.cache = {"k": torch.zeros(4, 8, device=cuda),
+                          "v": torch.zeros(4, 8, device=cuda)}
+            self.cur_tok = torch.zeros(2, dtype=torch.int32, device=cuda)
+            self.out_buf = torch.zeros(2, 8, dtype=torch.int32,
+                                       device=cuda)
+            self.spec_decode = 0
+            self.read = read
+            self._units = {"chunk_step": WorkUnit("chunk_step", self.body,
+                                                  cuda)}
+
+        def body(self, x):
+            if self.read and x.sum().item() < 0:
+                x = -x
+            self.cache["k"].add_(x[:, None])
+            self.cache["v"][:, 0] = x
+            mark(x, contracts.SERVING_TAG)
+            return (x * 2,)
+
+    for read in (True, False):
+        rep = Report()
+        toy = Toy(read)
+        graph_check.UnitWatch(toy, "toy", rep)
+        unit = toy._units["chunk_step"]
+        try:
+            for i in range(3):
+                unit.run(np.full(4, i + 1, np.float32))
+        except RuntimeError:
+            assert read
+        torch.cuda.synchronize()
+        if read:
+            assert [f.rule for f in rep.findings] == ["JX001"]
+        else:
+            assert rep.findings == [], [str(f) for f in rep.findings]
+            assert (unit.programs, unit.captures, unit.calls) == (1, 1, 3)
+
+
+@pytest.mark.gpu
+def test_analysis_launch_plans_match_real_launches(cuda):
+    """The 13 workloads run on the card: each planned launch matched by
+    exactly one real build.launch, no launch unplanned, no finding; a
+    plan that is not what runs is refused."""
+    from repro_torch.analysis import kernel_lint
+    from repro_torch.analysis.report import Report
+    rep = Report()
+    kernel_lint.run(rep, device=cuda)
+    assert rep.findings == [], [str(f) for f in rep.findings]
+    assert rep.extras["kernel_launches_matched"] == \
+        len(rep.extras["kernel_launches"]) == 13
+    first, second = kernel_lint.default_workloads()[:2]
+    wrong = kernel_lint.Workload(first.name, second.plan, first.run)
+    with pytest.raises(kernel_lint.PlanMismatch):
+        kernel_lint.run(Report(), [wrong], device=cuda)
+
+
+@pytest.mark.gpu
+def test_analysis_cli_strict_on_card(cuda, tmp_path):
+    import json
+    import os
+    from repro_torch.analysis.__main__ import main
+    out = tmp_path / "report.json"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert main(["--strict", "--max-combos", "2", "--repo-root", root,
+                 "--report", str(out)]) == 0
+    rep = json.loads(out.read_text())
+    assert rep["device"].startswith("cuda") and rep["findings"] == []
+

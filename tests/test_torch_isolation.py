@@ -15,11 +15,13 @@
     and zamba2-2.7b (models/ssm.py, ssm_lm.py, hybrid.py), prefills,
     decodes and takes a loss and its gradients of the reduced
     whisper-small on a `make_batch` batch (models/encdec.py), runs a
-    scheduler fuzz trace (runtime/fuzz.py) and compresses the gradients
-    with error feedback (optim/compress.py);
+    scheduler fuzz trace (runtime/fuzz.py), compresses the gradients
+    with error feedback (optim/compress.py) and runs the serving-contract
+    analyzer (repro_torch.analysis) with `--device cpu --strict`, clean;
 (c) an entry point called without a device on a host without CUDA
     raises instead of running on the CPU (the serving entry points, the
-    benchmark runner, the training CLI and `Trainer.init`);
+    benchmark runner, the training CLI, `Trainer.init`, and the
+    analyzer's graph and kernel layers);
 (d) chip_smoke.py without a CUDA device exits non-zero with no result.
 """
 
@@ -171,6 +173,8 @@ loss, grads = value_and_grad(wcfg, wparams, batch)
 g, ef = compress.apply_ef(grads, compress.make_ef_state(grads), "int8_ef")
 assert loss == loss and g["embed"].shape == grads["embed"].shape
 assert run_fuzz_trace(0, device="cpu").audits > 0
+from repro_torch.analysis.__main__ import main as analyze
+assert analyze(["--device", "cpu", "--strict", "--repo-root", %(root)r]) == 0
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")
@@ -184,7 +188,8 @@ def test_port_serves_without_jax():
                  "optim/compress.py"):
         assert ROOT / "src" / "repro_torch" / name in PORT_FILES
     proc = subprocess.run(
-        [sys.executable, "-c", _CHILD % {"src": str(ROOT / "src")}],
+        [sys.executable, "-c", _CHILD % {"src": str(ROOT / "src"),
+                                         "root": str(ROOT)}],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1] == "OK"
@@ -233,6 +238,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
                  data=SyntheticLMData(cfg.vocab_size, 2, 8))
     with pytest.raises(RuntimeError, match="CUDA"):
         tr.init()                               # no device: cuda
+    from repro_torch.analysis.__main__ import main as analyze
+    for layer in ("graph", "kernel"):           # --device defaults to cuda
+        with pytest.raises(RuntimeError, match="CUDA"):
+            analyze(["--layer", layer])
+    assert analyze(["--layer", "ast", "--repo-root", str(ROOT)]) == 0
 
 
 def test_chip_smoke_fails_without_a_card():
