@@ -270,9 +270,9 @@ last line):
               (Fig. 5); then the memory_latency, memory_throughput,
               te_linear and te_layer benchmarks through the kernels.
  12. families — the moe and vlm families (models/moe.py): (a)
-              moonshot-v1-16b-a3b at full width, its depth cut to 12
+              moonshot-v1-16b-a3b at full width, its depth cut to 6
               of 48 layers to keep the script inside its time limit (d
-              2048, 64 experts top-6, vocab 163840, ~15.0 GB of random
+              2048, 64 experts top-6, vocab 163840, ~8.6 GB of random
               bf16 weights, seed 0; yi-6b freed first): phase 4's
               forward check (bf16 and an e4m3 pool), phase 5's waves in
               bf16 and with an e4m3 pool (bf16 linears: moe refuses
@@ -315,8 +315,8 @@ last line):
               falcon-mamba-7b and zamba2-2.7b card against CPU (tokens
               by phase 7's margin rule, logits within max(4, 3 x the
               CPU's own bf16-vs-float32 distance) bf16 steps); (d)
-              falcon-mamba-7b cut to 4 layers and zamba2-2.7b to 12 (2
-              super-blocks), B=2 x 2048: phase 10's checked train step
+              falcon-mamba-7b cut to 4 layers and zamba2-2.7b to 6 (1
+              super-block), B=2 x 2048: phase 10's checked train step
               and Trainer.run on fresh batches (the mean loss of the
               run's own batches must fall).
  14. encdec — the encoder-decoder family (models/encdec.py):
@@ -457,9 +457,10 @@ def phase_build() -> None:
 
 def phase_analysis() -> dict:
     """The serving-contract analyzer on the card, in process and strict:
-    all three layers; fails on any finding, on a unit of a combo that is
-    not one program and one capture, or on a planned launch that no
-    real launch matched.  The kernels' launch counts are set back to 0
+    all three layers; fails on any finding, on an AST scan that reached
+    fewer than 60 functions from the unit bodies, on a unit of a combo
+    that is not one program and one capture, or on a planned launch that
+    no real launch matched.  The kernels' launch counts are set back to 0
     after it (later phases count their own paths)."""
     import gc
     import tempfile
@@ -472,7 +473,7 @@ def phase_analysis() -> dict:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "analysis_report.json")
-        rc = analyze(["--strict", "--report", path])
+        rc = analyze(["--strict", "--repo-root", ROOT, "--report", path])
         with open(path) as fh:
             rep = json.load(fh)
     secs = time.perf_counter() - t0
@@ -484,7 +485,9 @@ def phase_analysis() -> dict:
     planned = len(rep["kernel_launches"])
     matched = rep["kernel_launches_matched"]
     captures = sum(u["captures"] for u in units)
-    print(f"[analysis] findings by layer: ast {layer['AST']}, kernel "
+    hot = rep["ast_hot_functions"]
+    print(f"[analysis] findings by layer: ast {layer['AST']} over {hot} "
+          f"hot functions, kernel "
           f"{layer['KL']}, graph {layer['JX']} (exit code {rc}, "
           f"{len(rep['suppressed'])} suppressed); {len(units)} units x "
           f"combos over {len(combos)} combos, {captures} captures, "
@@ -500,6 +503,8 @@ def phase_analysis() -> dict:
     if rc != 0 or rep["findings"]:
         fail(f"the analyzer found {len(rep['findings'])} finding(s): "
              f"{rep['summary']}")
+    if hot < 60:
+        fail(f"the AST layer reached {hot} functions from the unit bodies")
     bad = [u for u in units if u["programs"] != 1 or u["captures"] != 1]
     if bad:
         fail(f"units not one program and one capture: {bad}")
@@ -4810,9 +4815,9 @@ def phase_memory_te() -> tuple:
 # ----------------------------------------------------------------------
 
 FAMILY_MOE = "moonshot-v1-16b-a3b"     # 64 experts, top-6, 28.06 B params
-# its serving depth in (a): 12 of its 48 layers, so that the script
-# with phase 13 ends well inside its 1200 s
-FAMILY_MOE_LAYERS = 12
+# its serving depth in (a): 6 of its 48 layers, so that the script
+# with phases 2b-14 stays near 600 s (12 until the analyzer's phase)
+FAMILY_MOE_LAYERS = 6
 FAMILY_VLM = "internvl2-1b"            # G=7, hd 64, tied embeddings
 FAMILY_SMALL = ("moonshot-v1-16b-a3b", "dbrx-132b", "internvl2-1b")
 # layers and loss gate (phase_trainer's `descent`) of the families'
@@ -5164,8 +5169,9 @@ SSM_SMALL_STEPS = 4.0
 SSM_NOISE = 3.0
 # layers of the cut-depth trainings (B, S = FAMILY_TRAIN): fp32
 # parameters and AdamW moments at full depth need 116 GB (falcon-mamba)
-# and 38 GB plus activations (zamba2)
-SSM_TRAIN_LAYERS = {SSM_ARCH: 4, HYBRID_ARCH: 12}
+# and 38 GB plus activations (zamba2; one super-block of 6 layers, 12
+# until the analyzer's phase)
+SSM_TRAIN_LAYERS = {SSM_ARCH: 4, HYBRID_ARCH: 6}
 SSM_REPLAYS = 20                       # replays a device-ms reading
 SSM_KERNEL_GROUPS = {
     "GEMMs (projections, unembedding)": (
@@ -5626,7 +5632,7 @@ def phase_ssm_families() -> dict:
     to its plain version, then the prompt fed token by token from state
     zero and 32 greedy steps through the graph.  (c) the reduced models,
     card against CPU.  (d) falcon-mamba-7b cut to 4 layers and zamba2
-    cut to 2 super-blocks, full width, B=2, S=2048: phase 10's checked
+    cut to 1 super-block, full width, B=2, S=2048: phase 10's checked
     step and Trainer.run on fresh batches (the mean loss of the run's
     own batches must fall).  The B9 launches of the main paths (the
     prefill, the trainer) are counted from 0.  Returns them."""

@@ -350,7 +350,8 @@ def run(report: Report, *, paths: Optional[List[str]] = None,
         repo_root: str = ".",
         roots: Optional[List[Tuple[str, str]]] = None,
         parity_bodies: Optional[Dict[str, Set[str]]] = None) -> None:
-    """Lint `paths` (default: the contracts' scan scope)."""
+    """Lint `paths` (default: the contracts' scan scope under
+    `repo_root`).  Raises if a root of `roots` is not among them."""
     paths = collect_paths(repo_root) if paths is None else paths
     roots = contracts.HOT_PATH_ROOTS if roots is None else roots
     parity = (contracts.PARITY_BODIES if parity_bodies is None
@@ -360,6 +361,13 @@ def run(report: Report, *, paths: Optional[List[str]] = None,
         info = parse_module(p, repo_root)
         modules[info.name] = info
 
+    missing = [r for r in roots
+               if r[0] not in modules or r[1] not in modules[r[0]].functions]
+    if missing:
+        # a scan from the wrong root would find nothing and pass
+        raise FileNotFoundError(
+            f"hot-path roots {missing} not found in the {len(paths)} "
+            f"file(s) scanned under {os.path.abspath(repo_root)!r}")
     hot = _reachable(list(roots), modules)
     for m, q in sorted(hot):
         _check_transfers(modules[m], q, modules[m].functions[q], report)

@@ -43,7 +43,9 @@ Rules:
   dtypes) per unit, so a flag flip (greedy/sampled included) never
   needs another program; and every unit that ran is one program
   (``programs == 1``) and, on the card, one capture (``captures ==
-  1``).
+  1``).  ``programs`` can only be 0 or 1 (``WorkUnit._stage`` raises on
+  a second signature), so that half checks that the unit ran;
+  ``captures`` counts each capture, so it also catches a recapture.
 * **JX006** — a forward unit's call without the serving forward's hook
   (``models/common.mark`` named ``contracts.SERVING_TAG``, set by
   ``_serving_scan``), or, on the card with the paged pool, a forward
@@ -64,6 +66,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.analysis import contracts
 from repro_torch.analysis.report import Finding, Report
+from repro_torch.models.common import resolve_device
 
 # ops whose output shape depends on the data (by overload packet)
 _DYNAMIC_OPS = {"nonzero", "masked_select", "_unique", "_unique2",
@@ -402,9 +405,10 @@ def check_programs(srv, label: str, report: Report) -> List[dict]:
 
 def run(report: Report, *, device=None, max_combos: Optional[int] = None,
         combos: Optional[List[Dict[str, Any]]] = None) -> None:
-    """Serve every combo on `device` (default the CPU) and check its
-    work units."""
-    device = torch.device(device or "cpu")
+    """Serve every combo on `device` (default the CUDA device; without
+    one, and without `device="cpu"`, it raises) and check its work
+    units."""
+    device = resolve_device(device)
     cfg, params = tiny_setup(device)
     if combos is None:
         combos = contracts.serving_combos(max_combos)

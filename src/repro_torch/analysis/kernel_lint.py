@@ -9,7 +9,8 @@ launch of a workload is planned from those rules, on shapes alone:
 * ``ops.product_tiles``, ``matmul.body`` / ``smem_bytes`` (the
   products, fp8 too);
 * ``async_pipeline.body`` / ``smem_bytes`` (``pipelined_matmul``);
-* ``flash_attention.body`` / ``tile_rows`` / ``smem_bytes`` (B9);
+* ``flash_attention.body`` (B9: its grid and shared memory are the
+  source's own, held by the launch match and a ``static_assert``);
 * ``dpx_kernel.body`` and ``smith_waterman_plan``;
 * ``paged_attention.plan`` and its ``smem_bytes`` (B1-B4).
 
@@ -26,14 +27,14 @@ the lint would then be checking something other than what runs.
 Rules, on each planned launch:
 
 * **KL001** — a tile larger than its operand extent (the caller's
-  tiles, as the reference's contract has them; the kernels that mask a
-  fixed tile, B9 and the paged kernels, are held on the positions a
-  split walks).
+  tiles, as the reference's contract has them, B9's too; the paged
+  kernels, which mask a fixed tile, are held on the positions a split
+  walks).
 * **KL002** — the grid x tile does not cover the output: rows and
-  columns of a product, query rows and heads of B9, pairs and columns of
-  Smith-Waterman; for the paged kernels, ``splits`` x split length must
-  cover the table's context and row groups x ``rows`` each slot's query
-  rows of a kv head.
+  columns of a product, pairs and columns of Smith-Waterman; for the
+  paged kernels, ``splits`` x split length must cover the table's
+  context and row groups x ``rows`` each slot's query rows of a kv
+  head.
 * **KL003** (warning) — a bf16, int8 or fp8 tile off the warpgroup grid
   (``matmul.on_wgmma_grid``) where the operands admit a grid tile, so
   the product falls back to ``mma_sync``.
@@ -54,6 +55,7 @@ import torch
 
 from repro_torch.analysis import contracts
 from repro_torch.analysis.report import Finding, Report
+from repro_torch.models.common import resolve_device
 
 
 class PlanMismatch(RuntimeError):
@@ -205,21 +207,18 @@ def plan_pipelined(workload: str, M: int, N: int, K: int, bm: int = 0,
 def plan_flash(workload: str, dtype: torch.dtype, B: int, Sq: int, Sk: int,
                H: int, KH: int, hd: int, causal: bool = True) -> Launch:
     """`ops.flash_attention` (B9's forward with its lse): the caller's
-    tiles (auto min(128, S)) keep the reference's contract; the launch
-    walks the body's own query tiles over (query tiles, B*H)."""
+    tiles (auto min(128, S)) keep the reference's contract (KL001,
+    KL004).  The source picks its own query tiles, grid and shared
+    memory from the launch's arguments, which the launch match holds;
+    its ``static_assert`` keeps the shared memory under the limit, so
+    the plan carries no cover or shared memory of its own."""
     from repro_torch.kernels import flash_attention as fk
     bq, bk = min(128, Sq), min(128, Sk)
-    rows = fk.tile_rows(dtype, hd)
-    y = min(B * H, 65535)
-    grid = (_cdiv(Sq, rows), y, _cdiv(B * H, y))
     return Launch(
         kernel="flash_attention_fwd", module=fk.__name__, workload=workload,
-        entry="flash_attention_fwd", body=fk.body(dtype, hd), grid=grid,
+        entry="flash_attention_fwd", body=fk.body(dtype, hd), grid=(),
         tiles={"bq": (bq, Sq), "bk": (bk, Sk)},
         fragment={"bq": 16, "bk": 16},
-        cover={"query rows": (grid[0] * rows, Sq),
-               "heads": (grid[1] * grid[2], B * H)},
-        smem=fk.smem_bytes(dtype, hd),
         # n_pad_keys: the plain version's 512-key chunks padded
         args=(fk._DTYPES[dtype], hd, B, Sq, Sk, H, KH, int(causal), 0, 0,
               _cdiv(Sk, min(512, Sk)) * min(512, Sk), float(hd ** -0.5)))
@@ -473,10 +472,11 @@ def match_launches(planned: Sequence[Launch],
 
 def run(report: Report, workloads: Optional[List[Workload]] = None,
         device=None) -> None:
-    """Plan every workload and check the plans; on a CUDA `device` also
+    """Plan every workload and check the plans; on a CUDA `device` (the
+    default; without one, and without `device="cpu"`, it raises) also
     run each one and match its launches to its plan."""
     workloads = default_workloads() if workloads is None else workloads
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     records: List[Launch] = []
     matched = 0
     for w in workloads:

@@ -34,8 +34,9 @@ RULES: Dict[str, tuple] = {
                        "storage moved across a call, or a call left it "
                        "unwritten)"),
     "JX005": ("error", "signature drift between flag combos sharing a "
-                       "cache layout, or a unit with more than one "
-                       "program or capture (would recapture)"),
+                       "cache layout, or a unit that ran without one "
+                       "operand signature and, on the card, exactly one "
+                       "capture"),
     "JX006": ("error", "work unit ran without the serving forward's hooks "
                        "(no serving_hot_path mark, or no paged kernel "
                        "launch on the paged pool)"),

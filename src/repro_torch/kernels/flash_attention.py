@@ -67,24 +67,6 @@ def body(dtype: torch.dtype, hd: int) -> str:
     return "wgmma" if hd in WGMMA_HEAD_DIMS else "mma_sync"
 
 
-def tile_rows(dtype: torch.dtype, hd: int) -> int:
-    """Query rows a block of the body covers (the source's ``fw::kRows``,
-    ``kBQ``, ``kFQ``); the grid is ceil(Sq / rows) x B*H blocks."""
-    return {"wgmma": 128, "mma_sync": 64, "fma": 32}[body(dtype, hd)]
-
-
-def smem_bytes(dtype: torch.dtype, hd: int) -> int:
-    """Dynamic shared memory a block of the body takes (the source's
-    ``fw::Geo<HD>::kSmem``, ``bf16_smem_bytes``, ``f32_smem_bytes``)."""
-    name = body(dtype, hd)
-    if name == "wgmma":       # Q, a two-stage K/V ring, sums, barriers
-        return 1024 + 128 * hd * 2 + 2 * 2 * 128 * hd * 2 + 2 * hd * 4 \
-            + 8 * (1 + 4 * 2)
-    if name == "mma_sync":    # Q and K/V tiles of 64 rows, padded rows
-        return (64 + 2 * 64) * (hd + 8) * 2
-    return 4 * (32 * hd + 32 * (hd + 1) + 32 * hd + 32 * 33 + 3 * 32 + hd)
-
-
 def _check(q, k, v) -> None:
     """Operands the kernel takes: float32 or bf16, one dtype and one
     device, q [B,Sq,H,hd] and k/v [B,Sk,KH,hd] with H % KH == 0."""

@@ -73,16 +73,15 @@ class WorkUnit:
         # launches of one replay, {kernel name: (all, {body: launches})}
         self.replay_launches: Dict[str, Tuple[int, Dict[str, int]]] = {}
         self.calls = 0
+        # graphs captured, counted at each capture: 1 from the second
+        # call on a CUDA device, and never more
+        self.captures = 0
 
     @property
     def programs(self) -> int:
-        """Operand signatures taken: 0 before the first call, then 1."""
+        """Operand signatures taken: 0 before the first call, then 1 (a
+        second signature is refused by `_stage`, not counted)."""
         return int(self._signature is not None)
-
-    @property
-    def captures(self) -> int:
-        """Graphs captured: 1 from the second call on a CUDA device."""
-        return int(self.graph is not None)
 
     # -- operands ----------------------------------------------------------
     def _stage(self, operands: Sequence[np.ndarray]) -> None:
@@ -173,6 +172,7 @@ class WorkUnit:
                  for b in after[k][1]})
             for k in after}
         self.graph = graph
+        self.captures += 1
         graph.replay()
 
     def run(self, *operands: np.ndarray) -> Tuple[torch.Tensor, ...]:

@@ -344,9 +344,18 @@ def test_ast_layer_clean_on_repo():
     assert rep.extras["ast_hot_functions"] >= 60
 
 
+def test_ast_layer_refuses_a_scan_without_the_unit_bodies(tmp_path):
+    """From a root that holds no port (the wrong cwd) the AST layer
+    raises instead of passing on nothing, from the CLI too."""
+    with pytest.raises(FileNotFoundError, match="roots"):
+        ast_lint.run(Report(), repo_root=str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="roots"):
+        main(["--layer", "ast", "--repo-root", str(tmp_path)])
+
+
 def test_kernel_layer_clean_on_workload_sweep():
     rep = Report()
-    kernel_lint.run(rep)
+    kernel_lint.run(rep, device="cpu")
     assert rep.findings == [], [str(f) for f in rep.findings]
     assert len(rep.extras["kernel_launches"]) == 13
     assert rep.extras["kernel_launches_matched"] is None    # CPU: plans
@@ -356,7 +365,7 @@ def test_graph_layer_clean_across_serving_combos():
     """Every flag combo serves clean; one signature per unit within a
     cache layout; every unit one program after 3+ calls."""
     rep = Report()
-    graph_check.run(rep)
+    graph_check.run(rep, device="cpu")
     assert rep.findings == [], [str(f) for f in rep.findings]
     assert len(rep.extras["combos"]) == 13
     regs = rep.extras["signatures"]

@@ -70,7 +70,7 @@ work-unit layer over every flag combo clean, each unit one program and
 one CUDA graph after 3+ calls, its captured graph launching the pool's
 paged kernels; a host read inside a body caught by sync debug mode
 (JX001), while the same body without it captures once and replays
-clean; the launch lint's 13 workloads run and every planned launch
+clean; a recapture counted and named by JX005; the launch lint's 13 workloads run and every planned launch
 matched by one real launch, none unplanned; the CLI strict and clean.
 """
 
@@ -2994,6 +2994,30 @@ def test_analysis_sync_debug_catches_a_host_read(cuda):
         else:
             assert rep.findings == [], [str(f) for f in rep.findings]
             assert (unit.programs, unit.captures, unit.calls) == (1, 1, 3)
+
+
+@pytest.mark.gpu
+def test_analysis_counts_a_recapture(cuda):
+    """`captures` counts each capture: a unit whose graph is dropped and
+    captured again shows 2, and JX005 names it."""
+    from types import SimpleNamespace
+    from repro_torch.analysis import graph_check
+    from repro_torch.analysis.report import Report
+    unit = WorkUnit("chunk_step", lambda x: (x * 2,), cuda)
+    for i in range(3):
+        unit.run(np.full(4, i + 1, np.float32))
+    srv = SimpleNamespace(device=cuda, paged=False, fp8_kv=False,
+                          _units={"chunk_step": unit})
+    rep = Report()
+    graph_check.check_programs(srv, "toy", rep)
+    assert unit.captures == 1 and rep.findings == []
+    unit.graph = None
+    unit.run(np.full(4, 5, np.float32))
+    torch.cuda.synchronize()
+    rep = Report()
+    graph_check.check_programs(srv, "toy", rep)
+    assert unit.captures == 2
+    assert [f.rule for f in rep.findings] == ["JX005"]
 
 
 @pytest.mark.gpu

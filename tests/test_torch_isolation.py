@@ -17,11 +17,12 @@
     whisper-small on a `make_batch` batch (models/encdec.py), runs a
     scheduler fuzz trace (runtime/fuzz.py), compresses the gradients
     with error feedback (optim/compress.py) and runs the serving-contract
-    analyzer (repro_torch.analysis) with `--device cpu --strict`, clean;
+    analyzer (repro_torch.analysis) with `--device cpu --strict` and one
+    serving combo, clean (tests/test_torch_analysis.py serves them all);
 (c) an entry point called without a device on a host without CUDA
     raises instead of running on the CPU (the serving entry points, the
     benchmark runner, the training CLI, `Trainer.init`, and the
-    analyzer's graph and kernel layers);
+    analyzer's graph and kernel layers, from the CLI and their `run`);
 (d) chip_smoke.py without a CUDA device exits non-zero with no result.
 """
 
@@ -174,7 +175,8 @@ g, ef = compress.apply_ef(grads, compress.make_ef_state(grads), "int8_ef")
 assert loss == loss and g["embed"].shape == grads["embed"].shape
 assert run_fuzz_trace(0, device="cpu").audits > 0
 from repro_torch.analysis.__main__ import main as analyze
-assert analyze(["--device", "cpu", "--strict", "--repo-root", %(root)r]) == 0
+assert analyze(["--device", "cpu", "--strict", "--max-combos", "1",
+                "--repo-root", %(root)r]) == 0
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")
@@ -242,6 +244,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
     for layer in ("graph", "kernel"):           # --device defaults to cuda
         with pytest.raises(RuntimeError, match="CUDA"):
             analyze(["--layer", layer])
+    from repro_torch.analysis import graph_check, kernel_lint
+    from repro_torch.analysis.report import Report
+    for layer in (graph_check, kernel_lint):    # device defaults to cuda
+        with pytest.raises(RuntimeError, match="CUDA"):
+            layer.run(Report())
     assert analyze(["--layer", "ast", "--repo-root", str(ROOT)]) == 0
 
 
