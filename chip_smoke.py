@@ -13,7 +13,9 @@ last line):
               the AST layer; the launch lint's 13 workloads planned from
               the wrappers' rules, run, and every planned launch matched
               to one real build.launch; the work-unit layer over the 13
-              flag combos (each unit of each combo called 3+ times, one
+              flag combos and the reference's tensor-parallel ones (3,
+              kernel folded; two mesh positions spread over the card)
+              (each unit of each combo called 3+ times, one
               program and one CUDA graph each, bodies recorded and
               replays under sync debug mode "error", the pool updated in
               place, the paged kernels launched).  Findings by layer,
@@ -151,7 +153,10 @@ last line):
               the card, greedy and sampled, by the same rule; by the
               same rule serve_online(closed_stream) on the card against
               the CPU's serve(), and in bf16 the contiguous layout and
-              SlotServer, card against CPU.
+              SlotServer, card against CPU; in bf16 the reduced
+              yi-6b at tp=2 on a mesh spread over the card (greedy, and
+              sampled with spec K=3) against the CPU's tp=1, by the
+              same rule.
   8. matmul — the tensor-core and async-copy kernels (matmul,
               single_tile_matmul, fp8_matmul, pipelined_matmul) against
               their plain versions at the dissection benchmarks' shapes
@@ -343,6 +348,24 @@ last line):
               apply_ef(int8_ef) of the gradients on the card bit for bit
               the CPU's; (e) the reduced whisper-small card against CPU
               (phase 13(c)'s rule).
+ 15. tp     — tensor-parallel serving (runs after phase 5e, on phase
+              4-6's full-width yi-6b at 16 layers): ChunkedServer on a
+              mesh of tp positions spread over the card
+              (make_tp_mesh(tp, spread="cuda"): each position its own
+              weight shards and dense pools of KH/tp heads, one CUDA
+              graph a work unit across the shards): tp = 1, 2, 4 on one
+              system-prompt wave (12 requests, prefix cache and
+              copy-on-write, spec decode K=4), then tp=2 with an e4m3
+              pool and sampled (no spec: spans too) against tp=1.  Each
+              stream equals tp=1's, or the first parting step is held
+              to tp=1's margin; each unit one program, captured once;
+              tp=2's graphs equal its eager units bit for bit; the
+              paged kernels launched tp x L a step (and as many on the
+              card); each position's pool 1/tp of tp=1's bytes.
+              Tokens/s and the verify and span steps' device ms at each
+              tp are printed, a record.  Phase 2b also serves the
+              reference's tp combos (--spread 2), and phase 3 times the
+              paged kernels at the shards' heads (KH 2 and 1, G=8).
 Each serve phase, the benchmark runs of phases 8, 9 and 11, the
 Trainer.run of phases 10, 12 and 13, phase 13's prefill and phase 14's
 prefill and training step set their kernels' launch counts to 0 just
@@ -351,13 +374,16 @@ paged kernels' counts (set to 0) after each spec wave, and its
 launches join phase 5's in paged_chunk's and paged_chunk_fp8's counts,
 and phase 5e's join all four paged kernels' counts; phases 5, 5b and
 5e also read the counts around every work unit's dispatch, which gives
-the paged kernels' launches by work unit (chunk, span, verify).  Then one JSON line of
+the paged kernels' launches by work unit (chunk, span, verify); each
+phase 15 wave sets them to 0 before it and reads them after, and its
+launches join all four paged kernels' counts.  Then one JSON line of
 per-kernel numbers (twenty kernels; those with several bodies also
 their launches by body, flash_attention its launches by path: Trainer,
 te_layer, phase 12's Trainer, phase 13's prefill and Trainer, phase
 14's prefill and training step, and its whisper-enc and whisper-cross
 readings; the
-paged kernels phase 12's launches apart too) and, last, the contract
+paged kernels phase 12's and phase 15's launches apart too, and
+their readings at the tp shards' heads) and, last, the contract
 line
 {"ok": true, "device": {...}}.
 """
@@ -473,7 +499,8 @@ def phase_analysis() -> dict:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "analysis_report.json")
-        rc = analyze(["--strict", "--repo-root", ROOT, "--report", path])
+        rc = analyze(["--strict", "--repo-root", ROOT, "--report", path,
+                      "--spread", "2"])
         with open(path) as fh:
             rep = json.load(fh)
     secs = time.perf_counter() - t0
@@ -508,7 +535,7 @@ def phase_analysis() -> dict:
     bad = [u for u in units if u["programs"] != 1 or u["captures"] != 1]
     if bad:
         fail(f"units not one program and one capture: {bad}")
-    if len(combos) != len(contracts.serving_combos()):
+    if len(combos) != len(contracts.serving_combos(device_count=2)):
         fail(f"the graph layer checked {len(combos)} combos")
     if planned != matched or planned < 13:
         fail(f"{matched} of {planned} planned launches matched")
@@ -647,6 +674,10 @@ PAGED_CASES = [
     ("moonshot-v1-16b-a3b", "float32", 8, 16, 16, 128, 16, 17, False),
     ("internvl2-1b", "bfloat16", 8, 14, 2, 64, 16, 17, False),
     ("internvl2-1b", "float32", 8, 14, 2, 64, 16, 17, False),
+    # phase 15's shards of yi-6b: tp=2 holds 16 heads over 2 kv heads,
+    # tp=4 8 over 1 (G=8 both)
+    ("yi-6b tp=2 shard", "bfloat16", 8, 16, 2, 128, 16, 17, False),
+    ("yi-6b tp=4 shard", "bfloat16", 8, 8, 1, 128, 16, 17, False),
 ]
 # float32 elements of the plain version's [B,KH,G,C,T,hd] product above
 # which it runs slot by slot (the decode_32k chunk's would take 69 GB)
@@ -773,19 +804,30 @@ def phase_kernels() -> dict:
 # tokens each, as phase 6 profiles
 VERIFY_K = 4
 VERIFY_CASE = ("yi-6b verify", "bfloat16", 8, 32, 4, 128, 16, 17)
+# the same at phase 15's shard heads
+VERIFY_CASES = [VERIFY_CASE,
+                ("yi-6b tp=2 shard verify", "bfloat16", 8, 16, 2, 128, 16,
+                 17),
+                ("yi-6b tp=4 shard verify", "bfloat16", 8, 8, 1, 128, 16,
+                 17)]
 
 
 def phase_verify_kernels(results: dict) -> None:
-    """paged_chunk and paged_chunk_fp8 at the verify shape against their
-    plain versions, with CUDA-event and graph-replay ms, the byte bound
-    and SDPA over the gathered view; added to `results` under the case
-    name."""
+    """paged_chunk and paged_chunk_fp8 at the verify shape (yi-6b's
+    heads and each tp shard's) against their plain versions, with
+    CUDA-event and graph-replay ms, the byte bound and SDPA over the
+    gathered view; added to `results` under the case name."""
+    for case in VERIFY_CASES:
+        _verify_kernels(results, case)
+
+
+def _verify_kernels(results: dict, case) -> None:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.models import attention
     from repro_torch.te import fp8
-    name, dname, B, H, KH, hd, bs, MB = VERIFY_CASE
+    name, dname, B, H, KH, hd, bs, MB = case
     dtype = getattr(torch, dname)
     C = VERIFY_K + 1
     g = torch.Generator(device=DEVICE).manual_seed(31)
@@ -2620,6 +2662,7 @@ def phase_small(fp8: bool, arch: str = "yi-6b") -> None:
     import dataclasses
     import torch
     from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_tp_mesh
     from repro_torch.models import api
     from repro_torch.models.sampling import GREEDY, SamplingParams
     from repro_torch.runtime.arrivals import closed_stream
@@ -2729,6 +2772,14 @@ def phase_small(fp8: bool, arch: str = "yi-6b") -> None:
     card_g0, _, card_rec = serve(DEVICE, 0, greedy, not fp8)
     held("greedy, card kernels vs CPU plain", cpu_g0, cpu_rec, card_g0,
          greedy, {})
+    # tensor-parallel: tp=2 on a mesh spread over the card (each shard's
+    # kernels at KH/2 = 1 kv head) against the CPU's tp=1
+    tp_mesh = (make_tp_mesh(2, spread=DEVICE)
+               if arch == "yi-6b" and not fp8 else None)
+    if tp_mesh is not None:
+        card_t0, _, _ = serve(DEVICE, 0, greedy, False, mesh=tp_mesh)
+        held("greedy tp=2, card kernels vs CPU plain tp=1", cpu_g0,
+             cpu_rec, card_t0, greedy, {})
     card_o, _, _ = serve(DEVICE, 0, greedy, False, online=True)
     held("greedy serve_online(closed_stream) on the card vs CPU serve()",
          cpu_g0, cpu_rec, card_o, greedy, {})
@@ -2745,6 +2796,10 @@ def phase_small(fp8: bool, arch: str = "yi-6b") -> None:
     card_s3, st, _ = serve(DEVICE, 3, sampled, False)
     held("sampled spec K=3, card kernels vs CPU plain", cpu_s3, cpu_rec,
          card_s3, sampled, st)
+    if tp_mesh is not None:
+        card_t3, st, _ = serve(DEVICE, 3, sampled, False, mesh=tp_mesh)
+        held("sampled spec K=3 tp=2, card kernels vs CPU plain tp=1",
+             cpu_s3, cpu_rec, card_t3, sampled, st)
     if not coupled:
         card_g3, st, _ = serve(DEVICE, 3, greedy, False)
         held("greedy on the card, spec K=3 vs K=0", card_g0, card_rec,
@@ -2752,6 +2807,335 @@ def phase_small(fp8: bool, arch: str = "yi-6b") -> None:
         card_s0, _, card_rec = serve(DEVICE, 0, sampled, True)
         held("sampled on the card, spec K=3 vs K=0", card_s0, card_rec,
              card_s3, sampled, {})
+
+
+# ----------------------------------------------------------------------
+# 15. tensor-parallel serving on a mesh spread over the card
+# ----------------------------------------------------------------------
+
+# the tp phase's server and wave: 8 slots; 12 system-prompt requests
+# (two 40-token templates, not block aligned: later admissions share a
+# finished request's prefix and copy its last block on write)
+TP_SERVER = dict(batch_slots=8, chunk=16, span=8, block_size=16,
+                 max_len=64 + 32 + 8, prefix_cache=True)
+TP_SPEC_K = 4
+TP_REPLAYS = 20                 # replays a device-ms reading
+
+
+def _tp_wave(cfg):
+    from repro_torch.runtime.server import sysprompt_sharegpt_requests
+    return sysprompt_sharegpt_requests(
+        12, cfg.vocab_size, num_templates=2, template_len=40, max_input=64,
+        max_output=32, seed=7)
+
+
+def _tp_server(cfg, params, tp: int, **kw):
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.runtime.server import ChunkedServer
+    if tp == 1:
+        return ChunkedServer(cfg, params, device=DEVICE, **TP_SERVER, **kw)
+    return ChunkedServer(cfg, params, mesh=make_tp_mesh(tp, spread=DEVICE),
+                         **TP_SERVER, **kw)
+
+
+def _tree_nbytes(caches) -> int:
+    return sum(t.numel() * t.element_size() for c in caches
+               for t in c.values())
+
+
+def _replay_ms(unit) -> float:
+    """Device ms of one replay of `unit`'s graph (CUDA events around
+    TP_REPLAYS back-to-back replays on its last operands)."""
+    import torch
+    if unit.graph is None:
+        return None                      # called once: never captured
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TP_REPLAYS):
+        unit.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / TP_REPLAYS
+
+
+def phase_tp(cfg, params) -> dict:
+    """ChunkedServer(mesh=make_tp_mesh(tp, spread="cuda")) on full-width
+    yi-6b (phase 5's depth): tp = 1, 2, 4 on one seeded wave with a
+    paged bf16 pool, the prefix cache and spec decode K=4; then tp=2
+    against tp=1 with an e4m3 pool (the reference's tp combo) and
+    sampled (temperature 0.8, top-k 20, seeds 600+i), both without spec
+    decode, so decode spans run too.  Each stream's first parting from
+    tp=1's is printed with tp=1's margin there, not held: the random
+    16-layer stack is chaotic (a one-rounding difference of one layer's
+    column-split products, which cuBLAS forms with other kernels at
+    other N, grows to O(1) logits: `_tp_one_layer`'s readings), as
+    between other unit shapes (ROADMAP, queue C's "not faults").  Held:
+    one layer's chunk, decode and verify steps at tp=2 and tp=4 against
+    tp=1 on the same inputs (`_tp_one_layer`); every unit one program,
+    captured once; the tp=2
+    graphs equal a tp=2 server's eager units bit for bit (streams and
+    every position's pools); the paged kernels launched tp x L times a
+    chunk, verify and span step, as many run on the card; each
+    position's pool 1/tp of tp=1's bytes and KV heads.  Printed (a
+    record, not a claim): tokens/s and the verify and span steps'
+    device ms at each tp.  Returns the tp waves' launches by kernel and
+    by body (each wave's counted from 0 around it)."""
+    import gc
+    import torch
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.models.sampling import GREEDY, SamplingParams
+    from repro_torch.runtime.server import clone_requests
+    t_phase = time.perf_counter()
+    L = cfg.num_layers
+    reqs = _tp_wave(cfg)
+    sampled = lambda i: SamplingParams(temperature=0.8,           # noqa
+                                       top_k=20, seed=600 + i)
+    greedy = lambda i: GREEDY                                     # noqa
+    total = {k: 0 for k in pk.launch_counts()}
+    bodies = {k: {b: 0 for b in pk.BODIES} for k in total}
+
+    def wave(samp):
+        rs = clone_requests(reqs)
+        for i, r in enumerate(rs):
+            r.sampling = samp(i)
+        return rs
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def base_run(samp, **kw):
+        """tp=1 through its eager units, recording every draw's logits
+        (eager units give the graphs' tokens bit for bit, phase 5)."""
+        srv = _tp_server(cfg, params, 1, **kw)
+        rs = wave(samp)
+        rec = _serve_recording(srv, rs)
+        nbytes = _tree_nbytes([srv.cache])
+        del srv
+        free()
+        return [r.output for r in rs], rec, nbytes
+
+    def tp_run(tp, samp, label, eager=False, **kw):
+        """One wave at `tp` through graphs (or eager units), its kernel
+        launches counted from 0 around it; checks launches and
+        programs.  Returns (streams, stats, server)."""
+        srv = _tp_server(cfg, params, tp, **kw)
+        if eager:
+            _eager_units(srv)
+        rs = wave(samp)
+        by_unit = _count_units(srv)
+        ran0 = pk.device_launches(DEVICE)
+        pk.reset_launch_counts()              # this path starts here
+        st = srv.serve(rs)
+        launches = srv.launch_counts()        # and ends here
+        by_body = pk.launches_by_body()
+        _uncount_units(srv)
+        _check_ran(f"tp {label}", pk.device_launches(DEVICE) - ran0,
+                   launches)
+        for k, n in launches.items():
+            total[k] += n
+            for b, m in by_body[k].items():
+                bodies[k][b] += m
+        f8 = "_fp8" if kw.get("fp8_kv") else ""
+        verify = int(st.get("spec_steps", 0))
+        spans = int(st["decode_spans"]) - verify
+        want = {f"paged_chunk{f8}": tp * L * (int(st["chunk_steps"])
+                                              + verify),
+                f"paged_decode{f8}": tp * L * spans * srv.span}
+        got = {k: launches[k] for k in want}
+        units = {u: dict(c) for u, c in by_unit.items() if u != "emitted"}
+        if got != want or by_unit["chunk"][f"paged_chunk{f8}"] != \
+                tp * L * int(st["chunk_steps"]) or \
+                sum(launches.values()) != sum(got.values()):
+            fail(f"tp {label}: launches {launches}, by unit {units}, not "
+                 f"tp x L x steps {want}")
+        _unit_report(srv, f"tp {label}", eager=eager)
+        for r in rs:
+            want_n = min(r.max_new, srv.max_len - len(r.prompt))
+            if not r.done or len(r.output) != want_n:
+                fail(f"tp {label} request {r.rid}: {len(r.output)} tokens, "
+                     f"expected {want_n}")
+        print(f"[tp] {label}: {int(st['tokens'])} tokens in "
+              f"{st['seconds']:.3f} s = {st['tokens_per_s']:.1f} tok/s; "
+              f"chunk steps {int(st['chunk_steps'])}, verify steps "
+              f"{verify}, spans {spans}; prefix hits "
+              f"{int(st['prefix_hit_requests'])}, cow resolves "
+              f"{srv.metrics.counter_value('serving.cow.resolves')}; "
+              f"launches {got} (tp x L x steps, as many on the card); KV "
+              f"bytes per position {int(st['kv_bytes_per_device'])}",
+              flush=True)
+        return [r.output for r in rs], st, srv
+
+    def printed(label, base, rec, other, samp):
+        partings = []
+        for i, (r, a, b) in enumerate(zip(reqs, base, other)):
+            j = _parting(a, b)
+            if j is not None:
+                step, lg = rec[(r.rid, j)]
+                partings.append((step, r.rid, j, lg, samp(i),
+                                 len(r.prompt) + j))
+        first = min((p[0] for p in partings), default=0)
+        for step, rid, j, lg, sp, index in partings:
+            print(f"[tp]   {label}: request {rid} parts at token {j} "
+                  f"(step {step}{', the first' if step == first else ''}); "
+                  f"tp=1 margin there {_draw_margin(lg, sp, index):.4f} "
+                  f"(|logit| <= {float(lg.float().abs().max()):.2f})",
+                  flush=True)
+        print(f"[tp] {label}: {len(reqs) - len(partings)}/{len(reqs)} "
+              f"streams equal tp=1's, {len(partings)} part (printed, not "
+              f"held)", flush=True)
+        return len(partings)
+
+    def pools(label, srv, tp, base_bytes):
+        per = [_tree_nbytes([c]) for c in srv.cache]
+        heads = {c["k"].shape[3] for c in srv.cache}
+        if any(p * tp != base_bytes for p in per) or heads != {
+                cfg.num_kv_heads // tp}:
+            fail(f"tp {label}: pool bytes per position {per} (KV heads "
+                 f"{heads}) are not 1/{tp} of tp=1's {base_bytes}")
+        if not all(t.is_contiguous() for c in srv.cache for t in c.values()):
+            fail(f"tp {label}: a position's pool is not dense")
+        print(f"[tp] {label}: pool bytes per position {per} = 1/{tp} of "
+              f"tp=1's {base_bytes}, {heads.pop()} KV heads each",
+              flush=True)
+
+    spec = dict(spec_decode=TP_SPEC_K)
+    one_layer = _tp_one_layer(cfg, params)
+    timing, parted = {}, {}
+    # greedy, spec decode K=4, at tp = 1, 2, 4
+    base, rec, base_bytes = base_run(greedy, **spec)
+    outs = {}
+    for tp in (1, 2, 4):
+        label = f"tp={tp} bf16 spec K={TP_SPEC_K}"
+        outs[tp], st, srv = tp_run(tp, greedy, label, **spec)
+        if tp == 2:                 # before the timing replays write it
+            graph_cache = [{k: t.clone() for k, t in c.items()}
+                           for c in srv.cache]
+        timing[f"tp{tp}"] = {"tokens_per_s": st["tokens_per_s"],
+                             "verify_step_device_ms":
+                                 _replay_ms(srv._units["verify_step"])}
+        if tp > 1:
+            pools(label, srv, tp, base_bytes)
+        del srv
+        free()
+        parted[label] = printed(f"{label} vs tp=1", base, rec, outs[tp],
+                                greedy)
+    if outs[1] != base:
+        fail("tp=1 graph streams differ from its eager units'")
+    eager_out, _, eager_srv = tp_run(
+        2, greedy, f"tp=2 bf16 spec K={TP_SPEC_K}, eager units",
+        eager=True, **spec)
+    same_out = eager_out == outs[2]
+    same = same_out and all(
+        torch.equal(a[k].view(torch.uint8), b[k].view(torch.uint8))
+        for a, b in zip(graph_cache, eager_srv.cache) for k in a)
+    print(f"[tp] tp=2 graph replays {'equal' if same else 'DIFFER FROM'} "
+          f"its eager units bit for bit (streams "
+          f"{'equal' if same_out else 'differ'}; both positions' pools)",
+          flush=True)
+    if not same:
+        fail("tp=2 graph replays differ from eager units")
+    del eager_srv, graph_cache
+    free()
+    # an e4m3 pool, then sampled, at tp=2 (no spec: chunk and span steps)
+    for label, samp, kw in (("e4m3 pool", greedy, dict(fp8_kv=True)),
+                            ("sampled", sampled, {})):
+        base, rec, base_bytes = base_run(samp, **kw)
+        out2, st, srv = tp_run(2, samp, f"tp=2 {label}", **kw)
+        pools(f"tp=2 {label}", srv, 2, base_bytes)
+        span_ms = _replay_ms(srv._units["decode_span"])
+        timing[f"tp2 {label}"] = {
+            "tokens_per_s": st["tokens_per_s"],
+            "span_step_device_ms": span_ms and span_ms / srv.span}
+        del srv
+        free()
+        parted[f"tp=2 {label}"] = printed(f"tp=2 {label} vs tp=1", base,
+                                          rec, out2, samp)
+    print(f"[tp] record (one card: the split adds launches and gathers, "
+          f"nothing is expected to get faster): {timing}", flush=True)
+    for k in total:
+        if total[k] <= 0:
+            fail(f"tp phase: {k} never launched: {total}")
+    secs = time.perf_counter() - t_phase
+    print(f"[tp] phase {secs:.1f} s; streams parted from tp=1 {parted}; "
+          f"launches {total}, by body {bodies}", flush=True)
+    return {"launches": total, "by_body": bodies, "timing": timing,
+            "parted": parted, "one_layer": one_layer, "seconds": secs}
+
+
+def _tp_one_layer(cfg, params) -> dict:
+    """One layer of full-width yi-6b (the first of `params`), tp = 2 and
+    4 against tp=1 on the same inputs: a chunk step (B=8, C=16 from
+    position 0), a decode step and a verify step (C=5) after it, on
+    bf16 pools.  Each step's logits are held within the bf16 rule at
+    their magnitude (`_spec_margin`: max(SMALL_MARGIN, 2**-5 max
+    |logit|)), and the pools, joined over the positions' KV heads,
+    within one bf16 step (2**-7) of their largest |value|: the shards'
+    products round once differently where cuBLAS picks another kernel
+    for a narrower N (measured: wk's 512 columns against 256 and 128).
+    Returns the readings."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.models import api, convert
+    c1 = dataclasses.replace(cfg, num_layers=1)
+
+    def first(tree):
+        if isinstance(tree, dict):
+            return {k: first(v) for k, v in tree.items()}
+        return tree[:1]
+
+    p1 = dict(params, layers=first(params["layers"]))
+    g = torch.Generator(device=DEVICE).manual_seed(15)
+    B, C, K = 8, 16, 5
+    toks = torch.randint(0, cfg.vocab_size, (B, C + K), generator=g,
+                         device=DEVICE, dtype=torch.int32)
+    bt = torch.arange(B * 4, dtype=torch.int32, device=DEVICE).reshape(B, 4)
+    pos = torch.zeros(B, dtype=torch.int32, device=DEVICE)
+    n = torch.full((B,), C, dtype=torch.int32, device=DEVICE)
+
+    def steps(params_, mesh):
+        cache = api.init_cache(c1, B, 64, block_size=16, num_blocks=B * 4,
+                               device=DEVICE, mesh=mesh)
+        kw = {} if mesh is None else {"mesh": mesh}
+        out = [api.chunk_step(c1, params_, cache, toks[:, :C], pos, n, bt,
+                              kernel=True, **kw)[0]]
+        out.append(api.decode_step(c1, params_, cache, toks[:, C], pos + C,
+                                   bt, kernel=True, **kw)[0])
+        h = api.verify_step(c1, params_, cache, toks[:, C:], pos + C, bt,
+                            kernel=True, **kw)
+        caches = cache if isinstance(cache, list) else [cache]
+        pools = {k: torch.cat([c[k] for c in caches], dim=3)
+                 for k in ("k", "v")}
+        return out, h[0], pools
+
+    base, base_v, base_pools = steps(p1, None)
+    readings = {}
+    for tp in (2, 4):
+        mesh = make_tp_mesh(tp, spread=DEVICE)
+        got, got_v, pools = steps(convert.shard_params(p1, c1, mesh), mesh)
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(base, got)]
+        rules = [_spec_margin(a) for a in base]
+        perr = {k: float((base_pools[k].float() - pools[k].float())
+                         .abs().max()) for k in pools}
+        prule = {k: 2.0 ** -7 * float(base_pools[k].float().abs().max())
+                 for k in pools}
+        vtok = float((got_v == base_v).float().mean())
+        print(f"[tp] one layer, tp={tp} vs tp=1: chunk / decode logits max "
+              f"|diff| {errs[0]:.5f} / {errs[1]:.5f} (rules {rules[0]:.4f} "
+              f"/ {rules[1]:.4f}); pools max |diff| {perr} (one bf16 step "
+              f"of the largest {prule}); verify tokens equal "
+              f"{vtok:.3f}", flush=True)
+        if any(e > r for e, r in zip(errs, rules)) or any(
+                perr[k] > prule[k] for k in perr):
+            fail(f"tp={tp}: one layer's logits or pools off tp=1's beyond "
+                 f"the bf16 rule")
+        readings[f"tp{tp}"] = {"chunk": errs[0], "decode": errs[1],
+                               "pools": perr, "verify_tokens_equal": vtok}
+    return readings
 
 
 # ----------------------------------------------------------------------
@@ -6151,6 +6535,7 @@ def main() -> None:
           flush=True)
     if ratio != want:
         fail(f"fp8 KV pool is {ratio} of the bf16 pool, not {want}")
+    tp = phase_tp(cfg, params)
     del params
     phase_small(fp8=False)
     phase_small(fp8=True)
@@ -6196,6 +6581,17 @@ def main() -> None:
         by_body[name] = {b: n + fam["paged_bodies"][name].get(b, 0)
                          for b, n in by_body[name].items()}
         extra["launches_families"] = fam["paged"][name]
+        # phase 15's tensor-parallel waves (tp x L a step, both shards)
+        launches[name] += tp["launches"][name]
+        by_body[name] = {b: n + tp["by_body"][name].get(b, 0)
+                         for b, n in by_body[name].items()}
+        extra["launches_tp"] = tp["launches"][name]
+        extra["tp_shard_shapes"] = {
+            f"{case} {dname}": {k: v[k] for k in (
+                "max_abs_err", "ms", "device_ms", "bound_ms",
+                "library_ms", "library_device_ms")}
+            for (kern, case, dname), v in kernels.items()
+            if kern == name and "shard" in case}
         extra["long_context"] = {
             f"{case} {dname}": {k: v[k] for k in (
                 "max_abs_err", "ms", "device_ms", "bound_ms",

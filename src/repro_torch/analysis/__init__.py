@@ -7,8 +7,10 @@ reference's rule IDs where the contract is the same.
   combo and records each work unit's body under a dispatch mode (on the
   card also its CUDA graph: one capture, replays under sync debug
   mode): no host synchronization, no data-dependent shapes, the KV
-  cache updated in place, no signature drift between combos, the
-  serving forward's hooks present (JX001-003, JX005, JX006).
+  cache updated in place, float32 cross-shard reductions, no signature
+  drift between combos, the serving forward's hooks present
+  (JX001-006); with ``--spread N`` also the tensor-parallel combos, on
+  a mesh of positions laid on one device.
 * ``kernel_lint`` — plans every launch of the CUDA kernels' wrappers over
   the reference's workload sweep from their own tile, body and plan
   rules (on the card also runs them and matches each planned launch to
@@ -20,8 +22,7 @@ reference's rule IDs where the contract is the same.
   parity-critical attention bodies, mutable server state read by a
   body a CUDA graph captures (AST001-003).
 
-JX004 (the cross-shard float32 reduction) comes with tensor
-parallelism.  The rule table is in README.md.
+The rule table is in README.md.
 """
 
 from repro_torch.analysis.report import Finding, Report, RULES  # noqa: F401

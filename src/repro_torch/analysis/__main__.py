@@ -39,6 +39,10 @@ def build_parser() -> argparse.ArgumentParser:
                         f"default: all)")
     p.add_argument("--max-combos", type=int, default=None,
                    help="cap the graph layer's serving flag matrix")
+    p.add_argument("--spread", type=int, default=0, metavar="N",
+                   help="add the reference's tensor-parallel combos to "
+                        "the graph layer (N >= 2 mesh positions, laid "
+                        "on the one device)")
     p.add_argument("--repo-root", default=".",
                    help="repo root for the AST layer (default: cwd)")
     p.add_argument("--list-rules", action="store_true",
@@ -77,7 +81,8 @@ def main(argv=None) -> int:
         print(f"[analysis] layer 1: work-unit contracts (serving flag "
               f"matrix, {device})", flush=True)
         t0 = time.perf_counter()
-        graph_check.run(report, device=device, max_combos=args.max_combos)
+        graph_check.run(report, device=device, max_combos=args.max_combos,
+                        spread=args.spread)
         seconds["graph"] = time.perf_counter() - t0
     report.extras["layer_seconds"] = seconds
     report.extras["device"] = str(device) if device is not None else None

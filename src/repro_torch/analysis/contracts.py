@@ -17,6 +17,11 @@ from typing import Any, Dict, List, Optional
 # _serving_scan (JX006)
 SERVING_TAG = "serving_hot_path"
 
+# the grouped cross-shard reductions mark their gathered partials with
+# a tag of this prefix (models/common.fixed_tree_sum, `xshard_sum`):
+# JX004 holds every such tensor to float32
+XSHARD_TAG_PREFIX = "xshard_"
+
 # ----------------------------------------------------------------------
 # layer 3 (AST) scope
 # ----------------------------------------------------------------------
@@ -67,8 +72,8 @@ SMEM_LIMIT = 232448
 # ----------------------------------------------------------------------
 
 
-def serving_combos(max_combos: Optional[int] = None
-                   ) -> List[Dict[str, Any]]:
+def serving_combos(max_combos: Optional[int] = None,
+                   device_count: int = 1) -> List[Dict[str, Any]]:
     """Valid ChunkedServer flag combos: the reference's single-device
     matrix with its ``kernel`` flag folded away, because the port's
     paged server always reads the pool through the CUDA kernels
@@ -81,9 +86,13 @@ def serving_combos(max_combos: Optional[int] = None
 
     and ``{"fp8_kv": True, "kernel": True, "spec_decode": 3}`` and
     ``{"fp8_linear": True, "fp8_kv": True, "kernel": True}`` keep their
-    place without the flag: 13 combos of the reference's 16.  The
-    reference's four tensor-parallel combos (its ``device_count >= 2``)
-    wait for the port's tp."""
+    place without the flag: 13 combos of the reference's 16.  With
+    ``device_count >= 2`` (the mesh positions the caller gives: the
+    graph layer lays them on one device, a spread mesh) the reference's
+    four tensor-parallel combos follow, folded the same way into three:
+    ``{"tp": 2, "kernel": True}`` into ``{"tp": 2}``, and
+    ``{"tp": 2, "fp8_kv": True, "kernel": True}`` keeps its place as
+    ``{"tp": 2, "fp8_kv": True}``."""
     from repro_torch.models.sampling import SamplingParams
     sampled = SamplingParams(temperature=0.8, top_k=40, top_p=0.95,
                              seed=7)
@@ -106,6 +115,12 @@ def serving_combos(max_combos: Optional[int] = None
         {"sampling": sampled},
         {"sampling": sampled, "spec_decode": 3},
     ]
+    if device_count >= 2:
+        combos += [
+            {"tp": 2},
+            {"tp": 2, "spec_decode": 3},
+            {"tp": 2, "fp8_kv": True},
+        ]
     if max_combos is not None:
         combos = combos[:max_combos]
     return combos
@@ -113,8 +128,8 @@ def serving_combos(max_combos: Optional[int] = None
 
 def combo_label(combo: Dict[str, Any]) -> str:
     base = {"paged": True, "prefix_cache": True, "spec_decode": 0,
-            "fp8_kv": False, "fp8_linear": False, "eos_id": None,
-            "sampling": None}
+            "fp8_kv": False, "fp8_linear": False, "tp": 1,
+            "eos_id": None, "sampling": None}
     base.update(combo)
     parts = []
     for k, v in base.items():
@@ -128,6 +143,9 @@ def combo_label(combo: Dict[str, Any]) -> str:
 def signature_class(combo: Dict[str, Any]) -> str:
     """Combos agreeing on this key MUST produce identical signatures per
     work unit (JX005): only the cache layout (paged) and its dtype
-    (fp8_kv) may change operand shapes/dtypes."""
+    (fp8_kv) may change operand shapes/dtypes.  A tensor-parallel
+    combo is in its tp=1 class: its cache enters the signature at its
+    logical shape, the positions' pools joined along the KV heads, as a
+    sharded array's abstract shape in the reference."""
     return (f"paged={int(combo.get('paged', True))},"
             f"fp8_kv={int(combo.get('fp8_kv', False))}")

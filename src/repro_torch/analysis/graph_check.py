@@ -38,6 +38,10 @@ Rules:
   server's device state's) storage moved across a call, or a call of a
   unit left a cache leaf unwritten (no op of the body wrote its
   storage; on the card, a replay left its bytes as they were).
+* **JX004** — a cross-shard reduction that does not sum float32: a
+  tensor marked with a ``contracts.XSHARD_TAG_PREFIX`` tag (the
+  gathered partials `models/common.fixed_tree_sum` sums, at any tp) of
+  another dtype.
 * **JX005** — signature drift: combos of one ``signature_class`` must
   present identical operand, output and cache signatures (shapes and
   dtypes) per unit, so a flag flip (greedy/sampled included) never
@@ -51,6 +55,12 @@ Rules:
   ``_serving_scan``), or, on the card with the paged pool, a forward
   unit whose captured graph launches none of its paged kernel (B1/B3
   for the decode span, B2/B4 for the chunk and verify steps).
+
+With ``spread=N`` (N >= 2) the reference's tensor-parallel combos join
+the matrix (``contracts.serving_combos(device_count=N)``), each served
+on a mesh of two positions laid on the one device
+(``launch/mesh.make_tp_mesh(2, spread=device)``): one graph a unit
+across both shards, both positions' pools written in place.
 """
 
 from __future__ import annotations
@@ -116,6 +126,7 @@ class _Recorder(TorchDispatchMode):
         self.host: List[str] = []
         self.dynamic: List[str] = []
         self.marks: List[str] = []
+        self.tagged: List[Tuple[str, str]] = []     # (tag, dtype)
         self.written: set = set()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -123,7 +134,10 @@ class _Recorder(TorchDispatchMode):
         out = func(*args, **kwargs)
         name = func.overloadpacket.__name__
         if name == "mark" and func.namespace == "repro_torch":
-            self.marks.append(args[1] if len(args) > 1 else kwargs["name"])
+            tag = args[1] if len(args) > 1 else kwargs["name"]
+            self.marks.append(tag)
+            self.tagged.append((tag, str(args[0].dtype).replace("torch.",
+                                                                "")))
             return out
         if name == "_local_scalar_dense":
             self.host.append(str(func))
@@ -165,6 +179,11 @@ def _sync_debug(on: bool):
         torch.cuda.set_sync_debug_mode(prev)
 
 
+def _caches(srv) -> List[Dict[str, torch.Tensor]]:
+    """The server's cache: one dict, or one a mesh position (tp)."""
+    return srv.cache if isinstance(srv.cache, list) else [srv.cache]
+
+
 def _ptr(t: torch.Tensor) -> int:
     return t.untyped_storage().data_ptr()
 
@@ -192,7 +211,8 @@ class UnitWatch:
     # -- watched tensors ----------------------------------------------------
     def _state(self) -> Dict[str, torch.Tensor]:
         srv = self.srv
-        out = {f"cache.{k}": v for k, v in srv.cache.items()}
+        from repro_torch.runtime.server import cache_leaves
+        out = {f"cache.{k}": v for k, v in cache_leaves(srv.cache).items()}
         out["cur_tok"], out["out_buf"] = srv.cur_tok, srv.out_buf
         if srv.spec_decode:
             out["ngram_table"] = srv.ngram_table
@@ -251,6 +271,12 @@ class UnitWatch:
         for d in rec.dynamic:
             self._add("JX002", name, f"data-dependent output shape from "
                       f"`{d}`", op=d)
+        for tag, dtype in rec.tagged:
+            if tag.startswith(contracts.XSHARD_TAG_PREFIX) \
+                    and dtype != "float32":
+                self._add("JX004", name, f"cross-shard reduction tag "
+                          f"`{tag}` accumulates in {dtype}, not float32",
+                          tag=tag, dtype=dtype)
         for k in state:
             if k.startswith("cache.") and k not in rec.written:
                 self._add("JX003", name, f"the call wrote nothing into {k}",
@@ -274,9 +300,17 @@ def tiny_setup(device):
 
 
 def build_server(cfg, params, combo: Dict[str, Any], device):
+    """The tiny server of a combo; a tp combo's mesh spreads its
+    positions over `device`."""
+    from repro_torch.launch.mesh import make_tp_mesh
     from repro_torch.runtime.server import ChunkedServer
     kw = dict(batch_slots=2, max_len=64, chunk=8, span=4, block_size=8)
     kw.update(combo)
+    tp = kw.pop("tp", 1)
+    if tp > 1:
+        return ChunkedServer(cfg, params, mesh=make_tp_mesh(tp,
+                                                            spread=device),
+                             **kw)
     return ChunkedServer(cfg, params, device=device, **kw)
 
 
@@ -317,7 +351,7 @@ def _direct_cow(srv, watch: UnitWatch) -> None:
     """Copy-on-write calls where the scheduler made too few: pool block
     pairs whose contents differ (a copy of a block onto its own bytes
     writes nothing a replay can see)."""
-    k = srv.cache["k"]
+    k = _caches(srv)[0]["k"]
     blocks = range(k.shape[1])
     while watch.calls.get("cow_copy", 0) < MIN_CALLS:
         pair = next(((a, b) for a in blocks for b in blocks
@@ -339,8 +373,12 @@ def unit_signature(srv, unit) -> list:
                for i, (shape, dt) in enumerate(unit._signature or ())]
     entries += [[f"output[{i}]", list(o.shape), str(o.dtype)]
                 for i, o in enumerate(unit._outputs or ())]
-    entries += [[f"cache.{k}", list(v.shape), str(v.dtype)]
-                for k, v in srv.cache.items()]
+    caches = _caches(srv)
+    for k, v in caches[0].items():
+        # the logical shape: the positions' KV heads joined (dim 3)
+        shape = list(v.shape)
+        shape[3] = sum(c[k].shape[3] for c in caches)
+        entries.append([f"cache.{k}", shape, str(v.dtype)])
     return entries
 
 
@@ -404,14 +442,16 @@ def check_programs(srv, label: str, report: Report) -> List[dict]:
 # ----------------------------------------------------------------------
 
 def run(report: Report, *, device=None, max_combos: Optional[int] = None,
-        combos: Optional[List[Dict[str, Any]]] = None) -> None:
+        combos: Optional[List[Dict[str, Any]]] = None,
+        spread: int = 0) -> None:
     """Serve every combo on `device` (default the CUDA device; without
     one, and without `device="cpu"`, it raises) and check its work
-    units."""
+    units; ``spread >= 2`` adds the tensor-parallel combos on a spread
+    mesh (module docstring)."""
     device = resolve_device(device)
     cfg, params = tiny_setup(device)
     if combos is None:
-        combos = contracts.serving_combos(max_combos)
+        combos = contracts.serving_combos(max_combos, device_count=spread)
     registry: Dict[str, Dict[str, Dict[str, Any]]] = {}
     units: List[dict] = []
     threads = torch.get_num_threads()

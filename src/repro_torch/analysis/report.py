@@ -4,9 +4,8 @@ The port's copy of ``repro/analysis/report.py``: every check emits
 ``Finding`` records keyed by a stable rule ID; the ``Report`` collects
 them, applies per-rule suppression, and serializes to the JSON report.
 The rule IDs and severities are the reference's where the contract is
-the same; the descriptions name the torch analogs.  JX004 (the
-cross-shard float32 reduction) is not registered: the port has no
-tensor parallelism yet.  Severity semantics:
+the same; the descriptions name the torch analogs.  Severity
+semantics:
 
 * ``error``   — a contract violation; fails the run (exit 1).
 * ``warning`` — a diagnostic (e.g. a tile that falls back to a slower
@@ -33,6 +32,9 @@ RULES: Dict[str, tuple] = {
     "JX003": ("error", "KV cache not updated in place by a work unit (its "
                        "storage moved across a call, or a call left it "
                        "unwritten)"),
+    "JX004": ("error", "cross-shard grouped reduction does not "
+                       "accumulate in fp32 (a gathered xshard_* partial "
+                       "of another dtype; the tp-vs-1 parity contract)"),
     "JX005": ("error", "signature drift between flag combos sharing a "
                        "cache layout, or a unit that ran without one "
                        "operand signature and, on the card, exactly one "

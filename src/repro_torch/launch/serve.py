@@ -21,6 +21,16 @@ slot`` the slot baseline (token-at-a-time prefill, a host read every
 decode step).  ``--arch`` takes the dense, moe (e.g. moonshot-v1-16b-a3b,
 dbrx-132b; ``--fp8-linear`` refused) and vlm (internvl2-1b) archs.
 
+``--tp N`` serves tensor-parallel over an N-position mesh (weights
+head-wise / column-row-wise, the paged pool along its KV-head axis; the
+tokens of tp=1) and prints the per-position sharding stats.  The mesh
+takes N CUDA devices; ``--spread`` lays its N positions on ``--device``
+instead (one card, or the CPU):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --spread
+    PYTHONPATH=src python -m repro_torch.launch.serve --tp 4 --spread \
+        --device cpu
+
 ``--arrival-rate R`` switches from the closed batch to open-loop
 serving: requests arrive on a Poisson stream at R req/s
 (runtime/arrivals) and queue delay is charged from arrival.
@@ -41,6 +51,8 @@ import argparse
 from typing import List, Optional
 
 from repro_torch.configs import list_archs, reduced_config
+from repro_torch.core.tree import leaves
+from repro_torch.launch.mesh import make_tp_mesh
 from repro_torch.kernels import paged_attention as pk
 from repro_torch.models import api, transformer
 from repro_torch.obs import (SLOSpec, Tracer, slo_report, summary_table,
@@ -51,6 +63,28 @@ from repro_torch.runtime.server import (SERVING, ChunkedServer,
                                         SlotServer, repetitive_requests,
                                         sharegpt_like_requests,
                                         sysprompt_sharegpt_requests)
+
+
+def _bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _print_sharding(cfg, params, srv) -> None:
+    """The mesh, and the params and KV pool per mesh position."""
+    full = leaves(params)
+    mine = leaves(srv.params[0])
+    sharded = sum(a.shape != b.shape for a, b in zip(full, mine))
+    kv_bytes = _bytes(srv.cache_leaves().values())
+    print(f"  tp-mesh: {srv.tp} positions on axis "
+          f"'{srv.mesh.axis_names[0]}' "
+          f"({[str(d) for d in srv.mesh.positions]})")
+    print(f"  sharding: {sharded}/{len(full)} param tensors sharded, "
+          f"{_bytes(full) / 1e6:.2f} MB params -> "
+          f"{_bytes(mine) / 1e6:.2f} MB/position, "
+          f"KV pool {kv_bytes / 1e6:.2f} MB -> "
+          f"{kv_bytes // srv.tp / 1e6:.2f} MB/position "
+          f"(KV-head axis {cfg.num_kv_heads} -> "
+          f"{cfg.num_kv_heads // srv.tp}/position)")
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -87,6 +121,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--fp8-linear", action="store_true",
                     help="serve the projection/MLP matmuls through "
                          "fp8-quantized weights (te/linear)")
+    ap.add_argument("--tp", type=int, default=1, metavar="N",
+                    help="tensor-parallel degree (chunked engine): shard "
+                         "the weights head-wise/column-row-wise and the "
+                         "KV pool along its KV-head axis over an "
+                         "N-position mesh (sharding/plans.ServingPlan); "
+                         "the first N CUDA devices unless --spread")
+    ap.add_argument("--spread", action="store_true",
+                    help="lay the --tp mesh's N positions on --device "
+                         "(launch/mesh.make_tp_mesh(N, spread=device))")
     ap.add_argument("--eos-id", type=int, default=None,
                     help="stop a request when it emits this token id; "
                          "default: length-only stopping")
@@ -154,7 +197,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.trace and args.engine != "chunked":
         raise SystemExit("--trace needs the chunked engine (the slot "
                          "baseline is not instrumented)")
+    if args.spread and args.tp < 2:
+        raise SystemExit("--spread lays a --tp mesh (N >= 2) on one device")
     if args.engine == "slot":
+        if args.tp > 1:
+            raise SystemExit("--tp needs the chunked engine (the slot "
+                             "baseline is single-device)")
         if args.spec_decode:
             raise SystemExit("--spec-decode needs the chunked engine "
                              "(the slot baseline has no verify path)")
@@ -175,6 +223,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         params = api.init(cfg, args.seed, device=args.device)
         max_len = args.max_input + args.max_output + 8
         tracer = Tracer() if args.trace else None
+        mesh = (make_tp_mesh(args.tp, spread=args.device)
+                if args.spread else None)
         if args.engine == "chunked":
             srv = ChunkedServer(cfg, params, batch_slots=args.slots,
                                 max_len=max_len, chunk=args.chunk,
@@ -186,7 +236,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                 spec_decode=args.spec_decode,
                                 fp8_kv=args.fp8_kv,
                                 fp8_linear=args.fp8_linear,
-                                tracer=tracer, device=args.device)
+                                tp=args.tp, mesh=mesh, tracer=tracer,
+                                device=None if mesh else args.device)
         else:
             srv = SlotServer(cfg, params, batch_slots=args.slots,
                              max_len=max_len, eos_id=args.eos_id,
@@ -194,6 +245,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     except NotImplementedError as e:
         # a family the engines do not serve, or fp8 linears with moe
         raise SystemExit(f"{args.arch} ({cfg.family}): {e}")
+    if args.tp > 1:
+        _print_sharding(cfg, params, srv)
     if args.workload == "repetitive":
         reqs = repetitive_requests(args.requests, cfg.vocab_size,
                                    num_motifs=args.templates,

@@ -4,7 +4,9 @@ PyTorch counterpart of ``repro/models/api.py`` for every family: the
 transformer families (dense, moe, vlm), ssm (models/ssm_lm.py), hybrid
 (models/hybrid.py) and encdec (models/encdec.py):
 
-    param_shapes / init                     parameters
+    param_shapes / init / pspecs            parameters (pspecs: their
+                                            PartitionSpecs under a
+                                            plan's rules)
     loss_fn                                 training objective
     init_cache / prefill / decode_step      serving: the transformer
                                             families over a paged pool
@@ -25,8 +27,12 @@ transformer families (dense, moe, vlm), ssm (models/ssm_lm.py), hybrid
 
 The paged pool, ``chunk_step``, ``verify_step``, ``cow_copy_block``
 and the kernel / fp8 serving options are transformer-only, as in the
-reference.  Entry points run on the CUDA device unless the caller
-passes another ``device`` (``"cpu"`` for the tests); with no CUDA
+reference.  The serving steps take ``mesh=`` / ``mesh_axis=`` as the
+reference's do: tensor-parallel serving over a 1-axis mesh, with
+`params` and `cache` given as one tree a mesh position
+(models/convert.shard_params, ``init_cache(..., mesh=)``; see
+models/transformer.py).  Entry points run on the CUDA device unless
+the caller passes another ``device`` (``"cpu"`` for the tests); with no CUDA
 device and no explicit choice they raise.
 """
 
@@ -66,6 +72,13 @@ def param_shapes(cfg: ModelConfig) -> Params:
     return transformer.transformer_specs(cfg)
 
 
+def pspecs(cfg: ModelConfig, rules: Dict[str, Any],
+           mesh_sizes: Optional[Dict[str, int]] = None) -> Params:
+    """PartitionSpec of every parameter under `rules` (a plan's
+    param_rules), non-dividing dims replicated given `mesh_sizes`."""
+    return common.partition_specs(param_shapes(cfg), rules, mesh_sizes)
+
+
 def init(cfg: ModelConfig, seed: int = 0, *, device=None,
          dtype: torch.dtype = torch.float32) -> Params:
     """Random parameters from a seeded ``torch.Generator`` on `device`,
@@ -101,7 +114,7 @@ def loss_fn(cfg: ModelConfig, params: Params,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, paged: Optional[bool] = None,
                block_size: int = 16, num_blocks: Optional[int] = None,
-               device=None, fp8_kv: bool = False) -> Params:
+               device=None, fp8_kv: bool = False, mesh=None) -> Params:
     """The family's own cache by default: for the transformer families
     a paged block pool or, with ``paged=False``, the contiguous cache
     [L, batch, max_len, KH, hd] (``fp8_kv``, paged only, stores the
@@ -110,8 +123,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     cache of its shared attention (hybrid.init_cache); for encdec the
     decoder's self K/V (at most max_target_len positions) and the cross
     K/V (encdec.init_cache).  A paged or fp8 cache is transformer-only,
-    as in the reference."""
+    as in the reference.  With a 1-axis ``mesh`` (transformer families)
+    one cache a mesh position, on its device, at KH/tp heads."""
     check_family(cfg)
+    if mesh is not None:
+        transformer.check_family(cfg, "a tensor-parallel cache")
+        return transformer.init_cache(cfg, batch, max_len, dtype,
+                                      paged=True if paged is None else paged,
+                                      block_size=block_size,
+                                      num_blocks=num_blocks, fp8_kv=fp8_kv,
+                                      mesh=mesh)
     dev = common.resolve_device(device)
     if cfg.family in transformer.FAMILIES:
         return transformer.init_cache(cfg, batch, max_len, dtype,
@@ -127,7 +148,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 token: torch.Tensor, pos,
                 block_table: Optional[torch.Tensor] = None, *,
-                kernel: bool = False, quant: Optional[Params] = None
+                kernel: bool = False, quant: Optional[Params] = None,
+                mesh=None, mesh_axis: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step, the cache updated in place.  Transformer
     families: ``kernel=True`` reads the paged pool through the CUDA
@@ -135,10 +157,11 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     ``kernel=False`` is the gather oracle; with no `block_table` the
     cache is contiguous and read by the plain attention; ``quant``
     (te/linear.quantize_serving_params output) serves the linears in
-    fp8.  ssm, hybrid and encdec take none of these options."""
+    fp8; ``mesh`` serves tensor-parallel (module docstring).  ssm,
+    hybrid and encdec take none of these options."""
     check_family(cfg)
     if cfg.family not in transformer.FAMILIES:
-        if kernel or quant is not None:
+        if kernel or quant is not None or mesh is not None:
             transformer.check_family(cfg, "kernel/fp8 serving")
         if block_table is not None:
             transformer.check_family(cfg, "a paged KV cache")
@@ -146,7 +169,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
         if cfg.family in transformer.FAMILIES:
             return transformer.decode_step(cfg, params, cache, token, pos,
                                            block_table, kernel=kernel,
-                                           quant=quant)
+                                           quant=quant, mesh=mesh,
+                                           mesh_axis=mesh_axis)
         return _model(cfg).decode_step(cfg, params, cache, token, pos)
 
 
@@ -154,7 +178,8 @@ def chunk_step(cfg: ModelConfig, params: Params, cache: Params,
                tokens: torch.Tensor, pos, n_tokens: torch.Tensor,
                block_table: Optional[torch.Tensor] = None, *,
                kernel: bool = False,
-               quant: Optional[Params] = None
+               quant: Optional[Params] = None, mesh=None,
+               mesh_axis: Optional[str] = None
                ) -> Tuple[torch.Tensor, Params]:
     """Chunk-write serving step: per slot, write `n_tokens[b]` of the
     C-wide `tokens[b]` into the cache at `pos[b]` and return logits at
@@ -166,14 +191,16 @@ def chunk_step(cfg: ModelConfig, params: Params, cache: Params,
     with torch.no_grad():
         return transformer.chunk_step(cfg, params, cache, tokens, pos,
                                       n_tokens, block_table, kernel=kernel,
-                                      quant=quant)
+                                      quant=quant, mesh=mesh,
+                                      mesh_axis=mesh_axis)
 
 
 def verify_step(cfg: ModelConfig, params: Params, cache: Params,
                 tokens: torch.Tensor, pos,
                 block_table: Optional[torch.Tensor] = None, *,
                 kernel: bool = False, quant: Optional[Params] = None,
-                sample=None) -> Tuple[torch.Tensor, Params]:
+                sample=None, mesh=None, mesh_axis: Optional[str] = None
+                ) -> Tuple[torch.Tensor, Params]:
     """Speculative-decode verify: score a [B, C] window of (current
     token + C-1 drafts) per slot and return the next-token id at every
     row (`chunk_step` returns only the last valid row's logits).
@@ -185,7 +212,8 @@ def verify_step(cfg: ModelConfig, params: Params, cache: Params,
     with torch.no_grad():
         return transformer.verify_step(cfg, params, cache, tokens, pos,
                                        block_table, kernel=kernel,
-                                       quant=quant, sample=sample)
+                                       quant=quant, sample=sample,
+                                       mesh=mesh, mesh_axis=mesh_axis)
 
 
 def cow_copy_block(cfg: ModelConfig, cache: Params, src, dst) -> Params:
@@ -193,9 +221,15 @@ def cow_copy_block(cfg: ModelConfig, cache: Params, src, dst) -> Params:
     leaf of the cache (the fp8 layout's scales too), in place: the
     serving runtime's copy-on-write for a shared prefix block.  `src` /
     `dst` are ints or [1] int64 device tensors (the server's graphed
-    copy).  Transformer-only (the paged pool)."""
+    copy).  Transformer-only (the paged pool).  A tensor-parallel cache
+    (a list, one cache a mesh position) copies the block in every
+    position's pools."""
     check_family(cfg)
     transformer.check_family(cfg, "a paged KV cache")
+    if isinstance(cache, list):
+        for c in cache:
+            cow_copy_block(cfg, c, src, dst)
+        return cache
     from repro_torch.models import attention
     attention.copy_paged_block(cache["k"], cache["v"], src, dst)
     if "k_scale" in cache:

@@ -48,15 +48,17 @@ def attn_specs(cfg, d_model: Optional[int] = None) -> Dict[str, ParamSpec]:
     d = d_model or cfg.d_model
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     specs = {
-        "wq": ParamSpec((d, H, hd)),
-        "wk": ParamSpec((d, KH, hd)),
-        "wv": ParamSpec((d, KH, hd)),
-        "wo": ParamSpec((H, hd, d)),
+        "wq": ParamSpec((d, H, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, KH, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, KH, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((H, hd, d), ("heads", "head_dim", "embed")),
     }
     if cfg.use_bias:
-        specs["bq"] = ParamSpec((H, hd), init="zeros")
-        specs["bk"] = ParamSpec((KH, hd), init="zeros")
-        specs["bv"] = ParamSpec((KH, hd), init="zeros")
+        specs["bq"] = ParamSpec((H, hd), ("heads", "head_dim"), init="zeros")
+        specs["bk"] = ParamSpec((KH, hd), ("kv_heads", "head_dim"),
+                                init="zeros")
+        specs["bv"] = ParamSpec((KH, hd), ("kv_heads", "head_dim"),
+                                init="zeros")
     return specs
 
 
@@ -101,21 +103,31 @@ def out_project_fp8(p, q8, o: torch.Tensor) -> torch.Tensor:
                                      w_contract_ndim=2)
 
 
+def out_project_parts(p, o: torch.Tensor, groups: int) -> torch.Tensor:
+    """The grouped partials of `out_project`: o [B,S,H,hd] (a shard's
+    heads, contiguous) against its rows of wo as `groups` float32
+    partials [groups, B, S, d] of the o.dtype operands."""
+    wo = p["wo"].to(o.dtype)
+    B, S, H, hd = o.shape
+    og = o.reshape(B, S, groups, H // groups, hd).float()
+    wg = wo.reshape(groups, H // groups, hd, wo.shape[-1]).float()
+    return torch.einsum("bsghk,ghkd->gbsd", og, wg)
+
+
 def out_project(p, o: torch.Tensor, *, groups: int = 0) -> torch.Tensor:
     """o [B,S,H,hd] -> [B,S,d] through wo.
 
     With ``groups > 1`` the head contraction is formed as `groups`
-    float32 partials of the o.dtype operands, reduced by
-    ``fixed_tree_sum`` (the reference's order-deterministic grouped
-    reduction); ``groups=0`` is one product in o.dtype.
+    float32 partials of the o.dtype operands (`out_project_parts`),
+    reduced by ``fixed_tree_sum`` (the reference's order-deterministic
+    grouped reduction, tagged ``xshard_attn_out``); ``groups=0`` is one
+    product in o.dtype.
     """
+    if groups > 1:
+        parts = out_project_parts(p, o, groups)
+        return fixed_tree_sum(parts, tag="xshard_attn_out").to(o.dtype)
     wo = p["wo"].to(o.dtype)
     B, S, H, hd = o.shape
-    if groups > 1:
-        og = o.reshape(B, S, groups, H // groups, hd).float()
-        wg = wo.reshape(groups, H // groups, hd, wo.shape[-1]).float()
-        parts = torch.einsum("bsghk,ghkd->gbsd", og, wg)
-        return fixed_tree_sum(parts).to(o.dtype)
     return o.reshape(B, S, H * hd) @ wo.reshape(H * hd, -1)
 
 

@@ -1,9 +1,11 @@
 """Shared model substrate: param specs, device choice, norms, RoPE, losses.
 
-PyTorch counterpart of ``repro/models/common.py``.  ``ParamSpec`` keeps
-only what parameter initialisation needs (shape, init rule, scale): the
-port has no sharding, so the logical axis names of the reference are
-gone.
+PyTorch counterpart of ``repro/models/common.py``.  ``ParamSpec``
+carries what parameter initialisation needs (shape, init rule, scale)
+and the reference's logical axis name per dim; ``partition_specs``
+resolves those names to mesh axes under a plan's rules
+(sharding/plans.py), which is how a tensor-parallel server splits the
+tree (models/convert.shard_params).
 """
 
 from __future__ import annotations
@@ -23,8 +25,14 @@ from torch.utils.checkpoint import checkpoint
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]       # logical axis name per dim
     init: str = "normal"                  # normal | zeros | ones
     scale: Optional[float] = None         # None -> fan_in ** -0.5
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             "differ in rank")
 
 
 def is_spec(x) -> bool:
@@ -66,6 +74,21 @@ def init_params(specs, generator: torch.Generator, device: torch.device,
             for k in sorted(specs)}
 
 
+def partition_specs(specs, rules: Dict[str, Any],
+                    mesh_sizes: Optional[Dict[str, int]] = None):
+    """Resolve every leaf's logical axes to a PartitionSpec under
+    `rules` (sharding/axes.resolve): a mesh axis is used at most once a
+    leaf (the first logical axis that maps to it wins), and with
+    `mesh_sizes` a dim that does not divide its mesh axes stays
+    replicated (yi-6b's 4 KV heads over 8 positions, say)."""
+    from repro_torch.sharding.axes import resolve
+    if is_spec(specs):
+        return resolve(specs.axes, rules, dims=specs.shape,
+                       mesh_sizes=mesh_sizes)
+    return {k: partition_specs(v, rules, mesh_sizes)
+            for k, v in specs.items()}
+
+
 def count_params(specs) -> int:
     if is_spec(specs):
         n = 1
@@ -104,13 +127,22 @@ def _(x, name):
     return None
 
 
-def fixed_tree_sum(parts: torch.Tensor) -> torch.Tensor:
+def fixed_tree_sum(parts: torch.Tensor, *,
+                   tag: Optional[str] = None) -> torch.Tensor:
     """Sum over the leading axis with a FIXED halving tree.
 
     Pads the axis to a power of two with zeros, then repeatedly adds
     the upper half onto the lower half — the same addition order as
-    the reference, fixed by the (padded) group count alone.
+    the reference, fixed by the (padded) group count alone, so the sum
+    of per-group partials is the same whether the groups were formed on
+    one device or gathered from tensor-parallel shards (`xshard_sum`).
+
+    ``tag`` (convention ``xshard_<site>``) marks the partials
+    (``mark``), so the analyzer's JX004 finds every cross-shard
+    reduction and checks that it sums float32.
     """
+    if tag is not None:
+        mark(parts, tag)
     n = parts.shape[0]
     p2 = 1
     while p2 < n:
@@ -122,6 +154,27 @@ def fixed_tree_sum(parts: torch.Tensor) -> torch.Tensor:
         h = parts.shape[0] // 2
         parts = parts[:h] + parts[h:]
     return parts[0]
+
+
+def replicate(t: torch.Tensor, devices) -> Dict[torch.device, torch.Tensor]:
+    """`t` on each of `devices` (distinct physical devices): the tensor
+    itself on its own device, one copy on each other."""
+    return {d: t if t.device == d else t.to(d, non_blocking=True)
+            for d in devices}
+
+
+def xshard_sum(parts, devices, *, tag: str
+               ) -> Dict[torch.device, torch.Tensor]:
+    """The cross-shard reduction of tensor-parallel serving: every
+    shard's float32 partials ([g_r, ...], in shard order) gathered on
+    each of `devices` into one [sum g_r, ...] tensor and summed there
+    by `fixed_tree_sum` (tagged `tag`): the same sums, in the same
+    order, as one device's grouped reduction over all the groups."""
+    out = {}
+    for d in devices:
+        gathered = torch.cat([p if p.device == d else p.to(d) for p in parts])
+        out[d] = fixed_tree_sum(gathered, tag=tag)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -156,9 +209,9 @@ def apply_norm(cfg, x: torch.Tensor, p: Dict[str, torch.Tensor]
 
 
 def norm_spec(cfg, d: int) -> Dict[str, ParamSpec]:
-    out = {"scale": ParamSpec((d,), init="ones")}
+    out = {"scale": ParamSpec((d,), ("embed",), init="ones")}
     if cfg.norm == "layernorm":
-        out["bias"] = ParamSpec((d,), init="zeros")
+        out["bias"] = ParamSpec((d,), ("embed",), init="zeros")
     return out
 
 

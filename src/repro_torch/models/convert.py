@@ -7,12 +7,14 @@ against a spec tree of the port (a model's ``api.param_shapes(cfg)``,
 a TE layer's ``transformer_layer_specs(cfg)``, ...);
 ``from_reference`` is the walk over a model's specs.  The two packages
 share the layout, so each leaf keeps its shape and values and both
-compute the same function.
+compute the same function.  ``shard_params`` splits a full tree (the
+port's, or the reference's as numpy) into one tree a position of a
+tensor-parallel serving mesh, by the serving plan's specs.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -64,3 +66,41 @@ def from_reference(np_params: Dict[str, Any], cfg,
     """The reference's numpy model parameters as the port's, checked
     against ``api.param_shapes(cfg)``."""
     return from_reference_tree(np_params, api.param_shapes(cfg), device)
+
+
+def shard_params(params: Dict[str, Any], cfg, mesh,
+                 axis: Optional[str] = None) -> List[Dict[str, Any]]:
+    """The tree of each position of a 1-axis serving `mesh`, by
+    ``sharding.plans.serving_plan(mesh, axis).param_shardings(cfg)``:
+    a leaf split over the axis gives position r its r-th equal slice of
+    that dim (heads, kv heads and MLP columns of the projections, rows
+    of wo and w_down, the vocab of the embedding and unembedding), as a
+    contiguous tensor of its own on r's device; a replicated leaf is
+    copied once a distinct physical device and shared by the positions
+    there.  Leaves may be tensors or numpy arrays."""
+    from repro_torch.sharding.axes import shard_slices, split_dim
+    from repro_torch.sharding.plans import serving_plan
+    plan = serving_plan(mesh, axis or mesh.axis_names[0])
+    positions = mesh.positions
+
+    def own(t: torch.Tensor, device) -> torch.Tensor:
+        return torch.empty(t.shape, dtype=t.dtype, device=device).copy_(t)
+
+    def walk(tree, spec, path):
+        if isinstance(tree, dict):
+            if set(tree) != set(spec):
+                raise ValueError(f"{path}: keys {sorted(tree)} are not "
+                                 f"{sorted(spec)}")
+            parts = {k: walk(tree[k], spec[k], f"{path}/{k}") for k in spec}
+            return [{k: parts[k][r] for k in spec}
+                    for r in range(len(positions))]
+        t = tree if isinstance(tree, torch.Tensor) else to_torch(tree)
+        dim = split_dim(spec, plan.axis)
+        if dim is None:
+            copies = {d: own(t, d) for d in mesh.physical}
+            return [copies[d] for d in positions]
+        return [own(t.narrow(dim, a, b - a), d) for (a, b), d in
+                zip(shard_slices(t.shape[dim], len(positions)), positions)]
+
+    with torch.no_grad():
+        return walk(params, plan.param_shardings(cfg), "")

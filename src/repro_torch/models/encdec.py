@@ -59,9 +59,12 @@ def dec_layer_specs(cfg) -> Params:
 
 def encdec_specs(cfg) -> Params:
     return {
-        "embed": ParamSpec((cfg.padded_vocab_size, cfg.d_model), scale=0.02),
-        "enc_pos": ParamSpec((cfg.max_source_len, cfg.d_model), scale=0.02),
-        "dec_pos": ParamSpec((cfg.max_target_len, cfg.d_model), scale=0.02),
+        "embed": ParamSpec((cfg.padded_vocab_size, cfg.d_model),
+                           ("vocab", "embed"), scale=0.02),
+        "enc_pos": ParamSpec((cfg.max_source_len, cfg.d_model),
+                             (None, "embed"), scale=0.02),
+        "dec_pos": ParamSpec((cfg.max_target_len, cfg.d_model),
+                             (None, "embed"), scale=0.02),
         "enc_layers": stack_specs(enc_layer_specs(cfg), cfg.enc_layers),
         "dec_layers": stack_specs(dec_layer_specs(cfg), cfg.dec_layers),
         "enc_norm": norm_spec(cfg, cfg.d_model),

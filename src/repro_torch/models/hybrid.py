@@ -41,7 +41,7 @@ def n_superblocks(cfg) -> int:
 def hybrid_specs(cfg) -> Params:
     mamba_layer = {"ln": norm_spec(cfg, cfg.d_model),
                    "mixer": ssm.mamba2_specs(cfg)}
-    inner = stack_specs(mamba_layer, cfg.attn_every)
+    inner = stack_specs(mamba_layer, cfg.attn_every, "inner_layers")
     shared = {
         "ln1": norm_spec(cfg, cfg.d_model),
         "attn": attn.attn_specs(cfg),
@@ -49,13 +49,15 @@ def hybrid_specs(cfg) -> Params:
         "mlp": mlp_mod.mlp_specs(cfg),
     }
     specs: Params = {
-        "embed": ParamSpec((cfg.padded_vocab_size, cfg.d_model), scale=0.02),
+        "embed": ParamSpec((cfg.padded_vocab_size, cfg.d_model),
+                           ("vocab", "embed"), scale=0.02),
         "mamba": stack_specs(inner, n_superblocks(cfg)),
         "shared": shared,
         "final_norm": norm_spec(cfg, cfg.d_model),
     }
     if not cfg.tie_embeddings:
-        specs["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab_size))
+        specs["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab_size),
+                                     ("embed", "vocab"))
     return specs
 
 

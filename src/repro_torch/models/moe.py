@@ -34,12 +34,12 @@ CHUNK = 4096
 def moe_specs(cfg) -> Dict[str, ParamSpec]:
     d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
     specs = {
-        "router": ParamSpec((d, E), scale=d ** -0.5),
-        "w_up": ParamSpec((E, d, f)),
-        "w_down": ParamSpec((E, f, d)),
+        "router": ParamSpec((d, E), ("embed", "experts"), scale=d ** -0.5),
+        "w_up": ParamSpec((E, d, f), ("experts", "embed", "mlp")),
+        "w_down": ParamSpec((E, f, d), ("experts", "mlp", "embed")),
     }
     if cfg.activation == "swiglu":
-        specs["w_gate"] = ParamSpec((E, d, f))
+        specs["w_gate"] = ParamSpec((E, d, f), ("experts", "embed", "mlp"))
     return specs
 
 

@@ -38,15 +38,16 @@ def mamba1_specs(cfg) -> Dict[str, ParamSpec]:
     d, di, N, R, W = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
                       cfg.dt_rank, cfg.conv_width)
     return {
-        "w_in": ParamSpec((d, 2 * di)),
-        "conv_w": ParamSpec((W, di), scale=W ** -0.5),
-        "conv_b": ParamSpec((di,), init="zeros"),
-        "w_x": ParamSpec((di, R + 2 * N)),
-        "w_dt": ParamSpec((R, di)),
-        "dt_bias": ParamSpec((di,), init="zeros"),
-        "a_log": ParamSpec((di, N), init="ones"),
-        "d_skip": ParamSpec((di,), init="ones"),
-        "w_out": ParamSpec((di, d)),
+        "w_in": ParamSpec((d, 2 * di), ("embed", "ssm_inner")),
+        "conv_w": ParamSpec((W, di), (None, "ssm_inner"),
+                            scale=W ** -0.5),
+        "conv_b": ParamSpec((di,), ("ssm_inner",), init="zeros"),
+        "w_x": ParamSpec((di, R + 2 * N), ("ssm_inner", None)),
+        "w_dt": ParamSpec((R, di), (None, "ssm_inner")),
+        "dt_bias": ParamSpec((di,), ("ssm_inner",), init="zeros"),
+        "a_log": ParamSpec((di, N), ("ssm_inner", None), init="ones"),
+        "d_skip": ParamSpec((di,), ("ssm_inner",), init="ones"),
+        "w_out": ParamSpec((di, d), ("ssm_inner", "embed")),
     }
 
 
@@ -192,14 +193,15 @@ def mamba2_specs(cfg) -> Dict[str, ParamSpec]:
     H = di // cfg.ssm_head_dim
     conv_dim = di + 2 * N          # x, B, C all pass the conv
     return {
-        "w_in": ParamSpec((d, 2 * di + 2 * N + H)),
-        "conv_w": ParamSpec((W, conv_dim), scale=W ** -0.5),
-        "conv_b": ParamSpec((conv_dim,), init="zeros"),
-        "a_log": ParamSpec((H,), init="ones"),
-        "dt_bias": ParamSpec((H,), init="zeros"),
-        "d_skip": ParamSpec((H,), init="ones"),
-        "norm_scale": ParamSpec((di,), init="ones"),
-        "w_out": ParamSpec((di, d)),
+        "w_in": ParamSpec((d, 2 * di + 2 * N + H), ("embed", "ssm_inner")),
+        "conv_w": ParamSpec((W, conv_dim), (None, "ssm_inner"),
+                            scale=W ** -0.5),
+        "conv_b": ParamSpec((conv_dim,), ("ssm_inner",), init="zeros"),
+        "a_log": ParamSpec((H,), ("ssm_heads",), init="ones"),
+        "dt_bias": ParamSpec((H,), ("ssm_heads",), init="zeros"),
+        "d_skip": ParamSpec((H,), ("ssm_heads",), init="ones"),
+        "norm_scale": ParamSpec((di,), ("ssm_inner",), init="ones"),
+        "w_out": ParamSpec((di, d), ("ssm_inner", "embed")),
     }
 
 

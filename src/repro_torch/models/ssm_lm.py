@@ -28,12 +28,14 @@ def ssm_lm_specs(cfg) -> Params:
     layer = {"ln": norm_spec(cfg, cfg.d_model),
              "mixer": ssm.mamba1_specs(cfg)}
     specs: Params = {
-        "embed": ParamSpec((cfg.padded_vocab_size, cfg.d_model), scale=0.02),
+        "embed": ParamSpec((cfg.padded_vocab_size, cfg.d_model),
+                           ("vocab", "embed"), scale=0.02),
         "layers": stack_specs(layer, cfg.num_layers),
         "final_norm": norm_spec(cfg, cfg.d_model),
     }
     if not cfg.tie_embeddings:
-        specs["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab_size))
+        specs["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab_size),
+                                     ("embed", "vocab"))
     return specs
 
 

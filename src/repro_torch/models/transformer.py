@@ -14,10 +14,25 @@ the contiguous layout with no block table) is updated in place;
 ``prefill`` runs a whole prompt into the contiguous cache through
 ``flash_attention``.  ``embed_tokens``, ``_remat``, ``lm_xent`` and the
 stacked-layer helpers serve the ssm and hybrid families too.
+
+Tensor-parallel serving (``mesh=``, the reference's ``mesh`` /
+``mesh_axis``; dense and vlm): `params` and `cache` are then lists with
+one tree per mesh position (models/convert.shard_params, `init_cache`
+with ``mesh=``), and one process computes every shard where it lives.
+Each layer's input is replicated (one copy per distinct physical
+device); each shard projects its heads and MLP columns, writes and
+reads its own pool at KH/tp heads through the paged kernels, and forms
+the float32 partials of its groups of the out- and down-projections;
+`xshard_sum` gathers every shard's partials in shard order on each
+device and sums them with the tp=1 fixed tree.  The embedding and the
+logits are split over the vocab (each shard looks up its rows and
+computes its logit columns; the columns are concatenated on the mesh's
+first position, where the sample head runs).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -32,7 +47,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import sampling
 from repro_torch.models.common import (ParamSpec, apply_norm, apply_rope,
                                        chunked_softmax_xent, cross_entropy,
-                                       mark, norm_spec)
+                                       mark, norm_spec, replicate,
+                                       xshard_sum)
 
 Params = Dict[str, Any]
 
@@ -70,21 +86,23 @@ def layer_specs(cfg) -> Params:
     return specs
 
 
-def stack_specs(specs: Params, n: int) -> Params:
+def stack_specs(specs: Params, n: int, axis_name: str = "layers") -> Params:
     if isinstance(specs, ParamSpec):
-        return ParamSpec((n,) + specs.shape, init=specs.init,
-                         scale=specs.scale)
-    return {k: stack_specs(v, n) for k, v in specs.items()}
+        return ParamSpec((n,) + specs.shape, (axis_name,) + specs.axes,
+                         init=specs.init, scale=specs.scale)
+    return {k: stack_specs(v, n, axis_name) for k, v in specs.items()}
 
 
 def transformer_specs(cfg) -> Params:
     specs: Params = {
-        "embed": ParamSpec((cfg.padded_vocab_size, cfg.d_model), scale=0.02),
+        "embed": ParamSpec((cfg.padded_vocab_size, cfg.d_model),
+                           ("vocab", "embed"), scale=0.02),
         "layers": stack_specs(layer_specs(cfg), cfg.num_layers),
         "final_norm": norm_spec(cfg, cfg.d_model),
     }
     if not cfg.tie_embeddings:
-        specs["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab_size))
+        specs["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab_size),
+                                     ("embed", "vocab"))
     return specs
 
 
@@ -261,16 +279,33 @@ def serving_det_groups(cfg) -> Tuple[int, int]:
     return pow2_div(cfg.num_heads), pow2_div(cfg.d_ff)
 
 
+def cache_kv_heads(cfg, tp: int) -> int:
+    """KV heads of one mesh position's cache: KH / tp where tp divides
+    KH, else all KH (replicated), as ServingPlan.cache_sharding."""
+    KH = cfg.num_kv_heads
+    return KH // tp if KH % tp == 0 else KH
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
                paged: bool = True, block_size: int = 16,
                num_blocks: Optional[int] = None, device=None,
-               fp8_kv: bool = False) -> Params:
+               fp8_kv: bool = False, mesh=None):
     """Paged block pool [L, num_blocks, block_size, KH, hd] addressed
     through a per-slot block table or, with ``paged=False``, the
     contiguous cache {"k", "v"} [L, batch, max_len, KH, hd].  The
     default pool matches the contiguous capacity (batch *
     ceil(max_len / block_size) blocks).  ``fp8_kv`` (paged only) stores
-    e4m3 codes + per-row float32 scales (attention.init_paged_kv_cache)."""
+    e4m3 codes + per-row float32 scales (attention.init_paged_kv_cache).
+    With a 1-axis ``mesh`` (tensor-parallel serving) it returns one
+    cache per mesh position, each on its position's device with its own
+    dense pools of `cache_kv_heads` heads."""
+    if mesh is not None:
+        kv = cache_kv_heads(cfg, mesh.size)
+        sub = dataclasses.replace(cfg, num_kv_heads=kv)
+        return [init_cache(sub, batch, max_len, dtype, paged=paged,
+                           block_size=block_size, num_blocks=num_blocks,
+                           device=d, fp8_kv=fp8_kv)
+                for d in mesh.positions]
     if not paged:
         if fp8_kv:
             raise NotImplementedError(
@@ -373,6 +408,169 @@ def _serving_scan(cfg, params, cache, x, pos, positions, block_table, *,
     return h
 
 
+def _tp_groups(cfg, tp: int) -> Tuple[int, int]:
+    """The grouped reductions' group counts per shard (ga / tp, gm / tp);
+    raises unless tp divides both (the tp=1 sums need whole groups)."""
+    ga, gm = serving_det_groups(cfg)
+    if ga % tp or gm % tp:
+        raise ValueError(
+            f"tp={tp} must divide the grouped reductions' groups "
+            f"(attention {ga}, mlp {gm}) for the tp=1 sums")
+    return ga // tp, gm // tp
+
+
+def _by_device(mesh, shards: List[Params]) -> Dict[torch.device, Params]:
+    """The first shard on each distinct physical device: where a
+    replicated leaf (a norm scale, say) is read."""
+    out: Dict[torch.device, Params] = {}
+    for d, p in zip(mesh.positions, shards):
+        out.setdefault(d, p)
+    return out
+
+
+def _tp_attend(cfg, lps, cache, i, hs, mesh, pos, positions,
+               block_table, *, decode, kernel) -> List[torch.Tensor]:
+    """Each shard's attention output [B, S, H/tp, hd] for layer i: its
+    q/k/v heads, rope, and its own pool written and read (through the
+    paged kernels at its KH/tp heads).  Where the pools hold all KH
+    heads (KH % tp != 0, replicated as the reference's
+    `_paged_kernel_call`), each shard attends with every shard's q and
+    keeps its own heads."""
+    devs = mesh.positions
+    qs, kvs = [], []
+    for r, d in enumerate(devs):
+        q, k1, v1 = attn.qkv_project(cfg, lps[r]["attn"], hs[d])
+        qs.append(apply_rope(q, positions[d], cfg.rope_theta))
+        kvs.append((apply_rope(k1, positions[d], cfg.rope_theta), v1))
+    kv_rep = len(devs) > 1 and kvs[0][0].shape[2] == cfg.num_kv_heads
+    q_all = ({d: torch.cat([q.to(d) for q in qs], dim=2)
+              for d in mesh.physical} if kv_rep else None)
+    outs = []
+    for r, d in enumerate(devs):
+        cl = {k: leaf[i] for k, leaf in cache[r].items()}
+        bt = None if block_table is None else block_table[d]
+        q = q_all[d] if kv_rep else qs[r]
+        o = _cache_attend(q, kvs[r][0], kvs[r][1], cl, pos[d], positions[d],
+                          bt, decode=decode, kernel=kernel)
+        if kv_rep:
+            hq = qs[r].shape[2]
+            o = o[:, :, r * hq:(r + 1) * hq].contiguous()
+        outs.append(o)
+    return outs
+
+
+def _serving_scan_tp(cfg, params: List[Params], cache: List[Params], x,
+                     pos, positions, block_table, mesh, *, decode: bool,
+                     kernel: bool) -> Dict[torch.device, torch.Tensor]:
+    """`_serving_scan` over a tensor-parallel mesh (module docstring):
+    returns the final hidden state on each distinct physical device."""
+    check_family(cfg, "tensor-parallel serving")
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "tensor-parallel serving is dense/vlm-only, as in the reference")
+    ga, gm = _tp_groups(cfg, mesh.size)
+    phys = mesh.physical
+    rep = _by_device(mesh, params)
+    xs = replicate(x, phys)
+    pos, positions = replicate(pos, phys), replicate(positions, phys)
+    if block_table is not None:
+        block_table = replicate(block_table, phys)
+    layers = [p["layers"] for p in params]
+    for i in range(cfg.num_layers):
+        lps = [layer_slice(t, i) for t in layers]
+        lrep = {d: layer_slice(p["layers"], i) for d, p in rep.items()}
+        hs = {d: apply_norm(cfg, xs[d], lrep[d]["ln1"]) for d in phys}
+        outs = _tp_attend(cfg, lps, cache, i, hs, mesh, pos, positions,
+                          block_table, decode=decode, kernel=kernel)
+        ys = xshard_sum([attn.out_project_parts(lp["attn"], o, ga)
+                         for lp, o in zip(lps, outs)], phys,
+                        tag="xshard_attn_out")
+        xs = {d: xs[d] + ys[d].to(xs[d].dtype) for d in phys}
+        hs = {d: apply_norm(cfg, xs[d], lrep[d]["ln2"]) for d in phys}
+        ys = xshard_sum([mlp_mod.mlp_parts(cfg, lp["mlp"], hs[d], gm)
+                         for lp, d in zip(lps, mesh.positions)], phys,
+                        tag="xshard_mlp_down")
+        for d in phys:
+            y = ys[d].to(xs[d].dtype)
+            if cfg.use_bias:
+                y = y + lrep[d]["mlp"]["b_down"].to(y.dtype)
+            xs[d] = xs[d] + y
+    hs = {d: apply_norm(cfg, xs[d], rep[d]["final_norm"]) for d in phys}
+    mark(hs[mesh.positions[0]], "serving_hot_path")
+    return hs
+
+
+def _vocab_split(cfg, params: List[Params]) -> bool:
+    return params[0]["embed"].shape[0] != cfg.padded_vocab_size
+
+
+def _embed_tp(cfg, params: List[Params], tokens: torch.Tensor, mesh
+              ) -> torch.Tensor:
+    """The embedding rows of `tokens` (on the mesh's first device) from
+    the vocab-split tables: each shard looks up the ids in its range,
+    and the rows are selected, not added, so they are the tp=1 rows."""
+    if not _vocab_split(cfg, params):
+        return _embed(params[0], tokens)
+    first = mesh.positions[0]
+    toks = replicate(tokens, mesh.physical)
+    x = None
+    for r, (d, p) in enumerate(zip(mesh.positions, params)):
+        Vs = p["embed"].shape[0]
+        local = toks[d].long() - r * Vs
+        mine = ((local >= 0) & (local < Vs)).to(first)
+        rows = p["embed"][local.clamp(0, Vs - 1)].to(first, torch.bfloat16)
+        x = rows if x is None else torch.where(mine[..., None], rows, x)
+    return x
+
+
+def _logits_tp(cfg, params: List[Params], hs, mesh) -> torch.Tensor:
+    """Each shard's vocab columns of the logits, concatenated in shard
+    order on the mesh's first device, then the padding dropped."""
+    first = mesh.positions[0]
+    if not _vocab_split(cfg, params):
+        return logits_fn(cfg, params[0], hs[first])
+    out = torch.cat([(hs[d] @ unembed_matrix(cfg, p).to(hs[d].dtype))
+                     .to(first) for d, p in zip(mesh.positions, params)],
+                    dim=-1)
+    if cfg.padded_vocab_size != cfg.vocab_size:
+        out = out[..., : cfg.vocab_size]
+    return out
+
+
+def _check_mesh(mesh, mesh_axis, params, cache) -> None:
+    if len(mesh.axis_names) != 1:
+        raise ValueError(f"the serving mesh has one axis, not "
+                         f"{mesh.axis_names}")
+    if mesh_axis is not None and mesh_axis != mesh.axis_names[0]:
+        raise ValueError(f"mesh_axis {mesh_axis!r} is not the mesh's axis "
+                         f"{mesh.axis_names[0]!r}")
+    if len(params) != mesh.size or len(cache) != mesh.size:
+        raise ValueError(f"a mesh of {mesh.size} positions takes one "
+                         f"param tree and one cache a position, got "
+                         f"{len(params)} and {len(cache)}")
+
+
+def _scan(cfg, params, cache, x, pos, positions, block_table, *, decode,
+          kernel, quant, mesh, mesh_axis):
+    """The serving scan on one device, or over the mesh's shards (the
+    final hidden state on each physical device)."""
+    if mesh is None:
+        return _serving_scan(cfg, params, cache, x, pos, positions,
+                             block_table, decode=decode, kernel=kernel,
+                             quant=quant)
+    if quant is not None:
+        raise NotImplementedError(
+            "fp8_linear serving is tp=1-only, as in the reference")
+    _check_mesh(mesh, mesh_axis, params, cache)
+    return _serving_scan_tp(cfg, params, cache, x, pos, positions,
+                            block_table, mesh, decode=decode, kernel=kernel)
+
+
+def _logits(cfg, params, h, mesh) -> torch.Tensor:
+    return (logits_fn(cfg, params, h) if mesh is None
+            else _logits_tp(cfg, params, h, mesh))
+
+
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
     """Serving activations are bf16 whatever the parameter dtype (the
     rows are cast after the lookup, the same values as casting first)."""
@@ -384,44 +582,61 @@ def _per_slot_pos(pos, B: int, device) -> torch.Tensor:
     return pos.to(torch.int32).expand(B)
 
 
+def _embed_any(cfg, params, tokens, mesh) -> torch.Tensor:
+    return (_embed(params, tokens) if mesh is None
+            else _embed_tp(cfg, params, tokens, mesh))
+
+
+def _each(h, fn):
+    """fn over the hidden state: one tensor, or one a physical device."""
+    return {d: fn(v) for d, v in h.items()} if isinstance(h, dict) else fn(h)
+
+
 def decode_step(cfg, params, cache: Params, token: torch.Tensor, pos,
                 block_table: Optional[torch.Tensor] = None, *,
-                kernel: bool = False, quant: Optional[Params] = None
+                kernel: bool = False, quant: Optional[Params] = None,
+                mesh=None, mesh_axis: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  token [B]; pos scalar or [B] int32 (current
     length): each layer writes its k/v at `pos` (through the table, or
     into the contiguous cache when `block_table` is None) and attends
     to positions <= pos.  ``quant`` routes the linears through
-    pre-quantized fp8 weights.  Returns (logits [B, vocab], cache); the
-    cache is the same pool, updated in place."""
+    pre-quantized fp8 weights.  ``mesh`` serves tensor-parallel over
+    per-position `params` / `cache` lists (module docstring).  Returns
+    (logits [B, vocab], cache); the cache is the same pool, updated in
+    place."""
     B = token.shape[0]
     pos = _per_slot_pos(pos, B, token.device)
-    x = _embed(params, token)[:, None, :]                 # [B,1,d]
-    x = _serving_scan(cfg, params, cache, x, pos, pos[:, None],
-                      block_table, decode=True, kernel=kernel, quant=quant)
-    return logits_fn(cfg, params, x)[:, 0], cache
+    x = _embed_any(cfg, params, token, mesh)[:, None, :]  # [B,1,d]
+    h = _scan(cfg, params, cache, x, pos, pos[:, None], block_table,
+              decode=True, kernel=kernel, quant=quant, mesh=mesh,
+              mesh_axis=mesh_axis)
+    return _logits(cfg, params, h, mesh)[:, 0], cache
 
 
 def _chunk_fwd(cfg, params, cache: Params, tokens: torch.Tensor,
                pos: torch.Tensor, block_table: Optional[torch.Tensor], *,
-               kernel: bool, quant: Optional[Params]) -> torch.Tensor:
+               kernel: bool, quant: Optional[Params], mesh=None,
+               mesh_axis: Optional[str] = None):
     """Shared serving forward over a [B, C] token window written into
     the pool at [pos, pos+C): the body of both `chunk_step` (which reads
     out the last valid row) and `verify_step` (which reads out every
-    row).  Returns the final hidden [B, C, d]."""
+    row).  Returns the final hidden [B, C, d] (over a mesh, one a
+    physical device)."""
     C = tokens.shape[1]
-    x = _embed(params, tokens)                            # [B,C,d]
+    x = _embed_any(cfg, params, tokens, mesh)             # [B,C,d]
     positions = pos[:, None] + torch.arange(C, dtype=torch.int32,
                                             device=tokens.device)[None, :]
-    return _serving_scan(cfg, params, cache, x, pos, positions,
-                         block_table, decode=False, kernel=kernel,
-                         quant=quant)
+    return _scan(cfg, params, cache, x, pos, positions, block_table,
+                 decode=False, kernel=kernel, quant=quant, mesh=mesh,
+                 mesh_axis=mesh_axis)
 
 
 def chunk_step(cfg, params, cache: Params, tokens: torch.Tensor, pos,
                n_tokens: torch.Tensor,
                block_table: Optional[torch.Tensor] = None, *,
-               kernel: bool = False, quant: Optional[Params] = None
+               kernel: bool = False, quant: Optional[Params] = None,
+               mesh=None, mesh_axis: Optional[str] = None
                ) -> Tuple[torch.Tensor, Params]:
     """One chunked-prefill/decode step for a batch of server slots.
 
@@ -434,18 +649,22 @@ def chunk_step(cfg, params, cache: Params, tokens: torch.Tensor, pos,
     row, cache)."""
     B, C = tokens.shape
     pos = _per_slot_pos(pos, B, tokens.device)
-    x = _chunk_fwd(cfg, params, cache, tokens, pos, block_table,
-                   kernel=kernel, quant=quant)
+    h = _chunk_fwd(cfg, params, cache, tokens, pos, block_table,
+                   kernel=kernel, quant=quant, mesh=mesh, mesh_axis=mesh_axis)
     last = (n_tokens.long() - 1).clamp(0, C - 1)          # [B]
-    h_last = torch.gather(x, 1, last[:, None, None].expand(B, 1,
-                                                            x.shape[-1]))
-    return logits_fn(cfg, params, h_last)[:, 0], cache
+
+    def take(x):
+        idx = last.to(x.device)[:, None, None].expand(B, 1, x.shape[-1])
+        return torch.gather(x, 1, idx)
+
+    return _logits(cfg, params, _each(h, take), mesh)[:, 0], cache
 
 
 def verify_step(cfg, params, cache: Params, tokens: torch.Tensor, pos,
                 block_table: Optional[torch.Tensor] = None, *,
                 kernel: bool = False,
-                quant: Optional[Params] = None, sample=None
+                quant: Optional[Params] = None, sample=None,
+                mesh=None, mesh_axis: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """Speculative-decode verify: score a [B, C] window (row 0 = each
     slot's current token, rows 1..C-1 = draft tokens) in one call and
@@ -467,9 +686,9 @@ def verify_step(cfg, params, cache: Params, tokens: torch.Tensor, pos,
     Returns (preds [B, C] int32, cache)."""
     B, C = tokens.shape
     pos = _per_slot_pos(pos, B, tokens.device)
-    x = _chunk_fwd(cfg, params, cache, tokens, pos, block_table,
-                   kernel=kernel, quant=quant)
-    logits = logits_fn(cfg, params, x)                    # [B,C,V]
+    h = _chunk_fwd(cfg, params, cache, tokens, pos, block_table,
+                   kernel=kernel, quant=quant, mesh=mesh, mesh_axis=mesh_axis)
+    logits = _logits(cfg, params, h, mesh)                # [B,C,V]
     if sample is None:
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
     temp, top_k, top_p, seed = sample

@@ -33,6 +33,15 @@ body was captured (by kernel and by body) are added to the kernels'
 counts at every later replay, so the counts still say how often each
 kernel ran.
 
+A tensor-parallel server's body computes every shard of the mesh
+(models/transformer.py).  Where the mesh lays its positions on one
+physical device (a spread mesh), that is one stream and the unit is
+still one CUDA graph, its operands staged once.  ``devices`` names the
+distinct physical devices a body runs on: over more than one the unit
+runs its body eagerly at every call (no capture across devices;
+`captures` stays 0), its operands staged on the first device and copied
+once to each other by the forward (models/common.replicate).
+
 On the CPU the unit runs its body eagerly through the same static
 buffers.  On either device `programs` is the number of distinct
 operand signatures (shapes and dtypes) the unit has taken: 0 before its
@@ -57,10 +66,15 @@ class WorkUnit:
     ``body_launches`` counts (kernels/paged_attention.KERNELS)."""
 
     def __init__(self, name: str, body: Callable[..., Tuple], device, *,
-                 pool=None, counted: Sequence = ()):
+                 pool=None, counted: Sequence = (),
+                 devices: Optional[Sequence] = None):
         self.name = name
         self._body = body
         self.device = torch.device(device)
+        # one graph captures a body on one physical device only
+        self.capturable = (self.device.type == "cuda"
+                           and len({torch.device(d) for d in
+                                    (devices or [device])}) == 1)
         self._pool = pool
         self._counted = tuple(counted)
         self._signature: Optional[Tuple] = None
@@ -178,7 +192,7 @@ class WorkUnit:
     def run(self, *operands: np.ndarray) -> Tuple[torch.Tensor, ...]:
         """One call of the unit: stage the operands, then run, capture or
         replay.  Returns the static outputs."""
-        if self.device.type != "cuda":
+        if not self.capturable:
             return self._eager(*operands)
         self._stage(operands)
         if self.graph is not None:

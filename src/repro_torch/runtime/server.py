@@ -73,8 +73,25 @@ padding rows included, so one request's tokens depend on what is
 batched with it, as in the reference) and vlm.  ``fp8_linear`` with
 moe raises ``NotImplementedError``, as the reference refuses it.
 
-Not ported yet: tensor parallelism; passing ``tp`` or ``mesh`` raises
-``NotImplementedError``.
+``tp=N`` (or ``mesh=``, a 1-axis mesh of launch/mesh.make_tp_mesh)
+serves **tensor-parallel** (sharding/plans.ServingPlan documents the
+contract): the weights split head-wise / column-row-wise over the mesh
+positions (models/convert.shard_params), each position holds its own
+dense pools of KH/tp heads, and one process computes every shard
+(models/transformer.py's tensor-parallel scan).  Block tables, the
+allocator, the radix tree and the sampling and spec mirrors stay
+host-side and whole, so paging, prefix caching, spec decode, sampling
+and the e4m3 pool compose with TP unchanged.  The cross-shard sums
+gather the shards' grouped float32 partials in shard order and add
+them with the tp=1 fixed tree, so the sums are tp=1's.  A mesh may lay
+several positions on one device (``make_tp_mesh(tp, spread="cuda:0")``):
+each work unit is then still one CUDA graph.  Over distinct physical
+devices the units run eagerly (runtime/graphs.WorkUnit: no capture
+across devices).  As in the reference: one mesh axis, dense and vlm
+only, KH % tp == 0, tp dividing both reduction group counts, and
+``fp8_linear`` at tp=1 only.  ``tp > 1`` without a mesh takes the first
+tp CUDA devices and raises when fewer are visible; nothing spreads a
+device or falls back to the CPU unless asked.
 """
 
 from __future__ import annotations
@@ -88,7 +105,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import paged_attention as pk
-from repro_torch.models import api, sampling, transformer
+from repro_torch.models import api, convert, sampling, transformer
 from repro_torch.models.common import resolve_device
 from repro_torch.models.sampling import GREEDY, SamplingParams
 from repro_torch.obs.metrics import MetricsRegistry
@@ -96,6 +113,7 @@ from repro_torch.obs.tracer import NULL_TRACER, Tracer
 from repro_torch.runtime import spec_decode as spec
 from repro_torch.runtime.graphs import WorkUnit
 from repro_torch.runtime.prefix_cache import BlockPool, RadixPrefixCache
+from repro_torch.sharding.axes import physical_device
 from repro_torch.te import linear as te_linear
 
 # the servers' gate: they drive the transformer decode path, as the
@@ -104,6 +122,15 @@ SERVING = ("the serving engines (ChunkedServer, SlotServer; ssm and hybrid "
            "decode through api.prefill / api.decode_step)")
 
 Params = Any
+
+
+def cache_leaves(cache) -> Dict[str, torch.Tensor]:
+    """Every tensor of a server cache by name: its own keys for one
+    cache, ``"<position>.<key>"`` for a tensor-parallel server's list
+    (one cache a mesh position)."""
+    if isinstance(cache, dict):
+        return dict(cache)
+    return {f"{r}.{k}": v for r, c in enumerate(cache) for k, v in c.items()}
 
 
 @dataclasses.dataclass
@@ -232,10 +259,6 @@ class ChunkedServer:
                  fp8_linear: bool = False, tp: int = 1, mesh=None,
                  sampling: Optional[SamplingParams] = None,
                  tracer: Optional[Tracer] = None, device=None):
-        deferred = {"tp": tp != 1, "mesh": mesh is not None}
-        for name, on in deferred.items():
-            if on:
-                raise NotImplementedError(f"{name} is not ported yet")
         if spec_decode < 0:
             raise ValueError(f"spec_decode must be >= 0, got {spec_decode}")
         if fp8_kv and not paged:
@@ -252,12 +275,20 @@ class ChunkedServer:
             # dense MLP's weights only)
             raise NotImplementedError(
                 "fp8_linear serving is dense/vlm-only for now")
-        self.device = resolve_device(device)
+        self.mesh, self.tp = self._serving_mesh(cfg, tp, mesh, device)
+        self.device = (self.mesh.positions[0] if self.mesh is not None
+                       else resolve_device(device))
+        if fp8_linear and self.tp > 1:
+            raise NotImplementedError(
+                "fp8_linear serving is tp=1-only: the fp8 path has no "
+                "grouped order-deterministic reduction")
         self.cfg = cfg
-        self.params = params
+        # the forward's mesh: None at tp=1 (one tree, one device)
+        self._fwd_mesh = self.mesh if self.tp > 1 else None
+        self.params = (convert.shard_params(params, cfg, self.mesh)
+                       if self._fwd_mesh is not None else params)
         self.fp8_kv = bool(fp8_kv)
         # fp8_linear is tp=1 and dense/vlm only, as in the reference
-        # (tp is not ported, checked above)
         self._quant = (te_linear.quantize_serving_params(params)
                        if fp8_linear else None)
         self.B = batch_slots
@@ -287,7 +318,8 @@ class ChunkedServer:
                                         block_size=block_size,
                                         num_blocks=self.num_blocks,
                                         device=self.device,
-                                        fp8_kv=self.fp8_kv)
+                                        fp8_kv=self.fp8_kv,
+                                        mesh=self._fwd_mesh)
             self.block_table = np.full((batch_slots, self.max_blocks), -1,
                                        np.int32)
             self.pool = BlockPool(self.num_blocks)
@@ -310,7 +342,8 @@ class ChunkedServer:
             # + chunk headroom: chunk and verify writes start at the
             # valid frontier and must never clamp (attention.update_cache)
             self.cache = api.init_cache(cfg, batch_slots, max_len + chunk,
-                                        paged=False, device=self.device)
+                                        paged=False, device=self.device,
+                                        mesh=self._fwd_mesh)
             # the work units' block-table operand: a dummy, so their
             # operand signatures do not vary with the layout
             self.block_table = np.zeros((batch_slots, 1), np.int32)
@@ -351,16 +384,62 @@ class ChunkedServer:
                 batch_slots=self.B, chunk=self.chunk, span=self.span,
                 max_len=self.max_len, num_layers=cfg.num_layers,
                 kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-                spec_decode=self.spec_decode, tp=1, paged=self.paged)
+                spec_decode=self.spec_decode, tp=self.tp, paged=self.paged)
             if self.paged:
                 self.obs.meta.update(
                     block_size=self.block_size, max_blocks=self.max_blocks,
                     num_blocks=self.num_blocks,
                     kv_read_mode="fp8_kernel" if self.fp8_kv else "kernel")
 
+    @staticmethod
+    def _serving_mesh(cfg, tp: int, mesh, device):
+        """(mesh, tp) of the constructor's `tp` / `mesh` / `device`, by
+        the reference's rules: one mesh axis; moe refused at tp > 1;
+        KH and both reduction group counts divisible by tp."""
+        from repro_torch.launch.mesh import make_tp_mesh
+        if cfg.family == "moe" and (mesh.size if mesh is not None
+                                    else tp) > 1:
+            # refused by the config, before any device is looked for
+            raise NotImplementedError(
+                "tp > 1 (tensor-parallel serving) is dense/vlm-only for "
+                "now")
+        if mesh is None and tp > 1:
+            mesh = make_tp_mesh(tp)
+        if mesh is None:
+            return None, 1
+        if len(mesh.axis_names) != 1:
+            raise ValueError(f"the serving mesh must have exactly one "
+                             f"(tensor-parallel) axis, not "
+                             f"{mesh.axis_names}")
+        if tp not in (1, mesh.size):
+            raise ValueError(f"tp={tp} and a mesh of {mesh.size} "
+                             "positions disagree")
+        if device is not None and \
+                physical_device(device) != mesh.positions[0]:
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"position {mesh.positions[0]}")
+        tp = mesh.size
+        if tp > 1:
+            if cfg.num_kv_heads % tp:
+                raise ValueError(
+                    f"tp={tp} must divide num_kv_heads={cfg.num_kv_heads} "
+                    "(the KV pool shards head-wise)")
+            ga, gm = transformer.serving_det_groups(cfg)
+            if ga % tp or gm % tp:
+                raise ValueError(
+                    f"tp={tp} must divide the deterministic reduction "
+                    f"groups (attn={ga}, mlp={gm}) for exact tp-vs-1 "
+                    "output parity")
+        return mesh, tp
+
+    def cache_leaves(self) -> Dict[str, torch.Tensor]:
+        return cache_leaves(self.cache)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            for d in (self.mesh.physical if self.mesh is not None
+                      else [self.device]):
+                torch.cuda.synchronize(d)
 
     def _samp_mirrors(self) -> Tuple[np.ndarray, ...]:
         """The sample head's per-slot operands (host mirrors)."""
@@ -395,8 +474,10 @@ class ChunkedServer:
             bodies["cow_copy"] = self._cow_body
         if self.spec_decode:
             bodies["verify_step"] = self._spec_body
+        devices = (self.mesh.physical if self.mesh is not None
+                   else [self.device])
         return {name: WorkUnit(name, body, self.device, pool=pool,
-                               counted=pk.KERNELS)
+                               counted=pk.KERNELS, devices=devices)
                 for name, body in bodies.items()}
 
     def _chunk_body(self, tokens_host, pos, n_tokens, is_decode, emit,
@@ -409,7 +490,7 @@ class ChunkedServer:
         logits, _ = api.chunk_step(
             self.cfg, self.params, self.cache, tokens, pos, n_tokens,
             block_table if self.paged else None, kernel=self.paged,
-            quant=self._quant)
+            quant=self._quant, mesh=self._fwd_mesh)
         # the emitted token sits at position pos + n_tokens: the key of
         # the span and verify paths' draw for the same position
         nxt = sampling.sample_tokens(logits, temp, top_k, top_p, seed,
@@ -428,7 +509,7 @@ class ChunkedServer:
         for _ in range(self.span):
             logits, _ = api.decode_step(
                 self.cfg, self.params, self.cache, tok, pos, bt,
-                kernel=self.paged, quant=self._quant)
+                kernel=self.paged, quant=self._quant, mesh=self._fwd_mesh)
             # emission position pos + 1 (before the increment)
             nxt = sampling.sample_tokens(logits, temp, top_k, top_p, seed,
                                          pos + 1)
@@ -455,7 +536,8 @@ class ChunkedServer:
             temp, top_k, top_p, seed,
             block_table if self.paged else None, max_len=self.max_len,
             eos_id=self.eos_id,
-            fwd_kw={"kernel": self.paged, "quant": self._quant})
+            fwd_kw={"kernel": self.paged, "quant": self._quant,
+                    "mesh": self._fwd_mesh})
         self.ngram_table.copy_(table)
         self.cur_tok.copy_(cur_tok)
         return pos, out_len, active, n_emit
@@ -1075,7 +1157,7 @@ class ChunkedServer:
             "chunk_steps": float(chunk_steps),
             "decode_spans": float(span_disp + verify_disp),
             "compiled_programs": float(sum(self.compile_counts().values())),
-            "tp": 1.0,
+            "tp": float(self.tp),
         }
         if self.spec_decode:
             stats.update({
@@ -1096,7 +1178,7 @@ class ChunkedServer:
             return stats
         contiguous_tokens = self.B * (self.max_len + self.chunk)
         kv_bytes = sum(t.numel() * t.element_size()
-                       for t in self.cache.values())
+                       for t in self.cache_leaves().values())
         stats.update({
             "pool_blocks": float(self.num_blocks),
             "block_size": float(self.block_size),
@@ -1106,7 +1188,8 @@ class ChunkedServer:
             "kv_tokens_capacity": float(self.num_blocks * self.block_size),
             "kv_tokens_contiguous": float(contiguous_tokens),
             "admission_stalls": float(self.admission_stalls),
-            "kv_bytes_per_device": float(kv_bytes),
+            # each mesh position holds every block at KH/tp heads
+            "kv_bytes_per_device": float(kv_bytes // self.tp),
         })
         if self.prefix_cache is not None:
             total = self.total_prompt_tokens

@@ -34,7 +34,8 @@ def layernorm_mlp_specs(cfg) -> Params:
     specs = {
         "ln": norm_spec(cfg, d),
         "up": te_linear_specs(d, f, bias=cfg.use_bias),
-        "down": te_linear_specs(f, d, bias=cfg.use_bias),
+        "down": te_linear_specs(f, d, bias=cfg.use_bias,
+                                axes=("mlp", "embed")),
     }
     if cfg.activation == "swiglu":
         specs["gate"] = te_linear_specs(d, f)
@@ -74,10 +75,10 @@ def transformer_layer_specs(cfg) -> Params:
     d, H, KH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
         "ln1": norm_spec(cfg, d),
-        "wq": te_linear_specs(d, H * hd),
-        "wk": te_linear_specs(d, KH * hd),
-        "wv": te_linear_specs(d, KH * hd),
-        "wo": te_linear_specs(H * hd, d),
+        "wq": te_linear_specs(d, H * hd, axes=("embed", "heads")),
+        "wk": te_linear_specs(d, KH * hd, axes=("embed", "kv_heads")),
+        "wv": te_linear_specs(d, KH * hd, axes=("embed", "kv_heads")),
+        "wo": te_linear_specs(H * hd, d, axes=("heads", "embed")),
         "mlp": layernorm_mlp_specs(cfg),
     }
 

@@ -78,10 +78,11 @@ def fp8_matmul(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
 # layer
 # ----------------------------------------------------------------------
 
-def te_linear_specs(d_in: int, d_out: int, *, bias: bool = False) -> Params:
-    specs = {"w": ParamSpec((d_in, d_out))}
+def te_linear_specs(d_in: int, d_out: int, *, bias: bool = False,
+                    axes=("embed", "mlp")) -> Params:
+    specs = {"w": ParamSpec((d_in, d_out), axes)}
     if bias:
-        specs["b"] = ParamSpec((d_out,), init="zeros")
+        specs["b"] = ParamSpec((d_out,), (axes[1],), init="zeros")
     return specs
 
 

@@ -7,9 +7,10 @@ plan records); the three layers are clean on the repo, the workload
 sweep and every serving flag combo (the acceptance gate, as
 ``python -m repro_torch.analysis --device cpu --strict``).  Held
 against the reference: the report's JSON and exit codes, the rule IDs
-and severities (JX004 aside), the workload sweep's names and calls,
-and the flag combos (``kernel`` folded).  The two faults the scan found
-are held here too: ``ops.pipelined_matmul`` with the reference's 128^3
+and severities (JX004 too), the workload sweep's names and calls, and
+the flag combos (``kernel`` folded; with two mesh positions the
+tensor-parallel combos too, served on a mesh laid on the CPU).  The two
+faults the scan found are held here too: ``ops.pipelined_matmul`` with the reference's 128^3
 tiles, and ``ops.fp8_matmul``'s auto tiles off the warpgroup grid.
 """
 
@@ -258,6 +259,19 @@ def test_graph_rule_fires_on_its_toy_unit(rule, body):
     assert len(rep.findings) == 1
 
 
+def _bf16_partials(srv, x):
+    from repro_torch.models.common import fixed_tree_sum
+    parts = torch.stack([x, x]).to(torch.bfloat16)     # not float32
+    fixed_tree_sum(parts, tag="xshard_attn_out")
+    return _clean(srv, x)
+
+
+def test_jx004_fires_on_a_bf16_cross_shard_partial():
+    rep, _ = _watch(_bf16_partials)
+    assert rep.count("JX004") == 1, [str(f) for f in rep.findings]
+    assert len(rep.findings) == 1
+
+
 def test_jx006_is_for_forward_units_only():
     rep, _ = _watch(_unmarked, name="cow_copy")
     assert rep.findings == []
@@ -380,6 +394,27 @@ def test_graph_layer_clean_across_serving_combos():
                for u in units)
 
 
+def test_graph_layer_clean_on_the_tp_combos():
+    """The tensor-parallel combos (a mesh of two positions laid on the
+    CPU) serve clean beside their tp=1 layouts, each unit one program,
+    their signatures (the cache at its logical shape) those of tp=1."""
+    rep = Report()
+    tp_combos = contracts.serving_combos(device_count=2)[13:]
+    assert tp_combos == [{"tp": 2}, {"tp": 2, "spec_decode": 3},
+                         {"tp": 2, "fp8_kv": True}]
+    graph_check.run(rep, device="cpu",
+                    combos=[{}, {"fp8_kv": True}] + tp_combos)
+    assert rep.findings == [], [str(f) for f in rep.findings]
+    regs = rep.extras["signatures"]
+    assert len(regs["chunk_step"]["paged=1,fp8_kv=0"]["combos"]) == 3
+    assert len(regs["chunk_step"]["paged=1,fp8_kv=1"]["combos"]) == 2
+    assert len(regs["verify_step"]["paged=1,fp8_kv=0"]["combos"]) == 1
+    units = rep.extras["graph_units"]
+    assert len(units) == 16
+    assert all(u["calls"] >= graph_check.MIN_CALLS and u["programs"] == 1
+               for u in units)
+
+
 def test_cli_strict_clean_and_fp8_sweep_clean(tmp_path):
     out = tmp_path / "report.json"
     assert main(["--strict", "--device", "cpu", "--layer", "kernel",
@@ -401,7 +436,8 @@ def test_unknown_suppress_rule_rejected():
     with pytest.raises(ValueError):
         Report(suppress=["NOPE"])
     with pytest.raises(ValueError):
-        Report(suppress=["JX004"])          # not registered in the port
+        Report(suppress=["JX007"])          # no such rule
+    assert Report(suppress=["JX004"]).suppress == {"JX004"}
 
 
 def test_warning_severity_gates_only_strict():
@@ -441,10 +477,12 @@ def test_launch_analyze_runs():
 # ----------------------------------------------------------------------
 
 def test_rules_are_the_references_but_jx004():
+    """Every rule of the reference, JX004 too now that the port serves
+    tensor-parallel, at the reference's severity."""
     from repro.analysis.report import RULES as REF_RULES
-    assert set(RULES) == set(REF_RULES) - {"JX004"}
+    assert set(RULES) == set(REF_RULES)
     assert {r: s for r, (s, _) in RULES.items()} == \
-        {r: s for r, (s, _) in REF_RULES.items() if r != "JX004"}
+        {r: s for r, (s, _) in REF_RULES.items()}
 
 
 def test_report_json_and_exit_codes_equal_the_references():
@@ -547,6 +585,26 @@ def test_combos_are_the_references_with_kernel_folded():
         ref_like = dict(combo, kernel=combo.get("paged", True))
         assert contracts.signature_class(combo) == \
             ref_contracts.signature_class(ref_like)
+
+
+def test_tp_combos_are_the_references_with_kernel_folded():
+    from repro.analysis import contracts as ref_contracts
+
+    def key(combo):
+        out = {k: v for k, v in combo.items()
+               if k != "kernel" and k != "sampling"}
+        return sorted(out.items())
+
+    folded = []
+    for combo in ref_contracts.serving_combos(2)[16:]:
+        if key(combo) not in folded:
+            folded.append(key(combo))
+    assert [key(c) for c in contracts.serving_combos(device_count=2)[13:]] \
+        == folded
+    for combo in contracts.serving_combos(device_count=2):
+        assert contracts.signature_class(combo) == \
+            ref_contracts.signature_class(dict(combo, kernel=True))
+    assert contracts.combo_label({"tp": 2}).split(",")[5] == "tp=2"
 
 
 # ----------------------------------------------------------------------

@@ -53,6 +53,12 @@ backward on the card against the port on the CPU (codes and states
 bitwise, outputs within one bf16 step of each value plus 2**-8 of the
 largest); `te_transformer_layer` with no host synchronization and one
 B9 launch a call; the memory and TE benchmarks through the kernels.
+Tensor-parallel serving (``ChunkedServer(mesh=make_tp_mesh(tp,
+spread=<card>))``): at tp=2 graph replays equal eager units bit for bit
+(streams and every position's pools; chunk, span or verify, and
+copy-on-write units), each graph launching both positions' paged
+kernels; each position's pools dense, of KH/tp heads, in storage of its
+own.
 The state-space families (models/ssm.py, ssm_lm.py, hybrid.py): each
 reduced mixer card against CPU (float32 within 1e-5, bf16 within four
 bf16 steps of max |x|), B9 at zamba2-2.7b's shared-attention shape (hd
@@ -3050,3 +3056,87 @@ def test_analysis_cli_strict_on_card(cuda, tmp_path):
     rep = json.loads(out.read_text())
     assert rep["device"].startswith("cuda") and rep["findings"] == []
 
+
+
+TP_SERVERS = {
+    "bf16": dict(),
+    "fp8_kv": dict(fp8_kv=True),
+    "bf16-spec": dict(spec_decode=3),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(TP_SERVERS))
+def test_tp_graph_replays_equal_eager_units(cuda, mode):
+    """Tensor-parallel serving at tp=2 on a mesh spread over the card:
+    a server whose units replay their graphs and one whose units run
+    eagerly serve the same waves (chunk steps, spans or verify steps,
+    copy-on-write copies) to equal streams and equal pools, position by
+    position, bit for bit; each unit one program, captured once, and
+    its graph launches the paged kernels of both positions."""
+    from repro_torch.launch.mesh import make_tp_mesh
+    cfg = reduced_config("yi-6b")
+    params = api.init(cfg, 0, device=cuda)
+    kw = dict(batch_slots=3, max_len=64, chunk=8, span=4, block_size=8,
+              **TP_SERVERS[mode])
+    graphed = server.ChunkedServer(cfg, params,
+                                   mesh=make_tp_mesh(2, spread=cuda), **kw)
+    eager = server.ChunkedServer(cfg, params,
+                                 mesh=make_tp_mesh(2, spread=cuda), **kw)
+    for unit in eager._units.values():
+        unit.run = unit._eager
+    assert _graph_waves(graphed, cfg, False) == _graph_waves(eager, cfg,
+                                                             False)
+    a, b = graphed.cache_leaves(), eager.cache_leaves()
+    assert set(a) == set(b) and len(a) == 2 * len(graphed.cache[0])
+    for k in a:
+        assert torch.equal(a[k].view(torch.uint8), b[k].view(torch.uint8)), k
+    assert torch.equal(graphed.out_buf, eager.out_buf)
+    want = {"chunk_step": 1, "decode_span": 1, "cow_copy": 1}
+    if "spec" in mode:
+        want = dict(want, decode_span=0, verify_step=1)
+    assert graphed.compile_counts() == want
+    L = cfg.num_layers
+    kern = "_fp8" if "fp8" in mode else ""
+    forward = {"chunk_step": f"paged_chunk{kern}",
+               "verify_step": f"paged_chunk{kern}",
+               "decode_span": f"paged_decode{kern}"}
+    for name, unit in graphed._units.items():
+        if want[name]:
+            assert unit.calls >= 3 and unit.captures == 1, name
+        if name in forward and want[name]:
+            steps = 1 if name != "decode_span" else graphed.span
+            assert unit.replay_launches[forward[name]][0] == \
+                2 * L * steps, name
+
+
+@pytest.mark.gpu
+def test_tp_pools_are_dense_per_position(cuda):
+    """Each mesh position holds its own contiguous pools of KH/tp heads
+    (k, v and, with e4m3, the scales), on the card, in storage of its
+    own; the stats count KV bytes per position."""
+    from repro_torch.launch.mesh import make_tp_mesh
+    cfg = reduced_config("yi-6b")
+    params = api.init(cfg, 0, device=cuda)
+    kw = dict(batch_slots=3, max_len=64, chunk=8, span=4, block_size=8,
+              fp8_kv=True)
+    one = server.ChunkedServer(cfg, params, device=cuda, **kw)
+    for tp in (2, 4):
+        srv = server.ChunkedServer(cfg, params,
+                                   mesh=make_tp_mesh(tp, spread=cuda), **kw)
+        assert len(srv.cache) == tp
+        ptrs = set()
+        for c in srv.cache:
+            for k, t in c.items():
+                want = list(one.cache[k].shape)
+                want[3] = cfg.num_kv_heads // tp
+                assert list(t.shape) == want and t.is_contiguous(), k
+                assert t.device.type == "cuda" and t.dtype == \
+                    one.cache[k].dtype
+                ptrs.add(t.data_ptr())
+        assert len(ptrs) == tp * len(srv.cache[0])
+        reqs = server.sharegpt_like_requests(3, cfg.vocab_size,
+                                             max_input=12, max_output=4,
+                                             seed=1)
+        assert srv.serve(reqs)["kv_bytes_per_device"] * tp == \
+            one.serve(server.clone_requests(reqs))["kv_bytes_per_device"]

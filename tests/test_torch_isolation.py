@@ -16,7 +16,10 @@
     decodes and takes a loss and its gradients of the reduced
     whisper-small on a `make_batch` batch (models/encdec.py), runs a
     scheduler fuzz trace (runtime/fuzz.py), compresses the gradients
-    with error feedback (optim/compress.py) and runs the serving-contract
+    with error feedback (optim/compress.py), serves tensor-parallel at
+    tp=2 on a mesh spread over the CPU with the plans, meshes, remesh
+    and compressed_psum of sharding/, launch/mesh.py,
+    runtime/elastic.py and optim/compress.py, and runs the serving-contract
     analyzer (repro_torch.analysis) with `--device cpu --strict` and one
     serving combo, clean (tests/test_torch_analysis.py serves them all);
 (c) an entry point called without a device on a host without CUDA
@@ -174,6 +177,21 @@ loss, grads = value_and_grad(wcfg, wparams, batch)
 g, ef = compress.apply_ef(grads, compress.make_ef_state(grads), "int8_ef")
 assert loss == loss and g["embed"].shape == grads["embed"].shape
 assert run_fuzz_trace(0, device="cpu").audits > 0
+from repro_torch.launch.mesh import make_production_mesh, make_tp_mesh
+from repro_torch.optim.compress import compressed_psum
+from repro_torch.runtime import elastic
+from repro_torch.sharding import plans
+mesh = make_tp_mesh(2, spread="cpu")
+tp_srv = ChunkedServer(cfg, params, batch_slots=2, max_len=32, chunk=8,
+                       span=4, block_size=8, spec_decode=2, mesh=mesh)
+reqs = sharegpt_like_requests(3, cfg.vocab_size, max_input=12,
+                              max_output=6, seed=1)
+assert tp_srv.serve(reqs)["tp"] == 2.0 and all(r.done for r in reqs)
+assert plans.serving_plan(mesh).tp == 2
+assert make_production_mesh().size == 256
+assert elastic.remesh(["cpu"] * 4).shape == {"data": 1, "model": 4}
+assert compressed_psum(torch.ones(3), make_tp_mesh(4, spread="cpu"),
+                       "tp").tolist() == [4.0, 4.0, 4.0]
 from repro_torch.analysis.__main__ import main as analyze
 assert analyze(["--device", "cpu", "--strict", "--max-combos", "1",
                 "--repo-root", %(root)r]) == 0
@@ -187,7 +205,9 @@ def test_port_serves_without_jax():
     # the scan of (a) covers every module, the families' among them
     for name in ("models/moe.py", "models/ssm.py", "models/ssm_lm.py",
                  "models/hybrid.py", "models/encdec.py", "runtime/fuzz.py",
-                 "optim/compress.py"):
+                 "optim/compress.py", "sharding/axes.py",
+                 "sharding/plans.py", "launch/mesh.py",
+                 "runtime/elastic.py"):
         assert ROOT / "src" / "repro_torch" / name in PORT_FILES
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD % {"src": str(ROOT / "src"),
@@ -221,6 +241,13 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
         run_fuzz_trace(0)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--requests", "1"])         # --device defaults to cuda
+    from repro_torch.launch.mesh import make_tp_mesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--tp", "2", "--spread", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_tp_mesh(2, spread="cuda")
+    with pytest.raises(ValueError, match="spread"):
+        make_tp_mesh(2)                         # no CUDA device to take
     from repro_torch.benchmarks import run as bench_run
     from repro_torch.core import bench
     with pytest.raises(RuntimeError, match="CUDA"):

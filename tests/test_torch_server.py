@@ -227,12 +227,17 @@ def test_eos_stops_like_reference(weights):
 
 
 def test_deferred_options_raise(weights):
-    """Tensor parallelism is not ported; the contiguous layout is, but
+    """Tensor parallelism is ported (tests/test_torch_tp.py): tp=2 with
+    no visible CUDA devices and no explicit spread raises, and fp8
+    linears refuse tp > 1, as the reference's; the contiguous layout
     refuses an fp8 pool as the reference does."""
+    from repro_torch.launch.mesh import make_tp_mesh
     _, _, cfg, tp = weights
-    for kw in (dict(tp=2), dict(tp=2, fp8_linear=True)):
-        with pytest.raises(NotImplementedError):
-            server.ChunkedServer(cfg, tp, device="cpu", **kw)
+    with pytest.raises(ValueError, match="spread"):
+        server.ChunkedServer(cfg, tp, device="cpu", tp=2)
+    with pytest.raises(NotImplementedError):
+        server.ChunkedServer(cfg, tp, mesh=make_tp_mesh(2, spread="cpu"),
+                             fp8_linear=True)
     with pytest.raises(ValueError, match="paged"):
         server.ChunkedServer(cfg, tp, device="cpu", paged=False,
                              fp8_kv=True)

@@ -176,8 +176,9 @@ def test_deferred_options_raise():
     _, cfg = _configs(4)
     with pytest.raises(NotImplementedError, match="paged"):
         api.init_cache(cfg, 2, 16, paged=False, device="cpu", fp8_kv=True)
-    # every family is ported; tensor parallelism is not
+    # every family and tensor parallelism are ported; tp=2 with no
+    # visible CUDA devices needs an explicit spread mesh
     from repro_torch.runtime.server import ChunkedServer
-    with pytest.raises(NotImplementedError, match="tp"):
+    with pytest.raises(ValueError, match="spread"):
         ChunkedServer(cfg, api.init(cfg, 0, device="cpu"), tp=2,
                       device="cpu")
