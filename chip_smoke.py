@@ -46,7 +46,7 @@ last line):
               recomputes the scores, against plain (the chunk's row by
               row), with the byte time of K twice and V once beside the
               bound.
-  4. forward — full-width yi-6b, its depth cut to SERVE_LAYERS (16 of
+  4. forward — full-width yi-6b, its depth cut to SERVE_LAYERS (8 of
               32) for the script's time limit, as in phases 5-6
               (random bf16 weights, seed 0):
               a chunk_step and decode_steps through the kernels, every
@@ -349,7 +349,7 @@ last line):
               the CPU's; (e) the reduced whisper-small card against CPU
               (phase 13(c)'s rule).
  15. tp     — tensor-parallel serving (runs after phase 5e, on phase
-              4-6's full-width yi-6b at 16 layers): ChunkedServer on a
+              4-6's full-width yi-6b at SERVE_LAYERS): ChunkedServer on a
               mesh of tp positions spread over the card
               (make_tp_mesh(tp, spread="cuda"): each position its own
               weight shards and dense pools of KH/tp heads, one CUDA
@@ -366,10 +366,33 @@ last line):
               tp are printed, a record.  Phase 2b also serves the
               reference's tp combos (--spread 2), and phase 3 times the
               paged kernels at the shards' heads (KH 2 and 1, G=8).
+ 16. train_sharded — the sharded training step (runs after phase 10)
+              on a ("data", "model") = (2, 4) mesh spread over the card
+              (make_host_mesh((2, 4), spread="cuda")), plan fsdp_tp,
+              random weights, seed 0: (a) full-width yi-6b cut to 1
+              layer (remat dots, float32 parameters, bf16), B=2 x 4096:
+              the step's loss within 7e-3 of the one-device step's on
+              the same weights and batch, each gathered gradient leaf
+              within 5% of its norm, the grad norms printed side by
+              side; B9 launched 8 positions x (forward + remat
+              recompute) at the shards' shape [1, 4096, 8, 128] over 1
+              kv head on wgmma (the wrapper's launches by shape), each
+              call held to its plain version; phase 10(a) times B9 at
+              that shape (yi-6b-fsdp-tp-shard); (b) the same cut to 4
+              layers: Trainer(mesh=, plan=) for 3 steps twice from one
+              start (bit for bit equal, finite, falling), then the
+              one-device Trainer from that start: step ms, tokens/s,
+              peak memory, B9 launches and one profiled step's device
+              ms by kind of both printed, a record;
+              (c) reduced yi-6b and internvl2-1b under dp, fsdp, tp,
+              fsdp_tp and fsdp_tp_spact, 3 Trainer steps on the card
+              mesh against the same on a mesh spread over the CPU
+              (first loss within 2e-3, all within 1e-2).
 Each serve phase, the benchmark runs of phases 8, 9 and 11, the
-Trainer.run of phases 10, 12 and 13, phase 13's prefill and phase 14's
-prefill and training step set their kernels' launch counts to 0 just
-before their main path and read them just after; phase 5b reads the
+Trainer.run of phases 10, 12, 13 and 16(b), phase 13's prefill, phase
+14's prefill and training step and phase 16(a)'s sharded step set
+their kernels' launch counts to 0 just before their main path and read
+them just after; phase 5b reads the
 paged kernels' counts (set to 0) after each spec wave, and its
 launches join phase 5's in paged_chunk's and paged_chunk_fp8's counts,
 and phase 5e's join all four paged kernels' counts; phases 5, 5b and
@@ -380,8 +403,8 @@ launches join all four paged kernels' counts.  Then one JSON line of
 per-kernel numbers (twenty kernels; those with several bodies also
 their launches by body, flash_attention its launches by path: Trainer,
 te_layer, phase 12's Trainer, phase 13's prefill and Trainer, phase
-14's prefill and training step, and its whisper-enc and whisper-cross
-readings; the
+14's prefill and training step, phase 16's sharded steps, and its
+whisper-enc, whisper-cross and fsdp_tp shard readings; the
 paged kernels phase 12's and phase 15's launches apart too, and
 their readings at the tp shards' heads) and, last, the contract
 line
@@ -425,10 +448,11 @@ SMALL_MARGIN = 0.0625
 SMALL_FP8_MARGIN = 0.5
 DEVICE = "cuda"
 SERVE_SPAN = 8          # phase 5's decode steps a span dispatch
-# the serving depth of phases 4-6: yi-6b at full width, 16 of its 32
-# layers, so that the script with phases 12 and 13 ends well inside its
-# 1200 s (every count and bound below follows cfg.num_layers)
-SERVE_LAYERS = 16
+# the serving depth of phases 4-6 and 15: yi-6b at full width, 8 of its
+# 32 layers, so that the script with phases 12, 13 and 16 ends near 600
+# s, half its 1200 s (every count and bound below follows
+# cfg.num_layers)
+SERVE_LAYERS = 8
 
 
 def fail(msg: str) -> None:
@@ -2868,7 +2892,7 @@ def phase_tp(cfg, params) -> dict:
     sampled (temperature 0.8, top-k 20, seeds 600+i), both without spec
     decode, so decode spans run too.  Each stream's first parting from
     tp=1's is printed with tp=1's margin there, not held: the random
-    16-layer stack is chaotic (a one-rounding difference of one layer's
+    deep stack is chaotic (a one-rounding difference of one layer's
     column-split products, which cuBLAS forms with other kernels at
     other N, grows to O(1) logits: `_tp_one_layer`'s readings), as
     between other unit shapes (ROADMAP, queue C's "not faults").  Held:
@@ -4176,6 +4200,10 @@ FLASH_CASES = [
     # against them
     ("whisper-enc", "bfloat16", 8, 1500, 1500, 12, 12, 64, False, 0, 0),
     ("whisper-cross", "bfloat16", 8, 448, 1500, 12, 12, 64, False, 0, 0),
+    # phase 16's shards of yi-6b under fsdp_tp on a (2, 4) mesh: one row
+    # a data position, 8 of the 32 heads over 1 of the 4 kv heads (G=8)
+    ("yi-6b-fsdp-tp-shard", "bfloat16", 1, 4096, 4096, 8, 1, 128, True, 0,
+     0),
 ]
 # B9 against its plain version: float32 o within 1e-4 (the reference's
 # kernel tests); bf16 o within one bf16 step of max |o| (2**-7 * max|o|);
@@ -4539,12 +4567,7 @@ def phase_trainer(cfg, steps: int = 4, B: int = 2, S: int = 4096,
           f"{launches['flash_attention']} ({launches['flash_attention'] / steps:g}"
           f" per step), by body {bodies}", flush=True)
     by_name = _device_ms_by_kernel(prof, 1)
-    dev = sum(by_name.values())
-    groups = {g: 0.0 for g in TRAIN_KERNEL_GROUPS}
-    for n, ms in by_name.items():
-        g = next((g for g, keys in TRAIN_KERNEL_GROUPS.items()
-                  if any(key in n for key in keys)), "other")
-        groups[g] = groups.get(g, 0.0) + ms
+    dev, groups = _train_profile_split(prof)
     split = "; ".join(f"{g} {ms:.1f}" for g, ms in groups.items())
     top = "; ".join(f"{n[:60]} {ms:.2f}" for n, ms in
                     by_name.most_common(8))
@@ -6484,6 +6507,312 @@ def phase_encdec() -> dict:
             "decode": dec, "train": train}
 
 
+# ----------------------------------------------------------------------
+# 16. the sharded training step on a (data, model) mesh
+# ----------------------------------------------------------------------
+
+SHARDED_MESH = (2, 4)                  # ("data", "model"), spread over the card
+SHARDED_PLAN = "fsdp_tp"
+SHARDED_TRAIN = (2, 4096)              # B, S of (a) and (b)
+SHARDED_LAYERS = 4                     # (b)'s depth: ~19.5 GB of state a run
+SHARDED_STEPS = 3
+SHARDED_PLANS = ("dp", "fsdp", "tp", "fsdp_tp", "fsdp_tp_spact")
+SHARDED_SMALL = ("yi-6b", "internvl2-1b")
+SHARDED_SMALL_BATCH = (4, 32)
+# (a)'s bars: the reference's own sharded-vs-one-device loss bar, and
+# tests/test_torch_train.py's bf16 gradient rule (5% of each leaf's norm)
+SHARDED_LOSS_ABS = 7e-3
+SHARDED_GRAD_REL = 0.05
+# (c)'s bars: test_trainer_matches_reference_trainer's bf16 bars
+SHARDED_FIRST_ABS, SHARDED_ALL_ABS = 2e-3, 1e-2
+
+
+def _sharded_setup():
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.plans import get_plan
+    return make_host_mesh(SHARDED_MESH, spread=DEVICE), get_plan(SHARDED_PLAN)
+
+
+def _shard_flash_shape(cfg, B: int, S: int) -> tuple:
+    """B9's shape a position on the mesh: [B/data, S, H/model, hd] over
+    KH/model kv heads, on its bf16 body."""
+    from repro_torch.kernels import flash_attention as kfa
+    import torch
+    data, model = SHARDED_MESH
+    return (B // data, S, S, cfg.num_heads // model,
+            cfg.num_kv_heads // model, cfg.head_dim,
+            kfa.body(torch.bfloat16, cfg.head_dim))
+
+
+def phase_sharded_layer() -> dict:
+    """16(a): full-width yi-6b cut to 1 layer (remat dots, float32
+    parameters, bf16 activations), B=2 x 4096: the fsdp_tp step's loss
+    and gradients on the (2, 4) mesh against the one-device step's, on
+    the same weights and batch; every B9 call of the sharded step held
+    to its plain version, its launches (8 positions x forward + remat
+    recompute) and the shapes the wrapper saw checked."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import api, convert
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.runtime.trainer import value_and_grad
+    t0 = time.perf_counter()
+    cfg = _train_config(get_config("yi-6b"), 1)
+    B, S = SHARDED_TRAIN
+    params = api.init(cfg, 0, device=DEVICE, dtype=torch.float32)
+    batch = {k: v.to(DEVICE) for k, v in next(
+        SyntheticLMData(cfg.vocab_size, B, S).batches(0)).items()}
+    mesh, plan = _sharded_setup()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss1, grads1 = value_and_grad(cfg, params, batch)
+    norm1 = global_norm(grads1).item()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t1
+    sharded = convert.shard_params(params, cfg, mesh,
+                                   rules=plan.param_rules)
+    del params
+    _free_card()
+    kfa.reset_launch_counts()
+    with _CheckedFlash() as chk:
+        t1 = time.perf_counter()
+        loss, grads = value_and_grad(cfg, sharded, batch, mesh=mesh,
+                                     plan=plan)
+        norm = global_norm(grads).item()
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t1
+    launches = kfa.launch_counts()["flash_attention"]
+    bodies = kfa.body_launches()
+    shapes = kfa.shape_launches()
+    worst, worst_key = 0.0, ""
+    from repro_torch.core.tree import items_with_path
+    want = dict(items_with_path(grads1))
+    for key, g in items_with_path(convert.gather_params(grads)):
+        a = want[key]
+        rel = (torch.linalg.norm(g - a) / torch.linalg.norm(a)).item()
+        if not math.isfinite(rel) or rel > worst:
+            worst, worst_key = rel, key
+    dloss = abs(loss.item() - loss1.item())
+    shape = _shard_flash_shape(cfg, B, S)
+    want_launches = 2 * cfg.num_layers * mesh.size
+    print(f"[sharded] (a) yi-6b full width 1 layer, B={B} S={S}, remat "
+          f"{cfg.remat}, {SHARDED_PLAN} on {SHARDED_MESH} spread over the "
+          f"card: loss {loss.item():.5f} (one device {loss1.item():.5f}, "
+          f"|diff| {dloss:.2e}, limit {SHARDED_LOSS_ABS:.0e}); grad_norm "
+          f"{norm:.4f} (one device {norm1:.4f}); worst gradient leaf "
+          f"{worst_key} at {worst:.3e} of its norm (limit "
+          f"{SHARDED_GRAD_REL}); value_and_grad {sharded_s * 1e3:.1f} ms "
+          f"sharded (first call), {one_s * 1e3:.1f} ms one device (first "
+          f"call); B9 launches {launches} (want {want_launches}), by shape "
+          f"{shapes}, each held to plain: max |kernel - plain| / max |o| = "
+          f"{chk.worst:.3e}, lse {chk.lse:.3e}; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not (math.isfinite(loss.item()) and math.isfinite(norm)):
+        fail("the sharded step gave a non-finite loss or gradient norm")
+    if dloss > SHARDED_LOSS_ABS:
+        fail(f"the sharded loss is {dloss} from the one-device loss")
+    if not worst <= SHARDED_GRAD_REL:
+        fail(f"sharded gradient {worst_key} is {worst} of its norm from "
+             "the one-device gradient")
+    if launches != want_launches or shapes != {shape: want_launches}:
+        fail(f"B9 ran {launches} times at {shapes}, not {want_launches} "
+             f"at the shards' shape {shape}")
+    if chk.worst > FLASH_BF16_STEP or chk.lse > FLASH_F32_LIMIT:
+        fail(f"a B9 call of the sharded step differs from its plain "
+             f"version: o {chk.worst:.3e} of max |o|, lse {chk.lse:.3e}")
+    del sharded, grads, grads1
+    _free_card()
+    return {"launches": launches, "bodies": bodies,
+            "shapes": {str(k): v for k, v in shapes.items()}}
+
+
+def _train_profile_split(prof) -> tuple:
+    """(device ms, device ms by TRAIN_KERNEL_GROUPS kind) of one
+    profiled training step."""
+    by_name = _device_ms_by_kernel(prof, 1)
+    groups = {g: 0.0 for g in TRAIN_KERNEL_GROUPS}
+    for n, ms in by_name.items():
+        g = next((g for g, keys in TRAIN_KERNEL_GROUPS.items()
+                  if any(key in n for key in keys)), "other")
+        groups[g] = groups.get(g, 0.0) + ms
+    return sum(by_name.values()), groups
+
+
+def _sharded_trainer_run(cfg, mesh, plan, steps: int,
+                         profile: bool = False) -> dict:
+    """`steps` of Trainer.run from the seed-0 start (fresh batches, no
+    checkpoints), sharded when `mesh` is given; B9's count set to 0
+    just before and read just after.  With `profile`, one more step
+    under torch.profiler: its wall ms, device ms and device ms by
+    kind."""
+    import tempfile
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.runtime.trainer import Trainer
+    B, S = SHARDED_TRAIN
+    with tempfile.TemporaryDirectory() as td:
+        tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                           total_steps=100, ckpt_every=10 ** 6, ckpt_dir=td)
+        kw = (dict(mesh=mesh, plan=plan) if mesh is not None
+              else dict(device=DEVICE))
+        tr = Trainer(cfg, tcfg, data=SyntheticLMData(cfg.vocab_size, B, S),
+                     **kw)
+        tr.init()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kfa.reset_launch_counts()
+        hist = list(tr.run(steps))
+        torch.cuda.synchronize()
+        out = {"losses": [m.loss for m in hist],
+               "step_ms": [m.step_time_s * 1e3 for m in hist],
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "flash": kfa.launch_counts()["flash_attention"],
+               "bodies": kfa.body_launches(),
+               "shapes": kfa.shape_launches()}
+        if profile:
+            t0 = time.perf_counter()
+            with _device_profile() as prof:
+                tr.run(1)
+                torch.cuda.synchronize()
+            out["profile"] = ((time.perf_counter() - t0) * 1e3,
+                              *_train_profile_split(prof))
+        del tr
+    _free_card()
+    steady = out["step_ms"][1:] or out["step_ms"]
+    out["steady_ms"] = sum(steady) / len(steady)
+    out["tokens_s"] = B * S / (out["steady_ms"] / 1e3)
+    return out
+
+
+def phase_sharded_trainer() -> dict:
+    """16(b): full-width yi-6b cut to 4 layers (remat dots, B=2 x 4096):
+    Trainer(mesh=, plan=fsdp_tp) for 3 steps, twice from the same start
+    (the two loss streams equal bit for bit), then the one-device
+    Trainer for 3 steps from the same start, each freed before the
+    next.  Held: finite losses, the last below the first, B9 launched
+    8 positions x 2 a layer a step at the shards' shape.  Printed, a
+    record: step ms, tokens/s, peak memory, B9 launches beside the
+    one-device run's, and both loss streams."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    cfg = _train_config(get_config("yi-6b"), SHARDED_LAYERS)
+    mesh, plan = _sharded_setup()
+    runs = [_sharded_trainer_run(cfg, mesh, plan, SHARDED_STEPS,
+                                 profile=not i) for i in range(2)]
+    one = _sharded_trainer_run(cfg, None, None, SHARDED_STEPS, profile=True)
+    a, b = runs
+    B, S = SHARDED_TRAIN
+    for tag, r in (("sharded", a), ("sharded again", b), ("one device", one)):
+        print(f"[sharded] (b) yi-6b full width {cfg.num_layers} layers "
+              f"{tag}: losses {r['losses']}, step_ms "
+              f"{[round(x, 1) for x in r['step_ms']]}, steady step_ms "
+              f"{r['steady_ms']:.1f}, tokens/s {r['tokens_s']:.1f}, peak "
+              f"memory {r['peak_gb']:.2f} GB, B9 launches {r['flash']} by "
+              f"body {r['bodies']}", flush=True)
+    for tag, r in (("sharded", a), ("one device", one)):
+        wall, dev, groups = r["profile"]
+        split = "; ".join(f"{g} {ms:.1f}" for g, ms in groups.items())
+        print(f"[profile] (b) one {tag} Trainer.run step under the "
+              f"profiler: wall {wall:.1f} ms; "
+              + (f"device {dev:.1f} ms ({dev / wall:.0%} of the wall); "
+                 f"device ms by kind: {split}" if dev else
+                 "device time not measured (the profiler saw no kernel)"),
+              flush=True)
+    print(f"[sharded] (b) phase in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    want = 2 * cfg.num_layers * mesh.size * SHARDED_STEPS
+    shape = _shard_flash_shape(cfg, B, S)
+    for r in (a, b):
+        if not all(math.isfinite(x) for x in r["losses"]):
+            fail(f"the sharded Trainer gave non-finite losses {r['losses']}")
+        if not r["losses"][-1] < r["losses"][0]:
+            fail(f"the sharded Trainer's losses did not fall: {r['losses']}")
+        if r["flash"] != want or r["shapes"] != {shape: want}:
+            fail(f"the sharded Trainer ran B9 {r['flash']} times at "
+                 f"{r['shapes']}, not {want} at {shape}")
+    if a["losses"] != b["losses"]:
+        fail(f"two sharded runs from one start differ: {a['losses']} vs "
+             f"{b['losses']}")
+    return {"launches": a["flash"] + b["flash"],
+            "bodies": {k: a["bodies"][k] + b["bodies"][k]
+                       for k in a["bodies"]},
+            "sharded": a, "one_device": one}
+
+
+def phase_sharded_small() -> None:
+    """16(c): reduced yi-6b and reduced internvl2-1b (prefix_embeds, 4 q
+    heads over 2 kv heads: replicated over `model`), every plan on the
+    (2, 4) card mesh for 3 Trainer steps against the same run on a
+    (2, 4) mesh spread over the CPU from the same start:
+    test_trainer_matches_reference_trainer's bf16 bars."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.runtime.trainer import Trainer
+    from repro_torch.sharding.plans import get_plan
+    t0 = time.perf_counter()
+    B, S = SHARDED_SMALL_BATCH
+    worst = 0.0
+    for arch in SHARDED_SMALL:
+        cfg = reduced_config(arch)
+        extra = ({"prefix_embeds": ((cfg.num_prefix_tokens, cfg.d_model),
+                                    np.float32)}
+                 if cfg.family == "vlm" else None)
+        start = api.init(cfg, 0, device="cpu")
+        for name in SHARDED_PLANS:
+            losses = {}
+            for dev in (DEVICE, "cpu"):
+                with tempfile.TemporaryDirectory() as td:
+                    tcfg = TrainConfig(total_steps=50, warmup_steps=2,
+                                       ckpt_every=100, ckpt_dir=td,
+                                       learning_rate=1e-3)
+                    tr = Trainer(cfg, tcfg,
+                                 data=SyntheticLMData(cfg.vocab_size, B, S,
+                                                      extra=extra),
+                                 mesh=make_host_mesh(SHARDED_MESH,
+                                                     spread=dev),
+                                 plan=get_plan(name))
+                    tr.set_params(_tree_to(start, torch.device(dev)))
+                    losses[dev] = [m.loss for m in tr.run(SHARDED_STEPS)]
+            card, cpu = losses[DEVICE], losses["cpu"]
+            d0 = abs(card[0] - cpu[0])
+            dall = max(abs(x - y) for x, y in zip(card, cpu))
+            worst = max(worst, dall)
+            print(f"[sharded] (c) reduced {arch} {name}: card {card} vs CPU "
+                  f"{cpu}: first |diff| {d0:.2e} (limit "
+                  f"{SHARDED_FIRST_ABS:.0e}), all {dall:.2e} (limit "
+                  f"{SHARDED_ALL_ABS:.0e})", flush=True)
+            if not (d0 <= SHARDED_FIRST_ABS and dall <= SHARDED_ALL_ABS):
+                fail(f"reduced {arch} under {name}: the card's sharded run "
+                     f"parts from the CPU's: {card} vs {cpu}")
+    print(f"[sharded] (c) phase in {time.perf_counter() - t0:.1f} s; worst "
+          f"|card - CPU| loss {worst:.2e}", flush=True)
+
+
+def phase_sharded() -> dict:
+    """Phase 16, all of it.  Returns B9's launches on its main paths
+    ((a)'s checked step and (b)'s sharded Trainer runs) and by body."""
+    t0 = time.perf_counter()
+    a = phase_sharded_layer()
+    b = phase_sharded_trainer()
+    phase_sharded_small()
+    print(f"[sharded] phase 16 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"flash": a["launches"] + b["launches"],
+            "flash_bodies": {k: v + a["bodies"][k]
+                             for k, v in b["bodies"].items()},
+            "shapes": a["shapes"], "trainer": b}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     device = phase_card()
@@ -6542,6 +6871,7 @@ def main() -> None:
     mm_results, mm_launches, mm_bodies = phase_matmul()
     dd_results, dd_launches, dd_bodies = phase_dpx_dsm()
     flash_results, flash_launches, flash_bodies = phase_training()
+    sharded = phase_sharded()
     mem_results, mem_launches, te_flash, te_bodies = phase_memory_te()
     fam = phase_families()
     ssm = phase_ssm_families()
@@ -6667,7 +6997,8 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
         "launches": (flash_launches["flash_attention"] + te_flash
-                     + fam["flash"] + ssm["flash"] + ed["flash"]),
+                     + fam["flash"] + ssm["flash"] + ed["flash"]
+                     + sharded["flash"]),
         "launches_by_path": {"trainer": flash_launches["flash_attention"],
                              "te_layer": te_flash,
                              "families_trainer": fam["flash"],
@@ -6678,19 +7009,23 @@ def main() -> None:
                              "encdec_prefill":
                                  ed["flash_by_path"]["prefill"],
                              "encdec_trainer":
-                                 ed["flash_by_path"]["trainer"]},
+                                 ed["flash_by_path"]["trainer"],
+                             "sharded_train": sharded["flash"]},
         "launches_by_body": {b: n + te_bodies.get(b, 0)
                              + fam["flash_bodies"].get(b, 0)
                              + ssm["flash_bodies"].get(b, 0)
                              + ed["flash_bodies"].get(b, 0)
+                             + sharded["flash_bodies"].get(b, 0)
                              for b, n in flash_bodies.items()},
+        "sharded_train_shapes": sharded["shapes"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "zamba2_shared_block": ssm["flash_hd80"],
         **{case.replace("-", "_"): {k: flash_results[case][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")} for case in ("whisper-enc", "whisper-cross")}})
+            "library_ms")} for case in ("whisper-enc", "whisper-cross",
+                                        "yi-6b-fsdp-tp-shard")}})
     # not TPU kernels: what each measures on the card, the reference
     # times on the host
     for name, case, replaces in (

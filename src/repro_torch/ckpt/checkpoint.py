@@ -7,6 +7,13 @@ spelled as the reference's (core/tree.py).  The manifest is written
 previous step restorable.  Saves run on a background thread
 (`async_save=True`), copying to host first so the training loop only
 blocks for the device->host copy.
+
+Checkpoints are sharding-agnostic: a tree of ``Sharded`` leaves (a
+sharded training state, sharding/axes.py) is saved as the whole host
+arrays under the unsharded keys, its blocks put together in mesh
+order, and a restore lays each array over the `tree_like` leaf's mesh
+and spec (or onto its device), so a state saved on one mesh restores
+onto another mesh or onto one device.
 """
 
 from __future__ import annotations
@@ -22,14 +29,20 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import items_with_path, tree_map_with_path
+from repro_torch.sharding.axes import Sharded
 
 Params = Any
 
 
+def _is_sharded(x) -> bool:
+    return isinstance(x, Sharded)
+
+
 def _flatten(tree: Params) -> Dict[str, np.ndarray]:
     out = {}
-    for key, leaf in items_with_path(tree):
-        t = leaf.detach().cpu()
+    for key, leaf in items_with_path(tree, is_leaf=_is_sharded):
+        t = (leaf.full(torch.device("cpu")) if _is_sharded(leaf)
+             else leaf).detach().cpu()
         if t.dtype in (torch.bfloat16, torch.float16) or \
                 "float8" in str(t.dtype):
             # npz has no bf16/fp8: upcast losslessly; restore casts back
@@ -41,10 +54,16 @@ def _flatten(tree: Params) -> Dict[str, np.ndarray]:
 
 def _unflatten(tree_like: Params, arrays: Dict[str, np.ndarray]) -> Params:
     def restore(key, leaf):
-        return torch.from_numpy(np.array(arrays[key])).to(
-            device=leaf.device, dtype=leaf.dtype)
+        t = torch.from_numpy(np.array(arrays[key]))
+        if _is_sharded(leaf):
+            if tuple(t.shape) != leaf.shape:
+                raise ValueError(f"{key}: checkpoint shape "
+                                 f"{tuple(t.shape)} is not {leaf.shape}")
+            return Sharded.from_full(t.to(leaf.dtype), leaf.spec, leaf.mesh)
+        return t.to(device=leaf.device, dtype=leaf.dtype)
 
-    return tree_map_with_path(restore, tree_like)
+    with torch.no_grad():
+        return tree_map_with_path(restore, tree_like, is_leaf=_is_sharded)
 
 
 class Checkpointer:

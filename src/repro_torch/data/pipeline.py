@@ -4,8 +4,9 @@ PyTorch counterpart of ``repro/data/pipeline.py``.  Batches are
 generated per (seed, step) with numpy, bit for bit the reference's
 (cheap, reproducible across restarts: checkpoint/resume replays the
 exact stream), and come as host tensors: the trainer moves them to
-its device.  The reference's host sharding over a device mesh is not
-ported (one device).
+its device.  Over a mesh the sharded step splits each batch's rows
+itself (sharding/plans.batch_placement); the reference's per-host
+shards of a multi-host pipeline are not ported (one host).
 """
 
 from __future__ import annotations

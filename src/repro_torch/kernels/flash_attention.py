@@ -24,8 +24,9 @@ head_dim, never a fallback):
 
 For CUDA tensors ``flash_attention_fwd`` checks its operands, allocates
 the outputs, launches the kernel on the current stream, raises if the
-launch failed, and adds one to the launch count (``launch_counts``) and
-to its body's (``body_launches``).  For CPU tensors it computes the plain
+launch failed, and adds one to the launch count (``launch_counts``),
+to its body's (``body_launches``) and to its shape's
+(``shape_launches``).  For CPU tensors it computes the plain
 version (``flash_attention_fwd_plain``: the blockwise online-softmax
 forward of models/attention.py, in the reference's block and pair
 order); it never falls back from CUDA to the plain
@@ -56,6 +57,8 @@ BODIES = ("wgmma", "mma_sync", "fma")  # the source's body codes
 # `flash_attention_fwd`
 _LAUNCHES = {"flash_attention": 0}
 _BODY_LAUNCHES = dict.fromkeys(BODIES, 0)
+# launches by (B, Sq, Sk, H, KH, hd, body): the shapes the kernel saw
+_SHAPE_LAUNCHES: dict = {}
 
 
 def body(dtype: torch.dtype, hd: int) -> str:
@@ -145,6 +148,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  int(n_pad_keys), float(hd ** -0.5))
     _LAUNCHES["flash_attention"] += 1
     _BODY_LAUNCHES[body(q.dtype, hd)] += 1
+    key = (B, Sq, Sk, H, KH, hd, body(q.dtype, hd))
+    _SHAPE_LAUNCHES[key] = _SHAPE_LAUNCHES.get(key, 0) + 1
     return out, lse
 
 
@@ -160,6 +165,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def reset_launch_counts() -> None:
     _LAUNCHES["flash_attention"] = 0
     _BODY_LAUNCHES.update(dict.fromkeys(BODIES, 0))
+    _SHAPE_LAUNCHES.clear()
 
 
 def launch_counts() -> dict:
@@ -169,3 +175,8 @@ def launch_counts() -> dict:
 def body_launches() -> dict:
     """Launches by body since the last reset."""
     return dict(_BODY_LAUNCHES)
+
+
+def shape_launches() -> dict:
+    """Launches by (B, Sq, Sk, H, KH, hd, body) since the last reset."""
+    return dict(_SHAPE_LAUNCHES)

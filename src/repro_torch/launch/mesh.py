@@ -8,7 +8,7 @@ module touches no device.
 
 Spreading: the reference's CPU tests fan one host out into several
 devices (``XLA_FLAGS=--xla_force_host_platform_device_count=N``).  The
-port's counterpart is explicit: ``spread=<device>`` lays all ``tp``
+port's counterpart is explicit: ``spread=<device>`` lays all the
 positions of a mesh on that one device (each position still holds its
 own shards and pools), and an explicit ``devices=`` list may repeat a
 device.  Nothing spreads a device unless asked, and nothing falls back
@@ -79,13 +79,34 @@ def make_tp_mesh(tp: int, axis: str = "tp", *,
 
 
 def make_host_mesh(shape: Tuple[int, ...] = None,
-                   axes: Tuple[str, ...] = ("data", "model"), *,
-                   devices: Optional[Sequence] = None) -> Mesh:
-    """Small mesh from whatever devices exist (tests/examples): the
-    visible CUDA devices, else the CPU as one device, or the given
-    `devices`.  The default shape puts 4, 2 or 1 of them on `model`."""
-    devs = ([torch.device(d) for d in devices] if devices is not None
-            else _visible_cuda() or [torch.device("cpu")])
+                   axes: Optional[Tuple[str, ...]] = None, *,
+                   devices: Optional[Sequence] = None,
+                   spread=None) -> Mesh:
+    """An n-D mesh (tests, examples, the sharded training step):
+    ``("data", "model")`` by default, ``("pod", "data", "model")`` for a
+    3-D shape.
+
+    By default the visible CUDA devices, one a position; it raises when
+    fewer are visible than the shape needs (never falls back to the
+    CPU).  ``spread=<device>`` lays every position on that one device
+    (``"cuda"``, or ``"cpu"`` for the tests), as ``make_tp_mesh``'s; an
+    explicit ``devices`` list (repeats allowed) is used in order.
+    Without a shape, the mesh takes every device given and puts 4, 2 or
+    1 of them on `model`."""
+    if devices is not None and spread is not None:
+        raise ValueError("pass devices= or spread=, not both")
+    if spread is not None:
+        if shape is None:
+            raise ValueError("spread= needs the mesh shape")
+        dev = torch.device(spread)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"spread over {dev} requested but CUDA is "
+                               "not available")
+        devs = [dev] * int(np.prod(shape))
+    elif devices is not None:
+        devs = [torch.device(d) for d in devices]
+    else:
+        devs = _visible_cuda()
     n = len(devs)
     if shape is None:
         model = 1
@@ -93,10 +114,17 @@ def make_host_mesh(shape: Tuple[int, ...] = None,
             if n % m == 0:
                 model = m
                 break
-        shape = (n // model, model)
+        shape = (n // model, model) if n else (0, 1)
+    if axes is None:
+        axes = ("pod", "data", "model")[-len(shape):]
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
     size = int(np.prod(shape))
-    if size > n:
-        raise ValueError(f"mesh {shape} needs {size} devices, {n} given")
+    if size > n or size == 0:
+        raise ValueError(
+            f"mesh {shape} needs {size} devices, {n} given or visible; pass "
+            f"spread='cuda' (or spread='cpu') to lay its positions on one "
+            f"device")
     grid = np.empty(size, dtype=object)
     grid[:] = devs[:size]
     return Mesh(grid.reshape(shape), axes)

@@ -4,7 +4,10 @@ PyTorch counterpart of ``repro/launch/train.py``.
 `make_train_step(cfg, opt, n_micro=...)` accumulates gradients over
 `n_micro` slices of the global batch (live activations at 1/n_micro),
 in `acc_dtype` accumulators (float32 by default), then takes one AdamW
-step.
+step.  With ``mesh=`` and ``plan=`` the step runs sharded
+(runtime/trainer.py): the accumulators are laid like the parameters,
+and microbatch k takes the k-th slice of every data group's rows, so
+each position keeps its own rows.
 
 CLI: PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --steps 20
 (reduced config unless --full; on the CUDA device unless --device).
@@ -27,6 +30,7 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.tree import leaves, tree_map
 from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime.trainer import value_and_grad
+from repro_torch.sharding.plans import batch_placement
 
 Params = Any
 
@@ -44,32 +48,57 @@ def estimate_microbatches(cfg: ModelConfig, tokens_dev: float,
     return n
 
 
+def _micro_rows(B: int, n_micro: int, mesh, plan) -> List[torch.Tensor]:
+    """The batch rows of each microbatch: contiguous slices of B on one
+    device; over a mesh, the k-th slice of every data group's rows, the
+    groups in order (so the microbatch's own groups are those slices)."""
+    if B % n_micro:
+        raise ValueError(f"batch {B} does not split into {n_micro} "
+                         "microbatches")
+    groups = ([(0, B)] if mesh is None
+              else list(batch_placement(plan, B, mesh).rows))
+    out = []
+    for mb in range(n_micro):
+        idx = []
+        for lo, hi in groups:
+            n = hi - lo
+            if n % n_micro:
+                raise ValueError(f"a data group's {n} rows do not split "
+                                 f"into {n_micro} microbatches")
+            k = n // n_micro
+            idx.extend(range(lo + mb * k, lo + (mb + 1) * k))
+        out.append(torch.tensor(idx, dtype=torch.long))
+    return out
+
+
 def make_train_step(cfg: ModelConfig, opt: AdamW, *, n_micro: int = 1,
-                    acc_dtype: Optional[torch.dtype] = None) -> Callable:
+                    acc_dtype: Optional[torch.dtype] = None, mesh=None,
+                    plan=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
-    batch leaves are [B, ...]; B must divide by n_micro.  Gradients are
-    averaged over microbatches, each microbatch's gradient divided by
-    n_micro and cast to `acc_dtype` before it is added.
+    batch leaves are [B, ...]; B must divide by n_micro (over a mesh,
+    every data group's rows must).  Gradients are averaged over
+    microbatches, each microbatch's gradient divided by n_micro and cast
+    to `acc_dtype` before it is added.
     """
     acc_dtype = acc_dtype or torch.float32
+    sharded = dict(mesh=mesh, plan=plan)
 
     def train_step(params, opt_state, batch):
         if n_micro == 1:
-            loss, grads = value_and_grad(cfg, params, batch)
+            loss, grads = value_and_grad(cfg, params, batch, **sharded)
         else:
             B = next(iter(batch.values())).shape[0]
-            if B % n_micro:
-                raise ValueError(f"batch {B} does not split into "
-                                 f"{n_micro} microbatches")
+            micro = _micro_rows(B, n_micro, mesh, plan)
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
                                                    device=p.device), params)
             loss = torch.zeros((), dtype=torch.float32,
                                device=leaves(params)[0].device)
-            for mb in range(n_micro):
-                rows = slice(mb * B // n_micro, (mb + 1) * B // n_micro)
-                l, g = value_and_grad(cfg, params,
-                                      {k: v[rows] for k, v in batch.items()})
+            for rows in micro:
+                l, g = value_and_grad(
+                    cfg, params,
+                    {k: v[rows.to(v.device)] for k, v in batch.items()},
+                    **sharded)
                 grads = tree_map(lambda a, gi: a + (gi / n_micro).to(a.dtype),
                                  grads, g)
                 loss = loss + l / n_micro

@@ -7,7 +7,9 @@ transformer families (dense, moe, vlm), ssm (models/ssm_lm.py), hybrid
     param_shapes / init / pspecs            parameters (pspecs: their
                                             PartitionSpecs under a
                                             plan's rules)
-    loss_fn                                 training objective
+    loss_fn                                 training objective (one
+                                            device, or sharded over a
+                                            mesh under a plan)
     init_cache / prefill / decode_step      serving: the transformer
                                             families over a paged pool
                                             (bf16 or fp8 KV) or, with
@@ -102,12 +104,22 @@ def _model(cfg: ModelConfig):
 
 
 def loss_fn(cfg: ModelConfig, params: Params,
-            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+            batch: Dict[str, torch.Tensor], *, mesh=None,
+            plan=None) -> torch.Tensor:
     """Causal-LM loss: cross-entropy (plus ``aux_loss_weight`` times the
     moe layers' aux loss); a vlm batch may carry ``prefix_embeds``, an
     encdec batch carries ``frames`` (the decoder's tokens against the
-    encoded frames)."""
+    encoded frames).  With ``mesh`` and ``plan`` (a training plan of
+    sharding/plans.py) `params` is a tree of ``Sharded`` leaves
+    (convert.shard_params(..., rules=plan.param_rules)) and the loss runs
+    sharded (transformer.sharded_loss_fn); dense and vlm only: the
+    other families raise NotImplementedError."""
     check_family(cfg)
+    if (mesh is None) != (plan is None):
+        raise ValueError("pass mesh= and plan= together")
+    if mesh is not None:
+        transformer.check_sharded_family(cfg)
+        return transformer.sharded_loss_fn(cfg, params, batch, mesh, plan)
     return _model(cfg).loss_fn(cfg, params, batch)
 
 

@@ -24,6 +24,9 @@ the log-sum-exp rows); on the CPU it is the plain port of the
 reference's ``_attn_fwd`` in the reference's block and pair order.  Its
 backward is the port of the reference's hand-written blockwise
 backward ``_flash_bwd_rule`` in torch ops, on either device.
+``shard_attention`` is one model position's attention in the sharded
+training step: its q heads (and the kv heads they read), RoPE, and
+``flash_attention`` at those heads alone.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamSpec, fixed_tree_sum
+from repro_torch.models.common import ParamSpec, apply_rope, fixed_tree_sum
 from repro_torch.te import fp8 as te_fp8
 from repro_torch.te import linear as te_linear
 
@@ -94,6 +97,58 @@ def qkv_project_fp8(cfg, p, q8, x: torch.Tensor
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
     return q, k, v
+
+
+def _kv_slice(H: int, KH: int, lo: int, hi: int) -> Tuple[int, int, bool]:
+    """The kv heads that q heads [lo, hi) read under GQA (q head h reads
+    kv head h // (H / KH)): (first, stop, contiguous), where contiguous
+    means the q heads read the kv heads [first, stop) as whole groups
+    of theirs (or all of them read one kv head), so the slice attends
+    as a GQA block of its own; otherwise each q head is paired with its
+    kv head one by one."""
+    G = H // KH
+    first, stop = lo // G, (hi - 1) // G + 1
+    n = hi - lo
+    ok = (lo % G == 0 and n % G == 0) or stop - first == 1
+    return first, stop, ok
+
+
+def shard_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
+                    q_heads: Tuple[int, int]) -> torch.Tensor:
+    """One model position's attention in the sharded training forward.
+
+    x [B,S,d] is the whole (normed) layer input; `p` holds the
+    position's q heads [lo, hi) = `q_heads` of wq (and bq) and either
+    its own kv heads of wk / wv (kv heads split with the q heads) or all
+    KH of them (the kv heads replicated over `model`: reduced
+    internvl2-1b's 2 kv heads over 4 positions), of which it projects
+    only those its q heads read.  q and k take RoPE; B9 (`flash_attention`:
+    the CUDA kernel on the card) attends the position's heads alone.
+    Returns [B,S,hi-lo,hd]."""
+    lo, hi = q_heads
+    H, KH = cfg.num_heads, cfg.num_kv_heads
+    q = _proj(x, p["wq"])
+    if cfg.use_bias:
+        q = q + p["bq"].to(x.dtype)
+    wk, wv = p["wk"], p["wv"]
+    bk, bv = p.get("bk"), p.get("bv")
+    pair = None
+    if wk.shape[1] == KH and hi - lo < H:          # kv heads replicated
+        first, stop, ok = _kv_slice(H, KH, lo, hi)
+        wk, wv = wk[:, first:stop], wv[:, first:stop]
+        if cfg.use_bias:
+            bk, bv = bk[first:stop], bv[first:stop]
+        if not ok:
+            pair = torch.arange(lo, hi, device=x.device) // (H // KH) - first
+    k, v = _proj(x, wk), _proj(x, wv)
+    if cfg.use_bias:
+        k = k + bk.to(x.dtype)
+        v = v + bv.to(x.dtype)
+    if pair is not None:                           # one kv head a q head
+        k, v = k[:, :, pair], v[:, :, pair]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
 
 
 def out_project_fp8(p, q8, o: torch.Tensor) -> torch.Tensor:

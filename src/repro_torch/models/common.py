@@ -165,11 +165,13 @@ def replicate(t: torch.Tensor, devices) -> Dict[torch.device, torch.Tensor]:
 
 def xshard_sum(parts, devices, *, tag: str
                ) -> Dict[torch.device, torch.Tensor]:
-    """The cross-shard reduction of tensor-parallel serving: every
-    shard's float32 partials ([g_r, ...], in shard order) gathered on
-    each of `devices` into one [sum g_r, ...] tensor and summed there
-    by `fixed_tree_sum` (tagged `tag`): the same sums, in the same
-    order, as one device's grouped reduction over all the groups."""
+    """The cross-shard reduction of tensor parallelism: every shard's
+    float32 partials ([g_r, ...], in shard order) gathered on each of
+    `devices` into one [sum g_r, ...] tensor and summed there by
+    `fixed_tree_sum` (tagged `tag`): the same sums, in the same order,
+    as one device's grouped reduction over all the groups.  Every op is
+    differentiable, so the sharded training step runs it under autograd
+    (the backward hands each shard the gradient of its partials)."""
     out = {}
     for d in devices:
         gathered = torch.cat([p if p.device == d else p.to(d) for p in parts])
@@ -304,3 +306,63 @@ def chunked_softmax_xent(x: torch.Tensor, w_out: torch.Tensor,
                                mask[rows], use_reentrant=False)
         m = m + torch.sum(mask[rows])
     return nll / torch.clamp(m, min=1.0)
+
+
+def _vocab_shard_nll(hs, ws, labels, offsets, device,
+                     mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token-loss sum of one row block over vocab shards (see
+    `vocab_parallel_xent_sum`)."""
+    ms, ss, gold = [], [], None
+    for h, w, lab, off in zip(hs, ws, labels, offsets):
+        logits = (h @ w.to(h.dtype)).float()
+        m = logits.amax(dim=-1).detach()
+        s = torch.exp(logits - m[..., None]).sum(dim=-1)
+        local = lab.long() - off
+        mine = (local >= 0) & (local < w.shape[-1])
+        g = torch.gather(logits, -1,
+                         local.clamp(0, w.shape[-1] - 1)[..., None])[..., 0]
+        ms.append(m.to(device))
+        ss.append(s.to(device))
+        g, mine = g.to(device), mine.to(device)
+        gold = torch.where(mine, g, 0.0 if gold is None else gold)
+    top = ms[0]
+    for m in ms[1:]:
+        top = torch.maximum(top, m)
+    total = None
+    for m, s in zip(ms, ss):
+        t = s * torch.exp(m - top)
+        total = t if total is None else total + t
+    nll = top + torch.log(total) - gold
+    if mask is not None:
+        nll = nll * mask.to(device)
+    return nll.sum()
+
+
+def vocab_parallel_xent_sum(hs, ws, labels, offsets, device, *,
+                            chunk: int = 0,
+                            mask: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Sum over tokens of the cross-entropy of logits whose vocab is
+    split over shards: shard r holds the hidden rows `hs[r]` [T, d] and
+    its columns `ws[r]` [d, V_r] (ids `offsets[r]` + [0, V_r)), on its
+    own device.  Each shard forms its logits (in the rows' dtype, read
+    in float32, as `cross_entropy`), its row max and its sum of
+    exponentials; the sums are combined in shard order on `device`
+    (lse = M + log sum_r s_r exp(m_r - M)), and each label's logit comes
+    from the shard that owns it.  ``chunk`` > 0 walks the tokens in
+    blocks of `chunk` rows, each recomputed in the backward
+    (``torch.utils.checkpoint``, as `chunked_softmax_xent`), so the live
+    logits are [chunk, V_r] a shard.  `labels[r]` [T] and `mask` [T]
+    (float, 1 = counted) are row-aligned with `hs`."""
+    T = hs[0].shape[0]
+    if not chunk or chunk >= T:
+        return _vocab_shard_nll(hs, ws, labels, offsets, device, mask)
+    total = None
+    for lo in range(0, T, chunk):
+        rows = slice(lo, min(T, lo + chunk))
+        part = checkpoint(_vocab_shard_nll, [h[rows] for h in hs], ws,
+                          [lab[rows] for lab in labels], offsets, device,
+                          None if mask is None else mask[rows],
+                          use_reentrant=False)
+        total = part if total is None else total + part
+    return total

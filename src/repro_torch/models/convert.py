@@ -9,12 +9,16 @@ a TE layer's ``transformer_layer_specs(cfg)``, ...);
 share the layout, so each leaf keeps its shape and values and both
 compute the same function.  ``shard_params`` splits a full tree (the
 port's, or the reference's as numpy) into one tree a position of a
-tensor-parallel serving mesh, by the serving plan's specs.
+tensor-parallel serving mesh, by the serving plan's specs, or, given a
+training plan's ``rules``, into a tree of ``Sharded`` leaves over an
+n-D mesh (sharding/axes.py: each distinct block once, on its owner);
+``gather_params`` is the way back, the full tree from the blocks in
+mesh order.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -69,8 +73,15 @@ def from_reference(np_params: Dict[str, Any], cfg,
 
 
 def shard_params(params: Dict[str, Any], cfg, mesh,
-                 axis: Optional[str] = None) -> List[Dict[str, Any]]:
-    """The tree of each position of a 1-axis serving `mesh`, by
+                 axis: Optional[str] = None, *,
+                 rules: Optional[Dict[str, Any]] = None):
+    """With ``rules`` (a training plan's param_rules): the tree of
+    ``Sharded`` leaves over `mesh` (any rank) by ``api.pspecs(cfg,
+    rules, mesh.shape)``: a dim that does not divide its mesh axis stays
+    whole, as the reference's ``resolve``, and each distinct block is
+    copied once onto the device of the first position holding it.
+
+    Without: the tree of each position of a 1-axis serving `mesh`, by
     ``sharding.plans.serving_plan(mesh, axis).param_shardings(cfg)``:
     a leaf split over the axis gives position r its r-th equal slice of
     that dim (heads, kv heads and MLP columns of the projections, rows
@@ -78,8 +89,17 @@ def shard_params(params: Dict[str, Any], cfg, mesh,
     contiguous tensor of its own on r's device; a replicated leaf is
     copied once a distinct physical device and shared by the positions
     there.  Leaves may be tensors or numpy arrays."""
-    from repro_torch.sharding.axes import shard_slices, split_dim
+    from repro_torch.sharding.axes import Sharded, shard_slices, split_dim
     from repro_torch.sharding.plans import serving_plan
+    if rules is not None:
+        if axis is not None:
+            raise ValueError("pass axis= (serving) or rules= (training)")
+        with torch.no_grad():
+            return _walk_specs(
+                params, api.pspecs(cfg, rules, mesh.shape),
+                lambda t, spec: Sharded.from_full(
+                    t if isinstance(t, torch.Tensor) else to_torch(t), spec,
+                    mesh))
     plan = serving_plan(mesh, axis or mesh.axis_names[0])
     positions = mesh.positions
 
@@ -104,3 +124,32 @@ def shard_params(params: Dict[str, Any], cfg, mesh,
 
     with torch.no_grad():
         return walk(params, plan.param_shardings(cfg), "")
+
+
+def _walk_specs(tree, specs, fn, path=""):
+    """`fn(leaf, spec)` over a parameter tree and its spec tree, checked
+    key by key."""
+    if not isinstance(tree, dict):
+        return fn(tree, specs)
+    if set(tree) != set(specs):
+        raise ValueError(f"{path}: keys {sorted(tree)} are not "
+                         f"{sorted(specs)}")
+    return {k: _walk_specs(tree[k], specs[k], fn, f"{path}/{k}")
+            for k in specs}
+
+
+def gather_params(sharded: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The full tree of a ``shard_params(..., rules=)`` tree: each leaf's
+    blocks concatenated in mesh order on `device` (default: the owner
+    device of its first block)."""
+    from repro_torch.sharding.axes import Sharded
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, Sharded):
+            return t.full(device)
+        return t if device is None else t.to(device)
+
+    with torch.no_grad():
+        return walk(sharded)

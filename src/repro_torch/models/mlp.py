@@ -47,7 +47,9 @@ def _down_parts(p, h: torch.Tensor, groups: int, dt) -> torch.Tensor:
 def mlp_parts(cfg, p, x: torch.Tensor, groups: int) -> torch.Tensor:
     """The grouped float32 partials [groups, B, S, d] of the w_down
     contraction of x [B,S,d] (a shard's: its columns of the hidden
-    layer against its rows of w_down); b_down is not added."""
+    layer against its rows of w_down, in tensor-parallel serving and,
+    under autograd, in the sharded training step); b_down is not
+    added."""
     return _down_parts(p, _hidden(cfg, p, x), groups, x.dtype)
 
 

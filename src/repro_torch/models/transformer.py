@@ -28,6 +28,24 @@ device and sums them with the tp=1 fixed tree.  The embedding and the
 logits are split over the vocab (each shard looks up its rows and
 computes its logit columns; the columns are concatenated on the mesh's
 first position, where the sample head runs).
+
+Sharded training (``sharded_loss_fn``; dense and vlm, the reference's
+training plans over a (pod,) data, model mesh): `params` is a tree of
+``Sharded`` leaves (sharding/axes.py; models/convert.shard_params with
+the plan's param rules).  The batch rows are split over the plan's
+batch axes into data groups; within a group each `model` position
+projects its heads and MLP columns, runs B9 at its heads and forms the
+float32 partials of the out- and down-projections, which
+`xshard_sum` gathers in model order and sums by the fixed tree, under
+autograd.  A dim that does not divide `model` (or a plan that puts
+nothing there: dp, fsdp) leaves its block whole, computed once by the
+group's first position.  A leaf on `data` (FSDP) is gathered in mesh
+order when its layer runs, inside the remat unit, so the backward
+regathers it and reduce-scatters the gradient onto the owners.  The
+embedding and the cross-entropy are vocab-parallel (each id's row and
+label logit from the shard that owns it; the log-sum-exp combined in
+shard order).  fsdp_tp_spact holds the residual stream between blocks
+as S/model row slices.
 """
 
 from __future__ import annotations
@@ -48,7 +66,8 @@ from repro_torch.models import sampling
 from repro_torch.models.common import (ParamSpec, apply_norm, apply_rope,
                                        chunked_softmax_xent, cross_entropy,
                                        mark, norm_spec, replicate,
-                                       xshard_sum)
+                                       vocab_parallel_xent_sum, xshard_sum)
+from repro_torch.sharding.axes import Sharded
 
 Params = Dict[str, Any]
 
@@ -115,9 +134,12 @@ def layer_slice(tree: Params, i: int) -> Params:
 
 def layer_list(tree: Params, n: int) -> List[Params]:
     """The n layers' parameters, each leaf of the stack unbound once
-    (so the backward stacks the n layer gradients in one op)."""
+    (so the backward stacks the n layer gradients in one op); a
+    ``Sharded`` leaf unbinds each of its blocks."""
     if isinstance(tree, torch.Tensor):
         return list(tree.unbind(0))
+    if isinstance(tree, Sharded):
+        return tree.layers()
     parts = {k: layer_list(v, n) for k, v in tree.items()}
     return [{k: parts[k][i] for k in parts} for i in range(n)]
 
@@ -734,3 +756,272 @@ def prefill(cfg, params, tokens: torch.Tensor, cache: Params, *,
         x = x + y
     x = apply_norm(cfg, x, params["final_norm"])
     return logits_fn(cfg, params, x[:, -1:])[:, 0], {"k": ck, "v": cv}
+
+
+# ----------------------------------------------------------------------
+# sharded training over a ("pod",) "data", "model" mesh
+# ----------------------------------------------------------------------
+
+MODEL_AXIS, DATA_AXIS = "model", "data"
+# the families the sharded training step runs
+SHARDED_FAMILIES = ("dense", "vlm")
+
+
+def check_sharded_family(cfg) -> None:
+    """Raise NotImplementedError, naming the family, unless the sharded
+    training step runs `cfg`'s family (dense and vlm)."""
+    if cfg.family not in SHARDED_FAMILIES:
+        raise NotImplementedError(
+            f"sharded training: family {cfg.family!r} is not ported yet "
+            f"(families {SHARDED_FAMILIES}; train it on one device)")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Worker:
+    """A mesh position that computes: its coordinates, device and index
+    along `model` (0 on a mesh without that axis)."""
+    coord: Dict[str, int]
+    device: torch.device
+    m: int
+
+
+@dataclasses.dataclass
+class _Group:
+    """One data group: its batch rows, its workers in model order and
+    their distinct devices (in order); `first` maps each of those
+    devices to its first worker, where replicated leaves are read."""
+    rows: Tuple[int, int]
+    workers: List[_Worker]
+    devices: List[torch.device]
+    first: Dict[torch.device, _Worker]
+
+
+def _groups(mesh, plan, batch_size: int) -> List[_Group]:
+    """The data groups of a batch (sharding/plans.batch_placement): a
+    position computes unless it differs from another only along an axis
+    that neither splits the batch nor is `model` (then it would repeat
+    that one's work: the reference replicates it, the port runs it
+    once)."""
+    from repro_torch.sharding.axes import mesh_coords
+    from repro_torch.sharding.plans import batch_placement
+    batch_axes = plan.batch_axes
+    batch_axes = ((batch_axes,) if isinstance(batch_axes, str)
+                  else tuple(batch_axes or ()))
+    unknown = set(mesh.axis_names) - {"pod", DATA_AXIS, MODEL_AXIS}
+    if unknown or not set(batch_axes) <= set(mesh.axis_names):
+        raise ValueError(
+            f"plan {plan.name!r} (batch axes {batch_axes}) does not fit the "
+            f"mesh's axes {mesh.axis_names}: a training mesh has axes from "
+            f"('pod', 'data', 'model')")
+    place = batch_placement(plan, batch_size, mesh)
+    busy = set(place.axes) | {MODEL_AXIS}
+    groups = [_Group(r, [], [], {}) for r in place.rows]
+    for c, d in zip(mesh_coords(mesh), mesh.positions):
+        if any(c[a] for a in mesh.axis_names if a not in busy):
+            continue
+        g = groups[place.group(c)]
+        w = _Worker(c, d, c.get(MODEL_AXIS, 0))
+        g.workers.append(w)
+        if d not in g.first:
+            g.devices.append(d)
+            g.first[d] = w
+    return groups
+
+
+class _Reader:
+    """A worker's view of sharded leaves: its block along `model`, the
+    dim split over `data` gathered in mesh order (Sharded.at), on its
+    device.  Each (leaf, block, device) is gathered once a reader, so
+    the data groups on one device share the gather; the gather's
+    backward is the reduce-scatter of the gradient onto the owners."""
+
+    def __init__(self):
+        self.memo: Dict[Any, torch.Tensor] = {}
+
+    def __call__(self, leaf, w: _Worker) -> torch.Tensor:
+        from repro_torch.sharding.axes import block_index
+        idx = block_index(leaf.axes, w.coord)
+        dim = leaf.split(DATA_AXIS)
+        if dim is not None:
+            idx = idx[:dim] + (-1,) + idx[dim + 1:]
+        key = (id(leaf), idx, w.device)
+        if key not in self.memo:
+            self.memo[key] = leaf.at(w.coord, w.device, gather=DATA_AXIS)
+        return self.memo[key]
+
+    def tree(self, tree, w: _Worker):
+        return {k: self.tree(v, w) if isinstance(v, dict) else self(v, w)
+                for k, v in tree.items()}
+
+
+def _spact(cfg, plan, mesh, S: int) -> bool:
+    """fsdp_tp_spact: the residual stream between blocks as S/model row
+    slices, one a model position (when `model` divides S)."""
+    M = mesh.shape.get(MODEL_AXIS, 1)
+    return (plan.act_rules.get("seq") == MODEL_AXIS and M > 1
+            and S % M == 0)
+
+
+def _entry(g: _Group, x, spact: bool) -> Dict[torch.device, torch.Tensor]:
+    """The whole residual on each of the group's devices: as held, or
+    (spact) its row slices gathered in model order."""
+    if not spact:
+        return x
+    return {d: torch.cat([s.to(d) for s in x], dim=1) for d in g.devices}
+
+
+def _exit(g: _Group, xd: Dict[torch.device, torch.Tensor], spact: bool):
+    """The residual as held between blocks: whole on each device, or
+    (spact) each model position's own rows, a tensor of its own."""
+    if not spact:
+        return xd
+    S = next(iter(xd.values())).shape[1]
+    n = S // len(g.workers)
+    return [xd[w.device][:, w.m * n:(w.m + 1) * n].clone(
+        memory_format=torch.contiguous_format) for w in g.workers]
+
+
+def _sharded_block(cfg, g: _Group, lp, xd, read: _Reader):
+    """One pre-norm block of one data group.  Where `model` splits the
+    heads (the MLP columns), each worker runs its heads (columns) and
+    forms the float32 partial of the out-projection (down-projection);
+    `xshard_sum` gathers the partials in model order on each device and
+    sums them by the fixed tree.  Where the plan or a non-dividing dim
+    leaves the block whole, its first worker computes it once, as the
+    one-device block does, and the result is copied to the others."""
+    Bg, S = next(iter(xd.values())).shape[:2]
+    pos = {d: torch.arange(S, device=d).expand(Bg, S) for d in g.devices}
+    h = {d: apply_norm(cfg, xd[d], read.tree(lp["ln1"], g.first[d]))
+         for d in g.devices}
+    att = lp["attn"]
+    if att["wq"].split(MODEL_AXIS) is not None:
+        hq = cfg.num_heads // att["wq"].parts(MODEL_AXIS)
+        parts = []
+        for w in g.workers:
+            p = read.tree(att, w)
+            o = attn.shard_attention(cfg, p, h[w.device], pos[w.device],
+                                     (w.m * hq, (w.m + 1) * hq))
+            o = checkpoint_name(o, "attn_out")
+            parts.append(attn.out_project_parts(p, o, 1))
+        ys = xshard_sum(parts, g.devices, tag="xshard_attn_out")
+        xd = {d: xd[d] + ys[d].to(xd[d].dtype) for d in g.devices}
+    else:
+        w = g.workers[0]
+        y = attn_block(cfg, read.tree(att, w), h[w.device], pos[w.device])
+        xd = {d: xd[d] + y.to(d) for d in g.devices}
+    h = {d: apply_norm(cfg, xd[d], read.tree(lp["ln2"], g.first[d]))
+         for d in g.devices}
+    mp = lp["mlp"]
+    if mp["w_up"].split(MODEL_AXIS) is not None:
+        ys = xshard_sum([mlp_mod.mlp_parts(cfg, read.tree(mp, w),
+                                           h[w.device], 1)
+                         for w in g.workers], g.devices,
+                        tag="xshard_mlp_down")
+        out = {}
+        for d in g.devices:
+            y = ys[d].to(xd[d].dtype)
+            if cfg.use_bias:
+                y = y + read(mp["b_down"], g.first[d]).to(y.dtype)
+            out[d] = xd[d] + y
+        return out
+    w = g.workers[0]
+    y = mlp_mod.mlp(cfg, read.tree(mp, w), h[w.device])
+    return {d: xd[d] + y.to(d) for d in g.devices}
+
+
+def _sharded_layer(cfg, groups: List[_Group], spact: bool, lp, xs):
+    """One layer over every data group (the unit `_remat` wraps: the
+    data gathers inside it are redone in the backward, not kept)."""
+    read = _Reader()
+    return [_exit(g, _sharded_block(cfg, g, lp, _entry(g, x, spact), read),
+                  spact) for g, x in zip(groups, xs)]
+
+
+def _sharded_embed(cfg, g: _Group, params, tokens, prefix, read: _Reader):
+    """The group's embedding rows on each of its devices.  A vocab split
+    over `model` is looked up shard by shard (ids outside a shard's
+    range read a clamped row that is not selected) and each id's row is
+    selected from its owner in model order, as `_embed_tp`; the lookup
+    is `embed_tokens`, so the rows are the one-device rows."""
+    E = params["embed"]
+    toks = {d: tokens.to(d) for d in g.devices}
+    pfx = {d: None if prefix is None else prefix.to(d) for d in g.devices}
+    if E.split(MODEL_AXIS) is None:
+        w = g.workers[0]
+        x = embed_tokens(cfg, {"embed": read(E, w)}, toks[w.device],
+                         pfx[w.device])
+        return {d: x.to(d) for d in g.devices}
+    Vs = E.shape[0] // E.parts(MODEL_AXIS)
+    out: Dict[torch.device, torch.Tensor] = {}
+    for w in g.workers:
+        local = toks[w.device].long() - w.m * Vs
+        mine = (local >= 0) & (local < Vs)
+        rows = embed_tokens(cfg, {"embed": read(E, w)},
+                            local.clamp(0, Vs - 1), pfx[w.device])
+        for d in g.devices:
+            r = rows.to(d)
+            out[d] = r if d not in out else torch.where(
+                mine.to(d)[..., None], r, out[d])
+    return out
+
+
+def _sharded_xent(cfg, g: _Group, params, h, labels, read: _Reader,
+                  chunk: int) -> torch.Tensor:
+    """The group's token-loss sum (common.vocab_parallel_xent_sum): the
+    unembedding's vocab shards (the embedding's, transposed, when tied)
+    on their workers, or the whole vocab on the first worker."""
+    leaf = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    split = leaf.split(MODEL_AXIS) is not None
+    shards = g.workers if split else g.workers[:1]
+    ws = [read(leaf, w).T if cfg.tie_embeddings else read(leaf, w)
+          for w in shards]
+    Vs = ws[0].shape[-1]
+    d = cfg.d_model
+    return vocab_parallel_xent_sum(
+        [h[w.device].reshape(-1, d) for w in shards], ws,
+        [labels.reshape(-1).to(w.device) for w in shards],
+        [w.m * Vs if split else 0 for w in shards], g.devices[0],
+        chunk=chunk)
+
+
+def sharded_loss_fn(cfg, params, batch: Dict[str, torch.Tensor], mesh,
+                    plan) -> torch.Tensor:
+    """`loss_fn` over a mesh: `params` is a tree of ``Sharded`` leaves
+    (models/convert.shard_params with the plan's param rules); the batch
+    rows are split over the plan's batch axes, `model` splits the heads,
+    the MLP columns and the vocab (each where it divides), and a leaf
+    split over `data` is gathered when its layer runs.  Each layer runs
+    under the config's remat policy.  The loss is the fixed-order sum of
+    the groups' token-loss sums over the global token count (the mean
+    of `loss_fn`), on the mesh's first device."""
+    check_sharded_family(cfg)
+    tokens, labels = batch["tokens"], batch["labels"]
+    prefix = batch.get("prefix_embeds")
+    B, S = tokens.shape
+    groups = _groups(mesh, plan, B)
+    spact = _spact(cfg, plan, mesh, S)
+    read = _Reader()
+    xs = []
+    for g in groups:
+        lo, hi = g.rows
+        xd = _sharded_embed(cfg, g, params, tokens[lo:hi],
+                            None if prefix is None else prefix[lo:hi], read)
+        xs.append(_exit(g, xd, spact))
+    layer = _remat(cfg, functools.partial(_sharded_layer, cfg, groups,
+                                          spact))
+    for lp in layer_list(params["layers"], cfg.num_layers):
+        xs = layer(lp, xs)
+    chunk = 8192 if cfg.vocab_size * S * B > 2 ** 28 else 0
+    first = mesh.positions[0]
+    total = None
+    for g, x in zip(groups, xs):
+        xd = _entry(g, x, spact)
+        h = {d: apply_norm(cfg, xd[d],
+                           read.tree(params["final_norm"], g.first[d]))
+             for d in g.devices}
+        lo, hi = g.rows
+        part = _sharded_xent(cfg, g, params, h, labels[lo:hi], read,
+                             chunk).to(first)
+        total = part if total is None else total + part
+    return total / (B * S)
+

@@ -9,6 +9,13 @@ storage (the reference returns new arrays and donates the old ones), so
 a full-width step holds one copy of each.  Leaves with ``ndim >= 2``
 are decayed, as in the reference: in the stacked [L, d] layout that
 includes the norm scales.
+
+A sharded tree (``Sharded`` leaves, sharding/axes.py) flattens to its
+owner blocks (core/tree.py), so each parameter element is updated once
+and counted once in the global norm, whatever the mesh; the blocks may
+lie on several devices: the norm's per-block sums are added in leaf
+order on the first block's device, and the step's scalars are copied
+once to each other device.
 """
 
 from __future__ import annotations
@@ -78,7 +85,16 @@ class AdamW:
         bc1 = 1.0 - torch.pow(b1, step.float())
         bc2 = 1.0 - torch.pow(b2, step.float())
 
+        on = {}
+
+        def scalars(device):
+            if device not in on:
+                on[device] = tuple(x.to(device)
+                                   for x in (scale, lr, bc1, bc2))
+            return on[device]
+
         def upd(p, g, m, v):
+            scale, lr, bc1, bc2 = scalars(p.device)
             g = g.float() * scale
             m32 = b1 * m.float() + (1 - b1) * g
             v32 = b2 * v.float() + (1 - b2) * torch.square(g)
@@ -97,5 +113,9 @@ class AdamW:
 
 
 def global_norm(tree: Params) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+    """sqrt of the sum of squares of every element, each once (a
+    sharded tree's owner blocks), on the first leaf's device."""
+    flat = leaves(tree)
+    dev = flat[0].device
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())).to(dev)
+                          for x in flat))

@@ -7,8 +7,10 @@ count rarely matches the old factorization.  `remesh` picks the best
 TP degree so TP-sharded dims still fit), and `replan_batch` rescales the
 per-device batch so the global batch is kept where divisibility allows.
 Checkpoints are sharding-agnostic (ckpt/checkpoint.py saves whole host
-arrays), so a restore after a remesh reshards on load
-(models/convert.shard_params).
+arrays under the unsharded keys), so a restore after a remesh reshards
+on load: a `Trainer(mesh=remesh(...), plan=...)` resumes by laying each
+saved array over the new mesh (sharding/axes.Sharded.from_full, as
+models/convert.shard_params lays a fresh tree).
 """
 
 from __future__ import annotations

@@ -1,9 +1,13 @@
 """Fault-tolerant training loop.
 
-PyTorch counterpart of ``repro/runtime/trainer.py`` on one device:
+PyTorch counterpart of ``repro/runtime/trainer.py``, on one device or,
+with ``mesh=`` and ``plan=`` (the reference's arguments), sharded:
 
   * a train step = loss, gradients by autograd, one AdamW update
-    (parameters and moments updated in place)
+    (parameters and moments updated in place); with a mesh the
+    parameters and moments are trees of ``Sharded`` leaves laid by the
+    plan's param rules (models/convert.shard_params) and the loss runs
+    sharded (models/transformer.sharded_loss_fn; dense and vlm)
   * async checkpoint every `ckpt_every` steps; crash-safe manifests
   * restart-from-latest on (injected or real) failure: `run()` survives
     `SimulatedFailure` and the loss stream continues bit-exact (the
@@ -12,10 +16,13 @@ PyTorch counterpart of ``repro/runtime/trainer.py`` on one device:
   * straggler watchdog: step-time EWMA; steps > 3 x EWMA are counted
     and flagged
 
-The reference's sharding plans and gradient compression are not ported
-(one device).  ``Trainer.init`` places the parameters on the CUDA
-device unless the trainer or the call names another device (``"cpu"``
-for the tests); with no CUDA device and no explicit choice it raises.
+Checkpoints hold the whole arrays under the unsharded keys
+(ckpt/checkpoint.py), so a run saved on one mesh resumes on another or
+on one device.  The reference's gradient compression is not wired into
+the step (optim/compress.py ports it on its own).  ``Trainer.init``
+places the parameters on the CUDA device unless the trainer or the call
+names another device (``"cpu"`` for the tests; a mesh's first position
+with a mesh); with no CUDA device and no explicit choice it raises.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import torch
 from repro_torch.ckpt.checkpoint import Checkpointer
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.tree import leaves, unflatten
-from repro_torch.models import api
+from repro_torch.models import api, convert, transformer
 from repro_torch.models.common import resolve_device
 from repro_torch.optim.adamw import AdamW
 
@@ -49,20 +56,24 @@ class StepMetrics:
     straggler: bool
 
 
-def value_and_grad(cfg: ModelConfig, params: Params, batch):
-    """(loss, gradient tree like `params`) of the training objective."""
+def value_and_grad(cfg: ModelConfig, params: Params, batch, *, mesh=None,
+                   plan=None):
+    """(loss, gradient tree like `params`) of the training objective;
+    over a mesh the gradients are those of each owner block."""
     flat = leaves(params)
     for p in flat:
         p.requires_grad_(True)
-    loss = api.loss_fn(cfg, params, batch)
+    loss = api.loss_fn(cfg, params, batch, mesh=mesh, plan=plan)
     grads = torch.autograd.grad(loss, flat)
     return loss.detach(), unflatten(params, grads)
 
 
-def make_train_step(cfg: ModelConfig, opt: AdamW) -> Callable:
+def make_train_step(cfg: ModelConfig, opt: AdamW, *, mesh=None,
+                    plan=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics)."""
     def train_step(params, opt_state, batch):
-        loss, grads = value_and_grad(cfg, params, batch)
+        loss, grads = value_and_grad(cfg, params, batch, mesh=mesh,
+                                     plan=plan)
         new_params, new_opt, metrics = opt.update(grads, opt_state, params)
         metrics["loss"] = loss
         return new_params, new_opt, metrics
@@ -72,14 +83,28 @@ def make_train_step(cfg: ModelConfig, opt: AdamW) -> Callable:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, *,
-                 data, fail_at_step: Optional[int] = None, device=None):
+                 data, mesh=None, plan=None,
+                 fail_at_step: Optional[int] = None, device=None):
         """`data` must expose ``batches(start_step) -> iterator`` so a
         restart can replay the stream from the restored step exactly
         (data/pipeline.SyntheticLMData does).  `device` is where
-        ``init`` puts the parameters (None: the CUDA device)."""
+        ``init`` puts the parameters (None: the CUDA device).  With
+        `mesh` and `plan` (a training plan) the state is sharded over
+        the mesh and every step runs sharded."""
+        if (mesh is None) != (plan is None):
+            raise ValueError("pass mesh= and plan= together")
+        if mesh is not None:
+            api.check_family(cfg)
+            transformer.check_sharded_family(cfg)
+            if device is not None:
+                raise ValueError("a mesh places the state: pass mesh= or "
+                                 "device=, not both")
+            device = mesh.positions[0]
         self.cfg = cfg
         self.tcfg = tcfg
         self.data = data
+        self.mesh = mesh
+        self.plan = plan
         self.device = device
         self.fail_at_step = fail_at_step
         self.opt = AdamW(learning_rate=tcfg.learning_rate,
@@ -90,7 +115,8 @@ class Trainer:
                          total_steps=tcfg.total_steps)
         self.ckpt = Checkpointer(tcfg.ckpt_dir,
                                  async_save=tcfg.async_ckpt)
-        self.train_step = make_train_step(cfg, self.opt)
+        self.train_step = make_train_step(cfg, self.opt, mesh=mesh,
+                                          plan=plan)
         self.params: Optional[Params] = None
         self.opt_state = None
         self.step = 0
@@ -103,12 +129,23 @@ class Trainer:
     def init(self, seed: Optional[int] = None, *, device=None) -> None:
         """float32 parameters from `seed` (default tcfg.seed) on
         `device` (default: the trainer's; None means CUDA), and fresh
-        optimizer state."""
+        optimizer state.  With a mesh, the parameters are drawn on its
+        first position and laid over it by the plan."""
+        if self.mesh is not None and device is not None:
+            raise ValueError("a mesh places the state")
         self.device = resolve_device(device if device is not None
                                      else self.device)
-        self.params = api.init(self.cfg,
-                               self.tcfg.seed if seed is None else seed,
-                               device=self.device, dtype=torch.float32)
+        self.set_params(api.init(self.cfg,
+                                 self.tcfg.seed if seed is None else seed,
+                                 device=self.device, dtype=torch.float32))
+
+    def set_params(self, params: Params) -> None:
+        """Start from `params` (a full tree; sharded over the mesh when
+        the trainer has one) with fresh optimizer state, at step 0."""
+        if self.mesh is not None:
+            params = convert.shard_params(params, self.cfg, self.mesh,
+                                          rules=self.plan.param_rules)
+        self.params = params
         self.opt_state = self.opt.init(self.params)
         self.step = 0
 
@@ -160,7 +197,10 @@ class Trainer:
 
     def _run_inner(self, target: int, data_it) -> None:
         while self.step < target:
-            batch = {k: v.to(self.device) for k, v in next(data_it).items()}
+            # over a mesh the step moves each group's rows to its devices
+            batch = next(data_it)
+            if self.mesh is None:
+                batch = {k: v.to(self.device) for k, v in batch.items()}
             t0 = time.perf_counter()
             if (self.fail_at_step is not None
                     and self.step == self.fail_at_step):

@@ -15,8 +15,15 @@ Plans:
   fsdp_tp   2D: ZeRO-3 over `data` x TP over `model`   (default)
   fsdp_tp_sp  + sequence-parallel long-context decode (KV over `data`)
 
-The training plans are resolution logic only here: the sharded training
-step that would run them is not ported.  Serving has its own plan
+The training plans run in the sharded training step
+(models/transformer.py ``sharded_loss_fn``, runtime/trainer.py,
+launch/train.py; dense and vlm): `param_rules` lay the parameters
+(models/convert.shard_params), `batch_axes` split the batch rows
+(``batch_placement``), `model` splits the compute by heads, MLP columns
+and vocab, and ``act_rules["seq"]`` (fsdp_tp_spact) holds the residual
+stream as row slices over `model` between blocks.  For a training step
+fsdp_tp_sp is fsdp_tp: its `kv_seq_axis` touches decode caches only.
+Serving has its own plan
 (``serving_plan`` / ``ServingPlan`` below), which ``ChunkedServer(tp=N)``
 runs: a 1-axis tensor-parallel mesh over which the transformer weights
 shard head-wise / column-row-wise and the KV pool shards along its
@@ -27,9 +34,9 @@ host.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple, Union
+from typing import Dict, List, Tuple, Union
 
-from repro_torch.sharding.axes import Mesh, PartitionSpec as P
+from repro_torch.sharding.axes import Mesh, PartitionSpec as P, shard_slices
 
 Axis = Union[None, str, Tuple[str, ...]]
 
@@ -241,6 +248,45 @@ def batch_pspec(plan: Plan, batch_size: int, mesh_shape: Dict[str, int],
         ax_tuple = tuple(keep)
     spec = tuple(ax_tuple) if ax_tuple else None
     return P(spec, *([None] * extra_dims))
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPlacement:
+    """Where the rows of a [B, ...] batch live under a plan: `axes` are
+    the mesh axes that split them (``batch_pspec``'s: the plan's batch
+    axes, or the largest prefix of them that divides B), `sizes` their
+    extents, and `rows` the [start, stop) of each data group, one a
+    row-major index along `axes`, equal and in order.  Positions that
+    differ only along other axes hold the same group's rows."""
+    axes: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    rows: Tuple[Tuple[int, int], ...]
+
+    def group(self, coord: Dict[str, int]) -> int:
+        """The data group of a position's coordinates."""
+        g = 0
+        for a, n in zip(self.axes, self.sizes):
+            g = g * n + coord[a]
+        return g
+
+    def position_rows(self, mesh: Mesh) -> List[Tuple[int, int]]:
+        """Each position's rows, in mesh order."""
+        from repro_torch.sharding.axes import mesh_coords
+        return [self.rows[self.group(c)] for c in mesh_coords(mesh)]
+
+
+def batch_placement(plan: Plan, batch_size: int,
+                    mesh: Mesh) -> BatchPlacement:
+    """The rows each position holds of a batch of `batch_size` rows,
+    by ``batch_pspec``."""
+    spec = batch_pspec(plan, batch_size, mesh.shape)[0]
+    axes = () if spec is None else (
+        (spec,) if isinstance(spec, str) else tuple(spec))
+    sizes = tuple(mesh.shape[a] for a in axes)
+    n = 1
+    for k in sizes:
+        n *= k
+    return BatchPlacement(axes, sizes, tuple(shard_slices(batch_size, n)))
 
 
 def input_pspecs(cfg, shape, plan: Plan, mesh: Mesh) -> Dict[str, P]:

@@ -78,6 +78,10 @@ paged kernels; a host read inside a body caught by sync debug mode
 (JX001), while the same body without it captures once and replays
 clean; a recapture counted and named by JX005; the launch lint's 13 workloads run and every planned launch
 matched by one real launch, none unplanned; the CLI strict and clean.
+The sharded training step (models/transformer.sharded_loss_fn): the
+reduced fsdp_tp step on a (2, 4) mesh spread over the card against the
+same step on a mesh spread over the CPU (bf16: loss within 2e-3, each
+gradient within 5% of its norm), B9 at the shards' heads.
 """
 
 import collections
@@ -3140,3 +3144,44 @@ def test_tp_pools_are_dense_per_position(cuda):
                                              seed=1)
         assert srv.serve(reqs)["kv_bytes_per_device"] * tp == \
             one.serve(server.clone_requests(reqs))["kv_bytes_per_device"]
+
+
+@pytest.mark.gpu
+def test_sharded_fsdp_tp_step_on_card_equals_cpu(cuda):
+    """The reduced yi-6b fsdp_tp step on a (2, 4) mesh spread over the
+    card against the same step on a (2, 4) mesh spread over the CPU,
+    from the same weights and batch (bf16): the loss within 2e-3 and
+    every gathered gradient within 5% of its norm
+    (tests/test_torch_train.py's bf16 rules); each position's B9 call
+    runs on the card at [B/2, S, H/4, hd] over KH/4 kv heads."""
+    from repro_torch.core.tree import items_with_path
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import convert
+    from repro_torch.runtime.trainer import value_and_grad
+    from repro_torch.sharding.plans import get_plan
+    cfg = reduced_config("yi-6b")
+    plan = get_plan("fsdp_tp")
+    params = api.init(cfg, 0, device="cpu")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 65))
+                            .astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for dev in ("cpu", cuda):
+        mesh = make_host_mesh((2, 4), spread=dev)
+        sharded = convert.shard_params(params, cfg, mesh,
+                                       rules=plan.param_rules)
+        kfa.reset_launch_counts()
+        loss, grads = value_and_grad(cfg, sharded, batch, mesh=mesh,
+                                     plan=plan)
+        out[str(dev)] = (loss.item(), {
+            k: g.cpu() for k, g in items_with_path(
+                convert.gather_params(grads))})
+    assert kfa.shape_launches() == {
+        (2, 64, 64, 1, 1, 16, "mma_sync"): 8 * cfg.num_layers}
+    (want_loss, want), (loss, got) = out["cpu"], out[str(cuda)]
+    assert abs(loss - want_loss) <= 2e-3, (loss, want_loss)
+    for k, a in want.items():
+        assert torch.linalg.norm(got[k] - a) <= 0.05 * torch.linalg.norm(
+            a), k

@@ -19,7 +19,9 @@
     with error feedback (optim/compress.py), serves tensor-parallel at
     tp=2 on a mesh spread over the CPU with the plans, meshes, remesh
     and compressed_psum of sharding/, launch/mesh.py,
-    runtime/elastic.py and optim/compress.py, and runs the serving-contract
+    runtime/elastic.py and optim/compress.py, trains two fsdp_tp steps
+    of the sharded `Trainer` on a (2, 4) mesh spread over the CPU and
+    resumes its checkpoint on one device, and runs the serving-contract
     analyzer (repro_torch.analysis) with `--device cpu --strict` and one
     serving combo, clean (tests/test_torch_analysis.py serves them all);
 (c) an entry point called without a device on a host without CUDA
@@ -192,6 +194,21 @@ assert make_production_mesh().size == 256
 assert elastic.remesh(["cpu"] * 4).shape == {"data": 1, "model": 4}
 assert compressed_psum(torch.ones(3), make_tp_mesh(4, spread="cpu"),
                        "tp").tolist() == [4.0, 4.0, 4.0]
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import convert
+hmesh = make_host_mesh((2, 4), spread="cpu")
+with tempfile.TemporaryDirectory() as td:
+    mtr = Trainer(cfg, TrainConfig(total_steps=2, warmup_steps=1,
+                                   ckpt_every=1, ckpt_dir=td),
+                  data=SyntheticLMData(cfg.vocab_size, 2, 16),
+                  mesh=hmesh, plan=plans.get_plan("fsdp_tp"))
+    mtr.init()
+    assert len(mtr.run(2)) == 2
+    one = Trainer(cfg, TrainConfig(ckpt_dir=td), device="cpu",
+                  data=SyntheticLMData(cfg.vocab_size, 2, 16))
+    assert one.resume() and one.step == 2
+    assert torch.equal(convert.gather_params(mtr.params)["embed"],
+                       one.params["embed"])
 from repro_torch.analysis.__main__ import main as analyze
 assert analyze(["--device", "cpu", "--strict", "--max-combos", "1",
                 "--repo-root", %(root)r]) == 0
@@ -207,7 +224,9 @@ def test_port_serves_without_jax():
                  "models/hybrid.py", "models/encdec.py", "runtime/fuzz.py",
                  "optim/compress.py", "sharding/axes.py",
                  "sharding/plans.py", "launch/mesh.py",
-                 "runtime/elastic.py"):
+                 "runtime/elastic.py", "models/convert.py",
+                 "runtime/trainer.py", "launch/train.py",
+                 "ckpt/checkpoint.py", "optim/adamw.py"):
         assert ROOT / "src" / "repro_torch" / name in PORT_FILES
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD % {"src": str(ROOT / "src"),
