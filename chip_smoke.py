@@ -275,10 +275,10 @@ last line):
               (Fig. 5); then the memory_latency, memory_throughput,
               te_linear and te_layer benchmarks through the kernels.
  12. families — the moe and vlm families (models/moe.py): (a)
-              moonshot-v1-16b-a3b at full width, its depth cut to 6
+              moonshot-v1-16b-a3b at full width, its depth cut to 3
               of 48 layers to keep the script inside its time limit (d
-              2048, 64 experts top-6, vocab 163840, ~8.6 GB of random
-              bf16 weights, seed 0; yi-6b freed first): phase 4's
+              2048, 64 experts top-6, vocab 163840, random bf16
+              weights, seed 0; yi-6b freed first): phase 4's
               forward check (bf16 and an e4m3 pool), phase 5's waves in
               bf16 and with an e4m3 pool (bf16 linears: moe refuses
               fp8 linears) through graphs captured once, equal bit for
@@ -287,9 +287,10 @@ last line):
               rows), phase 6's profile of the units, tokens/s, peak
               memory and the decode step's device ms against its bytes
               bound (every weight read once, KV); (b) internvl2-1b at
-              full width and depth (G=7, hd 64, tied embeddings): the
-              forward check and phase 5's waves; (c) reduced moonshot,
-              dbrx and internvl2-1b card against CPU by phase 7's rules
+              full width, 12 of its 24 layers (G=7, hd 64, tied
+              embeddings): the forward check and phase 5's waves; (c)
+              reduced moonshot, dbrx and internvl2-1b card against CPU
+              by phase 7's rules
               (bf16; a moe call couples its rows, so only the first
               parting step is held), and one full-width moonshot
               moe_mlp call (T=128) card against CPU; (d) moonshot at
@@ -320,7 +321,7 @@ last line):
               falcon-mamba-7b and zamba2-2.7b card against CPU (tokens
               by phase 7's margin rule, logits within max(4, 3 x the
               CPU's own bf16-vs-float32 distance) bf16 steps); (d)
-              falcon-mamba-7b cut to 4 layers and zamba2-2.7b to 6 (1
+              falcon-mamba-7b cut to 2 layers and zamba2-2.7b to 6 (1
               super-block), B=2 x 2048: phase 10's checked train step
               and Trainer.run on fresh batches (the mean loss of the
               run's own batches must fall).
@@ -378,7 +379,7 @@ last line):
               recompute) at the shards' shape [1, 4096, 8, 128] over 1
               kv head on wgmma (the wrapper's launches by shape), each
               call held to its plain version; phase 10(a) times B9 at
-              that shape (yi-6b-fsdp-tp-shard); (b) the same cut to 4
+              that shape (yi-6b-fsdp-tp-shard); (b) the same cut to 2
               layers: Trainer(mesh=, plan=) for 3 steps twice from one
               start (bit for bit equal, finite, falling), then the
               one-device Trainer from that start: step ms, tokens/s,
@@ -388,9 +389,40 @@ last line):
               fsdp_tp and fsdp_tp_spact, 3 Trainer steps on the card
               mesh against the same on a mesh spread over the CPU
               (first loss within 2e-3, all within 1e-2).
+ 17. train_sharded_families — the other families' sharded training
+              step (runs after phase 16, on its mesh and plan, random
+              weights, seed 0): (a) moonshot-v1-16b-a3b (1 of 48
+              layers: 16 experts a position, C = 480 at T = 4096),
+              falcon-mamba-7b (1 of 64 layers: 2048 channels a
+              position), zamba2-2.7b (one Mamba-2 layer and the shared
+              block: 20 SSM heads, 8 attention heads at hd 80 a
+              position) and whisper-small (1 + 1 of 12 + 12 layers,
+              1500 frames, 448 tokens: 3 heads a position) at full
+              width, float32 parameters, bf16 activations, remat dots,
+              B=2 x 2048: the fsdp_tp step against the one-device step
+              on the same weights and batch: the loss within 7e-3
+              (zamba2: 1.5 x the reference's own reduced distance),
+              each gathered gradient leaf within 5% of its norm
+              (zamba2: 1.5 x the smallest leaf distance of the
+              reference's own reduced steps); with float32 activations
+              the loss within 1e-5 relative and every leaf within 1e-4
+              of its max |g| or 1.5 x its rounding floor (the CPU
+              tests' rule); B9 launched 8 positions x (forward +
+              remat recompute) a call site at each family's shard shape
+              (one device: 1 position), each call held to its plain
+              version; moonshot's expert ids and drops,
+              sharded against one device, printed (at most 1% parted,
+              each a near tie); grad norms, step ms and peak memory
+              side by side; phase 10(a) times B9 at those shapes; (b)
+              the reduced families (moonshot also under tp with
+              n_micro=2) card mesh against CPU mesh, phase 16(c)'s bars
+              (all steps held where neither host's bf16 run lies 1e-2
+              from its float32 run), and with float32 rows (the first
+              loss within 1e-5 relative, all within 5e-4).
 Each serve phase, the benchmark runs of phases 8, 9 and 11, the
 Trainer.run of phases 10, 12, 13 and 16(b), phase 13's prefill, phase
-14's prefill and training step and phase 16(a)'s sharded step set
+14's prefill and training step, phase 16(a)'s and phase 17(a)'s
+sharded steps set
 their kernels' launch counts to 0 just before their main path and read
 them just after; phase 5b reads the
 paged kernels' counts (set to 0) after each spec wave, and its
@@ -403,8 +435,9 @@ launches join all four paged kernels' counts.  Then one JSON line of
 per-kernel numbers (twenty kernels; those with several bodies also
 their launches by body, flash_attention its launches by path: Trainer,
 te_layer, phase 12's Trainer, phase 13's prefill and Trainer, phase
-14's prefill and training step, phase 16's sharded steps, and its
-whisper-enc, whisper-cross and fsdp_tp shard readings; the
+14's prefill and training step, phase 16's and phase 17's sharded
+steps, and its whisper-enc, whisper-cross and fsdp_tp shard readings;
+the
 paged kernels phase 12's and phase 15's launches apart too, and
 their readings at the tp shards' heads) and, last, the contract
 line
@@ -4204,6 +4237,19 @@ FLASH_CASES = [
     # a data position, 8 of the 32 heads over 1 of the 4 kv heads (G=8)
     ("yi-6b-fsdp-tp-shard", "bfloat16", 1, 4096, 4096, 8, 1, 128, True, 0,
      0),
+    # phase 17's shards on the same mesh (one row a data position, a
+    # quarter of the heads a model position): moonshot-v1-16b-a3b (4 of
+    # 16 heads over 4 kv heads), zamba2-2.7b's shared block (8 of 32 at
+    # hd 80: mma_sync), whisper-small's encoder, decoder and
+    # cross-attention (3 of 12 at hd 64)
+    ("moonshot-fsdp-tp-shard", "bfloat16", 1, 2048, 2048, 4, 4, 128, True,
+     0, 0),
+    ("zamba2-fsdp-tp-shard", "bfloat16", 1, 2048, 2048, 8, 8, 80, True, 0,
+     0),
+    ("whisper-enc-shard", "bfloat16", 1, 1500, 1500, 3, 3, 64, False, 0, 0),
+    ("whisper-dec-shard", "bfloat16", 1, 448, 448, 3, 3, 64, True, 0, 0),
+    ("whisper-cross-shard", "bfloat16", 1, 448, 1500, 3, 3, 64, False, 0,
+     0),
 ]
 # B9 against its plain version: float32 o within 1e-4 (the reference's
 # kernel tests); bf16 o within one bf16 step of max |o| (2**-7 * max|o|);
@@ -5222,10 +5268,16 @@ def phase_memory_te() -> tuple:
 # ----------------------------------------------------------------------
 
 FAMILY_MOE = "moonshot-v1-16b-a3b"     # 64 experts, top-6, 28.06 B params
-# its serving depth in (a): 6 of its 48 layers, so that the script
-# with phases 2b-14 stays near 600 s (12 until the analyzer's phase)
-FAMILY_MOE_LAYERS = 6
+# its serving depth in (a): 3 of its 48 layers, so that the script
+# with phases 2b-17 stays near its parent's time (12 until the
+# analyzer's phase, 6 until phase 17; the eager waves are host bound)
+FAMILY_MOE_LAYERS = 3
 FAMILY_VLM = "internvl2-1b"            # G=7, hd 64, tied embeddings
+# its serving depth in (b): 12 of its 24 layers since phase 17 (the
+# script's time; the eager waves are host bound); (d) trains all 24
+FAMILY_VLM_LAYERS = 12
+# (c)'s reduced models card against CPU (dbrx-132b: the moe path with
+# LayerNorm and another rope theta)
 FAMILY_SMALL = ("moonshot-v1-16b-a3b", "dbrx-132b", "internvl2-1b")
 # layers and loss gate (phase_trainer's `descent`) of the families'
 # training: moonshot's fp32 parameters and AdamW state at 48 layers
@@ -5422,13 +5474,13 @@ def phase_families() -> dict:
     server's bit for bit, a K=4 spec wave cold and warm, each unit's
     wall and device ms with its top kernels, peak memory, tokens/s, and
     the decode step's device ms against its bytes bound; (b) full-width
-    internvl2-1b: the forward's kernel calls against plain and phase 5's
-    waves; (c) reduced moonshot, dbrx and internvl2-1b, card against
-    CPU (phase 7's rules, bf16), and one full-width moonshot moe_mlp
-    call card against CPU; (d) full-width moonshot cut to 2 layers and
-    internvl2-1b at full depth (with prefix_embeds; FAMILY_TRAIN_LAYERS):
-    one train step with every B9 call against plain, then Trainer.run
-    on fresh batches.  Each serve and train main
+    internvl2-1b at FAMILY_VLM_LAYERS: the forward's kernel calls
+    against plain and phase 5's waves; (c) reduced moonshot, dbrx and
+    internvl2-1b, card against CPU (phase 7's rules, bf16), and one
+    full-width moonshot moe_mlp call card against CPU; (d) full-width
+    moonshot cut to 2 layers and internvl2-1b at full depth (with
+    prefix_embeds; FAMILY_TRAIN_LAYERS): one train step with every B9
+    call against plain, then Trainer.run on fresh batches.  Each serve and train main
     path sets its kernels' counts to 0 just before and reads them just
     after.  Returns the paged kernels' and B9's launches."""
     import dataclasses
@@ -5503,10 +5555,12 @@ def phase_families() -> dict:
     _moe_mlp_card_vs_cpu(cfg)
     _free_card()
     # (b) internvl2-1b at full width and depth
-    vcfg = get_config(FAMILY_VLM)
+    vcfg = dataclasses.replace(get_config(FAMILY_VLM),
+                               num_layers=FAMILY_VLM_LAYERS)
     vparams = api.init(vcfg, 0, device=DEVICE, dtype=torch.bfloat16)
-    print(f"[families] (b) {vcfg.name} full width and depth: "
-          f"{vcfg.num_layers} layers, d {vcfg.d_model}, H {vcfg.num_heads} "
+    print(f"[families] (b) {vcfg.name} full width, depth cut: "
+          f"{vcfg.num_layers} of {get_config(FAMILY_VLM).num_layers} "
+          f"layers, d {vcfg.d_model}, H {vcfg.num_heads} "
           f"over KH {vcfg.num_kv_heads} (G="
           f"{vcfg.num_heads // vcfg.num_kv_heads}), hd {vcfg.head_dim}, "
           f"tied embeddings: {vcfg.param_count() / 1e9:.3f} B params",
@@ -5528,8 +5582,9 @@ def phase_families() -> dict:
     Bt, St = FAMILY_TRAIN
     for base, extra in (
             (cfg, None),
-            (vcfg, {"prefix_embeds": ((vcfg.num_prefix_tokens,
-                                       vcfg.d_model), np.float32)})):
+            (get_config(FAMILY_VLM),
+             {"prefix_embeds": ((vcfg.num_prefix_tokens,
+                                 vcfg.d_model), np.float32)})):
         layers, descent = FAMILY_TRAIN_LAYERS[base.name]
         tcfg = _train_config(base, layers)
         phase_train_step(tcfg, B=Bt, S=St, extra=extra)
@@ -5578,7 +5633,7 @@ SSM_NOISE = 3.0
 # parameters and AdamW moments at full depth need 116 GB (falcon-mamba)
 # and 38 GB plus activations (zamba2; one super-block of 6 layers, 12
 # until the analyzer's phase)
-SSM_TRAIN_LAYERS = {SSM_ARCH: 4, HYBRID_ARCH: 6}
+SSM_TRAIN_LAYERS = {SSM_ARCH: 2, HYBRID_ARCH: 6}   # falcon 4 to PR 30
 SSM_REPLAYS = 20                       # replays a device-ms reading
 SSM_KERNEL_GROUPS = {
     "GEMMs (projections, unembedding)": (
@@ -6038,7 +6093,7 @@ def phase_ssm_families() -> dict:
     api.prefill (the forward) with every B9 call (hd 80, mma_sync) held
     to its plain version, then the prompt fed token by token from state
     zero and 32 greedy steps through the graph.  (c) the reduced models,
-    card against CPU.  (d) falcon-mamba-7b cut to 4 layers and zamba2
+    card against CPU.  (d) falcon-mamba-7b cut to 2 layers and zamba2
     cut to 1 super-block, full width, B=2, S=2048: phase 10's checked
     step and Trainer.run on fresh batches (the mean loss of the run's
     own batches must fall).  The B9 launches of the main paths (the
@@ -6514,7 +6569,7 @@ def phase_encdec() -> dict:
 SHARDED_MESH = (2, 4)                  # ("data", "model"), spread over the card
 SHARDED_PLAN = "fsdp_tp"
 SHARDED_TRAIN = (2, 4096)              # B, S of (a) and (b)
-SHARDED_LAYERS = 4                     # (b)'s depth: ~19.5 GB of state a run
+SHARDED_LAYERS = 2                     # (b)'s depth (4 to PR 30)
 SHARDED_STEPS = 3
 SHARDED_PLANS = ("dp", "fsdp", "tp", "fsdp_tp", "fsdp_tp_spact")
 SHARDED_SMALL = ("yi-6b", "internvl2-1b")
@@ -6689,7 +6744,7 @@ def _sharded_trainer_run(cfg, mesh, plan, steps: int,
 
 
 def phase_sharded_trainer() -> dict:
-    """16(b): full-width yi-6b cut to 4 layers (remat dots, B=2 x 4096):
+    """16(b): full-width yi-6b cut to 2 layers (remat dots, B=2 x 4096):
     Trainer(mesh=, plan=fsdp_tp) for 3 steps, twice from the same start
     (the two loss streams equal bit for bit), then the one-device
     Trainer for 3 steps from the same start, each freed before the
@@ -6813,6 +6868,526 @@ def phase_sharded() -> dict:
             "shapes": a["shapes"], "trainer": b}
 
 
+# ----------------------------------------------------------------------
+# 17. the other families' sharded training step on the (data, model) mesh
+# ----------------------------------------------------------------------
+
+# (a)'s cells: each family at full width cut to one layer (a block; the
+# stack's depth makes random full-width runs chaotic), fsdp_tp on
+# phase 16's (2, 4) mesh spread over the card, B=2 (a row a data
+# position), S=2048 (whisper-small: 448 tokens against 1500 frames)
+SHARDED_FAMILIES = (
+    ("moonshot-v1-16b-a3b", {"num_layers": 1}),
+    ("falcon-mamba-7b", {"num_layers": 1}),
+    ("zamba2-2.7b", {"num_layers": 1, "attn_every": 1}),
+    ("whisper-small", {"num_layers": 2, "enc_layers": 1, "dec_layers": 1}),
+)
+SHARDED_FAMILY_TRAIN = (2, 2048)
+# (a)'s loss bar where the reference's own sharded / one-device distance
+# at the reduced size is the larger: 1.5 x the bf16 distance its
+# fsdp_tp and one-device steps read for reduced zamba2-2.7b
+# (tests/test_torch_sharded_hybrid.py's reference children)
+SHARDED_FAMILY_LOSS = {"zamba2-2.7b": 1.5 * 1.92e-2}
+# (a)'s bf16 gradient bar where the reference's own sharded / one-device
+# distance is the larger: 1.5 x the smallest distance any leaf of its
+# reduced zamba2-2.7b reads, bf16 as it runs (6.97%, final_norm's scale;
+# conv_b 81%: tests/test_torch_sharded_hybrid.py::
+# test_the_references_own_distances); (a)'s float32 step holds every
+# leaf far tighter
+SHARDED_FAMILY_GRAD = {"zamba2-2.7b": 1.5 * 0.0697}
+# (a)'s float32 step (float32 rows and frames), sharded against one
+# device: the loss within SHARDED_F32_LOSS relative; every gathered
+# gradient leaf within SHARDED_F32_GRAD of its max |g| (the CPU tests'
+# bar) or SHARDED_F32_FLOOR x the family's rounding floor, where that is
+# the larger.  The floor is the furthest any leaf of the one-device
+# gradient moves, against its max |g|, when every weight moves by about
+# one float32 rounding (x (1 + 2^-23 N(0, 1))): a full-width random
+# layer amplifies roundings (zamba2 2.1e-4, whisper 1.0e-3; reduced, on
+# the CPU, 1e-5 and less), and the sharded step rounds at other places.
+# A moe's float32 steps take the one-device step's expert ids, so that a
+# near tie the sharding breaks the other way (a token's rows move
+# whole to another expert) is printed and held as in bf16, not compared
+# as a gradient.
+SHARDED_F32_LOSS, SHARDED_F32_GRAD, SHARDED_F32_FLOOR = 1e-5, 1e-4, 3.0
+# (b)'s float32-rows runs, card mesh against CPU mesh: all 3 losses
+# within this, about 3x the largest reading (AdamW's normalized steps
+# grow float32 roundings: the chaotic reduced zamba2 read 1.69e-4 at
+# its third step, moonshot 9.5e-7)
+SHARDED_F32_ALL = 5e-4
+# moonshot's expert ids, card sharded against card one device: they may
+# part where a router logit tie is broken by a rounding (each position's
+# router columns are a product of another width), at most this share
+SHARDED_IDS_PARTED = 0.01
+# (b)'s runs, card mesh against CPU mesh: arch, plan, microbatches
+SHARDED_FAMILY_SMALL = (
+    ("moonshot-v1-16b-a3b", "fsdp_tp", 1),
+    ("moonshot-v1-16b-a3b", "tp", 2),
+    ("falcon-mamba-7b", "fsdp_tp", 1),
+    ("zamba2-2.7b", "fsdp_tp", 1),
+    ("whisper-small", "fsdp_tp", 1),
+)
+
+
+def _family_train_batch(cfg, B: int, S: int) -> dict:
+    """SyntheticLMData's batch 0 on the card (encdec: max_target_len
+    tokens and standard-normal bf16 frames, seed 1)."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLMData
+    if cfg.family == "encdec":
+        S = cfg.max_target_len
+    batch = {k: v.to(DEVICE) for k, v in next(
+        SyntheticLMData(cfg.vocab_size, B, S).batches(0)).items()}
+    if cfg.family == "encdec":
+        g = torch.Generator(device=DEVICE).manual_seed(1)
+        batch["frames"] = torch.randn(
+            (B, cfg.max_source_len, cfg.d_model), generator=g,
+            device=DEVICE).to(torch.bfloat16)
+    return batch
+
+
+def _family_flash_shapes(cfg, B: int, S: int) -> dict:
+    """B9's launches by shape key (kernels.flash_attention.
+    shape_launches) in one sharded step: 8 positions x (forward + remat
+    recompute) a call site, each at [B/data, Sq, H/model, hd] over
+    Sk keys and KH/model kv heads."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    data, model = SHARDED_MESH
+    n = 2 * data * model
+    if cfg.family == "ssm":
+        return {}
+    hd = cfg.head_dim
+    b, H, KH = B // data, cfg.num_heads // model, cfg.num_kv_heads // model
+    body = kfa.body(torch.bfloat16, hd)
+    if cfg.family != "encdec":
+        sites = cfg.num_layers // (cfg.attn_every if cfg.family == "hybrid"
+                                   else 1)
+        return {(b, S, S, H, KH, hd, body): n * sites}
+    Se, Sd = cfg.max_source_len, cfg.max_target_len
+    out = {(b, Se, Se, H, KH, hd, body): n * cfg.enc_layers,
+           (b, Sd, Sd, H, KH, hd, body): n * cfg.dec_layers}
+    key = (b, Sd, Se, H, KH, hd, body)
+    out[key] = out.get(key, 0) + n * cfg.dec_layers
+    return out
+
+
+class _DispatchSpy:
+    """Within the block, the first `moe.dispatch` of a run: its expert
+    ids, drop mask and logits."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig, self.first = moe, moe.dispatch, None
+
+        def spy(cfg, logits):
+            r = self.orig(cfg, logits)
+            if self.first is None:
+                self.first = (r.idx.clone(), r.keep.clone(),
+                              logits.detach().clone())
+            return r
+
+        moe.dispatch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.dispatch = self.orig
+
+
+def _family_step(cfg, params, batch, mesh=None, plan=None) -> dict:
+    """value_and_grad twice: the first with every B9 call held to its
+    plain version (`_CheckedFlash`), B9's counts from 0 around it, the
+    first moe dispatch recorded; the second timed alone.  Returns the
+    loss, the gradients, their norm, the step ms, peak memory and the
+    launches."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.runtime.trainer import value_and_grad
+    kw = dict(mesh=mesh, plan=plan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kfa.reset_launch_counts()
+    with _CheckedFlash() as chk, _DispatchSpy() as spy:
+        loss, grads = value_and_grad(cfg, params, batch, **kw)
+        torch.cuda.synchronize()
+    out = {"launches": kfa.launch_counts()["flash_attention"],
+           "bodies": kfa.body_launches(), "shapes": kfa.shape_launches(),
+           "chk": chk, "route": spy.first, "loss": loss.item(),
+           "norm": global_norm(grads).item()}
+    del grads
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(cfg, params, batch, **kw)
+    torch.cuda.synchronize()
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["grads"] = grads
+    return out
+
+
+class _F32Rows:
+    """Within the block every embedding keeps float32 rows (the models'
+    `embed_tokens`, as the CPU tests patch them), so a step whose other
+    inputs are float32 runs in float32."""
+
+    def __enter__(self):
+        import torch.nn.functional as F
+        from repro_torch.models import encdec, hybrid, ssm_lm, transformer
+        self.mods = (transformer, ssm_lm, hybrid, encdec)
+        self.saved = [m.embed_tokens for m in self.mods]
+        for m in self.mods:
+            m.embed_tokens = (lambda cfg, params, tokens, prefix_embeds=None:
+                              F.embedding(tokens.long(), params["embed"]))
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.mods, self.saved):
+            m.embed_tokens = f
+
+
+def _family_f32_step(cfg, params, batch, mesh=None, plan=None) -> tuple:
+    """(loss, gradients by key, gathered) of the step with float32
+    activations (`_F32Rows`, float32 frames)."""
+    import torch
+    from repro_torch.core.tree import items_with_path
+    from repro_torch.models import convert
+    from repro_torch.runtime.trainer import value_and_grad
+    with _F32Rows():
+        b32 = {k: v.float() if v.is_floating_point() else v
+               for k, v in batch.items()}
+        loss, grads = value_and_grad(cfg, params, b32, mesh=mesh, plan=plan)
+    torch.cuda.synchronize()
+    if mesh is not None:
+        grads = convert.gather_params(grads)
+    return loss.item(), dict(items_with_path(grads))
+
+
+class _ForcedRoute:
+    """Within the block the first moe router call takes the expert ids
+    `idx` [T, k] (its gates: their probabilities, renormalized; its aux
+    from their first column), and records the ids it would have taken
+    and its logits (`natural`)."""
+
+    def __init__(self, idx):
+        self.idx, self.natural = idx, None
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe.route_logits
+
+        def forced(cfg, logits):
+            _, natural, _ = self.orig(cfg, logits)
+            if self.natural is None:
+                self.natural = (natural.clone(), logits.detach().clone())
+            probs = torch.softmax(logits, dim=-1)
+            idx = self.idx.to(logits.device)
+            gates = probs.gather(1, idx)
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+            E = cfg.num_experts
+            aux = E * torch.sum(probs.mean(0)
+                                * F.one_hot(idx[:, 0], E).float().mean(0))
+            return gates, idx, aux
+
+        moe.route_logits = forced
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route_logits = self.orig
+
+
+def _parted(i1, i2, logits, step: float) -> tuple:
+    """(assignments whose expert ids part between `i1` and `i2` [T, k],
+    the parted experts' widest logit gap in `step`s of each row's max
+    |logit|)."""
+    parted = int((i1 != i2).sum().item())
+    gaps = 0.0
+    for t in (i1 != i2).any(-1).nonzero().flatten().tolist():
+        at = i1[t] != i2[t]              # a set or an order parted
+        vals = logits[t, sorted(set(i1[t][at].tolist())
+                                | set(i2[t][at].tolist()))]
+        gaps = max(gaps, ((vals.max() - vals.min())
+                          / (step * logits[t].abs().max())).item())
+    return parted, gaps
+
+
+def _scale_key(key: str) -> str:
+    """The leaf a gradient is scaled by: itself, but a key bias's query
+    bias (its exact gradient is 0: a shift of every key's score by q.bk
+    leaves the softmax as it is)."""
+    return key[:-2] + "bq" if key.endswith("/bk") else key
+
+
+def _family_sharded_layer(arch: str, cut: dict) -> dict:
+    """17(a) for one family: the full-width config cut to one layer
+    (float32 parameters, remat dots), the fsdp_tp step on the (2, 4)
+    mesh against the one-device step on the same weights and batch.
+    As it runs (bf16 activations): the loss within 7e-3 and every
+    gathered gradient leaf within 5% in L2 norm (or 1.5 x the
+    reference's own distance, SHARDED_FAMILY_LOSS / _GRAD), B9's launches and shapes (8 positions x forward +
+    recompute a call site; one device 1 position) with every call
+    within a bf16 step of its plain version; moonshot's expert ids and
+    drops, sharded against one device, printed (parted ids at most
+    SHARDED_IDS_PARTED of the assignments, each a near tie).  With
+    float32 activations (float32 rows and frames): the loss within
+    SHARDED_F32_LOSS relative and every gathered gradient leaf within
+    SHARDED_F32_GRAD of its max |g| (a key bias's: of its query bias's)
+    or SHARDED_F32_FLOOR x the rounding floor (the one-device step with
+    its weights moved by about one float32 rounding); a moe's float32
+    steps take the one-device step's expert ids, its own printed."""
+    import contextlib
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import items_with_path, tree_map
+    from repro_torch.models import api, convert
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), remat="dots", **cut)
+    B, S = SHARDED_FAMILY_TRAIN
+    params = api.init(cfg, 0, device=DEVICE, dtype=torch.float32)
+    batch = _family_train_batch(cfg, B, S)
+    mesh, plan = _sharded_setup()
+    secs = {"init": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    one = _family_step(cfg, params, batch)
+    secs["one device"] = time.perf_counter() - t1
+    want = {k: v for k, v in items_with_path(one.pop("grads"))}
+    t1 = time.perf_counter()
+    moe = cfg.family == "moe"
+    with _DispatchSpy() as spy:
+        loss32, want32 = _family_f32_step(cfg, params, batch)
+    ids = spy.first[0] if moe else None
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    moved = tree_map(lambda t: t * (1 + 2.0 ** -23 * torch.randn(
+        t.shape, generator=gen, device=t.device)), params)
+    with (_ForcedRoute(ids) if moe else contextlib.nullcontext()):
+        _, grads = _family_f32_step(cfg, moved, batch)
+    del moved
+    floor = max(((grads[k] - want32[k]).abs().max()
+                 / want32[_scale_key(k)].abs().max()).item() for k in grads)
+    del grads
+    secs["one device float32"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    sharded = convert.shard_params(params, cfg, mesh,
+                                   rules=plan.param_rules)
+    del params
+    _free_card()
+    got = _family_step(cfg, sharded, batch, mesh, plan)
+    secs["sharded"] = time.perf_counter() - t1
+    full = dict(items_with_path(convert.gather_params(got.pop("grads"))))
+    gbar = max(SHARDED_GRAD_REL, SHARDED_FAMILY_GRAD.get(arch, 0.0))
+    worst, worst_key, over = 0.0, "", []
+    for key, g in full.items():
+        rel = (torch.linalg.norm(g - want[key])
+               / torch.linalg.norm(want[_scale_key(key)])).item()
+        if not rel <= gbar:
+            over.append(key)
+        if not math.isfinite(rel) or rel > worst:
+            worst, worst_key = rel, key
+    del full, want
+    _free_card()
+    t1 = time.perf_counter()
+    with (_ForcedRoute(ids) if moe else contextlib.nullcontext()) as fr:
+        got32, full32 = _family_f32_step(cfg, sharded, batch, mesh, plan)
+    secs["sharded float32"] = time.perf_counter() - t1
+    bar32 = max(SHARDED_F32_GRAD, SHARDED_F32_FLOOR * floor)
+    worst32, worst32_key, over32 = 0.0, "", []
+    for key, g in full32.items():
+        rel = ((g - want32[key]).abs().max()
+               / want32[_scale_key(key)].abs().max()).item()
+        if not rel <= bar32:
+            over32.append(key)
+        if not math.isfinite(rel) or rel > worst32:
+            worst32, worst32_key = rel, key
+    dloss32 = abs(got32 - loss32) / abs(loss32)
+    del full32, want32, sharded
+    _free_card()
+    dloss = abs(got["loss"] - one["loss"])
+    bar = max(SHARDED_LOSS_ABS, SHARDED_FAMILY_LOSS.get(arch, 0.0))
+    shapes = _family_flash_shapes(cfg, B, S)
+    n_want = sum(shapes.values())
+    route = ""
+    parted = parted32 = 0
+    if moe:
+        (i1, k1, l1), (i2, k2, _) = one["route"], got["route"]
+        parted, gaps = _parted(i1, i2, l1, 2.0 ** -7)
+        parted32, gaps32 = _parted(ids, fr.natural[0], fr.natural[1],
+                                   2.0 ** -23)
+        route = (f"; expert ids: {parted} of {i1.numel()} assignments "
+                 f"parted (sharded vs one device on the card; the parted "
+                 f"experts' one-device logits within {gaps:.2f} bf16 "
+                 f"steps), drops {int((~k2).sum())} sharded vs "
+                 f"{int((~k1).sum())} one device; float32: {parted32} "
+                 f"parted, within {gaps32:.2f} float32 steps (the "
+                 f"float32 steps take the one-device ids)")
+    chk = got["chk"]
+    print(f"[sharded] 17(a) {arch} full width, {cut}, B={B} "
+          + (f"S={S}" if cfg.family != "encdec" else
+             f"{cfg.max_target_len} tokens x {cfg.max_source_len} frames")
+          + f", "
+          f"fsdp_tp on {SHARDED_MESH}: loss {got['loss']:.5f} (one device "
+          f"{one['loss']:.5f}, |diff| {dloss:.2e}, limit {bar:.1e}); "
+          f"grad_norm {got['norm']:.4f} (one device {one['norm']:.4f}); "
+          f"worst gradient leaf {worst_key} at {worst:.3e} of its norm "
+          f"(limit {gbar:.3g}); float32: loss {got32:.6f} (one device {loss32:.6f}, "
+          f"{dloss32:.2e} relative, limit {SHARDED_F32_LOSS:.0e}), worst "
+          f"gradient leaf {worst32_key} at {worst32:.3e} of its max |g| "
+          f"(limit {bar32:.3e}: {SHARDED_F32_GRAD:.0e} or "
+          f"{SHARDED_F32_FLOOR} x the rounding floor {floor:.3e}); "
+          f"step {got['ms']:.1f} ms sharded vs "
+          f"{one['ms']:.1f} ms one device (second call); peak memory "
+          f"{got['peak_gb']:.2f} vs {one['peak_gb']:.2f} GB; B9 launches "
+          f"{got['launches']} (want {n_want}) by shape {got['shapes']}, "
+          f"each held to plain: o {chk.worst:.3e}, lse {chk.lse:.3e}; one "
+          f"device {one['launches']} launches (want "
+          f"{n_want // math.prod(SHARDED_MESH)}){route}; "
+          f"{time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + ")",
+          flush=True)
+    if not all(math.isfinite(x) for x in (got["loss"], got["norm"])):
+        fail(f"{arch}: the sharded step gave a non-finite loss or norm")
+    if dloss > bar:
+        fail(f"{arch}: the sharded loss is {dloss} from the one-device loss")
+    if over:
+        fail(f"{arch}: sharded gradients {over} lie further from the "
+             "one-device gradients than their bars")
+    if not dloss32 <= SHARDED_F32_LOSS or over32:
+        fail(f"{arch}: with float32 activations the sharded loss lies "
+             f"{dloss32:.2e} from the one-device loss, gradients {over32} "
+             f"further than their bars")
+    if got["launches"] != n_want or got["shapes"] != shapes:
+        fail(f"{arch}: B9 ran {got['launches']} times at {got['shapes']}, "
+             f"not at {shapes}")
+    if one["launches"] != n_want // math.prod(SHARDED_MESH):
+        fail(f"{arch}: the one-device step ran B9 {one['launches']} times, "
+             f"not {n_want // math.prod(SHARDED_MESH)}")
+    for c in (chk, one["chk"]):
+        if c.worst > FLASH_BF16_STEP or c.lse > FLASH_F32_LIMIT:
+            fail(f"{arch}: a B9 call differs from its plain version: o "
+                 f"{c.worst:.3e} of max |o|, lse {c.lse:.3e}")
+    if moe and max(parted, parted32) > SHARDED_IDS_PARTED * i1.numel():
+        fail(f"{arch}: {parted} (bf16) and {parted32} (float32) expert "
+             "ids part between the sharded and the one-device step")
+    return {"launches": got["launches"], "bodies": got["bodies"],
+            "shapes": {str(k): v for k, v in got["shapes"].items()},
+            "ms": got["ms"], "one_ms": one["ms"]}
+
+
+def _reduced_card_vs_cpu(arch: str, plan_name: str,
+                         n_micro: int = 1) -> float:
+    """3 steps of reduced `arch` on the (2, 4) card mesh against the same
+    on a (2, 4) CPU mesh, from the same start and batches, as it runs
+    (bf16) and with float32 rows (`_F32Rows`; the reduced whisper's
+    frames are float32 either way): Trainer.run, or with microbatches
+    the step Trainer would take (launch/train.make_train_step(n_micro=):
+    Trainer has no microbatch option, in the reference either).  Held:
+    bf16, phase 16(c)'s bars, the first loss within 2e-3 and all within
+    1e-2, the later steps printed instead where either host's own bf16
+    run lies further than 1e-2 from its float32 run (a moe's routing
+    ties and the chaotic reduced zamba2, grown by AdamW's normalized
+    steps: the bf16 trajectory is then rounding); float32 rows, always,
+    the first loss within 1e-5 relative and all within SHARDED_F32_ALL.
+    Returns the worst bf16 |card - CPU| loss."""
+    import contextlib
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.runtime.trainer import Trainer
+    from repro_torch.sharding.plans import get_plan
+    cfg = reduced_config(arch)
+    B, S = SHARDED_SMALL_BATCH
+    extra = None
+    if cfg.family == "vlm":
+        extra = {"prefix_embeds": ((cfg.num_prefix_tokens, cfg.d_model),
+                                   np.float32)}
+    if cfg.family == "encdec":
+        S = cfg.max_target_len
+        extra = {"frames": ((cfg.max_source_len, cfg.d_model), np.float32)}
+    start = api.init(cfg, 0, device="cpu")
+    losses = {}
+    for rows in ("bf16", "f32"):
+        for dev in (DEVICE, "cpu"):
+            mesh = make_host_mesh(SHARDED_MESH, spread=dev)
+            plan = get_plan(plan_name)
+            data = SyntheticLMData(cfg.vocab_size, B, S, extra=extra)
+            rounding = (_F32Rows() if rows == "f32"
+                        else contextlib.nullcontext())
+            with tempfile.TemporaryDirectory() as td, rounding:
+                tcfg = TrainConfig(total_steps=50, warmup_steps=2,
+                                   ckpt_every=100, ckpt_dir=td,
+                                   learning_rate=1e-3)
+                tr = Trainer(cfg, tcfg, data=data, mesh=mesh, plan=plan)
+                tr.set_params(_tree_to(start, torch.device(dev)))
+                if n_micro == 1:
+                    run = [m.loss for m in tr.run(SHARDED_STEPS)]
+                else:
+                    step = launch_train.make_train_step(
+                        cfg, tr.opt, n_micro=n_micro, mesh=mesh, plan=plan)
+                    params, state, it, run = (tr.params, tr.opt_state,
+                                              data.batches(0), [])
+                    for _ in range(SHARDED_STEPS):
+                        params, state, metrics = step(params, state,
+                                                      next(it))
+                        run.append(metrics["loss"].item())
+            losses[rows, dev] = run
+
+    def apart(a, b):
+        return max(abs(x - y) for x, y in zip(a, b))
+
+    card, cpu = losses["bf16", DEVICE], losses["bf16", "cpu"]
+    card32, cpu32 = losses["f32", DEVICE], losses["f32", "cpu"]
+    d0, dall = abs(card[0] - cpu[0]), apart(card, cpu)
+    noise = max(apart(card, card32), apart(cpu, cpu32))
+    held = noise <= SHARDED_ALL_ABS
+    d32 = abs(card32[0] - cpu32[0]) / abs(cpu32[0])
+    dall32 = apart(card32, cpu32)
+    tag = f"{plan_name}" + (f", n_micro={n_micro}" if n_micro > 1 else "")
+    print(f"[sharded] (b) reduced {arch} {tag}: bf16 card {card} vs CPU "
+          f"{cpu}: first |diff| {d0:.2e} (limit {SHARDED_FIRST_ABS:.0e}), "
+          f"all {dall:.2e} ("
+          + (f"limit {SHARDED_ALL_ABS:.0e}" if held else "printed")
+          + f": each host's bf16 run lies at most {noise:.2e} from its "
+          f"float32 run); float32 rows card {card32} vs CPU {cpu32}: first "
+          f"{d32:.2e} relative (limit 1e-5), all {dall32:.2e} (limit "
+          f"{SHARDED_F32_ALL:.0e})", flush=True)
+    if not (d0 <= SHARDED_FIRST_ABS and (dall <= SHARDED_ALL_ABS or not held)
+            and d32 <= 1e-5 and dall32 <= SHARDED_F32_ALL):
+        fail(f"reduced {arch} under {tag}: the card's sharded run parts "
+             f"from the CPU's: bf16 {card} vs {cpu}, float32 rows {card32} "
+             f"vs {cpu32}")
+    return dall
+
+
+def phase_sharded_families() -> dict:
+    """Phase 17: (a) each family's full-width one-layer fsdp_tp step on
+    the (2, 4) card mesh against one device (`_family_sharded_layer`);
+    (b) the reduced families card mesh against CPU mesh
+    (SHARDED_FAMILY_SMALL).  Returns B9's launches on the main path
+    ((a)'s checked sharded steps), by body and by family."""
+    t0 = time.perf_counter()
+    launches, bodies, by_family = 0, {}, {}
+    for arch, cut in SHARDED_FAMILIES:
+        r = _family_sharded_layer(arch, cut)
+        launches += r["launches"]
+        for k, v in r["bodies"].items():
+            bodies[k] = bodies.get(k, 0) + v
+        by_family[arch] = r
+    t1 = time.perf_counter()
+    worst = max(_reduced_card_vs_cpu(*run) for run in SHARDED_FAMILY_SMALL)
+    print(f"[sharded] 17(a) in {t1 - t0:.1f} s, (b) in "
+          f"{time.perf_counter() - t1:.1f} s (worst |card - CPU| loss "
+          f"{worst:.2e}); phase 17 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"flash": launches, "flash_bodies": bodies,
+            "by_family": by_family}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     device = phase_card()
@@ -6872,6 +7447,7 @@ def main() -> None:
     dd_results, dd_launches, dd_bodies = phase_dpx_dsm()
     flash_results, flash_launches, flash_bodies = phase_training()
     sharded = phase_sharded()
+    families_sharded = phase_sharded_families()
     mem_results, mem_launches, te_flash, te_bodies = phase_memory_te()
     fam = phase_families()
     ssm = phase_ssm_families()
@@ -6998,7 +7574,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:62",
         "launches": (flash_launches["flash_attention"] + te_flash
                      + fam["flash"] + ssm["flash"] + ed["flash"]
-                     + sharded["flash"]),
+                     + sharded["flash"] + families_sharded["flash"]),
         "launches_by_path": {"trainer": flash_launches["flash_attention"],
                              "te_layer": te_flash,
                              "families_trainer": fam["flash"],
@@ -7010,14 +7586,19 @@ def main() -> None:
                                  ed["flash_by_path"]["prefill"],
                              "encdec_trainer":
                                  ed["flash_by_path"]["trainer"],
-                             "sharded_train": sharded["flash"]},
+                             "sharded_train": sharded["flash"],
+                             "sharded_train_families":
+                                 families_sharded["flash"]},
         "launches_by_body": {b: n + te_bodies.get(b, 0)
                              + fam["flash_bodies"].get(b, 0)
                              + ssm["flash_bodies"].get(b, 0)
                              + ed["flash_bodies"].get(b, 0)
                              + sharded["flash_bodies"].get(b, 0)
+                             + families_sharded["flash_bodies"].get(b, 0)
                              for b, n in flash_bodies.items()},
         "sharded_train_shapes": sharded["shapes"],
+        "sharded_train_families_shapes": {
+            a: r["shapes"] for a, r in families_sharded["by_family"].items()},
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -7025,7 +7606,12 @@ def main() -> None:
         **{case.replace("-", "_"): {k: flash_results[case][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")} for case in ("whisper-enc", "whisper-cross",
-                                        "yi-6b-fsdp-tp-shard")}})
+                                        "yi-6b-fsdp-tp-shard",
+                                        "moonshot-fsdp-tp-shard",
+                                        "zamba2-fsdp-tp-shard",
+                                        "whisper-enc-shard",
+                                        "whisper-dec-shard",
+                                        "whisper-cross-shard")}})
     # not TPU kernels: what each measures on the card, the reference
     # times on the host
     for name, case, replaces in (

@@ -2,12 +2,12 @@
 
 PyTorch counterpart of ``repro/launch/train.py``.
 `make_train_step(cfg, opt, n_micro=...)` accumulates gradients over
-`n_micro` slices of the global batch (live activations at 1/n_micro),
-in `acc_dtype` accumulators (float32 by default), then takes one AdamW
-step.  With ``mesh=`` and ``plan=`` the step runs sharded
-(runtime/trainer.py): the accumulators are laid like the parameters,
-and microbatch k takes the k-th slice of every data group's rows, so
-each position keeps its own rows.
+`n_micro` contiguous slices of the global batch (live activations at
+1/n_micro), in `acc_dtype` accumulators (float32 by default), then
+takes one AdamW step.  With ``mesh=`` and ``plan=`` the step runs
+sharded (runtime/trainer.py): the accumulators are laid like the
+parameters, and each microbatch's rows are split over the data groups
+as a batch's are.
 
 CLI: PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --steps 20
 (reduced config unless --full; on the CUDA device unless --device).
@@ -30,7 +30,6 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.tree import leaves, tree_map
 from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime.trainer import value_and_grad
-from repro_torch.sharding.plans import batch_placement
 
 Params = Any
 
@@ -48,27 +47,16 @@ def estimate_microbatches(cfg: ModelConfig, tokens_dev: float,
     return n
 
 
-def _micro_rows(B: int, n_micro: int, mesh, plan) -> List[torch.Tensor]:
-    """The batch rows of each microbatch: contiguous slices of B on one
-    device; over a mesh, the k-th slice of every data group's rows, the
-    groups in order (so the microbatch's own groups are those slices)."""
+def _micro_rows(B: int, n_micro: int) -> List[slice]:
+    """The batch rows of each microbatch: the contiguous k-th slice of
+    the global batch, as the reference's (over a mesh the sharded step
+    then splits each microbatch's rows over the data groups, so a moe
+    layer's capacity, drops and aux loss see the reference's tokens)."""
     if B % n_micro:
         raise ValueError(f"batch {B} does not split into {n_micro} "
                          "microbatches")
-    groups = ([(0, B)] if mesh is None
-              else list(batch_placement(plan, B, mesh).rows))
-    out = []
-    for mb in range(n_micro):
-        idx = []
-        for lo, hi in groups:
-            n = hi - lo
-            if n % n_micro:
-                raise ValueError(f"a data group's {n} rows do not split "
-                                 f"into {n_micro} microbatches")
-            k = n // n_micro
-            idx.extend(range(lo + mb * k, lo + (mb + 1) * k))
-        out.append(torch.tensor(idx, dtype=torch.long))
-    return out
+    k = B // n_micro
+    return [slice(mb * k, (mb + 1) * k) for mb in range(n_micro)]
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamW, *, n_micro: int = 1,
@@ -76,10 +64,9 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, n_micro: int = 1,
                     plan=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
-    batch leaves are [B, ...]; B must divide by n_micro (over a mesh,
-    every data group's rows must).  Gradients are averaged over
-    microbatches, each microbatch's gradient divided by n_micro and cast
-    to `acc_dtype` before it is added.
+    batch leaves are [B, ...]; B must divide by n_micro.  Gradients are
+    averaged over microbatches, each microbatch's gradient divided by
+    n_micro and cast to `acc_dtype` before it is added.
     """
     acc_dtype = acc_dtype or torch.float32
     sharded = dict(mesh=mesh, plan=plan)
@@ -89,7 +76,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, n_micro: int = 1,
             loss, grads = value_and_grad(cfg, params, batch, **sharded)
         else:
             B = next(iter(batch.values())).shape[0]
-            micro = _micro_rows(B, n_micro, mesh, plan)
+            micro = _micro_rows(B, n_micro)
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
                                                    device=p.device), params)
             loss = torch.zeros((), dtype=torch.float32,
@@ -97,7 +84,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, n_micro: int = 1,
             for rows in micro:
                 l, g = value_and_grad(
                     cfg, params,
-                    {k: v[rows.to(v.device)] for k, v in batch.items()},
+                    {k: v[rows] for k, v in batch.items()},
                     **sharded)
                 grads = tree_map(lambda a, gi: a + (gi / n_micro).to(a.dtype),
                                  grads, g)

@@ -112,14 +112,16 @@ def loss_fn(cfg: ModelConfig, params: Params,
     encoded frames).  With ``mesh`` and ``plan`` (a training plan of
     sharding/plans.py) `params` is a tree of ``Sharded`` leaves
     (convert.shard_params(..., rules=plan.param_rules)) and the loss runs
-    sharded (transformer.sharded_loss_fn); dense and vlm only: the
-    other families raise NotImplementedError."""
+    sharded, every family under every training plan: the family
+    module's ``sharded_loss_fn`` (transformer: heads, MLP columns and
+    experts over `model`, moe routing global over the batch; ssm_lm /
+    hybrid: Mamba-1 channels / Mamba-2 heads over `model`; encdec:
+    encoder, decoder and cross-attention heads over `model`)."""
     check_family(cfg)
     if (mesh is None) != (plan is None):
         raise ValueError("pass mesh= and plan= together")
     if mesh is not None:
-        transformer.check_sharded_family(cfg)
-        return transformer.sharded_loss_fn(cfg, params, batch, mesh, plan)
+        return _model(cfg).sharded_loss_fn(cfg, params, batch, mesh, plan)
     return _model(cfg).loss_fn(cfg, params, batch)
 
 

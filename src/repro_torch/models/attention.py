@@ -113,8 +113,23 @@ def _kv_slice(H: int, KH: int, lo: int, hi: int) -> Tuple[int, int, bool]:
     return first, stop, ok
 
 
-def shard_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
-                    q_heads: Tuple[int, int]) -> torch.Tensor:
+def cross_kv(cfg, p, enc_out: torch.Tensor, dt: torch.dtype
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k/v of an encoder output through `p`'s wk / wv (and biases) cast
+    to `dt`.  As JAX promotes a product of float32 `enc_out` with bf16
+    weights, k/v come out in the wider of the two dtypes."""
+    k = _proj(enc_out, p["wk"].to(dt))
+    v = _proj(enc_out, p["wv"].to(dt))
+    if cfg.use_bias:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    return k, v
+
+
+def shard_attention(cfg, p, x: torch.Tensor,
+                    positions: Optional[torch.Tensor],
+                    q_heads: Tuple[int, int], *, causal: bool = True,
+                    kv_x: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One model position's attention in the sharded training forward.
 
     x [B,S,d] is the whole (normed) layer input; `p` holds the
@@ -122,33 +137,45 @@ def shard_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor,
     its own kv heads of wk / wv (kv heads split with the q heads) or all
     KH of them (the kv heads replicated over `model`: reduced
     internvl2-1b's 2 kv heads over 4 positions), of which it projects
-    only those its q heads read.  q and k take RoPE; B9 (`flash_attention`:
-    the CUDA kernel on the card) attends the position's heads alone.
-    Returns [B,S,hi-lo,hd]."""
+    only those its q heads read.  With `positions` q and k take RoPE
+    (None: no RoPE, whisper's learned positions).  With `kv_x` (an
+    encoder output) it is cross-attention: k/v are `cross_kv` of it, the
+    three meet in the promoted dtype (the reference's flash promotes
+    inside) and no mask applies; the output comes back in x's dtype.
+    B9 (`flash_attention`: the CUDA kernel on the card) attends the
+    position's heads alone.  Returns [B,S,hi-lo,hd]."""
     lo, hi = q_heads
     H, KH = cfg.num_heads, cfg.num_kv_heads
+    dt = x.dtype
     q = _proj(x, p["wq"])
     if cfg.use_bias:
-        q = q + p["bq"].to(x.dtype)
-    wk, wv = p["wk"], p["wv"]
-    bk, bv = p.get("bk"), p.get("bv")
+        q = q + p["bq"].to(dt)
+    kp = {k: p[k] for k in ("wk", "wv", "bk", "bv") if k in p}
     pair = None
-    if wk.shape[1] == KH and hi - lo < H:          # kv heads replicated
+    if kp["wk"].shape[1] == KH and hi - lo < H:    # kv heads replicated
         first, stop, ok = _kv_slice(H, KH, lo, hi)
-        wk, wv = wk[:, first:stop], wv[:, first:stop]
-        if cfg.use_bias:
-            bk, bv = bk[first:stop], bv[first:stop]
+        kp = {k: v[:, first:stop] if k[0] == "w" else v[first:stop]
+              for k, v in kp.items()}
         if not ok:
             pair = torch.arange(lo, hi, device=x.device) // (H // KH) - first
-    k, v = _proj(x, wk), _proj(x, wv)
-    if cfg.use_bias:
-        k = k + bk.to(x.dtype)
-        v = v + bv.to(x.dtype)
+    if kv_x is None:
+        k, v = _proj(x, kp["wk"]), _proj(x, kp["wv"])
+        if cfg.use_bias:
+            k = k + kp["bk"].to(dt)
+            v = v + kp["bv"].to(dt)
+    else:
+        k, v = cross_kv(cfg, kp, kv_x, dt)
     if pair is not None:                           # one kv head a q head
         k, v = k[:, :, pair], v[:, :, pair]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_x is None:
+        return flash_attention(q, k, v, causal=causal,
+                               window=cfg.sliding_window)
+    ct = torch.promote_types(q.dtype, k.dtype)
+    return flash_attention(q.to(ct), k.to(ct), v.to(ct),
+                           causal=False).to(dt)
 
 
 def out_project_fp8(p, q8, o: torch.Tensor) -> torch.Tensor:

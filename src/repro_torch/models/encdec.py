@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import transformer as T
 from repro_torch.models.common import (ParamSpec, apply_norm, cross_entropy,
                                        norm_spec)
 from repro_torch.models.transformer import (_remat, embed_tokens,
@@ -79,19 +80,6 @@ def _self_block(cfg, p, x: torch.Tensor, *, causal: bool) -> torch.Tensor:
     return attn.out_project(p, o)
 
 
-def _cross_kv(cfg, p, enc_out: torch.Tensor, dt: torch.dtype
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """k/v of the encoder output through weights (and biases) cast to
-    `dt`.  As JAX promotes a product of float32 `enc_out` with bf16
-    weights, k/v come out in the wider of the two dtypes."""
-    k = attn._proj(enc_out, p["wk"].to(dt))
-    v = attn._proj(enc_out, p["wv"].to(dt))
-    if cfg.use_bias:
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    return k, v
-
-
 def _cross_block(cfg, p, x: torch.Tensor, enc_out: torch.Tensor
                  ) -> torch.Tensor:
     """Cross-attention: q from the decoder rows, k/v from `enc_out`, no
@@ -102,7 +90,7 @@ def _cross_block(cfg, p, x: torch.Tensor, enc_out: torch.Tensor
     q = attn._proj(x, p["wq"])
     if cfg.use_bias:
         q = q + p["bq"].to(dt)
-    k, v = _cross_kv(cfg, p, enc_out, dt)
+    k, v = attn.cross_kv(cfg, p, enc_out, dt)
     ct = torch.promote_types(q.dtype, k.dtype)
     o = attn.flash_attention(q.to(ct), k.to(ct), v.to(ct), causal=False)
     return attn.out_project(p, o.to(dt))
@@ -156,6 +144,77 @@ def loss_fn(cfg, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     return cross_entropy(logits, batch["labels"])
 
 
+# --- sharded training over a (data, model) mesh --------------------------
+
+def _sharded_enc_block(cfg, g, lp, xd, read):
+    """An encoder layer of one data group: its heads (non-causal, no
+    RoPE) and MLP columns on each `model` worker (transformer's
+    `attn_residual` / `mlp_residual`)."""
+    xd = T.attn_residual(cfg, g, lp["attn"], xd,
+                         T.norm(cfg, g, lp["ln1"], xd, read), read,
+                         rope=False, causal=False)
+    return T.mlp_residual(cfg, g, lp["mlp"], xd,
+                          T.norm(cfg, g, lp["ln2"], xd, read), read)
+
+
+def _sharded_dec_block(cfg, g, lp, xd, enc, read):
+    """A decoder layer of one data group: causal self-attention, then
+    cross-attention (each worker's q heads against k/v its heads project
+    from the encoder output `enc`, whole on each of the group's
+    devices), then the MLP."""
+    xd = T.attn_residual(cfg, g, lp["self_attn"], xd,
+                         T.norm(cfg, g, lp["ln1"], xd, read), read,
+                         rope=False)
+    xd = T.attn_residual(cfg, g, lp["cross_attn"], xd,
+                         T.norm(cfg, g, lp["ln2"], xd, read), read,
+                         rope=False, kv=enc)
+    return T.mlp_residual(cfg, g, lp["mlp"], xd,
+                          T.norm(cfg, g, lp["ln3"], xd, read), read)
+
+
+def sharded_loss_fn(cfg, params, batch: Dict[str, torch.Tensor], mesh,
+                    plan) -> torch.Tensor:
+    """`loss_fn` over a mesh (transformer.sharded_loss_fn's design): the
+    frames' and the tokens' rows split over the plan's batch axes into
+    data groups; `enc_pos` / `dec_pos` gathered when used; each `model`
+    worker runs its heads of the encoder's self-attention, the decoder's
+    causal self-attention and the cross-attention, and its MLP columns;
+    the tied, padded-vocab embedding and cross-entropy vocab-parallel
+    (the log-sum-exp takes the padding columns, as `loss_fn`)."""
+    frames, tokens = batch["frames"], batch["tokens"]
+    B, S = tokens.shape
+    S_enc = frames.shape[1]
+    groups = T._groups(mesh, plan, B)
+    spact_enc = T._spact(cfg, plan, mesh, S_enc)
+    spact = T._spact(cfg, plan, mesh, S)
+    read = T._Reader()
+    xs, ys = [], []
+    for g in groups:
+        lo, hi = g.rows
+        f = {d: frames[lo:hi].to(d) for d in g.devices}
+        xd = {d: f[d] + read(params["enc_pos"], g.first[d])[:S_enc]
+              .to(f[d].dtype)[None] for d in g.devices}
+        xs.append(T._exit(g, xd, spact_enc))
+        yd = T._sharded_embed(cfg, g, params, tokens[lo:hi], None, read)
+        yd = {d: yd[d] + read(params["dec_pos"], g.first[d])[:S]
+              .to(yd[d].dtype)[None] for d in g.devices}
+        ys.append(T._exit(g, yd, spact))
+    enc = T._remat(cfg, functools.partial(
+        T.per_group(functools.partial(_sharded_enc_block, cfg)), groups,
+        spact_enc))
+    for lp in layer_list(params["enc_layers"], cfg.enc_layers):
+        xs, _ = enc(lp, xs)
+    encs = [T.norm(cfg, g, params["enc_norm"], T._entry(g, x, spact_enc),
+                   read) for g, x in zip(groups, xs)]
+    dec = T._remat(cfg, functools.partial(
+        T.per_group(functools.partial(_sharded_dec_block, cfg)), groups,
+        spact))
+    for lp in layer_list(params["dec_layers"], cfg.dec_layers):
+        ys, _ = dec(lp, ys, encs)
+    return T.sharded_lm_head(cfg, params, groups, ys, batch["labels"],
+                             spact, 0, mesh.positions[0]) / (B * S)
+
+
 # --- serving -------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -192,7 +251,8 @@ def prefill(cfg, params, frames: torch.Tensor, cache: Params
     enc_out = encode(cfg, params, frames)
     for i in range(cfg.dec_layers):
         lp = layer_slice(params["dec_layers"], i)
-        k, v = _cross_kv(cfg, lp["cross_attn"], enc_out, enc_out.dtype)
+        k, v = attn.cross_kv(cfg, lp["cross_attn"], enc_out,
+                             enc_out.dtype)
         xk[i].copy_(k)
         xv[i].copy_(v)
     return enc_out, dict(cache, xk=xk, xv=xv)

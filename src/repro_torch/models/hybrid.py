@@ -22,6 +22,7 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm
+from repro_torch.models import transformer as T
 from repro_torch.models.common import (ParamSpec, apply_norm, apply_rope,
                                        norm_spec)
 from repro_torch.models.transformer import (_embed, _remat, embed_tokens,
@@ -102,6 +103,28 @@ def forward(cfg, params, tokens: torch.Tensor, *,
 def loss_fn(cfg, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     h, _ = forward(cfg, params, batch["tokens"])
     return lm_xent(cfg, params, h, batch["labels"])
+
+
+def _sharded_mamba_block(cfg, g, lp, xd, read):
+    h = T.norm(cfg, g, lp["ln"], xd, read)
+    y = ssm.sharded_mamba2(cfg, lp["mixer"], g, h, read)
+    return {d: xd[d] + y[d] for d in g.devices}
+
+
+def sharded_loss_fn(cfg, params, batch: Dict[str, torch.Tensor], mesh,
+                    plan) -> torch.Tensor:
+    """`loss_fn` over a mesh (transformer.sharded_lm_loss): each Mamba-2
+    layer's heads over `model` (ssm.sharded_mamba2); the shared block
+    (transformer.sharded_block: its heads through B9, its MLP columns)
+    is one tree of ``Sharded`` leaves used by every super-block, so each
+    use's gradient sums into the one owner."""
+    mamba = T.per_group(functools.partial(_sharded_mamba_block, cfg))
+    shared = T.per_group(functools.partial(T.sharded_block, cfg))
+    units = []
+    for sb in layer_list(params["mamba"], n_superblocks(cfg)):
+        units += [(mamba, lp) for lp in layer_list(sb, cfg.attn_every)]
+        units.append((shared, params["shared"]))
+    return T.sharded_lm_loss(cfg, params, batch, mesh, plan, units)
 
 
 # --- serving -------------------------------------------------------------

@@ -20,7 +20,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamSpec, rmsnorm
+from repro_torch.models.common import ParamSpec, rmsnorm, xshard_sum
+from repro_torch.sharding.axes import MODEL_AXIS
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -126,6 +127,26 @@ def _pad_rows(t: torch.Tensor, pad: int) -> torch.Tensor:
     return F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) if pad else t
 
 
+def _mamba1_scan(xs, delta, Bm, Cm, A, h, chunk: int):
+    """The selective scan over chunks of `chunk` rows (the last
+    zero-padded past L) from the state h [B, di, N]: (y [B, L, di]
+    float32, the last state).  Each channel's recurrence is its own."""
+    L = xs.shape[1]
+    C_ = min(chunk, L)
+    pad = (-L) % C_
+    xs_p, delta, Bm, Cm = (_pad_rows(t, pad) for t in (xs, delta, Bm, Cm))
+    ys = []
+    for c in range((L + pad) // C_):
+        rows = slice(c * C_, (c + 1) * C_)
+        dc = delta[:, rows]
+        dA = torch.exp(dc[..., None] * A)                     # [B,C,di,N]
+        dBx = (dc * xs_p[:, rows].float())[..., None] \
+            * Bm[:, rows].float()[:, :, None, :]              # [B,C,di,N]
+        hs, h = _scan_chunk(dA, dBx, h)
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs, Cm[:, rows].float()))
+    return torch.cat(ys, dim=1)[:, :L], h
+
+
 def mamba1_mixer(cfg, p, x: torch.Tensor, *, chunk: int = 128,
                  state: Optional[Dict[str, torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -153,21 +174,7 @@ def mamba1_mixer(cfg, p, x: torch.Tensor, *, chunk: int = 128,
 
     h = (torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
          if state is None else state["ssm"])
-
-    C_ = min(chunk, L)
-    pad = (-L) % C_
-    xs_p, delta, Bm, Cm = (_pad_rows(t, pad) for t in (xs, delta, Bm, Cm))
-    ys = []
-    for c in range((L + pad) // C_):
-        rows = slice(c * C_, (c + 1) * C_)
-        dc = delta[:, rows]
-        dA = torch.exp(dc[..., None] * A)                     # [B,C,di,N]
-        dBx = (dc * xs_p[:, rows].float())[..., None] \
-            * Bm[:, rows].float()[:, :, None, :]              # [B,C,di,N]
-        hs, h = _scan_chunk(dA, dBx, h)
-        ys.append(torch.einsum("bcdn,bcn->bcd", hs, Cm[:, rows].float()))
-    y = torch.cat(ys, dim=1)[:, :L]
-
+    y, h = _mamba1_scan(xs, delta, Bm, Cm, A, h, chunk)
     y = y + xs.float() * p["d_skip"].float()
     y = y.to(dt) * F.silu(z)
     out = y @ p["w_out"].to(dt)
@@ -216,6 +223,44 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     return d.masked_fill(~mask, float("-inf"))
 
 
+def _ssd_scan(xs, Bm, Cm, dA, delta, h, chunk: int):
+    """SSD over chunks of `chunk` rows (the last zero-padded past L)
+    from the state h [B, H, P, N]: the intra-chunk quadratic term, the
+    inter-chunk term from the carried state and the state update.
+    Returns (y [B, L, H, P] float32, the last state).  Each head is its
+    own."""
+    B, L = xs.shape[:2]
+    H, P = h.shape[1], h.shape[2]
+    Q = min(chunk, L)
+    pad = (-L) % Q
+    xs_p, Bm, Cm, dA, delta = (_pad_rows(t, pad)
+                               for t in (xs, Bm, Cm, dA, delta))
+    ys = []
+    for c in range((L + pad) // Q):
+        rows = slice(c * Q, (c + 1) * Q)
+        bcf = Bm[:, rows].float()                             # [B,Q,N]
+        ccf = Cm[:, rows].float()
+        ac = dA[:, rows].transpose(1, 2)                      # [B,H,Q]
+        # delta-weighted x, [B,Q,H,P]
+        xcf = xs_p[:, rows].reshape(B, Q, H, P).float() \
+            * delta[:, rows][..., None]
+        a_cum = torch.cumsum(ac, dim=-1)                      # [B,H,Q]
+        # intra-chunk (the "attention-like" quadratic term)
+        Lmat = torch.exp(_segsum(ac))                         # [B,H,Q,Q]
+        scores = torch.einsum("bln,bsn->bls", ccf, bcf)[:, None] * Lmat
+        y_diag = torch.einsum("bhls,bshp->blhp", scores, xcf)
+        # inter-chunk via carried state
+        y_off = torch.einsum("bln,bhpn->blhp", ccf, h) \
+            * torch.exp(a_cum).transpose(1, 2)[..., None]
+        # state update for the next chunk
+        decay = torch.exp(a_cum[..., -1:] - a_cum)            # [B,H,Q]
+        h = h * torch.exp(a_cum[..., -1])[..., None, None] \
+            + torch.einsum("bsn,bshp->bhpn", bcf,
+                           xcf * decay.transpose(1, 2)[..., None])
+        ys.append(y_diag + y_off)
+    return torch.cat(ys, dim=1)[:, :L], h                     # [B,L,H,P]
+
+
 def mamba2_mixer(cfg, p, x: torch.Tensor, *, chunk: int = 64,
                  state: Optional[Dict[str, torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -242,37 +287,9 @@ def mamba2_mixer(cfg, p, x: torch.Tensor, *, chunk: int = 64,
     A = -torch.exp(p["a_log"].float())                        # [H]
     dA = delta * A                                            # [B,L,H]
 
-    Q = min(chunk, L)
-    pad = (-L) % Q
-    xs_p, Bm, Cm, dA, delta = (_pad_rows(t, pad)
-                               for t in (xs, Bm, Cm, dA, delta))
-
     h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
          if state is None else state["ssm"])
-    ys = []
-    for c in range((L + pad) // Q):
-        rows = slice(c * Q, (c + 1) * Q)
-        bcf = Bm[:, rows].float()                             # [B,Q,N]
-        ccf = Cm[:, rows].float()
-        ac = dA[:, rows].transpose(1, 2)                      # [B,H,Q]
-        # delta-weighted x, [B,Q,H,P]
-        xcf = xs_p[:, rows].reshape(B, Q, H, P).float() \
-            * delta[:, rows][..., None]
-        a_cum = torch.cumsum(ac, dim=-1)                      # [B,H,Q]
-        # intra-chunk (the "attention-like" quadratic term)
-        Lmat = torch.exp(_segsum(ac))                         # [B,H,Q,Q]
-        scores = torch.einsum("bln,bsn->bls", ccf, bcf)[:, None] * Lmat
-        y_diag = torch.einsum("bhls,bshp->blhp", scores, xcf)
-        # inter-chunk via carried state
-        y_off = torch.einsum("bln,bhpn->blhp", ccf, h) \
-            * torch.exp(a_cum).transpose(1, 2)[..., None]
-        # state update for the next chunk
-        decay = torch.exp(a_cum[..., -1:] - a_cum)            # [B,H,Q]
-        h = h * torch.exp(a_cum[..., -1])[..., None, None] \
-            + torch.einsum("bsn,bshp->bhpn", bcf,
-                           xcf * decay.transpose(1, 2)[..., None])
-        ys.append(y_diag + y_off)
-    y = torch.cat(ys, dim=1)[:, :L]                           # [B,L,H,P]
+    y, h = _ssd_scan(xs, Bm, Cm, dA, delta, h, chunk)
     y = y + xs.reshape(B, L, H, P).float() * p["d_skip"].float()[:, None]
     y = y.reshape(B, L, di).to(dt)
 
@@ -292,6 +309,145 @@ def mamba2_state(cfg, batch: int, dtype=torch.bfloat16, device=None
         "conv": torch.zeros((batch, cfg.conv_width - 1, conv_dim),
                             dtype=dtype, device=device),
     }
+
+
+# ----------------------------------------------------------------------
+# the sharded training step: Mamba-1 channels / Mamba-2 heads over `model`
+# ----------------------------------------------------------------------
+
+def _rows_partial(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The float32 partial [1, B, L, n] of y @ w over a position's rows
+    of the contraction (y's dtype operands, read in float32)."""
+    return (y.float() @ w.to(y.dtype).float())[None]
+
+
+def _once(cfg, mixer, p, g, h, read, chunk: int):
+    """The whole mixer on the group's first worker (a split `model` does
+    not divide), copied to the group's other devices."""
+    w = g.workers[0]
+    y, _ = mixer(cfg, read.whole(p, w), h[w.device], chunk=chunk)
+    return {d: y.to(d) for d in g.devices}
+
+
+def sharded_mamba1(cfg, p, g, h, read, *, chunk: int = 128):
+    """`mamba1_mixer` of one data group of the sharded training step
+    (models/transformer.py's groups and reader; `p` the layer's
+    ``Sharded`` leaves, h the normed input on each group device), the
+    `d_inner` channels split over `model`: position m takes channels
+    c_m = [m di/M, (m+1) di/M), the x columns c_m and the z columns
+    di + c_m of w_in (read across its blocks: `model` splits w_in's
+    2 di columns contiguously, so x and z lie in different blocks), and
+    its conv, dt, A and skip channels.  x_proj contracts over the split
+    channels: each position's float32 partial is summed in model order
+    (``xshard_ssm_xproj``), giving dt_lr, B and C on every device; the
+    scan runs over the position's channels alone (the recurrence is
+    diagonal); the out-projection partials are summed
+    (``xshard_ssm_out``).  Where `model` does not split d_inner the
+    mixer runs once.  Returns the output [B, L, d] on each device."""
+    if p["conv_b"].split(MODEL_AXIS) is None:
+        return _once(cfg, mamba1_mixer, p, g, h, read, chunk)
+    di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    n = di // p["conv_b"].parts(MODEL_AXIS)
+    mine = []
+    for w in g.workers:
+        x = h[w.device]
+        dt = x.dtype
+        lo, hi = w.m * n, (w.m + 1) * n
+
+        def span(name, dim, a=lo, b=hi, w=w):
+            return read.span(p[name], w, dim, a, b)
+
+        xs = x @ span("w_in", 1).to(dt)
+        z = x @ span("w_in", 1, di + lo, di + hi).to(dt)
+        xs, _ = causal_conv1d(xs, span("conv_w", 1), span("conv_b", 0))
+        mine.append((w, span, F.silu(xs), z))
+    proj = xshard_sum([_rows_partial(xs, span("w_x", 0))
+                       for _, span, xs, _ in mine], g.devices,
+                      tag="xshard_ssm_xproj")
+    # rounded to x's dtype once a device, then shared in float32, so the
+    # positions' gradients of dt_lr, B and C add in float32 and round
+    # once, as the one-device mixer's sum over all channels does
+    proj = {d: v.to(h[d].dtype).float() for d, v in proj.items()}
+    parts = []
+    for w, span, xs, z in mine:
+        B, L = xs.shape[:2]
+        dt = xs.dtype
+        dt_lr, Bm, Cm = proj[w.device].split([R, N, N], dim=-1)
+        delta = softplus((dt_lr.to(dt) @ span("w_dt", 1).to(dt)).float()
+                         + span("dt_bias", 0).float())
+        A = -torch.exp(span("a_log", 0).float())
+        h0 = torch.zeros((B, n, N), dtype=torch.float32, device=xs.device)
+        y, _ = _mamba1_scan(xs, delta, Bm, Cm, A, h0, chunk)
+        y = y + xs.float() * span("d_skip", 0).float()
+        parts.append(_rows_partial(y.to(dt) * F.silu(z), span("w_out", 0)))
+    ys = xshard_sum(parts, g.devices, tag="xshard_ssm_out")
+    return {d: ys[d].to(h[d].dtype) for d in g.devices}
+
+
+def sharded_mamba2(cfg, p, g, h, read, *, chunk: int = 64):
+    """`mamba2_mixer` of one data group of the sharded training step,
+    its heads split over `model`: position m takes heads h_m (H/M of
+    them, channels c_m), reads the w_in columns and conv channels of its
+    z, x and dt heads, and all of B and C (ngroups 1: projected and
+    convolved once, on the group's first worker), and runs the SSD
+    chunks on its heads.  The gated
+    RMSNorm's mean of squares over the whole d_inner is each position's
+    float32 row sum of squares, summed in model order
+    (``xshard_ssm_norm``) and divided by d_inner; the out-projection
+    partials are summed (``xshard_ssm_out``).  Where `model` does not
+    split the heads the mixer runs once.  Returns the output [B, L, d]
+    on each device."""
+    if p["a_log"].split(MODEL_AXIS) is None:
+        return _once(cfg, mamba2_mixer, p, g, h, read, chunk)
+    di, N, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    Hm = di // P // p["a_log"].parts(MODEL_AXIS)
+    n = Hm * P
+    # B and C (every head reads them) once, on the group's first worker,
+    # shared in float32: the positions' gradients add in float32 and
+    # round once, as the one-device mixer's sum over all heads does
+    w0 = g.workers[0]
+    bc = h[w0.device] @ read.span(p["w_in"], w0, 1, 2 * di,
+                                  2 * di + 2 * N).to(h[w0.device].dtype)
+    bc, _ = causal_conv1d(bc, read.span(p["conv_w"], w0, 1, di, di + 2 * N),
+                          read.span(p["conv_b"], w0, 0, di, di + 2 * N))
+    bc = F.silu(bc).float()
+    bcs = {d: bc.to(d) for d in g.devices}
+    mine = []
+    for w in g.workers:
+        x = h[w.device]
+        B, L = x.shape[:2]
+        dt = x.dtype
+        lo, hi = w.m * n, (w.m + 1) * n
+        hlo, hhi = w.m * Hm, (w.m + 1) * Hm
+
+        def span(name, dim, a=lo, b=hi, w=w):
+            return read.span(p[name], w, dim, a, b)
+
+        z = x @ span("w_in", 1).to(dt)
+        xs = x @ span("w_in", 1, di + lo, di + hi).to(dt)
+        dt_raw = x @ span("w_in", 1, 2 * di + 2 * N + hlo,
+                          2 * di + 2 * N + hhi).to(dt)
+        xs, _ = causal_conv1d(xs, span("conv_w", 1), span("conv_b", 0))
+        xs = F.silu(xs)
+        Bm, Cm = bcs[w.device].split([N, N], dim=-1)
+        delta = softplus(dt_raw.float() + span("dt_bias", 0, hlo, hhi)
+                         .float())
+        dA = delta * -torch.exp(span("a_log", 0, hlo, hhi).float())
+        h0 = torch.zeros((B, Hm, P, N), dtype=torch.float32, device=x.device)
+        y, _ = _ssd_scan(xs, Bm, Cm, dA, delta, h0, chunk)
+        y = y + xs.reshape(B, L, Hm, P).float() \
+            * span("d_skip", 0, hlo, hhi).float()[:, None]
+        gz = y.reshape(B, L, n).to(dt) * F.silu(z)
+        mine.append((w, span, gz))
+    ss = xshard_sum([gz.float().square().sum(-1, keepdim=True)[None]
+                     for _, _, gz in mine], g.devices, tag="xshard_ssm_norm")
+    parts = []
+    for w, span, gz in mine:
+        r = torch.rsqrt(ss[w.device] / di + 1e-6)
+        y = (gz.float() * r * span("norm_scale", 0).float()).to(gz.dtype)
+        parts.append(_rows_partial(y, span("w_out", 0)))
+    ys = xshard_sum(parts, g.devices, tag="xshard_ssm_out")
+    return {d: ys[d].to(h[d].dtype) for d in g.devices}
 
 
 def ssm_flops_per_token(cfg, mamba2: bool = False) -> float:

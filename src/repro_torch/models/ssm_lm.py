@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import ssm
+from repro_torch.models import transformer as T
 from repro_torch.models.common import ParamSpec, apply_norm, norm_spec
 from repro_torch.models.transformer import (_embed, _remat, embed_tokens,
                                             layer_list, layer_slice,
@@ -61,6 +62,22 @@ def forward(cfg, params, tokens: torch.Tensor, *,
 def loss_fn(cfg, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     h, _ = forward(cfg, params, batch["tokens"])
     return lm_xent(cfg, params, h, batch["labels"])
+
+
+def _sharded_block(cfg, g, lp, xd, read):
+    h = T.norm(cfg, g, lp["ln"], xd, read)
+    y = ssm.sharded_mamba1(cfg, lp["mixer"], g, h, read)
+    return {d: xd[d] + y[d] for d in g.devices}
+
+
+def sharded_loss_fn(cfg, params, batch: Dict[str, torch.Tensor], mesh,
+                    plan) -> torch.Tensor:
+    """`loss_fn` over a mesh (transformer.sharded_lm_loss): each layer's
+    d_inner channels over `model` (ssm.sharded_mamba1)."""
+    unit = T.per_group(functools.partial(_sharded_block, cfg))
+    return T.sharded_lm_loss(cfg, params, batch, mesh, plan,
+                             [(unit, lp) for lp in layer_list(
+                                 params["layers"], cfg.num_layers)])
 
 
 # --- serving: recurrent state instead of a KV cache ---------------------

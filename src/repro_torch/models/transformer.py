@@ -29,19 +29,25 @@ logits are split over the vocab (each shard looks up its rows and
 computes its logit columns; the columns are concatenated on the mesh's
 first position, where the sample head runs).
 
-Sharded training (``sharded_loss_fn``; dense and vlm, the reference's
-training plans over a (pod,) data, model mesh): `params` is a tree of
-``Sharded`` leaves (sharding/axes.py; models/convert.shard_params with
-the plan's param rules).  The batch rows are split over the plan's
-batch axes into data groups; within a group each `model` position
-projects its heads and MLP columns, runs B9 at its heads and forms the
-float32 partials of the out- and down-projections, which
-`xshard_sum` gathers in model order and sums by the fixed tree, under
-autograd.  A dim that does not divide `model` (or a plan that puts
-nothing there: dp, fsdp) leaves its block whole, computed once by the
-group's first position.  A leaf on `data` (FSDP) is gathered in mesh
-order when its layer runs, inside the remat unit, so the backward
-regathers it and reduce-scatters the gradient onto the owners.  The
+Sharded training (``sharded_loss_fn``; dense, moe and vlm, the
+reference's training plans over a (pod,) data, model mesh; the ssm,
+hybrid and encdec families build theirs from the same pieces:
+`sharded_lm_loss`, `per_group`, `sharded_block`, `attn_residual`,
+`mlp_residual`): `params` is a tree of ``Sharded`` leaves
+(sharding/axes.py; models/convert.shard_params with the plan's param
+rules).  The batch rows are split over the plan's batch axes into data
+groups; within a group each `model` position projects its heads and
+MLP columns, runs B9 at its heads and forms the float32 partials of
+the out- and down-projections, which `xshard_sum` gathers in model
+order and sums by the fixed tree, under autograd.  A moe layer routes
+over every group's tokens at once (models/moe.sharded_moe_mlp: the
+reference's global capacity, drops and aux loss) and each `model`
+position runs its block of experts.  A dim that does not divide
+`model` (or a plan that puts nothing there: dp, fsdp) leaves its block
+whole, computed once by the group's first position.  A leaf on `data`
+(FSDP) is gathered in mesh order when its layer runs, inside the remat
+unit, so the backward regathers it and reduce-scatters the gradient
+onto the owners.  The
 embedding and the cross-entropy are vocab-parallel (each id's row and
 label logit from the shard that owns it; the log-sum-exp combined in
 shard order).  fsdp_tp_spact holds the residual stream between blocks
@@ -67,7 +73,7 @@ from repro_torch.models.common import (ParamSpec, apply_norm, apply_rope,
                                        chunked_softmax_xent, cross_entropy,
                                        mark, norm_spec, replicate,
                                        vocab_parallel_xent_sum, xshard_sum)
-from repro_torch.sharding.axes import Sharded
+from repro_torch.sharding.axes import DATA_AXIS, MODEL_AXIS, Sharded
 
 Params = Dict[str, Any]
 
@@ -762,20 +768,6 @@ def prefill(cfg, params, tokens: torch.Tensor, cache: Params, *,
 # sharded training over a ("pod",) "data", "model" mesh
 # ----------------------------------------------------------------------
 
-MODEL_AXIS, DATA_AXIS = "model", "data"
-# the families the sharded training step runs
-SHARDED_FAMILIES = ("dense", "vlm")
-
-
-def check_sharded_family(cfg) -> None:
-    """Raise NotImplementedError, naming the family, unless the sharded
-    training step runs `cfg`'s family (dense and vlm)."""
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"sharded training: family {cfg.family!r} is not ported yet "
-            f"(families {SHARDED_FAMILIES}; train it on one device)")
-
-
 @dataclasses.dataclass(frozen=True)
 class _Worker:
     """A mesh position that computes: its coordinates, device and index
@@ -853,6 +845,24 @@ class _Reader:
         return {k: self.tree(v, w) if isinstance(v, dict) else self(v, w)
                 for k, v in tree.items()}
 
+    def span(self, leaf, w: _Worker, dim: int, lo: int, hi: int
+             ) -> torch.Tensor:
+        """Elements [lo, hi) along `dim` of the worker's view, read from
+        the `model` blocks that cover them (Sharded.span): a range that
+        crosses block boundaries, or a whole dim `model` splits."""
+        return leaf.span(w.coord, dim, lo, hi,
+                         lambda c: self(leaf, dataclasses.replace(w, coord=c)),
+                         gather=DATA_AXIS)
+
+    def whole(self, tree, w: _Worker):
+        """The worker's view of a tree with every `model` split undone
+        (for a block computed once, on one position)."""
+        if isinstance(tree, dict):
+            return {k: self.whole(v, w) for k, v in tree.items()}
+        dim = tree.split(MODEL_AXIS)
+        return (self(tree, w) if dim is None
+                else self.span(tree, w, dim, 0, tree.shape[dim]))
+
 
 def _spact(cfg, plan, mesh, S: int) -> bool:
     """fsdp_tp_spact: the residual stream between blocks as S/model row
@@ -881,37 +891,54 @@ def _exit(g: _Group, xd: Dict[torch.device, torch.Tensor], spact: bool):
         memory_format=torch.contiguous_format) for w in g.workers]
 
 
-def _sharded_block(cfg, g: _Group, lp, xd, read: _Reader):
-    """One pre-norm block of one data group.  Where `model` splits the
-    heads (the MLP columns), each worker runs its heads (columns) and
-    forms the float32 partial of the out-projection (down-projection);
-    `xshard_sum` gathers the partials in model order on each device and
-    sums them by the fixed tree.  Where the plan or a non-dividing dim
-    leaves the block whole, its first worker computes it once, as the
-    one-device block does, and the result is copied to the others."""
-    Bg, S = next(iter(xd.values())).shape[:2]
-    pos = {d: torch.arange(S, device=d).expand(Bg, S) for d in g.devices}
-    h = {d: apply_norm(cfg, xd[d], read.tree(lp["ln1"], g.first[d]))
-         for d in g.devices}
-    att = lp["attn"]
+def norm(cfg, g: _Group, p, xd, read: _Reader):
+    """A replicated norm over the group's residual, on each device."""
+    return {d: apply_norm(cfg, xd[d], read.tree(p, g.first[d]))
+            for d in g.devices}
+
+
+def attn_residual(cfg, g: _Group, att, xd, h, read: _Reader, *,
+                  rope: bool = True, causal: bool = True, kv=None):
+    """xd plus the attention of the normed h (one a group device).
+    Where `model` splits the heads each worker runs its heads
+    (attention.shard_attention: B9 on the card) and forms the float32
+    partial of the out-projection; `xshard_sum` gathers the partials in
+    model order on each device and sums them by the fixed tree.
+    Otherwise the group's first worker attends with every head once,
+    as the one-device block does, and the result is copied to the
+    others.  `rope`: q and k take RoPE at positions 0..S-1; `kv` (one a
+    group device): cross-attention, k/v from it."""
+    Bg, S = h[g.devices[0]].shape[:2]
+    pos = ({d: torch.arange(S, device=d).expand(Bg, S) for d in g.devices}
+           if rope else dict.fromkeys(g.devices))
+    kv = kv or dict.fromkeys(g.devices)
     if att["wq"].split(MODEL_AXIS) is not None:
         hq = cfg.num_heads // att["wq"].parts(MODEL_AXIS)
         parts = []
         for w in g.workers:
             p = read.tree(att, w)
-            o = attn.shard_attention(cfg, p, h[w.device], pos[w.device],
-                                     (w.m * hq, (w.m + 1) * hq))
+            d = w.device
+            o = attn.shard_attention(cfg, p, h[d], pos[d],
+                                     (w.m * hq, (w.m + 1) * hq),
+                                     causal=causal, kv_x=kv[d])
             o = checkpoint_name(o, "attn_out")
             parts.append(attn.out_project_parts(p, o, 1))
         ys = xshard_sum(parts, g.devices, tag="xshard_attn_out")
-        xd = {d: xd[d] + ys[d].to(xd[d].dtype) for d in g.devices}
-    else:
-        w = g.workers[0]
-        y = attn_block(cfg, read.tree(att, w), h[w.device], pos[w.device])
-        xd = {d: xd[d] + y.to(d) for d in g.devices}
-    h = {d: apply_norm(cfg, xd[d], read.tree(lp["ln2"], g.first[d]))
-         for d in g.devices}
-    mp = lp["mlp"]
+        return {d: xd[d] + ys[d].to(xd[d].dtype) for d in g.devices}
+    w = g.workers[0]
+    d = w.device
+    p = read.tree(att, w)
+    o = attn.shard_attention(cfg, p, h[d], pos[d], (0, cfg.num_heads),
+                             causal=causal, kv_x=kv[d])
+    y = attn.out_project(p, checkpoint_name(o, "attn_out"))
+    return {e: xd[e] + y.to(e) for e in g.devices}
+
+
+def mlp_residual(cfg, g: _Group, mp, xd, h, read: _Reader):
+    """xd plus the MLP of the normed h: each worker its columns (the
+    float32 partials of the down-projection summed in model order; the
+    down bias added once after the sum) where `model` splits them, else
+    the whole MLP once on the first worker."""
     if mp["w_up"].split(MODEL_AXIS) is not None:
         ys = xshard_sum([mlp_mod.mlp_parts(cfg, read.tree(mp, w),
                                            h[w.device], 1)
@@ -929,12 +956,50 @@ def _sharded_block(cfg, g: _Group, lp, xd, read: _Reader):
     return {d: xd[d] + y.to(d) for d in g.devices}
 
 
+def attn_half(cfg, g: _Group, lp, xd, read: _Reader):
+    """A pre-norm block's first half: xd plus the attention of its
+    `ln1` norm."""
+    return attn_residual(cfg, g, lp["attn"], xd,
+                         norm(cfg, g, lp["ln1"], xd, read), read)
+
+
+def sharded_block(cfg, g: _Group, lp, xd, read: _Reader):
+    """One pre-norm attention + MLP block of one data group (dense and
+    vlm layers; the hybrid family's shared block)."""
+    xd = attn_half(cfg, g, lp, xd, read)
+    return mlp_residual(cfg, g, lp["mlp"], xd,
+                        norm(cfg, g, lp["ln2"], xd, read), read)
+
+
+def per_group(block):
+    """A unit of the sharded stack (`sharded_lm_loss`) from a block that
+    runs on each data group alone: block(g, lp, xd, *extra, read) -> xd,
+    where each of the unit's `extras` is a list of one entry a group
+    (the decoder's encoder output)."""
+    def unit(groups: List[_Group], spact: bool, lp, xs, *extras):
+        read = _Reader()
+        return [_exit(g, block(g, lp, _entry(g, x, spact), *extra, read),
+                      spact)
+                for g, x, *extra in zip(groups, xs, *extras)], None
+    return unit
+
+
 def _sharded_layer(cfg, groups: List[_Group], spact: bool, lp, xs):
-    """One layer over every data group (the unit `_remat` wraps: the
-    data gathers inside it are redone in the backward, not kept)."""
+    """One transformer layer over every data group, each group's block
+    alone (`sharded_block`), except a moe layer's MLP, which runs over
+    all the groups at once (moe.sharded_moe_mlp: global routing, as the
+    reference's).  Returns (xs, the layer's aux loss or None)."""
+    if cfg.family != "moe":
+        return per_group(functools.partial(sharded_block, cfg))(
+            groups, spact, lp, xs)
     read = _Reader()
-    return [_exit(g, _sharded_block(cfg, g, lp, _entry(g, x, spact), read),
-                  spact) for g, x in zip(groups, xs)]
+    xds = [attn_half(cfg, g, lp, _entry(g, x, spact), read)
+           for g, x in zip(groups, xs)]
+    hs = [norm(cfg, g, lp["ln2"], xd, read) for g, xd in zip(groups, xds)]
+    ys, aux = moe_mod.sharded_moe_mlp(cfg, lp["moe"], groups, hs, read,
+                                      groups[0].devices[0])
+    return [_exit(g, {d: xd[d] + y[d] for d in g.devices}, spact)
+            for g, xd, y in zip(groups, xds, ys)], aux
 
 
 def _sharded_embed(cfg, g: _Group, params, tokens, prefix, read: _Reader):
@@ -984,17 +1049,31 @@ def _sharded_xent(cfg, g: _Group, params, h, labels, read: _Reader,
         chunk=chunk)
 
 
-def sharded_loss_fn(cfg, params, batch: Dict[str, torch.Tensor], mesh,
-                    plan) -> torch.Tensor:
-    """`loss_fn` over a mesh: `params` is a tree of ``Sharded`` leaves
-    (models/convert.shard_params with the plan's param rules); the batch
-    rows are split over the plan's batch axes, `model` splits the heads,
-    the MLP columns and the vocab (each where it divides), and a leaf
-    split over `data` is gathered when its layer runs.  Each layer runs
-    under the config's remat policy.  The loss is the fixed-order sum of
-    the groups' token-loss sums over the global token count (the mean
-    of `loss_fn`), on the mesh's first device."""
-    check_sharded_family(cfg)
+def sharded_lm_head(cfg, params, groups: List[_Group], xs, labels,
+                    spact: bool, chunk: int, first: torch.device
+                    ) -> torch.Tensor:
+    """The final norm and the fixed-order sum of the groups' token-loss
+    sums (vocab-parallel), on `first`."""
+    read = _Reader()
+    total = None
+    for g, x in zip(groups, xs):
+        xd = _entry(g, x, spact)
+        lo, hi = g.rows
+        part = _sharded_xent(cfg, g, params,
+                             norm(cfg, g, params["final_norm"], xd, read),
+                             labels[lo:hi], read, chunk).to(first)
+        total = part if total is None else total + part
+    return total
+
+
+def sharded_lm_loss(cfg, params, batch: Dict[str, torch.Tensor], mesh,
+                    plan, units) -> torch.Tensor:
+    """A decoder-only LM's loss over a mesh: the sharded embedding, then
+    each (unit, layer params) of `units` under the config's remat
+    policy (unit(groups, spact, lp, xs) -> (xs, aux or None); see
+    `per_group`), then the vocab-parallel cross-entropy: the mean of
+    `loss_fn`'s cross-entropy, plus ``aux_loss_weight`` times the units'
+    aux losses, on the mesh's first device."""
     tokens, labels = batch["tokens"], batch["labels"]
     prefix = batch.get("prefix_embeds")
     B, S = tokens.shape
@@ -1007,21 +1086,33 @@ def sharded_loss_fn(cfg, params, batch: Dict[str, torch.Tensor], mesh,
         xd = _sharded_embed(cfg, g, params, tokens[lo:hi],
                             None if prefix is None else prefix[lo:hi], read)
         xs.append(_exit(g, xd, spact))
-    layer = _remat(cfg, functools.partial(_sharded_layer, cfg, groups,
-                                          spact))
-    for lp in layer_list(params["layers"], cfg.num_layers):
-        xs = layer(lp, xs)
+    aux = None
+    for unit, lp in units:
+        xs, a = _remat(cfg, functools.partial(unit, groups, spact))(lp, xs)
+        if a is not None:
+            aux = a if aux is None else aux + a
     chunk = 8192 if cfg.vocab_size * S * B > 2 ** 28 else 0
     first = mesh.positions[0]
-    total = None
-    for g, x in zip(groups, xs):
-        xd = _entry(g, x, spact)
-        h = {d: apply_norm(cfg, xd[d],
-                           read.tree(params["final_norm"], g.first[d]))
-             for d in g.devices}
-        lo, hi = g.rows
-        part = _sharded_xent(cfg, g, params, h, labels[lo:hi], read,
-                             chunk).to(first)
-        total = part if total is None else total + part
-    return total / (B * S)
+    loss = sharded_lm_head(cfg, params, groups, xs, labels, spact, chunk,
+                           first) / (B * S)
+    if aux is not None:
+        loss = loss + cfg.aux_loss_weight * aux
+    return loss
 
+
+def sharded_loss_fn(cfg, params, batch: Dict[str, torch.Tensor], mesh,
+                    plan) -> torch.Tensor:
+    """`loss_fn` over a mesh: `params` is a tree of ``Sharded`` leaves
+    (models/convert.shard_params with the plan's param rules); the batch
+    rows are split over the plan's batch axes, `model` splits the heads,
+    the MLP columns, the experts and the vocab (each where it divides),
+    and a leaf split over `data` is gathered when its layer runs.  Each
+    layer runs under the config's remat policy.  The loss is the
+    fixed-order sum of the groups' token-loss sums over the global token
+    count (the mean of `loss_fn`), plus ``aux_loss_weight`` times the
+    moe layers' global aux losses, on the mesh's first device."""
+    check_family(cfg, "the sharded transformer step")
+    unit = functools.partial(_sharded_layer, cfg)
+    return sharded_lm_loss(cfg, params, batch, mesh, plan,
+                           [(unit, lp) for lp in layer_list(
+                               params["layers"], cfg.num_layers)])

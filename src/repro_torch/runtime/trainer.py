@@ -7,7 +7,7 @@ with ``mesh=`` and ``plan=`` (the reference's arguments), sharded:
     (parameters and moments updated in place); with a mesh the
     parameters and moments are trees of ``Sharded`` leaves laid by the
     plan's param rules (models/convert.shard_params) and the loss runs
-    sharded (models/transformer.sharded_loss_fn; dense and vlm)
+    sharded (api.loss_fn with mesh=; every family)
   * async checkpoint every `ckpt_every` steps; crash-safe manifests
   * restart-from-latest on (injected or real) failure: `run()` survives
     `SimulatedFailure` and the loss stream continues bit-exact (the
@@ -36,7 +36,7 @@ import torch
 from repro_torch.ckpt.checkpoint import Checkpointer
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.tree import leaves, unflatten
-from repro_torch.models import api, convert, transformer
+from repro_torch.models import api, convert
 from repro_torch.models.common import resolve_device
 from repro_torch.optim.adamw import AdamW
 
@@ -95,7 +95,6 @@ class Trainer:
             raise ValueError("pass mesh= and plan= together")
         if mesh is not None:
             api.check_family(cfg)
-            transformer.check_sharded_family(cfg)
             if device is not None:
                 raise ValueError("a mesh places the state: pass mesh= or "
                                  "device=, not both")

@@ -25,7 +25,10 @@ the leaf is held once, by its owner (the first position in mesh order
 that holds it).  Other positions read the owner's block through a
 ``.to(device)`` copy, so autograd sums every use's gradient into the
 owner; ``Sharded.at`` is a position's block with the dim split over one
-axis (`data`, for FSDP) gathered in mesh order.
+axis (`data`, for FSDP) gathered in mesh order, and ``Sharded.span`` an
+index range along a split dim read from the blocks that cover it (the
+Mamba mixers' w_in columns of one position's channels or heads, which
+`model`'s contiguous blocks cut elsewhere).
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ import numpy as np
 import torch
 
 _state = threading.local()
+
+# the training mesh's axes (plans.py): `model` splits the compute
+MODEL_AXIS, DATA_AXIS = "model", "data"
 
 
 class PartitionSpec(tuple):
@@ -229,6 +235,16 @@ def block_index(axes_of_dims: Sequence[Optional[str]],
     return tuple(0 if a is None else coord[a] for a in axes_of_dims)
 
 
+def span_pieces(n: int, parts: int, lo: int, hi: int
+                ) -> List[Tuple[int, int, int]]:
+    """The pieces of elements [lo, hi) of a dim of n cut into `parts`
+    equal blocks: (block, start, stop) within each covering block, in
+    order."""
+    size = n // parts
+    return [(j, max(lo, j * size) - j * size, min(hi, (j + 1) * size)
+             - j * size) for j in range(lo // size, (hi - 1) // size + 1)]
+
+
 def block_slices(shape: Sequence[int], axes_of_dims, mesh_shape,
                  index: Sequence[int]) -> Tuple[slice, ...]:
     """The slice of a leaf of `shape` that block `index` covers."""
@@ -312,6 +328,22 @@ class Sharded:
             k = idx[:dim] + (i,) + idx[dim + 1:]
             parts.append(self.blocks[k].to(device))
         return torch.cat(parts, dim=dim)
+
+    def span(self, coord: Dict[str, int], dim: int, lo: int, hi: int,
+             at, *, gather: Optional[str] = None) -> torch.Tensor:
+        """Elements [lo, hi) along `dim` of what position `coord` reads
+        through `at(coord)` (a block, the dim split over `gather`
+        gathered: ``self.at`` or a memo of it), where `dim` may be split
+        over a mesh axis: the blocks along that axis that cover the
+        range, each read as position `coord` moved along the axis reads
+        it, narrowed and concatenated in order.  Differentiable: each
+        piece's gradient reaches its owner."""
+        axis = self.axes[dim]
+        if axis is None or axis == gather or self.parts(axis) == 1:
+            return at(coord).narrow(dim, lo, hi - lo)
+        pieces = [at({**coord, axis: j}).narrow(dim, a, b - a) for j, a, b
+                  in span_pieces(self.shape[dim], self.parts(axis), lo, hi)]
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
 
     def full(self, device=None) -> torch.Tensor:
         """The whole leaf, its blocks concatenated in mesh order."""

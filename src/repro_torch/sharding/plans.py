@@ -15,13 +15,16 @@ Plans:
   fsdp_tp   2D: ZeRO-3 over `data` x TP over `model`   (default)
   fsdp_tp_sp  + sequence-parallel long-context decode (KV over `data`)
 
-The training plans run in the sharded training step
-(models/transformer.py ``sharded_loss_fn``, runtime/trainer.py,
-launch/train.py; dense and vlm): `param_rules` lay the parameters
+The training plans run in the sharded training step of every family
+(models/api.loss_fn with ``mesh=``, runtime/trainer.py,
+launch/train.py): `param_rules` lay the parameters
 (models/convert.shard_params), `batch_axes` split the batch rows
-(``batch_placement``), `model` splits the compute by heads, MLP columns
-and vocab, and ``act_rules["seq"]`` (fsdp_tp_spact) holds the residual
-stream as row slices over `model` between blocks.  For a training step
+(``batch_placement``), `model` splits the compute by heads, MLP
+columns, experts (moe; routing stays global over the batch), Mamba-1
+channels and Mamba-2 heads (ssm, hybrid), the encoder, decoder and
+cross-attention heads (encdec) and vocab, and ``act_rules["seq"]``
+(fsdp_tp_spact) holds the residual stream as row slices over `model`
+between blocks.  For a training step
 fsdp_tp_sp is fsdp_tp: its `kv_seq_axis` touches decode caches only.
 Serving has its own plan
 (``serving_plan`` / ``ServingPlan`` below), which ``ChunkedServer(tp=N)``

@@ -148,6 +148,18 @@ def cuda():
     return torch.device("cuda")
 
 
+def keep_f32_rows(monkeypatch):
+    """Every family's embedding keeps float32 rows, so a step whose
+    other inputs are float32 runs in float32 (the CPU tests of the
+    sharded step patch the reference's the same way in its child)."""
+    import torch.nn.functional as F
+    from repro_torch.models import encdec, hybrid, ssm_lm
+    rows = (lambda cfg, params, tokens, prefix_embeds=None:
+            F.embedding(tokens.long(), params["embed"]))
+    for m in (transformer, ssm_lm, hybrid, encdec):
+        monkeypatch.setattr(m, "embed_tokens", rows)
+
+
 def _mk(dtype, B, H, KH, hd, NB, bs, MB, seed, device, C=4, kv_lens=None):
     rng = np.random.default_rng(seed)
     td = getattr(torch, dtype)
@@ -3185,3 +3197,64 @@ def test_sharded_fsdp_tp_step_on_card_equals_cpu(cuda):
     for k, a in want.items():
         assert torch.linalg.norm(got[k] - a) <= 0.05 * torch.linalg.norm(
             a), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "falcon-mamba-7b",
+                                  "zamba2-2.7b", "whisper-small"])
+def test_sharded_family_trainer_on_card_equals_cpu(cuda, arch):
+    """Each other family's reduced fsdp_tp Trainer on a (2, 4) mesh spread
+    over the card against the same on a (2, 4) mesh spread over the CPU,
+    3 steps from the same start and batches (chip_smoke.py phase 17(b)'s
+    bars): as it runs (bf16), the first loss within 2e-3 and all within
+    1e-2 unless either host's own bf16 run lies further than that from
+    its float32 run (a moe's routing ties, the chaotic reduced zamba2:
+    the later steps are then rounding); with float32 rows, the first
+    loss within 1e-5 relative and all within 5e-4.  B9 runs on the card
+    wherever the family attends (8 positions a call site)."""
+    import tempfile
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.trainer import Trainer
+    from repro_torch.sharding.plans import get_plan
+    cfg = reduced_config(arch)
+    S, extra = 32, None
+    if cfg.family == "encdec":
+        S = cfg.max_target_len
+        extra = {"frames": ((cfg.max_source_len, cfg.d_model), np.float32)}
+    start = api.init(cfg, 0, device="cpu")
+    losses, launches = {}, 0
+    for rows in ("bf16", "f32"):
+        with pytest.MonkeyPatch.context() as mp:
+            if rows == "f32":
+                keep_f32_rows(mp)
+            for dev in ("cpu", cuda):
+                with tempfile.TemporaryDirectory() as td:
+                    tr = Trainer(cfg, TrainConfig(
+                        total_steps=50, warmup_steps=2, ckpt_every=100,
+                        ckpt_dir=td, learning_rate=1e-3),
+                        data=SyntheticLMData(cfg.vocab_size, 4, S,
+                                             extra=extra),
+                        mesh=make_host_mesh((2, 4), spread=dev),
+                        plan=get_plan("fsdp_tp"))
+                    tr.set_params(tree_map(lambda t: t.clone(), start))
+                    kfa.reset_launch_counts()
+                    losses[rows, str(dev)] = [m.loss for m in tr.run(3)]
+                    if dev is cuda and rows == "bf16":
+                        launches = kfa.launch_counts()["flash_attention"]
+
+    def apart(a, b):
+        return max(abs(x - y) for x, y in zip(a, b))
+
+    card, cpu = losses["bf16", str(cuda)], losses["bf16", "cpu"]
+    card32, cpu32 = losses["f32", str(cuda)], losses["f32", "cpu"]
+    assert abs(card[0] - cpu[0]) <= 2e-3, (card, cpu)
+    if max(apart(card, card32), apart(cpu, cpu32)) <= 1e-2:
+        assert apart(card, cpu) <= 1e-2, (card, cpu)
+    assert abs(card32[0] - cpu32[0]) <= 1e-5 * abs(cpu32[0]), (card32, cpu32)
+    assert apart(card32, cpu32) <= 5e-4, (card32, cpu32)
+    assert (launches == 0) == (cfg.family == "ssm"), launches
+    assert launches % 8 == 0

@@ -21,7 +21,11 @@
     and compressed_psum of sharding/, launch/mesh.py,
     runtime/elastic.py and optim/compress.py, trains two fsdp_tp steps
     of the sharded `Trainer` on a (2, 4) mesh spread over the CPU and
-    resumes its checkpoint on one device, and runs the serving-contract
+    resumes its checkpoint on one device, takes a sharded fsdp_tp loss
+    and its gradients of the reduced moonshot-v1-16b-a3b,
+    falcon-mamba-7b, zamba2-2.7b and whisper-small on that mesh
+    (models/moe.py, ssm.py, ssm_lm.py, hybrid.py, encdec.py over
+    sharding/axes.py's span reads), and runs the serving-contract
     analyzer (repro_torch.analysis) with `--device cpu --strict` and one
     serving combo, clean (tests/test_torch_analysis.py serves them all);
 (c) an entry point called without a device on a host without CUDA
@@ -209,6 +213,16 @@ with tempfile.TemporaryDirectory() as td:
     assert one.resume() and one.step == 2
     assert torch.equal(convert.gather_params(mtr.params)["embed"],
                        one.params["embed"])
+for arch in ("moonshot-v1-16b-a3b", "falcon-mamba-7b", "zamba2-2.7b",
+             "whisper-small"):
+    fcfg = reduced_config(arch)
+    fb = api.make_batch(fcfg, ShapeConfig("t", 16, 2, "train"), 0,
+                        device="cpu")
+    fsh = convert.shard_params(api.init(fcfg, 0, device="cpu"), fcfg, hmesh,
+                               rules=plans.get_plan("fsdp_tp").param_rules)
+    floss, _ = value_and_grad(fcfg, fsh, fb, mesh=hmesh,
+                              plan=plans.get_plan("fsdp_tp"))
+    assert floss == floss, arch
 from repro_torch.analysis.__main__ import main as analyze
 assert analyze(["--device", "cpu", "--strict", "--max-combos", "1",
                 "--repo-root", %(root)r]) == 0

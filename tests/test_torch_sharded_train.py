@@ -42,7 +42,6 @@ import jax
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 from repro.configs import reduced_config as ref_reduced_config
 from repro.configs.base import TrainConfig as RefTrainConfig
@@ -54,9 +53,10 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.tree import items_with_path
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models import convert, transformer
+from repro_torch.models import api, convert
 from repro_torch.runtime.trainer import Trainer, value_and_grad
 from repro_torch.sharding.plans import get_plan
+from test_torch_gpu import keep_f32_rows
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -145,13 +145,308 @@ def reference(child):
     return json.loads(out.splitlines()[-1]), arrays
 
 
-def _keep_f32_rows(monkeypatch):
-    """The port's embedding keeps float32 rows (the child patches the
-    reference's the same way)."""
-    monkeypatch.setattr(
-        transformer, "embed_tokens",
-        lambda cfg, params, tokens, prefix_embeds=None:
-        F.embedding(tokens.long(), params["embed"]))
+# ----------------------------------------------------------------------
+# the other families (tests/test_torch_sharded_{moe,ssm,hybrid,encdec}.py)
+# ----------------------------------------------------------------------
+
+FAMILY_CHILD = r"""
+import os
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
+                           "--xla_cpu_multi_thread_eigen=false "
+                           "intra_op_parallelism_threads=1")
+os.environ["JAX_PLATFORMS"] = "cpu"
+import sys, json, dataclasses
+sys.path.insert(0, os.path.join(%(root)r, "src"))
+import numpy as np
+import jax, jax.numpy as jnp
+assert jax.device_count() >= 8, jax.devices()
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs import reduced_config
+from repro.launch.mesh import make_host_mesh
+from repro.models import api, encdec, hybrid, ssm_lm, transformer
+from repro.optim.adamw import global_norm
+from repro.sharding import axes as axes_mod, plans
+
+class F32Numpy:
+    bfloat16 = jnp.float32
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+def flat(tree):
+    items = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return {"/".join(str(k.key) for k in path): np.asarray(v, np.float32)
+            for path, v in items}
+
+def f32_rows():
+    rows = (lambda cfg, params, tokens, prefix_embeds=None:
+            params["embed"][tokens])
+    for m in (transformer, ssm_lm, hybrid):
+        m.embed_tokens = rows
+    encdec.jnp = F32Numpy()
+
+def to_jax(host, frames):
+    return {k: jnp.asarray(v, frames if k == "frames" else None)
+            for k, v in host.items()}
+%(make_batch)s
+cfg = reduced_config(%(arch)r)
+mesh = make_host_mesh((2, 4), ("data", "model"))
+plan = plans.get_plan("fsdp_tp")
+params = jax.jit(lambda key: api.init(cfg, key))(jax.random.PRNGKey(0))
+host = make_batch(cfg, 2, 1)
+shardings = jax.tree_util.tree_map(
+    lambda s: NamedSharding(mesh, s),
+    api.pspecs(cfg, plan.param_rules, dict(mesh.shape)),
+    is_leaf=lambda x: isinstance(x, P))
+params_sh = jax.device_put(params, shardings)
+out = {"batch/" + k: v for k, v in host.items()}
+out.update({"param/" + k: v for k, v in flat(params).items()})
+norms = {}
+for rows in %(rows)r:
+    if rows == "float32":
+        f32_rows()
+    batch = to_jax(host, jnp.bfloat16 if rows == "bfloat16" else jnp.float32)
+    vg = jax.jit(jax.value_and_grad(lambda p: api.loss_fn(cfg, p, batch)))
+    if %(sharded)r:
+        with mesh, axes_mod.use_rules(mesh, plan.act_rules):
+            loss, grads = vg(params_sh)
+        out[f"loss/{rows}"] = np.asarray(loss, np.float32)
+        out.update({f"grad/{rows}/" + k: v for k, v in flat(grads).items()})
+        norms[rows] = float(global_norm(grads))
+    else:                                     # the same step on one device
+        loss1, grads1 = vg(params)
+        out[f"loss/one_device/{rows}"] = np.asarray(loss1, np.float32)
+        out.update({f"grad/one_device/{rows}/" + k: v
+                    for k, v in flat(grads1).items()})
+f32_rows()
+%(extra)s
+np.savez(sys.argv[1], **out)
+print(json.dumps(norms))
+"""
+
+# the child's batch: B rows of S = 32 tokens (encdec: max_target_len
+# tokens against max_source_len frames), numpy from `seed`
+FAMILY_BATCH = r"""
+def make_batch(cfg, B, seed):
+    rng = np.random.default_rng(seed)
+    S = cfg.max_target_len if cfg.family == "encdec" else 32
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal(
+            (B, cfg.max_source_len, cfg.d_model)).astype(np.float32)
+    return out
+"""
+
+
+def family_child(tmp_path_factory, arch: str, extra: str = ""):
+    """A fixture body: the reference's children for `arch` (reduced),
+    started beside the file's first tests, killed at the module's end.
+    One each runs the reference's fsdp_tp `value_and_grad` of
+    `api.loss_fn` on a (2, 4) mesh of 8 forced host devices, or the same
+    step on one device, as it runs (bf16) or with float32 rows (both
+    embeddings' rows kept float32 and float32 frames: the child patches
+    the reference in its own process); one more runs `extra`, with
+    float32 rows.  The weights are `api.init` of PRNGKey(0), jitted."""
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)
+    runs = [((rows,), sharded, "") for rows in ("bfloat16", "float32")
+            for sharded in (True, False)]
+    procs = []
+    for rows, sharded, more in runs + ([((), False, extra)] if extra else []):
+        path = tmp_path_factory.mktemp("sharded_family") / "ref.npz"
+        code = FAMILY_CHILD % {"root": ROOT, "arch": arch, "rows": rows,
+                               "sharded": sharded, "make_batch": FAMILY_BATCH,
+                               "extra": more}
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", code, str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT), path))
+    yield procs
+    for proc, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def one_thread():
+    """A fixture body: torch on one CPU thread while a module's tests
+    run beside its reference children (the steps are small; many
+    threads only contend with the children's), then as it was."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def family_reference(children):
+    """(the reference's grad norms, its arrays) once its children end."""
+    norms, arrays = {}, {}
+    for proc, path in children:
+        out, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-3000:]
+        with np.load(path) as f:
+            arrays.update(f)
+        norms.update(json.loads(out.splitlines()[-1]))
+    return norms, arrays
+
+
+def family_batch(ref, rows):
+    """The child's batch as torch tensors (frames bf16 as it runs,
+    float32 with float32 rows)."""
+    out = {}
+    for k, v in ref.items():
+        if k.startswith("batch/"):
+            t = torch.from_numpy(v)
+            if k == "batch/frames" and rows == "bfloat16":
+                t = t.to(torch.bfloat16)
+            out[k[len("batch/"):]] = t
+    return out
+
+
+def grad_scale(grads, key, norm=np.max):
+    """The scale a leaf's gradient is held against: its max |g| (`norm`
+    of |g|), except a key bias's, which is zero in exact arithmetic (a
+    shift of every key's score by q.bk leaves the softmax as it is), so
+    both sides hold rounding noise: it is held against its query bias's,
+    as tests/test_torch_encdec.py does."""
+    if key.endswith("/bk"):
+        key = key[:-2] + "bq"
+    return norm(np.abs(grads[key]))
+
+
+def hold_to_reference(ref, arch, rows, monkeypatch, cfg=None):
+    """The port's fsdp_tp step on a (2, 4) CPU mesh against the
+    reference's sharded step (module docstrings: the bars)."""
+    if rows == "float32":
+        keep_f32_rows(monkeypatch)
+    cfg = cfg or reduced_config(arch)
+    params = convert.from_reference(_unflat(ref, "param/"), cfg,
+                                    device="cpu")
+    mesh = make_host_mesh((2, 4), devices=["cpu"] * 8)
+    plan = get_plan("fsdp_tp")
+    sharded = convert.shard_params(params, cfg, mesh,
+                                   rules=plan.param_rules)
+    batch = family_batch(ref, rows)
+    loss, grads = value_and_grad(cfg, sharded, batch, mesh=mesh, plan=plan)
+    # the port's one-device step on the same weights and batch
+    _, port_one = value_and_grad(cfg, params, batch)
+    port_one = {k: v.numpy() for k, v in items_with_path(port_one)}
+    want = float(ref[f"loss/{rows}"])
+    own = abs(float(ref[f"loss/one_device/{rows}"]) - want)
+    if rows == "float32":
+        assert abs(loss.item() - want) <= max(1e-5 * abs(want), 1.5 * own), \
+            (loss.item(), want)
+    else:
+        assert abs(loss.item() - want) <= max(7e-3, 1.5 * own), \
+            (loss.item(), want)
+    sharded_ref = {k[len(f"grad/{rows}/"):]: v for k, v in ref.items()
+                   if k.startswith(f"grad/{rows}/")}
+    n = 0
+    for key, g in items_with_path(convert.gather_params(grads)):
+        a, b = sharded_ref[key], g.numpy()
+        one = ref[f"grad/one_device/{rows}/{key}"]
+        assert a.shape == b.shape, key
+        # each bar: the stated fraction, or 1.5 times the reference's
+        # own one-device distance, or 1.5 times the distance between the
+        # two packages' one-device steps (roundings each package takes
+        # its own way: reduced whisper-small's float32 gradients lie
+        # 8.5e-4 of max |g| apart, a top-k near-tie of reduced
+        # moonshot's router moves its bf16 gradient 9.6%)
+        if rows == "float32":
+            bar = max(1e-4 * grad_scale(sharded_ref, key),
+                      1.5 * np.abs(one - a).max(),
+                      1.5 * np.abs(port_one[key] - one).max())
+            assert np.abs(a - b).max() <= bar, (key, np.abs(a - b).max(),
+                                                bar)
+        else:
+            # and within 5% of the port's own one-device step, which
+            # the sharding alone moves
+            l2 = np.linalg.norm
+            bar = max(0.05 * grad_scale(sharded_ref, key, l2),
+                      1.5 * l2(one - a), 1.5 * l2(port_one[key] - one))
+            assert l2(a - b) <= bar, (key, l2(a - b) / l2(a))
+            assert (l2(b - port_one[key])
+                    <= 0.05 * grad_scale(port_one, key, l2)), key
+        n += 1
+    assert n == len(sharded_ref)
+    return loss.item()
+
+
+# every plan on (2, 4); tp and fsdp_tp on (4, 2), (1, 8) and (2, 2, 2)
+FAMILY_CASES = ([((2, 4), p) for p in ("dp", "fsdp", "tp", "fsdp_tp",
+                                      "fsdp_tp_sp", "fsdp_tp_spact")]
+                + [(s, p) for s in ((4, 2), (1, 8), (2, 2, 2))
+                   for p in ("tp", "fsdp_tp")])
+
+
+def case_id(case):
+    shape, plan = case
+    return "x".join(map(str, shape)) + "-" + plan
+
+
+_FAMILY_ONE = {}
+
+
+def family_one_device(arch, cfg=None, B=4, seed=1):
+    """(cfg, params, batch, loss, gradients by key, their rounding
+    floor by key) of the port's one-device step with float32 rows (a
+    batch of B rows from `seed`; computed once a process).  The floor
+    is how far each gradient moves when the step reorders one sum (each
+    dense MLP's down-projection formed as 2 float32 partials): reduced
+    whisper-small's float32 gradients move by up to 1.5e-4 of their max
+    |g| so (reduced yi-6b's by 2e-6)."""
+    key = (arch, cfg, B, seed)
+    if key not in _FAMILY_ONE:
+        cfg = cfg or reduced_config(arch)
+        params = api.init(cfg, 0, device="cpu")
+        rng = np.random.default_rng(seed)
+        S = cfg.max_target_len if cfg.family == "encdec" else 32
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1))
+                                .astype(np.int32))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (B, cfg.max_source_len, cfg.d_model)).astype(np.float32))
+        from repro_torch.models import mlp as mlp_mod
+        dense = mlp_mod.mlp
+        with pytest.MonkeyPatch.context() as mp:
+            keep_f32_rows(mp)
+            loss, grads = value_and_grad(cfg, params, batch)
+            # the same step with one sum reordered: each dense MLP's
+            # down-projection as 2 float32 partials
+            mp.setattr(mlp_mod, "mlp", lambda cfg, p, x, groups=0:
+                       dense(cfg, p, x, groups=2))
+            _, moved = value_and_grad(cfg, params, batch)
+        grads = {k: v.numpy() for k, v in items_with_path(grads)}
+        floor = {k: np.abs(v.numpy() - grads[k]).max()
+                 for k, v in items_with_path(moved)}
+        _FAMILY_ONE[key] = (cfg, params, batch, loss.item(), grads, floor)
+    return _FAMILY_ONE[key]
+
+
+def equals_one_device(arch, shape, plan_name, monkeypatch, cfg=None):
+    """The port's sharded step under `plan_name` on a CPU mesh of
+    `shape` against its one-device step, float32 rows: the loss within
+    1e-5 relative, every gradient within 1e-4 of its max |g|
+    (test_torch_sharded_plans.py's rule) or, where the one-device step
+    itself moves further when one of its sums is reordered, within 1.5
+    times that (`family_one_device`'s floor)."""
+    cfg, params, batch, want_loss, want, floor = family_one_device(arch,
+                                                                   cfg)
+    keep_f32_rows(monkeypatch)
+    n = int(np.prod(shape))
+    mesh = make_host_mesh(shape, devices=["cpu"] * n)
+    plan = get_plan(plan_name, multi_pod=len(shape) == 3)
+    sharded = convert.shard_params(params, cfg, mesh,
+                                   rules=plan.param_rules)
+    loss, grads = value_and_grad(cfg, sharded, batch, mesh=mesh, plan=plan)
+    np.testing.assert_allclose(loss.item(), want_loss, rtol=1e-5)
+    full = dict(items_with_path(convert.gather_params(grads)))
+    assert sorted(full) == sorted(want)
+    for key, g in full.items():
+        err = np.abs(want[key] - g.numpy()).max()
+        bar = max(1e-4 * grad_scale(want, key), 1.5 * floor[key])
+        assert err <= bar, (key, err / grad_scale(want, key))
 
 
 def _unflat(flat, prefix):
@@ -174,7 +469,7 @@ def test_trainer_on_mesh_matches_reference_trainer(rows, child,
     (2, 4) CPU mesh against three of the reference's one-device Trainer
     (the reference holds its sharded step to its one-device step)."""
     if rows == "float32":
-        _keep_f32_rows(monkeypatch)
+        keep_f32_rows(monkeypatch)
         monkeypatch.setattr(
             ref_transformer, "embed_tokens",
             lambda cfg, params, tokens, prefix_embeds=None:
@@ -211,7 +506,7 @@ def test_trainer_on_mesh_matches_reference_trainer(rows, child,
 def test_fsdp_tp_step_matches_the_references(reference, rows, monkeypatch):
     norms, ref = reference
     if rows == "float32":
-        _keep_f32_rows(monkeypatch)
+        keep_f32_rows(monkeypatch)
     cfg = reduced_config("yi-6b")
     params = convert.from_reference(_unflat(ref, "param/"), cfg,
                                     device="cpu")
