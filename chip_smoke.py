@@ -385,10 +385,11 @@ last line):
               one-device Trainer from that start: step ms, tokens/s,
               peak memory, B9 launches and one profiled step's device
               ms by kind of both printed, a record;
-              (c) reduced yi-6b and internvl2-1b under dp, fsdp, tp,
-              fsdp_tp and fsdp_tp_spact, 3 Trainer steps on the card
-              mesh against the same on a mesh spread over the CPU
-              (first loss within 2e-3, all within 1e-2).
+              (c) reduced yi-6b and internvl2-1b under dp, fsdp_tp
+              and fsdp_tp_spact (fsdp_tp runs the paths of fsdp and
+              tp), 3 Trainer steps on the card mesh
+              against the same on a mesh spread over the CPU (first
+              loss within 2e-3, all within 1e-2).
  17. train_sharded_families — the other families' sharded training
               step (runs after phase 16, on its mesh and plan, random
               weights, seed 0): (a) moonshot-v1-16b-a3b (1 of 48
@@ -419,6 +420,27 @@ last line):
               (all steps held where neither host's bf16 run lies 1e-2
               from its float32 run), and with float32 rows (the first
               loss within 1e-5 relative, all within 5e-4).
+ 18. dryrun — the dry run (launch/dryrun.run_cell, runs after phase 17):
+              (a)-(c) on the (2, 4) mesh spread over the card, full
+              width, random weights (seed 0), each cut printed: (a)
+              yi-6b train_4k cut to 2 layers and B=2 x 4096, fsdp_tp
+              (remat full: B9 forward and in the recompute), the loss
+              within 7e-3 of the one-device step on the same weights
+              and batch, a checked sharded step's B9 calls held to
+              plain; (b) yi-6b prefill_32k cut to 4 layers and B=2 x
+              32768, fsdp_tp (B9 at S=32768 over each position's 8
+              heads); (c) yi-6b long_500k cut to 4 layers, B=1 over
+              524288 cached positions, fsdp_tp_sp (T over `data`).
+              Each prints its argument bytes a position, its temp bytes
+              (the peak allocation over the arguments), FLOPs counted
+              against the analytic impl_flops_dev, logged collective
+              bytes by kind against the analytic ones and the step's
+              wall and device ms against the roofline's step_s.  One
+              layer of (b) and (c) against the one-device api.prefill
+              / decode_step by phase 15's bf16 rule.  (d) on meta: yi-6b
+              decode_32k on the 16x16 production mesh built and traced,
+              and the analytic rows of every assigned arch x shape on
+              both production meshes; the phase's seconds.
 Each serve phase, the benchmark runs of phases 8, 9 and 11, the
 Trainer.run of phases 10, 12, 13 and 16(b), phase 13's prefill, phase
 14's prefill and training step, phase 16(a)'s and phase 17(a)'s
@@ -436,7 +458,7 @@ per-kernel numbers (twenty kernels; those with several bodies also
 their launches by body, flash_attention its launches by path: Trainer,
 te_layer, phase 12's Trainer, phase 13's prefill and Trainer, phase
 14's prefill and training step, phase 16's and phase 17's sharded
-steps, and its whisper-enc, whisper-cross and fsdp_tp shard readings;
+steps, phase 18's dry-run cells, and its whisper-enc, whisper-cross and fsdp_tp shard readings;
 the
 paged kernels phase 12's and phase 15's launches apart too, and
 their readings at the tp shards' heads) and, last, the contract
@@ -506,7 +528,9 @@ def phase_card() -> dict:
                          text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6571,7 +6595,11 @@ SHARDED_PLAN = "fsdp_tp"
 SHARDED_TRAIN = (2, 4096)              # B, S of (a) and (b)
 SHARDED_LAYERS = 2                     # (b)'s depth (4 to PR 30)
 SHARDED_STEPS = 3
-SHARDED_PLANS = ("dp", "fsdp", "tp", "fsdp_tp", "fsdp_tp_spact")
+# (c)'s plans: the whole-block path (dp), the FSDP gathers with the TP
+# partials (fsdp_tp), and the residual as row slices (fsdp_tp_spact);
+# fsdp and tp run subsets of fsdp_tp's paths, and the CPU
+# tests hold every plan (tests/test_torch_sharded_plans.py)
+SHARDED_PLANS = ("dp", "fsdp_tp", "fsdp_tp_spact")
 SHARDED_SMALL = ("yi-6b", "internvl2-1b")
 SHARDED_SMALL_BATCH = (4, 32)
 # (a)'s bars: the reference's own sharded-vs-one-device loss bar, and
@@ -7388,6 +7416,231 @@ def phase_sharded_families() -> dict:
             "by_family": by_family}
 
 
+# ----------------------------------------------------------------------
+# 18. the dry run
+# ----------------------------------------------------------------------
+
+# the cells on a (2, 4) ("data", "model") mesh spread over the card:
+# (arch, shape, layers of the full depth, B, S, plan); full width
+DRYRUN_MESH = "2x4"
+DRYRUN_CELLS = (("a", "yi-6b", "train_4k", 2, 2, 4096, "fsdp_tp"),
+                ("b", "yi-6b", "prefill_32k", 4, 2, 32768, "fsdp_tp"),
+                ("c", "yi-6b", "long_500k", 4, 1, 524288, "fsdp_tp_sp"))
+CARD = ""                                 # nvidia-smi's name, power limit
+
+
+def _dryrun_print(tag: str, rec: dict) -> None:
+    """A card cell's readings against the analytic model (the same cut
+    config and shape on a MeshSpec((2, 4)) of the H100)."""
+    a = rec["analytic"]
+    mem = rec["memory_analysis"]
+    coll = {k: v for k, v in rec["collective_bytes"].items() if v}
+    ms = rec["step_ms"]
+    print(f"[dryrun] ({tag}) {rec['arch']} {rec['shape']}, cuts "
+          f"{rec['cuts']}, {rec['plan']} on {rec['mesh']} spread over the "
+          f"card ({CARD}): argument bytes a position "
+          f"{mem['argument_size_in_bytes']}, temp (peak over the "
+          f"arguments) {mem['temp_size_in_bytes']}; FLOPs a position "
+          f"counted {rec['cost_analysis']['flops']:.4e} vs analytic "
+          f"impl_flops_dev {a['impl_flops_dev']:.4e} (ratio "
+          f"{rec['cost_analysis']['flops'] / a['impl_flops_dev']:.3f}); "
+          f"collective bytes a position logged {coll} vs analytic "
+          f"{a['coll_bytes_by_kind']}; step wall {ms['wall']:.1f} ms, "
+          f"device {ms['device']:.1f} ms vs the roofline's step_s "
+          f"{a['step_s'] * 1e3:.3f} ms ({a['dominant']}); build "
+          f"{rec['build_s']:.1f} s, traced step {rec['trace_s']:.1f} s",
+          flush=True)
+    if rec["cost_analysis"]["flops"] <= 0:
+        fail(f"dry-run cell {tag} counted no FLOPs")
+
+
+def _dryrun_train_hooks(state: dict) -> dict:
+    """(a): the one-device loss on the cell's weights and batch, and the
+    sharded step's B9 calls held to plain (a checked sharded step)."""
+    import torch
+    from repro_torch.models import convert
+    from repro_torch.runtime.trainer import value_and_grad
+
+    def before(cell, cfg, shape, mesh, plan):
+        params, _, batch = cell.args
+        full = convert.gather_params(params)
+        state["loss1"] = value_and_grad(cfg, full, batch)[0].item()
+        del full
+        _free_card()
+        with _CheckedFlash() as chk:
+            state["checked"] = value_and_grad(cfg, params, batch, mesh=mesh,
+                                              plan=plan)[0].item()
+        state["chk"] = chk
+        torch.cuda.synchronize()
+    return {"before": before}
+
+
+def _dryrun_one_layer() -> dict:
+    """(b) and (c) at one layer: the sharded prefill's last-position
+    logits and the SP decode step's logits against the one-device
+    api.prefill / api.decode_step on the same weights and inputs, by
+    phase 15's bf16 rule (`_spec_margin`), and the caches after the
+    decode step within one bf16 step of their largest |value| (a
+    position's k/v projection is a column slice of one device's, which
+    cuBLAS may round another way).  Deeper stacks are chaotic (PERF.md
+    §7): theirs are only printed."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api, convert
+    from repro_torch.sharding.plans import get_plan
+    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=1)
+    params = api.init(cfg, 0, device=DEVICE)
+    mesh = make_host_mesh((2, 4), spread=DEVICE)
+    out = {}
+    g = torch.Generator(device=DEVICE).manual_seed(18)
+    # (b): prefill, B=2 x 32768
+    _, _, _, _, B, S, plan_name = DRYRUN_CELLS[1]
+    plan = get_plan(plan_name)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                         device=DEVICE, dtype=torch.int32)
+    l1, _ = api.prefill(cfg, params, {"tokens": toks},
+                        api.init_cache(cfg, B, S, paged=False,
+                                       device=DEVICE))
+    sp = convert.shard_params(params, cfg, mesh, rules=plan.param_rules)
+    ls, _ = api.prefill(cfg, sp, {"tokens": toks},
+                        api.init_cache(cfg, B, S, mesh=mesh, plan=plan),
+                        mesh=mesh, plan=plan)
+    out["prefill"] = (float((l1.float() - ls.float()).abs().max()),
+                      _spec_margin(l1))
+    del sp, ls, l1
+    _free_card()
+    # (c): SP decode, B=1 over a random cache of 524288 positions
+    _, _, _, _, B, T, plan_name = DRYRUN_CELLS[2]
+    plan = get_plan(plan_name)
+    shape = (1, B, T, cfg.num_kv_heads, cfg.head_dim)
+    cache1 = {k: (torch.randn(shape, generator=g, device=DEVICE)
+                  .to(torch.bfloat16)) for k in ("k", "v")}
+    cs = api.init_cache(cfg, B, T, mesh=mesh, plan=plan)
+    for k, leaf in cs.items():
+        for idx, blk in leaf.blocks.items():
+            blk.copy_(cache1[k][leaf.block_range(idx)])
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=g, device=DEVICE,
+                        dtype=torch.int32)
+    pos = T - 1
+    sp = convert.shard_params(params, cfg, mesh, rules=plan.param_rules)
+    ds, cs = api.decode_step(cfg, sp, cs, tok, pos, mesh=mesh, plan=plan)
+    d1, cache1 = api.decode_step(cfg, params, cache1, tok, pos)
+    out["decode"] = (float((d1.float() - ds.float()).abs().max()),
+                     _spec_margin(d1))
+    out["decode_cache"] = max(
+        float((cache1[k].float() - cs[k].full().float()).abs().max())
+        / (2.0 ** -7 * float(cache1[k].float().abs().max()))
+        for k in ("k", "v"))
+    del cache1, cs, sp, params
+    _free_card()
+    return out
+
+
+def phase_dryrun() -> dict:
+    """Phase 18: the dry run.  (a)-(c) `run_cell(device="cuda")` on the
+    (2, 4) mesh spread over the card (full width, cut depth; each cut
+    printed): argument and temp bytes a position, counted FLOPs and
+    logged collective bytes against the analytic model, the step's wall
+    and device ms against the roofline; (a) the loss held to the
+    one-device step (phase 16's 7e-3), its B9 calls held to plain; (b)
+    and (c) held at one layer (`_dryrun_one_layer`).  (d) on meta, on
+    this host: yi-6b decode_32k on the 16x16 production mesh built and
+    traced, and the analytic rows of every assigned arch x shape on
+    both production meshes.  Returns B9's launches on the dry-run path
+    (each run_cell's, its comparison steps included) and by body."""
+    import torch
+    from repro_torch.configs import ASSIGNED, SHAPES, get_config
+    from repro_torch.core import hw
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding.plans import default_plan
+    t0 = time.perf_counter()
+    launches, bodies, shapes = 0, dict.fromkeys(kfa.BODIES, 0), {}
+    recs = {}
+    state: dict = {}
+    for tag, arch, shape, layers, B, S, plan in DRYRUN_CELLS:
+        hooks = _dryrun_train_hooks(state) if tag == "a" else None
+        kfa.reset_launch_counts()
+        rec = dryrun.run_cell(arch, shape, mesh_shape=DRYRUN_MESH,
+                              device=DEVICE, spread=True, plan_name=plan,
+                              layers=layers, batch=B, seq=S, hooks=hooks)
+        torch.cuda.synchronize()
+        launches += kfa.launch_counts()["flash_attention"]
+        for k, v in kfa.body_launches().items():
+            bodies[k] += v
+        for k, v in kfa.shape_launches().items():
+            shapes[str(k)] = shapes.get(str(k), 0) + v
+        if rec["status"] != "ok":
+            print(rec.get("traceback", ""), flush=True)
+            fail(f"dry-run cell {tag} failed: {rec['error']}")
+        _dryrun_print(tag, rec)
+        recs[tag] = rec
+        _free_card()
+    chk = state["chk"]
+    dloss = abs(recs["a"]["loss"] - state["loss1"])
+    print(f"[dryrun] (a) loss {recs['a']['loss']:.5f} (checked sharded "
+          f"step {state['checked']:.5f}), one device {state['loss1']:.5f}: "
+          f"|diff| {dloss:.2e} (limit {SHARDED_LOSS_ABS:.0e}); B9 "
+          f"{chk.calls} calls held to plain: max |kernel - plain| / max "
+          f"|o| = {chk.worst:.3e}, lse {chk.lse:.3e}", flush=True)
+    if not math.isfinite(recs["a"]["loss"]) or dloss > SHARDED_LOSS_ABS:
+        fail(f"the dry-run train cell's loss is {dloss} from one device's")
+    if chk.calls == 0 or chk.worst > FLASH_BF16_STEP or \
+            chk.lse > FLASH_F32_LIMIT:
+        fail(f"a B9 call of the dry-run train cell differs from its plain "
+             f"version: o {chk.worst:.3e}, lse {chk.lse:.3e}")
+    t1 = time.perf_counter()
+    one = _dryrun_one_layer()
+    for what in ("prefill", "decode"):
+        err, rule = one[what]
+        print(f"[dryrun] ({'b' if what == 'prefill' else 'c'}) one layer: "
+              f"sharded {what} logits vs one device max |diff| {err:.5f} "
+              f"(rule {rule:.4f})", flush=True)
+        if not err <= rule:
+            fail(f"the sharded {what} at one layer is {err} from one "
+                 f"device's (rule {rule})")
+    print(f"[dryrun] (c) one layer: the caches after the step max |diff| "
+          f"{one['decode_cache']:.3f} bf16 steps of their largest |value| "
+          f"(limit 1); (b)-(c) held in {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    if one["decode_cache"] > 1:
+        fail("the sharded decode wrote another cache than one device's")
+    # (d) the production meshes, on meta
+    t1 = time.perf_counter()
+    rec = dryrun.run_cell("yi-6b", "decode_32k")
+    if rec["status"] != "ok":
+        fail(f"yi-6b decode_32k on 16x16 failed: {rec['error']}")
+    a = rec["analytic"]
+    print(f"[dryrun] (d) yi-6b decode_32k on {rec['mesh']} ({rec['plan']}, "
+          f"meta, trace {rec['trace']}): build {rec['build_s']:.1f} s, "
+          f"trace {rec['trace_s']:.1f} s; argument bytes a position "
+          f"{rec['memory_analysis']['argument_size_in_bytes']}, fits_hbm "
+          f"{rec['fits_hbm']}; FLOPs a position "
+          f"{rec['cost_analysis']['flops']:.4e} vs analytic "
+          f"{a['impl_flops_dev']:.4e}; collective bytes a position "
+          f"{ {k: v for k, v in rec['collective_bytes'].items() if v} } vs "
+          f"analytic {a['coll_bytes_by_kind']}", flush=True)
+    rows = 0
+    for mesh_spec in (hw.SINGLE_POD, hw.MULTI_POD):
+        for arch in ASSIGNED:
+            cfg = get_config(arch)
+            for name, shape in SHAPES.items():
+                plan = default_plan(cfg, shape,
+                                    multi_pod=mesh_spec is hw.MULTI_POD)
+                r = dryrun.analytic_record(cfg, shape, mesh_spec, plan.name)
+                rows += 1
+                print(f"[dryrun] (d) analytic {arch} {name} "
+                      f"{'x'.join(map(str, mesh_spec.shape))} {plan.name}: "
+                      f"step_s {r['step_s']:.4e} ({r['dominant']}), mfu "
+                      f"{r['mfu']:.3f}", flush=True)
+    print(f"[dryrun] (d) in {time.perf_counter() - t1:.1f} s ({rows} "
+          f"analytic rows); phase 18 in {time.perf_counter() - t0:.1f} s; "
+          f"B9 launches {launches} by body {bodies}", flush=True)
+    return {"flash": launches, "flash_bodies": bodies, "shapes": shapes}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     device = phase_card()
@@ -7448,6 +7701,7 @@ def main() -> None:
     flash_results, flash_launches, flash_bodies = phase_training()
     sharded = phase_sharded()
     families_sharded = phase_sharded_families()
+    dry = phase_dryrun()
     mem_results, mem_launches, te_flash, te_bodies = phase_memory_te()
     fam = phase_families()
     ssm = phase_ssm_families()
@@ -7574,7 +7828,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:62",
         "launches": (flash_launches["flash_attention"] + te_flash
                      + fam["flash"] + ssm["flash"] + ed["flash"]
-                     + sharded["flash"] + families_sharded["flash"]),
+                     + sharded["flash"] + families_sharded["flash"]
+                     + dry["flash"]),
         "launches_by_path": {"trainer": flash_launches["flash_attention"],
                              "te_layer": te_flash,
                              "families_trainer": fam["flash"],
@@ -7588,15 +7843,18 @@ def main() -> None:
                                  ed["flash_by_path"]["trainer"],
                              "sharded_train": sharded["flash"],
                              "sharded_train_families":
-                                 families_sharded["flash"]},
+                                 families_sharded["flash"],
+                             "dryrun": dry["flash"]},
         "launches_by_body": {b: n + te_bodies.get(b, 0)
                              + fam["flash_bodies"].get(b, 0)
                              + ssm["flash_bodies"].get(b, 0)
                              + ed["flash_bodies"].get(b, 0)
                              + sharded["flash_bodies"].get(b, 0)
                              + families_sharded["flash_bodies"].get(b, 0)
+                             + dry["flash_bodies"].get(b, 0)
                              for b, n in flash_bodies.items()},
         "sharded_train_shapes": sharded["shapes"],
+        "dryrun_shapes": dry["shapes"],
         "sharded_train_families_shapes": {
             a: r["shapes"] for a, r in families_sharded["by_family"].items()},
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -7,8 +7,9 @@ Registers the memory-hierarchy (``memory_latency``,
 ``tc_n_sweep``, ``tc_energy``), async-copy (``async_copy``), DPX
 (``dpx_functions``, ``dpx_kernels``), distributed-shared-memory
 (``dsm``) and Transformer Engine (``te_linear``, ``te_layer``)
-benchmarks and prints ``name,us_per_call,derived`` CSV (plus # section markers).  Runs on the
-CUDA device unless ``--device`` names another; without CUDA and without
+benchmarks and the dry run's roofline table (``roofline_baselines``),
+and prints ``name,us_per_call,derived`` CSV (plus # section markers).
+Runs on the CUDA device unless ``--device`` names another; without CUDA and without
 ``--device cpu`` it raises.  Exits non-zero if any benchmark failed.
 """
 
@@ -19,8 +20,8 @@ from typing import List, Optional
 
 # importing registers every benchmark
 from repro_torch.benchmarks import (async_copy, dpx, dsm,  # noqa: F401
-                                    memory, te_layer, te_linear,
-                                    tensorcore)
+                                    memory, roofline_table, te_layer,
+                                    te_linear, tensorcore)
 from repro_torch.core.bench import run_all
 from repro_torch.models.common import resolve_device
 

@@ -10,7 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.base import (SHAPES, ModelConfig,  # noqa: F401
+                                      ShapeConfig)
 
 from repro_torch.configs import (codeqwen15_7b, command_r_35b, dbrx_132b,
                            deepseek_coder_33b, falcon_mamba_7b,
@@ -71,3 +72,12 @@ def reduced_config(name: str) -> ModelConfig:
     if cfg.family == "vlm":
         upd.update(num_prefix_tokens=4)
     return dataclasses.replace(cfg, **upd)
+
+
+def reduced_shape(kind: str = "train") -> ShapeConfig:
+    """A CPU-smoke cell of `kind` (train | prefill | decode): 2 x 32."""
+    if kind == "train":
+        return ShapeConfig("train_smoke", 32, 2, "train")
+    if kind == "prefill":
+        return ShapeConfig("prefill_smoke", 32, 2, "prefill")
+    return ShapeConfig("decode_smoke", 32, 2, "decode")

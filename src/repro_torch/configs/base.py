@@ -124,6 +124,7 @@ class TrainConfig:
     # under the temporary directory ($TMPDIR) of the process
     ckpt_dir: str = dataclasses.field(default_factory=_default_ckpt_dir)
     seed: int = 0
-    # distributed-optimization tricks (compression is not ported yet)
+    # distributed-optimization tricks (optim/compress.py; not wired into
+    # the training step, as in the reference)
     grad_compression: str = "none"   # none | bf16 | int8_ef
     async_ckpt: bool = True

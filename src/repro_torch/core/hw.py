@@ -9,7 +9,10 @@ the tile model (core/mxu_model.py) can be driven with the reference's
 chip in the parity tests.
 
 This file holds vendor-published peaks only; every measured rate comes
-from a benchmark run on the card.
+from a benchmark run on the card.  ``MeshSpec`` describes a production
+mesh of such chips for the analytic roofline (core/analytic.py) and the
+dry run (launch/dryrun.py): ``SINGLE_POD`` (16 x 16) and ``MULTI_POD``
+(2 x 16 x 16), the reference's grids.
 """
 
 from __future__ import annotations
@@ -121,3 +124,45 @@ CHIPS: Dict[str, ChipSpec] = {
 }
 
 TARGET = H100_SXM
+
+
+# Per-GPU rate across hosts (the `pod` axis): a DGX H100 gives each of
+# its 8 GPUs one 400 Gb/s ConnectX-7 NIC (NVIDIA DGX H100 data sheet),
+# 50 GB/s.
+DGX_H100_NIC_GBPS = 50.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """A production mesh of `chip`s (the reference's ``MeshSpec``).
+
+    Collectives along `data` and `model` get two links' worth of the
+    chip's interconnect (the reference's ring over one torus dimension:
+    ``2 * chip.ici_gbps_per_link``); the `pod` axis crosses hosts at
+    ``dcn_gbps`` a chip."""
+
+    shape: tuple
+    axis_names: tuple
+    chip: ChipSpec = TARGET
+    dcn_gbps: float = DGX_H100_NIC_GBPS   # inter-host rate a chip, GB/s
+
+    @property
+    def num_chips(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self.axis_names.index(name)]
+
+    def axis_bandwidth_gbps(self, name: str) -> float:
+        """Per-chip bandwidth available to collectives along `name`."""
+        if name == "pod":
+            return self.dcn_gbps
+        # bidirectional ring: 2 links
+        return 2.0 * self.chip.ici_gbps_per_link
+
+
+SINGLE_POD = MeshSpec(shape=(16, 16), axis_names=("data", "model"))
+MULTI_POD = MeshSpec(shape=(2, 16, 16), axis_names=("pod", "data", "model"))

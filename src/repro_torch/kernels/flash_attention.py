@@ -22,11 +22,17 @@ head_dim, never a fallback):
   warp-level ``mma.sync``, K/V staged synchronously;
 * ``"fma"`` — float32: fmaf on the CUDA cores.
 
-For CUDA tensors ``flash_attention_fwd`` checks its operands, allocates
+``flash_attention_fwd`` calls the registered op
+``torch.ops.repro_torch.flash_attention_fwd``, which has three
+implementations.  For CUDA tensors it checks its operands, allocates
 the outputs, launches the kernel on the current stream, raises if the
 launch failed, and adds one to the launch count (``launch_counts``),
 to its body's (``body_launches``) and to its shape's
-(``shape_launches``).  For CPU tensors it computes the plain
+(``shape_launches``).  On the meta device (the dry run) it returns the
+outputs' shapes and dtypes and computes nothing; ``FlopCounterMode``
+counts the kernel's own work there and on the card (``kernel_flops``:
+the tile pairs its causal skip runs, not the plain version's
+rectangle).  For CPU tensors it computes the plain
 version (``flash_attention_fwd_plain``: the blockwise online-softmax
 forward of models/attention.py, in the reference's block and pair
 order); it never falls back from CUDA to the plain
@@ -43,7 +49,11 @@ boundary may round the other way), lse within 1e-4 (float32).
 
 from __future__ import annotations
 
+import functools
+from typing import Tuple
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.models import attention
 
@@ -115,20 +125,62 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0):
                                          window=window, q_offset=q_offset)
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window: int = 0,
-                        q_offset: int = 0, q_chunk: int = 512,
-                        kv_chunk: int = 512):
-    """(o [B,Sq,H,hd] in q.dtype, lse [B,H,Sq] float32).
+# the kernel's tiles by body: (query rows a block, query rows that walk
+# the keys together, keys a tile); the wgmma body's two warpgroups of
+# 64 rows each skip the key tiles none of their rows attend
+KERNEL_TILES = {"wgmma": (128, 64, 128), "mma_sync": (64, 64, 64),
+                "fma": (32, 32, 32)}
 
-    `q_chunk`/`kv_chunk` are the plain version's blocks; the kernel
-    tiles on its own, and reads `kv_chunk` only for a row that attends
-    no key, which the reference averages over all nk*kc positions of
-    its padded key chunks."""
-    if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal=causal,
-                                         window=window, q_offset=q_offset,
-                                         q_chunk=q_chunk, kv_chunk=kv_chunk)
+
+@functools.lru_cache(maxsize=4096)
+def kernel_pairs(Sq: int, Sk: int, body_name: str, causal: bool,
+                 window: int, q_offset: int) -> int:
+    """(row group, key tile) pairs the kernel computes for one query
+    head: the source's `key_range` walk a block, less the tiles the
+    wgmma body's warpgroups release untouched (its `dead` rule)."""
+    R, Rg, K = KERNEL_TILES[body_name]
+    n = 0
+    for q0 in range(0, Sq, R):
+        rows = min(R, Sq - q0)
+        p_lo, p_hi = q_offset + q0, q_offset + q0 + rows - 1
+        hi = min(Sk, p_hi + 1) if causal else Sk
+        lo = max(0, p_lo - window + 1) if window else 0
+        k_first = lo // K * K
+        nt = -(-(hi - k_first) // K) if hi > k_first else 0
+        if Rg == R:
+            n += nt
+            continue
+        for r_lo in range(q0, q0 + R, Rg):
+            g_lo = q_offset + r_lo
+            first, last = 0, nt - 1
+            if causal:                         # k0 <= the group's last row
+                last = min(last, (g_lo + Rg - 1 - k_first) // K)
+            if window:                         # k0 + K - 1 > g_lo - window
+                first = max(first, -(-(g_lo - window - K + 2 - k_first)
+                                     // K))
+            n += max(0, last - first + 1)
+    return n
+
+
+def kernel_flops(q_shape, k_shape, dtype: torch.dtype, *, causal: bool,
+                 window: int = 0, q_offset: int = 0) -> float:
+    """The kernel's own operations for q [B,Sq,H,hd], k [B,Sk,KH,hd]:
+    4 * hd a (row, key) of every tile pair it computes (S = Q K^T and
+    P V on whole tiles, masked entries and rows past Sq included), not
+    the plain version's 512-key rectangle."""
+    B, Sq, H, hd = q_shape
+    Rg, K = KERNEL_TILES[body(dtype, hd)][1:]
+    pairs = kernel_pairs(Sq, k_shape[1], body(dtype, hd), bool(causal),
+                         int(window), int(q_offset))
+    return 4.0 * hd * Rg * K * pairs * B * H
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: int, q_offset: int, q_chunk: int,
+              kv_chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B9 on the card: the hand-written kernel, counted."""
     _check(q, k, v)
     B, Sq, H, hd = q.shape
     Sk, KH = k.shape[1], k.shape[2]
@@ -151,6 +203,50 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key = (B, Sq, Sk, H, KH, hd, body(q.dtype, hd))
     _SHAPE_LAUNCHES[key] = _SHAPE_LAUNCHES.get(key, 0) + 1
     return out, lse
+
+
+@_flash_op.register_kernel("cpu")
+def _(q, k, v, causal, window, q_offset, q_chunk, kv_chunk):
+    """The plain version."""
+    out, lse = flash_attention_fwd_plain(q, k, v, causal=causal,
+                                         window=window, q_offset=q_offset,
+                                         q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return out.contiguous(), lse.contiguous()
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window, q_offset, q_chunk, kv_chunk):
+    """Shapes and dtypes only (the meta device: the dry run)."""
+    _check(q, k, v)
+    B, Sq, H, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd,
+                       get_raw=True)
+def _flash_flops(q, k, v, causal, window, q_offset, q_chunk, kv_chunk, *args,
+                 out_val=None, **kwargs) -> float:
+    return kernel_flops(tuple(q.shape), tuple(k.shape), q.dtype,
+                        causal=causal, window=window, q_offset=q_offset)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, q_chunk: int = 512,
+                        kv_chunk: int = 512):
+    """(o [B,Sq,H,hd] in q.dtype, lse [B,H,Sq] float32), through the op
+    ``torch.ops.repro_torch.flash_attention_fwd``: the kernel for CUDA
+    tensors, the plain version for CPU tensors, shapes alone on meta
+    (``FlopCounterMode`` counts `kernel_flops`).
+
+    `q_chunk`/`kv_chunk` are the plain version's blocks; the kernel
+    tiles on its own, and reads `kv_chunk` only for a row that attends
+    no key, which the reference averages over all nk*kc positions of
+    its padded key chunks."""
+    return torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, bool(causal), int(window), int(q_offset), int(q_chunk),
+        int(kv_chunk))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -4,7 +4,8 @@ PyTorch counterpart of ``repro/models/api.py`` for every family: the
 transformer families (dense, moe, vlm), ssm (models/ssm_lm.py), hybrid
 (models/hybrid.py) and encdec (models/encdec.py):
 
-    param_shapes / init / pspecs            parameters (pspecs: their
+    param_shapes / init / abstract / pspecs parameters (abstract: meta
+                                            tensors; pspecs: their
                                             PartitionSpecs under a
                                             plan's rules)
     loss_fn                                 training objective (one
@@ -48,6 +49,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import common, encdec, hybrid, ssm_lm, transformer
 from repro_torch.models.sampling import (GREEDY, SamplingParams,  # noqa: F401
                                          ks_two_sample, sample_tokens)
+from repro_torch.sharding.axes import Sharded
 
 Params = Dict[str, Any]
 
@@ -72,6 +74,13 @@ def param_shapes(cfg: ModelConfig) -> Params:
     if cfg.family == "encdec":
         return encdec.encdec_specs(cfg)
     return transformer.transformer_specs(cfg)
+
+
+def abstract(cfg: ModelConfig, dtype: torch.dtype = torch.float32
+             ) -> Params:
+    """The parameter tree as meta tensors of `param_shapes`' shapes
+    (``init``'s dtypes): what the dry run builds its cells from."""
+    return common.abstract_params(param_shapes(cfg), dtype)
 
 
 def pspecs(cfg: ModelConfig, rules: Dict[str, Any],
@@ -128,7 +137,8 @@ def loss_fn(cfg: ModelConfig, params: Params,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, paged: Optional[bool] = None,
                block_size: int = 16, num_blocks: Optional[int] = None,
-               device=None, fp8_kv: bool = False, mesh=None) -> Params:
+               device=None, fp8_kv: bool = False, mesh=None,
+               plan=None) -> Params:
     """The family's own cache by default: for the transformer families
     a paged block pool or, with ``paged=False``, the contiguous cache
     [L, batch, max_len, KH, hd] (``fp8_kv``, paged only, stores the
@@ -138,8 +148,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     decoder's self K/V (at most max_target_len positions) and the cross
     K/V (encdec.init_cache).  A paged or fp8 cache is transformer-only,
     as in the reference.  With a 1-axis ``mesh`` (transformer families)
-    one cache a mesh position, on its device, at KH/tp heads."""
+    one cache a mesh position, on its device, at KH/tp heads.  With a
+    training ``plan`` too (sharded prefill / decode): the contiguous
+    {"k", "v"} as ``Sharded`` zeros laid by plans.cache_pspecs, each
+    block on its owner's device."""
     check_family(cfg)
+    if plan is not None:
+        if mesh is None:
+            raise ValueError("pass mesh= and plan= together")
+        transformer.check_sharded_serving(
+            cfg, "a paged or fp8 cache" if paged or fp8_kv else None)
+        from repro_torch.sharding.plans import cache_pspecs
+        shape = ShapeConfig("cache", max_len, batch, "decode")
+        specs = cache_pspecs(cfg, shape, plan, mesh)
+        return {k: Sharded.zeros(t.shape, dtype, specs[k], mesh)
+                for k, t in cache_specs(cfg, shape).items()}
     if mesh is not None:
         transformer.check_family(cfg, "a tensor-parallel cache")
         return transformer.init_cache(cfg, batch, max_len, dtype,
@@ -163,9 +186,14 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 token: torch.Tensor, pos,
                 block_table: Optional[torch.Tensor] = None, *,
                 kernel: bool = False, quant: Optional[Params] = None,
-                mesh=None, mesh_axis: Optional[str] = None
+                mesh=None, mesh_axis: Optional[str] = None, plan=None
                 ) -> Tuple[torch.Tensor, Params]:
-    """One decode step, the cache updated in place.  Transformer
+    """One decode step, the cache updated in place.  With ``mesh`` and
+    a training ``plan`` (sharding/plans.py; dense, moe and vlm): the
+    step runs sharded over the mesh (transformer.sharded_decode_step:
+    `params` as ``Sharded`` leaves by the plan's param rules, `cache` as
+    ``init_cache(..., mesh=, plan=)`` lays it, one position `pos` for
+    every row), with no other option.  Transformer
     families: ``kernel=True`` reads the paged pool through the CUDA
     block-table kernel (its plain version for CPU tensors);
     ``kernel=False`` is the gather oracle; with no `block_table` the
@@ -174,6 +202,15 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     fp8; ``mesh`` serves tensor-parallel (module docstring).  ssm,
     hybrid and encdec take none of these options."""
     check_family(cfg)
+    if plan is not None:
+        if mesh is None or mesh_axis is not None:
+            raise ValueError("a training plan takes mesh= (no mesh_axis)")
+        transformer.check_sharded_serving(
+            cfg, "the paged cache, the kernel or fp8 serving" if kernel
+            or quant is not None or block_table is not None else None)
+        with torch.no_grad():
+            return transformer.sharded_decode_step(cfg, params, cache, token,
+                                                   pos, mesh, plan)
     if cfg.family not in transformer.FAMILIES:
         if kernel or quant is not None or mesh is not None:
             transformer.check_family(cfg, "kernel/fp8 serving")
@@ -253,8 +290,8 @@ def cow_copy_block(cfg: ModelConfig, cache: Params, src, dst) -> Params:
 
 
 def prefill(cfg: ModelConfig, params: Params,
-            batch: Dict[str, torch.Tensor], cache: Params
-            ) -> Tuple[torch.Tensor, Params]:
+            batch: Dict[str, torch.Tensor], cache: Params, *, mesh=None,
+            plan=None) -> Tuple[torch.Tensor, Params]:
     """Run a prompt batch ({"tokens": [B, S]}, a vlm's ``prefix_embeds``
     too; encdec: {"frames": [B, S_enc, d]}).  Returns (last-position
     logits [B, vocab], cache), for encdec (encoder output, cache).
@@ -269,8 +306,20 @@ def prefill(cfg: ModelConfig, params: Params,
       decode_step);
     * encdec: encodes the frames and writes each decoder layer's cross
       K/V into the cache (encdec.prefill; the returned cache's cross
-      K/V are views of the S_enc rows written)."""
+      K/V are views of the S_enc rows written).
+
+    With ``mesh`` and ``plan`` (a training plan; dense, moe and vlm) the
+    prefill runs sharded (transformer.sharded_prefill): `params` as
+    ``Sharded`` leaves by the plan's param rules, `cache` as
+    ``init_cache(..., mesh=, plan=)`` lays it; ssm, hybrid and encdec
+    raise NotImplementedError naming ROADMAP.md's next item."""
     check_family(cfg)
+    if (mesh is None) != (plan is None):
+        raise ValueError("pass mesh= and plan= together")
+    if mesh is not None:
+        with torch.no_grad():
+            return transformer.sharded_prefill(cfg, params, batch, cache,
+                                               mesh, plan)
     with torch.no_grad():
         if cfg.family in transformer.FAMILIES:
             return transformer.prefill(

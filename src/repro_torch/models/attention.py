@@ -26,12 +26,16 @@ backward is the port of the reference's hand-written blockwise
 backward ``_flash_bwd_rule`` in torch ops, on either device.
 ``shard_attention`` is one model position's attention in the sharded
 training step: its q heads (and the kv heads they read), RoPE, and
-``flash_attention`` at those heads alone.
+``flash_attention`` at those heads alone (``shard_qkv``: its
+projections, which sharded prefill also writes into the cache).
+``decode_partial`` / ``combine_partials``: a decode step over a cache
+whose positions are split into blocks, each block's normalized output
+and log-sum-exp, combined in block order (sharded decode).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -126,24 +130,14 @@ def cross_kv(cfg, p, enc_out: torch.Tensor, dt: torch.dtype
     return k, v
 
 
-def shard_attention(cfg, p, x: torch.Tensor,
-                    positions: Optional[torch.Tensor],
-                    q_heads: Tuple[int, int], *, causal: bool = True,
-                    kv_x: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One model position's attention in the sharded training forward.
-
-    x [B,S,d] is the whole (normed) layer input; `p` holds the
-    position's q heads [lo, hi) = `q_heads` of wq (and bq) and either
-    its own kv heads of wk / wv (kv heads split with the q heads) or all
-    KH of them (the kv heads replicated over `model`: reduced
-    internvl2-1b's 2 kv heads over 4 positions), of which it projects
-    only those its q heads read.  With `positions` q and k take RoPE
-    (None: no RoPE, whisper's learned positions).  With `kv_x` (an
-    encoder output) it is cross-attention: k/v are `cross_kv` of it, the
-    three meet in the promoted dtype (the reference's flash promotes
-    inside) and no mask applies; the output comes back in x's dtype.
-    B9 (`flash_attention`: the CUDA kernel on the card) attends the
-    position's heads alone.  Returns [B,S,hi-lo,hd]."""
+def shard_qkv(cfg, p, x: torch.Tensor, positions: Optional[torch.Tensor],
+              q_heads: Tuple[int, int], *,
+              kv_x: Optional[torch.Tensor] = None):
+    """The projections of `shard_attention`: (q [B,S,hi-lo,hd], k, v
+    [B,Sk,stop-first,hd] at the kv heads [first, stop) the q heads
+    read, first, pair), q and k RoPE'd at `positions` (None: none);
+    `pair` (or None) maps each q head to its kv head's index in k/v
+    where the q heads do not read whole GQA groups."""
     lo, hi = q_heads
     H, KH = cfg.num_heads, cfg.num_kv_heads
     dt = x.dtype
@@ -151,6 +145,7 @@ def shard_attention(cfg, p, x: torch.Tensor,
     if cfg.use_bias:
         q = q + p["bq"].to(dt)
     kp = {k: p[k] for k in ("wk", "wv", "bk", "bv") if k in p}
+    first = lo // (H // KH)
     pair = None
     if kp["wk"].shape[1] == KH and hi - lo < H:    # kv heads replicated
         first, stop, ok = _kv_slice(H, KH, lo, hi)
@@ -165,11 +160,41 @@ def shard_attention(cfg, p, x: torch.Tensor,
             v = v + kp["bv"].to(dt)
     else:
         k, v = cross_kv(cfg, kp, kv_x, dt)
-    if pair is not None:                           # one kv head a q head
-        k, v = k[:, :, pair], v[:, :, pair]
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v, first, pair
+
+
+def shard_attention(cfg, p, x: torch.Tensor,
+                    positions: Optional[torch.Tensor],
+                    q_heads: Tuple[int, int], *, causal: bool = True,
+                    kv_x: Optional[torch.Tensor] = None,
+                    kv_out: Optional[list] = None) -> torch.Tensor:
+    """One model position's attention in the sharded training forward.
+
+    x [B,S,d] is the whole (normed) layer input; `p` holds the
+    position's q heads [lo, hi) = `q_heads` of wq (and bq) and either
+    its own kv heads of wk / wv (kv heads split with the q heads) or all
+    KH of them (the kv heads replicated over `model`: reduced
+    internvl2-1b's 2 kv heads over 4 positions), of which it projects
+    only those its q heads read.  With `positions` q and k take RoPE
+    (None: no RoPE, whisper's learned positions).  With `kv_x` (an
+    encoder output) it is cross-attention: k/v are `cross_kv` of it, the
+    three meet in the promoted dtype (the reference's flash promotes
+    inside) and no mask applies; the output comes back in x's dtype.
+    B9 (`flash_attention`: the CUDA kernel on the card) attends the
+    position's heads alone.  `kv_out` (a list) receives (k, v, first):
+    the RoPE'd k/v of the kv heads [first, ...) the position projected
+    (sharded prefill writes them into its cache).  Returns
+    [B,S,hi-lo,hd]."""
+    dt = x.dtype
+    q, k, v, first, pair = shard_qkv(cfg, p, x, positions, q_heads,
+                                     kv_x=kv_x)
+    if kv_out is not None:
+        kv_out.append((k, v, first))
+    if pair is not None:                           # one kv head a q head
+        k, v = k[:, :, pair], v[:, :, pair]
     if kv_x is None:
         return flash_attention(q, k, v, causal=causal,
                                window=cfg.sliding_window)
@@ -257,6 +282,48 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     o = _masked_softmax_pv(s, valid, vt[:, :, None, :, :], v_cache.dtype,
                            t_axis=3)                  # [B,KH,G,hd]
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_partial(q: torch.Tensor, k_block: torch.Tensor,
+                   v_block: torch.Tensor, t0: int, kv_len
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`decode_attention` over one block of the cache's positions
+    [t0, t0 + Tb): (o [B,1,H,hd] float32, normalized over the block's
+    valid keys t < kv_len, and its log-sum-exp [B,H] float32; a block
+    with no valid key gives lse NEG_INF and weighs nothing in
+    `combine_partials`).  The same float32 scores, masked softmax and
+    rounding of p to the cache dtype as `decode_attention`."""
+    B, _, H, hd = q.shape
+    Tb, KH = k_block.shape[1], k_block.shape[2]
+    G = H // KH
+    qg = q.reshape(B, KH, G, hd).float()
+    kt = k_block.transpose(1, 2).float()
+    vt = v_block.transpose(1, 2).float()
+    s = (qg[:, :, :, None, :] * kt[:, :, None, :, :]).sum(-1) * hd ** -0.5
+    kv_len = torch.as_tensor(kv_len, device=q.device)
+    bound = kv_len.reshape(-1, 1, 1, 1) if kv_len.ndim == 1 else kv_len
+    valid = (t0 + torch.arange(Tb, device=q.device)
+             )[None, None, None, :] < bound
+    o = _masked_softmax_pv(s, valid, vt[:, :, None, :, :], v_block.dtype,
+                           t_axis=3)                  # [B,KH,G,hd]
+    sm = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = sm.amax(dim=-1)
+    lse = m + torch.log(torch.exp(sm - m[..., None]).sum(-1))
+    lse = torch.where(valid.any(-1), lse, torch.full_like(lse, NEG_INF))
+    return o.reshape(B, 1, H, hd), lse.reshape(B, H)
+
+
+def combine_partials(os: List[torch.Tensor], lses: List[torch.Tensor]
+                     ) -> torch.Tensor:
+    """Attention over a cache split along its positions, from each
+    block's `decode_partial` (in block order): o = sum_j w_j o_j /
+    sum_j w_j, w_j = exp(lse_j - max lse), in float32, each sum by the
+    fixed tree (common.fixed_tree_sum): the result does not depend on
+    the order the partials arrive in."""
+    lse = torch.stack(lses)                           # [n,B,H]
+    w = torch.exp(lse - lse.amax(dim=0, keepdim=True))
+    num = fixed_tree_sum(w[:, :, None, :, None] * torch.stack(os))
+    return num / fixed_tree_sum(w)[:, None, :, None]
 
 
 def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -532,6 +599,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qc = min(q_chunk, q.shape[1])
     kc = min(kv_chunk, k.shape[1])
     return _Flash.apply(q, k, v, causal, window, qc, kc, q_offset)
+
+
+def attention_flops(B: int, Sq: int, Sk: int, H: int, hd: int,
+                    causal: bool) -> float:
+    """Useful FLOPs of the score+value matmuls (for MODEL_FLOPS)."""
+    pairs = Sq * Sk if not causal else Sq * Sk - Sq * (Sq - 1) / 2 \
+        if Sq == Sk else Sq * Sk
+    return 2 * 2 * B * H * pairs * hd
 
 
 def attention_reference(q, k, v, *, causal=True, window=0, q_offset=0):

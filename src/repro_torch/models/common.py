@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding.axes import log_transfer
+
 
 # ----------------------------------------------------------------------
 # Parameter specification
@@ -72,6 +74,16 @@ def init_params(specs, generator: torch.Generator, device: torch.device,
         return init_leaf(specs, generator, device, dtype)
     return {k: init_params(specs[k], generator, device, dtype)
             for k in sorted(specs)}
+
+
+def abstract_params(specs, dtype: torch.dtype = torch.float32):
+    """The parameter tree as meta tensors (shapes and dtypes, no
+    storage): the reference's ``ShapeDtypeStruct`` tree.  Leaves take
+    `dtype` as ``init_params`` does, norm scales ("ones") float32."""
+    if is_spec(specs):
+        dt = torch.float32 if specs.init == "ones" else dtype
+        return torch.empty(specs.shape, dtype=dt, device="meta")
+    return {k: abstract_params(v, dtype) for k, v in specs.items()}
 
 
 def partition_specs(specs, rules: Dict[str, Any],
@@ -172,6 +184,10 @@ def xshard_sum(parts, devices, *, tag: str
     as one device's grouped reduction over all the groups.  Every op is
     differentiable, so the sharded training step runs it under autograd
     (the backward hands each shard the gradient of its partials)."""
+    if len(parts) > 1:
+        # logically each shard's partials reach every other shard
+        parts = [log_transfer(p, "all-reduce", receivers=len(parts) - 1,
+                              back="all-reduce") for p in parts]
     out = {}
     for d in devices:
         gathered = torch.cat([p if p.device == d else p.to(d) for p in parts])
@@ -321,6 +337,9 @@ def _vocab_shard_nll(hs, ws, labels, offsets, device,
         mine = (local >= 0) & (local < w.shape[-1])
         g = torch.gather(logits, -1,
                          local.clamp(0, w.shape[-1] - 1)[..., None])[..., 0]
+        if ms:                         # another shard's sums reach shard 0
+            m, s, g = (log_transfer(t, "all-reduce", back="all-reduce")
+                       for t in (m, s, g))
         ms.append(m.to(device))
         ss.append(s.to(device))
         g, mine = g.to(device), mine.to(device)

@@ -74,6 +74,12 @@ def mlp(cfg, p, x: torch.Tensor, *, groups: int = 0) -> torch.Tensor:
     return y
 
 
+def mlp_flops(d: int, f: int, gated: bool) -> float:
+    """Matmul FLOPs per token, fwd only."""
+    n_mats = 3 if gated else 2
+    return 2.0 * n_mats * d * f
+
+
 def mlp_fp8(cfg, p, q8, x: torch.Tensor) -> torch.Tensor:
     """fp8 serving variant of `mlp`: the three products through weights
     pre-quantized by te/linear.quantize_serving_params, with per-call

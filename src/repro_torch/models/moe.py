@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import ParamSpec, activation
-from repro_torch.sharding.axes import MODEL_AXIS
+from repro_torch.sharding.axes import MODEL_AXIS, log_transfer
 
 # capacity rows an expert-compute chunk (the reference's CHUNK)
 CHUNK = 4096
@@ -214,21 +214,31 @@ def sharded_moe_mlp(cfg, p, groups, hs, read, first: torch.device
     block over `data`, the port runs it once); experts `model` does not
     split run whole on one position.  The buffer is filled (`fill`) and
     the weighted rows summed (`combine`, ascending expert id) on `first`,
-    as `moe_mlp` does.  Returns (each group's MLP output on each of its
-    devices, aux on `first`)."""
+    as `moe_mlp` does.  While the collective log is open
+    (sharding/axes.collective_log) each move between positions through
+    `first` is logged as an all-to-all.  Returns (each group's MLP
+    output on each of its devices, aux on `first`)."""
     E, K, d = cfg.num_experts, cfg.top_k, cfg.d_model
     router = p["router"]
     split = router.split(MODEL_AXIS) is not None
+    home = groups[0].workers[0]                  # the position on `first`
+
+    def a2a(x, w, receivers=1):
+        """x moved between positions (logged unless `w` is home)."""
+        return x if w is home else log_transfer(
+            x, "all-to-all", receivers=receivers, back="all-to-all")
+
     logits = []
     for g, h in zip(groups, hs):
         cols = []
         for w in (g.workers if split else g.workers[:1]):
             x = h[w.device].reshape(-1, d)
-            cols.append((x @ read(router, w).to(x.dtype)).to(first))
+            cols.append(a2a(x @ read(router, w).to(x.dtype), w).to(first))
         logits.append(torch.cat(cols, dim=1))
     r = dispatch(cfg, torch.cat(logits).float())
     # the experts' capacity rows, filled once on `first`
-    buf = fill(r, torch.cat([h[g.devices[0]].reshape(-1, d).to(first)
+    buf = fill(r, torch.cat([a2a(h[g.devices[0]].reshape(-1, d),
+                                 g.workers[0]).to(first)
                              for g, h in zip(groups, hs)]), E)
     ep = p["w_up"].split(MODEL_AXIS) == 0        # experts over `model`
     workers = groups[0].workers if ep else groups[0].workers[:1]
@@ -238,14 +248,17 @@ def sharded_moe_mlp(cfg, p, groups, hs, read, first: torch.device
     for w in workers:
         out = expert_compute(cfg, read.tree(experts, w) if ep
                              else read.whole(experts, w),
-                             buf[w.m * Ep:(w.m + 1) * Ep].to(w.device))
-        outs.append(out.to(first))
+                             a2a(buf[w.m * Ep:(w.m + 1) * Ep],
+                                 w).to(w.device))
+        outs.append(a2a(out, w).to(first))
     contrib = weighted(r, torch.cat(outs))
     ys, lo = [], 0
     for g, h in zip(groups, hs):
         x = h[g.devices[0]]
         n = x.shape[0] * x.shape[1]
         y = combine(contrib, r.order, K, slice(lo, lo + n)).reshape(x.shape)
+        # every worker of the group takes the rows in (home has them)
+        y = a2a(y, None, len(g.workers) - (g is groups[0]))
         ys.append({e: y.to(e) for e in g.devices})
         lo += n
     return ys, r.aux

@@ -52,6 +52,17 @@ embedding and the cross-entropy are vocab-parallel (each id's row and
 label logit from the shard that owns it; the log-sum-exp combined in
 shard order).  fsdp_tp_spact holds the residual stream between blocks
 as S/model row slices.
+
+Sharded prefill and decode under a training plan (`sharded_prefill`,
+`sharded_decode_step`; dense, moe and vlm: the reference's inference
+cells on a (pod,) data, model mesh): the training forward's pieces,
+with the contiguous cache as ``Sharded`` leaves by
+plans.cache_pspecs.  Each block of the cache is written with its
+positions and kv heads by the worker that projected them, and a decode
+step attends per block on the block's owner: a block holding every
+position gives `attention.decode_attention`'s output; a split sequence
+is combined from each block's partial output and log-sum-exp in
+position order.
 """
 
 from __future__ import annotations
@@ -73,7 +84,8 @@ from repro_torch.models.common import (ParamSpec, apply_norm, apply_rope,
                                        chunked_softmax_xent, cross_entropy,
                                        mark, norm_spec, replicate,
                                        vocab_parallel_xent_sum, xshard_sum)
-from repro_torch.sharding.axes import DATA_AXIS, MODEL_AXIS, Sharded
+from repro_torch.sharding.axes import (DATA_AXIS, MODEL_AXIS, Sharded,
+                                       log_transfer, logging_collectives)
 
 Params = Dict[str, Any]
 
@@ -824,19 +836,23 @@ class _Reader:
     """A worker's view of sharded leaves: its block along `model`, the
     dim split over `data` gathered in mesh order (Sharded.at), on its
     device.  Each (leaf, block, device) is gathered once a reader, so
-    the data groups on one device share the gather; the gather's
-    backward is the reduce-scatter of the gradient onto the owners."""
+    the data groups on one device share the gather (while the collective
+    log is open each worker gathers its own, so each is logged); the
+    gather's backward is the reduce-scatter of the gradient onto the
+    owners."""
 
     def __init__(self):
         self.memo: Dict[Any, torch.Tensor] = {}
 
     def __call__(self, leaf, w: _Worker) -> torch.Tensor:
-        from repro_torch.sharding.axes import block_index
-        idx = block_index(leaf.axes, w.coord)
+        idx = leaf.block_at(w.coord)
         dim = leaf.split(DATA_AXIS)
         if dim is not None:
             idx = idx[:dim] + (-1,) + idx[dim + 1:]
         key = (id(leaf), idx, w.device)
+        if dim is not None and logging_collectives():
+            # each worker gathers (and is logged) on its own
+            key += (tuple(w.coord.items()),)
         if key not in self.memo:
             self.memo[key] = leaf.at(w.coord, w.device, gather=DATA_AXIS)
         return self.memo[key]
@@ -892,13 +908,19 @@ def _exit(g: _Group, xd: Dict[torch.device, torch.Tensor], spact: bool):
 
 
 def norm(cfg, g: _Group, p, xd, read: _Reader):
-    """A replicated norm over the group's residual, on each device."""
+    """A replicated norm over the group's residual, on each device
+    (while the collective log is open every worker of the group reads
+    its scales, as one a device would)."""
+    if logging_collectives():
+        for w in g.workers:
+            read.tree(p, w)
     return {d: apply_norm(cfg, xd[d], read.tree(p, g.first[d]))
             for d in g.devices}
 
 
 def attn_residual(cfg, g: _Group, att, xd, h, read: _Reader, *,
-                  rope: bool = True, causal: bool = True, kv=None):
+                  rope: bool = True, causal: bool = True, kv=None,
+                  kv_out: Optional[Dict[Any, Any]] = None):
     """xd plus the attention of the normed h (one a group device).
     Where `model` splits the heads each worker runs its heads
     (attention.shard_attention: B9 on the card) and forms the float32
@@ -907,7 +929,9 @@ def attn_residual(cfg, g: _Group, att, xd, h, read: _Reader, *,
     Otherwise the group's first worker attends with every head once,
     as the one-device block does, and the result is copied to the
     others.  `rope`: q and k take RoPE at positions 0..S-1; `kv` (one a
-    group device): cross-attention, k/v from it."""
+    group device): cross-attention, k/v from it.  `kv_out` (a dict)
+    receives each computing worker's (k, v, first kv head) under its
+    index along `model` (sharded prefill)."""
     Bg, S = h[g.devices[0]].shape[:2]
     pos = ({d: torch.arange(S, device=d).expand(Bg, S) for d in g.devices}
            if rope else dict.fromkeys(g.devices))
@@ -918,9 +942,12 @@ def attn_residual(cfg, g: _Group, att, xd, h, read: _Reader, *,
         for w in g.workers:
             p = read.tree(att, w)
             d = w.device
+            got = [] if kv_out is not None else None
             o = attn.shard_attention(cfg, p, h[d], pos[d],
                                      (w.m * hq, (w.m + 1) * hq),
-                                     causal=causal, kv_x=kv[d])
+                                     causal=causal, kv_x=kv[d], kv_out=got)
+            if got:
+                kv_out[w.m] = got[0]
             o = checkpoint_name(o, "attn_out")
             parts.append(attn.out_project_parts(p, o, 1))
         ys = xshard_sum(parts, g.devices, tag="xshard_attn_out")
@@ -928,8 +955,11 @@ def attn_residual(cfg, g: _Group, att, xd, h, read: _Reader, *,
     w = g.workers[0]
     d = w.device
     p = read.tree(att, w)
+    got = [] if kv_out is not None else None
     o = attn.shard_attention(cfg, p, h[d], pos[d], (0, cfg.num_heads),
-                             causal=causal, kv_x=kv[d])
+                             causal=causal, kv_x=kv[d], kv_out=got)
+    if got:
+        kv_out[w.m] = got[0]
     y = attn.out_project(p, checkpoint_name(o, "attn_out"))
     return {e: xd[e] + y.to(e) for e in g.devices}
 
@@ -1023,6 +1053,8 @@ def _sharded_embed(cfg, g: _Group, params, tokens, prefix, read: _Reader):
         mine = (local >= 0) & (local < Vs)
         rows = embed_tokens(cfg, {"embed": read(E, w)},
                             local.clamp(0, Vs - 1), pfx[w.device])
+        rows = log_transfer(rows, "all-reduce",
+                            receivers=len(g.workers) - 1, back="all-reduce")
         for d in g.devices:
             r = rows.to(d)
             out[d] = r if d not in out else torch.where(
@@ -1116,3 +1148,349 @@ def sharded_loss_fn(cfg, params, batch: Dict[str, torch.Tensor], mesh,
     return sharded_lm_loss(cfg, params, batch, mesh, plan,
                            [(unit, lp) for lp in layer_list(
                                params["layers"], cfg.num_layers)])
+
+
+# ----------------------------------------------------------------------
+# sharded prefill and decode under a training plan
+# ----------------------------------------------------------------------
+
+# what the dense, moe and vlm families' sharded serving does not cover
+SHARDED_SERVING_NEXT = ("ROADMAP.md queue A: sharded prefill and decode "
+                        "for ssm, hybrid and encdec under the training "
+                        "plans")
+
+
+def check_sharded_serving(cfg, option: Optional[str] = None,
+                          cache=None) -> None:
+    """Raise NotImplementedError unless sharded prefill and decode cover
+    the call: a transformer family, no serving `option` (the paged
+    pool, fp8, the kernel flag: the reference's cells use none), and a
+    `cache` (when given) that is the contiguous {"k", "v"}."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"sharded prefill / decode of family {cfg.family!r} under a "
+            f"training plan is not ported yet ({SHARDED_SERVING_NEXT})")
+    if cache is not None and (sorted(cache) != ["k", "v"]
+                              or len(cache["k"].shape) != 5):
+        option = "a cache other than the contiguous {'k', 'v'}"
+    if option is not None:
+        raise NotImplementedError(
+            f"sharded prefill / decode under a training plan with {option} "
+            "is not ported (the reference's dry-run cells use the "
+            "contiguous bf16 cache)")
+
+
+@dataclasses.dataclass
+class _KVBlock:
+    """One block of a layer's cache leaf [B, T, KH, hd] that a group's
+    rows lie in: its index, the group's rows within it, its positions
+    [t0, t1), its kv heads [h0, h1), its owner's coordinates and
+    device."""
+    idx: Tuple[int, ...]
+    rows: slice
+    t0: int
+    t1: int
+    h0: int
+    h1: int
+    owner: Dict[str, int]
+    device: torch.device
+
+
+def _kv_blocks(leaf: Sharded, g: _Group) -> List[_KVBlock]:
+    """The blocks of cache leaf `leaf` (one layer's) holding group g's
+    rows, in block order (along T: position order)."""
+    from repro_torch.sharding.axes import block_owners
+    owners = block_owners(leaf.axes, leaf.mesh)
+    lo, hi = g.rows
+    out = []
+    for idx in sorted(leaf.blocks):
+        rs, ts, hs = leaf.block_range(idx)[:3]
+        if rs.start <= lo and hi <= rs.stop:
+            out.append(_KVBlock(idx, slice(lo - rs.start, hi - rs.start),
+                                ts.start, ts.stop, hs.start, hs.stop,
+                                owners[idx], leaf.blocks[idx].device))
+    return out
+
+
+def _head_runs(b: _KVBlock, kvs: Dict[int, Any]):
+    """The runs of block b's kv heads by the worker that projected them:
+    (worker index along `model`, k, v, the run's [lo, hi) within that
+    worker's k/v, the run's offset in the block).  `kvs` maps each
+    worker's index to its (k, v, first kv head)."""
+    h = b.h0
+    while h < b.h1:
+        m = next((m for m in sorted(kvs) if kvs[m][2] <= h
+                  < kvs[m][2] + kvs[m][0].shape[2]), None)
+        if m is None:
+            raise ValueError(f"no worker projected kv head {h}")
+        k, v, first = kvs[m]
+        stop = min(b.h1, first + k.shape[2])
+        yield m, k, v, slice(h - first, stop - first), h - b.h0
+        h = stop
+
+
+def _to_owner(x: torch.Tensor, src: _Worker, b: _KVBlock, dtype):
+    """`x` from worker `src` onto block b's owner (an all-to-all in the
+    collective log where they are other positions)."""
+    if src.coord != b.owner:
+        x = log_transfer(x, "all-to-all")
+    return x.to(b.device, dtype)
+
+
+def _write_prefill(g: _Group, kvs: Dict[int, Any], ck: Sharded,
+                   cv: Sharded, S: int) -> None:
+    """Write group g's prompt k/v (each worker's, by kv head: `kvs`)
+    into the blocks of one layer's cache that hold its rows, in place:
+    each block takes its positions [t0, t1) of [0, S) and its kv heads
+    from the worker that projected them."""
+    workers = {w.m: w for w in g.workers}
+    for b in _kv_blocks(ck, g):
+        t1 = min(b.t1, S)
+        if t1 <= b.t0:
+            continue
+        for m, k, v, hs, off in _head_runs(b, kvs):
+            n = hs.stop - hs.start
+            for leaf, x in ((ck, k), (cv, v)):
+                leaf.blocks[b.idx][b.rows, :t1 - b.t0, off:off + n] = \
+                    _to_owner(x[:, b.t0:t1, hs], workers[m], b, leaf.dtype)
+
+
+def _sharded_logits(cfg, params, g: _Group, hd, read: _Reader
+                    ) -> torch.Tensor:
+    """The group's logits [Bg, vocab] of its last hidden rows (one a
+    group device), on the group's first device: each worker its vocab
+    columns of the unembedding (the embedding's, transposed, when
+    tied), concatenated in model order, or the whole vocab on the
+    first worker where `model` does not split it."""
+    leaf = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    split = leaf.split(MODEL_AXIS) is not None
+    home = g.devices[0]
+    cols = []
+    for w in (g.workers if split else g.workers[:1]):
+        wt = read(leaf, w)
+        wt = wt.T if cfg.tie_embeddings else wt
+        x = hd[w.device][:, -1]
+        y = x @ wt.to(x.dtype)
+        if w is not g.workers[0]:
+            y = log_transfer(y, "all-gather")
+        cols.append(y.to(home))
+    out = torch.cat(cols, dim=-1)
+    return out[..., :cfg.vocab_size]
+
+
+def _sharded_mlp(cfg, groups: List[_Group], lp, xds, read: _Reader):
+    """The MLP half of a layer over every group (a moe layer routes
+    over all of them at once, as training's `_sharded_layer`)."""
+    if cfg.family != "moe":
+        return [mlp_residual(cfg, g, lp["mlp"], xd,
+                             norm(cfg, g, lp["ln2"], xd, read), read)
+                for g, xd in zip(groups, xds)]
+    hs = [norm(cfg, g, lp["ln2"], xd, read) for g, xd in zip(groups, xds)]
+    ys, _ = moe_mod.sharded_moe_mlp(cfg, lp["moe"], groups, hs, read,
+                                    groups[0].devices[0])
+    return [{d: xd[d] + y[d] for d in g.devices}
+            for g, xd, y in zip(groups, xds, ys)]
+
+
+def _final_logits(cfg, params, groups: List[_Group], xds, mesh
+                  ) -> torch.Tensor:
+    """The final norm and each group's last-row logits, stacked in row
+    order on the mesh's first position: [B, vocab]."""
+    read = _Reader()
+    first = mesh.positions[0]
+    out = []
+    for g, xd in zip(groups, xds):
+        h = norm(cfg, g, params["final_norm"], xd, read)
+        out.append(_sharded_logits(cfg, params, g, h, read).to(first))
+    return torch.cat(out)
+
+
+def sharded_prefill(cfg, params, batch: Dict[str, torch.Tensor], cache,
+                    mesh, plan) -> Tuple[torch.Tensor, Params]:
+    """`prefill` over a mesh under a training plan: `params` are
+    ``Sharded`` leaves by the plan's param rules, `cache` {"k", "v"}
+    ``Sharded`` leaves [L, B, T, KH, hd] by plans.cache_pspecs (a dim
+    may split over two axes).  The forward of `sharded_lm_loss` without
+    the loss: data groups by the plan's batch axes, each `model`
+    position B9 over its heads and its float32 partials summed by
+    `xshard_sum`, moe routing global over the batch; each layer's k/v
+    are written into the cache blocks that hold them (each block its
+    positions and kv heads, from the worker that projected them).  The
+    last-position logits come through the vocab-parallel head.  Returns
+    (logits [B, vocab] on the mesh's first position, cache)."""
+    check_sharded_serving(cfg, cache=cache)
+    tokens = batch["tokens"]
+    prefix = batch.get("prefix_embeds")
+    B, S = tokens.shape
+    groups = _groups(mesh, plan, B)
+    read = _Reader()
+    xds = []
+    for g in groups:
+        lo, hi = g.rows
+        xds.append(_sharded_embed(cfg, g, params, tokens[lo:hi],
+                                  None if prefix is None else prefix[lo:hi],
+                                  read))
+    cks, cvs = cache["k"].layers(), cache["v"].layers()
+    for i, lp in enumerate(layer_list(params["layers"], cfg.num_layers)):
+        read = _Reader()
+        out = []
+        for g, xd in zip(groups, xds):
+            kvs: Dict[int, Any] = {}
+            out.append(attn_residual(cfg, g, lp["attn"], xd,
+                                     norm(cfg, g, lp["ln1"], xd, read),
+                                     read, kv_out=kvs))
+            _write_prefill(g, kvs, cks[i], cvs[i], S)
+        xds = _sharded_mlp(cfg, groups, lp, out, read)
+    return _final_logits(cfg, params, groups, xds, mesh), cache
+
+
+def _write_decode(blocks: List[_KVBlock], ck: Sharded, cv: Sharded,
+                  kvs: Dict[int, Any], workers, pos: torch.Tensor) -> None:
+    """Write the new k/v row (each worker's, by kv head: `kvs`) at
+    position `pos` (a device scalar) into every block of `blocks` that
+    holds it, in place, with no host read of `pos`: each block takes
+    the row at its local index where it lies in [t0, t1) and keeps its
+    own row elsewhere."""
+    for b in blocks:
+        Tb = b.t1 - b.t0
+        rel = pos.to(b.device).long() - b.t0
+        inside = (rel >= 0) & (rel < Tb)
+        at = rel.clamp(0, Tb - 1).reshape(1)
+        runs = list(_head_runs(b, kvs))
+        for leaf, i in ((ck, 1), (cv, 2)):
+            dst = leaf.blocks[b.idx][b.rows]
+            pieces = [_to_owner(r[i][:, :, r[3]], workers[r[0]], b,
+                                dst.dtype) for r in runs]
+            row = torch.cat(pieces, dim=2) if len(pieces) > 1 else pieces[0]
+            cur = dst.index_select(1, at)
+            dst.index_copy_(1, at, torch.where(inside, row, cur))
+
+
+def _decode_attend(cfg, g: _Group, att, xd, h, read: _Reader, ck: Sharded,
+                   cv: Sharded, pos: Dict[torch.device, torch.Tensor]):
+    """xd plus one decode step's attention of the normed h (one a group
+    device) over one layer's sharded cache.  Each worker projects its q
+    heads and k/v heads at `pos`; the new k/v row goes into the block
+    that holds `pos`.  Each cache block's owner attends the q heads of
+    its kv heads over its positions: a block that holds every position
+    gives `attention.decode_attention`'s output (the one-device
+    numbers); where T is split, the blocks' `decode_partial` outputs and
+    log-sum-exps are combined in float32 in block (position) order
+    (`attention.combine_partials`).  Each worker then forms the float32
+    partial of its heads' out-projection, summed by `xshard_sum`."""
+    H, KH = cfg.num_heads, cfg.num_kv_heads
+    G = H // KH
+    Bg = h[g.devices[0]].shape[0]
+    split = att["wq"].split(MODEL_AXIS) is not None
+    computing = g.workers if split else g.workers[:1]
+    hq = H // len(computing)
+    qs: Dict[int, Any] = {}
+    x1s: Dict[int, Any] = {}
+    ps: Dict[int, Any] = {}
+    for w in computing:
+        p = ps[w.m] = read.tree(att, w)
+        d = w.device
+        q, k1, v1, first, _ = attn.shard_qkv(
+            cfg, p, h[d], pos[d].expand(Bg, 1),
+            (w.m * hq, (w.m + 1) * hq) if split else (0, H))
+        qs[w.m] = q
+        x1s[w.m] = (k1, v1, first)
+    workers = {w.m: w for w in computing}
+    blocks = _kv_blocks(ck, g)
+    _write_decode(blocks, ck, cv, x1s, workers, pos[g.devices[0]])
+    # each block's owner attends the q heads of its kv heads
+    T = ck.shape[1]
+    results: Dict[int, List[Tuple[Any, ...]]] = {}
+    for b in blocks:
+        qpieces = []
+        for m in sorted(qs):                   # the q heads it reads
+            lo = m * hq if split else 0
+            a, z = max(lo, b.h0 * G), min(lo + hq, b.h1 * G)
+            if a >= z:
+                continue
+            piece = qs[m][:, :, a - lo:z - lo]
+            if workers[m].coord != b.owner:
+                piece = log_transfer(piece, "all-gather")
+            qpieces.append(piece.to(b.device))
+        qb = torch.cat(qpieces, dim=2) if len(qpieces) > 1 else qpieces[0]
+        kb = ck.blocks[b.idx][b.rows]
+        vb = cv.blocks[b.idx][b.rows]
+        kv_len = pos[b.device] + 1
+        if b.t0 == 0 and b.t1 == T:
+            results[b.h0] = [("whole", b, attn.decode_attention(
+                qb, kb, vb, kv_len))]
+        else:
+            o, lse = attn.decode_partial(qb, kb, vb, b.t0, kv_len)
+            results.setdefault(b.h0, []).append(("part", b, o, lse))
+    # each worker's heads: their outputs, combined where T is split
+    parts = []
+    for w in computing:
+        lo = w.m * hq if split else 0
+        d = w.device
+        heads = []
+        for h0 in sorted(results):
+            res = results[h0]
+            b = res[0][1]
+            a, z = max(lo, b.h0 * G), min(lo + hq, b.h1 * G)
+            if a >= z:
+                continue
+            sel = slice(a - b.h0 * G, z - b.h0 * G)
+            if res[0][0] == "whole":
+                o = res[0][2][:, :, sel]
+                if b.owner != w.coord:
+                    o = log_transfer(o, "all-reduce")
+                heads.append(o.to(d))
+                continue
+            os_, ls_ = [], []
+            for _, bj, oj, lj in res:
+                oj, lj = oj[:, :, sel], lj[:, sel]
+                if bj.owner != w.coord:
+                    oj = log_transfer(oj, "all-reduce")
+                    lj = log_transfer(lj, "all-reduce")
+                os_.append(oj.to(d))
+                ls_.append(lj.to(d))
+            heads.append(attn.combine_partials(os_, ls_).to(qs[w.m].dtype))
+        o = torch.cat(heads, dim=2) if len(heads) > 1 else heads[0]
+        if split:
+            parts.append(attn.out_project_parts(ps[w.m], o, 1))
+        else:
+            y = attn.out_project(ps[w.m], o)
+            return {e: xd[e] + y.to(e) for e in g.devices}
+    ys = xshard_sum(parts, g.devices, tag="xshard_attn_out")
+    return {d: xd[d] + ys[d].to(xd[d].dtype) for d in g.devices}
+
+
+def sharded_decode_step(cfg, params, cache, token: torch.Tensor, pos,
+                        mesh, plan) -> Tuple[torch.Tensor, Params]:
+    """`decode_step` over a mesh under a training plan (`sharded_prefill`'s
+    layouts): token [B], pos the cache length (an int or a scalar
+    tensor, one for every row, as the reference's decode cell).  Each
+    layer writes its k/v row at `pos` into the block that holds it and
+    attends per cache block (`_decode_attend`: a split T combined by
+    log-sum-exp in block order); the MLP and the head are the
+    prefill's.  Returns (logits [B, vocab] on the mesh's first
+    position, cache updated in place)."""
+    check_sharded_serving(cfg, cache=cache)
+    pos_t = torch.as_tensor(pos)
+    if pos_t.ndim:
+        raise ValueError("sharded decode takes one position for every row "
+                         f"(a scalar), not shape {tuple(pos_t.shape)}")
+    B = token.shape[0]
+    groups = _groups(mesh, plan, B)
+    devices = mesh.physical
+    posd = {d: pos_t.to(d, torch.int32) for d in devices}
+    read = _Reader()
+    xds = []
+    for g in groups:
+        lo, hi = g.rows
+        xds.append(_sharded_embed(cfg, g, params, token[lo:hi, None], None,
+                                  read))
+    cks, cvs = cache["k"].layers(), cache["v"].layers()
+    for i, lp in enumerate(layer_list(params["layers"], cfg.num_layers)):
+        read = _Reader()
+        out = [_decode_attend(cfg, g, lp["attn"], xd,
+                              norm(cfg, g, lp["ln1"], xd, read), read,
+                              cks[i], cvs[i], posd)
+               for g, xd in zip(groups, xds)]
+        xds = _sharded_mlp(cfg, groups, lp, out, read)
+    return _final_logits(cfg, params, groups, xds, mesh), cache

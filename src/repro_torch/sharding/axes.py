@@ -28,14 +28,30 @@ owner; ``Sharded.at`` is a position's block with the dim split over one
 axis (`data`, for FSDP) gathered in mesh order, and ``Sharded.span`` an
 index range along a split dim read from the blocks that cover it (the
 Mamba mixers' w_in columns of one position's channels or heads, which
-`model`'s contiguous blocks cut elsewhere).
+`model`'s contiguous blocks cut elsewhere).  A decode cache's dim may
+be split over two axes at once (plans.cache_pspecs: the KV sequence
+over ("model", "data") when neither heads nor batch split): its blocks
+are numbered row-major over those axes.
+
+The collective log (``collective_log``): while its ``with`` block is
+open, the sharded steps record each logical transfer between mesh
+positions (kind, the bytes a receiving position takes in, the number of
+receivers): what ``Sharded.at(gather=)`` reads from blocks other
+positions own (all-gather; its gradient sent back to the owner,
+reduce-scatter), the partials ``common.xshard_sum`` and the decode
+combine take from other shards (all-reduce), and moe dispatch and
+combine through the first position (all-to-all).  On a mesh spread over
+one device ``.to(device)`` moves nothing, so physical copies would show
+nothing; the log counts what a mesh of distinct devices would move.
+Closed (the default) it adds no work and no host sync.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -179,6 +195,94 @@ def constrain(x: torch.Tensor, names: Sequence[Optional[str]]
     return x
 
 
+# ----------------------------------------------------------------------
+# the collective log
+# ----------------------------------------------------------------------
+
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+
+class CollectiveLog:
+    """Logical transfers between mesh positions: entries (kind, bytes a
+    receiving position takes in, receivers)."""
+
+    def __init__(self):
+        self.entries: List[Tuple[str, int, int]] = []
+
+    def add(self, kind: str, nbytes: int, receivers: int = 1) -> None:
+        if kind not in COLLECTIVE_KINDS:
+            raise ValueError(f"unknown collective kind {kind!r}")
+        if nbytes and receivers:
+            self.entries.append((kind, int(nbytes), int(receivers)))
+
+    def bytes(self) -> Dict[str, int]:
+        """Bytes taken in over every receiving position, by kind."""
+        out = dict.fromkeys(COLLECTIVE_KINDS, 0)
+        for kind, n, r in self.entries:
+            out[kind] += n * r
+        return out
+
+    def ops(self) -> Dict[str, int]:
+        """Logged transfers, by kind."""
+        out = dict.fromkeys(COLLECTIVE_KINDS, 0)
+        for kind, _, _ in self.entries:
+            out[kind] += 1
+        return out
+
+
+# module-global, not thread-local: the backward may run on autograd's
+# device threads
+_LOG: List[Optional[CollectiveLog]] = [None]
+
+
+@contextlib.contextmanager
+def collective_log():
+    """Record the sharded steps' logical transfers while open (module
+    docstring); yields the ``CollectiveLog``."""
+    prev, _LOG[0] = _LOG[0], CollectiveLog()
+    try:
+        yield _LOG[0]
+    finally:
+        _LOG[0] = prev
+
+
+def logging_collectives() -> bool:
+    return _LOG[0] is not None
+
+
+class _BackLog(torch.autograd.Function):
+    """The identity; its backward logs the gradient's transfer."""
+
+    @staticmethod
+    def forward(ctx, x, kind, nbytes, receivers):
+        ctx.entry = (kind, nbytes, receivers)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if _LOG[0] is not None:
+            _LOG[0].add(*ctx.entry)
+        return g, None, None, None
+
+
+def log_transfer(x: torch.Tensor, kind: str, *, nbytes: Optional[int] = None,
+                 receivers: int = 1, back: Optional[str] = None
+                 ) -> torch.Tensor:
+    """`x` as taken in by `receivers` positions (`nbytes` each, default
+    x's bytes), logged under `kind` when the log is open; with `back`,
+    its gradient's return is logged under `back` in the backward.
+    Returns `x` (as is when the log is closed)."""
+    log = _LOG[0]
+    if log is None:
+        return x
+    nbytes = x.nbytes if nbytes is None else nbytes
+    log.add(kind, nbytes, receivers)
+    if back is not None and x.requires_grad:
+        return _BackLog.apply(x, back, nbytes, receivers)
+    return x
+
+
 def shard_slices(n: int, parts: int) -> List[Tuple[int, int]]:
     """[start, stop) of each of `parts` equal slices of a dim of n."""
     if n % parts:
@@ -191,31 +295,46 @@ def shard_slices(n: int, parts: int) -> List[Tuple[int, int]]:
 # blocks of a leaf over an n-D mesh
 # ----------------------------------------------------------------------
 
-def _spec_axis(entry) -> Optional[str]:
-    """The mesh axis of one spec entry (None: not split).  A parameter
-    dim is split over one axis at most (plans' param rules name one)."""
+DimAxes = Union[None, str, Tuple[str, ...]]
+
+
+def _spec_axis(entry) -> DimAxes:
+    """The mesh axis of one spec entry (None: not split), or the tuple
+    of axes of a dim split over several (a decode cache's sequence;
+    parameter dims take one axis at most)."""
     if entry is None:
         return None
     if isinstance(entry, str):
         return entry
     entry = tuple(entry)
-    if len(entry) != 1:
-        raise ValueError(f"a parameter dim split over {entry}: one mesh "
-                         "axis a dim")
-    return entry[0]
+    if not entry:
+        return None
+    return entry[0] if len(entry) == 1 else entry
 
 
-def spec_axes(spec: Sequence, ndim: int) -> Tuple[Optional[str], ...]:
+def _names(a: DimAxes) -> Tuple[str, ...]:
+    return () if a is None else ((a,) if isinstance(a, str) else a)
+
+
+def spec_axes(spec: Sequence, ndim: int) -> Tuple[DimAxes, ...]:
     """The mesh axis splitting each of `ndim` dims (a spec shorter than
     the rank leaves the trailing dims whole)."""
     spec = tuple(spec) + (None,) * (ndim - len(spec))
     return tuple(_spec_axis(e) for e in spec[:ndim])
 
 
-def _mesh_axes(spec, ndim: int, mesh: Mesh) -> Tuple[Optional[str], ...]:
+def axes_parts(a: DimAxes, mesh_shape: Dict[str, int]) -> int:
+    """The number of blocks the axes `a` cut a dim into."""
+    n = 1
+    for x in _names(a):
+        n *= mesh_shape[x]
+    return n
+
+
+def _mesh_axes(spec, ndim: int, mesh: Mesh) -> Tuple[DimAxes, ...]:
     """`spec_axes`, refusing an axis the mesh does not have."""
     axes = spec_axes(spec, ndim)
-    missing = {a for a in axes if a is not None} - set(mesh.axis_names)
+    missing = {x for a in axes for x in _names(a)} - set(mesh.axis_names)
     if missing:
         raise ValueError(f"spec {tuple(spec)} names {sorted(missing)}, not "
                          f"mesh axes {mesh.axis_names}")
@@ -228,11 +347,22 @@ def mesh_coords(mesh: Mesh) -> List[Dict[str, int]]:
             for idx in np.ndindex(mesh.devices.shape)]
 
 
-def block_index(axes_of_dims: Sequence[Optional[str]],
-                coord: Dict[str, int]) -> Tuple[int, ...]:
+def block_index(axes_of_dims: Sequence[DimAxes], coord: Dict[str, int],
+                mesh_shape: Optional[Dict[str, int]] = None
+                ) -> Tuple[int, ...]:
     """The block a position holds: its index along each dim's axis (0
-    along a whole dim)."""
-    return tuple(0 if a is None else coord[a] for a in axes_of_dims)
+    along a whole dim; row-major over the axes of a dim split over
+    several, which needs `mesh_shape`)."""
+    out = []
+    for a in axes_of_dims:
+        if a is None or isinstance(a, str):
+            out.append(0 if a is None else coord[a])
+            continue
+        i = 0
+        for x in a:
+            i = i * mesh_shape[x] + coord[x]
+        out.append(i)
+    return tuple(out)
 
 
 def span_pieces(n: int, parts: int, lo: int, hi: int
@@ -245,13 +375,27 @@ def span_pieces(n: int, parts: int, lo: int, hi: int
              - j * size) for j in range(lo // size, (hi - 1) // size + 1)]
 
 
+@functools.lru_cache(maxsize=256)
+def block_owners(axes_of_dims: Tuple[DimAxes, ...], mesh: Mesh
+                 ) -> Dict[Tuple[int, ...], Dict[str, int]]:
+    """Each distinct block's owner: the coordinates of the first
+    position in mesh order that holds it."""
+    owners: Dict[Tuple[int, ...], Dict[str, int]] = {}
+    for c in mesh_coords(mesh):
+        owners.setdefault(block_index(axes_of_dims, c, mesh.shape), c)
+    return owners
+
+
+def _owner_device(mesh: Mesh, coord: Dict[str, int]) -> torch.device:
+    return mesh.devices[tuple(coord[a] for a in mesh.axis_names)]
+
+
 def block_slices(shape: Sequence[int], axes_of_dims, mesh_shape,
                  index: Sequence[int]) -> Tuple[slice, ...]:
     """The slice of a leaf of `shape` that block `index` covers."""
     out = []
     for n, a, i in zip(shape, axes_of_dims, index):
-        parts = 1 if a is None else mesh_shape[a]
-        lo, hi = shard_slices(n, parts)[i]
+        lo, hi = shard_slices(n, axes_parts(a, mesh_shape))[i]
         out.append(slice(lo, hi))
     return tuple(out)
 
@@ -287,15 +431,35 @@ class Sharded:
         """`t` cut into its blocks, each copied once onto its owner's
         device (a contiguous tensor of its own), in block order."""
         axes_of_dims = _mesh_axes(spec, t.ndim, mesh)
-        owners: Dict[Tuple[int, ...], torch.device] = {}
-        for c, d in zip(mesh_coords(mesh), mesh.positions):
-            owners.setdefault(block_index(axes_of_dims, c), d)
         blocks = {}
-        for idx, dev in sorted(owners.items()):
+        for idx, c in sorted(block_owners(axes_of_dims, mesh).items()):
             sl = t[block_slices(t.shape, axes_of_dims, mesh.shape, idx)]
             blocks[idx] = torch.empty(sl.shape, dtype=t.dtype,
-                                      device=dev).copy_(sl)
+                                      device=_owner_device(mesh, c)
+                                      ).copy_(sl)
         return cls(t.shape, spec, mesh, blocks)
+
+    @classmethod
+    def zeros(cls, shape, dtype: torch.dtype, spec, mesh: Mesh
+              ) -> "Sharded":
+        """A leaf of zeros laid out by `spec`, each block made on its
+        owner's device (meta positions: shapes only)."""
+        axes_of_dims = _mesh_axes(spec, len(shape), mesh)
+        blocks = {}
+        for idx, c in sorted(block_owners(axes_of_dims, mesh).items()):
+            sl = block_slices(shape, axes_of_dims, mesh.shape, idx)
+            blocks[idx] = torch.zeros([s.stop - s.start for s in sl],
+                                      dtype=dtype,
+                                      device=_owner_device(mesh, c))
+        return cls(shape, spec, mesh, blocks)
+
+    def block_at(self, coord: Dict[str, int]) -> Tuple[int, ...]:
+        """The index of the block position `coord` holds."""
+        return block_index(self.axes, coord, self.mesh.shape)
+
+    def block_range(self, idx: Sequence[int]) -> Tuple[slice, ...]:
+        """The slice of the whole leaf that block `idx` covers."""
+        return block_slices(self.shape, self.axes, self.mesh.shape, idx)
 
     def with_blocks(self, blocks) -> "Sharded":
         """The same layout over other tensors (one a block, in order)."""
@@ -319,14 +483,17 @@ class Sharded:
         `gather`, the dim split over that axis is concatenated from the
         blocks of every index along it, in mesh order.  Differentiable:
         each block is read through ``.to(device)``."""
-        idx = block_index(self.axes, coord)
+        idx = self.block_at(coord)
         dim = self.split(gather) if gather is not None else None
         if dim is None:
             return self.blocks[idx].to(device)
         parts = []
         for i in range(self.parts(gather)):
             k = idx[:dim] + (i,) + idx[dim + 1:]
-            parts.append(self.blocks[k].to(device))
+            b = self.blocks[k].to(device)
+            if i != idx[dim]:              # another position's block
+                b = log_transfer(b, "all-gather", back="reduce-scatter")
+            parts.append(b)
         return torch.cat(parts, dim=dim)
 
     def span(self, coord: Dict[str, int], dim: int, lo: int, hi: int,

@@ -1736,7 +1736,8 @@ def test_dissection_benchmarks_run_on_card(cuda):
                                      "tc_energy", "async_copy",
                                      "dpx_functions", "dpx_kernels", "dsm",
                                      "memory_latency", "memory_throughput",
-                                     "te_linear", "te_layer"}
+                                     "te_linear", "te_layer",
+                                     "roofline_baselines"}
     assert run.main(["tc_energy"]) is None
 
 
@@ -3258,3 +3259,71 @@ def test_sharded_family_trainer_on_card_equals_cpu(cuda, arch):
     assert apart(card32, cpu32) <= 5e-4, (card32, cpu32)
     assert (launches == 0) == (cfg.family == "ssm"), launches
     assert launches % 8 == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_b9_flop_count_on_card_equals_meta(cuda, causal):
+    """FlopCounterMode counts B9's registered formula (the kernel's own
+    tile pairs) on the card as on meta, at a training shape and a ragged
+    one; the card's call launches the kernel once."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import flash_attention as kfa
+    for B, Sq, Sk, H, KH, hd in ((2, 1024, 1024, 8, 2, 128),
+                                 (1, 300, 700, 4, 4, 80)):
+        counts = {}
+        for dev in ("meta", cuda):
+            q = torch.randn(B, Sq, H, hd, device=dev).to(torch.bfloat16)
+            k = torch.randn(B, Sk, KH, hd, device=dev).to(torch.bfloat16)
+            kfa.reset_launch_counts()
+            with FlopCounterMode(display=False) as fc:
+                kfa.flash_attention_fwd(q, k, k, causal=causal,
+                                        q_offset=Sk - Sq if causal else 0)
+            counts[str(dev)] = fc.get_total_flops()
+            launched = kfa.launch_counts()["flash_attention"]
+            assert launched == (0 if dev == "meta" else 1)
+        assert counts["meta"] == counts[str(cuda)] > 0, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan_name,B", [("fsdp_tp", 4), ("fsdp_tp_sp", 1)])
+def test_sharded_decode_on_card_equals_cpu(cuda, plan_name, B):
+    """Reduced yi-6b's sharded prefill and one decode step on a (2, 4)
+    mesh spread over the card against the same on a (2, 4) mesh spread
+    over the CPU, from the same weights and prompt (bf16): logits
+    within 2**-5 of their max |logit| (four bf16 steps), greedy ids
+    equal where the CPU's top two are further apart than that; B9 runs
+    on the card at each position's heads."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import convert
+    from repro_torch.sharding.plans import get_plan
+    cfg = reduced_config("yi-6b")
+    plan = get_plan(plan_name)
+    params = api.init(cfg, 0, device="cpu")
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 16))
+                            .astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda):
+        mesh = make_host_mesh((2, 4), spread=dev)
+        sp = convert.shard_params(params, cfg, mesh, rules=plan.param_rules)
+        cache = api.init_cache(cfg, B, 24, mesh=mesh, plan=plan)
+        kfa.reset_launch_counts()
+        lp, cache = api.prefill(cfg, sp, {"tokens": toks.to(dev)}, cache,
+                                mesh=mesh, plan=plan)
+        launched = kfa.launch_counts()["flash_attention"]
+        tok = out["cpu"][0].argmax(-1).to(torch.int32) if out else \
+            lp.argmax(-1).to(torch.int32)
+        ld, _ = api.decode_step(cfg, sp, cache, tok.to(dev), 16, mesh=mesh,
+                                plan=plan)
+        out[str(dev)] = (lp.float().cpu(), ld.float().cpu(), launched)
+    assert out["cpu"][2] == 0 and out[str(cuda)][2] == 8 * cfg.num_layers \
+        // (2 if B == 1 else 1)
+    for i in (0, 1):
+        a, b = out["cpu"][i], out[str(cuda)][i]
+        tol = 2.0 ** -5 * float(a.abs().max())
+        assert float((a - b).abs().max()) <= tol
+        top = a.topk(2, dim=-1).values
+        clear = top[:, 0] - top[:, 1] > tol
+        assert torch.equal(a.argmax(-1)[clear], b.argmax(-1)[clear])

@@ -223,6 +223,16 @@ for arch in ("moonshot-v1-16b-a3b", "falcon-mamba-7b", "zamba2-2.7b",
     floss, _ = value_and_grad(fcfg, fsh, fb, mesh=hmesh,
                               plan=plans.get_plan("fsdp_tp"))
     assert floss == floss, arch
+from repro_torch.launch import dryrun
+scfg = reduced_config("moonshot-v1-16b-a3b")
+smesh = make_host_mesh((2, 4), spread="meta")
+for kind in ("train", "prefill", "decode"):
+    shape = ShapeConfig("t", 16, 4, kind)
+    cell = dryrun.build_cell(scfg, shape, smesh, plans.default_plan(
+        scfg, shape))
+    tr = dryrun.trace_cell(scfg, shape, smesh, plans.default_plan(
+        scfg, shape), "full", cell=cell)
+    assert tr.flops > 0, kind
 from repro_torch.analysis.__main__ import main as analyze
 assert analyze(["--device", "cpu", "--strict", "--max-combos", "1",
                 "--repo-root", %(root)r]) == 0
@@ -240,7 +250,9 @@ def test_port_serves_without_jax():
                  "sharding/plans.py", "launch/mesh.py",
                  "runtime/elastic.py", "models/convert.py",
                  "runtime/trainer.py", "launch/train.py",
-                 "ckpt/checkpoint.py", "optim/adamw.py"):
+                 "ckpt/checkpoint.py", "optim/adamw.py",
+                 "launch/dryrun.py", "core/analytic.py",
+                 "core/roofline.py", "benchmarks/roofline_table.py"):
         assert ROOT / "src" / "repro_torch" / name in PORT_FILES
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD % {"src": str(ROOT / "src"),

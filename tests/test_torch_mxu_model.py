@@ -99,7 +99,8 @@ def test_registry_names_and_paper_refs():
     port, ref = bench.registry(), ref_bench.registry()
     names = ["memory_latency", "memory_throughput", "tc_mma", "tc_wgmma",
              "tc_n_sweep", "tc_energy", "async_copy", "dpx_functions",
-             "dpx_kernels", "dsm", "te_linear", "te_layer"]
+             "dpx_kernels", "dsm", "te_linear", "te_layer",
+             "roofline_baselines"]
     assert sorted(port) == sorted(names)
     for n in names:
         assert port[n].paper_ref == ref[n].paper_ref
