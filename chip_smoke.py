@@ -385,11 +385,10 @@ last line):
               one-device Trainer from that start: step ms, tokens/s,
               peak memory, B9 launches and one profiled step's device
               ms by kind of both printed, a record;
-              (c) reduced yi-6b and internvl2-1b under dp, fsdp_tp
-              and fsdp_tp_spact (fsdp_tp runs the paths of fsdp and
-              tp), 3 Trainer steps on the card mesh
-              against the same on a mesh spread over the CPU (first
-              loss within 2e-3, all within 1e-2).
+              (c) reduced yi-6b and internvl2-1b under dp, fsdp, tp,
+              fsdp_tp and fsdp_tp_spact, 3 Trainer steps on the card
+              mesh against the same on a mesh spread over the CPU
+              (first loss within 2e-3, all within 1e-2).
  17. train_sharded_families — the other families' sharded training
               step (runs after phase 16, on its mesh and plan, random
               weights, seed 0): (a) moonshot-v1-16b-a3b (1 of 48
@@ -420,8 +419,8 @@ last line):
               (all steps held where neither host's bf16 run lies 1e-2
               from its float32 run), and with float32 rows (the first
               loss within 1e-5 relative, all within 5e-4).
- 18. dryrun — the dry run (launch/dryrun.run_cell, runs after phase 17):
-              (a)-(c) on the (2, 4) mesh spread over the card, full
+ 18. dryrun — the dry run (launch/dryrun.record_cell, runs after phase
+              17): (a)-(c) on the (2, 4) mesh spread over the card, full
               width, random weights (seed 0), each cut printed: (a)
               yi-6b train_4k cut to 2 layers and B=2 x 4096, fsdp_tp
               (remat full: B9 forward and in the recompute), the loss
@@ -429,7 +428,9 @@ last line):
               and batch, a checked sharded step's B9 calls held to
               plain; (b) yi-6b prefill_32k cut to 4 layers and B=2 x
               32768, fsdp_tp (B9 at S=32768 over each position's 8
-              heads); (c) yi-6b long_500k cut to 4 layers, B=1 over
+              heads; one layer's sharded prefill has each B9 call held
+              to plain, and phase 10(a) times the shape as
+              yi-6b-prefill-shard); (c) yi-6b long_500k cut to 4 layers, B=1 over
               524288 cached positions, fsdp_tp_sp (T over `data`).
               Each prints its argument bytes a position, its temp bytes
               (the peak allocation over the arguments), FLOPs counted
@@ -4274,6 +4275,10 @@ FLASH_CASES = [
     ("whisper-dec-shard", "bfloat16", 1, 448, 448, 3, 3, 64, True, 0, 0),
     ("whisper-cross-shard", "bfloat16", 1, 448, 1500, 3, 3, 64, False, 0,
      0),
+    # phase 18(b)'s shard of yi-6b's prefill_32k under fsdp_tp on the
+    # same mesh: 8 of the 32 heads over 1 kv head at S=32768
+    ("yi-6b-prefill-shard", "bfloat16", 1, 32768, 32768, 8, 1, 128, True,
+     0, 0),
 ]
 # B9 against its plain version: float32 o within 1e-4 (the reference's
 # kernel tests); bf16 o within one bf16 step of max |o| (2**-7 * max|o|);
@@ -6595,11 +6600,7 @@ SHARDED_PLAN = "fsdp_tp"
 SHARDED_TRAIN = (2, 4096)              # B, S of (a) and (b)
 SHARDED_LAYERS = 2                     # (b)'s depth (4 to PR 30)
 SHARDED_STEPS = 3
-# (c)'s plans: the whole-block path (dp), the FSDP gathers with the TP
-# partials (fsdp_tp), and the residual as row slices (fsdp_tp_spact);
-# fsdp and tp run subsets of fsdp_tp's paths, and the CPU
-# tests hold every plan (tests/test_torch_sharded_plans.py)
-SHARDED_PLANS = ("dp", "fsdp_tp", "fsdp_tp_spact")
+SHARDED_PLANS = ("dp", "fsdp", "tp", "fsdp_tp", "fsdp_tp_spact")
 SHARDED_SMALL = ("yi-6b", "internvl2-1b")
 SHARDED_SMALL_BATCH = (4, 32)
 # (a)'s bars: the reference's own sharded-vs-one-device loss bar, and
@@ -7454,32 +7455,31 @@ def _dryrun_print(tag: str, rec: dict) -> None:
         fail(f"dry-run cell {tag} counted no FLOPs")
 
 
-def _dryrun_train_hooks(state: dict) -> dict:
-    """(a): the one-device loss on the cell's weights and batch, and the
-    sharded step's B9 calls held to plain (a checked sharded step)."""
+def _dryrun_train_checks(setup, cell) -> dict:
+    """(a): the one-device loss on the cell's weights and batch, and a
+    sharded step whose B9 calls are each held to plain (`chk`)."""
     import torch
     from repro_torch.models import convert
     from repro_torch.runtime.trainer import value_and_grad
-
-    def before(cell, cfg, shape, mesh, plan):
-        params, _, batch = cell.args
-        full = convert.gather_params(params)
-        state["loss1"] = value_and_grad(cfg, full, batch)[0].item()
-        del full
-        _free_card()
-        with _CheckedFlash() as chk:
-            state["checked"] = value_and_grad(cfg, params, batch, mesh=mesh,
-                                              plan=plan)[0].item()
-        state["chk"] = chk
-        torch.cuda.synchronize()
-    return {"before": before}
+    params, _, batch = cell.args
+    full = convert.gather_params(params)
+    loss1 = value_and_grad(setup.cfg, full, batch)[0].item()
+    del full
+    _free_card()
+    with _CheckedFlash() as chk:
+        checked = value_and_grad(setup.cfg, params, batch, mesh=setup.mesh,
+                                 plan=setup.plan)[0].item()
+    torch.cuda.synchronize()
+    return {"loss1": loss1, "checked": checked, "chk": chk}
 
 
 def _dryrun_one_layer() -> dict:
     """(b) and (c) at one layer: the sharded prefill's last-position
     logits and the SP decode step's logits against the one-device
     api.prefill / api.decode_step on the same weights and inputs, by
-    phase 15's bf16 rule (`_spec_margin`), and the caches after the
+    phase 15's bf16 rule (`_spec_margin`), the sharded prefill's B9
+    calls (the cell's shape, [1, 32768, 8, 128] over 1 kv head) each
+    held to plain (`prefill_chk`), and the caches after the
     decode step within one bf16 step of their largest |value| (a
     position's k/v projection is a column slice of one device's, which
     cuBLAS may round another way).  Deeper stacks are chaotic (PERF.md
@@ -7504,11 +7504,13 @@ def _dryrun_one_layer() -> dict:
                         api.init_cache(cfg, B, S, paged=False,
                                        device=DEVICE))
     sp = convert.shard_params(params, cfg, mesh, rules=plan.param_rules)
-    ls, _ = api.prefill(cfg, sp, {"tokens": toks},
-                        api.init_cache(cfg, B, S, mesh=mesh, plan=plan),
-                        mesh=mesh, plan=plan)
+    with _CheckedFlash() as chk:
+        ls, _ = api.prefill(cfg, sp, {"tokens": toks},
+                            api.init_cache(cfg, B, S, mesh=mesh, plan=plan),
+                            mesh=mesh, plan=plan)
     out["prefill"] = (float((l1.float() - ls.float()).abs().max()),
                       _spec_margin(l1))
+    out["prefill_chk"] = chk
     del sp, ls, l1
     _free_card()
     # (c): SP decode, B=1 over a random cache of 524288 positions
@@ -7539,17 +7541,21 @@ def _dryrun_one_layer() -> dict:
 
 
 def phase_dryrun() -> dict:
-    """Phase 18: the dry run.  (a)-(c) `run_cell(device="cuda")` on the
-    (2, 4) mesh spread over the card (full width, cut depth; each cut
-    printed): argument and temp bytes a position, counted FLOPs and
+    """Phase 18: the dry run.  (a)-(c) `dryrun.record_cell` of each
+    cell (`setup_cell` on the (2, 4) mesh spread over the card, full
+    width, cut depth, each cut printed; `build_cell` with random
+    weights): argument and temp bytes a position, counted FLOPs and
     logged collective bytes against the analytic model, the step's wall
     and device ms against the roofline; (a) the loss held to the
-    one-device step (phase 16's 7e-3), its B9 calls held to plain; (b)
-    and (c) held at one layer (`_dryrun_one_layer`).  (d) on meta, on
-    this host: yi-6b decode_32k on the 16x16 production mesh built and
-    traced, and the analytic rows of every assigned arch x shape on
-    both production meshes.  Returns B9's launches on the dry-run path
-    (each run_cell's, its comparison steps included) and by body."""
+    one-device step (phase 16's 7e-3) and a checked sharded step's B9
+    calls held to plain (`_dryrun_train_checks`); (b) and (c) held at
+    one layer, the sharded prefill's B9 calls to plain
+    (`_dryrun_one_layer`).  (d) on meta, on this host: yi-6b decode_32k
+    on the 16x16 production mesh built and traced, and the analytic
+    rows of every assigned arch x shape on both production meshes.
+    Returns B9's launches on the dry-run path (each record_cell's
+    traced and timed steps, counted from 0 just before it) and by
+    body."""
     import torch
     from repro_torch.configs import ASSIGNED, SHAPES, get_config
     from repro_torch.core import hw
@@ -7559,29 +7565,37 @@ def phase_dryrun() -> dict:
     t0 = time.perf_counter()
     launches, bodies, shapes = 0, dict.fromkeys(kfa.BODIES, 0), {}
     recs = {}
-    state: dict = {}
     for tag, arch, shape, layers, B, S, plan in DRYRUN_CELLS:
-        hooks = _dryrun_train_hooks(state) if tag == "a" else None
+        setup = dryrun.setup_cell(arch, shape, mesh_shape=DRYRUN_MESH,
+                                  device=DEVICE, spread=True,
+                                  plan_name=plan, layers=layers, batch=B,
+                                  seq=S)
+        t1 = time.perf_counter()
+        cell = dryrun.build_cell(setup.cfg, setup.shape, setup.mesh,
+                                 setup.plan, seed=0,
+                                 device=setup.mesh.positions[0])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t1
+        if tag == "a":
+            checks = _dryrun_train_checks(setup, cell)
+        # the main path: the dry run's traced and timed steps
         kfa.reset_launch_counts()
-        rec = dryrun.run_cell(arch, shape, mesh_shape=DRYRUN_MESH,
-                              device=DEVICE, spread=True, plan_name=plan,
-                              layers=layers, batch=B, seq=S, hooks=hooks)
+        rec = dryrun.record_cell(setup, cell)
         torch.cuda.synchronize()
         launches += kfa.launch_counts()["flash_attention"]
         for k, v in kfa.body_launches().items():
             bodies[k] += v
         for k, v in kfa.shape_launches().items():
             shapes[str(k)] = shapes.get(str(k), 0) + v
-        if rec["status"] != "ok":
-            print(rec.get("traceback", ""), flush=True)
-            fail(f"dry-run cell {tag} failed: {rec['error']}")
+        rec["build_s"] = build_s
         _dryrun_print(tag, rec)
         recs[tag] = rec
+        del cell
         _free_card()
-    chk = state["chk"]
-    dloss = abs(recs["a"]["loss"] - state["loss1"])
+    chk = checks["chk"]
+    dloss = abs(recs["a"]["loss"] - checks["loss1"])
     print(f"[dryrun] (a) loss {recs['a']['loss']:.5f} (checked sharded "
-          f"step {state['checked']:.5f}), one device {state['loss1']:.5f}: "
+          f"step {checks['checked']:.5f}), one device {checks['loss1']:.5f}: "
           f"|diff| {dloss:.2e} (limit {SHARDED_LOSS_ABS:.0e}); B9 "
           f"{chk.calls} calls held to plain: max |kernel - plain| / max "
           f"|o| = {chk.worst:.3e}, lse {chk.lse:.3e}", flush=True)
@@ -7601,6 +7615,15 @@ def phase_dryrun() -> dict:
         if not err <= rule:
             fail(f"the sharded {what} at one layer is {err} from one "
                  f"device's (rule {rule})")
+    chk = one["prefill_chk"]
+    print(f"[dryrun] (b) one layer: the sharded prefill's B9 {chk.calls} "
+          f"calls at {sorted(chk.first)} (Sq, Sk, causal) held to plain: "
+          f"max |kernel - plain| / max |o| = {chk.worst:.3e}, lse "
+          f"{chk.lse:.3e}", flush=True)
+    if chk.calls == 0 or chk.worst > FLASH_BF16_STEP or \
+            chk.lse > FLASH_F32_LIMIT:
+        fail(f"a B9 call of the dry-run prefill differs from its plain "
+             f"version: o {chk.worst:.3e}, lse {chk.lse:.3e}")
     print(f"[dryrun] (c) one layer: the caches after the step max |diff| "
           f"{one['decode_cache']:.3f} bf16 steps of their largest |value| "
           f"(limit 1); (b)-(c) held in {time.perf_counter() - t1:.1f} s",
@@ -7869,7 +7892,8 @@ def main() -> None:
                                         "zamba2-fsdp-tp-shard",
                                         "whisper-enc-shard",
                                         "whisper-dec-shard",
-                                        "whisper-cross-shard")}})
+                                        "whisper-cross-shard",
+                                        "yi-6b-prefill-shard")}})
     # not TPU kernels: what each measures on the card, the reference
     # times on the host
     for name, case, replaces in (

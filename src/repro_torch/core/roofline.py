@@ -82,6 +82,11 @@ def trace_step(positions: int):
     """Trace what runs inside the block: yields a ``StepTrace`` that is
     filled when the block ends."""
     from torch.utils.flop_counter import FlopCounterMode
+
+    # FlopCounterMode copies the formula registry when it is made: B9's
+    # formula must be registered first, or a process's first trace
+    # misses the kernel's FLOPs
+    import repro_torch.kernels.flash_attention  # noqa: F401
     trace = StepTrace(positions)
     with collective_log() as log, \
             FlopCounterMode(display=False) as counter:

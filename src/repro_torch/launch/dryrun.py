@@ -23,25 +23,28 @@ registered op whose formula counts the kernel's own work):
     cost_analysis     {"flops": FLOPs a position}
     collective_bytes  logged bytes a position takes in, by kind
 
-plus the analytic roofline (core/analytic.py).  A traced count is
-exact for the traced step; ``--trace`` says which step is traced:
-
-    full    every microbatch at full depth
-    micro   one microbatch (and one moe prefill chunk) at full depth,
-            times n_micro (n_chunks): the microbatches have equal
-            shapes, and the optimizer update adds no counted FLOPs or
-            transfers
-    layers  `micro` at depths 1 and 2, extrapolated linearly to the
-            config's depth (every layer has the same shapes): the
-            default, since one thread traces a 256-position full-depth
-            step slowly (PERF.md §6)
+plus the analytic roofline (core/analytic.py).  On meta the counts are
+traced at depth 1 in each unit the family stacks (layers; encoder and
+decoder layers for encdec; super-blocks of ``attn_every`` layers for
+hybrid) and again with each unit at 2, and extrapolated linearly to the
+config's depth, each at one microbatch (and one moe prefill chunk)
+times n_micro (n_chunks): every unit repeats the same shapes, the
+microbatches have equal shapes, and the optimizer update adds no
+counted FLOPs or transfers.  An ssm or hybrid train cell, whose Mamba
+scans walk the sequence chunk by chunk, is traced so at 128, 256 and
+384 positions and extrapolated to its length through the quadratic
+those fix (whole chunks and B9 tiles: its counts are a quadratic in
+the length).  So the count is the whole step's (the tests hold it to
+``trace_whole``, the whole step traced once, which one thread does
+slowly at 256 positions: PERF.md §6).
 
 ``--device cuda`` runs the cell on the card instead (random weights,
-seed 0): the step is traced there at full depth and timed (wall and
-CUDA events), and its temp bytes are the peak allocation over the
+seed 0): the whole step is traced there and timed (wall and CUDA
+events), and its temp bytes are the peak allocation over the
 arguments.  ``--mesh DxM`` (e.g. 2x4) replaces the production mesh;
-``--spread`` lays all its positions on one card.  ``--layers``,
-``--batch`` and ``--seq`` cut the cell (each cut is recorded).
+``--spread`` lays all its positions on one card.  ``--layers`` (each
+stack of an encdec config), ``--batch`` and ``--seq`` cut the cell
+(each cut is recorded).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --device meta \\
         --arch yi-6b --shape decode_32k
@@ -72,8 +75,6 @@ from repro_torch.optim.adamw import AdamW
 from repro_torch.sharding import plans as plans_mod
 from repro_torch.sharding.axes import (Mesh, Sharded, axes_parts,
                                        mesh_coords, spec_axes)
-
-TRACE_MODES = ("full", "micro", "layers")
 
 
 @dataclasses.dataclass
@@ -271,37 +272,103 @@ def _trace(fn, args, positions: int) -> roofline.StepTrace:
     return tr
 
 
-def trace_cell(cfg, shape, mesh, plan, mode: str, *, seed=None,
-               device=None, cell: Optional[Cell] = None
-               ) -> roofline.StepTrace:
-    """The step's trace by `mode` (module docstring)."""
-    if mode not in TRACE_MODES:
-        raise ValueError(f"trace mode {mode!r} not in {TRACE_MODES}")
-    n = mesh.size
-    if mode == "layers":
-        n_micro = (n_microbatches(cfg, shape, plan, mesh.shape)
-                   if shape.kind == "train" else None)
-        depth = {}
-        for L in (1, 2):
-            sub = _cut(cfg, L)
-            c = build_cell(sub, shape, mesh, plan, seed=seed, device=device,
-                           n_micro=n_micro)
-            depth[L] = trace_cell(sub, shape, mesh, plan, "micro",
-                                  seed=seed, device=device, cell=c)
-        per_layer = depth[2].combine(depth[1], 1.0, -1.0)
-        return depth[1].combine(per_layer, 1.0, cfg.num_layers - 1.0)
-    cell = cell or build_cell(cfg, shape, mesh, plan, seed=seed,
-                              device=device)
-    if mode == "micro" and cell.part is not None:
-        fn, args = cell.part
-        return _trace(fn, args, n).scaled(cell.repeat)
-    return _trace(cell.step, cell.args, n)
+def trace_whole(cell: Cell, positions: int) -> roofline.StepTrace:
+    """The whole step traced once."""
+    return _trace(cell.step, cell.args, positions)
 
 
-def _cut(cfg: ModelConfig, layers: int) -> ModelConfig:
-    """`cfg` at `layers` layers (the families this slice serves
-    sharded stack one kind of layer)."""
-    return dataclasses.replace(cfg, num_layers=layers)
+def _trace_part(cell: Cell, positions: int) -> roofline.StepTrace:
+    """One part of the step (a microbatch, a moe prefill chunk) traced,
+    times the parts."""
+    if cell.part is None:
+        return trace_whole(cell, positions)
+    fn, args = cell.part
+    return _trace(fn, args, positions).scaled(cell.repeat)
+
+
+def depth(cfg: ModelConfig) -> Dict[str, int]:
+    """The config's depth in the units its family stacks, each unit one
+    set of equal shapes: encoder and decoder layers (encdec),
+    super-blocks of `attn_every` layers (hybrid), else layers."""
+    if cfg.family == "encdec":
+        return {"enc_layers": cfg.enc_layers, "dec_layers": cfg.dec_layers}
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import n_superblocks
+        return {"superblocks": n_superblocks(cfg)}
+    return {"layers": cfg.num_layers}
+
+
+def at_depth(cfg: ModelConfig, units: Dict[str, int]) -> ModelConfig:
+    """`cfg` at `units` (the keys of `depth`)."""
+    if cfg.family == "encdec":
+        E, D = units["enc_layers"], units["dec_layers"]
+        return dataclasses.replace(cfg, enc_layers=E, dec_layers=D,
+                                   num_layers=E + D)
+    if cfg.family == "hybrid":
+        return dataclasses.replace(
+            cfg, num_layers=units["superblocks"] * cfg.attn_every)
+    return dataclasses.replace(cfg, num_layers=units["layers"])
+
+
+# the families whose step walks the sequence in chunks from Python (the
+# Mamba scans: 128 positions a chunk for Mamba-1, 64 for Mamba-2), and
+# the length whose multiples keep every chunk and B9 tile whole there:
+# their train counts are then a quadratic in the sequence length
+SEQ_FAMILIES = ("ssm", "hybrid")
+SEQ_QUANTUM = 128
+
+
+def trace_cell(cfg, shape, mesh, plan) -> roofline.StepTrace:
+    """The step's counts (module docstring): one part traced at depth 1
+    in every unit, and again with each unit of depth > 1 at 2; the
+    differences extrapolated to `depth(cfg)`.  The microbatch rule
+    keeps the full config's n_micro.  A train cell of `SEQ_FAMILIES`
+    at n > 3 multiples of `SEQ_QUANTUM` is traced so at 1, 2 and 3 of
+    them and extrapolated to n through the quadratic they fix (a
+    sequence walked chunk by chunk traces slowly at 256 positions)."""
+    n_micro = (n_microbatches(cfg, shape, plan, mesh.shape)
+               if shape.kind == "train" else None)
+
+    def at(units, seq_len):
+        cell = build_cell(at_depth(cfg, units),
+                          dataclasses.replace(shape, seq_len=seq_len),
+                          mesh, plan, n_micro=n_micro)
+        return _trace_part(cell, mesh.size)
+
+    def deep(seq_len):
+        full = depth(cfg)
+        ones = dict.fromkeys(full, 1)
+        base = at(ones, seq_len)
+        out = base
+        for unit, n in full.items():
+            if n > 1:
+                per_unit = at({**ones, unit: 2}, seq_len).combine(
+                    base, 1.0, -1.0)
+                out = out.combine(per_unit, 1.0, n - 1.0)
+        return out
+
+    q, S = SEQ_QUANTUM, shape.seq_len
+    if cfg.family not in SEQ_FAMILIES or shape.kind != "train" or \
+            S % q or S <= 3 * q:
+        return deep(S)
+    n = S // q
+    f1, f2, f3 = deep(q), deep(2 * q), deep(3 * q)
+    # Newton's forward differences: f1 + (n-1) d1 + (n-1)(n-2)/2 d2
+    d1 = f2.combine(f1, 1.0, -1.0)
+    d2 = f3.combine(f2, 1.0, -2.0).combine(f1, 1.0, 1.0)
+    return f1.combine(d1, 1.0, n - 1.0).combine(
+        d2, 1.0, (n - 1) * (n - 2) / 2)
+
+
+def _cut(cfg: ModelConfig, layers: int) -> Tuple[ModelConfig, str]:
+    """`cfg` cut to `layers` (every stack of an encdec config; a
+    multiple of `attn_every` for hybrid), and the cut's text."""
+    if cfg.family == "encdec":
+        return (at_depth(cfg, {"enc_layers": layers, "dec_layers": layers}),
+                f"{layers} + {layers} of {cfg.enc_layers} + "
+                f"{cfg.dec_layers}")
+    return (dataclasses.replace(cfg, num_layers=layers),
+            f"{layers} of {cfg.num_layers}")
 
 
 # ----------------------------------------------------------------------
@@ -317,32 +384,34 @@ def _mesh(dims, device: str, spread: bool) -> Mesh:
     return make_host_mesh(dims, axes)
 
 
-def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
-             plan_name: Optional[str] = None, remat: Optional[str] = None,
-             mesh_shape: Optional[str] = None, device: str = "meta",
-             spread: bool = False, trace: str = "layers",
-             layers: Optional[int] = None, batch: Optional[int] = None,
-             seq: Optional[int] = None, seed: int = 0,
-             hooks: Optional[Dict[str, Callable]] = None) -> Dict[str, Any]:
-    """Build and trace one cell (on a mesh of `device`: meta, cuda, or
-    cpu for the tests); returns its record (the reference's
-    keys where they keep their meaning: `build_s` and `trace_s` in
-    place of `compile_s`, `collective_bytes` for
-    `collective_bytes_hlo`, `fits_hbm` for `fits_16g`).  A cell that
-    raises is recorded as FAILED with its error.  `mesh_shape`:
-    "DxM" or "PxDxM" in place of the production mesh.  ``device`` meta
-    (shapes only) or cuda (random weights from `seed`, the step run
-    and timed).  `hooks` (on the card): "before"(cell, cfg, shape, mesh,
-    plan) runs before the traced step, "after"(record, cell, out, cfg,
-    shape, mesh, plan) after the timed one with the traced step's
-    output.  `layers` / `batch` / `seq` cut the cell."""
-    hooks = hooks or {}
+@dataclasses.dataclass
+class Setup:
+    """What a cell's record is made for: the config and shape after the
+    cuts, the mesh and its MeshSpec, the plan, the cuts, the device."""
+    arch: str
+    shape_name: str
+    cfg: ModelConfig
+    shape: ShapeConfig
+    mesh: Mesh
+    mesh_spec: hw.MeshSpec
+    plan: Any
+    cuts: Dict[str, str]
+    device: str
+
+
+def setup_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+               plan_name: Optional[str] = None, remat: Optional[str] = None,
+               mesh_shape: Optional[str] = None, device: str = "meta",
+               spread: bool = False, layers: Optional[int] = None,
+               batch: Optional[int] = None, seq: Optional[int] = None
+               ) -> Setup:
+    """The cell's config, shape, mesh and plan (the arguments of
+    `run_cell`)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     cuts = {}
     if layers is not None and layers != cfg.num_layers:
-        cuts["layers"] = f"{layers} of {cfg.num_layers}"
-        cfg = _cut(cfg, layers)
+        cfg, cuts["layers"] = _cut(cfg, layers)
     if batch is not None or seq is not None:
         b = batch or shape.global_batch
         s = seq or shape.seq_len
@@ -369,66 +438,93 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     plan = (plans_mod.get_plan(plan_name, multi_pod=multi_pod)
             if plan_name else
             plans_mod.default_plan(cfg, shape, multi_pod=multi_pod))
+    return Setup(arch, shape_name, cfg, shape, mesh, mesh_spec, plan, cuts,
+                 device)
 
+
+def record_cell(setup: Setup, cell: Optional[Cell] = None, *,
+                seed: int = 0) -> Dict[str, Any]:
+    """The cell's record; raises where the cell does.  On meta the
+    counts are `trace_cell`'s; on a device the step (`cell`, or one
+    built with random weights from `seed`) is traced whole while it
+    runs, then run once more and timed (`step_ms`)."""
+    cfg, shape, mesh, plan = setup.cfg, setup.shape, setup.mesh, setup.plan
+    meta = setup.device == "meta"
     record: Dict[str, Any] = {
-        "arch": arch, "shape": shape_name,
+        "arch": setup.arch, "shape": setup.shape_name,
         "mesh": "x".join(str(s) for s in mesh.devices.shape),
-        "plan": plan.name, "status": "ok", "device": device,
-        "cuts": cuts, "trace": trace if device == "meta" else "full",
+        "plan": plan.name, "status": "ok", "device": setup.device,
+        "cuts": setup.cuts, "trace": "layers" if meta else "whole",
     }
-    seed_ = None if device == "meta" else seed
-    on_card = torch.device(device).type == "cuda"
-    dev = None if device == "meta" else mesh.positions[0]
+    on_card = torch.device(setup.device).type == "cuda"
     t0 = time.time()
-    try:
-        cell = build_cell(cfg, shape, mesh, plan, seed=seed_, device=dev)
+    if cell is None:
+        cell = build_cell(cfg, shape, mesh, plan,
+                          seed=None if meta else seed,
+                          device=None if meta else mesh.positions[0])
         record["build_s"] = time.time() - t0
-        mem = memory_by_position(cell, cfg, shape, plan, mesh)
+    mem = memory_by_position(cell, cfg, shape, plan, mesh)
+    if meta:
         t1 = time.time()
-        if device == "meta":
-            tr = trace_cell(cfg, shape, mesh, plan, trace, cell=cell)
-        else:
-            if "before" in hooks:
-                hooks["before"](cell, cfg, shape, mesh, plan)
-            if on_card:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                base = torch.cuda.memory_allocated()
-            t1 = time.time()
-            with roofline.trace_step(mesh.size) as tr:
-                out = cell.step(*cell.args)
-            if on_card:
-                torch.cuda.synchronize()
-                mem["temp_size_in_bytes"] = int(
-                    torch.cuda.max_memory_allocated() - base)
-        record["trace_s"] = time.time() - t1
-        tr.memory = mem
-        if device != "meta":
-            if shape.kind == "train":
-                record["loss"] = float(out[2]["loss"])
-            record["step_ms"] = _time_step(cell, on_card)
-            if "after" in hooks:
-                hooks["after"](record, cell, out, cfg, shape, mesh, plan)
-        coll = roofline.collective_bytes(tr)
-        record["memory_analysis"] = roofline.memory_analysis(tr)
-        record["cost_analysis"] = roofline.cost_analysis(tr)
-        record["flops_by_op"] = {k: v / mesh.size
-                                 for k, v in tr.flops_by_op.items()}
-        record["collective_bytes"] = coll
-        record["collective_op_counts"] = {
-            k: roofline.count_ops(tr, k) for k in coll}
-        total = (mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
-                 + (mem["temp_size_in_bytes"] or 0)
-                 - mem["alias_size_in_bytes"])
-        record["bytes_per_device"] = int(total)
-        record["fits_hbm"] = bool(total < mesh_spec.chip.hbm_bytes)
-        record["analytic"] = analytic_record(cfg, shape, mesh_spec,
-                                             plan.name)
-    except Exception as e:  # noqa: BLE001
-        record["status"] = "FAILED"
-        record["error"] = f"{type(e).__name__}: {e}"
-        record["traceback"] = traceback.format_exc()[-2000:]
+        tr = trace_cell(cfg, shape, mesh, plan)
+    else:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t1 = time.time()
+        with roofline.trace_step(mesh.size) as tr:
+            out = cell.step(*cell.args)
+        if on_card:
+            torch.cuda.synchronize()
+            mem["temp_size_in_bytes"] = int(
+                torch.cuda.max_memory_allocated() - base)
+    record["trace_s"] = time.time() - t1
+    tr.memory = mem
+    if not meta:
+        if shape.kind == "train":
+            record["loss"] = float(out[2]["loss"])
+        record["step_ms"] = _time_step(cell, on_card)
+    coll = roofline.collective_bytes(tr)
+    record["memory_analysis"] = roofline.memory_analysis(tr)
+    record["cost_analysis"] = roofline.cost_analysis(tr)
+    record["flops_by_op"] = {k: v / mesh.size
+                             for k, v in tr.flops_by_op.items()}
+    record["collective_bytes"] = coll
+    record["collective_op_counts"] = {
+        k: roofline.count_ops(tr, k) for k in coll}
+    total = (mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
+             + (mem["temp_size_in_bytes"] or 0)
+             - mem["alias_size_in_bytes"])
+    record["bytes_per_device"] = int(total)
+    record["fits_hbm"] = bool(total < setup.mesh_spec.chip.hbm_bytes)
+    record["analytic"] = analytic_record(cfg, shape, setup.mesh_spec,
+                                         plan.name)
     return record
+
+
+def run_cell(arch: str, shape_name: str, *, seed: int = 0,
+             **kw) -> Dict[str, Any]:
+    """Build and trace one cell (`setup_cell`'s keywords: on a mesh of
+    `device` meta, cuda, or cpu for the tests); returns its record (the
+    reference's keys where they keep their meaning: `build_s` and
+    `trace_s` in place of `compile_s`, `collective_bytes` for
+    `collective_bytes_hlo`, `fits_hbm` for `fits_16g`).  A cell that
+    raises is recorded as FAILED with its error.  `mesh_shape`: "DxM"
+    or "PxDxM" in place of the production mesh.  ``device`` meta
+    (shapes only) or cuda (random weights from `seed`, the step run and
+    timed).  `layers` / `batch` / `seq` cut the cell."""
+    record = {"arch": arch, "shape": shape_name,
+              "device": kw.get("device", "meta")}
+    try:
+        setup = setup_cell(arch, shape_name, **kw)
+        record.update(mesh="x".join(map(str, setup.mesh.devices.shape)),
+                      plan=setup.plan.name, cuts=setup.cuts)
+        return record_cell(setup, seed=seed)
+    except Exception as e:  # noqa: BLE001
+        record.update(status="FAILED", error=f"{type(e).__name__}: {e}",
+                      traceback=traceback.format_exc()[-2000:])
+        return record
 
 
 def analytic_record(cfg, shape, mesh_spec, plan_name) -> Dict[str, Any]:
@@ -484,7 +580,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="meta", choices=("meta", "cuda"))
     ap.add_argument("--spread", action="store_true",
                     help="lay every mesh position on one card")
-    ap.add_argument("--trace", default="layers", choices=TRACE_MODES)
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--seq", type=int, default=None)
@@ -504,7 +599,7 @@ def main(argv=None) -> int:
                 rec = run_cell(arch, shape_name, multi_pod=mp,
                                plan_name=args.plan, remat=args.remat,
                                mesh_shape=args.mesh, device=args.device,
-                               spread=args.spread, trace=args.trace,
+                               spread=args.spread,
                                layers=args.layers, batch=args.batch,
                                seq=args.seq)
                 with open(os.path.join(args.out, tag + ".json"), "w") as f:

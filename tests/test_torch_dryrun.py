@@ -10,9 +10,10 @@ the roofline table.
   train cell is ``ok``; the ssm, hybrid and encdec inference cells are
   FAILED with the NotImplementedError naming ROADMAP.md's next item.
   Argument bytes a position equal an independent sum over that
-  position's block shapes.  The trace modes agree: ``micro`` (one
-  microbatch, times n_micro) and ``layers`` (depths 1 and 2,
-  extrapolated) count what ``full`` counts.
+  position's block shapes.  ``trace_cell`` (one microbatch times
+  n_micro, at depths 1 and 2 of each unit the family stacks,
+  extrapolated) counts what ``trace_whole`` (the whole step) counts, for
+  a uniform stack, a hybrid's super-blocks and an encdec's two stacks.
 * The collective log of one fsdp_tp layer of reduced yi-6b equals the
   bytes worked out from the specs, exactly; with the log closed the
   sharded train step's loss and gradients are bit for bit those with
@@ -21,6 +22,10 @@ the roofline table.
 
 import dataclasses
 import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -77,7 +82,7 @@ def test_build_cell_is_abstract_and_traces(kind):
 def test_run_cell_on_a_meta_mesh(arch, reduced):
     for shape in SHAPES:
         rec = dryrun.run_cell(arch, shape, mesh_shape="2x4", batch=4,
-                              seq=32, trace="full")
+                              seq=32)
         served = FAMILY[arch] in transformer.FAMILIES
         if shape != "train_4k" and not served:
             assert rec["status"] == "FAILED"
@@ -150,19 +155,39 @@ def _paths(tree, prefix=""):
     return [prefix]
 
 
+# each unit of the family's depth at 3 or 2, so the extrapolation from
+# depths 1 and 2 is not the traced step itself
+DEPTHS = {"zamba2-2.7b": {"superblocks": 3},
+          "whisper-small": {"enc_layers": 3, "dec_layers": 2}}
+
+
 @pytest.mark.parametrize("arch,shape_name", [("moonshot-v1-16b-a3b",
                                               "train_4k"),
                                              ("moonshot-v1-16b-a3b",
                                               "prefill_32k"),
-                                             ("yi-6b", "long_500k")])
+                                             ("yi-6b", "long_500k"),
+                                             ("zamba2-2.7b", "train_4k"),
+                                             ("whisper-small", "train_4k"),
+                                             ("falcon-mamba-7b", "seq"),
+                                             ("zamba2-2.7b", "seq")])
 def test_trace_modes_count_what_the_whole_step_counts(arch, shape_name):
-    """`micro` and `layers` against `full`, on the reduced config at 3
-    layers, B=4 x S=32 on a (2, 2) mesh, where the train cell takes 2
-    microbatches and the moe prefill 2 chunks (both forced)."""
-    cfg = dataclasses.replace(reduced_config(arch), num_layers=3,
-                              remat="full")
+    """`trace_cell` (one microbatch, depths 1 and 2 of each unit,
+    extrapolated) against `trace_whole`, on the reduced config at 3
+    layers (a hybrid's super-blocks, an encdec's two stacks: `DEPTHS`),
+    B=4 x S=32 on a (2, 2) mesh, where the train cell takes 2
+    microbatches and the moe prefill 2 chunks (both forced).  "seq": an
+    ssm or hybrid train cell at depth 1 and 4 x 128 positions, its
+    sequence extrapolated from 128, 256 and 384."""
+    units = DEPTHS.get(arch, {"layers": 3})
+    seq = 32
+    if shape_name == "seq":
+        shape_name, seq = "train_4k", 4 * dryrun.SEQ_QUANTUM
+        units = dict.fromkeys(units, 1)
+    cfg = dryrun.at_depth(dataclasses.replace(reduced_config(arch),
+                                              remat="full"), units)
+    assert dryrun.depth(cfg) == units
     shape = dataclasses.replace(SHAPES[shape_name], global_batch=4,
-                                seq_len=32)
+                                seq_len=seq)
     mesh = make_host_mesh((2, 2), spread="meta")
     plan = plans.default_plan(cfg, shape)
     orig = (dryrun.n_microbatches, dryrun.moe_prefill_chunks)
@@ -170,16 +195,44 @@ def test_trace_modes_count_what_the_whole_step_counts(arch, shape_name):
         dryrun.n_microbatches = lambda *a: 2
         dryrun.moe_prefill_chunks = lambda c, s: 2 if c.family == "moe" \
             else 1
-        got = {m: dryrun.trace_cell(cfg, shape, mesh, plan, m)
-               for m in dryrun.TRACE_MODES}
+        got = dryrun.trace_cell(cfg, shape, mesh, plan)
+        full = dryrun.trace_whole(dryrun.build_cell(cfg, shape, mesh, plan),
+                                  mesh.size)
     finally:
         dryrun.n_microbatches, dryrun.moe_prefill_chunks = orig
-    full = got["full"]
     assert full.flops > 0
-    for m in ("micro", "layers"):
-        assert got[m].flops == full.flops, m
-        for k, v in full.collectives.items():
-            assert got[m].collectives[k] == v, (m, k)
+    assert got.flops == full.flops
+    for k, v in full.collectives.items():
+        assert got.collectives[k] == v, k
+
+
+def test_a_fresh_process_counts_b9_in_its_first_trace():
+    """FlopCounterMode copies the formula registry when it is made: the
+    first trace of a process, before anything imported B9's module,
+    still counts B9's formula (a prefill cell runs B9, one a layer)."""
+    code = (
+        "import dataclasses, sys\n"
+        "from repro_torch.configs import reduced_config, reduced_shape\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.launch.mesh import make_host_mesh\n"
+        "from repro_torch.sharding import plans\n"
+        "assert 'repro_torch.kernels.flash_attention' not in sys.modules\n"
+        "cfg = reduced_config('yi-6b')\n"
+        "shape = dataclasses.replace(reduced_shape('prefill'), "
+        "global_batch=2)\n"
+        "mesh = make_host_mesh((1, 1), spread='meta')\n"
+        "cell = dryrun.build_cell(cfg, shape, mesh, "
+        "plans.default_plan(cfg, shape))\n"
+        "tr = dryrun.trace_whole(cell, mesh.size)\n"
+        "print(tr.flops_by_op.get('repro_torch.flash_attention_fwd', 0))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).resolve().parents[1] / "src")]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p]))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert float(out.stdout.strip().splitlines()[-1]) > 0
 
 
 def _layer_case():

@@ -230,8 +230,7 @@ for kind in ("train", "prefill", "decode"):
     shape = ShapeConfig("t", 16, 4, kind)
     cell = dryrun.build_cell(scfg, shape, smesh, plans.default_plan(
         scfg, shape))
-    tr = dryrun.trace_cell(scfg, shape, smesh, plans.default_plan(
-        scfg, shape), "full", cell=cell)
+    tr = dryrun.trace_whole(cell, smesh.size)
     assert tr.flops > 0, kind
 from repro_torch.analysis.__main__ import main as analyze
 assert analyze(["--device", "cpu", "--strict", "--max-combos", "1",
